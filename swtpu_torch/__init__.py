@@ -3,7 +3,8 @@
 The package mirrors ``swtpu``'s layout module for module, so each port
 function sits at the same path as the JAX function it is held against:
 
-- ``core``      scoring systems, FASTA I/O, CIGAR and SAM encodings;
+- ``core``      scoring systems (BLOSUM62 for protein), FASTA I/O, CIGAR
+                and SAM encodings;
 - ``oracle``    numpy scalar oracles and the host traceback walkers;
 - ``kernels``   hand-written CUDA C++ kernels (``csrc/``) with their plain
                 PyTorch versions beside them;

@@ -8,11 +8,13 @@ Usage:
   python -m swtpu_torch align --random 1024x128x128 --scoring 10,-30 --gap 15
   python -m swtpu_torch align --queries q.fa --targets t.fa --cigar
   python -m swtpu_torch align --random 8x64x64 --gap-open 40 --gap-extend 15 --sam
+  python -m swtpu_torch align --alphabet protein --random 64x128x128 --gap-open 11 --gap-extend 1
   python -m swtpu_torch align --random 8x64x64 --device cpu
 
 ``--device`` defaults to ``cuda``: without a card the command fails
-rather than run on the CPU. DNA only; protein input and the 2-bit
-``.npz`` container are later slices.
+rather than run on the CPU. ``--alphabet protein`` scores with BLOSUM62
+(``--scoring`` is then ignored). The 2-bit ``.npz`` container is a later
+slice.
 """
 
 from __future__ import annotations
@@ -22,20 +24,28 @@ import json
 
 import numpy as np
 
-Q_PAD, T_PAD = 4, 5  # DNA pad codes (first codes past the 0..3 alphabet)
+
+def _pad_codes(alphabet):
+    """Alphabet-correct FASTA pad codes (query, target).
+
+    DNA uses 4/5 (first codes past the 0..3 alphabet). Protein must NOT:
+    4/5 are real residues (C, Q — BLOSUM62 C-C is +9), so its pads are
+    the reserved 24/25 just past the 24-letter NCBI alphabet.
+    """
+    if alphabet == "protein":
+        from swtpu_torch.core.protein import PROTEIN_Q_PAD, PROTEIN_T_PAD
+
+        return PROTEIN_Q_PAD, PROTEIN_T_PAD
+    return 4, 5
 
 
 def _load_pair_inputs(args):
-    if args.alphabet != "dna":
-        raise SystemExit(
-            "protein input is not ported to swtpu_torch yet (ROADMAP.md); "
-            "use python -m swtpu"
-        )
     if args.random:
         b, n, m = (int(x) for x in args.random.split("x"))
         rng = np.random.default_rng(args.seed)
-        qs = rng.integers(0, 4, size=(b, n)).astype(np.uint8)
-        ts = rng.integers(0, 4, size=(b, m)).astype(np.uint8)
+        hi = 4 if args.alphabet == "dna" else 20
+        qs = rng.integers(0, hi, size=(b, n)).astype(np.uint8)
+        ts = rng.integers(0, hi, size=(b, m)).astype(np.uint8)
         names = [f"pair{i}" for i in range(b)]
         return names, qs, ts, np.full(b, n), np.full(b, m)
     if not (args.queries and args.targets):
@@ -48,8 +58,9 @@ def _load_pair_inputs(args):
             )
     from swtpu_torch.core.io import load_fasta_batch
 
-    qn, qs, ql = load_fasta_batch(args.queries, pad_code=Q_PAD)
-    tn, ts, tl = load_fasta_batch(args.targets, pad_code=T_PAD)
+    pad_q, pad_t = _pad_codes(args.alphabet)
+    qn, qs, ql = load_fasta_batch(args.queries, args.alphabet, pad_code=pad_q)
+    tn, ts, tl = load_fasta_batch(args.targets, args.alphabet, pad_code=pad_t)
     if len(qs) != len(ts):
         raise SystemExit(
             f"pairwise mode needs equal counts, got {len(qs)} vs {len(ts)}"
@@ -60,8 +71,13 @@ def _load_pair_inputs(args):
 def _scoring(args):
     from swtpu_torch.core.scoring import ScoringParams, dna_matrix
 
-    match, mismatch = (int(x) for x in args.scoring.split(","))
-    mat = dna_matrix(match, mismatch)
+    if args.alphabet == "protein":
+        from swtpu_torch.core.protein import BLOSUM62
+
+        mat = BLOSUM62
+    else:
+        match, mismatch = (int(x) for x in args.scoring.split(","))
+        mat = dna_matrix(match, mismatch)
     if args.gap_open is not None:
         return ScoringParams(
             mat, gap_open=args.gap_open, gap_extend=args.gap_extend
@@ -69,7 +85,7 @@ def _scoring(args):
     return ScoringParams.linear(mat, args.gap)
 
 
-def _emit_sam(names, qs, ts, ql, tl, results):
+def _emit_sam(names, qs, ts, ql, tl, alphabet, results):
     """Print SAM 1.6 (header + one record per pair) for an iterable of
     (score, path) results; pair names 'q|t' split into QNAME/RNAME."""
     from swtpu_torch.core.sam import sam_header, sam_record
@@ -82,7 +98,7 @@ def _emit_sam(names, qs, ts, ql, tl, results):
     for k, (score, path) in enumerate(results):
         print(
             sam_record(
-                qn[k], tn[k], qs[k], ts[k], score, path,
+                qn[k], tn[k], qs[k], ts[k], score, path, alphabet,
                 query_len=int(ql[k]),
             )
         )
@@ -96,7 +112,7 @@ def cmd_align(args):
 
         results = sw_align_batch(qs, ts, params, device=args.device)
         if args.sam:
-            _emit_sam(names, qs, ts, ql, tl, results)
+            _emit_sam(names, qs, ts, ql, tl, args.alphabet, results)
             return
         from swtpu_torch.core.cigar import path_to_cigar
 
@@ -130,7 +146,7 @@ def build_parser():
     p.add_argument("--seed", type=int, default=10000)
     p.add_argument(
         "--alphabet", choices=["dna", "protein"], default="dna",
-        help="dna (protein is not ported yet and is rejected)",
+        help="dna (--scoring match,mismatch) or protein (BLOSUM62)",
     )
     p.add_argument("--scoring", default="1,-1", help="match,mismatch")
     p.add_argument("--gap", type=int, default=1)

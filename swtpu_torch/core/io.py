@@ -1,9 +1,10 @@
-"""Sequence I/O: FASTA, DNA only.
+"""Sequence I/O: FASTA, DNA and protein.
 
-Port of the DNA half of ``swtpu/core/io.py``. DNA letters ACGT(acgt) map
-to 0..3; N and any other letter map to the query pad code 4, which never
-matches. Protein input and the 2-bit ``.npz`` container are not ported
-yet (see ROADMAP.md).
+Port of the FASTA half of ``swtpu/core/io.py``. DNA letters ACGT(acgt)
+map to 0..3; N and any other letter map to the query pad code 4, which
+never matches. Protein uses the 24-letter NCBI order
+(``swtpu_torch.core.protein``); a letter outside it raises KeyError. The
+2-bit ``.npz`` container is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from swtpu_torch.core.protein import encode_protein
 
 _DNA_LUT = np.full(256, 4, dtype=np.uint8)
 for _i, _c in enumerate("ACGT"):
@@ -47,17 +50,19 @@ def read_fasta(path: str) -> Iterator[Tuple[str, str]]:
 
 
 def load_fasta_batch(
-    path: str, pad_to: int = 0, pad_code: int = 4
+    path: str, alphabet: str = "dna", pad_to: int = 0, pad_code: int = 4
 ) -> Tuple[List[str], np.ndarray, np.ndarray]:
-    """Read a DNA FASTA file into a padded [N, L] uint8 batch.
+    """Read a FASTA file into a padded [N, L] uint8 batch.
 
     Returns (names, batch, lengths); L = max length rounded up to pad_to
-    (if nonzero). Unknown/ambiguous letters become pad codes.
+    (if nonzero). ``alphabet`` is "dna" (unknown/ambiguous letters become
+    pad codes) or anything else for protein (``encode_protein``).
     """
     names, seqs = [], []
+    encode = encode_dna if alphabet == "dna" else encode_protein
     for name, seq in read_fasta(path):
         names.append(name)
-        seqs.append(encode_dna(seq))
+        seqs.append(encode(seq))
     lengths = np.array([len(s) for s in seqs], dtype=np.int64)
     L = int(lengths.max()) if seqs else 0
     if pad_to:

@@ -1,6 +1,6 @@
 """SAM output for alignment results.
 
-Port of ``swtpu/core/sam.py`` for DNA: SAM 1.6 records (CIGAR with soft
+Port of ``swtpu/core/sam.py``: SAM 1.6 records (CIGAR with soft
 clips, ``AS`` score and ``NM`` edit-distance tags) over the repo-wide
 (score, [(i, j), ...]) path contract. The records are byte-identical to
 the JAX package's, ``@PG`` line included, so either engine's output feeds
@@ -15,8 +15,15 @@ import numpy as np
 
 from swtpu_torch.core.cigar import cigar_stats, path_to_cigar
 from swtpu_torch.core.io import decode_dna
+from swtpu_torch.core.protein import decode_protein
 
 __all__ = ["sam_header", "sam_record"]
+
+
+def _decode(codes: np.ndarray, alphabet: str) -> str:
+    if alphabet == "protein":
+        return decode_protein(codes)
+    return decode_dna(codes)
 
 
 def sam_header(
@@ -42,11 +49,13 @@ def sam_record(
     target: np.ndarray,
     score: int,
     path: Sequence[Tuple[int, int]],
+    alphabet: str = "dna",
     query_len: Optional[int] = None,
     mapq: int = 255,
     flag: int = 0,
 ) -> str:
-    """One SAM line for an alignment path of DNA codes.
+    """One SAM line for an alignment path of ``alphabet`` ("dna" or
+    "protein") codes.
 
     ``query``/``target`` are the unpadded code arrays the path was walked
     on (``query_len`` defaults to ``len(query)``); ``path[0]`` is the
@@ -56,7 +65,7 @@ def sam_record(
     chars.
     """
     qlen = int(query_len) if query_len is not None else int(len(query))
-    seq = decode_dna(np.asarray(query)[:qlen])
+    seq = _decode(np.asarray(query)[:qlen], alphabet)
     path = [(int(i), int(j)) for i, j in path]
     if len(path) < 2:
         # unmapped, but keep orientation bits so SEQ's strand stays

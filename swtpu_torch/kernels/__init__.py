@@ -5,6 +5,9 @@ each with its plain PyTorch version beside it.
                   ``sw_batch_plain`` / ``sw_batch_ends_plain``;
 - ``sw_affine``   affine gap: ``sw_affine`` / ``sw_affine_ends`` (kernel),
                   ``sw_affine_plain`` / ``sw_affine_ends_plain``;
+- ``sw_profile``  general matrix (DNA 4x4, BLOSUM62), linear or affine:
+                  ``sw_profile`` / ``sw_profile_ends`` (kernel),
+                  ``sw_profile_plain`` / ``sw_profile_ends_plain``;
 - ``sw_scan``, ``affine_scan``  the plain anti-diagonal tiers;
 - ``_build``      nvcc at first use, ctypes loading.
 

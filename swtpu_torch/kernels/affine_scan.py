@@ -3,7 +3,7 @@
 Port of ``swtpu/kernels/xla/affine_scan.py``: the anti-diagonal schedule
 of ``sw_scan.py`` with two more carried diagonals (E, F). It is the plain
 version of both affine row-scan kernels (``sw_affine.sw_affine`` and
-``sw_affine_ends``). The pad-code design again makes phantom and padded
+``sw_affine_ends``) and of the affine profile kernels (``sw_profile``). The pad-code design again makes phantom and padded
 cells unable to beat any real cell, so variable lengths come free.
 """
 

@@ -28,8 +28,8 @@ def _guard_affine(params: ScoringParams):
     mm = _uniform_match_mismatch(params)
     if mm is None:
         raise NotImplementedError(
-            "general matrices need the profile kernel, not ported yet "
-            "(ROADMAP.md, queue B: sw_profile)"
+            "general matrices go to the profile kernel (kernels.sw_profile), "
+            "not the row-scan kernel"
         )
     if params.gap_open <= 0 or params.gap_extend <= 0:
         raise NotImplementedError(

@@ -45,8 +45,8 @@ def _guard_linear(params: ScoringParams):
     mm = _uniform_match_mismatch(params)
     if mm is None:
         raise NotImplementedError(
-            "general matrices need the profile kernel, not ported yet "
-            "(ROADMAP.md, queue B: sw_profile)"
+            "general matrices go to the profile kernel (kernels.sw_profile), "
+            "not the row-scan kernel"
         )
     if params.gap <= 0:
         raise NotImplementedError(
@@ -66,38 +66,33 @@ def _rowscan_fn():
     return lib, fn
 
 
-def rowscan_launch(qs, ts, params: ScoringParams, match: int, mismatch: int,
-                   device: torch.device, affine: bool, ends: bool):
-    """Launch one instantiation of the row-scan kernel on ``device``.
-
-    Transposes the [B, n] / [B, m] codes to [n, B] / [m, B] uint8 so that
-    a warp's loads coalesce, then runs :func:`rowscan_launch_t`. Returns
-    int32 [B] score, or (score, end_i, end_j).
-    """
+def kernel_layout(qs, ts, device: torch.device, what: str):
+    """[B, n] / [B, m] codes as the row-scan kernels take them: [n, B] /
+    [m, B] contiguous uint8 on ``device``, so that a warp's loads
+    coalesce."""
     if device.type != "cuda":
-        raise ValueError(f"the row-scan kernel runs on CUDA, not {device}")
+        raise ValueError(f"the {what} kernel runs on CUDA, not {device}")
     qs = as_codes(qs, device)
     ts = as_codes(ts, device)
     if ts.shape[0] != qs.shape[0]:
         raise ValueError(
             f"batch mismatch: {qs.shape[0]} queries vs {ts.shape[0]} targets"
         )
-    return rowscan_launch_t(qs.t().contiguous(), ts.t().contiguous(), params,
-                            match, mismatch, affine, ends)
+    return qs.t().contiguous(), ts.t().contiguous()
 
 
-def rowscan_launch_t(qT, tT, params: ScoringParams, match: int, mismatch: int,
-                     affine: bool, ends: bool):
-    """The launch alone, on codes already in the kernel's layout: qT
-    [n, B] and tT [m, B] contiguous uint8 on one CUDA device. Allocates
-    the [m, B] int32 previous-row scratch (H, and F for affine) and the
-    outputs there, and launches on that device's current stream."""
+def launch_buffers(qT, tT, affine: bool, ends: bool, what: str):
+    """Check codes in the kernel layout (qT [n, B], tT [m, B], contiguous
+    uint8 on one CUDA device) and allocate there the [m, B] int32
+    previous-row scratch (H, and F for affine) and the [B] int32 outputs.
+    Returns (B, n, m, hrow, frow, score, end_i, end_j); unused buffers
+    are None."""
     device = qT.device
     for x in (qT, tT):
         if (x.dtype != torch.uint8 or x.device != device
                 or device.type != "cuda" or not x.is_contiguous()):
             raise ValueError(
-                "the row-scan kernel takes contiguous uint8 codes on one "
+                f"the {what} kernel takes contiguous uint8 codes on one "
                 f"CUDA device, got {x.dtype} on {x.device}"
             )
     n, B = qT.shape
@@ -107,15 +102,43 @@ def rowscan_launch_t(qT, tT, params: ScoringParams, match: int, mismatch: int,
     if max(B, n, m) >= 2**31:  # the C interface takes int sizes
         raise ValueError(f"shape too large for one launch: {B}, {n}, {m}")
     i32 = dict(dtype=torch.int32, device=device)
-    hrow = torch.empty((m, B), **i32)
-    frow = torch.empty((m, B), **i32) if affine else None
-    score = torch.empty((B,), **i32)
-    end_i = torch.empty((B,), **i32) if ends else None
-    end_j = torch.empty((B,), **i32) if ends else None
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    return (
+        B, n, m,
+        torch.empty((m, B), **i32),
+        torch.empty((m, B), **i32) if affine else None,
+        torch.empty((B,), **i32),
+        torch.empty((B,), **i32) if ends else None,
+        torch.empty((B,), **i32) if ends else None,
+    )
+
+
+def ptr(x):
+    """A tensor's device address for ctypes (None for an unused buffer)."""
+    return None if x is None else x.data_ptr()
+
+
+def rowscan_launch(qs, ts, params: ScoringParams, match: int, mismatch: int,
+                   device: torch.device, affine: bool, ends: bool):
+    """Launch one instantiation of the row-scan kernel on ``device``:
+    :func:`kernel_layout`, then :func:`rowscan_launch_t`. Returns int32
+    [B] score, or (score, end_i, end_j).
+    """
+    qT, tT = kernel_layout(qs, ts, device, "row-scan")
+    return rowscan_launch_t(qT, tT, params, match, mismatch, affine, ends)
+
+
+def rowscan_launch_t(qT, tT, params: ScoringParams, match: int, mismatch: int,
+                     affine: bool, ends: bool):
+    """The launch alone, on codes already in the kernel's layout: qT
+    [n, B] and tT [m, B] contiguous uint8 on one CUDA device. Allocates
+    the scratch and the outputs there (:func:`launch_buffers`) and
+    launches on that device's current stream."""
+    B, n, m, hrow, frow, score, end_i, end_j = launch_buffers(
+        qT, tT, affine, ends, "row-scan"
+    )
     lib, fn = _rowscan_fn()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(qT.device):
+        stream = torch.cuda.current_stream(qT.device).cuda_stream
         err = fn(
             int(affine), int(ends), ptr(qT), ptr(tT), ptr(hrow), ptr(frow),
             ptr(score), ptr(end_i), ptr(end_j), B, n, m,

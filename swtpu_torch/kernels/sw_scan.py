@@ -1,9 +1,11 @@
 """Batched Smith-Waterman over anti-diagonals — the plain PyTorch tier.
 
-Port of ``swtpu/kernels/xla/sw_scan.py``. It is the plain version of both
-linear row-scan kernels (``sw_batch.sw_batch`` and ``sw_batch_ends``): on
-the CPU it is the engine for every scoring system, and on the card it is
-what ``chip_smoke.py`` holds the kernels against.
+Port of ``swtpu/kernels/xla/sw_scan.py``. It is the plain version of the
+linear row-scan kernels (``sw_batch.sw_batch`` and ``sw_batch_ends``) and
+of the linear profile kernels (``sw_profile``, whose CUDA kernel reads
+this module's extended table): on the CPU it is the engine for every
+scoring system, and on the card it is what ``chip_smoke.py`` holds the
+kernels against.
 
 The schedule is the XLA tier's: the batch is the leading axis and a loop
 walks the n + m - 1 anti-diagonals, each a handful of elementwise ops on

@@ -5,15 +5,17 @@ Port of ``swtpu/ops/variants.py`` (``best_engine``, ``best_ends_engine``,
 
 - on a CUDA device, uniform linear scoring (gap > 0) goes to the
   ``sw_batch`` kernels and uniform affine scoring (gap_open,
-  gap_extend > 0) to the ``sw_affine`` kernels. Any other scoring raises
+  gap_extend > 0) to the ``sw_affine`` kernels; any other matrix (4x4
+  DNA, BLOSUM62, up to 30 letters with entries in [-127, 127], gaps > 0)
+  goes to the ``sw_profile`` kernels. Any other scoring raises
   NotImplementedError pointing to ROADMAP.md: the card never runs the
   plain tier in a kernel's place;
 - on the CPU the plain anti-diagonal tier serves every scoring system.
 
 Unlike the JAX dispatch there is no ``try/except NotImplementedError``
 around a kernel: the wrappers' own guards (``sw_batch._guard_linear``,
-``sw_affine._guard_affine``) run where the engine is chosen, and one that
-fails, fails there.
+``sw_affine._guard_affine``, ``sw_profile._guard_profile``) run where the
+engine is chosen, and one that fails, fails there.
 """
 
 from __future__ import annotations
@@ -26,9 +28,32 @@ from swtpu_torch.kernels.affine_scan import (
     sw_affine_batch_diag_ends,
 )
 from swtpu_torch.kernels.sw_affine import _guard_affine, sw_affine, sw_affine_ends
-from swtpu_torch.kernels.sw_batch import _guard_linear, sw_batch, sw_batch_ends
+from swtpu_torch.kernels.sw_batch import (
+    _guard_linear,
+    _uniform_match_mismatch,
+    sw_batch,
+    sw_batch_ends,
+)
+from swtpu_torch.kernels.sw_profile import (
+    _guard_profile,
+    sw_profile,
+    sw_profile_ends,
+)
 from swtpu_torch.kernels.sw_scan import sw_batch_diag, sw_batch_diag_ends
 from swtpu_torch.utils.device import resolve_device
+
+
+def _cuda_kernel(params: ScoringParams, ends: bool) -> Callable:
+    """The kernel wrapper that takes ``params`` on the card, once its
+    guard has passed (a failed guard raises NotImplementedError)."""
+    if _uniform_match_mismatch(params) is None:
+        _guard_profile(params)
+        return sw_profile_ends if ends else sw_profile
+    if params.is_linear:
+        _guard_linear(params)
+        return sw_batch_ends if ends else sw_batch
+    _guard_affine(params)
+    return sw_affine_ends if ends else sw_affine
 
 
 def best_ends_engine(params: ScoringParams, device=None) -> Callable:
@@ -42,26 +67,21 @@ def best_ends_engine(params: ScoringParams, device=None) -> Callable:
         if params.is_linear:
             return lambda q, t: sw_batch_diag_ends(q, t, params, dev)
         return lambda q, t: sw_affine_batch_diag_ends(q, t, params, dev)
-    if params.is_linear:
-        _guard_linear(params)
-        return lambda q, t: sw_batch_ends(q, t, params, dev)
-    _guard_affine(params)
-    return lambda q, t: sw_affine_ends(q, t, params, dev)
+    kernel = _cuda_kernel(params, ends=True)
+    return lambda q, t: kernel(q, t, params, dev)
 
 
 def best_engine(params: ScoringParams, device=None) -> Callable:
     """fn(qs, ts) -> [B] int32 scores on ``device`` (default: the card):
-    the CUDA row-scan kernels on the card, the plain tier on the CPU."""
+    the CUDA row-scan or profile kernels on the card, the plain tier on
+    the CPU."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         if params.is_linear:
             return lambda q, t: sw_batch_diag(q, t, params, dev)
         return lambda q, t: sw_affine_batch_diag(q, t, params, dev)
-    if params.is_linear:
-        _guard_linear(params)
-        return lambda q, t: sw_batch(q, t, params, dev)
-    _guard_affine(params)
-    return lambda q, t: sw_affine(q, t, params, dev)
+    kernel = _cuda_kernel(params, ends=False)
+    return lambda q, t: kernel(q, t, params, dev)
 
 
 def resolve_engine(params: ScoringParams, engine=None, device=None):

@@ -133,13 +133,10 @@ def test_cli_align_fasta_equals_jax(tmp_path):
     )
 
 
-@pytest.mark.parametrize("extra", [["--alphabet", "protein"], ["npz"]])
+@pytest.mark.parametrize("extra", [["q.npz", "t.fa"], ["q.npz", "t.npz"]])
 def test_cli_rejects_unported_inputs(extra, tmp_path):
-    if extra == ["npz"]:
-        extra = ["--queries", str(tmp_path / "q.npz"),
-                 "--targets", str(tmp_path / "t.npz")]
-    else:
-        extra = ["--random", "2x8x8"] + extra
+    extra = ["--queries", str(tmp_path / extra[0]),
+             "--targets", str(tmp_path / extra[1])]
     with pytest.raises(SystemExit, match="not ported"):
         port_cli(["align", "--device", "cpu"] + extra)
 

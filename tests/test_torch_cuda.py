@@ -8,16 +8,21 @@ on a machine without it (the repo's conftest imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Integer outputs must be exactly equal (tolerance 0).
+Integer outputs must be exactly equal (tolerance 0). The row-scan
+kernels (``sw_batch``, ``sw_affine``) run uniform DNA scoring; the
+profile kernels (``sw_profile``) run BLOSUM62 and general 4x4 matrices,
+internal pads included.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from swtpu_torch.core.protein import BLOSUM62
 from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
-from swtpu_torch.kernels import sw_affine, sw_batch
+from swtpu_torch.kernels import sw_affine, sw_batch, sw_profile
 from swtpu_torch.oracle import sw_affine_traceback, sw_score_batch, sw_traceback
+from swtpu_torch.oracle.affine import sw_affine_score_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +121,111 @@ def test_guards_raise_on_card(card):
     for kern, _ in PAIRS.values():
         with pytest.raises(NotImplementedError):
             kern(q, q, general)
+    # the general matrix runs on the profile kernels (all-A pairs: the
+    # diagonal entry -8 never wins, so every score is 0)
+    assert sw_profile.sw_profile(q, q, general).tolist() == [0, 0]
+    assert [x.tolist() for x in sw_profile.sw_profile_ends(q, q, general)] == [
+        [0, 0], [0, 0], [0, 0]]
+    wide = ScoringParams.linear(np.where(np.eye(4, dtype=bool), 200, -1), 2)
+    for kern in (sw_profile.sw_profile, sw_profile.sw_profile_ends):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            kern(q, q, wide)
+
+
+DNA_GENERAL = np.array(
+    [[3, -2, -1, -2], [-2, 3, -2, -1], [-1, -2, 3, -2], [-2, -1, -2, 3]]
+)
+PROFILE_SCORINGS = {
+    "blosum62_linear11": ScoringParams.linear(BLOSUM62, 11),
+    "blosum62_gotoh11_1": ScoringParams(BLOSUM62, gap_open=11, gap_extend=1),
+    "blosum62_tie_rich": ScoringParams.linear(BLOSUM62, 1),
+    "dna_general_linear2": ScoringParams.linear(DNA_GENERAL, 2),
+    "dna_general_gotoh3_1": ScoringParams(DNA_GENERAL, gap_open=3, gap_extend=1),
+}
+PROFILE_PAIRS = {
+    "sw_profile": (sw_profile.sw_profile, sw_profile.sw_profile_plain),
+    "sw_profile_ends": (sw_profile.sw_profile_ends,
+                        sw_profile.sw_profile_ends_plain),
+}
+
+
+def profile_codes(rng, B, L, A, device):
+    hi = 20 if A == 24 else A
+    return torch.from_numpy(rng.integers(0, hi, size=(B, L)).astype(np.uint8)).to(device)
+
+
+@pytest.mark.parametrize("shape", ["1000x90x200_padtail", "4096x128x128",
+                                   "33x7x1", "4x40x2560", "2048x64x96_internal"])
+@pytest.mark.parametrize("scoring", list(PROFILE_SCORINGS))
+def test_profile_kernels_equal_plain_on_card(card, scoring, shape):
+    p = PROFILE_SCORINGS[scoring]
+    A = p.alphabet_size
+    B, n, m = (int(x) for x in shape.split("_")[0].split("x"))
+    rng = np.random.default_rng(10000)
+    qs, ts = profile_codes(rng, B, n, A, card), profile_codes(rng, B, m, A, card)
+    if shape.endswith("padtail"):
+        qs[:, 70:] = A
+        ts[: B // 2, 180:] = A + 1
+    if shape.endswith("internal"):  # pads inside both sides, and codes > 31
+        qs[torch.from_numpy(rng.random(tuple(qs.shape)) < 0.05).to(card)] = A
+        ts[torch.from_numpy(rng.random(tuple(ts.shape)) < 0.05).to(card)] = A + 1
+        ts[:, 7] = 255
+    for name, (kern, plain) in PROFILE_PAIRS.items():
+        before = (kern.launches, kern.launches_affine)
+        got = tup(kern(qs, ts, p))
+        torch.cuda.synchronize()
+        assert (kern.launches, kern.launches_affine) == (
+            before[0] + 1, before[1] + (not p.is_linear))
+        for g, w in zip(got, tup(plain(qs, ts, p))):
+            assert g.device.type == "cuda" and g.dtype == torch.int32
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("scoring", ["10_30_15", "affine_10_30_40_15"])
+def test_profile_equals_rowscan_on_uniform_scoring(card, scoring):
+    p = SCORINGS[scoring]
+    rng = np.random.default_rng(10000)
+    qs, ts = codes(rng, 4096, 128, card), codes(rng, 4096, 128, card)
+    rowscan = ((sw_batch.sw_batch, sw_batch.sw_batch_ends) if p.is_linear
+               else (sw_affine.sw_affine, sw_affine.sw_affine_ends))
+    for prof, row in zip(PROFILE_PAIRS.values(), rowscan):
+        for g, w in zip(tup(prof[0](qs, ts, p)), tup(row(qs, ts, p))):
+            assert torch.equal(g, w)
+
+
+def test_profile_kernels_equal_oracle_on_card(card):
+    rng = np.random.default_rng(10000)
+    qh = rng.integers(0, 20, size=(32, 64)).astype(np.uint8)
+    th = rng.integers(0, 20, size=(32, 80)).astype(np.uint8)
+    qd, td = torch.from_numpy(qh).to(card), torch.from_numpy(th).to(card)
+    for p, batch_oracle, walker in (
+        (PROFILE_SCORINGS["blosum62_linear11"], sw_score_batch, sw_traceback),
+        (PROFILE_SCORINGS["blosum62_gotoh11_1"], sw_affine_score_batch,
+         sw_affine_traceback),
+    ):
+        want = batch_oracle(qh, th, p)
+        assert np.array_equal(sw_profile.sw_profile(qd, td, p).cpu().numpy(), want)
+        sc, ei, ej = (x.cpu().numpy() for x in sw_profile.sw_profile_ends(qd, td, p))
+        for b in range(32):
+            s0, path = walker(qh[b], th[b], p)
+            assert s0 == sc[b] == want[b]
+            assert (ei[b], ej[b]) == (path[-1] if s0 else (0, 0))
+
+
+@pytest.mark.parametrize("scoring", ["blosum62_linear11", "blosum62_gotoh11_1"])
+@pytest.mark.parametrize("name", list(PROFILE_PAIRS))
+def test_profile_bare_launch_equals_wrapper_on_card(card, name, scoring):
+    p = PROFILE_SCORINGS[scoring]
+    rng = np.random.default_rng(10000)
+    qs, ts = profile_codes(rng, 300, 50, 24, card), profile_codes(rng, 300, 70, 24, card)
+    table = sw_profile.profile_table(p, card)
+    ends = name.endswith("_ends")
+    got = sw_profile.profile_launch_t(qs.t().contiguous(), ts.t().contiguous(),
+                                      table, p, ends)
+    for g, w in zip(tup(got), tup(PROFILE_PAIRS[name][0](qs, ts, p))):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="contiguous uint8"):
+        sw_profile.profile_launch_t(qs.t(), ts.t(), table, p, ends)
+    with pytest.raises(ValueError, match="int32 table"):
+        sw_profile.profile_launch_t(qs.t().contiguous(), ts.t().contiguous(),
+                                    table.to(torch.int64), p, ends)

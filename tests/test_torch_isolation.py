@@ -4,9 +4,10 @@
 - no port source (nor chip_smoke.py) imports jax, swtpu or swtpu.*;
 - without a card, every public entry called without ``device`` raises
   instead of running on the CPU, and launches nothing;
-- on a CUDA device the dispatch picks a kernel wrapper, never the plain
-  tier, and scoring no kernel takes raises (checked with the card's
-  presence faked and the wrappers replaced, so nothing runs).
+- on a CUDA device the dispatch picks a kernel wrapper (row-scan for a
+  uniform matrix, profile for any other), never the plain tier, and
+  scoring no kernel takes raises (checked with the card's presence faked
+  and the wrappers replaced, so nothing runs).
 """
 
 import json
@@ -26,7 +27,14 @@ import torch
 from swtpu_torch import bench, cli
 from swtpu_torch.batch import traceback as port_traceback
 from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
-from swtpu_torch.kernels import _build, affine_scan, sw_affine, sw_batch, sw_scan
+from swtpu_torch.kernels import (
+    _build,
+    affine_scan,
+    sw_affine,
+    sw_batch,
+    sw_profile,
+    sw_scan,
+)
 from swtpu_torch.ops import variants
 from swtpu_torch.utils import device as port_device
 from swtpu_torch.utils import timing
@@ -34,8 +42,11 @@ from swtpu_torch.utils import timing
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "swtpu_torch"
 AFF = ScoringParams(dna_matrix(10, -30), gap_open=40, gap_extend=15)
+GENERAL = ScoringParams.linear(np.arange(16).reshape(4, 4) - 8, 2)
+GENERAL_AFF = ScoringParams(np.arange(16).reshape(4, 4) - 8, 3, 1)
 WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
-            sw_affine.sw_affine, sw_affine.sw_affine_ends]
+            sw_affine.sw_affine, sw_affine.sw_affine_ends,
+            sw_profile.sw_profile, sw_profile.sw_profile_ends]
 
 
 def _module_names():
@@ -101,6 +112,8 @@ NO_DEVICE_CALLS = {
     "sw_affine": lambda: sw_affine.sw_affine(Q, Q, AFF),
     "sw_affine_ends": lambda: sw_affine.sw_affine_ends(Q, Q, AFF),
     "sw_affine_ends_plain": lambda: sw_affine.sw_affine_ends_plain(Q, Q, AFF),
+    "sw_profile": lambda: sw_profile.sw_profile(Q, Q, GENERAL),
+    "sw_profile_ends": lambda: sw_profile.sw_profile_ends(Q, Q, GENERAL_AFF),
     "best_engine": lambda: variants.best_engine(DNA_10_30_15),
     "best_ends_engine": lambda: variants.best_ends_engine(AFF),
     "resolve_engine": lambda: variants.resolve_engine(DNA_10_30_15),
@@ -164,7 +177,8 @@ def fake_card(monkeypatch):
     """Pretend a card exists and record which wrapper the dispatch calls."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     calls = []
-    for name in ("sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"):
+    for name in ("sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends",
+                 "sw_profile", "sw_profile_ends"):
         monkeypatch.setattr(
             variants, name,
             lambda q, t, p, d, _n=name: calls.append((_n, d.type)) or _n,
@@ -183,6 +197,10 @@ def fake_card(monkeypatch):
     ("best_ends_engine", DNA_10_30_15, "sw_batch_ends"),
     ("best_engine", AFF, "sw_affine"),
     ("best_ends_engine", AFF, "sw_affine_ends"),
+    ("best_engine", GENERAL, "sw_profile"),
+    ("best_ends_engine", GENERAL, "sw_profile_ends"),
+    ("best_engine", GENERAL_AFF, "sw_profile"),
+    ("best_ends_engine", GENERAL_AFF, "sw_profile_ends"),
 ])
 def test_cuda_dispatch_picks_the_kernel(fake_card, engine, params, kernel):
     fn = getattr(variants, engine)(params)
@@ -191,9 +209,11 @@ def test_cuda_dispatch_picks_the_kernel(fake_card, engine, params, kernel):
 
 
 @pytest.mark.parametrize("params", [
-    ScoringParams.linear(np.arange(16).reshape(4, 4) - 8, 2),
+    ScoringParams.linear(np.where(np.arange(16).reshape(4, 4) == 0, 200,
+                                  np.arange(16).reshape(4, 4) - 8), 2),
     ScoringParams.linear(dna_matrix(1, -1), 0),
     ScoringParams(dna_matrix(1, -1), gap_open=3, gap_extend=0),
+    ScoringParams(np.arange(16).reshape(4, 4) - 8, gap_open=0, gap_extend=1),
 ])
 def test_cuda_dispatch_raises_without_a_kernel(fake_card, params):
     for engine in (variants.best_engine, variants.best_ends_engine):
