@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's two main paths on the card, through the entry points a
-user calls, and holds every CUDA kernel against its plain PyTorch version:
-the DNA path (batched local alignment under uniform scoring: scores,
-endpoints, traceback, the ``align`` CLI; the row-scan kernels of
-``csrc/sw_rowscan.cu``) and the protein / general-matrix path (BLOSUM62,
-linear and Gotoh gaps; the profile kernels of ``csrc/sw_profile.cu``).
+Drives the port's three main paths on the card, through the entry points
+a user calls, and holds every CUDA kernel against its plain PyTorch
+version: the DNA path (batched local alignment under uniform scoring:
+scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
+``csrc/sw_rowscan.cu``), the protein / general-matrix path (BLOSUM62,
+linear and Gotoh gaps; the profile kernels of ``csrc/sw_profile.cu``) and
+the variable-length read path of BASELINE config 4 (the 2-bit wire
+decoded on the card, pads past each length, overflow promotion through
+the bf16 tier of ``csrc/sw_bf16.cu`` with an int32 re-run on the row-scan
+kernel, ``pack`` and ``.npz`` inputs, ``align --engine``).
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on both CUDA sources at once; registers, spills and
+   2. build: nvcc on the three CUDA sources at once; registers, spills and
       shared memory of each kernel;
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
       profile kernel on a uniform scoring against the row-scan kernel;
-      64-pair spot checks against the numpy oracle;
+      the bf16 kernel inside its exact range against the row-scan kernel
+      too, above it (config 4's promotion workload, ``allow_overflow``)
+      against its plain version bit for bit, drift included, and on the
+      pad cases where the bf16 tier matches pads; 64-pair spot checks
+      against the numpy oracle;
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
       (10, -30, open 40, extend 15), timed with CUDA events; all 1M scores
@@ -39,14 +47,42 @@ linear and Gotoh gaps; the profile kernels of ``csrc/sw_profile.cu``).
       protein 128-mers, Gotoh 11/1 and linear 11, with the same checks as
       phase 5 and a protein SEQ in SAM;
   10. protein CLI: ``align --alphabet protein``, captured and checked;
-  11. kernel times at 32768 x (128 x 128) (DNA for the row-scan kernels,
-      protein for the profile kernels): the wrapper (layout transposes
-      included) and the launch alone on codes already transposed, beside
-      the plain version's time and the bound; the one-line benchmark.
+  11. config 4, varlen scores: 32,768 DNA reads of 100-300 bp against
+      320-bp windows, DNA (1, -1, 1), three read sets on the 2-bit wire
+      built as the JAX package's ``bench_varlen`` builds them;
+      ``sw_scores_varlen(..., packed=True)`` timed end to end (upload,
+      device decode, pads, kernel, score fetch), and with
+      ``stream_chunks=4``; the wire floor (upload of the same bytes and
+      one fetch), and the fused unit on pre-staged device tensors with
+      CUDA events; every score against the plain version on the
+      unpacked, masked codes, 32 against the oracle;
+  12. config 4, promotion: 32,768 pairs of 300 x 320, 1/8 homologous;
+      ``sw_scores_promoted_device`` timed end to end with its promoted
+      fraction, and its fused split on device tensors; every score against
+      the int32 kernel and ``sw_scores_promoted``, 32 against the oracle;
+      the host remainder path (``cap_frac=1/2048``);
+  13. config 4, traceback sample: ``sw_align_batch`` on 64 promotion
+      pairs, with the checks of phase 5;
+  14. the bf16 tier at the headline size, 1,048,576 x (128 x 128) under
+      (10, -30, 15), timed beside ``best_engine``'s int32 kernel on the
+      same codes; all scores equal;
+  15. config-4 CLI: ``pack`` and ``pack --unpack``, ``align`` on ``.npz``
+      inputs against the FASTA run, ``align --engine rowscan_bf16``
+      against the oracle;
+  16. kernel times at 32768 x (128 x 128) (DNA for the row-scan and bf16
+      kernels, protein for the profile kernels): the wrapper (layout
+      transposes included) and the launch alone on codes already
+      transposed, beside the plain version's time and the bound; the
+      one-line benchmark.
 
-Launch counts are zeroed just before each path (phases 4 and 7) and read
-just after it (phases 6 and 10); every kernel of a path must have
-launched in its window. Any failed check raises, and the run exits
+Launch counts are zeroed just before each path (phases 4, 7 and 11) and
+read just after it (phases 6, 10 and 15); every kernel of a path must
+have launched in its window. Inside the config-4 window the calls that
+are not the path's own (the fused unit and split on staged tensors, the
+per-part times, the reference checks, phase 14) run between a
+``snapshot`` of the counts and their ``restore``, so the window counts
+only what ``sw_scores_varlen``, the promotion entry points, the traceback
+sample and the CLI launched. Any failed check raises, and the run exits
 nonzero. Without a card it exits 2 and prints no result.
 
     python3 chip_smoke.py
@@ -60,6 +96,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,42 +104,55 @@ import numpy as np
 import torch
 
 SEED = 10000
-ROWSCAN, PROFILE = "sw_rowscan.cu", "sw_profile.cu"
+ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
 SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like_256.fasta"
-# DRAM rate of an H100 SXM (NVIDIA data sheet); INT32 lanes and shared
-# memory banks (32-bit words per clock) per SM on Hopper
+# DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
+# at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
+# Native Arithmetic Instructions"): 64 for 32-bit integer add, compare,
+# min/max and logical operations; 256 for 16-bit floating-point add,
+# multiply and multiply-add (a packed bf16x2 instruction gives two; the
+# packed max is counted at the same rate). Shared memory: 32 banks, one
+# 32-bit word each per clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
+BF16_RESULTS_PER_SM = 256
 SMEM_WORDS_PER_SM = 32
 
 # kernel -> (source, mangled-name fragment in nvcc's report, the TPU
 # kernel it replaces, int32 ops per DP cell as written, shared-memory
-# lookups per cell). Row-scan: score select 3 (compare, select, pad
-# select), linear H 5 (add, max 0, max(up, left), subtract gap, max),
-# affine F 3 + E 3 + H 4, running best 1 for scores or 3 for ends
-# (compare, two selects). Profile: the score is one add (table offset)
-# and one shared-memory lookup instead of the select 3.
+# lookups per cell, bf16 results per cell). Row-scan: score select 3
+# (compare, select, pad select), linear H 5 (add, max 0, max(up, left),
+# subtract gap, max), affine F 3 + E 3 + H 4, running best 1 for scores
+# or 3 for ends (compare, two selects). Profile: the score is one add
+# (table offset) and one shared-memory lookup instead of the select 3.
+# bf16: one thread step covers two cells, one per half of a bf16x2; its 4
+# integer ops make both scores (xor, add, prmt, lop3) and its 5 packed
+# bf16 ops the DP (fma.relu, max, sub, max, running max): 2 int32 ops and
+# 5 bf16 results per cell.
 KERNELS = {
     "sw_batch": (ROWSCAN, "sw_rowscan_kernelILb0ELb0E",
-                 "swtpu/kernels/pallas/sw_batch.py:317", 9, 0),
+                 "swtpu/kernels/pallas/sw_batch.py:317", 9, 0, 0),
     "sw_batch_ends": (ROWSCAN, "sw_rowscan_kernelILb0ELb1E",
-                      "swtpu/kernels/pallas/sw_batch.py:215", 11, 0),
+                      "swtpu/kernels/pallas/sw_batch.py:215", 11, 0, 0),
     "sw_affine": (ROWSCAN, "sw_rowscan_kernelILb1ELb0E",
-                  "swtpu/kernels/pallas/sw_affine.py:145", 14, 0),
+                  "swtpu/kernels/pallas/sw_affine.py:145", 14, 0, 0),
     "sw_affine_ends": (ROWSCAN, "sw_rowscan_kernelILb1ELb1E",
-                       "swtpu/kernels/pallas/sw_affine.py:175", 16, 0),
+                       "swtpu/kernels/pallas/sw_affine.py:175", 16, 0, 0),
     "sw_profile": (PROFILE, "sw_profile_kernelILb0ELb0E",
-                   "swtpu/kernels/pallas/sw_profile.py:287", 7, 1),
+                   "swtpu/kernels/pallas/sw_profile.py:287", 7, 1, 0),
     "sw_profile_ends": (PROFILE, "sw_profile_kernelILb0ELb1E",
-                        "swtpu/kernels/pallas/sw_profile.py:353", 9, 1),
+                        "swtpu/kernels/pallas/sw_profile.py:353", 9, 1, 0),
     "sw_profile_affine": (PROFILE, "sw_profile_kernelILb1ELb0E",
-                          "swtpu/kernels/pallas/sw_profile.py:287", 12, 1),
+                          "swtpu/kernels/pallas/sw_profile.py:287", 12, 1, 0),
     "sw_profile_affine_ends": (PROFILE, "sw_profile_kernelILb1ELb1E",
-                               "swtpu/kernels/pallas/sw_profile.py:353", 14, 1),
+                               "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
+    "sw_bf16": (BF16, "sw_bf16_kernel",
+                "swtpu/kernels/pallas/sw_bf16.py:134", 2, 0, 5),
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
                 "sw_profile_affine_ends"]
+CONFIG4_PATH = ["sw_bf16", "sw_batch"]
 
 
 def tup(x):
@@ -150,6 +200,35 @@ def related_pairs(rng, B, L, letters=4):
     return qs, ts
 
 
+def read_set(seed, B, m=320):
+    """One read set of BASELINE config 4 on the 2-bit wire, drawn as the
+    JAX package's ``bench_varlen`` draws it: B reads of 100-300 bp (300
+    bytes of codes each, real up to its length) and B 320-bp windows."""
+    from swtpu_torch.core.encode import pack_2bit
+
+    r = np.random.default_rng(seed)
+    lens = r.integers(100, 301, B)
+    qs = pack_2bit(r.integers(0, 4, size=(B, 300)).astype(np.uint8))
+    ts = pack_2bit(r.integers(0, 4, size=(B, m)).astype(np.uint8))
+    return qs, ts, lens
+
+
+def promotion_workload(B, n=300, m=320):
+    """Config 4's promotion workload, drawn as ``bench_varlen`` draws it:
+    B pairs of n x m, the first B / 8 homologous (the query with 2%
+    substitutions, so their scores near 300 cross the bf16 exact bound),
+    the rest random; then B fresh queries for the warm-up call."""
+    from swtpu_torch.core.encode import mutate
+
+    rng = np.random.default_rng(SEED)
+    qs = rng.integers(0, 4, size=(B, n)).astype(np.uint8)
+    ts = rng.integers(0, 4, size=(B, m)).astype(np.uint8)
+    for b in range(B // 8):
+        ts[b, :n] = mutate(rng, qs[b], p_mismatch=0.02, p_insert=0, p_delete=0)
+    qs_warm = rng.integers(0, 4, size=(B, n)).astype(np.uint8)
+    return qs, ts, qs_warm
+
+
 def rescore(path, q, t, params):
     """Score of a local alignment path, from its steps alone."""
     mat = params.matrix
@@ -182,23 +261,29 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
 
-    from swtpu_torch.batch import sw_align_batch
+    from swtpu_torch.batch import (
+        promote, sw_align_batch, sw_scores_promoted, sw_scores_varlen,
+    )
+    from swtpu_torch.batch.bucketing import _fused_masked_engine
     from swtpu_torch.cli import main as cli_main
     from swtpu_torch.core.cigar import cigar_stats, path_to_cigar
-    from swtpu_torch.core.io import load_fasta_batch
+    from swtpu_torch.core.encode import unpack_2bit
+    from swtpu_torch.core.io import decode_dna, load_fasta_batch, write_fasta
     from swtpu_torch.core.protein import BLOSUM62, decode_protein, random_protein
     from swtpu_torch.core.sam import sam_record
     from swtpu_torch.core.scoring import (
-        DNA_10_30_15, ScoringParams, dna_matrix,
+        DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
     )
     from swtpu_torch.kernels import (
-        _build, sw_affine as ka, sw_batch as kb, sw_profile as kp,
+        _build, sw_affine as ka, sw_batch as kb, sw_bf16 as kbf,
+        sw_profile as kp,
     )
     from swtpu_torch.oracle.affine import (
         sw_affine_score_batch, sw_affine_traceback,
     )
-    from swtpu_torch.oracle.sw import sw_score_batch, sw_traceback
+    from swtpu_torch.oracle.sw import sw_score, sw_score_batch, sw_traceback
     from swtpu_torch.ops import best_ends_engine, best_engine
+    from swtpu_torch.ops.variants import resolve_engine
     from swtpu_torch.utils import time_kernel
 
     t_start = time.perf_counter()
@@ -220,6 +305,7 @@ def main():
         "sw_profile_affine": (kp.sw_profile, kp.sw_profile_plain, P_GOTOH),
         "sw_profile_affine_ends": (kp.sw_profile_ends, kp.sw_profile_ends_plain,
                                    P_GOTOH),
+        "sw_bf16": (kbf.sw_bf16, kbf.sw_bf16_plain, DNA_10_30_15),
     }
 
     def profile_name(ends, p):
@@ -242,6 +328,20 @@ def main():
             if name in PROTEIN_PATH:
                 kern.launches_affine = 0
 
+    wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
+
+    def snapshot():
+        return [(w, w.launches, getattr(w, "launches_affine", None))
+                for w in wrappers]
+
+    def restore(saved):
+        """Launches since ``snapshot`` (checks and timings beside a main
+        path) leave every wrapper's count as it was."""
+        for w, n, n_affine in saved:
+            w.launches = n
+            if n_affine is not None:
+                w.launches_affine = n_affine
+
     # 1. environment -------------------------------------------------------
     phase("1 environment")
     smi = nvidia_smi("name,power.limit")
@@ -256,11 +356,11 @@ def main():
     # 2. build ------------------------------------------------------------
     phase("2 build")
     t0 = time.perf_counter()
-    _build.build_all([ROWSCAN, PROFILE])  # one nvcc per source, in parallel
-    print(f"nvcc {ROWSCAN} and {PROFILE}: {time.perf_counter() - t0:.1f} s "
+    _build.build_all([ROWSCAN, PROFILE, BF16])  # one nvcc per source, in parallel
+    print(f"nvcc {ROWSCAN}, {PROFILE} and {BF16}: {time.perf_counter() - t0:.1f} s "
           f"(0.0 s means they were already built)", flush=True)
     seen = set()
-    for source in (ROWSCAN, PROFILE):
+    for source in (ROWSCAN, PROFILE, BF16):
         for e in re.split(r"Compiling entry function '", _build.build_log(source))[1:]:
             mangled = e.split("'")[0]
             name = next((k for k, v in KERNELS.items()
@@ -365,6 +465,73 @@ def main():
                   f"{rkern.__name__} on uniform scoring")
     print("32768x128x128 uniform DNA scoring: the profile kernels equal the "
           "row-scan kernels", flush=True)
+    # the bf16 kernel inside its exact range: its plain version, the
+    # row-scan kernel and, on 64 pairs, the oracle (its own generator)
+    brng = np.random.default_rng(SEED + 2)
+    bf16_cases = [
+        ("32768x128x128", flag_q, flag_t),
+        ("1000x90x200 pad tail", odd_q, odd_t),
+        ("4x40x2560", random_codes(brng, (4, 40)), random_codes(brng, (4, 2560))),
+        ("33x7x1", random_codes(brng, (33, 7)), random_codes(brng, (33, 1))),
+    ]
+    for label, qh, th in bf16_cases:
+        qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        for p in (DNA_10_30_15, DNA_111):
+            got = kbf.sw_bf16(qd, td, p)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, kbf.sw_bf16_plain(qd, td, p))
+            max_err["sw_bf16"] = max(max_err["sw_bf16"], err)
+            check(err == 0, f"sw_bf16 differs from its plain version on {label}")
+            check(torch.equal(got, kb.sw_batch(qd, td, p)),
+                  f"sw_bf16 differs from sw_batch inside the predicate on {label}")
+            if label == "32768x128x128":
+                check(np.array_equal(got[:64].cpu().numpy(),
+                                     sw_score_batch(qh[:64], th[:64], p)),
+                      "sw_bf16 vs the oracle on 64 pairs")
+            print(f"{label} ({int(p.matrix[0, 0])},{int(p.matrix[0, 1])},"
+                  f"{p.gap}) sw_bf16: max |kernel - plain| = {err}; equal to "
+                  f"sw_batch", flush=True)
+    # above the exact range: config 4's promotion workload (phase 12),
+    # raw values with allow_overflow, under its scoring and under (7, -1, 1)
+    prom_q, prom_t, prom_warm = promotion_workload(32768)
+    qd, td = torch.from_numpy(prom_q).to(dev), torch.from_numpy(prom_t).to(dev)
+    for p in (DNA_111, ScoringParams.linear(dna_matrix(7, -1), 1)):
+        raw = kbf.sw_bf16(qd, td, p, allow_overflow=True)
+        torch.cuda.synchronize()
+        err = max_abs_err(raw, kbf.sw_bf16_plain(qd, td, p, allow_overflow=True))
+        max_err["sw_bf16"] = max(max_err["sw_bf16"], err)
+        check(err == 0, "sw_bf16 differs from its plain version above the bound")
+        exact = kb.sw_batch(qd, td, p)
+        low = (raw < 255) | (exact < 255)
+        check(torch.equal(raw[low], exact[low]),
+              "sw_bf16 below 255 differs from the int32 kernel")
+        check(torch.equal(raw >= 255, exact >= 255),
+              "sw_bf16 and the int32 kernel disagree on the pairs at 255 or more")
+        print(f"32768x300x320 promotion workload ({int(p.matrix[0, 0])},"
+              f"{int(p.matrix[0, 1])},{p.gap}), allow_overflow: max |kernel - "
+              f"plain| = {err}; {int((raw >= 255).sum())} pairs at 255 or more in "
+              f"both tiers, {int((raw != exact).sum())} of them drifted (raw "
+              f"minus exact in [{int((raw - exact)[~low].min())}, "
+              f"{int((raw - exact)[~low].max())}]); every pair below 255 "
+              f"exact", flush=True)
+    # the pads of the bf16 tier: equal codes match, pads included
+    pq = random_codes(brng, (16, 32))
+    pq[:, 10:14] = 4  # N on both sides
+    q30 = random_codes(brng, (16, 30))  # n = 30 pads to 32 rows of code 4
+    t32 = np.concatenate([q30, np.full((16, 2), 4, np.uint8)], axis=1)
+    for label, qh, th in (("N in both sequences", pq, pq),
+                          ("target NN against the query's pad rows", q30, t32)):
+        qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        got = kbf.sw_bf16(qd, td, DNA_111)
+        err = max_abs_err(got, kbf.sw_bf16_plain(qd, td, DNA_111))
+        max_err["sw_bf16"] = max(max_err["sw_bf16"], err)
+        check(err == 0 and bool((got == 32).all()), f"sw_bf16 pad case: {label}")
+        # the int32 tiers score every pad at -2^20
+        int32 = kb.sw_batch(qd, td, DNA_111)
+        check(torch.equal(int32, kb.sw_batch_plain(qd, td, DNA_111))
+              and bool((int32 < 32).all()), f"sw_batch pad case: {label}")
+        print(f"pad case, {label}: sw_bf16 32 (equal to its plain version), "
+              f"sw_batch {sorted(set(int32.tolist()))}", flush=True)
     # 64-pair spot checks against the numpy oracle
     for label, qh, th, plist in (
         ("DNA", flag_q[:64], flag_t[:64], (DNA_10_30_15, AFF)),
@@ -473,7 +640,8 @@ def main():
                                  alphabet, query_len=L).split("\t")
                 check(len(rec) == 13 and rec[5] == cig and rec[9] == seq_of(qs[b])
                       and rec[11] == f"AS:i:{score}", f"SAM record, pair {b}")
-            check(n_mapped > 200, f"only {n_mapped} of 256 related pairs aligned")
+            check(n_mapped * 32 > len(qs) * 25,
+                  f"only {n_mapped} of {len(qs)} related pairs aligned")
             print(f"gap=({p.gap_open},{p.gap_extend}): device ends "
                   f"{ends_s * 1e3:.4f} ms, equal to {name}'s plain version; "
                   f"sw_align_batch {walk_s:.2f} s wall (host walk), {n_mapped} "
@@ -656,17 +824,269 @@ def main():
     check(all(launch_counts[k] > 0 for k in PROTEIN_PATH),
           f"a kernel was not launched on the protein main path: {launch_counts}")
 
-    # 11. kernel times -----------------------------------------------------
-    phase("11 kernel times at 32768 x (128x128)")
+    # config-4 path: counts from here to the end of phase 15 ---------------
+    zero_launches(CONFIG4_PATH)
+
+    # 11. config 4, varlen scores ------------------------------------------
+    phase("11 BASELINE config 4, varlen scores: 32,768 reads of 100-300 bp x "
+          "320-bp windows on the 2-bit wire, DNA (1, -1, 1)")
+    B4, N4, M4 = 32768, 300, 320
+    sets = [read_set(s, B4, M4) for s in (SEED, SEED + 1, SEED + 2)]
+    sw_scores_varlen(sets[0][0], sets[0][1], DNA_111, sets[0][2], packed=True)
+    walls, results = [], []
+    for qs_p, ts_p, lens in sets[1:]:  # distinct data per timed call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(sw_scores_varlen(qs_p, ts_p, DNA_111, lens, packed=True))
+        walls.append(time.perf_counter() - t0)
+    wall = min(walls)
+    cells = int(sets[-1][2].sum()) * M4
+    print(f"sw_scores_varlen(packed=True), {B4} reads: wall {wall * 1e3:.3f} ms "
+          f"(min of {[round(w * 1e3, 3) for w in walls]}), {cells / wall / 1e9:.1f} "
+          f"GCUPS over the {cells} real cells, {B4 / wall:.0f} alignments/s "
+          f"[{smi}]", flush=True)
+    # stream_chunks=4: four chunks, each uploaded and run in turn
+    sw_scores_varlen(*sets[0][:2], DNA_111, sets[0][2], packed=True,
+                     stream_chunks=4)  # warm-up: the chunk shapes
+    chunk_walls = []
+    for (qs_p, ts_p, lens), want in zip(sets[1:], results):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sw_scores_varlen(qs_p, ts_p, DNA_111, lens, packed=True,
+                               stream_chunks=4)
+        chunk_walls.append(time.perf_counter() - t0)
+        check(np.array_equal(got, want), "stream_chunks=4: scores differ")
+    print(f"stream_chunks=4: wall {min(chunk_walls) * 1e3:.3f} ms (min of "
+          f"{[round(w * 1e3, 3) for w in chunk_walls]}), scores equal; one "
+          f"chunk {wall * 1e3:.3f} ms", flush=True)
+    floors = []
+    for qs_p, ts_p, _ in sets[1:]:  # the same bytes, fresh copies
+        qf, tf = qs_p.copy(), ts_p.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(qf).to(dev), torch.from_numpy(tf).to(dev)
+        torch.cuda.synchronize()
+        floors.append(time.perf_counter() - t0)
+    fetched = torch.zeros(B4, dtype=torch.int32, device=dev)
+    fetched.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fetched.cpu()
+    t_fetch = time.perf_counter() - t0
+    floor = min(floors) + t_fetch
+    wire_bytes = sets[1][0].nbytes + sets[1][1].nbytes
+    print(f"wire floor: upload of the same {wire_bytes} bytes {min(floors) * 1e3:.3f} "
+          f"ms + one fetch {t_fetch * 1e3:.3f} ms = {floor * 1e3:.3f} ms; wall / "
+          f"floor = {wall / floor:.2f}", flush=True)
+    # the fused unit (decode, pads, kernel) on pre-staged device tensors
+    saved = snapshot()
+    engine, ekey = resolve_engine(DNA_111, None, dev)
+    fused = _fused_masked_engine(engine, ekey, N4, M4, 4, 5, packed=True)
+    qs_p, ts_p, lens = sets[-1]
+    dq, dt = torch.from_numpy(qs_p).to(dev), torch.from_numpy(ts_p).to(dev)
+    lq_d = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    lt_d = torch.full((B4,), M4, dtype=torch.int32, device=dev)
+    check(np.array_equal(fused(dq, dt, lq_d, lt_d).cpu().numpy(), results[-1]),
+          "the fused unit on device tensors vs sw_scores_varlen")
+    per = time_kernel(lambda a, b: fused(a, b, lq_d, lt_d), (dq, dt), iters=10)
+    print(f"fused decode + pads + kernel on device tensors: {per * 1e3:.4f} ms, "
+          f"{cells / per / 1e9:.1f} GCUPS, {B4 / per:.0f} alignments/s", flush=True)
+    # where that time goes: the decode and pads alone (the same unit with
+    # an engine that returns its inputs), the layout transposes, the launch
+    decode = _fused_masked_engine(lambda q, t: (q, t), "decode and pads only",
+                                  N4, M4, 4, 5, packed=True)
+    qm_d, tm_d = decode(dq, dt, lq_d, lt_d)
+    qT, tT = qm_d.t().contiguous(), tm_d.t().contiguous()
+    parts = {
+        "decode + pads": time_kernel(lambda a, b: decode(a, b, lq_d, lt_d),
+                                     (dq, dt), iters=10),
+        "layout transposes": time_kernel(
+            lambda a, b: (a.t().contiguous(), b.t().contiguous()), (qm_d, tm_d),
+            iters=10),
+        "sw_batch launch alone": time_kernel(
+            lambda: kb.rowscan_launch_t(qT, tT, DNA_111, 1, -1, False, False), (),
+            iters=10),
+    }
+    # the same launch on a quarter of the pairs, whose scratch fits in L2
+    qT4, tT4 = qT[:, :B4 // 4].contiguous(), tT[:, :B4 // 4].contiguous()
+    quarter = time_kernel(
+        lambda: kb.rowscan_launch_t(qT4, tT4, DNA_111, 1, -1, False, False), (),
+        iters=10)
+    print("of which " + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items())
+          + f"; the launch runs {B4 * N4 * M4 / parts['sw_batch launch alone'] / 1e9:.1f} "
+          f"GCUPS over the {B4 * N4 * M4} padded cells, with a "
+          f"{4 * M4 * B4 / 1e6:.1f} MB previous-row scratch (L2: 50 MB); on "
+          f"the first {B4 // 4} pairs ({M4 * B4 / 1e6:.1f} MB scratch) "
+          f"{quarter * 1e3:.4f} ms, {B4 * N4 * M4 / 4 / quarter / 1e9:.1f} GCUPS",
+          flush=True)
+    del qm_d, tm_d, qT, tT, qT4, tT4
+    # every score against the plain version on the unpacked, masked codes
+    for (qs_p, ts_p, lens), got in zip(sets[1:], results):
+        qm = np.where(np.arange(N4)[None, :] < lens[:, None],
+                      unpack_2bit(qs_p)[:, :N4], 4).astype(np.uint8)
+        tm = unpack_2bit(ts_p)
+        want = kb.sw_batch_plain(torch.from_numpy(qm).to(dev),
+                                 torch.from_numpy(tm).to(dev), DNA_111)
+        err = int(np.abs(got.astype(np.int64) - want.cpu().numpy()).max())
+        max_err["sw_batch"] = max(max_err["sw_batch"], err)
+        check(err == 0, "config 4 varlen scores differ from the plain version")
+    check([int(x) for x in got[:32]] == [
+        sw_score(qm[k, :lens[k]], tm[k], DNA_111) for k in range(32)],
+        "config 4 varlen scores vs the oracle on 32 reads")
+    print(f"every score of both timed sets equals the plain version; 32 equal "
+          f"the oracle; mean score {got.mean():.3f}", flush=True)
+    restore(saved)
+    del dq, dt, lq_d, lt_d
+    check(kb.sw_batch.launches > 0, "sw_scores_varlen launched no sw_batch")
+
+    # 12. config 4, promotion ----------------------------------------------
+    phase("12 BASELINE config 4, promotion: 32,768 pairs of 300 x 320, 1/8 "
+          "homologous, bf16 tier + int32 re-run")
+    promote.sw_scores_promoted_device(prom_warm, prom_t, DNA_111)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, promoted = promote.sw_scores_promoted_device(prom_q, prom_t, DNA_111)
+    wall = time.perf_counter() - t0
+    frac = float(promoted.mean())
+    check(0 < frac < 1, f"promoted fraction {frac}")
+    print(f"sw_scores_promoted_device, {B4} pairs: wall {wall * 1e3:.3f} ms, "
+          f"promoted_frac {frac:.4f} ({int(promoted.sum())} pairs), "
+          f"{B4 / wall:.0f} alignments/s [{smi}]", flush=True)
+    check(kbf.sw_bf16.launches > 0,
+          "sw_scores_promoted_device launched no sw_bf16")
+    saved = snapshot()
+    qd = torch.from_numpy(prom_q).to(dev)
+    td = torch.from_numpy(prom_t).to(dev)
+    cap = B4 // 4  # cap_frac 0.25, as the call above
+    split = promote.promoted_split(qd, td, DNA_111, cap)
+    check(np.array_equal(split[0].cpu().numpy(), scores)
+          and np.array_equal(split[1].cpu().numpy(), promoted),
+          "the fused split vs sw_scores_promoted_device")
+    per = time_kernel(lambda a, b: promote.promoted_split(a, b, DNA_111, cap)[0],
+                      (qd, td), iters=10)
+    print(f"fused split (bf16 pass, mask, capped compaction, int32 re-run of "
+          f"{cap} slots, scatter) on device tensors: {per * 1e3:.4f} ms, "
+          f"{B4 / per:.0f} alignments/s", flush=True)
+    parts = {
+        "bf16 pass (sw_bf16, all pairs)": time_kernel(
+            lambda a, b: kbf.sw_bf16(a, b, DNA_111, allow_overflow=True),
+            (qd, td), iters=10),
+        f"int32 re-run (sw_batch, {cap} pairs)": time_kernel(
+            lambda a, b: kb.sw_batch(a, b, DNA_111), (qd[:cap], td[:cap]),
+            iters=10),
+    }
+    print("of which " + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items()),
+          flush=True)
+    exact = kb.sw_batch(qd, td, DNA_111).cpu().numpy()
+    check(np.array_equal(scores, exact), "promoted scores vs the int32 kernel")
+    restore(saved)
+    host = sw_scores_promoted(prom_q, prom_t, DNA_111)
+    check(np.array_equal(host[0], scores) and np.array_equal(host[1], promoted),
+          "sw_scores_promoted_device vs sw_scores_promoted")
+    check(np.array_equal(scores[:32], sw_score_batch(prom_q[:32], prom_t[:32], DNA_111)),
+          "promoted scores vs the oracle on 32 pairs")
+    rem = promote.sw_scores_promoted_device(prom_q, prom_t, DNA_111,
+                                            cap_frac=1 / 2048)
+    check(np.array_equal(rem[0], scores) and np.array_equal(rem[1], promoted),
+          "cap_frac=1/2048: the host remainder path")
+    print(f"every score equals the int32 kernel and sw_scores_promoted, 32 the "
+          f"oracle; cap_frac=1/2048 ({B4 // 2048} slots on the device, the rest "
+          f"from the host) gives the same scores and mask", flush=True)
+    del qd, td, split
+
+    # 13. config 4, traceback sample ---------------------------------------
+    phase("13 BASELINE config 4, traceback sample: sw_align_batch on 64 "
+          "promotion pairs")
+    traceback_phase(prom_q[:64], prom_t[:64], (DNA_111,),
+                    lambda p: "sw_batch_ends", "dna",
+                    lambda q: "".join("ACGT"[c] for c in q))
+
+    # 14. the bf16 tier at the headline size --------------------------------
+    phase("14 the bf16 tier at 1,048,576 x (128x128), (10, -30, 15), beside "
+          "best_engine's int32 kernel")
+    saved = snapshot()
+    B, n, m = 1 << 20, 128, 128
+    hrng = np.random.default_rng(SEED + 3)
+    qd = torch.from_numpy(random_codes(hrng, (B, n))).to(dev)
+    td = torch.from_numpy(random_codes(hrng, (B, m))).to(dev)
+    int32_fn = best_engine(DNA_10_30_15)
+    check(torch.equal(kbf.sw_bf16(qd, td, DNA_10_30_15), int32_fn(qd, td)),
+          "sw_bf16 vs best_engine at 1M pairs")
+    cells = B * n * m
+    qT, tT = qd.t().contiguous(), td.t().contiguous()
+    for label, fn, args, bare in (
+            ("sw_bf16", kbf.sw_bf16, (qd, td, DNA_10_30_15),
+             lambda: kbf.bf16_launch_t(qT, tT, DNA_10_30_15)),
+            ("best_engine (int32 sw_batch)", int32_fn, (qd, td),
+             lambda: kb.rowscan_launch_t(qT, tT, DNA_10_30_15, 10, -30,
+                                         False, False))):
+        sec = time_kernel(fn, args, iters=10)
+        bare_s = time_kernel(bare, (), iters=10)
+        print(f"{label}: {sec * 1e3:.3f} ms per call ({cells / sec / 1e9:.1f} "
+              f"GCUPS), launch alone {bare_s * 1e3:.3f} ms ({cells / bare_s / 1e9:.1f} "
+              f"GCUPS) [{smi}]", flush=True)
+    print(f"all {B} scores equal", flush=True)
+    restore(saved)
+    del qd, td, qT, tT
+    torch.cuda.empty_cache()
+
+    # 15. config-4 CLI -----------------------------------------------------
+    phase("15 config-4 CLI: pack, align on .npz inputs, align --engine rowscan_bf16")
+    crng = np.random.default_rng(SEED + 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reads = [(f"r{i}", "".join(decode_dna(crng.integers(0, 4, int(k)))))
+                 for i, k in enumerate(crng.integers(60, 151, 16))]
+        wins = [(f"w{i}", decode_dna(crng.integers(0, 4, 160))) for i in range(16)]
+        with_n = [(name, s[:5] + "N" + s[6:]) for name, s in reads]
+        for name, recs in (("q", reads), ("t", wins), ("n", with_n)):
+            write_fasta(tmp / f"{name}.fa", recs)
+            out = run_cli(cli_main, ["pack", str(tmp / f"{name}.fa"),
+                                     str(tmp / f"{name}.npz")])
+            check(json.loads(out[0])["records"] == 16, f"pack {name}.fa")
+        run_cli(cli_main, ["pack", str(tmp / "n.npz"), str(tmp / "back.fa"), "--unpack"])
+        check((tmp / "back.fa").read_text() == (tmp / "n.fa").read_text(),
+              "pack --unpack round trip, in-length N included")
+        argv = ["align", "--scoring", "2,-1", "--gap", "1", "--cigar"]
+        from_npz = run_cli(cli_main, argv + ["--queries", str(tmp / "q.npz"),
+                                             "--targets", str(tmp / "t.npz")])
+        from_fa = run_cli(cli_main, argv + ["--queries", str(tmp / "q.fa"),
+                                            "--targets", str(tmp / "t.fa")])
+        check(from_npz == from_fa and len(from_npz) == 16,
+              "align on .npz inputs vs the FASTA run")
+    print(f"pack / pack --unpack round trip exact; align --cigar on .npz equals "
+          f"the FASTA run; first: {from_npz[0][:100]}", flush=True)
+    rs = np.random.default_rng(SEED)  # the CLI's --random inputs
+    cq = rs.integers(0, 4, size=(64, 128)).astype(np.uint8)
+    ct = rs.integers(0, 4, size=(64, 128)).astype(np.uint8)
+    before = kbf.sw_bf16.launches
+    recs = [json.loads(x) for x in run_cli(cli_main, [
+        "align", "--engine", "rowscan_bf16", "--random", "64x128x128",
+        "--scoring", "10,-30", "--gap", "15"])]
+    check(kbf.sw_bf16.launches == before + 1, "--engine rowscan_bf16 ran sw_bf16")
+    check([r["score"] for r in recs] == sw_score_batch(cq, ct, DNA_10_30_15).tolist(),
+          "align --engine rowscan_bf16 vs the oracle")
+    print("align --engine rowscan_bf16: 64 scores equal the oracle", flush=True)
+
+    config4_counts = {name: launches(name) for name in CONFIG4_PATH}
+    print(f"config-4 path launches: {config4_counts}", flush=True)
+    check(all(v > 0 for v in config4_counts.values()),
+          f"a kernel was not launched on the config-4 path: {config4_counts}")
+    launch_counts["sw_bf16"] = config4_counts["sw_bf16"]
+
+    # 16. kernel times -----------------------------------------------------
+    phase("16 kernel times at 32768 x (128x128)")
     print(smi, flush=True)
     B, n, m = 32768, 128, 128
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    issue_rate = n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    int32_rate = n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    bf16_rate = n_sm * BF16_RESULTS_PER_SM * sm_clock_mhz * 1e6
     lookup_rate = n_sm * SMEM_WORDS_PER_SM * sm_clock_mhz * 1e6
     inputs = {
         ROWSCAN: (random_codes(rng, (B, n)), random_codes(rng, (B, m))),
         PROFILE: (random_protein(rng, (B, n)), random_protein(rng, (B, m))),
     }
+    inputs[BF16] = inputs[ROWSCAN]  # the same DNA codes
     rows = []
     for source, (qh, th) in inputs.items():
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
@@ -678,7 +1098,7 @@ def main():
         print(f"{source} inputs: layout transposes {layout_ms:.4f} ms per call",
               flush=True)
         qT, tT = qd.t().contiguous(), td.t().contiguous()
-        for name, (src, _, replaces, ops, lookups) in KERNELS.items():
+        for name, (src, _, replaces, ops, lookups, bf16_ops) in KERNELS.items():
             if src != source:
                 continue
             kern, plain, p = kernel_fns[name]
@@ -689,6 +1109,9 @@ def main():
                     return kb.rowscan_launch_t(
                         qT, tT, p, *kb._uniform_match_mismatch(p),
                         not p.is_linear, ends)
+            elif source == BF16:  # B is even: the transposed codes as they are
+                def bare(p=p):
+                    return kbf.bf16_launch_t(qT, tT, p)
             else:
                 table = kp.profile_table(p, dev)
 
@@ -702,25 +1125,29 @@ def main():
             n_out = 3 if ends else 1
             table_bytes = 4 * kp.profile_table(p, dev).numel() if source == PROFILE else 0
             bytes_ = B * (n + m) + table_bytes + 4 * B * n_out
-            op_ms = B * n * m * ops / issue_rate * 1e3
-            lookup_ms = B * n * m * lookups / lookup_rate * 1e3
-            byte_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-            bound = max(op_ms, lookup_ms, byte_ms)
+            times = {
+                "int32 ops": B * n * m * ops / int32_rate * 1e3,
+                "bf16 ops": B * n * m * bf16_ops / bf16_rate * 1e3,
+                "shared-memory lookups": B * n * m * lookups / lookup_rate * 1e3,
+                "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
+            }
+            binds = max(times, key=times.get)
+            bound = times[binds]
             rows.append(dict(
                 name=name, route="cuda", source=f"swtpu_torch/csrc/{source}",
                 replaces=replaces, launches=launch_counts[name],
                 max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound,
-                bound_by="bytes" if byte_ms >= max(op_ms, lookup_ms) else "operations",
+                bound_by="bytes" if binds == "bytes" else "operations",
                 library_ms=None, kernel_ms=kernel_ms,
             ))
-            binds = ("int32 ops" if op_ms >= max(lookup_ms, byte_ms) else
-                     "shared-memory lookups" if lookup_ms >= byte_ms else "bytes")
             print(f"{name}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
                   f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), "
                   f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} "
-                  f"({ops} int32 ops/cell: {op_ms:.4f} ms; {lookups} lookups/cell: "
-                  f"{lookup_ms:.4f} ms; at {sm_clock_mhz:.0f} MHz), wrapper "
+                  f"({ops} int32 ops/cell: {times['int32 ops']:.4f} ms; "
+                  f"{bf16_ops} bf16 results/cell: {times['bf16 ops']:.4f} ms; "
+                  f"{lookups} lookups/cell: {times['shared-memory lookups']:.4f} "
+                  f"ms; at {sm_clock_mhz:.0f} MHz), wrapper "
                   f"{B * n * m / ms / 1e6:.1f} GCUPS", flush=True)
         del qd, td, qT, tT
     from swtpu_torch import bench

@@ -3,15 +3,17 @@
 The package mirrors ``swtpu``'s layout module for module, so each port
 function sits at the same path as the JAX function it is held against:
 
-- ``core``      scoring systems (BLOSUM62 for protein), FASTA I/O, CIGAR
-                and SAM encodings;
+- ``core``      scoring systems (BLOSUM62 for protein), FASTA I/O, the
+                2-bit codec and ``.npz`` container, CIGAR and SAM encodings;
 - ``oracle``    numpy scalar oracles and the host traceback walkers;
 - ``kernels``   hand-written CUDA C++ kernels (``csrc/``) with their plain
                 PyTorch versions beside them;
-- ``ops``       engine dispatch (``best_engine``, ``best_ends_engine``);
-- ``batch``     alignment with traceback (device endpoints, host walk);
+- ``ops``       engine dispatch (``best_engine``, ``best_ends_engine``) and
+                the named engines of ``align --engine`` (``VARIANTS``);
+- ``batch``     alignment with traceback (device endpoints, host walk),
+                variable-length batches and overflow promotion;
 - ``utils``     device resolution and CUDA-event timing;
-- ``cli``       ``python -m swtpu_torch align ...``.
+- ``cli``       ``python -m swtpu_torch align ...`` and ``pack``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``: with ``device=None`` and no card they raise. On the CPU

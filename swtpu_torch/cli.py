@@ -1,20 +1,28 @@
-"""swtpu_torch command-line interface: the ``align`` subcommand.
+"""swtpu_torch command-line interface: ``align`` and ``pack``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
-query/target pairs). Output is the same JSON lines (or SAM) as
-``python -m swtpu align`` prints for the same arguments.
+query/target pairs) and ``pack`` (DNA FASTA <-> the 2-bit ``.npz``
+container). Output is the same JSON lines (or SAM) as ``python -m swtpu``
+prints for the same arguments.
 
 Usage:
   python -m swtpu_torch align --random 1024x128x128 --scoring 10,-30 --gap 15
   python -m swtpu_torch align --queries q.fa --targets t.fa --cigar
+  python -m swtpu_torch align --queries q.npz --targets t.npz --sam
+  python -m swtpu_torch align --random 64x128x128 --scoring 10,-30 --gap 15 --engine rowscan_bf16
   python -m swtpu_torch align --random 8x64x64 --gap-open 40 --gap-extend 15 --sam
   python -m swtpu_torch align --alphabet protein --random 64x128x128 --gap-open 11 --gap-extend 1
   python -m swtpu_torch align --random 8x64x64 --device cpu
+  python -m swtpu_torch pack reads.fa reads.npz
+  python -m swtpu_torch pack reads.npz reads.fa --unpack
 
 ``--device`` defaults to ``cuda``: without a card the command fails
 rather than run on the CPU. ``--alphabet protein`` scores with BLOSUM62
-(``--scoring`` is then ignored). The 2-bit ``.npz`` container is a later
-slice.
+(``--scoring`` is then ignored). Inputs ending in ``.npz`` are read as
+the 2-bit container (DNA only). ``--engine`` names a score engine of
+``ops.variants.VARIANTS`` for linear scores; a name whose guard does not
+pass, an unknown name and the default ``xla_diag`` run ``best_engine``
+(a kernel on the card, the plain tier on the CPU).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import argparse
 import json
 
 import numpy as np
+import torch
 
 
 def _pad_codes(alphabet):
@@ -39,6 +48,18 @@ def _pad_codes(alphabet):
     return 4, 5
 
 
+def _load_seq_batch(path, alphabet, pad_code, pad_to=0):
+    """Load a sequence batch: FASTA, or a 2-bit-packed .npz container
+    (``pack``) by extension."""
+    from swtpu_torch.core.io import load_fasta_batch, load_packed_batch
+
+    if path.endswith(".npz"):
+        if alphabet != "dna":
+            raise SystemExit("2-bit packed input is DNA-only")
+        return load_packed_batch(path, pad_to=pad_to, pad_code=pad_code)
+    return load_fasta_batch(path, alphabet, pad_to=pad_to, pad_code=pad_code)
+
+
 def _load_pair_inputs(args):
     if args.random:
         b, n, m = (int(x) for x in args.random.split("x"))
@@ -50,17 +71,9 @@ def _load_pair_inputs(args):
         return names, qs, ts, np.full(b, n), np.full(b, m)
     if not (args.queries and args.targets):
         raise SystemExit("need --random BxNxM or --queries/--targets FASTA")
-    for path in (args.queries, args.targets):
-        if path.endswith(".npz"):
-            raise SystemExit(
-                "2-bit packed .npz input is not ported to swtpu_torch yet "
-                "(ROADMAP.md); pass FASTA"
-            )
-    from swtpu_torch.core.io import load_fasta_batch
-
     pad_q, pad_t = _pad_codes(args.alphabet)
-    qn, qs, ql = load_fasta_batch(args.queries, args.alphabet, pad_code=pad_q)
-    tn, ts, tl = load_fasta_batch(args.targets, args.alphabet, pad_code=pad_t)
+    qn, qs, ql = _load_seq_batch(args.queries, args.alphabet, pad_code=pad_q)
+    tn, ts, tl = _load_seq_batch(args.targets, args.alphabet, pad_code=pad_t)
     if len(qs) != len(ts):
         raise SystemExit(
             f"pairwise mode needs equal counts, got {len(qs)} vs {len(ts)}"
@@ -126,11 +139,43 @@ def cmd_align(args):
                 )
             print(json.dumps(rec))
         return
-    from swtpu_torch.ops import best_engine
+    from swtpu_torch.ops.variants import best_engine, variant_engine
 
-    scores = best_engine(params, args.device)(qs, ts).cpu().numpy()
+    if params.is_linear:
+        fn = variant_engine(args.engine, params, qs.shape[1], args.device)
+    else:
+        fn = best_engine(params, args.device)
+    scores = np.asarray(torch.as_tensor(fn(qs, ts)).cpu())
     for name, s in zip(names, scores):
         print(json.dumps(dict(pair=name, score=int(s))))
+
+
+def cmd_pack(args):
+    """DNA FASTA <-> 2-bit packed .npz batch container."""
+    import os
+
+    from swtpu_torch.core.io import (
+        decode_dna,
+        load_fasta_batch,
+        load_packed_batch,
+        save_packed_batch,
+        write_fasta,
+    )
+
+    if args.unpack:
+        names, batch, lens = load_packed_batch(args.input)
+        write_fasta(
+            args.output,
+            [(n, decode_dna(batch[i, : lens[i]])) for i, n in enumerate(names)],
+        )
+        print(json.dumps(dict(records=len(names), out=args.output)))
+        return
+    names, batch, lens = load_fasta_batch(args.input, "dna", pad_code=0)
+    save_packed_batch(args.output, names, batch, lens)
+    print(json.dumps(dict(
+        records=len(names), packed_bytes=os.path.getsize(args.output),
+        out=args.output,
+    )))
 
 
 def build_parser():
@@ -166,10 +211,28 @@ def build_parser():
         "AS/NM tags) instead of JSON; implies traceback",
     )
     p.add_argument(
+        "--engine", default="xla_diag",
+        help="score engine for linear scoring (oracle|xla_diag|rowscan|"
+        "rowscan_prof|rowscan_bf16); a name whose guard fails, or that is "
+        "not ported, runs best_engine",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="where the engines run (default cuda; no CPU fallback)",
     )
     p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser(
+        "pack",
+        help="convert DNA FASTA to/from the 2-bit packed .npz container "
+        "(align accepts .npz inputs directly)",
+    )
+    p.add_argument("input", help="FASTA (or .npz with --unpack)")
+    p.add_argument("output", help=".npz out (or FASTA with --unpack)")
+    p.add_argument(
+        "--unpack", action="store_true", help=".npz -> FASTA instead"
+    )
+    p.set_defaults(fn=cmd_pack)
     return ap
 
 

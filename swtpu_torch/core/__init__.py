@@ -5,3 +5,9 @@ from swtpu_torch.core.scoring import (  # noqa: F401
     dna_matrix,
     scoring_from_numpy,
 )
+from swtpu_torch.core.encode import (  # noqa: F401
+    mutate,
+    pack_2bit,
+    random_dna,
+    unpack_2bit,
+)

@@ -1,10 +1,12 @@
-"""Sequence I/O: FASTA, DNA and protein.
+"""Sequence I/O: FASTA (DNA and protein) and the 2-bit packed container.
 
-Port of the FASTA half of ``swtpu/core/io.py``. DNA letters ACGT(acgt)
-map to 0..3; N and any other letter map to the query pad code 4, which
-never matches. Protein uses the 24-letter NCBI order
-(``swtpu_torch.core.protein``); a letter outside it raises KeyError. The
-2-bit ``.npz`` container is not ported yet (see ROADMAP.md).
+Port of ``swtpu/core/io.py``. DNA letters ACGT(acgt) map to 0..3; N and
+any other letter map to the query pad code 4, which never matches.
+Protein uses the 24-letter NCBI order (``swtpu_torch.core.protein``); a
+letter outside it raises KeyError. The ``.npz`` container holds DNA in
+the 2-bit wire format (``core/encode.py``) with an ``ambig`` bitmask for
+in-length ambiguity codes; files written by either package load
+identically in both.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Iterator, List, Tuple
 
 import numpy as np
 
+from swtpu_torch.core.encode import pack_2bit, unpack_2bit
 from swtpu_torch.core.protein import encode_protein
 
 _DNA_LUT = np.full(256, 4, dtype=np.uint8)
@@ -77,3 +80,78 @@ def write_fasta(path: str, records) -> None:
     with open(path, "w") as f:
         for name, seq in records:
             f.write(f">{name}\n{seq}\n")
+
+
+def save_packed_batch(
+    path: str, names: List[str], batch: np.ndarray, lens: np.ndarray
+) -> None:
+    """Write a DNA batch as a 2-bit-packed .npz container (the reference's
+    packed wire format, source.cpp:1580-1583, as a batch file).
+
+    batch: [N, L] uint8 codes (pads allowed). L is padded to a multiple
+    of 4. Codes > 3 *within* lens (ambiguity codes like N) are recorded
+    in a packed ``ambig`` bitmask, so that load restores them as pad
+    codes instead of 'A'; the mask is written only when such a code
+    exists, so clean files carry none.
+    """
+    batch = np.asarray(batch, dtype=np.uint8)
+    lens = np.asarray(lens, dtype=np.int64)
+    L = -(-batch.shape[1] // 4) * 4
+    if L != batch.shape[1]:
+        batch = np.pad(batch, ((0, 0), (0, L - batch.shape[1])))
+    packed = pack_2bit(np.where(batch > 3, 0, batch))
+    in_len = np.arange(batch.shape[1])[None, :] < lens[:, None]
+    ambig = (batch > 3) & in_len
+    arrays = dict(
+        packed=packed, lens=lens, names=np.asarray(names, dtype=object)
+    )
+    if ambig.any():
+        arrays["ambig"] = np.packbits(ambig, axis=1)
+    np.savez_compressed(path, **arrays)
+
+
+def load_packed_batch(
+    path: str, pad_to: int = 0, pad_code: int = 4, device=False
+) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """Read a 2-bit-packed .npz batch; inverse of save_packed_batch.
+
+    Returns (names, batch, lengths) like load_fasta_batch. ``device``:
+    False (the default) decodes on the host with numpy and returns a
+    numpy batch; True decodes on the card (``kernels/unpack.py``) and
+    returns a CUDA tensor; a ``torch.device`` or a device string decodes
+    there with the same torch ops and returns a tensor on it. Positions
+    past each length, and in-length ambiguity codes, hold ``pad_code``.
+    """
+    if device is not False:
+        from swtpu_torch.utils.device import resolve_device
+
+        dev = resolve_device("cuda" if device is True else device)
+    z = np.load(path, allow_pickle=True)
+    packed, lens = z["packed"], z["lens"].astype(np.int64)
+    names = [str(n) for n in z["names"]]
+    mask = None
+    if "ambig" in z.files:  # in-length ambiguity codes (see save)
+        mask = ~np.unpackbits(z["ambig"], axis=1).astype(bool)
+    L = packed.shape[1] * 4
+    Lp = -(-L // pad_to) * pad_to if pad_to else L
+    in_len = np.arange(L)[None, :] < lens[:, None]
+    mask = in_len if mask is None else in_len & mask[:, :L]
+    if device is False:
+        batch = np.where(mask, unpack_2bit(packed), np.uint8(pad_code))
+        if Lp != L:
+            batch = np.pad(
+                batch, ((0, 0), (0, Lp - L)), constant_values=pad_code
+            )
+        return names, batch, lens
+    import torch
+
+    from swtpu_torch.kernels.unpack import unpack_2bit_device
+
+    batch = unpack_2bit_device(packed, dev)
+    batch = torch.where(
+        torch.from_numpy(mask).to(dev), batch,
+        torch.tensor(pad_code, dtype=torch.uint8, device=dev),
+    )
+    if Lp != L:
+        batch = torch.nn.functional.pad(batch, (0, Lp - L), value=pad_code)
+    return names, batch, lens

@@ -8,7 +8,10 @@ each with its plain PyTorch version beside it.
 - ``sw_profile``  general matrix (DNA 4x4, BLOSUM62), linear or affine:
                   ``sw_profile`` / ``sw_profile_ends`` (kernel),
                   ``sw_profile_plain`` / ``sw_profile_ends_plain``;
+- ``sw_bf16``     the bf16 reduced-precision tier: ``sw_bf16`` (kernel),
+                  ``sw_bf16_plain`` (the anti-diagonal tier in bf16);
 - ``sw_scan``, ``affine_scan``  the plain anti-diagonal tiers;
+- ``unpack``      the 2-bit DNA decode / encode as torch ops on a device;
 - ``_build``      nvcc at first use, ctypes loading.
 
 Nothing here imports a compiler or builds a kernel at import; the first

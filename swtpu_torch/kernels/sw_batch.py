@@ -38,22 +38,26 @@ def _uniform_match_mismatch(params: ScoringParams):
     return None
 
 
+def linear_refusal(params: ScoringParams):
+    """Why the linear row-scan kernel does not take ``params``, or None
+    when it does."""
+    if not params.is_linear:
+        return "affine scoring: use sw_affine"
+    if _uniform_match_mismatch(params) is None:
+        return ("general matrices go to the profile kernel (kernels.sw_profile), "
+                "not the row-scan kernel")
+    if params.gap <= 0:
+        return (f"the row-scan kernel needs gap > 0 (got {params.gap}); no kernel "
+                "in ROADMAP.md queue B takes a non-positive gap: run it on the CPU")
+    return None
+
+
 def _guard_linear(params: ScoringParams):
     """(match, mismatch) for the linear kernel, or NotImplementedError."""
-    if not params.is_linear:
-        raise NotImplementedError("affine scoring: use sw_affine")
-    mm = _uniform_match_mismatch(params)
-    if mm is None:
-        raise NotImplementedError(
-            "general matrices go to the profile kernel (kernels.sw_profile), "
-            "not the row-scan kernel"
-        )
-    if params.gap <= 0:
-        raise NotImplementedError(
-            f"the row-scan kernel needs gap > 0 (got {params.gap}); no kernel "
-            "in ROADMAP.md queue B takes a non-positive gap: run it on the CPU"
-        )
-    return mm
+    reason = linear_refusal(params)
+    if reason:
+        raise NotImplementedError(reason)
+    return _uniform_match_mismatch(params)
 
 
 def _rowscan_fn():

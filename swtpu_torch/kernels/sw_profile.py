@@ -51,28 +51,31 @@ MAX_LETTERS = 30  # the kernel's table is at most 32 x 32, two codes for pads
 _tables: Dict[Tuple[bytes, Tuple[int, ...], str], torch.Tensor] = {}
 
 
-def _guard_profile(params: ScoringParams) -> None:
-    """Raise NotImplementedError for scoring the profile kernel does not
-    take (the JAX entries' guards, and the table's size)."""
+def profile_refusal(params: ScoringParams):
+    """Why the profile kernel does not take ``params`` (the JAX entries'
+    guards, and the table's size), or None when it does."""
     mat = params.matrix
     if params.alphabet_size > MAX_LETTERS:
-        raise NotImplementedError(
-            f"the profile kernel takes at most {MAX_LETTERS} letters (got "
-            f"{params.alphabet_size}); no kernel in ROADMAP.md queue B takes "
-            "more: run it on the CPU"
-        )
+        return (f"the profile kernel takes at most {MAX_LETTERS} letters (got "
+                f"{params.alphabet_size}); no kernel in ROADMAP.md queue B takes "
+                "more: run it on the CPU")
     if mat.min() < -127 or mat.max() > 127:
-        raise NotImplementedError(
-            "the profile kernel takes matrix entries in [-127, 127] (got "
-            f"[{int(mat.min())}, {int(mat.max())}]); no kernel in ROADMAP.md "
-            "queue B takes wider ones: run it on the CPU"
-        )
+        return ("the profile kernel takes matrix entries in [-127, 127] (got "
+                f"[{int(mat.min())}, {int(mat.max())}]); no kernel in ROADMAP.md "
+                "queue B takes wider ones: run it on the CPU")
     if params.gap_open <= 0 or params.gap_extend <= 0:
-        raise NotImplementedError(
-            "the profile kernel needs gap_open, gap_extend > 0 (got "
-            f"{params.gap_open}, {params.gap_extend}); no kernel in ROADMAP.md "
-            "queue B takes a non-positive gap: run it on the CPU"
-        )
+        return ("the profile kernel needs gap_open, gap_extend > 0 (got "
+                f"{params.gap_open}, {params.gap_extend}); no kernel in ROADMAP.md "
+                "queue B takes a non-positive gap: run it on the CPU")
+    return None
+
+
+def _guard_profile(params: ScoringParams) -> None:
+    """Raise NotImplementedError for scoring the profile kernel does not
+    take."""
+    reason = profile_refusal(params)
+    if reason:
+        raise NotImplementedError(reason)
 
 
 def profile_table(params: ScoringParams, device: torch.device) -> torch.Tensor:

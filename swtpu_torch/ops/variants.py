@@ -16,11 +16,21 @@ Unlike the JAX dispatch there is no ``try/except NotImplementedError``
 around a kernel: the wrappers' own guards (``sw_batch._guard_linear``,
 ``sw_affine._guard_affine``, ``sw_profile._guard_profile``) run where the
 engine is chosen, and one that fails, fails there.
+
+``VARIANTS`` is the registry of named score engines (``align
+--engine``), holding the names whose engines the port has: ``oracle``
+(the numpy oracle), ``xla_diag`` (the plain tier, on the CPU only),
+``rowscan``, ``rowscan_prof`` and ``rowscan_bf16`` (the kernels). Each
+name has a guard predicate (``variant_supported``), and
+``variant_engine`` picks from the predicates, before anything runs, the
+engine the CLI uses.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict
+
+import numpy as np
 
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels.affine_scan import (
@@ -31,11 +41,14 @@ from swtpu_torch.kernels.sw_affine import _guard_affine, sw_affine, sw_affine_en
 from swtpu_torch.kernels.sw_batch import (
     _guard_linear,
     _uniform_match_mismatch,
+    linear_refusal,
     sw_batch,
     sw_batch_ends,
 )
+from swtpu_torch.kernels.sw_bf16 import bf16_tier_supported, padded_rows, sw_bf16
 from swtpu_torch.kernels.sw_profile import (
     _guard_profile,
+    profile_refusal,
     sw_profile,
     sw_profile_ends,
 )
@@ -112,3 +125,79 @@ def cached_build(cache: dict, key, build, cap: int = 64):
         fn = build()
         cache[key] = fn
     return fn
+
+
+def _oracle(qs, ts, params: ScoringParams, device=None):
+    from swtpu_torch.oracle import sw_score_batch
+
+    return sw_score_batch(np.asarray(qs), np.asarray(ts), params).astype(
+        np.int32
+    )
+
+
+def _xla_diag(qs, ts, params: ScoringParams, device=None):
+    dev = resolve_device(device, like=qs)
+    if dev.type != "cpu":
+        raise NotImplementedError(
+            "xla_diag is the plain tier and runs on the CPU only; on the "
+            "card use best_engine"
+        )
+    return sw_batch_diag(qs, ts, params, dev)
+
+
+def _rowscan(qs, ts, params: ScoringParams, device=None):
+    return sw_batch(qs, ts, params, device)
+
+
+def _rowscan_prof(qs, ts, params: ScoringParams, device=None):
+    return sw_profile(qs, ts, params, device)
+
+
+def _rowscan_bf16(qs, ts, params: ScoringParams, device=None):
+    return sw_bf16(qs, ts, params, device=device)
+
+
+#: fn(qs, ts, params, device=None) -> [B] int32 scores, by name
+VARIANTS: Dict[str, Callable] = {
+    "oracle": _oracle,
+    "xla_diag": _xla_diag,
+    "rowscan": _rowscan,
+    "rowscan_prof": _rowscan_prof,
+    "rowscan_bf16": _rowscan_bf16,
+}
+
+
+def get_variant(name: str) -> Callable:
+    if name not in VARIANTS:
+        raise KeyError(f"unknown variant {name!r}; have {sorted(VARIANTS)}")
+    return VARIANTS[name]
+
+
+def variant_supported(name: str, params: ScoringParams, n: int) -> bool:
+    """Whether variant ``name`` takes this scoring at query length ``n``:
+    the guard of its wrapper, as a predicate (KeyError for an unknown
+    name)."""
+    get_variant(name)
+    if name == "rowscan":
+        return linear_refusal(params) is None
+    if name == "rowscan_prof":
+        return profile_refusal(params) is None
+    if name == "rowscan_bf16":
+        return bf16_tier_supported(params, padded_rows(n))
+    return params.is_linear  # oracle, xla_diag: the linear tiers
+
+
+def variant_engine(name: str, params: ScoringParams, n: int,
+                   device=None) -> Callable:
+    """fn(qs, ts) -> [B] int32 scores for ``align --engine name`` on
+    [B, n] queries. A registered name whose predicate passes runs its
+    own engine; ``xla_diag``, a name whose predicate fails and a name
+    the registry lacks run ``best_engine`` (on the card a kernel, on the
+    CPU the plain tier), as JAX falls back to its XLA tier. Decided
+    before anything runs."""
+    dev = resolve_device(device)
+    if (name in VARIANTS and name != "xla_diag"
+            and variant_supported(name, params, n)):
+        fn = VARIANTS[name]
+        return lambda q, t: fn(q, t, params, dev)
+    return best_engine(params, dev)

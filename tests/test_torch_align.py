@@ -135,10 +135,131 @@ def test_cli_align_fasta_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("extra", [["q.npz", "t.fa"], ["q.npz", "t.npz"]])
 def test_cli_rejects_unported_inputs(extra, tmp_path):
-    extra = ["--queries", str(tmp_path / extra[0]),
-             "--targets", str(tmp_path / extra[1])]
-    with pytest.raises(SystemExit, match="not ported"):
-        port_cli(["align", "--device", "cpu"] + extra)
+    """The 2-bit .npz container is DNA-only: with --alphabet protein both
+    CLIs exit with the same message before reading anything."""
+    argv = ["align", "--alphabet", "protein",
+            "--queries", str(tmp_path / extra[0]),
+            "--targets", str(tmp_path / extra[1])]
+    with pytest.raises(SystemExit) as want:
+        jax_cli(argv)
+    with pytest.raises(SystemExit, match="DNA-only") as got:
+        port_cli(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+
+
+def _reads(tmp_path, rng, prefix, lengths, with_n=True):
+    """A DNA FASTA with lowercase letters and, ``with_n``, an N inside
+    some reads."""
+    path = tmp_path / f"{prefix}.fa"
+    recs = []
+    for i, n in enumerate(lengths):
+        s = list(port_io.decode_dna(rng.integers(0, 4, n)))
+        if with_n and i % 3 == 0:
+            s[n // 2] = "N"
+        if i % 4 == 1:
+            s[0] = s[0].lower()
+        recs.append((f"{prefix}{i}", "".join(s)))
+    write_fasta(path, recs)
+    return path
+
+
+@pytest.fixture
+def npz_inputs(tmp_path):
+    """Queries and targets as FASTA and as .npz packed by the port's
+    ``pack`` subcommand."""
+    rng = np.random.default_rng(10000)
+    out = {}
+    for with_n in (True, False):
+        q = _reads(tmp_path, rng, f"q{int(with_n)}", [30, 37, 41, 29, 33, 40],
+                   with_n)
+        t = _reads(tmp_path, rng, f"t{int(with_n)}", [45, 38, 52, 47, 31, 50],
+                   with_n)
+        for fa in (q, t):
+            _run(port_cli, ["pack", str(fa), str(fa.with_suffix(".npz"))])
+        out[with_n] = q, t
+    return out
+
+
+NPZ_MODES = {
+    "scores": ["--scoring", "10,-30", "--gap", "15"],
+    "cigar": ["--scoring", "2,-1", "--gap", "1", "--cigar"],
+    "sam": ["--scoring", "10,-30", "--gap-open", "40", "--gap-extend", "15",
+            "--sam"],
+}
+
+
+@pytest.mark.parametrize("inputs", ["npz_npz", "npz_fa"])
+@pytest.mark.parametrize("mode", list(NPZ_MODES))
+def test_cli_align_npz_equals_jax(npz_inputs, mode, inputs):
+    # in-length N in the score-only mode; the host walkers of both packages
+    # cannot index one (ROADMAP.md, queue C)
+    q, t = npz_inputs[mode == "scores"]
+    tq = t.with_suffix(".npz") if inputs == "npz_npz" else t
+    argv = ["align", "--queries", str(q.with_suffix(".npz")),
+            "--targets", str(tq)] + NPZ_MODES[mode]
+    got = _run(port_cli, argv + ["--device", "cpu"])
+    assert got == _run(jax_cli, argv) and len(got) >= 6
+    # the container scores as its FASTA does
+    fasta = ["align", "--queries", str(q), "--targets", str(t)] + NPZ_MODES[mode]
+    assert got == _run(port_cli, fasta + ["--device", "cpu"])
+
+
+def test_cli_pack_equals_jax(tmp_path):
+    from swtpu.core.io import load_packed_batch as jax_load
+
+    rng = np.random.default_rng(10000)
+    fa = _reads(tmp_path, rng, "r", [9, 1, 30, 17, 64])
+    out = str(tmp_path / "r.npz")
+    want = _run(jax_cli, ["pack", str(fa), out])
+    want_batch = jax_load(out)
+    got = _run(port_cli, ["pack", str(fa), out])
+    assert got == want and json.loads(got[0])["records"] == 5
+    got_batch = jax_load(out)
+    assert got_batch[0] == want_batch[0]
+    for g, w in zip(got_batch[1:], want_batch[1:]):
+        np.testing.assert_array_equal(g, w)
+    back_port, back_jax = tmp_path / "port.fa", tmp_path / "jax.fa"
+    got = _run(port_cli, ["pack", out, str(back_port), "--unpack"])
+    want = _run(jax_cli, ["pack", out, str(back_jax), "--unpack"])
+    assert [json.loads(x)["records"] for x in got] == [5]
+    assert got[0].replace(str(back_port), "") == want[0].replace(str(back_jax), "")
+    assert back_port.read_text() == back_jax.read_text()
+    assert "N" in back_port.read_text()  # in-length N survives the round trip
+
+
+ENGINES_AS_JAX = ["oracle", "xla_diag", "xla", "colscan", "no_such_engine"]
+# JAX runs these as Pallas kernels, which need a TPU or interpret mode
+ENGINES_AS_ORACLE = {
+    "rowscan_bf16": ["--scoring", "10,-30", "--gap", "15"],
+    "rowscan_bf16_outside_guard": ["--scoring", "3,-1", "--gap", "1"],
+    "wavefront": ["--scoring", "10,-30", "--gap", "15"],
+    "rowscan": ["--scoring", "2,-1", "--gap", "1"],
+    "rowscan_prof": ["--scoring", "2,-1", "--gap", "1"],
+}
+
+
+@pytest.mark.parametrize("engine", ENGINES_AS_JAX)
+def test_cli_engine_equals_jax(engine):
+    argv = ["align", "--random", "12x40x48", "--scoring", "10,-30",
+            "--gap", "15", "--engine", engine]
+    got = _run(port_cli, argv + ["--device", "cpu"])
+    assert got == _run(jax_cli, argv) and len(got) == 12
+
+
+@pytest.mark.parametrize("case", list(ENGINES_AS_ORACLE))
+def test_cli_engine_prints_the_oracle(case):
+    from swtpu_torch.oracle import sw_score_batch
+
+    argv = ["align", "--random", "12x90x96", "--engine", case.split("_outside")[0],
+            "--device", "cpu"] + ENGINES_AS_ORACLE[case]
+    recs = [json.loads(x) for x in _run(port_cli, argv)]
+    rs = np.random.default_rng(10000)  # the CLI's default --seed
+    qs = rs.integers(0, 4, size=(12, 90)).astype(np.uint8)
+    ts = rs.integers(0, 4, size=(12, 96)).astype(np.uint8)
+    match, mismatch = (int(x) for x in ENGINES_AS_ORACLE[case][1].split(","))
+    want = sw_score_batch(qs, ts, port(ScoringParams.linear(
+        dna_matrix(match, mismatch), int(ENGINES_AS_ORACLE[case][3]))))
+    assert [r["score"] for r in recs] == want.tolist()
 
 
 def test_io_equals_jax(tmp_path):

@@ -11,16 +11,23 @@ on a machine without it (the repo's conftest imports JAX, hence
 Integer outputs must be exactly equal (tolerance 0). The row-scan
 kernels (``sw_batch``, ``sw_affine``) run uniform DNA scoring; the
 profile kernels (``sw_profile``) run BLOSUM62 and general 4x4 matrices,
-internal pads included.
+internal pads included; the bf16 kernel (``sw_bf16``) equals its plain
+version everywhere, drift above the exact range included, and the
+int32 kernel inside it. The varlen and promotion entry points on the card
+equal themselves on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from swtpu_torch.batch import promote, sw_scores_varlen
+from swtpu_torch.core.encode import mutate, pack_2bit
 from swtpu_torch.core.protein import BLOSUM62
-from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
-from swtpu_torch.kernels import sw_affine, sw_batch, sw_profile
+from swtpu_torch.core.scoring import (
+    DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
+)
+from swtpu_torch.kernels import sw_affine, sw_batch, sw_bf16, sw_profile
 from swtpu_torch.oracle import sw_affine_traceback, sw_score_batch, sw_traceback
 from swtpu_torch.oracle.affine import sw_affine_score_batch
 
@@ -229,3 +236,130 @@ def test_profile_bare_launch_equals_wrapper_on_card(card, name, scoring):
     with pytest.raises(ValueError, match="int32 table"):
         sw_profile.profile_launch_t(qs.t().contiguous(), ts.t().contiguous(),
                                     table.to(torch.int64), p, ends)
+
+
+P7 = ScoringParams.linear(dna_matrix(7, -1), 1)
+BF16_CASES = {
+    # (B, n, m, scoring, allow_overflow, related fraction)
+    "4096x128x128_10_30_15": (4096, 128, 128, DNA_10_30_15, False, 0),
+    "4096x128x128_111": (4096, 128, 128, DNA_111, False, 0),
+    "1000x90x200_111": (1000, 90, 200, DNA_111, False, 0),
+    "4x40x2560_10_30_15": (4, 40, 2560, DNA_10_30_15, False, 0),
+    "33x7x1_111": (33, 7, 1, DNA_111, False, 0),
+    "2048x300x320_111_overflow": (2048, 300, 320, DNA_111, True, 8),
+    "2048x64x64_7_1_1_overflow": (2048, 64, 64, P7, True, 2),
+}
+
+
+def bf16_inputs(rng, B, n, m, every):
+    qh = rng.integers(0, 4, size=(B, n)).astype(np.uint8)
+    th = rng.integers(0, 4, size=(B, m)).astype(np.uint8)
+    for b in range(0, B, every) if every else ():
+        th[b, :n] = mutate(rng, qh[b], 0.02, 0, 0, out_len=min(n, m))[:m]
+    return qh, th
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_kernel_equals_plain_on_card(card, case):
+    B, n, m, p, ov, every = BF16_CASES[case]
+    rng = np.random.default_rng(10000)
+    qh, th = bf16_inputs(rng, B, n, m, every)
+    qs, ts = torch.from_numpy(qh).to(card), torch.from_numpy(th).to(card)
+    before = sw_bf16.sw_bf16.launches
+    got = sw_bf16.sw_bf16(qs, ts, p, allow_overflow=ov)
+    torch.cuda.synchronize()
+    assert sw_bf16.sw_bf16.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got, sw_bf16.sw_bf16_plain(qs, ts, p, allow_overflow=ov))
+    exact = sw_batch.sw_batch(qs, ts, p)
+    if not ov:
+        assert torch.equal(got, exact)
+    else:  # below 255 * g exact, and the same pairs at or above it
+        g = 1
+        low = (got < 255 * g) | (exact < 255 * g)
+        assert torch.equal(got[low], exact[low])
+        assert torch.equal(got >= 255 * g, exact >= 255 * g)
+        assert bool((got >= 255 * g).any())
+
+
+def test_bf16_pad_cases_on_card(card):
+    """Equal codes match in the bf16 tier, pads included: an N in both
+    sequences, and a target N against the query's pad rows (n = 30 pads
+    to 32 with code 4)."""
+    rng = np.random.default_rng(10000)
+    q = rng.integers(0, 4, size=(16, 32)).astype(np.uint8)
+    q[:, 10:14] = 4
+    qs = torch.from_numpy(q).to(card)
+    assert sw_bf16.sw_bf16(qs, qs.clone(), DNA_111).tolist() == [32] * 16
+    q30 = rng.integers(0, 4, size=(3, 30)).astype(np.uint8)
+    t32 = np.concatenate([q30, np.full((3, 2), 4, np.uint8)], axis=1)
+    q30, t32 = torch.from_numpy(q30).to(card), torch.from_numpy(t32).to(card)
+    assert sw_bf16.sw_bf16(q30, t32, DNA_111).tolist() == [32] * 3
+    assert sw_bf16.sw_bf16_plain(q30, t32, DNA_111).tolist() == [32] * 3
+    assert sw_batch.sw_batch(q30, t32, DNA_111).tolist() == [30] * 3
+
+
+def test_bf16_bare_launch_equals_wrapper_on_card(card):
+    rng = np.random.default_rng(10000)
+    qs, ts = codes(rng, 300, 50, card), codes(rng, 300, 70, card)
+    qT, tT = sw_bf16.bf16_layout(qs, ts, card)
+    got = sw_bf16.bf16_launch_t(qT, tT, DNA_10_30_15)
+    assert torch.equal(got, sw_bf16.sw_bf16(qs, ts, DNA_10_30_15))
+    with pytest.raises(ValueError, match="contiguous uint8"):
+        sw_bf16.bf16_launch_t(qT.t(), tT.t(), DNA_10_30_15)
+    with pytest.raises(ValueError, match="even batch"):
+        sw_bf16.bf16_launch_t(qT[:, :299].contiguous(), tT[:, :299].contiguous(),
+                              DNA_10_30_15)
+    odd_q, odd_t = codes(rng, 33, 7, card), codes(rng, 33, 9, card)
+    assert sw_bf16.bf16_layout(odd_q, odd_t, card)[0].shape == (7, 34)
+    assert torch.equal(sw_bf16.sw_bf16(odd_q, odd_t, DNA_111),
+                       sw_batch.sw_batch(odd_q, odd_t, DNA_111))
+
+
+def test_bf16_guards_raise_on_card(card):
+    q85 = torch.zeros((2, 85), dtype=torch.uint8, device=card)
+    three = ScoringParams.linear(dna_matrix(3, -1), 1)
+    before = sw_bf16.sw_bf16.launches
+    with pytest.raises(NotImplementedError, match="n\\*match/gcd"):
+        sw_bf16.sw_bf16(q85, q85, three)
+    for p in (AFF, ScoringParams.linear(dna_matrix(1, 0), 1)):
+        with pytest.raises(NotImplementedError):
+            sw_bf16.sw_bf16(q85, q85, p, allow_overflow=True)
+    assert sw_bf16.sw_bf16.launches == before
+    assert sw_bf16.sw_bf16(q85, q85, three, allow_overflow=True).tolist() == [255] * 2
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_varlen_on_card_equals_cpu(card, packed):
+    rng = np.random.default_rng(10000)
+    B = 4096
+    qs = rng.integers(0, 4, size=(B, 300)).astype(np.uint8)
+    ts = rng.integers(0, 4, size=(B, 320)).astype(np.uint8)
+    lq, lt = rng.integers(100, 301, B), rng.integers(200, 321, B)
+    if packed:
+        qs, ts = pack_2bit(qs), pack_2bit(ts)
+    before = sw_batch.sw_batch.launches
+    got = sw_scores_varlen(qs, ts, DNA_111, lq, lt, packed=packed)
+    assert sw_batch.sw_batch.launches == before + 1
+    want = sw_scores_varlen(qs, ts, DNA_111, lq, lt, packed=packed, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    for sc in (3, 4):  # in chunks: the same scores
+        np.testing.assert_array_equal(
+            sw_scores_varlen(qs, ts, DNA_111, lq, lt, packed=packed,
+                             stream_chunks=sc), want)
+
+
+@pytest.mark.parametrize("cap_frac", [0.25, 1 / 2048])
+def test_promoted_device_on_card_equals_cpu(card, cap_frac):
+    rng = np.random.default_rng(10000)
+    qh, th = bf16_inputs(rng, 1024, 300, 320, 8)
+    counts = (sw_bf16.sw_bf16.launches, sw_batch.sw_batch.launches)
+    got = promote.sw_scores_promoted_device(qh, th, DNA_111, cap_frac=cap_frac)
+    assert sw_bf16.sw_bf16.launches == counts[0] + 1
+    assert sw_batch.sw_batch.launches >= counts[1] + 1
+    want = promote.sw_scores_promoted(qh, th, DNA_111, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert 0 < got[1].mean() < 1
+    np.testing.assert_array_equal(
+        got[0][:8], sw_score_batch(qh[:8], th[:8], DNA_111))

@@ -6,8 +6,9 @@
   instead of running on the CPU, and launches nothing;
 - on a CUDA device the dispatch picks a kernel wrapper (row-scan for a
   uniform matrix, profile for any other), never the plain tier, and
-  scoring no kernel takes raises (checked with the card's presence faked
-  and the wrappers replaced, so nothing runs).
+  scoring no kernel takes raises; ``align --engine`` picks its engine
+  from the guard predicates (checked with the card's presence faked and
+  the wrappers replaced, so nothing runs).
 """
 
 import json
@@ -25,13 +26,16 @@ import pytest
 import torch
 
 from swtpu_torch import bench, cli
+from swtpu_torch.batch import bucketing, promote
 from swtpu_torch.batch import traceback as port_traceback
+from swtpu_torch.core import io as port_io
 from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
 from swtpu_torch.kernels import (
     _build,
     affine_scan,
     sw_affine,
     sw_batch,
+    sw_bf16,
     sw_profile,
     sw_scan,
 )
@@ -46,7 +50,8 @@ GENERAL = ScoringParams.linear(np.arange(16).reshape(4, 4) - 8, 2)
 GENERAL_AFF = ScoringParams(np.arange(16).reshape(4, 4) - 8, 3, 1)
 WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
             sw_affine.sw_affine, sw_affine.sw_affine_ends,
-            sw_profile.sw_profile, sw_profile.sw_profile_ends]
+            sw_profile.sw_profile, sw_profile.sw_profile_ends,
+            sw_bf16.sw_bf16]
 
 
 def _module_names():
@@ -122,6 +127,12 @@ NO_DEVICE_CALLS = {
         torch.zeros((2, 8), dtype=torch.uint8), Q, DNA_10_30_15
     ),
     "time_kernel": lambda: timing.time_kernel(lambda: None, ()),
+    "sw_bf16": lambda: sw_bf16.sw_bf16(Q, Q, DNA_10_30_15),
+    "sw_scores_varlen": lambda: bucketing.sw_scores_varlen(Q, Q, DNA_10_30_15),
+    "sw_scores_promoted_device":
+        lambda: promote.sw_scores_promoted_device(Q, Q, DNA_10_30_15),
+    "load_packed_batch_device":
+        lambda: port_io.load_packed_batch("reads.npz", device=True),
 }
 
 
@@ -183,6 +194,11 @@ def fake_card(monkeypatch):
             variants, name,
             lambda q, t, p, d, _n=name: calls.append((_n, d.type)) or _n,
         )
+    monkeypatch.setattr(
+        variants, "sw_bf16",
+        lambda q, t, p, allow_overflow=False, device=None:
+            calls.append(("sw_bf16", device.type)) or "sw_bf16",
+    )
     for name in ("sw_batch_diag", "sw_batch_diag_ends", "sw_affine_batch_diag",
                  "sw_affine_batch_diag_ends"):
         monkeypatch.setattr(
@@ -220,3 +236,37 @@ def test_cuda_dispatch_raises_without_a_kernel(fake_card, params):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             engine(params)
     assert fake_card == []
+
+
+@pytest.mark.parametrize("engine,params,n,kernel", [
+    # inside the bf16 predicate: 128 * 10 / 5 = 256
+    ("rowscan_bf16", DNA_10_30_15, 128, "sw_bf16"),
+    # outside it, on padded n: 129 pads to 136, 136 * 2 > 256
+    ("rowscan_bf16", DNA_10_30_15, 129, "sw_batch"),
+    ("rowscan_bf16", ScoringParams.linear(dna_matrix(3, -1), 1), 85, "sw_batch"),
+    ("rowscan_bf16", ScoringParams.linear(dna_matrix(1, 1), 1), 8, "sw_batch"),
+    ("rowscan_bf16", GENERAL, 8, "sw_profile"),
+    ("rowscan", DNA_10_30_15, 128, "sw_batch"),
+    ("rowscan_prof", DNA_10_30_15, 128, "sw_profile"),
+    ("xla_diag", DNA_10_30_15, 128, "sw_batch"),
+    ("wavefront", DNA_10_30_15, 128, "sw_batch"),
+    ("no_such_engine", GENERAL, 128, "sw_profile"),
+])
+def test_cuda_engine_option_picks_by_predicate(fake_card, engine, params, n,
+                                               kernel):
+    """``align --engine``: a name whose guard passes runs its kernel; the
+    plain tier's name, an unported or unknown name and a failed guard run
+    best_engine's kernel. Decided before anything runs, so exactly one
+    wrapper is called and none raises."""
+    fn = variants.variant_engine(engine, params, n)
+    assert fake_card == []
+    assert fn(Q, Q) == kernel
+    assert fake_card == [(kernel, "cuda")]
+
+
+def test_variant_registry_holds_the_ported_names():
+    assert sorted(variants.VARIANTS) == [
+        "oracle", "rowscan", "rowscan_bf16", "rowscan_prof", "xla_diag"]
+    for name in ("wavefront", "colscan", "nope"):
+        with pytest.raises(KeyError, match="unknown variant"):
+            variants.get_variant(name)
