@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's three main paths on the card, through the entry points
+Drives the port's four main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
 ``csrc/sw_rowscan.cu``), the protein / general-matrix path (BLOSUM62,
-linear and Gotoh gaps; the profile kernels of ``csrc/sw_profile.cu``) and
+linear and Gotoh gaps; the profile kernels of ``csrc/sw_profile.cu``),
 the variable-length read path of BASELINE config 4 (the 2-bit wire
 decoded on the card, pads past each length, overflow promotion through
 the bf16 tier of ``csrc/sw_bf16.cu`` with an int32 re-run on the row-scan
-kernel, ``pack`` and ``.npz`` inputs, ``align --engine``).
+kernel, ``pack`` and ``.npz`` inputs, ``align --engine``) and the
+semi-global / global path (scores and endpoints, fixed and per-pair
+lengths, traceback, the ``semiglobal`` and ``global`` CLI; the uniform and
+profile forms of ``csrc/sw_semiglobal.cu``).
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on the three CUDA sources at once; registers, spills and
+   2. build: nvcc on the four CUDA sources at once; registers, spills and
       shared memory of each kernel;
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
@@ -22,7 +25,12 @@ kernel, ``pack`` and ``.npz`` inputs, ``align --engine``).
       too, above it (config 4's promotion workload, ``allow_overflow``)
       against its plain version bit for bit, drift included, and on the
       pad cases where the bf16 tier matches pads; 64-pair spot checks
-      against the numpy oracle;
+      against the numpy oracle; the eight semi-global instantiations
+      (argmax and pinned) on 32768 x 128 x 128 (half related pairs),
+      1000 x 90 x 200 with internal pads and per-pair lengths down to 0,
+      33 x 7 x 1 and 4 x 40 x 2560, under (1,1,1), (2,1,1), (2,3,5,1),
+      (2,3,2,2), BLOSUM62 linear 11 and Gotoh 11/1 and a 4x4 DNA matrix
+      linear 2 and Gotoh 3/1, and on 64 pairs against the oracle copy;
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
       (10, -30, open 40, extend 15), timed with CUDA events; all 1M scores
@@ -69,15 +77,29 @@ kernel, ``pack`` and ``.npz`` inputs, ``align --engine``).
   15. config-4 CLI: ``pack`` and ``pack --unpack``, ``align`` on ``.npz``
       inputs against the FASTA run, ``align --engine rowscan_bf16``
       against the oracle;
-  16. kernel times at 32768 x (128 x 128) (DNA for the row-scan and bf16
-      kernels, protein for the profile kernels): the wrapper (layout
-      transposes included) and the launch alone on codes already
-      transposed, beside the plain version's time and the bound; the
-      one-line benchmark.
+  16. kernel times at 32768 x (128 x 128) (DNA for the row-scan, bf16
+      and uniform semi-global kernels, protein for the profile kernels):
+      the wrapper (layout transposes included) and the launch alone on
+      codes already transposed, beside the plain version's time and the
+      bound; the one-line benchmark;
+  17. semi-global path, scores and endpoints at 1,048,576 x (128 x 128)
+      (the JAX package's ``bench_semiglobal_full`` inputs at the headline
+      scale): random DNA under (1,1,1) and (2,3,5,1), random protein under
+      BLOSUM62 linear 11 and Gotoh 11/1, through ``semiglobal_batch`` /
+      ``semiglobal_profile``, timed; all scores and endpoints held against
+      the plain version on the card, 64 against the oracle copy;
+  18. global path at 1M pairs: DNA (1,1,1) and protein Gotoh 11/1, pinned;
+  19. varlen: 32,768 DNA pairs, query lengths 96-128, target lengths
+      112-128, (1,1,1), semi-global and global, timed;
+  20. traceback: ``semiglobal_align_batch`` and ``nw_align_batch`` on 256
+      related DNA pairs (linear), 64 affine and 64 protein Gotoh 11/1:
+      paths from (0, 0) to the device endpoint, rescoring, CIGAR and SAM;
+  21. the ``semiglobal`` and ``global`` CLI, DNA and protein, against the
+      oracle copy.
 
-Launch counts are zeroed just before each path (phases 4, 7 and 11) and
-read just after it (phases 6, 10 and 15); every kernel of a path must
-have launched in its window. Inside the config-4 window the calls that
+Launch counts are zeroed just before each path (phases 4, 7, 11 and 17)
+and read just after it (phases 6, 10, 15 and 21); every kernel of a path
+must have launched in its window. Inside the config-4 window the calls that
 are not the path's own (the fused unit and split on staged tensors, the
 per-part times, the reference checks, phase 14) run between a
 ``snapshot`` of the counts and their ``restore``, so the window counts
@@ -105,6 +127,7 @@ import torch
 
 SEED = 10000
 ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
+SEMIGLOBAL = "sw_semiglobal.cu"
 SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like_256.fasta"
 # DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
 # at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
@@ -128,7 +151,10 @@ SMEM_WORDS_PER_SM = 32
 # bf16: one thread step covers two cells, one per half of a bf16x2; its 4
 # integer ops make both scores (xor, add, prmt, lop3) and its 5 packed
 # bf16 ops the DP (fma.relu, max, sub, max, running max): 2 int32 ops and
-# 5 bf16 results per cell.
+# 5 bf16 results per cell. Semi-global (no max 0): score select 2
+# (compare, select; profile: the add and a lookup, 1), linear H 4, affine
+# F 3 + E 3 + H 3, argmax tracking 3 (compare, two selects; the column
+# mask is one compare per column, not per cell), pinned 1 (a select).
 KERNELS = {
     "sw_batch": (ROWSCAN, "sw_rowscan_kernelILb0ELb0E",
                  "swtpu/kernels/pallas/sw_batch.py:317", 9, 0, 0),
@@ -148,11 +174,37 @@ KERNELS = {
                                "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
     "sw_bf16": (BF16, "sw_bf16_kernel",
                 "swtpu/kernels/pallas/sw_bf16.py:134", 2, 0, 5),
+    # <AFFINE, PROFILE, PIN>; the pinned (global) forms extend the TPU
+    # kernel, which JAX ran only for the argmax
+    "semiglobal_batch": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb0ELb0E",
+                         "swtpu/kernels/pallas/semiglobal_batch.py:194", 9, 0, 0),
+    "semiglobal_batch_pinned": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb0ELb1E",
+                                "swtpu/kernels/pallas/semiglobal_batch.py:194",
+                                7, 0, 0),
+    "semiglobal_batch_affine": (SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb0ELb0E",
+                                "swtpu/kernels/pallas/semiglobal_batch.py:194",
+                                14, 0, 0),
+    "semiglobal_batch_affine_pinned": (
+        SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb0ELb1E",
+        "swtpu/kernels/pallas/semiglobal_batch.py:194", 12, 0, 0),
+    "semiglobal_profile": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb1ELb0E",
+                           "swtpu/kernels/pallas/semiglobal_profile.py:201",
+                           8, 1, 0),
+    "semiglobal_profile_pinned": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb1ELb1E",
+                                  "swtpu/kernels/pallas/semiglobal_profile.py:201",
+                                  6, 1, 0),
+    "semiglobal_profile_affine": (SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb1ELb0E",
+                                  "swtpu/kernels/pallas/semiglobal_profile.py:201",
+                                  13, 1, 0),
+    "semiglobal_profile_affine_pinned": (
+        SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb1ELb1E",
+        "swtpu/kernels/pallas/semiglobal_profile.py:201", 11, 1, 0),
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
                 "sw_profile_affine_ends"]
 CONFIG4_PATH = ["sw_bf16", "sw_batch"]
+SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
 
 
 def tup(x):
@@ -197,6 +249,22 @@ def related_pairs(rng, B, L, letters=4):
         t = np.array(t[:L], dtype=np.uint8)
         ts[b, : len(t)] = t
         ts[b, len(t):] = rng.integers(0, letters, size=L - len(t), dtype=np.uint8)
+    return qs, ts
+
+
+def semiglobal_pairs(rng, B, n, m, letters=4):
+    """B pairs of n x m codes for the semi-global kernels: the first half
+    related (a 2-letter random head, then ``related_pairs``' target of the
+    query, cut or filled with random letters to m), so that their
+    endpoints lie inside the matrix; the rest random."""
+    qs = rng.integers(0, letters, size=(B, n), dtype=np.uint8)
+    ts = rng.integers(0, letters, size=(B, m), dtype=np.uint8)
+    h = B // 2
+    if h and n:
+        qs[:h], rel = related_pairs(rng, h, n, letters)
+        head = rng.integers(0, letters, size=(h, 2), dtype=np.uint8)
+        rel = np.concatenate([head, rel], axis=1)[:, :m]
+        ts[:h, : rel.shape[1]] = rel
     return qs, ts
 
 
@@ -262,7 +330,8 @@ def main():
         return 2
 
     from swtpu_torch.batch import (
-        promote, sw_align_batch, sw_scores_promoted, sw_scores_varlen,
+        nw_align_batch, promote, semiglobal_align_batch, sw_align_batch,
+        sw_scores_promoted, sw_scores_varlen,
     )
     from swtpu_torch.batch.bucketing import _fused_masked_engine
     from swtpu_torch.cli import main as cli_main
@@ -275,11 +344,14 @@ def main():
         DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
     )
     from swtpu_torch.kernels import (
-        _build, sw_affine as ka, sw_batch as kb, sw_bf16 as kbf,
-        sw_profile as kp,
+        _build, semiglobal_batch as ksg, semiglobal_profile as ksp,
+        sw_affine as ka, sw_batch as kb, sw_bf16 as kbf, sw_profile as kp,
     )
     from swtpu_torch.oracle.affine import (
         sw_affine_score_batch, sw_affine_traceback,
+    )
+    from swtpu_torch.oracle.semiglobal import (
+        nw_affine_full, nw_full, semiglobal_affine_full, semiglobal_full,
     )
     from swtpu_torch.oracle.sw import sw_score, sw_score_batch, sw_traceback
     from swtpu_torch.ops import best_ends_engine, best_engine
@@ -312,35 +384,106 @@ def main():
         return "sw_profile" + ("" if p.is_linear else "_affine") + (
             "_ends" if ends else "")
 
+    # the semi-global scorings: uniform ones as the wrapper's keyword
+    # arguments (match, mismatch penalty, gaps), general ones as params
+    SG_111 = dict(match=1, mismatch=1, gap=1)
+    SG_AFF = dict(match=2, mismatch=3, gap_open=5, gap_extend=1)
+    # semi-global kernel -> (wrapper, scoring its times are taken at, pinned)
+    sg_fns = {
+        "semiglobal_batch": (ksg.semiglobal_batch, SG_111, False),
+        "semiglobal_batch_pinned": (ksg.semiglobal_batch, SG_111, True),
+        "semiglobal_batch_affine": (ksg.semiglobal_batch, SG_AFF, False),
+        "semiglobal_batch_affine_pinned": (ksg.semiglobal_batch, SG_AFF, True),
+        "semiglobal_profile": (ksp.semiglobal_profile, P_LIN, False),
+        "semiglobal_profile_pinned": (ksp.semiglobal_profile, P_LIN, True),
+        "semiglobal_profile_affine": (ksp.semiglobal_profile, P_GOTOH, False),
+        "semiglobal_profile_affine_pinned": (ksp.semiglobal_profile, P_GOTOH,
+                                             True),
+    }
+
+    def sg_gaps(sc):
+        """(go, ge, affine) of a uniform semi-global scoring."""
+        return ksg.gaps(**{k: v for k, v in sc.items() if k.startswith("gap")})
+
+    def sg_run(sc, q, t, plain=False, **kw):
+        """A semi-global wrapper, or its plain version, on one scoring."""
+        if isinstance(sc, dict):
+            fn = ksg.semiglobal_batch_plain if plain else ksg.semiglobal_batch
+            return fn(q, t, **sc, **kw)
+        fn = ksp.semiglobal_profile_plain if plain else ksp.semiglobal_profile
+        return fn(q, t, sc, **kw)
+
+    def sg_letters(sc):
+        """The codes a scoring's inputs are drawn from: 20 for protein."""
+        return 4 if isinstance(sc, dict) or sc.alphabet_size == 4 else 20
+
+    def sg_name(sc, pin):
+        uniform = isinstance(sc, dict)
+        affine = sg_gaps(sc)[2] if uniform else not sc.is_linear
+        return ("semiglobal_batch" if uniform else "semiglobal_profile") + (
+            "_affine" if affine else "") + ("_pinned" if pin else "")
+
+    def sg_params(sc):
+        """A semi-global scoring as ScoringParams (for rescoring)."""
+        if not isinstance(sc, dict):
+            return sc
+        go, ge, _ = sg_gaps(sc)
+        return ScoringParams(dna_matrix(sc["match"], -sc["mismatch"]), go, ge)
+
+    def sg_oracle(sc, pin):
+        """The oracle copy's walker for a scoring: (q, t) -> (score, path)."""
+        p = sg_params(sc)
+        kw = (dict(match=sc["match"], mismatch=sc["mismatch"])
+              if isinstance(sc, dict) else dict(matrix=p.matrix))
+        if p.is_linear:
+            fn = nw_full if pin else semiglobal_full
+            return lambda q, t: fn(q, t, gap=p.gap, **kw)
+        fn = nw_affine_full if pin else semiglobal_affine_full
+        return lambda q, t: fn(q, t, gap_open=p.gap_open,
+                               gap_extend=p.gap_extend, **kw)
+
     def launches(name):
         # the profile wrappers count all their launches and, apart, those
-        # of the affine instantiation
+        # of the affine instantiation; the semi-global wrappers those of
+        # the affine, the pinned and the affine pinned ones
+        if name in SEMIGLOBAL_PATH:
+            w = sg_fns[name][0]
+            affine, pin = "_affine" in name, name.endswith("_pinned")
+            both = w.launches_affine_pinned
+            if affine and pin:
+                return both
+            if affine:
+                return w.launches_affine - both
+            if pin:
+                return w.launches_pinned - both
+            return w.launches - w.launches_affine - w.launches_pinned + both
         kern = kernel_fns[name][0]
         if name not in PROTEIN_PATH:
             return kern.launches
         return (kern.launches_affine if "affine" in name
                 else kern.launches - kern.launches_affine)
 
+    wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
+    wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile]
+
+    def counts_of(w):
+        return {k: v for k, v in vars(w).items() if k.startswith("launches")}
+
     def zero_launches(names):
         for name in names:
-            kern = kernel_fns[name][0]
-            kern.launches = 0
-            if name in PROTEIN_PATH:
-                kern.launches_affine = 0
-
-    wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
+            w = (sg_fns if name in SEMIGLOBAL_PATH else kernel_fns)[name][0]
+            for k in counts_of(w):
+                setattr(w, k, 0)
 
     def snapshot():
-        return [(w, w.launches, getattr(w, "launches_affine", None))
-                for w in wrappers]
+        return [(w, counts_of(w)) for w in wrappers]
 
     def restore(saved):
         """Launches since ``snapshot`` (checks and timings beside a main
-        path) leave every wrapper's count as it was."""
-        for w, n, n_affine in saved:
-            w.launches = n
-            if n_affine is not None:
-                w.launches_affine = n_affine
+        path) leave every wrapper's counts as they were."""
+        for w, counts in saved:
+            for k, v in counts.items():
+                setattr(w, k, v)
 
     # 1. environment -------------------------------------------------------
     phase("1 environment")
@@ -356,11 +499,12 @@ def main():
     # 2. build ------------------------------------------------------------
     phase("2 build")
     t0 = time.perf_counter()
-    _build.build_all([ROWSCAN, PROFILE, BF16])  # one nvcc per source, in parallel
-    print(f"nvcc {ROWSCAN}, {PROFILE} and {BF16}: {time.perf_counter() - t0:.1f} s "
+    sources = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL]
+    _build.build_all(sources)  # one nvcc per source, in parallel
+    print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
           f"(0.0 s means they were already built)", flush=True)
     seen = set()
-    for source in (ROWSCAN, PROFILE, BF16):
+    for source in sources:
         for e in re.split(r"Compiling entry function '", _build.build_log(source))[1:]:
             mangled = e.split("'")[0]
             name = next((k for k, v in KERNELS.items()
@@ -558,6 +702,71 @@ def main():
                   f"{p.gap_extend}), {fn_s.__name__} and {fn_e.__name__}: "
                   f"scores and endpoints equal", flush=True)
     del flag_q, flag_t, prot_q, prot_t, dna_n_q, dna_n_t, qd, td
+    torch.cuda.empty_cache()
+    # the semi-global kernels, argmax and pinned, on every scoring of the
+    # CPU tests (their own generator); related pairs put the endpoints
+    # inside the matrix, internal pads meet the XLA pad rule
+    sgrng = np.random.default_rng(SEED + 5)
+    sg_scorings = [
+        ("(1,1,1)", SG_111), ("(2,1,1)", dict(match=2, mismatch=1, gap=1)),
+        ("(2,3,5,1)", SG_AFF),
+        ("(2,3,2,2)", dict(match=2, mismatch=3, gap_open=2, gap_extend=2)),
+        ("BLOSUM62 11", P_LIN), ("BLOSUM62 11/1", P_GOTOH),
+        ("DNA matrix 2", ScoringParams.linear(DNA_GENERAL, 2)),
+        ("DNA matrix 3/1", ScoringParams(DNA_GENERAL, gap_open=3, gap_extend=1)),
+    ]
+    sg_first64 = {}
+    for label, B, n, m in (("32768x128x128", 32768, 128, 128),
+                           ("1000x90x200 varlen, internal pads", 1000, 90, 200),
+                           ("33x7x1", 33, 7, 1), ("4x40x2560", 4, 40, 2560)):
+        codes = {4: semiglobal_pairs(sgrng, B, n, m, 4),
+                 20: semiglobal_pairs(sgrng, B, n, m, 20)}
+        lens = {}
+        if "varlen" in label:
+            for A, (qh, th) in codes.items():
+                pad_q, pad_t = (4, 5) if A == 4 else (24, 25)
+                qh[sgrng.random(qh.shape) < 0.02] = pad_q
+                th[sgrng.random(th.shape) < 0.02] = pad_t
+            lq, lt = sgrng.integers(0, n + 1, B), sgrng.integers(0, m + 1, B)
+            lq[:3], lt[:3] = (0, n, 0), (m, 0, 0)
+            lens = dict(lens_q=lq, lens_t=lt)
+        if B == 32768:
+            sg_first64 = {A: (qh[:64], th[:64]) for A, (qh, th) in codes.items()}
+        dev_codes = {A: (torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev))
+                     for A, (qh, th) in codes.items()}
+        for slabel, sc in sg_scorings:
+            qd, td = dev_codes[sg_letters(sc)]
+            inside = []
+            for pin in (False, True):
+                name = sg_name(sc, pin)
+                got = sg_run(sc, qd, td, pin_end=pin, **lens)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, sg_run(sc, qd, td, plain=True, pin_end=pin,
+                                              **lens))
+                max_err[name] = max(max_err[name], err)
+                check(err == 0, f"{name} differs from its plain version on {label} "
+                      f"{slabel}")
+                inside.append(int((got[1] > 0).sum()))
+            print(f"{label} {slabel}: {sg_name(sc, False)} and {sg_name(sc, True)}: "
+                  f"max |kernel - plain| = 0; {inside[0]} of {B} argmax endpoints "
+                  f"inside the matrix", flush=True)
+    del dev_codes, qd, td
+    # 64-pair spot checks against the oracle copy (the first 64 of the
+    # 32768 set: related pairs)
+    for slabel, sc in (("(1,1,1)", SG_111), ("(2,3,5,1)", SG_AFF),
+                       ("BLOSUM62 11", P_LIN), ("BLOSUM62 11/1", P_GOTOH)):
+        qh, th = sg_first64[sg_letters(sc)]
+        qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        for pin in (False, True):
+            sc_d, ei, ej = (x.cpu().numpy() for x in sg_run(sc, qd, td, pin_end=pin))
+            walker = sg_oracle(sc, pin)
+            for b in range(64):
+                s0, path = walker(qh[b], th[b])
+                check((s0, path[-1]) == (sc_d[b], (ei[b], ej[b])),
+                      f"{sg_name(sc, pin)} vs the oracle copy at pair {b}")
+        print(f"oracle spot check, 64 pairs, {slabel}: {sg_name(sc, False)} and "
+              f"{sg_name(sc, True)} scores and endpoints equal", flush=True)
+    del qd, td
     torch.cuda.empty_cache()
 
     # DNA main path: counts from here to the end of phase 6 ----------------
@@ -1150,6 +1359,60 @@ def main():
                   f"ms; at {sm_clock_mhz:.0f} MHz), wrapper "
                   f"{B * n * m / ms / 1e6:.1f} GCUPS", flush=True)
         del qd, td, qT, tT
+    # the semi-global kernels: uniform on the DNA codes, profile on the
+    # protein codes; their launches are counted on their path (phases
+    # 17-21), after these timings
+    for name in SEMIGLOBAL_PATH:
+        replaces, ops, lookups, _ = KERNELS[name][2:]
+        _, sc, pin = sg_fns[name]
+        qh, th = inputs[ROWSCAN if isinstance(sc, dict) else PROFILE]
+        qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        qT, tT = qd.t().contiguous(), td.t().contiguous()
+        if isinstance(sc, dict):
+            go, ge, affine = sg_gaps(sc)
+            args, table = (sc["match"], -sc["mismatch"], go, ge, affine), None
+        else:
+            args = (0, 0, sc.gap_open, sc.gap_extend, not sc.is_linear)
+            table = kp.profile_table(sc, dev)
+
+        def bare(args=args, pin=pin, table=table):
+            return ksg.semiglobal_launch_t(qT, tT, *args, pin, table=table)
+
+        def wrapped(a, b, sc=sc, pin=pin):
+            return sg_run(sc, a, b, pin_end=pin)
+
+        def plain(a, b, sc=sc, pin=pin):
+            return sg_run(sc, a, b, plain=True, pin_end=pin)
+
+        for g, w in zip(bare(), wrapped(qd, td)):
+            check(torch.equal(g, w), f"{name}: bare launch vs wrapper")
+        ms = time_kernel(wrapped, (qd, td), iters=20) * 1e3
+        kernel_ms = time_kernel(bare, (), iters=20) * 1e3
+        plain_ms = time_kernel(plain, (qd, td), iters=2, warmup=1, reps=2) * 1e3
+        table_bytes = 0 if table is None else 4 * table.numel()
+        bytes_ = B * (n + m) + table_bytes + 4 * B * 3
+        times = {
+            "int32 ops": B * n * m * ops / int32_rate * 1e3,
+            "shared-memory lookups": B * n * m * lookups / lookup_rate * 1e3,
+            "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
+        }
+        binds = max(times, key=times.get)
+        bound = times[binds]
+        rows.append(dict(
+            name=name, route="cuda", source=f"swtpu_torch/csrc/{SEMIGLOBAL}",
+            replaces=replaces, launches=None, max_abs_err=max_err[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if binds == "bytes" else "operations",
+            library_ms=None, kernel_ms=kernel_ms,
+        ))
+        print(f"{name}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
+              f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), "
+              f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} ({ops} "
+              f"int32 ops/cell: {times['int32 ops']:.4f} ms; {lookups} "
+              f"lookups/cell: {times['shared-memory lookups']:.4f} ms; at "
+              f"{sm_clock_mhz:.0f} MHz), wrapper {B * n * m / ms / 1e6:.1f} GCUPS",
+              flush=True)
+        del qd, td, qT, tT
     from swtpu_torch import bench
 
     buf = io.StringIO()
@@ -1159,6 +1422,193 @@ def main():
     check(rec["metric"] == "sw_batch_128x128_gcups_cuda" and rec["value"] > 0,
           "bench line")
     print(f"bench: {json.dumps(rec)}", flush=True)
+
+    # semi-global path: counts from here to the end of phase 21 ------------
+    zero_launches(SEMIGLOBAL_PATH)
+
+    # 17. semi-global path, scores and endpoints at 1M pairs ---------------
+    phase("17 semi-global path, scores and endpoints at 1,048,576 x (128x128)")
+    B, n, m, chunk = 1 << 20, 128, 128, 1 << 17
+    srng = np.random.default_rng(SEED + 6)
+    big = {4: random_codes(srng, (B, n)), 20: random_protein(srng, (B, n))}
+    big = {A: (torch.from_numpy(qh).to(dev),
+               torch.from_numpy(random_codes(srng, (B, m)) if A == 4
+                                else random_protein(srng, (B, m))).to(dev))
+           for A, qh in big.items()}
+
+    def headline(sc, pin, label):
+        """One scoring through the wrapper at 1M pairs: every output
+        against the plain version (in chunks: the plain tier's profile is
+        [B, n + 1, 32] int32), 64 pairs against the oracle copy, timed."""
+        qd, td = big[sg_letters(sc)]
+        name = sg_name(sc, pin)
+        out = sg_run(sc, qd, td, pin_end=pin)
+        torch.cuda.synchronize()
+        check(all(x.shape == (B,) and x.dtype == torch.int32
+                  and x.device.type == "cuda" for x in out), f"{name} outputs")
+        t0 = time.perf_counter()
+        err = 0
+        for lo in range(0, B, chunk):
+            err = max(err, max_abs_err(
+                tuple(x[lo:lo + chunk] for x in out),
+                sg_run(sc, qd[lo:lo + chunk], td[lo:lo + chunk], plain=True,
+                       pin_end=pin)))
+        max_err[name] = max(max_err[name], err)
+        check(err == 0, f"{name} differs from its plain version at 1M pairs")
+        plain_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        s_host, ei, ej = (x.cpu().numpy() for x in out)
+        if pin:
+            check((ei == n).all() and (ej == m).all(), f"{name}: pinned ends")
+        idx = srng.choice(B, 64, replace=False)
+        idx_d = torch.from_numpy(idx).to(dev)
+        qh, th = qd[idx_d].cpu().numpy(), td[idx_d].cpu().numpy()
+        walker = sg_oracle(sc, pin)
+        for k, b in enumerate(idx):
+            s0, path = walker(qh[k], th[k])
+            check((s0, path[-1]) == (s_host[b], (ei[b], ej[b])),
+                  f"{name} vs the oracle copy at pair {b}")
+        sec = time_kernel(lambda q, t: sg_run(sc, q, t, pin_end=pin), (qd, td),
+                          iters=10)
+        print(f"{label} {name}: {sec * 1e3:.3f} ms per call, "
+              f"{B * n * m / sec / 1e9:.1f} GCUPS; all {B} outputs equal the plain "
+              f"version ({plain_s:.1f} s), 64 the oracle copy; mean score "
+              f"{s_host.mean():.3f}, {int((ei > 0).sum())} ends off the origin "
+              f"[{smi}]", flush=True)
+
+    for label, sc in (("DNA (1,1,1)", SG_111), ("DNA (2,3,5,1)", SG_AFF),
+                      ("protein BLOSUM62 11", P_LIN),
+                      ("protein BLOSUM62 11/1", P_GOTOH)):
+        headline(sc, False, label)
+
+    # 18. global path at 1M pairs ------------------------------------------
+    phase("18 global path at 1,048,576 x (128x128)")
+    for label, sc in (("DNA (1,1,1)", SG_111), ("protein BLOSUM62 11/1", P_GOTOH)):
+        headline(sc, True, label)
+    del big
+    torch.cuda.empty_cache()
+
+    # 19. varlen -------------------------------------------------------------
+    phase("19 semi-global and global, varlen: 32,768 DNA pairs, query lengths "
+          "96-128, target lengths 112-128")
+    B = 32768
+    vq, vt = random_codes(srng, (B, 128)), random_codes(srng, (B, 128))
+    lq, lt = srng.integers(96, 129, B), srng.integers(112, 129, B)
+    vq[np.arange(128)[None, :] >= lq[:, None]] = 4  # pads past each length
+    vt[np.arange(128)[None, :] >= lt[:, None]] = 5
+    qd, td = torch.from_numpy(vq).to(dev), torch.from_numpy(vt).to(dev)
+    cells = int((lq * lt).sum())
+    for pin in (False, True):
+        name = sg_name(SG_111, pin)
+        got = sg_run(SG_111, qd, td, pin_end=pin, lens_q=lq, lens_t=lt)
+        err = max_abs_err(got, sg_run(SG_111, qd, td, plain=True, pin_end=pin,
+                                      lens_q=lq, lens_t=lt))
+        max_err[name] = max(max_err[name], err)
+        check(err == 0, f"{name} differs from its plain version on varlen pairs")
+        if pin:
+            check(np.array_equal(got[1].cpu().numpy(), lq)
+                  and np.array_equal(got[2].cpu().numpy(), lt), "varlen pinned ends")
+        sec = time_kernel(lambda q, t, pin=pin: sg_run(
+            SG_111, q, t, pin_end=pin, lens_q=lq, lens_t=lt), (qd, td), iters=10)
+        print(f"varlen {name}: {sec * 1e3:.4f} ms per call (lengths uploaded), "
+              f"{cells / sec / 1e9:.1f} GCUPS over the {cells} real cells; equal "
+              f"to the plain version", flush=True)
+    del qd, td
+
+    # 20. traceback ----------------------------------------------------------
+    phase("20 semi-global and global traceback: 256 related DNA pairs "
+          "(linear), 64 affine, 64 protein Gotoh 11/1")
+
+    def sg_traceback(qs, ts, sc, alphabet, seq_of):
+        qd, td = torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev)
+        p, L = sg_params(sc), qs.shape[1]
+        kw = dict(sc) if isinstance(sc, dict) else dict(params=sc)
+        for pin, fn in ((False, semiglobal_align_batch), (True, nw_align_batch)):
+            name = sg_name(sc, pin)
+            saved = snapshot()  # the check below is not the path's own
+            sc_d, ei, ej = (x.cpu().numpy() for x in sg_run(sc, qd, td, pin_end=pin))
+            restore(saved)
+            t0 = time.perf_counter()
+            res = fn(qs, ts, **kw)
+            walk_s = time.perf_counter() - t0
+            for b, (score, path) in enumerate(res):
+                check(score == sc_d[b] and path[0] == (0, 0)
+                      and path[-1] == (ei[b], ej[b]), f"{name}: ends of pair {b}")
+                if pin:
+                    check(path[-1] == (L, ts.shape[1]), f"{name}: corner of pair {b}")
+                check(rescore(path, qs[b], ts[b], p) == score,
+                      f"{name}: rescore of pair {b}")
+                rec = sam_record(f"q{b}", f"t{b}", qs[b], ts[b], score, path,
+                                 alphabet, query_len=L).split("\t")
+                check(rec[9] == seq_of(qs[b]), f"{name}: SAM SEQ of pair {b}")
+                if len(path) < 2:
+                    check(rec[1] == "4", f"{name}: unmapped SAM record of pair {b}")
+                    continue
+                st = cigar_stats(path_to_cigar(path, qs[b], ts[b]))
+                check(st["query_consumed"] == path[-1][0]
+                      and st["target_consumed"] == path[-1][1],
+                      f"{name}: CIGAR of pair {b}")
+                check(len(rec) == 13 and rec[3] == "1" and rec[11] == f"AS:i:{score}"
+                      and rec[5] == path_to_cigar(path, qs[b], ts[b], query_len=L),
+                      f"{name}: SAM record of pair {b}")
+            print(f"{name}: {len(res)} pairs, sg/nw_align_batch {walk_s:.2f} s wall "
+                  f"(host walk), {sum(len(r[1]) > 1 for r in res)} off the origin, "
+                  f"mean score {float(np.mean([r[0] for r in res])):.2f}; ends, "
+                  f"rescoring, CIGAR and SAM checked", flush=True)
+
+    dna_seq = lambda q: "".join("ACGT"[c] for c in q)  # noqa: E731
+    qs, ts = related_pairs(srng, 256, 128)
+    sg_traceback(qs, ts, SG_111, "dna", dna_seq)
+    sg_traceback(qs[:64], ts[:64], SG_AFF, "dna", dna_seq)
+    qs, ts = related_pairs(srng, 64, 128, letters=20)
+    sg_traceback(qs, ts, P_GOTOH, "protein", decode_protein)
+
+    # 21. semi-global and global CLI ----------------------------------------
+    phase("21 semiglobal and global CLI, DNA and protein")
+    for argv, sc, pin in (
+        (["semiglobal", "--random", "64x128x128", "--scoring", "2,-1",
+          "--cigar"], dict(match=2, mismatch=1, gap=1), False),
+        (["global", "--random", "64x128x128", "--scoring", "2,-1",
+          "--gap-open", "5", "--gap-extend", "1", "--sam"],
+         dict(match=2, mismatch=1, gap_open=5, gap_extend=1), True),
+        (["semiglobal", "--alphabet", "protein", "--random", "32x128x128",
+          "--gap-open", "11", "--gap-extend", "1", "--traceback"], P_GOTOH, False),
+        (["global", "--alphabet", "protein", "--random", "32x128x128", "--gap",
+          "11", "--sam"], P_LIN, True),
+    ):
+        B = int(argv[argv.index("--random") + 1].split("x")[0])
+        rs = np.random.default_rng(SEED)  # the CLI's --random inputs
+        cq = rs.integers(0, sg_letters(sc), size=(B, 128)).astype(np.uint8)
+        ct = rs.integers(0, sg_letters(sc), size=(B, 128)).astype(np.uint8)
+        walker = sg_oracle(sc, pin)
+        want = [walker(q, t) for q, t in zip(cq, ct)]
+        lines = run_cli(cli_main, argv)
+        if "--sam" in argv:
+            body = [x.split("\t") for x in lines if not x.startswith("@")]
+            check(len(body) == B and all(
+                (r[1] == "4" and len(path) < 2) or r[11] == f"AS:i:{s0}"
+                for r, (s0, path) in zip(body, want)),
+                f"{argv[0]} --sam vs the oracle copy")
+        else:
+            recs = [json.loads(x) for x in lines]
+            ok = len(recs) == B
+            for r, (s0, path), q, t in zip(recs, want, cq, ct):
+                ok &= r["score"] == s0 and tuple(r["end"]) == path[-1]
+                if "path" in r:
+                    ok &= [tuple(c) for c in r["path"]] == path
+                if "cigar" in r:
+                    ok &= r["cigar"] == path_to_cigar(path, q, t)
+            check(ok, f"{argv[0]} JSON vs the oracle copy")
+        print(f"{' '.join(argv[:3])} ...: {B} records equal the oracle copy; "
+              f"first: {lines[-1][:100]}", flush=True)
+
+    sg_counts = {name: launches(name) for name in SEMIGLOBAL_PATH}
+    print(f"semi-global path launches: {sg_counts}", flush=True)
+    check(all(v > 0 for v in sg_counts.values()),
+          f"a kernel was not launched on the semi-global path: {sg_counts}")
+    for row in rows:
+        if row["launches"] is None:
+            row["launches"] = sg_counts[row["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))

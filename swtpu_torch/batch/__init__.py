@@ -4,4 +4,8 @@ from swtpu_torch.batch.bucketing import (  # noqa: F401
     sw_scores_varlen,
 )
 from swtpu_torch.batch.promote import sw_scores_promoted  # noqa: F401
-from swtpu_torch.batch.traceback import sw_align_batch  # noqa: F401
+from swtpu_torch.batch.traceback import (  # noqa: F401
+    nw_align_batch,
+    semiglobal_align_batch,
+    sw_align_batch,
+)

@@ -1,9 +1,11 @@
-"""swtpu_torch command-line interface: ``align`` and ``pack``.
+"""swtpu_torch command-line interface: ``align``, ``semiglobal``,
+``global`` and ``pack``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
-query/target pairs) and ``pack`` (DNA FASTA <-> the 2-bit ``.npz``
-container). Output is the same JSON lines (or SAM) as ``python -m swtpu``
-prints for the same arguments.
+query/target pairs), ``semiglobal`` and ``global`` (semi-global and
+Needleman-Wunsch alignment with traceback) and ``pack`` (DNA FASTA <->
+the 2-bit ``.npz`` container). Output is the same JSON lines (or SAM) as
+``python -m swtpu`` prints for the same arguments.
 
 Usage:
   python -m swtpu_torch align --random 1024x128x128 --scoring 10,-30 --gap 15
@@ -13,6 +15,9 @@ Usage:
   python -m swtpu_torch align --random 8x64x64 --gap-open 40 --gap-extend 15 --sam
   python -m swtpu_torch align --alphabet protein --random 64x128x128 --gap-open 11 --gap-extend 1
   python -m swtpu_torch align --random 8x64x64 --device cpu
+  python -m swtpu_torch semiglobal --random 8x200x200 --traceback
+  python -m swtpu_torch global --queries q.fa --targets t.fa --cigar
+  python -m swtpu_torch global --alphabet protein --random 8x128x128 --gap-open 11 --gap-extend 1 --sam
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
 
@@ -150,6 +155,46 @@ def cmd_align(args):
         print(json.dumps(dict(pair=name, score=int(s))))
 
 
+def cmd_semiglobal(args, pin_end=False):
+    """Semi-global (or, ``pin_end``, global) alignment with traceback:
+    JSON records with score, start and end (``--traceback`` the path,
+    ``--cigar`` a CIGAR without soft clips), or SAM."""
+    names, qs, ts, ql, tl = _load_pair_inputs(args)
+    from swtpu_torch.batch import semiglobal_align_batch
+
+    # varlen FASTA batches pass their lengths; uniform batches do not
+    varlen = bool(
+        (np.asarray(ql) != qs.shape[1]).any()
+        or (np.asarray(tl) != ts.shape[1]).any()
+    )
+    kw = dict(lens_q=ql, lens_t=tl) if varlen else {}
+    kw.update(pin_end=pin_end, device=args.device)
+    if args.alphabet == "protein":
+        out = semiglobal_align_batch(qs, ts, params=_scoring(args), **kw)
+    else:
+        match, mismatch = (int(x) for x in args.scoring.split(","))
+        out = semiglobal_align_batch(
+            qs, ts, match, abs(mismatch), args.gap,
+            gap_open=args.gap_open,
+            gap_extend=args.gap_extend if args.gap_open is not None else None,
+            **kw,
+        )
+    if args.sam:
+        _emit_sam(names, qs, ts, ql, tl, args.alphabet, out)
+        return
+    from swtpu_torch.core.cigar import path_to_cigar
+
+    for k, (name, (score, path)) in enumerate(zip(names, out)):
+        rec = dict(pair=name, score=score, start=path[0], end=path[-1])
+        if args.traceback:
+            rec["path"] = path
+        if args.cigar:
+            # semi-global: the alignment window is the path itself, no
+            # soft clips (it starts at the top-left by definition)
+            rec["cigar"] = path_to_cigar(path, qs[k], ts[k])
+        print(json.dumps(rec))
+
+
 def cmd_pack(args):
     """DNA FASTA <-> 2-bit packed .npz batch container."""
     import os
@@ -182,45 +227,60 @@ def build_parser():
     ap = argparse.ArgumentParser(prog="swtpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    def common(p):
+        p.add_argument("--queries", help="FASTA of query sequences")
+        p.add_argument("--targets", help="FASTA of target sequences")
+        p.add_argument(
+            "--random", help="BxNxM: generate B random pairs of lengths N, M"
+        )
+        p.add_argument("--seed", type=int, default=10000)
+        p.add_argument(
+            "--alphabet", choices=["dna", "protein"], default="dna",
+            help="dna (--scoring match,mismatch) or protein (BLOSUM62)",
+        )
+        p.add_argument("--scoring", default="1,-1", help="match,mismatch")
+        p.add_argument("--gap", type=int, default=1)
+        p.add_argument("--gap-open", type=int, default=None)
+        p.add_argument("--gap-extend", type=int, default=1)
+        p.add_argument("--traceback", action="store_true")
+        p.add_argument(
+            "--cigar",
+            action="store_true",
+            help="emit a SAM-style extended CIGAR (=/X/I/D, soft clips "
+            "for local alignments) derived from the traceback path",
+        )
+        p.add_argument(
+            "--sam",
+            action="store_true",
+            help="emit full SAM 1.6 records (header + one line per pair, "
+            "AS/NM tags) instead of JSON; implies traceback",
+        )
+        p.add_argument(
+            "--device", choices=["cuda", "cpu"], default="cuda",
+            help="where the engines run (default cuda; no CPU fallback)",
+        )
+
     p = sub.add_parser("align", help="local (Smith-Waterman) alignment")
-    p.add_argument("--queries", help="FASTA of query sequences")
-    p.add_argument("--targets", help="FASTA of target sequences")
-    p.add_argument(
-        "--random", help="BxNxM: generate B random pairs of lengths N, M"
-    )
-    p.add_argument("--seed", type=int, default=10000)
-    p.add_argument(
-        "--alphabet", choices=["dna", "protein"], default="dna",
-        help="dna (--scoring match,mismatch) or protein (BLOSUM62)",
-    )
-    p.add_argument("--scoring", default="1,-1", help="match,mismatch")
-    p.add_argument("--gap", type=int, default=1)
-    p.add_argument("--gap-open", type=int, default=None)
-    p.add_argument("--gap-extend", type=int, default=1)
-    p.add_argument("--traceback", action="store_true")
-    p.add_argument(
-        "--cigar",
-        action="store_true",
-        help="emit a SAM-style extended CIGAR (=/X/I/D, soft clips) "
-        "derived from the traceback path",
-    )
-    p.add_argument(
-        "--sam",
-        action="store_true",
-        help="emit full SAM 1.6 records (header + one line per pair, "
-        "AS/NM tags) instead of JSON; implies traceback",
-    )
+    common(p)
     p.add_argument(
         "--engine", default="xla_diag",
         help="score engine for linear scoring (oracle|xla_diag|rowscan|"
         "rowscan_prof|rowscan_bf16); a name whose guard fails, or that is "
         "not ported, runs best_engine",
     )
-    p.add_argument(
-        "--device", choices=["cuda", "cpu"], default="cuda",
-        help="where the engines run (default cuda; no CPU fallback)",
-    )
     p.set_defaults(fn=cmd_align)
+
+    p = sub.add_parser("semiglobal", help="semi-global alignment")
+    common(p)
+    p.set_defaults(fn=cmd_semiglobal)
+
+    p = sub.add_parser(
+        "global",
+        help="global (Needleman-Wunsch) alignment — the semi-global "
+        "forward pass with the endpoint pinned at each pair's corner",
+    )
+    common(p)
+    p.set_defaults(fn=lambda args: cmd_semiglobal(args, pin_end=True))
 
     p = sub.add_parser(
         "pack",

@@ -93,7 +93,7 @@ def diag_setup(qs, ts, params: ScoringParams, device=None):
     m = ts.shape[1]
     if ts.shape[0] != B:
         raise ValueError(f"batch mismatch: {B} queries vs {ts.shape[0]} targets")
-    q_slot = torch.cat([torch.full_like(qs[:, :1], q_pad), qs], dim=1)
+    q_slot = torch.cat([qs.new_full((B, 1), q_pad), qs], dim=1)
     frame = torch.full((B, n + 1), t_pad, dtype=torch.int64, device=dev)
     ts_rev_pad = torch.cat([frame, ts.flip(1), frame], dim=1)  # [B, m+2n+2]
     prof = table[q_slot]  # [B, n+1, stride]

@@ -7,3 +7,9 @@ from swtpu_torch.oracle.affine import (  # noqa: F401
     sw_affine_score,
     sw_affine_traceback,
 )
+from swtpu_torch.oracle.semiglobal import (  # noqa: F401
+    nw_affine_full,
+    nw_full,
+    semiglobal_affine_full,
+    semiglobal_full,
+)

@@ -14,21 +14,32 @@ profile kernels (``sw_profile``) run BLOSUM62 and general 4x4 matrices,
 internal pads included; the bf16 kernel (``sw_bf16``) equals its plain
 version everywhere, drift above the exact range included, and the
 int32 kernel inside it. The varlen and promotion entry points on the card
-equal themselves on the CPU.
+equal themselves on the CPU. The semi-global kernels
+(``semiglobal_batch``, ``semiglobal_profile``) equal their plain version,
+argmax and pinned (global), with per-pair lengths down to 0, and the
+alignment entry points on the card equal themselves on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from swtpu_torch.batch import promote, sw_scores_varlen
+from swtpu_torch.batch import (
+    nw_align_batch, promote, semiglobal_align_batch, sw_scores_varlen,
+)
 from swtpu_torch.core.encode import mutate, pack_2bit
 from swtpu_torch.core.protein import BLOSUM62
 from swtpu_torch.core.scoring import (
     DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
 )
-from swtpu_torch.kernels import sw_affine, sw_batch, sw_bf16, sw_profile
-from swtpu_torch.oracle import sw_affine_traceback, sw_score_batch, sw_traceback
+from swtpu_torch.kernels import (
+    semiglobal_batch, semiglobal_profile, sw_affine, sw_batch, sw_bf16,
+    sw_profile,
+)
+from swtpu_torch.oracle import (
+    nw_affine_full, nw_full, semiglobal_affine_full, semiglobal_full,
+    sw_affine_traceback, sw_score_batch, sw_traceback,
+)
 from swtpu_torch.oracle.affine import sw_affine_score_batch
 
 pytestmark = pytest.mark.cuda
@@ -363,3 +374,152 @@ def test_promoted_device_on_card_equals_cpu(card, cap_frac):
     assert 0 < got[1].mean() < 1
     np.testing.assert_array_equal(
         got[0][:8], sw_score_batch(qh[:8], th[:8], DNA_111))
+
+
+SG_SCORINGS = {
+    "111": dict(match=1, mismatch=1, gap=1),
+    "tie_rich_211": dict(match=2, mismatch=1, gap=1),
+    "affine_2351": dict(match=2, mismatch=3, gap_open=5, gap_extend=1),
+    "go_eq_ge": dict(match=2, mismatch=3, gap_open=2, gap_extend=2),
+    "blosum62_linear11": PROFILE_SCORINGS["blosum62_linear11"],
+    "blosum62_gotoh11_1": PROFILE_SCORINGS["blosum62_gotoh11_1"],
+    "dna_general_linear2": PROFILE_SCORINGS["dna_general_linear2"],
+    "dna_general_gotoh3_1": PROFILE_SCORINGS["dna_general_gotoh3_1"],
+}
+
+
+def sg_call(scoring, plain, qs, ts, **kw):
+    """The semi-global wrapper (or its plain version) for a scoring."""
+    s = SG_SCORINGS[scoring]
+    if isinstance(s, dict):
+        fn = (semiglobal_batch.semiglobal_batch_plain if plain
+              else semiglobal_batch.semiglobal_batch)
+        return fn(qs, ts, **s, **kw)
+    fn = (semiglobal_profile.semiglobal_profile_plain if plain
+          else semiglobal_profile.semiglobal_profile)
+    return fn(qs, ts, s, **kw)
+
+
+def sg_codes(rng, scoring, B, n, m, device):
+    """Half related pairs (the target is the query behind a 2-letter head
+    with ~15% substitutions), half random, in the scoring's alphabet."""
+    s = SG_SCORINGS[scoring]
+    A = 4 if isinstance(s, dict) or s.alphabet_size == 4 else 20
+    qs = rng.integers(0, A, size=(B, n)).astype(np.uint8)
+    ts = rng.integers(0, A, size=(B, m)).astype(np.uint8)
+    for b in range(B // 2):
+        t = np.concatenate([rng.integers(0, A, 2), qs[b]]).astype(np.uint8)
+        sub = rng.random(len(t)) < 0.15
+        t[sub] = rng.integers(0, A, int(sub.sum()))
+        ts[b, : min(m, len(t))] = t[:m]
+    return torch.from_numpy(qs).to(device), torch.from_numpy(ts).to(device)
+
+
+@pytest.mark.parametrize("shape", ["4096x128x128", "1000x90x200_varlen",
+                                   "33x7x1", "4x40x2560", "64x0x9_varlen",
+                                   "64x9x0"])
+@pytest.mark.parametrize("scoring", list(SG_SCORINGS))
+def test_semiglobal_kernels_equal_plain_on_card(card, scoring, shape):
+    B, n, m = (int(x) for x in shape.split("_")[0].split("x"))
+    rng = np.random.default_rng(10000)
+    qs, ts = sg_codes(rng, scoring, B, n, m, card)
+    lens = {}
+    if shape.endswith("varlen"):
+        lq, lt = rng.integers(0, n + 1, B), rng.integers(0, m + 1, B)
+        lq[:3], lt[:3] = (0, n, 0), (m, 0, 0)
+        lens = dict(lens_q=lq, lens_t=lt)
+    s = SG_SCORINGS[scoring]
+    kern = (semiglobal_batch.semiglobal_batch if isinstance(s, dict)
+            else semiglobal_profile.semiglobal_profile)
+    for pin in (False, True):
+        before = kern.launches
+        got = sg_call(scoring, False, qs, ts, pin_end=pin, **lens)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        for g, w in zip(got, sg_call(scoring, True, qs, ts, pin_end=pin, **lens)):
+            assert g.device.type == "cuda" and g.dtype == torch.int32
+            assert torch.equal(g, w), (scoring, shape, pin)
+
+
+def test_semiglobal_kernels_equal_oracle_on_card(card):
+    rng = np.random.default_rng(10000)
+    for scoring, full, nw in (
+        ("tie_rich_211", semiglobal_full, nw_full),
+        ("affine_2351", semiglobal_affine_full, nw_affine_full),
+        ("blosum62_gotoh11_1", semiglobal_affine_full, nw_affine_full),
+    ):
+        qd, td = sg_codes(rng, scoring, 32, 40, 48, card)
+        qh, th = qd.cpu().numpy(), td.cpu().numpy()
+        s = SG_SCORINGS[scoring]
+        if isinstance(s, dict):
+            kw = dict(match=s["match"], mismatch=s["mismatch"])
+            kw.update(gap_open=s["gap_open"], gap_extend=s["gap_extend"]
+                      ) if "gap_open" in s else kw.update(gap=s["gap"])
+        else:
+            kw = dict(matrix=s.matrix, gap_open=s.gap_open, gap_extend=s.gap_extend)
+        for pin, walker in ((False, full), (True, nw)):
+            sc, ei, ej = (x.cpu().numpy() for x in sg_call(
+                scoring, False, qd, td, pin_end=pin))
+            for b in range(32):
+                s0, path = walker(qh[b], th[b], **kw)
+                assert (s0, path[-1]) == (sc[b], (ei[b], ej[b])), (scoring, pin, b)
+
+
+@pytest.mark.parametrize("scoring", ["affine_2351", "blosum62_linear11"])
+def test_semiglobal_bare_launch_equals_wrapper_on_card(card, scoring):
+    rng = np.random.default_rng(10000)
+    qs, ts = sg_codes(rng, scoring, 300, 50, 70, card)
+    lq = torch.from_numpy(rng.integers(0, 51, 300).astype(np.int32)).to(card)
+    lt = torch.from_numpy(rng.integers(0, 71, 300).astype(np.int32)).to(card)
+    s = SG_SCORINGS[scoring]
+    if isinstance(s, dict):
+        go, ge, affine = semiglobal_batch.gaps(**{k: v for k, v in s.items()
+                                                  if k.startswith("gap")})
+        args = (s["match"], -s["mismatch"], go, ge, affine)
+        table = None
+    else:
+        args = (0, 0, s.gap_open, s.gap_extend, not s.is_linear)
+        table = sw_profile.profile_table(s, card)
+    qT, tT = qs.t().contiguous(), ts.t().contiguous()
+    for pin in (False, True):
+        got = semiglobal_batch.semiglobal_launch_t(qT, tT, *args, pin, lq, lt,
+                                                   table=table)
+        want = sg_call(scoring, False, qs, ts, pin_end=pin, lens_q=lq, lens_t=lt)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="contiguous uint8"):
+        semiglobal_batch.semiglobal_launch_t(qs.t(), ts.t(), *args, False,
+                                             table=table)
+    with pytest.raises(ValueError, match="int32"):
+        semiglobal_batch.semiglobal_launch_t(qT, tT, *args, False, lq.long(), lt,
+                                             table=table)
+
+
+def test_semiglobal_guards_raise_on_card(card):
+    q = torch.zeros((2, 8), dtype=torch.uint8, device=card)
+    counts = (semiglobal_batch.semiglobal_batch.launches,
+              semiglobal_profile.semiglobal_profile.launches)
+    for kw in (dict(gap=0), dict(gap_open=3, gap_extend=0), dict(gap=-1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            semiglobal_batch.semiglobal_batch(q, q, **kw)
+    for p in (ScoringParams.linear(dna_matrix(1, -1), 0),
+              ScoringParams.linear(np.where(np.eye(4, dtype=bool), 200, -1), 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            semiglobal_profile.semiglobal_profile(q, q, p)
+    assert counts == (semiglobal_batch.semiglobal_batch.launches,
+                      semiglobal_profile.semiglobal_profile.launches)
+
+
+@pytest.mark.parametrize("scoring", ["tie_rich_211", "affine_2351",
+                                     "blosum62_gotoh11_1"])
+def test_semiglobal_align_on_card_equals_cpu(card, scoring):
+    rng = np.random.default_rng(10000)
+    qd, td = sg_codes(rng, scoring, 64, 60, 72, card)
+    qh, th = qd.cpu().numpy(), td.cpu().numpy()
+    lens = dict(lens_q=rng.integers(0, 61, 64), lens_t=rng.integers(0, 73, 64))
+    s = SG_SCORINGS[scoring]
+    kw = dict(s) if isinstance(s, dict) else dict(params=s)
+    for fn in (semiglobal_align_batch, nw_align_batch):
+        for extra in ({}, lens):
+            got = fn(qh, th, **kw, **extra)
+            assert got == fn(qh, th, **kw, **extra, device="cpu")

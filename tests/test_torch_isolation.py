@@ -8,7 +8,12 @@
   uniform matrix, profile for any other), never the plain tier, and
   scoring no kernel takes raises; ``align --engine`` picks its engine
   from the guard predicates (checked with the card's presence faked and
-  the wrappers replaced, so nothing runs).
+  the wrappers replaced, so nothing runs);
+- on a CUDA device semi-global and global alignment (the entry points,
+  the wrappers and the ``semiglobal`` / ``global`` CLI) launch the
+  semi-global kernel, uniform for scalars and profile for ``params=``,
+  never the plain tier, and scoring it does not take raises (checked
+  with the card faked and the launch replaced by a recorder).
 """
 
 import json
@@ -33,6 +38,9 @@ from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
 from swtpu_torch.kernels import (
     _build,
     affine_scan,
+    semiglobal_batch,
+    semiglobal_profile,
+    semiglobal_scan,
     sw_affine,
     sw_batch,
     sw_bf16,
@@ -51,7 +59,8 @@ GENERAL_AFF = ScoringParams(np.arange(16).reshape(4, 4) - 8, 3, 1)
 WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
             sw_affine.sw_affine, sw_affine.sw_affine_ends,
             sw_profile.sw_profile, sw_profile.sw_profile_ends,
-            sw_bf16.sw_bf16]
+            sw_bf16.sw_bf16, semiglobal_batch.semiglobal_batch,
+            semiglobal_profile.semiglobal_profile]
 
 
 def _module_names():
@@ -133,6 +142,14 @@ NO_DEVICE_CALLS = {
         lambda: promote.sw_scores_promoted_device(Q, Q, DNA_10_30_15),
     "load_packed_batch_device":
         lambda: port_io.load_packed_batch("reads.npz", device=True),
+    "semiglobal_batch": lambda: semiglobal_batch.semiglobal_batch(Q, Q),
+    "semiglobal_profile":
+        lambda: semiglobal_profile.semiglobal_profile(Q, Q, GENERAL_AFF),
+    "semiglobal_batch_diag": lambda: semiglobal_scan.semiglobal_batch_diag(Q, Q),
+    "nw_batch_general": lambda: semiglobal_scan.nw_batch_general(Q, Q, GENERAL),
+    "semiglobal_align_batch":
+        lambda: port_traceback.semiglobal_align_batch(Q, Q, gap_open=3),
+    "nw_align_batch": lambda: port_traceback.nw_align_batch(Q, Q, params=GENERAL),
 }
 
 
@@ -149,6 +166,8 @@ def test_no_card_entry_without_device_raises(entry):
 @pytest.mark.parametrize("argv", [
     ["align", "--random", "2x8x8"],
     ["align", "--random", "2x8x8", "--cigar"],
+    ["semiglobal", "--random", "2x8x8", "--traceback"],
+    ["global", "--alphabet", "protein", "--random", "2x8x8", "--sam"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
@@ -270,3 +289,130 @@ def test_variant_registry_holds_the_ported_names():
     for name in ("wavefront", "colscan", "nope"):
         with pytest.raises(KeyError, match="unknown variant"):
             variants.get_variant(name)
+
+
+@pytest.fixture
+def fake_sg_card(monkeypatch):
+    """Pretend a card exists for the semi-global wrappers: the codes and
+    lengths stay on the CPU, and the kernel launch is a recorder that
+    returns the plain tier's result, computed apart; the plain tier as the
+    wrappers see it fails."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls, seen = [], {}
+    cpu = torch.device("cpu")
+    lens_tensor = semiglobal_batch.lens_tensor
+
+    def layout(qs, ts, device, what):
+        assert device.type == "cuda"
+        return (port_device.as_codes(qs, cpu).t().contiguous(),
+                port_device.as_codes(ts, cpu).t().contiguous())
+
+    def lens(x, B, device):
+        assert device.type == "cuda"
+        return lens_tensor(x, B, cpu)
+
+    def table(params, device):
+        assert device.type == "cuda"
+        seen["params"] = params
+        return torch.as_tensor(sw_scan._extended_table(params))
+
+    def launch(qT, tT, match, mismatch, go, ge, affine, pin_end, lens_q=None,
+               lens_t=None, table=None):
+        calls.append(("profile" if table is not None else "uniform", affine,
+                      pin_end, lens_q is not None))
+        kw = dict(lens_q=lens_q, lens_t=lens_t, pin_end=pin_end, device="cpu")
+        if table is not None:
+            return semiglobal_scan.semiglobal_batch_general(
+                qT.t(), tT.t(), seen["params"], **kw)
+        return semiglobal_scan.semiglobal_batch_diag(
+            qT.t(), tT.t(), match, -mismatch, gap_open=go, gap_extend=ge, **kw)
+
+    for mod in (semiglobal_batch, semiglobal_profile):
+        monkeypatch.setattr(mod, "kernel_layout", layout)
+        monkeypatch.setattr(mod, "lens_tensor", lens)
+        monkeypatch.setattr(mod, "semiglobal_launch_t", launch)
+    monkeypatch.setattr(semiglobal_profile, "profile_table", table)
+    for mod, name in ((semiglobal_batch, "semiglobal_batch_diag"),
+                      (semiglobal_batch, "semiglobal_batch_plain"),
+                      (semiglobal_profile, "semiglobal_batch_general"),
+                      (semiglobal_profile, "semiglobal_profile_plain")):
+        monkeypatch.setattr(
+            mod, name,
+            lambda *a, _n=name, **k: pytest.fail(f"plain tier {_n} ran on CUDA"))
+    return calls
+
+
+def _sg_pairs(B=6, n=10, m=12):
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, 4, size=(B, n)).astype(np.uint8)
+    ts = np.concatenate([qs[:, 1:], rng.integers(0, 4, size=(B, m - n + 1))],
+                        axis=1).astype(np.uint8)
+    return qs, ts, rng.integers(0, n + 1, B), rng.integers(0, m + 1, B)
+
+
+@pytest.mark.parametrize("entry,kw,varlen,call", [
+    ("semiglobal", dict(match=2, mismatch=1, gap=1), False,
+     ("uniform", False, False, False)),
+    ("semiglobal", dict(match=2, mismatch=3, gap_open=5, gap_extend=1), True,
+     ("uniform", True, False, True)),
+    # gap_open == gap_extend collapses to linear, as in JAX
+    ("global", dict(match=2, mismatch=3, gap_open=2, gap_extend=2), False,
+     ("uniform", False, True, False)),
+    ("global", dict(match=1, mismatch=1, gap=1), True,
+     ("uniform", False, True, True)),
+    ("semiglobal", dict(params=GENERAL), False, ("profile", False, False, False)),
+    # a uniform matrix under params= goes to the profile kernel too
+    ("semiglobal", dict(params=ScoringParams.linear(dna_matrix(1, -1), 1)), True,
+     ("profile", False, False, True)),
+    ("global", dict(params=GENERAL_AFF), True, ("profile", True, True, True)),
+])
+def test_cuda_semiglobal_dispatch_runs_the_kernel(fake_sg_card, entry, kw,
+                                                  varlen, call):
+    qs, ts, lq, lt = _sg_pairs()
+    lens = dict(lens_q=lq, lens_t=lt) if varlen else {}
+    fn = (port_traceback.semiglobal_align_batch if entry == "semiglobal"
+          else port_traceback.nw_align_batch)
+    wrapper = (semiglobal_profile.semiglobal_profile if "params" in kw
+               else semiglobal_batch.semiglobal_batch)
+    before = (wrapper.launches, wrapper.launches_affine, wrapper.launches_pinned)
+    got = fn(qs, ts, **kw, **lens)
+    assert fake_sg_card == [call]
+    assert (wrapper.launches, wrapper.launches_affine, wrapper.launches_pinned) == (
+        before[0] + 1, before[1] + call[1], before[2] + call[2])
+    # the walk held each path to the recorded device scores and endpoints
+    assert len(got) == len(qs)
+    if entry == "global":
+        assert [path[-1] for _, path in got] == [
+            (lq[b], lt[b]) if varlen else (10, 12) for b in range(len(qs))]
+
+
+@pytest.mark.parametrize("call", [
+    lambda: semiglobal_batch.semiglobal_batch(Q, Q, gap=0),
+    lambda: semiglobal_batch.semiglobal_batch(Q, Q, gap_open=3, gap_extend=0),
+    lambda: port_traceback.nw_align_batch(Q, Q, match=1, mismatch=1, gap=-1),
+    lambda: semiglobal_profile.semiglobal_profile(
+        Q, Q, ScoringParams.linear(dna_matrix(1, -1), 0)),
+    lambda: port_traceback.semiglobal_align_batch(
+        Q, Q, params=ScoringParams.linear(
+            np.where(np.eye(4, dtype=bool), 200, -1), 2)),
+])
+def test_cuda_semiglobal_raises_without_a_kernel(fake_sg_card, call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call()
+    assert fake_sg_card == []
+
+
+@pytest.mark.parametrize("argv,call", [
+    (["semiglobal", "--random", "4x10x12", "--scoring", "2,-1", "--cigar"],
+     ("uniform", False, False, False)),
+    (["global", "--alphabet", "protein", "--random", "4x10x12", "--gap-open",
+      "11", "--gap-extend", "1", "--sam"], ("profile", True, True, False)),
+])
+def test_cuda_semiglobal_cli_runs_the_kernel(fake_sg_card, argv, call, capsys):
+    from swtpu.cli import main as jax_cli
+
+    cli.main(argv)
+    on_card = capsys.readouterr().out
+    assert fake_sg_card == [call]
+    jax_cli(argv)
+    assert capsys.readouterr().out == on_card and len(on_card.splitlines()) >= 4
