@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's four main paths on the card, through the entry points
+Drives the port's five main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
@@ -10,13 +10,16 @@ linear and Gotoh gaps; the profile kernels of ``csrc/sw_profile.cu``),
 the variable-length read path of BASELINE config 4 (the 2-bit wire
 decoded on the card, pads past each length, overflow promotion through
 the bf16 tier of ``csrc/sw_bf16.cu`` with an int32 re-run on the row-scan
-kernel, ``pack`` and ``.npz`` inputs, ``align --engine``) and the
+kernel, ``pack`` and ``.npz`` inputs, ``align --engine``), the
 semi-global / global path (scores and endpoints, fixed and per-pair
 lengths, traceback, the ``semiglobal`` and ``global`` CLI; the uniform and
-profile forms of ``csrc/sw_semiglobal.cu``).
+profile forms of ``csrc/sw_semiglobal.cu``) and the banded path (fixed
+band at BASELINE config 2 through ``csrc/sw_banded.cu``, the per-round
+adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
+``banded`` CLI).
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on the four CUDA sources at once; registers, spills and
+   2. build: nvcc on the six CUDA sources at once; registers, spills and
       shared memory of each kernel;
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
@@ -31,19 +34,30 @@ profile forms of ``csrc/sw_semiglobal.cu``).
       33 x 7 x 1 and 4 x 40 x 2560, under (1,1,1), (2,1,1), (2,3,5,1),
       (2,3,2,2), BLOSUM62 linear 11 and Gotoh 11/1 and a 4x4 DNA matrix
       linear 2 and Gotoh 3/1, and on 64 pairs against the oracle copy;
+      the fixed-band kernel, both forms, at W = 8 to 160 on 32768 x 128 x
+      128 (half related), 1000 x 90 x 200 with internal pads and lengths,
+      64 x 40 x 300, 64 x 300 x 40 and 33 x 7 x 1 under (1,-1,1),
+      (10,-30,15), Gotoh (1,-1,3,1), BLOSUM62 11 and 11/1 and a 4x4 DNA
+      matrix 3/1, 64 pairs against the oracle copy; the per-round kernel
+      at W = 8, 32, 64, 96 and 128 in every field (history, pos_y and
+      offsets below each pair's n_rounds) on 512 x 256 related DNA pairs
+      with lengths (64 short queries whose bands run off the target),
+      Gotoh with the 8-bit history and a non-homologous (1,3,2) X = 40
+      set at every W, and at W = 32 and 96 also protein BLOSUM62 11/1 at
+      X = 120 and scores only; 8 pairs against the oracle copy;
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
-      (10, -30, open 40, extend 15), timed with CUDA events; all 1M scores
-      held against the plain version on the card;
-   5. DNA main path, traceback: ``sw_align_batch`` on 256 related pairs,
+      (10, -30, open 40, extend 15), timed with CUDA events; the first
+      262,144 scores held against the plain version on the card;
+   5. DNA main path, traceback: ``sw_align_batch`` on 64 related pairs,
       linear and affine, with endpoint, rescoring, CIGAR and SAM checks;
       the device endpoints held against the plain version;
    6. DNA CLI: ``swtpu_torch.cli.main(["align", ...])``, captured and
       checked against the oracle;
    7. protein main path, scores: ``best_engine`` at 1,048,576 x
       (128 x 128) random protein, BLOSUM62 linear 11 and Gotoh 11/1
-      (the JAX package's ``bench_protein`` scorings), timed; all 1M scores
-      held against the plain version on the card, in chunks;
+      (the JAX package's ``bench_protein`` scorings), timed; the first
+      262,144 scores held against the plain version on the card, in chunks;
    8. protein main path, BASELINE config 3: 64 mutated 120-mer fragments
       against the 256 SwissProt-like targets of
       ``swtpu/data/swissprot_like_256.fasta`` (read as data), 16,384 pairs
@@ -51,7 +65,7 @@ profile forms of ``csrc/sw_semiglobal.cu``).
       ``bench_protein_swissprot`` builds them; wall ms and GCUPS over the
       real cells; every score against the plain version, 32 against the
       oracle;
-   9. protein main path, traceback: ``sw_align_batch`` on 256 related
+   9. protein main path, traceback: ``sw_align_batch`` on 64 related
       protein 128-mers, Gotoh 11/1 and linear 11, with the same checks as
       phase 5 and a protein SEQ in SAM;
   10. protein CLI: ``align --alphabet protein``, captured and checked;
@@ -69,7 +83,7 @@ profile forms of ``csrc/sw_semiglobal.cu``).
       fraction, and its fused split on device tensors; every score against
       the int32 kernel and ``sw_scores_promoted``, 32 against the oracle;
       the host remainder path (``cap_frac=1/2048``);
-  13. config 4, traceback sample: ``sw_align_batch`` on 64 promotion
+  13. config 4, traceback sample: ``sw_align_batch`` on 16 promotion
       pairs, with the checks of phase 5;
   14. the bf16 tier at the headline size, 1,048,576 x (128 x 128) under
       (10, -30, 15), timed beside ``best_engine``'s int32 kernel on the
@@ -78,28 +92,51 @@ profile forms of ``csrc/sw_semiglobal.cu``).
       inputs against the FASTA run, ``align --engine rowscan_bf16``
       against the oracle;
   16. kernel times at 32768 x (128 x 128) (DNA for the row-scan, bf16
-      and uniform semi-global kernels, protein for the profile kernels):
-      the wrapper (layout transposes included) and the launch alone on
-      codes already transposed, beside the plain version's time and the
-      bound; the one-line benchmark;
+      and uniform semi-global kernels, protein for the profile kernels;
+      the fixed band at W = 32) and for the per-round kernel on 256
+      related 2048-mers, scores only, at W = 96 and 32: the wrapper
+      (layout transposes or row padding included) and the launch alone,
+      beside the plain version's time (one call, whose result phase 23
+      reuses) and the bound; the one-line benchmark;
   17. semi-global path, scores and endpoints at 1,048,576 x (128 x 128)
       (the JAX package's ``bench_semiglobal_full`` inputs at the headline
       scale): random DNA under (1,1,1) and (2,3,5,1), random protein under
       BLOSUM62 linear 11 and Gotoh 11/1, through ``semiglobal_batch`` /
-      ``semiglobal_profile``, timed; all scores and endpoints held against
-      the plain version on the card, 64 against the oracle copy;
+      ``semiglobal_profile``, timed; the first 262,144 scores and endpoints
+      held against the plain version on the card, 16 against the oracle copy;
   18. global path at 1M pairs: DNA (1,1,1) and protein Gotoh 11/1, pinned;
   19. varlen: 32,768 DNA pairs, query lengths 96-128, target lengths
       112-128, (1,1,1), semi-global and global, timed;
-  20. traceback: ``semiglobal_align_batch`` and ``nw_align_batch`` on 256
-      related DNA pairs (linear), 64 affine and 64 protein Gotoh 11/1:
+  20. traceback: ``semiglobal_align_batch`` and ``nw_align_batch`` on 64
+      related DNA pairs (linear), 16 affine and 16 protein Gotoh 11/1:
       paths from (0, 0) to the device endpoint, rescoring, CIGAR and SAM;
   21. the ``semiglobal`` and ``global`` CLI, DNA and protein, against the
-      oracle copy.
+      oracle copy;
+  22. fixed-band path, BASELINE config 2: 1,048,576 random 128 x 128
+      pairs at W = 32, DNA (1,-1,1) and Gotoh (1,-1,3,1), protein
+      BLOSUM62 11 and 11/1, through ``banded_static_scores``, timed in
+      band GCUPS over the in-band cells; the first 262,144 scores against
+      the plain version, 64 against the oracle copy; 2048 related 2048-mers;
+  23. per-round adaptive band on the JAX ``bench_suite``'s sets: 256
+      related DNA 2048-mers at W = 32, X = 70 (scores only, and with the
+      int32 and 8-bit history, and through ``banded_forward_batch``),
+      Gotoh 3/1, ~70%-identity protein BLOSUM62 11/1 at X = 120, the
+      non-homologous (1,3,2) X = 40 early-exit set, W = 64 and 96, and
+      16,384 pairs scores only; band GCUPS count rounds written x W; each
+      scoring and the history against the plain version (W = 64 against
+      the oracle copy on 2 pairs), and the 16,384 pairs' bound;
+  24. traceback: ``banded_static_align_batch`` on 256 related 128-mers
+      (DNA linear and Gotoh, protein 11/1), paths in the corridor and
+      rescored; ``banded_align_batch`` on 64 related 2048-mers (linear,
+      Gotoh, protein), paths from the origin rescored, 2 against the
+      oracle copy, and on 16 of them at W = 96;
+  25. the ``banded`` CLI (``--fixed`` and the per-round band at W = 96,
+      DNA and protein) against the oracle copy; ``--block-adaptive``
+      refuses.
 
-Launch counts are zeroed just before each path (phases 4, 7, 11 and 17)
-and read just after it (phases 6, 10, 15 and 21); every kernel of a path
-must have launched in its window. Inside the config-4 window the calls that
+Launch counts are zeroed just before each path (phases 4, 7, 11, 17 and
+22) and read just after it (phases 6, 10, 15, 21 and 25); every kernel of
+a path must have launched in its window. Inside the config-4 window the calls that
 are not the path's own (the fused unit and split on staged tensors, the
 per-part times, the reference checks, phase 14) run between a
 ``snapshot`` of the counts and their ``restore``, so the window counts
@@ -126,8 +163,14 @@ import numpy as np
 import torch
 
 SEED = 10000
+T_START = time.perf_counter()  # phase headers and the total count from here
+# the 1M-pair calls (phases 4, 7, 17, 18, 22) are held against their plain
+# version on their first quarter
+CHECK_PAIRS = 1 << 18
 ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
 SEMIGLOBAL = "sw_semiglobal.cu"
+BANDED, XDROP = "sw_banded.cu", "sw_xdrop.cu"
+SOURCES = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL, BANDED, XDROP]
 SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like_256.fasta"
 # DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
 # at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
@@ -199,12 +242,53 @@ KERNELS = {
     "semiglobal_profile_affine_pinned": (
         SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb1ELb1E",
         "swtpu/kernels/pallas/semiglobal_profile.py:201", 11, 1, 0),
+    # fixed band <AFFINE, PROFILE>: the row-scan's counts per in-band cell
+    # (the ramps' 4-op mask is left out)
+    "sw_banded_static": (BANDED, "sw_banded_kernelILb0ELb0E",
+                         "swtpu/kernels/pallas/sw_banded.py:239", 9, 0, 0),
+    "sw_banded_static_affine": (BANDED, "sw_banded_kernelILb1ELb0E",
+                                "swtpu/kernels/pallas/sw_banded.py:239", 14, 0, 0),
+    "sw_banded_profile": (BANDED, "sw_banded_kernelILb0ELb1E",
+                          "swtpu/kernels/pallas/sw_banded.py:239", 7, 1, 0),
+    "sw_banded_profile_affine": (BANDED, "sw_banded_kernelILb1ELb1E",
+                                 "swtpu/kernels/pallas/sw_banded.py:239", 12, 1, 0),
+    # the per-round kernel <CPL, AFFINE>: one source, two TPU rows; the
+    # W = 32 / 64 calls (CPL 1, 2) stand for the packed TPU kernel. Its ops
+    # are counted per cell and per pair and round: see xdrop_ops
+    "banded_batch": (XDROP, tuple(f"sw_xdrop_kernelILi{c}E" for c in (1, 2, 3, 4)),
+                     "swtpu/kernels/pallas/banded_batch.py:493", None, 0, 0),
+    "banded_batch_w32_w64": (XDROP, ("sw_xdrop_kernelILi1E", "sw_xdrop_kernelILi2E"),
+                             "swtpu/kernels/pallas/banded_packed.py:412", None, 0, 0),
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
                 "sw_profile_affine_ends"]
 CONFIG4_PATH = ["sw_bf16", "sw_batch"]
 SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
+BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
+
+
+def xdrop_ops(affine, matrix):
+    """int32 ops the per-round X-drop function needs: (per band cell, per
+    pair and round). Per cell: the uniform score 3 (compare, pad test,
+    select; the matrix: the table offset add 1, its lookup counted apart),
+    the diagonal 3 (dead test, add, floor at 0), each gap term 3 (dead
+    test, subtract, max), the X-drop 2 (compare, select) and the round max
+    1: 15. Gotoh's E and F (two dead tests, two subtracts and a max each),
+    their floored maxes into H 4 and the dead clears 2 replace the linear
+    gap terms: +10. Once per pair and round: the direction compare, the
+    cursor add and its overrun test, the max update 3 (compare, two
+    selects), the cut max - X, the dead-round test and the loop 2: 10. Not
+    counted, as the kernel's own cost: character addresses, the padding
+    test of cells past W, the band shifts' selects, and the per-round work
+    that every lane repeats."""
+    return 15 + 10 * affine - 2 * matrix, 10
+
+
+def in_band_cells(n, m, W):
+    """Cells (i, j), 1 <= i <= n, 1 <= j <= m, with |i - j| <= W."""
+    i = np.arange(1, n + 1)
+    return int(np.clip(np.minimum(m, i + W) - np.maximum(1, i - W) + 1, 0, None).sum())
 
 
 def tup(x):
@@ -225,7 +309,12 @@ def nvidia_smi(fields):
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
+
+
+def mark(part):
+    """A part of a phase, with the seconds since start."""
+    print(f"-- {part} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def random_codes(rng, shape):
@@ -330,13 +419,15 @@ def main():
         return 2
 
     from swtpu_torch.batch import (
+        banded_align_batch, banded_forward_batch, banded_static_align_batch,
         nw_align_batch, promote, semiglobal_align_batch, sw_align_batch,
         sw_scores_promoted, sw_scores_varlen,
     )
     from swtpu_torch.batch.bucketing import _fused_masked_engine
+    from swtpu_torch.batch.traceback import banded_static_scores
     from swtpu_torch.cli import main as cli_main
     from swtpu_torch.core.cigar import cigar_stats, path_to_cigar
-    from swtpu_torch.core.encode import unpack_2bit
+    from swtpu_torch.core.encode import mutate, unpack_2bit
     from swtpu_torch.core.io import decode_dna, load_fasta_batch, write_fasta
     from swtpu_torch.core.protein import BLOSUM62, decode_protein, random_protein
     from swtpu_torch.core.sam import sam_record
@@ -344,21 +435,25 @@ def main():
         DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
     )
     from swtpu_torch.kernels import (
-        _build, semiglobal_batch as ksg, semiglobal_profile as ksp,
-        sw_affine as ka, sw_batch as kb, sw_bf16 as kbf, sw_profile as kp,
+        _build, banded_batch as kbb, semiglobal_batch as ksg,
+        semiglobal_profile as ksp, sw_affine as ka, sw_banded as ksb,
+        sw_batch as kb, sw_bf16 as kbf, sw_profile as kp,
     )
+    from swtpu_torch.kernels.banded_scan import BandedBatchResult, _prep_padded
+    from swtpu_torch.oracle.banded_affine import banded_affine_xdrop
+    from swtpu_torch.oracle.banded_static import sw_banded_static_score_batch
     from swtpu_torch.oracle.affine import (
         sw_affine_score_batch, sw_affine_traceback,
     )
     from swtpu_torch.oracle.semiglobal import (
-        nw_affine_full, nw_full, semiglobal_affine_full, semiglobal_full,
+        banded_xdrop, nw_affine_full, nw_full, semiglobal_affine_full,
+        semiglobal_full,
     )
     from swtpu_torch.oracle.sw import sw_score, sw_score_batch, sw_traceback
     from swtpu_torch.ops import best_ends_engine, best_engine
     from swtpu_torch.ops.variants import resolve_engine
     from swtpu_torch.utils import time_kernel
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda")
     AFF = ScoringParams(dna_matrix(10, -30), gap_open=40, gap_extend=15)
     P_LIN = ScoringParams.linear(BLOSUM62, 11)
@@ -442,10 +537,38 @@ def main():
         return lambda q, t: fn(q, t, gap_open=p.gap_open,
                                gap_extend=p.gap_extend, **kw)
 
+    # the fixed-band scorings (BASELINE config 2's (1, -1, 1), Gotoh
+    # (1, -1, 3, 1), protein BLOSUM62 11 and 11/1) and the kernel each runs
+    FIX_111 = ScoringParams.linear(dna_matrix(1, -1), 1)
+    FIX_AFF = ScoringParams(dna_matrix(1, -1), gap_open=3, gap_extend=1)
+
+    def banded_name(p):
+        uniform = kb._uniform_match_mismatch(p) is not None
+        return ("sw_banded_static" if uniform else "sw_banded_profile") + (
+            "" if p.is_linear else "_affine")
+
+    banded_wrappers = {
+        "sw_banded_static": ksb.sw_banded_static,
+        "sw_banded_static_affine": ksb.sw_banded_static,
+        "sw_banded_profile": ksb.sw_banded_profile,
+        "sw_banded_profile_affine": ksb.sw_banded_profile,
+        "banded_batch": kbb.banded_batch,
+        "banded_batch_w32_w64": kbb.banded_batch,
+    }
+
     def launches(name):
         # the profile wrappers count all their launches and, apart, those
         # of the affine instantiation; the semi-global wrappers those of
-        # the affine, the pinned and the affine pinned ones
+        # the affine, the pinned and the affine pinned ones; the fixed-band
+        # wrappers those of the affine form; the per-round wrapper those
+        # at W = 32 or 64
+        if name in BANDED_PATH:
+            w = banded_wrappers[name]
+            if w is kbb.banded_batch:
+                return (w.launches_w32_w64 if name.endswith("w64")
+                        else w.launches - w.launches_w32_w64)
+            return (w.launches_affine if name.endswith("_affine")
+                    else w.launches - w.launches_affine)
         if name in SEMIGLOBAL_PATH:
             w = sg_fns[name][0]
             affine, pin = "_affine" in name, name.endswith("_pinned")
@@ -464,14 +587,16 @@ def main():
                 else kern.launches - kern.launches_affine)
 
     wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
-    wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile]
+    wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile, ksb.sw_banded_static,
+                 ksb.sw_banded_profile, kbb.banded_batch]
 
     def counts_of(w):
         return {k: v for k, v in vars(w).items() if k.startswith("launches")}
 
     def zero_launches(names):
         for name in names:
-            w = (sg_fns if name in SEMIGLOBAL_PATH else kernel_fns)[name][0]
+            w = (banded_wrappers[name] if name in BANDED_PATH else
+                 (sg_fns if name in SEMIGLOBAL_PATH else kernel_fns)[name][0])
             for k in counts_of(w):
                 setattr(w, k, 0)
 
@@ -499,7 +624,8 @@ def main():
     # 2. build ------------------------------------------------------------
     phase("2 build")
     t0 = time.perf_counter()
-    sources = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL]
+    sources = SOURCES
+    check(set(sources) == set(_build.SOURCES), f"sources {_build.SOURCES}")
     _build.build_all(sources)  # one nvcc per source, in parallel
     print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
           f"(0.0 s means they were already built)", flush=True)
@@ -507,9 +633,12 @@ def main():
     for source in sources:
         for e in re.split(r"Compiling entry function '", _build.build_log(source))[1:]:
             mangled = e.split("'")[0]
-            name = next((k for k, v in KERNELS.items()
-                         if v[0] == source and v[1] in mangled), None)
-            check(name is not None, f"unknown kernel in nvcc report: {e[:80]}")
+            names = [k for k, v in KERNELS.items()
+                     if v[0] == source and any(f in mangled for f in tup(v[1]))]
+            check(names, f"unknown kernel in nvcc report: {e[:80]}")
+            inst = re.search(r"kernelI(.*)EEv", mangled)
+            several = len(names) > 1 or isinstance(KERNELS[names[0]][1], tuple)
+            name = "/".join(names) + (f" <{inst.group(1)}>" if several else "")
             regs = re.search(r"Used (\d+) registers", e)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
             smem = re.search(r"(\d+) bytes smem", e)
@@ -517,7 +646,7 @@ def main():
             print(f"{name}: registers {regs.group(1)}, spill stores "
                   f"{spill.group(1)} B, spill loads {spill.group(2)} B, shared "
                   f"memory {smem.group(1) if smem else 0} B", flush=True)
-            seen.add(name)
+            seen.update(names)
     check(seen == set(KERNELS), f"nvcc built {sorted(seen)}")
 
     # 3. kernels vs plain versions -----------------------------------------
@@ -529,6 +658,7 @@ def main():
     odd_q = random_codes(rng, (1000, 90))
     odd_q[:, 70:] = 4
     odd_t = random_codes(rng, (1000, 200))
+    mark("row-scan kernels")
     cases = [
         ("32768x128x128", flag_q, flag_t, [DNA_10_30_15, AFF]),
         ("1000x90x200 pad tail", odd_q, odd_t, [DNA_10_30_15, AFF]),
@@ -557,6 +687,7 @@ def main():
                       f"{p.gap_open},{p.gap_extend}) {name}: max |kernel - "
                       f"plain| = {err}", flush=True)
                 check(err == 0, f"{name} differs from its plain version on {label}")
+    mark("profile kernels")
     # the profile kernels: protein and general DNA matrices (their own
     # generator, so the DNA phases keep their inputs)
     prng = np.random.default_rng(SEED + 1)
@@ -609,6 +740,7 @@ def main():
                   f"{rkern.__name__} on uniform scoring")
     print("32768x128x128 uniform DNA scoring: the profile kernels equal the "
           "row-scan kernels", flush=True)
+    mark("bf16 kernel")
     # the bf16 kernel inside its exact range: its plain version, the
     # row-scan kernel and, on 64 pairs, the oracle (its own generator)
     brng = np.random.default_rng(SEED + 2)
@@ -703,6 +835,7 @@ def main():
                   f"scores and endpoints equal", flush=True)
     del flag_q, flag_t, prot_q, prot_t, dna_n_q, dna_n_t, qd, td
     torch.cuda.empty_cache()
+    mark("semi-global kernels")
     # the semi-global kernels, argmax and pinned, on every scoring of the
     # CPU tests (their own generator); related pairs put the endpoints
     # inside the matrix, internal pads meet the XLA pad rule
@@ -769,6 +902,171 @@ def main():
     del qd, td
     torch.cuda.empty_cache()
 
+    mark("fixed-band kernel")
+    # the fixed-band kernel (row 10), both forms, on the shape classes of
+    # the Pallas kernel's tests (its own generator): half related pairs,
+    # ragged shapes both ways, internal pads and per-pair lengths, W from 8
+    # to past max(n, m); 64 pairs against the oracle copy
+    frng = np.random.default_rng(SEED + 7)
+    fixed_scorings = [("(1,-1,1)", FIX_111), ("(10,-30,15)", DNA_10_30_15),
+                      ("Gotoh (1,-1,3,1)", FIX_AFF), ("BLOSUM62 11", P_LIN),
+                      ("BLOSUM62 11/1", P_GOTOH),
+                      ("DNA matrix 3/1", ScoringParams(DNA_GENERAL, 3, 1))]
+
+    def banded_pairs(rng, B, n, m, A):
+        """Half the pairs related (the query, cut or filled to m, with 10%
+        substitutions), half random."""
+        qs = rng.integers(0, A, size=(B, n), dtype=np.uint8)
+        ts = rng.integers(0, A, size=(B, m), dtype=np.uint8)
+        k = min(n, m)
+        ts[: B // 2, :k] = qs[: B // 2, :k]
+        sub = rng.random((B // 2, k)) < 0.1
+        ts[: B // 2, :k][sub] = rng.integers(0, A, int(sub.sum()), dtype=np.uint8)
+        return qs, ts
+
+    def fixed_kernels(p):
+        """The fixed-band wrappers that take ``p``: the profile form always,
+        the uniform form for a uniform matrix."""
+        uniform = kb._uniform_match_mismatch(p) is not None
+        return [ksb.sw_banded_profile] + ([ksb.sw_banded_static] if uniform else [])
+
+    def fixed_name(kern, p):
+        return kern.__name__ + ("" if p.is_linear else "_affine")
+
+    for label, B, n, m in (("32768x128x128", 32768, 128, 128),
+                           ("1000x90x200 varlen, internal pads", 1000, 90, 200),
+                           ("64x40x300", 64, 40, 300), ("64x300x40", 64, 300, 40),
+                           ("33x7x1", 33, 7, 1)):
+        codes = {A: banded_pairs(frng, B, n, m, A) for A in (4, 20)}
+        lens = {}
+        if "varlen" in label:
+            for A, (qh, th) in codes.items():
+                qh[frng.random(qh.shape) < 0.02] = 4 if A == 4 else 24
+                th[frng.random(th.shape) < 0.02] = 5 if A == 4 else 25
+            lens = dict(lens_q=frng.integers(0, n + 1, B),
+                        lens_t=frng.integers(0, m + 1, B))
+        dev_codes = {A: (torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev))
+                     for A, (qh, th) in codes.items()}
+        for slabel, p in fixed_scorings:
+            A = 4 if p.alphabet_size == 4 else 20
+            qd, td = dev_codes[A]
+            names = set()
+            for W in (8, 32, 64, 96, 160):
+                want = ksb.sw_banded_plain(qd, td, p, W, **lens)
+                for kern in fixed_kernels(p):
+                    name = fixed_name(kern, p)
+                    got = kern(qd, td, p, W, **lens)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    max_err[name] = max(max_err[name], err)
+                    check(err == 0, f"{name} differs from its plain version on "
+                          f"{label} {slabel} W={W}")
+                    names.add(name)
+                if B == 32768 and W == 32:
+                    qh, th = codes[A]
+                    check(np.array_equal(want[:64].cpu().numpy(),
+                                         sw_banded_static_score_batch(qh[:64], th[:64],
+                                                                      p, W)),
+                          f"fixed band vs the oracle copy, {slabel}")
+            print(f"{label} {slabel}: {', '.join(sorted(names))} at W = 8, 32, 64, "
+                  f"96, 160: max |kernel - plain| = 0"
+                  + ("; 64 pairs equal the oracle copy at W = 32" if B == 32768
+                     else ""), flush=True)
+    del dev_codes, qd, td
+    mark("per-round kernel")
+    # the per-round kernel (rows 14-15) at W = 8, 32, 64, 96 and 128 against
+    # its plain version in every field (score, max_round, n_rounds, and
+    # below each pair's n_rounds the history, pos_y and offsets): related
+    # DNA pairs (the reference's
+    # generator) with per-pair lengths, 64 of them short queries against
+    # long targets, whose bands run off the target's end; Gotoh with the
+    # 8-bit history; ~70%-identity protein under BLOSUM62 11/1 at X = 120;
+    # a non-homologous set at (1, 3, 2), X = 40, where bands die early; 8
+    # pairs against the oracle copy
+    xrng = np.random.default_rng(SEED + 8)
+    B, L = 512, 256
+    xq = xrng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    xt = np.stack([mutate(xrng, q, p_mismatch=0.1, p_insert=0.03, p_delete=0.03,
+                          out_len=L) for q in xq])
+    xnh = xrng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    xlq, xlt = xrng.integers(1, L + 1, B), xrng.integers(1, L + 1, B)
+    xlq[:64] = xrng.integers(1, 40, 64)
+    xpq = xrng.integers(0, 20, size=(B, L), dtype=np.uint8)
+    xpt = xpq.copy()
+    for b in range(B):
+        idx = xrng.integers(0, L, L // 3)
+        xpt[b, idx] = xrng.integers(0, 20, L // 3)
+    xdev = {k: torch.from_numpy(v).to(dev) for k, v in
+            (("q", xq), ("t", xt), ("nh", xnh), ("pq", xpq), ("pt", xpt))}
+    xlens = dict(lens_q=xlq, lens_t=xlt)
+    xdrop_modes = [
+        ("DNA (1,1,1) X=70 varlen", "q", "t", dict(xlens)),
+        ("DNA Gotoh 3/1 X=70, 8-bit history", "q", "t",
+         dict(gap_open=3, gap_extend=1, compress_history=True)),
+        ("protein BLOSUM62 11/1 X=120 varlen", "pq", "pt",
+         dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120, **xlens)),
+        ("non-homologous (1,3,2) X=40", "q", "nh",
+         dict(mismatch=3, gap=2, x_threshold=40)),
+        ("DNA Gotoh 3/1 varlen, scores only", "q", "t",
+         dict(gap_open=3, gap_extend=1, with_history=False, **xlens)),
+    ]
+
+    def xdrop_fields(res):
+        """The result's tensors on the card, the per-round ones (history,
+        pos_y, offsets) zeroed at and past each pair's n_rounds: the kernel
+        writes only below it."""
+        out = [torch.as_tensor(x, device=dev) for x in (res.score, res.max_round,
+                                                        res.n_rounds)]
+        if res.pos_y is not None:
+            live = (torch.arange(res.pos_y.shape[0], device=dev)[:, None]
+                    < out[2][None, :])
+            out += [torch.where(live[..., None], torch.as_tensor(res.band_history,
+                                                                device=dev), 0)]
+            out += [torch.where(live, torch.as_tensor(x, device=dev), 0)
+                    for x in (res.pos_y, res.offsets) if x is not None]
+        return tuple(out)
+
+    def xdrop_name(W):
+        return "banded_batch_w32_w64" if W in kbb.PACKED_WIDTHS else "banded_batch"
+
+    rcap = (np.maximum(xlq, xlt) + 1) * 2 - 1
+    for W in (8, 32, 64, 96, 128):
+        ends = []
+        # every set at the two timed widths; linear, Gotoh 8-bit and the
+        # non-homologous set at the others
+        for label, qk, tk, kw in (xdrop_modes if W in (32, 96) else
+                                  [xdrop_modes[i] for i in (0, 1, 3)]):
+            got = kbb.banded_batch(xdev[qk], xdev[tk], bandwidth=W, **kw)
+            torch.cuda.synchronize()
+            want = kbb.banded_batch_plain(xdev[qk], xdev[tk], bandwidth=W, device=dev,
+                                          **kw)
+            gf, wf = xdrop_fields(got), xdrop_fields(want)
+            check(len(gf) == len(wf), f"per-round kernel fields, {label}")
+            err = max_abs_err(gf, wf)
+            max_err[xdrop_name(W)] = max(max_err[xdrop_name(W)], err)
+            check(err == 0, f"{xdrop_name(W)} differs from its plain version on "
+                  f"{label} at W={W}")
+            nr = got.n_rounds.cpu().numpy()
+            cap = rcap if "lens_q" in kw else np.full(B, 2 * L + 1)
+            ends.append(f"{label}: {int((nr < cap).sum())} of {B} ended before "
+                        f"the round cap, mean {nr.mean():.1f} rounds")
+            if W == 32 and label.startswith("DNA (1,1,1)"):
+                res = got.numpy()
+                for b in range(8):
+                    st = banded_xdrop(xq[b, : xlq[b]], xt[b, : xlt[b]], return_state=True)
+                    nrb = st.n_rounds
+                    check((st.score, st.n_rounds, st.max_round) == (
+                        res.score[b], res.n_rounds[b], res.max_round[b])
+                        and np.array_equal(st.band_history, res.band_history[:nrb, b])
+                        and np.array_equal(st.pos_y, res.pos_y[:nrb, b]),
+                        f"per-round kernel vs the oracle copy at pair {b}")
+        print(f"W={W} ({xdrop_name(W)}): every field equals the plain version "
+              "(per-round ones below n_rounds); " + "; ".join(ends), flush=True)
+    print("per-round kernel at W = 32: 8 varlen DNA pairs equal the oracle copy "
+          "(score, rounds, history, pos_y)", flush=True)
+    del xdev
+    torch.cuda.empty_cache()
+
     # DNA main path: counts from here to the end of phase 6 ----------------
     zero_launches(DNA_PATH)
 
@@ -784,14 +1082,15 @@ def main():
         torch.cuda.synchronize()
         check(scores.shape == (B,) and scores.dtype == torch.int32
               and scores.device.type == "cuda", "best_engine output")
-        # every one of the B scores against the plain version, on the card
+        # the first CHECK_PAIRS scores against the plain version, on the card
         name = "sw_batch" if p.is_linear else "sw_affine"
         t0 = time.perf_counter()
-        err = max_abs_err(scores, kernel_fns[name][1](qd, td, p))
+        err = max_abs_err(scores[:CHECK_PAIRS], kernel_fns[name][1](
+            qd[:CHECK_PAIRS], td[:CHECK_PAIRS], p))
         max_err[name] = max(max_err[name], err)
         print(f"best_engine gap=({p.gap_open},{p.gap_extend}) vs {name}'s "
-              f"plain version over all {B} pairs: max |kernel - plain| = "
-              f"{err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+              f"plain version over the first {CHECK_PAIRS} pairs: max |kernel - "
+              f"plain| = {err} ({time.perf_counter() - t0:.1f} s)", flush=True)
         check(err == 0, f"{name} differs from its plain version at 1M pairs")
         torch.cuda.empty_cache()
         s_host = scores.cpu().numpy()
@@ -815,7 +1114,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. DNA main path, traceback ------------------------------------------
-    phase("5 DNA main path, traceback: sw_align_batch on 256 related pairs")
+    phase("5 DNA main path, traceback: sw_align_batch on 64 related pairs")
 
     def traceback_phase(qs, ts, plist, names_of, alphabet, seq_of):
         qs_d, ts_d = torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev)
@@ -826,7 +1125,7 @@ def main():
             name = names_of(p)
             err = max_abs_err(got, kernel_fns[name][1](qs_d, ts_d, p))
             max_err[name] = max(max_err[name], err)
-            check(err == 0, f"{name} differs from its plain version on 256 pairs")
+            check(err == 0, f"{name} differs from its plain version on {len(qs)} pairs")
             sc, ei, ej = (x.cpu().numpy() for x in got)
             ends_s = time_kernel(ends_fn, (qs_d, ts_d))
             t0 = time.perf_counter()
@@ -857,7 +1156,7 @@ def main():
                   f"aligned, mean score {float(np.mean([r[0] for r in res])):.2f}; "
                   f"endpoints, rescoring, CIGAR and SAM checked", flush=True)
 
-    qs, ts = related_pairs(rng, 256, 128)
+    qs, ts = related_pairs(rng, 64, 128)
     traceback_phase(
         qs, ts, (DNA_10_30_15, AFF),
         lambda p: "sw_batch_ends" if p.is_linear else "sw_affine_ends", "dna",
@@ -915,15 +1214,16 @@ def main():
         # the plain tier's [B, n + 1, 32] int32 profile is 17 GB at 1M
         # pairs: compare in chunks
         err = 0
-        for lo in range(0, B, chunk):
+        for lo in range(0, CHECK_PAIRS, chunk):
             err = max(err, max_abs_err(
                 scores[lo:lo + chunk],
                 kp.sw_profile_plain(qd[lo:lo + chunk], td[lo:lo + chunk], p)))
         max_err[name] = max(max_err[name], err)
         torch.cuda.empty_cache()
         print(f"best_engine BLOSUM62 gap=({p.gap_open},{p.gap_extend}) vs "
-              f"{name}'s plain version over all {B} pairs: max |kernel - "
-              f"plain| = {err} ({time.perf_counter() - t0:.1f} s)", flush=True)
+              f"{name}'s plain version over the first {CHECK_PAIRS} pairs: max "
+              f"|kernel - plain| = {err} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
         check(err == 0, f"{name} differs from its plain version at 1M protein pairs")
         s_host = scores.cpu().numpy()
         check(s_host.min() >= 0 and s_host.max() <= 11 * n, "protein score range")
@@ -999,9 +1299,9 @@ def main():
     torch.cuda.empty_cache()
 
     # 9. protein main path, traceback --------------------------------------
-    phase("9 protein main path, traceback: sw_align_batch on 256 related "
+    phase("9 protein main path, traceback: sw_align_batch on 64 related "
           "protein pairs")
-    qs, ts = related_pairs(rng, 256, 128, letters=20)
+    qs, ts = related_pairs(rng, 64, 128, letters=20)
     traceback_phase(qs, ts, (P_GOTOH, P_LIN),
                     lambda p: profile_name(True, p), "protein", decode_protein)
 
@@ -1204,9 +1504,9 @@ def main():
     del qd, td, split
 
     # 13. config 4, traceback sample ---------------------------------------
-    phase("13 BASELINE config 4, traceback sample: sw_align_batch on 64 "
+    phase("13 BASELINE config 4, traceback sample: sw_align_batch on 16 "
           "promotion pairs")
-    traceback_phase(prom_q[:64], prom_t[:64], (DNA_111,),
+    traceback_phase(prom_q[:16], prom_t[:16], (DNA_111,),
                     lambda p: "sw_batch_ends", "dna",
                     lambda q: "".join("ACGT"[c] for c in q))
 
@@ -1330,7 +1630,7 @@ def main():
             for g, w in zip(tup(bare()), tup(kern(qd, td, p))):
                 check(torch.equal(g, w), f"{name}: bare launch vs wrapper")
             kernel_ms = time_kernel(bare, (), iters=20) * 1e3
-            plain_ms = time_kernel(plain, (qd, td, p), iters=2, warmup=1, reps=2) * 1e3
+            plain_ms = time_kernel(plain, (qd, td, p), iters=1, warmup=1, reps=1) * 1e3
             n_out = 3 if ends else 1
             table_bytes = 4 * kp.profile_table(p, dev).numel() if source == PROFILE else 0
             bytes_ = B * (n + m) + table_bytes + 4 * B * n_out
@@ -1388,7 +1688,7 @@ def main():
             check(torch.equal(g, w), f"{name}: bare launch vs wrapper")
         ms = time_kernel(wrapped, (qd, td), iters=20) * 1e3
         kernel_ms = time_kernel(bare, (), iters=20) * 1e3
-        plain_ms = time_kernel(plain, (qd, td), iters=2, warmup=1, reps=2) * 1e3
+        plain_ms = time_kernel(plain, (qd, td), iters=1, warmup=1, reps=1) * 1e3
         table_bytes = 0 if table is None else 4 * table.numel()
         bytes_ = B * (n + m) + table_bytes + 4 * B * 3
         times = {
@@ -1413,6 +1713,115 @@ def main():
               f"{sm_clock_mhz:.0f} MHz), wrapper {B * n * m / ms / 1e6:.1f} GCUPS",
               flush=True)
         del qd, td, qT, tT
+    # the fixed-band kernel at W = 32 on the same codes (DNA for the
+    # uniform form, protein for the profile form), bound over the in-band
+    # cells; the per-round kernel on 256 related DNA 2048-mers (the JAX
+    # bench_suite's adaptive set, drawn again in phase 23), scores only, at
+    # W = 96 (row 14) and W = 32 (row 15), bound over the rounds written
+    # x W. Their launches are counted on their path (phases 22-25), after
+    # these timings
+    Wf = 32
+    band_cells = B * in_band_cells(n, m, Wf)
+    for name, p in (("sw_banded_static", FIX_111), ("sw_banded_static_affine", FIX_AFF),
+                    ("sw_banded_profile", P_LIN), ("sw_banded_profile_affine", P_GOTOH)):
+        replaces, ops, lookups, _ = KERNELS[name][2:]
+        profile = name.startswith("sw_banded_profile")
+        qh, th = inputs[PROFILE if profile else ROWSCAN]
+        qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        qT, tT = qd.t().contiguous(), td.t().contiguous()
+        kern = ksb.sw_banded_profile if profile else ksb.sw_banded_static
+        table = ksb.banded_table(p.matrix, dev) if profile else None
+
+        def bare(p=p, table=table):
+            return ksb.banded_launch_t(qT, tT, p, Wf, table)
+
+        check(torch.equal(bare(), kern(qd, td, p, Wf)), f"{name}: bare launch vs wrapper")
+        ms = time_kernel(kern, (qd, td, p, Wf), iters=20) * 1e3
+        kernel_ms = time_kernel(bare, (), iters=20) * 1e3
+        plain_ms = time_kernel(ksb.sw_banded_plain, (qd, td, p, Wf), iters=1, warmup=1,
+                               reps=1) * 1e3
+        bytes_ = B * (n + m) + (0 if table is None else 4 * table.numel()) + 4 * B
+        times = {
+            "int32 ops": band_cells * ops / int32_rate * 1e3,
+            "shared-memory lookups": band_cells * lookups / lookup_rate * 1e3,
+            "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
+        }
+        binds = max(times, key=times.get)
+        bound = times[binds]
+        rows.append(dict(
+            name=name, route="cuda", source=f"swtpu_torch/csrc/{BANDED}",
+            replaces=replaces, launches=None, max_abs_err=max_err[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if binds == "bytes" else "operations",
+            library_ms=None, kernel_ms=kernel_ms,
+        ))
+        print(f"{name} W={Wf}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
+              f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), plain "
+              f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} ({ops} int32 "
+              f"ops/in-band cell over {band_cells} cells: {times['int32 ops']:.4f} "
+              f"ms; {lookups} lookups/cell; at {sm_clock_mhz:.0f} MHz), wrapper "
+              f"{band_cells / ms / 1e6:.1f} band GCUPS", flush=True)
+        del qd, td, qT, tT
+    arng = np.random.default_rng(SEED + 9)
+    Ba, La = 256, 2048
+    adq = arng.integers(0, 4, size=(Ba, La)).astype(np.uint8)
+    adt = np.stack([mutate(arng, adq[b], out_len=La) for b in range(Ba)])
+    adq_d, adt_d = torch.from_numpy(adq).to(dev), torch.from_numpy(adt).to(dev)
+    xdrop_plain = {}  # W -> the plain version's result, for phase 23
+    ops_cell, ops_round = xdrop_ops(False, False)
+    for name, W in (("banded_batch", 96), ("banded_batch_w32_w64", 32)):
+        replaces = KERNELS[name][2]
+        qp, tp, lq, lt = _prep_padded(adq_d, adt_d, None, None, W, dev, torch.int16)
+        lq, lt = lq.int(), lt.int()
+
+        def wrapped(q, t, W=W):
+            return kbb.banded_batch(q, t, bandwidth=W, with_history=False)
+
+        def plain(q, t, W=W):
+            xdrop_plain[W] = kbb.banded_batch_plain(q, t, bandwidth=W,
+                                                    with_history=False, device=dev)
+            return xdrop_plain[W]
+
+        def bare(W=W, qp=qp, tp=tp, lq=lq, lt=lt):
+            return kbb.xdrop_launch_t(qp, tp, lq, lt, W, 70, 1, 1, 1,
+                                      with_history=False)
+
+        res = wrapped(adq_d, adt_d)
+        check(all(torch.equal(g, w) for g, w in zip(bare()[:3], xdrop_fields(res))),
+              f"{name}: bare launch vs wrapper")
+        rounds = int(res.n_rounds.sum())
+        cells = rounds * W
+        ms = time_kernel(wrapped, (adq_d, adt_d), iters=10) * 1e3
+        kernel_ms = time_kernel(bare, (), iters=10) * 1e3
+        # one plain call: ~4100 Python rounds take seconds
+        plain_ms = time_kernel(plain, (adq_d, adt_d), iters=1, warmup=0, reps=1) * 1e3
+        err = max_abs_err(xdrop_fields(res), xdrop_fields(xdrop_plain[W]))
+        max_err[name] = max(max_err[name], err)
+        check(err == 0, f"{name} differs from its plain version at W={W}")
+        # the function's bytes: the codes read once, the lengths, three
+        # int32 outputs
+        bytes_ = 2 * Ba * La + 8 * Ba + 12 * Ba
+        times = {
+            "int32 ops": (cells * ops_cell + rounds * ops_round) / int32_rate * 1e3,
+            "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
+        }
+        binds = max(times, key=times.get)
+        bound = times[binds]
+        rows.append(dict(
+            name=name, route="cuda", source=f"swtpu_torch/csrc/{XDROP}",
+            replaces=replaces, launches=None, max_abs_err=max_err[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if binds == "bytes" else "operations",
+            library_ms=None, kernel_ms=kernel_ms,
+        ))
+        print(f"{name} W={W}, {Ba} related 2048-mers, scores only: wrapper {ms:.4f} "
+              f"ms ({bound / ms:.1%} of the bound), launch alone {kernel_ms:.4f} ms "
+              f"({bound / kernel_ms:.1%}), plain {plain_ms:.2f} ms (equal), bound "
+              f"{bound:.4f} ms by {binds} ({ops_cell} int32 ops per band cell over "
+              f"{cells} band cells = rounds written x W, {ops_round} per pair and "
+              f"round over {rounds} rounds; at {sm_clock_mhz:.0f} MHz), wrapper "
+              f"{cells / ms / 1e6:.2f} band GCUPS", flush=True)
+        del qp, tp
     from swtpu_torch import bench
 
     buf = io.StringIO()
@@ -1437,9 +1846,10 @@ def main():
            for A, qh in big.items()}
 
     def headline(sc, pin, label):
-        """One scoring through the wrapper at 1M pairs: every output
-        against the plain version (in chunks: the plain tier's profile is
-        [B, n + 1, 32] int32), 64 pairs against the oracle copy, timed."""
+        """One scoring through the wrapper at 1M pairs: the first
+        CHECK_PAIRS outputs against the plain version (in chunks: the plain
+        tier's profile is [B, n + 1, 32] int32), 64 pairs against the oracle
+        copy, timed."""
         qd, td = big[sg_letters(sc)]
         name = sg_name(sc, pin)
         out = sg_run(sc, qd, td, pin_end=pin)
@@ -1448,7 +1858,7 @@ def main():
                   and x.device.type == "cuda" for x in out), f"{name} outputs")
         t0 = time.perf_counter()
         err = 0
-        for lo in range(0, B, chunk):
+        for lo in range(0, CHECK_PAIRS, chunk):
             err = max(err, max_abs_err(
                 tuple(x[lo:lo + chunk] for x in out),
                 sg_run(sc, qd[lo:lo + chunk], td[lo:lo + chunk], plain=True,
@@ -1460,7 +1870,7 @@ def main():
         s_host, ei, ej = (x.cpu().numpy() for x in out)
         if pin:
             check((ei == n).all() and (ej == m).all(), f"{name}: pinned ends")
-        idx = srng.choice(B, 64, replace=False)
+        idx = srng.choice(B, 16, replace=False)
         idx_d = torch.from_numpy(idx).to(dev)
         qh, th = qd[idx_d].cpu().numpy(), td[idx_d].cpu().numpy()
         walker = sg_oracle(sc, pin)
@@ -1471,8 +1881,8 @@ def main():
         sec = time_kernel(lambda q, t: sg_run(sc, q, t, pin_end=pin), (qd, td),
                           iters=10)
         print(f"{label} {name}: {sec * 1e3:.3f} ms per call, "
-              f"{B * n * m / sec / 1e9:.1f} GCUPS; all {B} outputs equal the plain "
-              f"version ({plain_s:.1f} s), 64 the oracle copy; mean score "
+              f"{B * n * m / sec / 1e9:.1f} GCUPS; the first {CHECK_PAIRS} outputs "
+              f"equal the plain version ({plain_s:.1f} s), 16 the oracle copy; mean score "
               f"{s_host.mean():.3f}, {int((ei > 0).sum())} ends off the origin "
               f"[{smi}]", flush=True)
 
@@ -1516,8 +1926,8 @@ def main():
     del qd, td
 
     # 20. traceback ----------------------------------------------------------
-    phase("20 semi-global and global traceback: 256 related DNA pairs "
-          "(linear), 64 affine, 64 protein Gotoh 11/1")
+    phase("20 semi-global and global traceback: 64 related DNA pairs "
+          "(linear), 16 affine, 16 protein Gotoh 11/1")
 
     def sg_traceback(qs, ts, sc, alphabet, seq_of):
         qd, td = torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev)
@@ -1557,10 +1967,10 @@ def main():
                   f"rescoring, CIGAR and SAM checked", flush=True)
 
     dna_seq = lambda q: "".join("ACGT"[c] for c in q)  # noqa: E731
-    qs, ts = related_pairs(srng, 256, 128)
+    qs, ts = related_pairs(srng, 64, 128)
     sg_traceback(qs, ts, SG_111, "dna", dna_seq)
-    sg_traceback(qs[:64], ts[:64], SG_AFF, "dna", dna_seq)
-    qs, ts = related_pairs(srng, 64, 128, letters=20)
+    sg_traceback(qs[:16], ts[:16], SG_AFF, "dna", dna_seq)
+    qs, ts = related_pairs(srng, 16, 128, letters=20)
     sg_traceback(qs, ts, P_GOTOH, "protein", decode_protein)
 
     # 21. semi-global and global CLI ----------------------------------------
@@ -1606,10 +2016,296 @@ def main():
     print(f"semi-global path launches: {sg_counts}", flush=True)
     check(all(v > 0 for v in sg_counts.values()),
           f"a kernel was not launched on the semi-global path: {sg_counts}")
+
+    # banded path: counts from here to the end of phase 25 -----------------
+    zero_launches(BANDED_PATH)
+
+    # 22. fixed-band path, BASELINE config 2 -------------------------------
+    phase("22 fixed-band path, BASELINE config 2: 1,048,576 x (128x128) at W = 32")
+    B, n, Wf, chunk = 1 << 20, 128, 32, 1 << 17
+    grng = np.random.default_rng(SEED + 10)
+    big = {4: (random_codes(grng, (B, n)), random_codes(grng, (B, n))),
+           20: (random_protein(grng, (B, n)), random_protein(grng, (B, n)))}
+    big_d = {A: (torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev))
+             for A, (q, t) in big.items()}
+    cells = B * in_band_cells(n, n, Wf)
+    for label, p in (("DNA (1,-1,1)", FIX_111), ("DNA Gotoh (1,-1,3,1)", FIX_AFF),
+                     ("protein BLOSUM62 11", P_LIN), ("protein BLOSUM62 11/1", P_GOTOH)):
+        A = 4 if p.alphabet_size == 4 else 20
+        qd, td = big_d[A]
+        name = banded_name(p)
+
+        def fn(q, t, p=p):
+            return banded_static_scores(q, t, p, Wf)
+
+        scores = fn(qd, td)
+        torch.cuda.synchronize()
+        check(scores.shape == (B,) and scores.dtype == torch.int32
+              and scores.device.type == "cuda", f"{name} output")
+        t0 = time.perf_counter()
+        err = 0
+        for lo in range(0, CHECK_PAIRS, chunk):
+            err = max(err, max_abs_err(scores[lo:lo + chunk], ksb.sw_banded_plain(
+                qd[lo:lo + chunk], td[lo:lo + chunk], p, Wf)))
+        max_err[name] = max(max_err[name], err)
+        check(err == 0, f"{name} differs from its plain version at 1M pairs")
+        plain_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        s_host = scores.cpu().numpy()
+        idx = grng.choice(B, 64, replace=False)
+        qh, th = big[A]
+        check(np.array_equal(s_host[idx], sw_banded_static_score_batch(
+            qh[idx], th[idx], p, Wf)), f"{name} vs the oracle copy on 64 pairs")
+        sec = time_kernel(fn, (qd, td), iters=10)
+        print(f"{label} {name}: {sec * 1e3:.3f} ms per call ({sec * 1e3:.3f} ms per "
+              f"1M alignments), {cells / sec / 1e9:.1f} band GCUPS over {cells} "
+              f"in-band cells; the first {CHECK_PAIRS} scores equal the plain version "
+              f"({plain_s:.1f} s), 64 the oracle copy; mean score {s_host.mean():.3f} "
+              f"[{smi}]",
+              flush=True)
+    del big, big_d, qd, td, scores
+    torch.cuda.empty_cache()
+    # bench_suite's 2048 related 2048-mers at W = 32 (the 256 drawn in phase
+    # 16, eight times over)
+    fq = torch.from_numpy(np.tile(adq, (8, 1))).to(dev)
+    ft = torch.from_numpy(np.tile(adt, (8, 1))).to(dev)
+    for label, p in (("(1,-1,1)", FIX_111), ("Gotoh (1,-1,3,1)", FIX_AFF)):
+        scores = banded_static_scores(fq, ft, p, Wf)
+        err = max_abs_err(scores[:256], ksb.sw_banded_plain(fq[:256], ft[:256], p, Wf))
+        max_err[banded_name(p)] = max(max_err[banded_name(p)], err)
+        check(err == 0 and torch.equal(scores.view(8, 256), scores[:256].expand(8, 256)),
+              f"{banded_name(p)} on 2048-mers")
+        sec = time_kernel(lambda q, t, p=p: banded_static_scores(q, t, p, Wf), (fq, ft),
+                          iters=5)
+        c2 = 2048 * in_band_cells(La, La, Wf)
+        print(f"2048 related 2048-mers {label}: {sec * 1e3:.3f} ms per call, "
+              f"{c2 / sec / 1e9:.1f} band GCUPS (2048 threads: 16 blocks on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs); "
+              f"the first 256 equal the plain version, mean score "
+              f"{scores.float().mean().item():.1f}", flush=True)
+    del fq, ft
+
+    # 23. per-round adaptive path -------------------------------------------
+    phase("23 per-round adaptive band: 256 related 2048-mers (bench_suite's "
+          "sets), W = 32 / 64 / 96, with and without history; 16,384 pairs")
+    pq = arng.integers(0, 20, size=(Ba, La)).astype(np.uint8)
+    pt = pq.copy()
+    for b in range(Ba):
+        idx = arng.integers(0, La, La // 3)
+        pt[b, idx] = arng.integers(0, 20, La // 3)
+    nt = arng.integers(0, 4, size=(Ba, La)).astype(np.uint8)
+    sets = {"dna": (adq_d, adt_d), "protein": (torch.from_numpy(pq).to(dev),
+                                               torch.from_numpy(pt).to(dev)),
+            "non-homologous": (adq_d, torch.from_numpy(nt).to(dev))}
+    # each scoring and the history once against the plain version (~4100
+    # Python rounds a call): W = 32 and 96 reuse phase 16's plain calls on
+    # the same inputs; W = 64, held against its plain version in phase 3,
+    # against the oracle copy on 2 pairs
+    adaptive = [
+        ("DNA (1,1,1) X=70 W=32", "dna", dict(), "phase 16"),
+        ("DNA Gotoh 3/1 X=70 W=32", "dna", dict(gap_open=3, gap_extend=1), "plain"),
+        ("protein BLOSUM62 11/1 X=120 W=32", "protein",
+         dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120), "plain"),
+        ("non-homologous (1,3,2) X=40 W=32, early exit", "non-homologous",
+         dict(mismatch=3, gap=2, x_threshold=40, early_exit=True), "plain"),
+        ("DNA (1,1,1) X=70 W=64", "dna", dict(bandwidth=64), "oracle"),
+        ("DNA (1,1,1) X=70 W=96", "dna", dict(bandwidth=96), "phase 16"),
+    ]
+    for label, key, kw, ref in adaptive:
+        qd, td = sets[key]
+        W = kw.get("bandwidth", 32)
+        res = kbb.banded_batch(qd, td, with_history=False, **kw)
+        if ref == "oracle":
+            got, qh, th = res.numpy(), qd[:2].cpu().numpy(), td[:2].cpu().numpy()
+            for b in range(2):
+                st = banded_xdrop(qh[b], th[b], bandwidth=W, return_state=True)
+                check((st.score, st.n_rounds, st.max_round) == (
+                    got.score[b], got.n_rounds[b], got.max_round[b]),
+                    f"{label} vs the oracle copy at pair {b}")
+            how = "2 pairs equal the oracle copy"
+        else:
+            want = (xdrop_plain[W] if ref == "phase 16" else kbb.banded_batch_plain(
+                qd, td, with_history=False, device=dev, **kw))
+            err = max_abs_err(xdrop_fields(res), xdrop_fields(want))
+            max_err[xdrop_name(W)] = max(max_err[xdrop_name(W)], err)
+            check(err == 0, f"{xdrop_name(W)} differs from its plain version on {label}")
+            how = "equal to the plain version" + (
+                " (phase 16's call)" if ref == "phase 16" else "")
+        sec = time_kernel(lambda q, t, kw=kw: kbb.banded_batch(
+            q, t, with_history=False, **kw), (qd, td), iters=5)
+        rounds = int(res.n_rounds.sum())
+        print(f"{label}: {sec * 1e3:.3f} ms per call, {rounds * W / sec / 1e9:.2f} "
+              f"band GCUPS ({rounds} rounds x W); mean score "
+              f"{res.score.float().mean().item():.1f}, mean rounds {rounds / Ba:.1f} "
+              f"of {2 * La + 1}; {how} [{smi}]", flush=True)
+    # with history: the user's entry point (host arrays, 8-bit history
+    # auto-selected at this size) and the device calls it makes; both
+    # histories against one plain call (the 8-bit form decodes exactly)
+    t0 = time.perf_counter()
+    host = banded_forward_batch(adq, adt)
+    fwd_s = time.perf_counter() - t0
+    check(host.band_history.dtype == np.uint8 and host.offsets is not None,
+          "banded_forward_batch picks the 8-bit history past 8 MB")
+    want8 = kbb.banded_batch_plain(adq_d, adt_d, compress_history=True, device=dev)
+    want32 = BandedBatchResult(
+        want8.score, want8.max_round, want8.n_rounds,
+        torch.where(want8.band_history > 0,
+                    want8.band_history.int() - 1 + want8.offsets[:, :, None], 0),
+        want8.pos_y)
+    for comp in (True, False):
+        res = kbb.banded_batch(adq_d, adt_d, compress_history=comp)
+        err = max_abs_err(xdrop_fields(res), xdrop_fields(want8 if comp else want32))
+        max_err["banded_batch_w32_w64"] = max(max_err["banded_batch_w32_w64"], err)
+        check(err == 0, f"banded_batch_w32_w64 with history (8-bit {comp}) vs plain")
+        if comp:
+            check(all(torch.equal(a, b) for a, b in zip(xdrop_fields(host),
+                                                        xdrop_fields(res))),
+                  "banded_forward_batch vs the device result")
+        sec = time_kernel(lambda q, t, comp=comp: kbb.banded_batch(
+            q, t, compress_history=comp), (adq_d, adt_d), iters=5)
+        hist_mb = res.band_history.numel() * res.band_history.element_size() / 2**20
+        rounds = int(res.n_rounds.sum())
+        print(f"DNA (1,1,1) W=32 with {'8-bit' if comp else 'int32'} history "
+              f"({hist_mb:.0f} MiB): {sec * 1e3:.3f} ms per call, "
+              f"{rounds * 32 / sec / 1e9:.2f} band GCUPS; equal to the plain version",
+              flush=True)
+    del want8, want32, host
+    print(f"banded_forward_batch (upload, kernel, 8-bit history to the host): "
+          f"{fwd_s * 1e3:.1f} ms wall", flush=True)
+    # 16,384 pairs, scores only: the DNA set 64 times over
+    q16 = adq_d.repeat(64, 1)
+    t16 = adt_d.repeat(64, 1)
+    base = kbb.banded_batch(adq_d, adt_d, with_history=False)
+    res = kbb.banded_batch(q16, t16, with_history=False)
+    check(all(torch.equal(x.view(64, Ba), y.expand(64, Ba))
+              for x, y in zip(xdrop_fields(res), xdrop_fields(base))),
+          "16,384 pairs: every copy equals the 256-pair run")
+    sec = time_kernel(lambda q, t: kbb.banded_batch(q, t, with_history=False),
+                      (q16, t16), iters=3)
+    rounds = int(res.n_rounds.sum())
+    bound = (rounds * 32 * ops_cell + rounds * ops_round) / int32_rate * 1e3
+    print(f"16,384 pairs (the DNA set x 64), W=32, scores only: {sec * 1e3:.3f} ms "
+          f"per call, {rounds * 32 / sec / 1e9:.2f} band GCUPS, "
+          f"{16384 / sec:.0f} alignments/s, {bound / (sec * 1e3):.1%} of its int32 "
+          f"bound {bound:.4f} ms; every copy equals the 256-pair run", flush=True)
+    del q16, t16, res, base
+    torch.cuda.empty_cache()
+
+    # 24. banded traceback ---------------------------------------------------
+    phase("24 banded traceback: banded_static_align_batch on 256 related "
+          "128-mers, banded_align_batch on 64 related 2048-mers")
+    trng = np.random.default_rng(SEED + 11)
+    dq, dt = related_pairs(trng, 256, 128)
+    pq2, pt2 = related_pairs(trng, 256, 128, letters=20)
+    for label, p, q, t in (("DNA (1,-1,1)", FIX_111, dq, dt),
+                           ("DNA Gotoh (1,-1,3,1)", FIX_AFF, dq, dt),
+                           ("protein BLOSUM62 11/1", P_GOTOH, pq2, pt2)):
+        saved = snapshot()
+        sc_d = banded_static_scores(q, t, p, Wf).cpu().numpy()
+        restore(saved)
+        t0 = time.perf_counter()
+        res = banded_static_align_batch(q, t, p, Wf)
+        walk_s = time.perf_counter() - t0
+        for b, (score, path) in enumerate(res):
+            check(score == sc_d[b], f"fixed band: score of pair {b}")
+            if score == 0:
+                continue
+            check(all(abs(i - j) <= Wf for i, j in path), f"fixed band: corridor, {b}")
+            check(rescore(path, q[b], t[b], p) == score, f"fixed band: rescore, {b}")
+        print(f"banded_static_align_batch {label}: 256 pairs, {walk_s:.2f} s wall "
+              f"(host walk), mean score {float(np.mean([r[0] for r in res])):.2f}; "
+              f"paths in the corridor and rescored", flush=True)
+    for label, key, kw, p in (
+            ("DNA (1,1,1)", "dna", dict(), ScoringParams.linear(dna_matrix(1, -1), 1)),
+            ("DNA Gotoh 3/1", "dna", dict(gap_open=3, gap_extend=1),
+             ScoringParams(dna_matrix(1, -1), 3, 1)),
+            ("protein BLOSUM62 11/1 X=120", "protein",
+             dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120),
+             P_GOTOH)):
+        qd, td = sets[key]
+        q, t = qd[:64].cpu().numpy(), td[:64].cpu().numpy()
+        t0 = time.perf_counter()
+        res = banded_align_batch(q, t, **kw)
+        walk_s = time.perf_counter() - t0
+        for b, (score, path) in enumerate(res):
+            check(path[0] == (0, 0) and rescore(path, q[b], t[b], p) == score,
+                  f"banded_align_batch {label}: path of pair {b}")
+        for b in range(2):
+            if "gap_open" in kw:
+                ref = banded_affine_xdrop(q[b], t[b], 1, 1, kw["gap_open"],
+                                          kw["gap_extend"],
+                                          x_threshold=kw.get("x_threshold", 70),
+                                          matrix=kw.get("matrix"))
+            else:
+                ref = banded_xdrop(q[b], t[b])
+            check(res[b] == ref, f"banded_align_batch {label} vs the oracle copy, {b}")
+        print(f"banded_align_batch {label}: 64 pairs, {walk_s:.2f} s wall (device "
+              f"forward and host walk), mean score "
+              f"{float(np.mean([r[0] for r in res])):.1f}, mean path "
+              f"{float(np.mean([len(r[1]) for r in res])):.0f} cells; paths from the "
+              f"origin rescored, 2 equal the oracle copy", flush=True)
+    # a user's call at a width past the packed kernel's (CPL 3)
+    q, t, p = adq[:16], adt[:16], ScoringParams.linear(dna_matrix(1, -1), 1)
+    res = banded_align_batch(q, t, bandwidth=96)
+    for b, (score, path) in enumerate(res):
+        check(path[0] == (0, 0) and rescore(path, q[b], t[b], p) == score,
+              f"banded_align_batch W=96: path of pair {b}")
+    check(res[0] == banded_xdrop(q[0], t[0], bandwidth=96),
+          "banded_align_batch W=96 vs the oracle copy")
+    print(f"banded_align_batch DNA (1,1,1) W=96: 16 pairs, mean score "
+          f"{float(np.mean([r[0] for r in res])):.1f}; paths from the origin "
+          f"rescored, 1 equals the oracle copy", flush=True)
+
+    # 25. banded CLI ---------------------------------------------------------
+    phase("25 banded CLI: --fixed and the per-round band, DNA and protein")
+    for argv, A in (
+        (["banded", "--fixed", "--random", "64x128x128", "--bandwidth", "32"], 4),
+        (["banded", "--fixed", "--alphabet", "protein", "--random", "32x128x128",
+          "--gap-open", "11", "--gap-extend", "1", "--cigar"], 20),
+        (["banded", "--random", "32x300x300", "--bandwidth", "96", "--cigar"], 4),
+        (["banded", "--alphabet", "protein", "--random", "16x300x300", "--gap-open",
+          "11", "--gap-extend", "1", "--x-drop", "120", "--sam"], 20),
+    ):
+        nb, L1, _ = (int(x) for x in argv[argv.index("--random") + 1].split("x"))
+        rs = np.random.default_rng(SEED)  # the CLI's --random inputs
+        cq = rs.integers(0, A, size=(nb, L1)).astype(np.uint8)
+        ct = rs.integers(0, A, size=(nb, L1)).astype(np.uint8)
+        lines = run_cli(cli_main, argv)
+        if "--fixed" in argv:
+            p = FIX_111 if A == 4 else P_GOTOH
+            ok = [json.loads(x)["score"] for x in lines] == (
+                sw_banded_static_score_batch(cq, ct, p, 32).tolist())
+        elif A == 4:
+            want = [banded_xdrop(q, t, bandwidth=96) for q, t in zip(cq, ct)]
+            ok = len(lines) == nb and all(
+                (r["score"], tuple(r["start"]), tuple(r["end"]), r["cigar"]) == (
+                    s0, path[0], path[-1], path_to_cigar(path, q, t))
+                for r, (s0, path), q, t in zip(map(json.loads, lines), want, cq, ct))
+        else:
+            want = [banded_affine_xdrop(q, t, 1, 1, 11, 1, x_threshold=120,
+                                        matrix=BLOSUM62) for q, t in zip(cq, ct)]
+            body = [x.split("\t") for x in lines if not x.startswith("@")]
+            ok = len(body) == nb and all(
+                (r[1] == "4" and len(path) < 2) or r[11] == f"AS:i:{s0}"
+                for r, (s0, path) in zip(body, want))
+        check(ok, f"{' '.join(argv[:3])} vs the oracle copy")
+        print(f"{' '.join(argv[:4])} ...: {nb} records equal the oracle copy; first: "
+              f"{lines[-1][:100]}", flush=True)
+    try:
+        run_cli(cli_main, ["banded", "--block-adaptive", "--random", "4x64x64"])
+        check(False, "banded --block-adaptive ran")
+    except SystemExit as e:
+        check("ROADMAP.md queue A item 10" in str(e), "banded --block-adaptive message")
+        print(f"banded --block-adaptive refuses: {e}", flush=True)
+
+    banded_counts = {name: launches(name) for name in BANDED_PATH}
+    print(f"banded path launches: {banded_counts}", flush=True)
+    check(all(v > 0 for v in banded_counts.values()),
+          f"a kernel was not launched on the banded path: {banded_counts}")
     for row in rows:
         if row["launches"] is None:
-            row["launches"] = sg_counts[row["name"]]
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+            row["launches"] = {**sg_counts, **banded_counts}[row["name"]]
+    print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

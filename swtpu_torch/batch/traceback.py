@@ -2,9 +2,13 @@
 
 Port of ``swtpu/batch/traceback.py``'s ``sw_align_batch`` (local),
 ``semiglobal_align_batch``, ``nw_align_batch`` and
-``_semiglobal_align_batch_general`` (semi-global and global). The device
-computes every pair's score and endpoint in one batched call; the host
-then walks each path with the numpy oracles (diag → up → left tie-break,
+``_semiglobal_align_batch_general`` (semi-global and global),
+``banded_static_align_batch`` (fixed band) and the adaptive-banded
+X-drop family (``banded_forward_batch``, ``banded_walk_batch``,
+``banded_align_batch``, ``banded_traceback``, ``reconstruct_affine_bands``,
+``banded_affine_traceback``). The device computes every pair's score and
+endpoint (banded: its band history) in one batched call; the host then
+walks each path with the numpy oracles (diag → up → left tie-break,
 first maximum in row-major order). A C++ host walker is later work
 (ROADMAP.md).
 """
@@ -16,12 +20,27 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from swtpu_torch.core.scoring import ScoringParams
+from swtpu_torch.kernels.banded_batch import banded_batch
+from swtpu_torch.kernels.banded_scan import BandedBatchResult
 from swtpu_torch.kernels.semiglobal_batch import semiglobal_batch
 from swtpu_torch.kernels.semiglobal_profile import semiglobal_profile
 from swtpu_torch.kernels.semiglobal_scan import gaps
+from swtpu_torch.kernels.sw_banded import (
+    sw_banded_plain,
+    sw_banded_profile,
+    sw_banded_static,
+)
+from swtpu_torch.kernels.sw_batch import _uniform_match_mismatch
 from swtpu_torch.oracle.affine import sw_affine_traceback
-from swtpu_torch.oracle.semiglobal import semiglobal_affine_full, semiglobal_full
+from swtpu_torch.oracle.banded_affine import EF_DEAD
+from swtpu_torch.oracle.banded_static import sw_banded_static_traceback
+from swtpu_torch.oracle.semiglobal import (
+    MINUS_INF,
+    semiglobal_affine_full,
+    semiglobal_full,
+)
 from swtpu_torch.oracle.sw import sw_traceback
+from swtpu_torch.utils.device import resolve_device
 
 
 def sw_align_batch(
@@ -186,3 +205,405 @@ def _semiglobal_align_batch_general(
     )
     return _walk(qs, ts, fwd, lq, lt, pin_end, params.gap_open,
                  params.gap_extend, not params.is_linear, matrix=params.matrix)
+
+
+def banded_traceback(
+    q: np.ndarray,
+    t: np.ndarray,
+    band_history: np.ndarray,
+    pos_y: np.ndarray,
+    n_rounds: int,
+    max_round: int,
+    max_score_off: int,
+    match: int = 1,
+    mismatch: int = 1,
+    gap: int = 1,
+    bandwidth: int = 32,
+    matrix: Optional[np.ndarray] = None,
+) -> List[Tuple[int, int]]:
+    """Walk one alignment's path from its band history.
+
+    Mirrors the reference's traceback over the stored band
+    (source.cpp:1944-1973): Get(y, x) reconstructs a cell from
+    (band_history, pos_y); dead/out-of-band cells read as -inf; the start
+    cell is the top-right-most cell of the best round holding the max;
+    moves tie-break diag → up → left. ``max_score_off`` is the
+    offset-inclusive max (score + x_threshold).
+    """
+    n, m = len(q), len(t)
+    W = bandwidth
+
+    def get(y: int, x: int) -> int:
+        if y < 0 or y > n or x < 0 or x > m:
+            return MINUS_INF
+        r = y + x
+        if r >= n_rounds:
+            return MINUS_INF
+        k = (W - 1) - (y - pos_y[r])
+        if k < 0 or k >= W:
+            return MINUS_INF
+        v = band_history[r, k]
+        return MINUS_INF if v == 0 else int(v)
+
+    my = int(pos_y[max_round])
+    mx = int(max_round - my)  # unpadded x: y + x == round
+    while get(my, mx) != max_score_off:
+        my += 1
+        mx -= 1
+        # mirror the C++ twin's guard (swnative.cpp): inconsistent device
+        # history must fail loudly, not hang the walker
+        if my > n + W:
+            raise AssertionError(
+                "banded_traceback: max cell not found in band history "
+                f"(round {max_round}, expected {max_score_off})")
+
+    mat = None if matrix is None else np.asarray(matrix)
+
+    def sub(i: int, j: int) -> int:
+        if mat is not None:
+            return int(mat[q[i - 1], t[j - 1]])
+        return match if q[i - 1] == t[j - 1] else -mismatch
+
+    path = [(my, mx)]
+    i, j = my, mx
+    while i or j:
+        v = get(i, j)
+        if i and j and v == get(i - 1, j - 1) + sub(i, j):
+            i, j = i - 1, j - 1
+        elif i and v == get(i - 1, j) - gap:
+            i -= 1
+        elif j and v == get(i, j - 1) - gap:
+            j -= 1
+        else:  # pragma: no cover
+            raise AssertionError("inconsistent banded traceback")
+        path.append((i, j))
+    path.reverse()
+    return path
+
+
+def banded_static_scores(qs, ts, params: ScoringParams, bandwidth: int = 32,
+                         device=None):
+    """Fixed-band scores ([B] int32 tensor) on the engine of ``device``:
+    on the card the fixed-band kernel, its uniform form for a uniform
+    matrix and its profile form for any other (each raises
+    NotImplementedError outside its guards); on the CPU the plain tier,
+    for any scoring."""
+    dev = resolve_device(device, like=qs)
+    if dev.type == "cpu":
+        return sw_banded_plain(qs, ts, params, bandwidth, device=dev)
+    fwd = (sw_banded_static if _uniform_match_mismatch(params) is not None
+           else sw_banded_profile)
+    return fwd(qs, ts, params, bandwidth, device=dev)
+
+
+def banded_static_align_batch(
+    qs: np.ndarray,
+    ts: np.ndarray,
+    params: ScoringParams,
+    bandwidth: int = 32,
+    device=None,
+) -> List[Tuple[int, List[Tuple[int, int]]]]:
+    """Batched fixed-band alignment with traceback (|i - j| <= W).
+
+    The device computes the scores (:func:`banded_static_scores`: the
+    fixed-band kernel on the card, the plain tier with ``device="cpu"``);
+    the host recomputes the corridor per pair to walk the path with the
+    oracle copy, whose score must equal the device's. Output bit-equal to
+    ``oracle.banded_static.sw_banded_static_traceback``.
+    """
+    qs = np.asarray(qs)
+    ts = np.asarray(ts)
+    scores = banded_static_scores(qs, ts, params, bandwidth, device).cpu().numpy()
+    out = []
+    for b in range(qs.shape[0]):
+        sc, path = sw_banded_static_traceback(qs[b], ts[b], params, bandwidth)
+        assert sc == scores[b], (
+            f"device/host score mismatch at pair {b}: {scores[b]} vs {sc}"
+        )
+        out.append((sc, path))
+    return out
+
+
+def reconstruct_affine_bands(
+    band_history: np.ndarray,
+    pos_y: np.ndarray,
+    n_rounds: int,
+    gap_open: int,
+    gap_extend: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Rebuild the Gotoh E/F band histories from the H band history.
+
+    The E/F recurrences (oracle/banded_affine.py) depend only on the H
+    band, the previous E/F bands, and the per-round direction — never on
+    the substitution score — and the direction is recoverable from pos_y
+    (a round moved down iff pos_y advanced). So the device kernels return
+    the same H-only history as the linear family and the host replays E/F
+    exactly, round by round: e[r]/f[r] here are bit-equal to the oracle's
+    e_hist/f_hist (tested).
+    """
+    MINF = MINUS_INF
+    W = band_history.shape[1]
+    go, ge = int(gap_open), int(gap_extend)
+    e_hist = np.full((n_rounds, W), EF_DEAD, dtype=np.int64)
+    f_hist = np.full((n_rounds, W), EF_DEAD, dtype=np.int64)
+    result = band_history[0].astype(np.int64)
+    e_band = np.full(W, EF_DEAD, dtype=np.int64)
+    f_band = np.full(W, EF_DEAD, dtype=np.int64)
+    for r in range(1, n_rounds):
+        if pos_y[r] == pos_y[r - 1]:  # moved right
+            horizontal = result
+            he = e_band
+            vf = np.concatenate([f_band[1:], [EF_DEAD]])
+            vertical = np.concatenate([result[1:], [0]])
+        else:  # moved down
+            vertical = result
+            vf = f_band
+            he = np.concatenate([[EF_DEAD], e_band[:-1]])
+            horizontal = np.concatenate([[0], result[:-1]])
+        e_new = np.maximum(
+            np.where(he > EF_DEAD // 2, he - ge, MINF),
+            np.where(horizontal != 0, horizontal - go, MINF),
+        )
+        f_new = np.maximum(
+            np.where(vf > EF_DEAD // 2, vf - ge, MINF),
+            np.where(vertical != 0, vertical - go, MINF),
+        )
+        result = band_history[r].astype(np.int64)
+        e_band = np.where(result == 0, EF_DEAD, e_new)
+        f_band = np.where(result == 0, EF_DEAD, f_new)
+        e_hist[r] = e_band
+        f_hist[r] = f_band
+    return e_hist, f_hist
+
+
+def banded_affine_traceback(
+    q: np.ndarray,
+    t: np.ndarray,
+    band_history: np.ndarray,
+    pos_y: np.ndarray,
+    n_rounds: int,
+    max_round: int,
+    max_score_off: int,
+    match: int,
+    mismatch: int,
+    gap_open: int,
+    gap_extend: int,
+    bandwidth: int = 32,
+    matrix: Optional[np.ndarray] = None,
+) -> List[Tuple[int, int]]:
+    """Gotoh three-state walk over a device band history (affine gaps).
+
+    E/F bands are reconstructed from the H history (see
+    reconstruct_affine_bands); the walk itself mirrors the affine oracle:
+    H-state move preference diag → F (up) → E (left), matching the linear
+    family's diag → up → left order.
+    """
+    n, m = len(q), len(t)
+    W = bandwidth
+    e_hist, f_hist = reconstruct_affine_bands(
+        band_history, pos_y, n_rounds, gap_open, gap_extend
+    )
+
+    def get(arr, y: int, x: int, dead_zero: bool) -> int:
+        if y < 0 or y > n or x < 0 or x > m:
+            return MINUS_INF
+        r = y + x
+        if r >= n_rounds:
+            return MINUS_INF
+        k = (W - 1) - (y - pos_y[r])
+        if k < 0 or k >= W:
+            return MINUS_INF
+        v = int(arr[r, k])
+        return MINUS_INF if (dead_zero and v == 0) else v
+
+    get_h = lambda y, x: get(band_history, y, x, True)
+    get_e = lambda y, x: get(e_hist, y, x, False)
+    get_f = lambda y, x: get(f_hist, y, x, False)
+
+    my = int(pos_y[max_round])
+    mx = int(max_round - my)
+    while get_h(my, mx) != max_score_off:
+        my += 1
+        mx -= 1
+        if my > n + W:
+            raise AssertionError(
+                "banded_affine_traceback: max cell not found in band history "
+                f"(round {max_round}, expected {max_score_off})")
+
+    mat = None if matrix is None else np.asarray(matrix)
+    path = [(my, mx)]
+    i, j, st = my, mx, 0
+    while i or j:
+        if st == 0:
+            v = get_h(i, j)
+            if not (i and j):
+                s = MINUS_INF
+            elif mat is not None:
+                s = int(mat[q[i - 1], t[j - 1]])
+            else:
+                s = match if q[i - 1] == t[j - 1] else -mismatch
+            if i and j and v == get_h(i - 1, j - 1) + s:
+                i, j = i - 1, j - 1
+                path.append((i, j))
+            elif v == get_f(i, j):
+                st = 2
+            elif v == get_e(i, j):
+                st = 1
+            else:  # pragma: no cover
+                raise AssertionError("inconsistent affine banded traceback H")
+        elif st == 1:  # E: gap moves left
+            v = get_e(i, j)
+            if j and v == get_h(i, j - 1) - gap_open:
+                j -= 1
+                st = 0
+            elif j and v == get_e(i, j - 1) - gap_extend:
+                j -= 1
+            else:  # pragma: no cover
+                raise AssertionError("inconsistent affine banded traceback E")
+            path.append((i, j))
+        else:  # F: gap moves up
+            v = get_f(i, j)
+            if i and v == get_h(i - 1, j) - gap_open:
+                i -= 1
+                st = 0
+            elif i and v == get_f(i - 1, j) - gap_extend:
+                i -= 1
+            else:  # pragma: no cover
+                raise AssertionError("inconsistent affine banded traceback F")
+            path.append((i, j))
+    path.reverse()
+    return path
+
+
+def banded_forward_batch(
+    qs: np.ndarray,
+    ts: np.ndarray,
+    lens_q: Optional[Sequence[int]] = None,
+    lens_t: Optional[Sequence[int]] = None,
+    match: int = 1,
+    mismatch: int = 1,
+    gap: int = 1,
+    bandwidth: int = 32,
+    x_threshold: int = 70,
+    compress_history: Optional[bool] = None,
+    gap_open: Optional[int] = None,
+    gap_extend: Optional[int] = None,
+    matrix: Optional[np.ndarray] = None,
+    device=None,
+) -> BandedBatchResult:
+    """Adaptive-banded X-drop forward pass, history included (the device
+    half of banded_align_batch). Returns a BandedBatchResult of host
+    arrays.
+
+    On the card every bandwidth up to ``kernels.banded_batch.MAX_WIDTH``
+    (128) runs the per-round kernel (``banded_batch``), W = 32 and 64
+    included, where JAX ran its packed kernel; a wider band raises
+    NotImplementedError. The history streams to device memory at every
+    geometry, so JAX's switch to its XLA forward past 6000 characters
+    (a TPU VMEM limit) has no counterpart. On the CPU the plain tier runs.
+
+    ``compress_history=None`` (default) auto-selects the reference's
+    8-bit offset-rebias wire format (source.cpp:2105-2119) whenever the
+    int32 history would exceed ~8 MB and x_threshold fits in a byte.
+    """
+    if compress_history is None:
+        R_cap = (max(qs.shape[1], ts.shape[1]) + 1) * 2 - 1
+        compress_history = (
+            x_threshold <= 254
+            and R_cap * qs.shape[0] * bandwidth * 4 > 8 * 2**20
+        )
+    return banded_batch(
+        qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth, x_threshold,
+        compress_history=compress_history, gap_open=gap_open,
+        gap_extend=gap_extend, matrix=matrix, device=device,
+    ).numpy()
+
+
+def banded_walk_batch(
+    qs: np.ndarray,
+    ts: np.ndarray,
+    res,
+    lens_q: Optional[Sequence[int]] = None,
+    lens_t: Optional[Sequence[int]] = None,
+    match: int = 1,
+    mismatch: int = 1,
+    gap: int = 1,
+    bandwidth: int = 32,
+    x_threshold: int = 70,
+    gap_open: Optional[int] = None,
+    gap_extend: Optional[int] = None,
+    matrix: Optional[np.ndarray] = None,
+) -> List[Tuple[int, List[Tuple[int, int]]]]:
+    """Host half of banded_align_batch: walk every pair's path from a
+    BandedBatchResult (the device forward's history) with the numpy
+    walkers."""
+    if gap_open is not None and gap_open == gap_extend:
+        gap, gap_open, gap_extend = gap_open, None, None
+    res = res.numpy()
+    B = qs.shape[0]
+    lens_q = [qs.shape[1]] * B if lens_q is None else list(lens_q)
+    lens_t = [ts.shape[1]] * B if lens_t is None else list(lens_t)
+    if gap_open is not None:
+        walker = lambda q, t, *a: banded_affine_traceback(  # noqa: E731
+            q, t, *a, match, mismatch, gap_open, gap_extend, bandwidth,
+            matrix=matrix,
+        )
+    else:
+        walker = lambda q, t, *a: banded_traceback(  # noqa: E731
+            q, t, *a, match, mismatch, gap, bandwidth, matrix=matrix
+        )
+    out = []
+    for b in range(B):
+        path = walker(
+            qs[b, : lens_q[b]],
+            ts[b, : lens_t[b]],
+            res.history_for(b),
+            res.pos_y[:, b],
+            int(res.n_rounds[b]),
+            int(res.max_round[b]),
+            int(res.score[b]) + x_threshold,
+        )
+        out.append((int(res.score[b]), path))
+    return out
+
+
+def banded_align_batch(
+    qs: np.ndarray,
+    ts: np.ndarray,
+    lens_q: Optional[Sequence[int]] = None,
+    lens_t: Optional[Sequence[int]] = None,
+    match: int = 1,
+    mismatch: int = 1,
+    gap: int = 1,
+    bandwidth: int = 32,
+    x_threshold: int = 70,
+    compress_history: Optional[bool] = None,
+    gap_open: Optional[int] = None,
+    gap_extend: Optional[int] = None,
+    matrix: Optional[np.ndarray] = None,
+    device=None,
+) -> List[Tuple[int, List[Tuple[int, int]]]]:
+    """Batched adaptive-banded X-drop alignment with traceback.
+
+    Device forward pass (band history on the device, one anti-diagonal
+    per round: :func:`banded_forward_batch`), host walk of each path from
+    the history (:func:`banded_walk_batch`). Output per pair is
+    bit-identical to ``oracle.banded_xdrop`` (linear gaps) /
+    ``oracle.banded_affine.banded_affine_xdrop`` (gap_open !=
+    gap_extend). ``matrix`` selects the general-substitution-matrix /
+    protein mode (match/mismatch ignored). JAX's device walker for
+    reference-scale linear pairs on the TPU is not ported (ROADMAP): the
+    walk is on the host at every geometry.
+    """
+    qs = np.asarray(qs)
+    ts = np.asarray(ts)
+    res = banded_forward_batch(
+        qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth,
+        x_threshold, compress_history=compress_history, gap_open=gap_open,
+        gap_extend=gap_extend, matrix=matrix, device=device,
+    )
+    return banded_walk_batch(
+        qs, ts, res, lens_q, lens_t, match, mismatch, gap, bandwidth,
+        x_threshold, gap_open=gap_open, gap_extend=gap_extend,
+        matrix=matrix,
+    )

@@ -1,11 +1,15 @@
 """swtpu_torch command-line interface: ``align``, ``semiglobal``,
-``global`` and ``pack``.
+``global``, ``banded`` and ``pack``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
 query/target pairs), ``semiglobal`` and ``global`` (semi-global and
-Needleman-Wunsch alignment with traceback) and ``pack`` (DNA FASTA <->
-the 2-bit ``.npz`` container). Output is the same JSON lines (or SAM) as
-``python -m swtpu`` prints for the same arguments.
+Needleman-Wunsch alignment with traceback), ``banded`` (adaptive-banded
+X-drop semi-global alignment; ``--fixed``: local alignment in the fixed
+corridor |i - j| <= bandwidth) and ``pack`` (DNA FASTA <-> the 2-bit
+``.npz`` container). Output is the same JSON lines (or SAM) as
+``python -m swtpu`` prints for the same arguments. ``banded
+--block-adaptive`` (the block tier) is not ported yet and exits with a
+message (ROADMAP.md queue A item 10).
 
 Usage:
   python -m swtpu_torch align --random 1024x128x128 --scoring 10,-30 --gap 15
@@ -18,6 +22,10 @@ Usage:
   python -m swtpu_torch semiglobal --random 8x200x200 --traceback
   python -m swtpu_torch global --queries q.fa --targets t.fa --cigar
   python -m swtpu_torch global --alphabet protein --random 8x128x128 --gap-open 11 --gap-extend 1 --sam
+  python -m swtpu_torch banded --random 8x200x200 --x-drop 70 --cigar
+  python -m swtpu_torch banded --alphabet protein --random 8x128x128 --gap-open 11 --gap-extend 1 --x-drop 120 --sam
+  python -m swtpu_torch banded --fixed --random 64x128x128 --bandwidth 32
+  python -m swtpu_torch banded --fixed --random 8x128x128 --gap-open 3 --gap-extend 1 --traceback
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
 
@@ -195,6 +203,85 @@ def cmd_semiglobal(args, pin_end=False):
         print(json.dumps(rec))
 
 
+def cmd_banded(args):
+    """Adaptive-banded X-drop semi-global alignment (JSON records with
+    score, start and end, or SAM), or with ``--fixed`` fixed-corridor
+    local alignment (scores; paths with --traceback/--cigar/--sam)."""
+    names, qs, ts, ql, tl = _load_pair_inputs(args)
+    match, mismatch = (int(x) for x in args.scoring.split(","))
+    from swtpu_torch.core.cigar import path_to_cigar
+
+    if args.fixed:
+        # fixed diagonal corridor |i-j| <= W (BASELINE configs 1-2
+        # geometry); DNA and protein scoring via --alphabet
+        from swtpu_torch.batch.traceback import (
+            banded_static_align_batch,
+            banded_static_scores,
+        )
+
+        params = _scoring(args)
+        if args.traceback or args.cigar or args.sam:
+            out = banded_static_align_batch(
+                qs, ts, params, bandwidth=args.bandwidth, device=args.device
+            )
+            if args.sam:
+                _emit_sam(names, qs, ts, ql, tl, args.alphabet, out)
+                return
+            for k, (name, (score, path)) in enumerate(zip(names, out)):
+                rec = dict(pair=name, score=score)
+                if args.traceback:
+                    rec["path"] = path
+                if args.cigar:
+                    rec["cigar"] = path_to_cigar(
+                        path, qs[k], ts[k], query_len=int(ql[k])
+                    )
+                print(json.dumps(rec))
+            return
+        scores = banded_static_scores(
+            qs, ts, params, bandwidth=args.bandwidth, device=args.device
+        ).cpu().numpy()
+        for name, s in zip(names, scores):
+            print(json.dumps(dict(pair=name, score=int(s))))
+        return
+    if args.block_adaptive:
+        raise SystemExit(
+            "--block-adaptive is the block tier (kernels B9-B10), not ported "
+            "yet: ROADMAP.md queue A item 10; the default per-round engine "
+            "runs on the card"
+        )
+    from swtpu_torch.batch import banded_align_batch
+
+    # linear and affine ride the same device forward pass; affine paths
+    # come from the host Gotoh walker over the device band history.
+    # --alphabet protein selects the general-matrix (BLOSUM62) mode.
+    out = banded_align_batch(
+        qs,
+        ts,
+        list(ql),
+        list(tl),
+        match=match,
+        mismatch=abs(mismatch),
+        gap=args.gap,
+        bandwidth=args.bandwidth,
+        x_threshold=args.x_drop,
+        gap_open=args.gap_open,
+        gap_extend=args.gap_extend if args.gap_open is not None else None,
+        matrix=_scoring(args).matrix if args.alphabet == "protein" else None,
+        device=args.device,
+    )
+    if args.sam:
+        _emit_sam(names, qs, ts, ql, tl, args.alphabet, out)
+        return
+    for k, (name, (score, path)) in enumerate(zip(names, out)):
+        rec = dict(pair=name, score=score, start=path[0], end=path[-1])
+        if args.traceback:
+            rec["path"] = path
+        if args.cigar:
+            # banded semi-global: path starts at the top-left, no clips
+            rec["cigar"] = path_to_cigar(path, qs[k], ts[k])
+        print(json.dumps(rec))
+
+
 def cmd_pack(args):
     """DNA FASTA <-> 2-bit packed .npz batch container."""
     import os
@@ -281,6 +368,24 @@ def build_parser():
     )
     common(p)
     p.set_defaults(fn=lambda args: cmd_semiglobal(args, pin_end=True))
+
+    p = sub.add_parser("banded", help="adaptive-banded X-drop semi-global")
+    common(p)
+    p.add_argument("--bandwidth", type=int, default=32)
+    p.add_argument("--x-drop", type=int, default=70)
+    p.add_argument(
+        "--fixed",
+        action="store_true",
+        help="fixed diagonal corridor |i-j| <= bandwidth (local SW, "
+        "score-only, issue-bound engine)",
+    )
+    p.add_argument(
+        "--block-adaptive",
+        action="store_true",
+        help="the block-adaptive tier: not ported yet (ROADMAP.md queue A "
+        "item 10); exits with a message",
+    )
+    p.set_defaults(fn=cmd_banded)
 
     p = sub.add_parser(
         "pack",

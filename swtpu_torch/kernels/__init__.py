@@ -10,10 +10,19 @@ each with its plain PyTorch version beside it.
                   ``sw_profile_plain`` / ``sw_profile_ends_plain``;
 - ``sw_bf16``     the bf16 reduced-precision tier: ``sw_bf16`` (kernel),
                   ``sw_bf16_plain`` (the anti-diagonal tier in bf16);
+- ``semiglobal_batch``, ``semiglobal_profile``  semi-global / global
+                  (kernel), ``semiglobal_scan`` their plain tier;
+- ``sw_banded``   fixed band |i - j| <= W: ``sw_banded_static`` (uniform)
+                  / ``sw_banded_profile`` (general matrix) (kernel),
+                  ``sw_banded_plain``;
+- ``banded_batch``  per-round adaptive-band X-drop: ``banded_batch``
+                  (kernel), ``banded_batch_plain``; ``banded_scan`` its
+                  plain tier (the XLA tier's copy) and result type;
 - ``sw_scan``, ``affine_scan``  the plain anti-diagonal tiers;
 - ``unpack``      the 2-bit DNA decode / encode as torch ops on a device;
 - ``_build``      nvcc at first use, ctypes loading.
 
 Nothing here imports a compiler or builds a kernel at import; the first
-launch on a CUDA tensor builds ``csrc/*.cu`` with nvcc.
+launch on a CUDA tensor builds its ``csrc/*.cu`` with nvcc
+(``_build.SOURCES`` lists them).
 """

@@ -25,6 +25,11 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+#: every CUDA source of the port: the row-scan (uniform scoring), the
+#: profile (general matrix), the bf16 tier, semi-global / global, the
+#: fixed band and the per-round adaptive band
+SOURCES = ("sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu", "sw_semiglobal.cu",
+           "sw_banded.cu", "sw_xdrop.cu")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -8,8 +8,15 @@ from swtpu_torch.oracle.affine import (  # noqa: F401
     sw_affine_traceback,
 )
 from swtpu_torch.oracle.semiglobal import (  # noqa: F401
+    banded_xdrop,
     nw_affine_full,
     nw_full,
     semiglobal_affine_full,
     semiglobal_full,
+)
+from swtpu_torch.oracle.banded_affine import banded_affine_xdrop  # noqa: F401
+from swtpu_torch.oracle.banded_static import (  # noqa: F401
+    sw_banded_static_score,
+    sw_banded_static_score_batch,
+    sw_banded_static_traceback,
 )

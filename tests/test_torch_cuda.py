@@ -17,7 +17,12 @@ int32 kernel inside it. The varlen and promotion entry points on the card
 equal themselves on the CPU. The semi-global kernels
 (``semiglobal_batch``, ``semiglobal_profile``) equal their plain version,
 argmax and pinned (global), with per-pair lengths down to 0, and the
-alignment entry points on the card equal themselves on the CPU.
+alignment entry points on the card equal themselves on the CPU. The
+fixed-band kernel (``sw_banded_static``, ``sw_banded_profile``) equals
+its plain version on ragged shapes, W from 0 past max(n, m), pads and
+lengths; the per-round banded kernel (``banded_batch``) equals its plain
+version in every field at W from 8 to 128, and the banded alignment entry
+points on the card equal themselves on the CPU.
 """
 
 import numpy as np
@@ -25,7 +30,8 @@ import pytest
 import torch
 
 from swtpu_torch.batch import (
-    nw_align_batch, promote, semiglobal_align_batch, sw_scores_varlen,
+    banded_align_batch, banded_static_align_batch, nw_align_batch, promote,
+    semiglobal_align_batch, sw_scores_varlen,
 )
 from swtpu_torch.core.encode import mutate, pack_2bit
 from swtpu_torch.core.protein import BLOSUM62
@@ -33,9 +39,10 @@ from swtpu_torch.core.scoring import (
     DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
 )
 from swtpu_torch.kernels import (
-    semiglobal_batch, semiglobal_profile, sw_affine, sw_batch, sw_bf16,
-    sw_profile,
+    banded_batch, semiglobal_batch, semiglobal_profile, sw_affine, sw_banded,
+    sw_batch, sw_bf16, sw_profile,
 )
+from swtpu_torch.kernels.banded_scan import BandedBatchResult, _prep_padded
 from swtpu_torch.oracle import (
     nw_affine_full, nw_full, semiglobal_affine_full, semiglobal_full,
     sw_affine_traceback, sw_score_batch, sw_traceback,
@@ -523,3 +530,178 @@ def test_semiglobal_align_on_card_equals_cpu(card, scoring):
         for extra in ({}, lens):
             got = fn(qh, th, **kw, **extra)
             assert got == fn(qh, th, **kw, **extra, device="cpu")
+
+
+# -- fixed band (B8) and the per-round adaptive band (B11/B12) ----------
+
+FIXED_SCORINGS = {
+    "111": ScoringParams.linear(dna_matrix(1, -1), 1),
+    "10_30_15": DNA_10_30_15,
+    "affine_1_1_3_1": ScoringParams(dna_matrix(1, -1), 3, 1),
+    "blosum62_linear11": ScoringParams.linear(BLOSUM62, 11),
+    "blosum62_gotoh11_1": ScoringParams(BLOSUM62, 11, 1),
+    "dna_general_gotoh3_1": ScoringParams(
+        np.array([[3, -2, -1, -2], [-2, 3, -2, -1], [-1, -2, 3, -2],
+                  [-2, -1, -2, 3]]), 3, 1),
+}
+
+
+def banded_codes(rng, A, B, n, m, device):
+    """Half the pairs related (the target is the query, cut or filled to
+    m, with 10% substitutions), half random."""
+    qs = rng.integers(0, A, size=(B, n)).astype(np.uint8)
+    ts = rng.integers(0, A, size=(B, m)).astype(np.uint8)
+    k = min(n, m)
+    ts[: B // 2, :k] = qs[: B // 2, :k]
+    sub = rng.random((B // 2, k)) < 0.1
+    ts[: B // 2, :k][sub] = rng.integers(0, A, int(sub.sum()))
+    return torch.from_numpy(qs).to(device), torch.from_numpy(ts).to(device)
+
+
+@pytest.mark.parametrize("shape", ["1000x90x200_lens", "2048x128x128", "33x7x1",
+                                   "64x40x300", "64x300x40"])
+@pytest.mark.parametrize("scoring", list(FIXED_SCORINGS))
+def test_fixed_band_kernel_equals_plain_on_card(card, scoring, shape):
+    B, n, m = (int(x) for x in shape.split("_")[0].split("x"))
+    p = FIXED_SCORINGS[scoring]
+    rng = np.random.default_rng(10000)
+    qs, ts = banded_codes(rng, 4 if p.alphabet_size == 4 else 20, B, n, m, card)
+    lens = {}
+    if shape.endswith("lens"):
+        lens = dict(lens_q=rng.integers(0, n + 1, B), lens_t=rng.integers(0, m + 1, B))
+    uniform = sw_batch._uniform_match_mismatch(p) is not None
+    kerns = [sw_banded.sw_banded_profile] + ([sw_banded.sw_banded_static] if uniform
+                                             else [])
+    for W in (0, 1, 8, 32, 100, 400):
+        want = sw_banded.sw_banded_plain(qs, ts, p, W, **lens)
+        for kern in kerns:
+            before = kern.launches
+            got = kern(qs, ts, p, W, **lens)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 1
+            assert got.device.type == "cuda" and got.dtype == torch.int32
+            assert torch.equal(got, want), (kern.__name__, W)
+
+
+def test_fixed_band_pads_and_bare_launch_on_card(card):
+    rng = np.random.default_rng(10000)
+    p = FIXED_SCORINGS["affine_1_1_3_1"]
+    qs, ts = banded_codes(rng, 4, 500, 60, 70, card)
+    qs[:, 13], ts[:, 29] = 4, 5  # in-length pads score matrix.min()
+    want = sw_banded.sw_banded_plain(qs, ts, p, 12)
+    assert torch.equal(sw_banded.sw_banded_static(qs, ts, p, 12), want)
+    qT, tT = qs.t().contiguous(), ts.t().contiguous()
+    assert torch.equal(sw_banded.banded_launch_t(qT, tT, p, 12), want)
+    table = sw_banded.banded_table(p.matrix, card)
+    assert torch.equal(sw_banded.banded_launch_t(qT, tT, p, 12, table), want)
+    with pytest.raises(ValueError, match="contiguous uint8"):
+        sw_banded.banded_launch_t(qs.t(), tT, p, 12)
+
+
+def test_fixed_band_guards_raise_on_card(card):
+    q = torch.zeros((2, 8), dtype=torch.uint8, device=card)
+    before = (sw_banded.sw_banded_static.launches, sw_banded.sw_banded_profile.launches)
+    for p in (ScoringParams.linear(dna_matrix(1, 1), 1),
+              ScoringParams.linear(dna_matrix(1, -1), 0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sw_banded.sw_banded_static(q, q, p)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sw_banded.sw_banded_profile(q, q, ScoringParams(BLOSUM62, 11, 0))
+    assert before == (sw_banded.sw_banded_static.launches,
+                      sw_banded.sw_banded_profile.launches)
+
+
+def xdrop_set(rng, A, B, n, device):
+    """Related pairs (10% substitutions, a few indels), the last quarter
+    random, with per-pair lengths."""
+    qs = rng.integers(0, A, size=(B, n)).astype(np.uint8)
+    ts = np.stack([mutate(rng, q, p_mismatch=0.1, p_insert=0.02, p_delete=0.02,
+                          out_len=n) % A for q in qs])
+    ts[-B // 4:] = rng.integers(0, A, size=(B // 4, n))
+    lens = dict(lens_q=rng.integers(n // 2, n + 1, B), lens_t=rng.integers(n // 2, n + 1, B))
+    return torch.from_numpy(qs).to(device), torch.from_numpy(ts).to(device), lens
+
+
+XDROP_MODES = {
+    "linear_varlen": dict(lens=True),
+    "gotoh_compressed": dict(gap_open=3, gap_extend=1, compress_history=True),
+    "blosum62_x120": dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120,
+                          lens=True),
+    "harsh_scores_only": dict(mismatch=3, gap=2, x_threshold=40, with_history=False),
+}
+
+
+def xdrop_fields(res):
+    """The result's fields, the per-round ones (history, pos_y, offsets)
+    zeroed at and past each pair's n_rounds: the kernel writes only below
+    it."""
+    out = [res.score, res.max_round, res.n_rounds]
+    if res.pos_y is not None:
+        live = (torch.arange(res.pos_y.shape[0], device=res.pos_y.device)[:, None]
+                < res.n_rounds[None, :])
+        out.append(torch.where(live[..., None], res.band_history, 0))
+        out += [torch.where(live, x, 0) for x in (res.pos_y, res.offsets)
+                if x is not None]
+    return out
+
+
+@pytest.mark.parametrize("W", [8, 32, 40, 64, 96, 128])
+@pytest.mark.parametrize("mode", list(XDROP_MODES))
+def test_xdrop_kernel_equals_plain_on_card(card, mode, W):
+    kw = dict(XDROP_MODES[mode])
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 64, 260, card)
+    if kw.pop("lens", False):
+        kw.update(lens)
+    kern = banded_batch.banded_batch
+    before = (kern.launches, kern.launches_w32_w64)
+    got = kern(qs, ts, bandwidth=W, **kw)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.launches_w32_w64) == (
+        before[0] + 1, before[1] + (W in (32, 64)))
+    want = banded_batch.banded_batch_plain(qs, ts, bandwidth=W, device=card, **kw)
+    got_f, want_f = xdrop_fields(got), xdrop_fields(want)
+    assert len(got_f) == len(want_f)
+    for g, w in zip(got_f, want_f):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g, w), (mode, W)
+
+
+def test_xdrop_guards_and_bare_launch_on_card(card):
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 4, 40, 100, card)
+    before = banded_batch.banded_batch.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        banded_batch.banded_batch(qs, ts, bandwidth=129)
+    with pytest.raises(ValueError, match="254"):
+        banded_batch.banded_batch(qs, ts, compress_history=True, x_threshold=300)
+    assert banded_batch.banded_batch.launches == before
+    qp, tp, lq, lt = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], 32, card,
+                                  torch.int16)
+    out = banded_batch.xdrop_launch_t(qp, tp, lq.int(), lt.int(), 32, 70, 1, 1, 1)
+    want = banded_batch.banded_batch(qs, ts, bandwidth=32, **lens)
+    assert out[5] is None
+    got_f = xdrop_fields(BandedBatchResult(*out[:5]))
+    for g, w in zip(got_f, xdrop_fields(want), strict=True):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="int16"):
+        banded_batch.xdrop_launch_t(qp.int(), tp, lq.int(), lt.int(), 32, 70, 1, 1, 1)
+
+
+@pytest.mark.parametrize("scoring", ["affine_1_1_3_1", "blosum62_gotoh11_1"])
+def test_banded_align_on_card_equals_cpu(card, scoring):
+    p = FIXED_SCORINGS[scoring]
+    rng = np.random.default_rng(10000)
+    A = 4 if p.alphabet_size == 4 else 20
+    qd, td = banded_codes(rng, A, 32, 60, 64, card)
+    qh, th = qd.cpu().numpy(), td.cpu().numpy()
+    assert banded_static_align_batch(qh, th, p, 12) == banded_static_align_batch(
+        qh, th, p, 12, device="cpu")
+    qd, td, lens = xdrop_set(rng, A, 32, 150, card)
+    qh, th = qd.cpu().numpy(), td.cpu().numpy()
+    kw = dict(gap_open=p.gap_open, gap_extend=p.gap_extend, x_threshold=60, **lens)
+    if A == 20:
+        kw["matrix"] = p.matrix
+    for W in (32, 96):
+        assert banded_align_batch(qh, th, bandwidth=W, **kw) == banded_align_batch(
+            qh, th, bandwidth=W, device="cpu", **kw)

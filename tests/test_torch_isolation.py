@@ -13,7 +13,13 @@
   the wrappers and the ``semiglobal`` / ``global`` CLI) launch the
   semi-global kernel, uniform for scalars and profile for ``params=``,
   never the plain tier, and scoring it does not take raises (checked
-  with the card faked and the launch replaced by a recorder).
+  with the card faked and the launch replaced by a recorder);
+- likewise banded alignment: ``banded_static_align_batch`` and ``banded
+  --fixed`` launch the fixed-band kernel (uniform form for a uniform
+  matrix, profile form for any other), ``banded_forward_batch``,
+  ``banded_align_batch`` and ``banded`` the per-round kernel at every
+  bandwidth up to 128, never the plain tiers; scoring or widths the
+  kernels do not take raise.
 """
 
 import json
@@ -38,10 +44,13 @@ from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
 from swtpu_torch.kernels import (
     _build,
     affine_scan,
+    banded_batch,
+    banded_scan,
     semiglobal_batch,
     semiglobal_profile,
     semiglobal_scan,
     sw_affine,
+    sw_banded,
     sw_batch,
     sw_bf16,
     sw_profile,
@@ -60,7 +69,8 @@ WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
             sw_affine.sw_affine, sw_affine.sw_affine_ends,
             sw_profile.sw_profile, sw_profile.sw_profile_ends,
             sw_bf16.sw_bf16, semiglobal_batch.semiglobal_batch,
-            semiglobal_profile.semiglobal_profile]
+            semiglobal_profile.semiglobal_profile, sw_banded.sw_banded_static,
+            sw_banded.sw_banded_profile, banded_batch.banded_batch]
 
 
 def _module_names():
@@ -150,6 +160,16 @@ NO_DEVICE_CALLS = {
     "semiglobal_align_batch":
         lambda: port_traceback.semiglobal_align_batch(Q, Q, gap_open=3),
     "nw_align_batch": lambda: port_traceback.nw_align_batch(Q, Q, params=GENERAL),
+    "sw_banded_static": lambda: sw_banded.sw_banded_static(Q, Q, DNA_10_30_15, 4),
+    "sw_banded_profile": lambda: sw_banded.sw_banded_profile(Q, Q, GENERAL_AFF, 4),
+    "sw_banded_plain": lambda: sw_banded.sw_banded_plain(Q, Q, AFF, 4),
+    "banded_static_align_batch":
+        lambda: port_traceback.banded_static_align_batch(Q, Q, GENERAL, 4),
+    "banded_xdrop_batch": lambda: banded_scan.banded_xdrop_batch(Q, Q),
+    "banded_batch": lambda: banded_batch.banded_batch(Q, Q, bandwidth=64),
+    "banded_forward_batch": lambda: port_traceback.banded_forward_batch(Q, Q),
+    "banded_align_batch":
+        lambda: port_traceback.banded_align_batch(Q, Q, gap_open=3, gap_extend=1),
 }
 
 
@@ -168,6 +188,9 @@ def test_no_card_entry_without_device_raises(entry):
     ["align", "--random", "2x8x8", "--cigar"],
     ["semiglobal", "--random", "2x8x8", "--traceback"],
     ["global", "--alphabet", "protein", "--random", "2x8x8", "--sam"],
+    ["banded", "--random", "2x8x8", "--cigar"],
+    ["banded", "--fixed", "--random", "2x8x8"],
+    ["banded", "--fixed", "--alphabet", "protein", "--random", "2x8x8", "--sam"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
@@ -414,5 +437,152 @@ def test_cuda_semiglobal_cli_runs_the_kernel(fake_sg_card, argv, call, capsys):
     cli.main(argv)
     on_card = capsys.readouterr().out
     assert fake_sg_card == [call]
+    jax_cli(argv)
+    assert capsys.readouterr().out == on_card and len(on_card.splitlines()) >= 4
+
+
+@pytest.fixture
+def fake_banded_card(monkeypatch):
+    """Pretend a card exists for the banded wrappers: inputs stay on the
+    CPU, and each kernel launch is a recorder that returns its plain
+    version's result, computed apart; the plain tiers as the wrappers see
+    them fail."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls, seen = [], {}
+    cpu = torch.device("cpu")
+    fixed_plain = sw_banded.sw_banded_plain
+    apply_lens = sw_banded._apply_lens
+    prep_padded = banded_scan._prep_padded
+    xdrop_plain = banded_scan.banded_xdrop_batch
+
+    def layout(qs, ts, device, what):
+        assert device.type == "cuda"
+        return (port_device.as_codes(qs, cpu).t().contiguous(),
+                port_device.as_codes(ts, cpu).t().contiguous())
+
+    def lens(qs, ts, lens_q, lens_t, q_pad, t_pad, device):
+        return apply_lens(qs, ts, lens_q, lens_t, q_pad, t_pad, cpu)
+
+    def table(matrix, device):
+        assert device.type == "cuda"
+        seen["matrix"] = matrix
+        return torch.as_tensor(banded_scan._banded_ext_table(matrix))
+
+    def fixed_launch(qT, tT, params, bandwidth, table=None):
+        calls.append(("fixed", "profile" if table is not None else "uniform",
+                      not params.is_linear))
+        return fixed_plain(qT.t(), tT.t(), params, bandwidth, device="cpu")
+
+    def prep(qs, ts, lens_q, lens_t, bandwidth, device, dtype):
+        assert device.type == "cuda" and dtype == torch.int16
+        seen["args"] = (qs, ts, lens_q, lens_t)
+        return prep_padded(qs, ts, lens_q, lens_t, bandwidth, cpu, dtype)
+
+    def xdrop_launch(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match, mismatch,
+                     gap, gap_open=None, gap_extend=None, table=None,
+                     with_history=True, compress_history=False):
+        calls.append(("xdrop", bandwidth, gap_open is not None, table is not None,
+                      compress_history))
+        res = xdrop_plain(*seen["args"], match, mismatch, gap, bandwidth, x_threshold,
+                          compress_history, with_history, gap_open, gap_extend,
+                          None if table is None else seen["matrix"], device="cpu")
+        return (res.score, res.max_round, res.n_rounds, res.band_history, res.pos_y,
+                res.offsets)
+
+    monkeypatch.setattr(sw_banded, "kernel_layout", layout)
+    monkeypatch.setattr(sw_banded, "_apply_lens", lens)
+    monkeypatch.setattr(sw_banded, "banded_table", table)
+    monkeypatch.setattr(sw_banded, "banded_launch_t", fixed_launch)
+    monkeypatch.setattr(banded_batch, "banded_table", table)
+    monkeypatch.setattr(banded_batch, "_prep_padded", prep)
+    monkeypatch.setattr(banded_batch, "xdrop_launch_t", xdrop_launch)
+    for mod, name in ((sw_banded, "sw_banded_plain"),
+                      (port_traceback, "sw_banded_plain"),
+                      (banded_batch, "banded_xdrop_batch"),
+                      (banded_batch, "banded_batch_plain")):
+        monkeypatch.setattr(
+            mod, name,
+            lambda *a, _n=name, **k: pytest.fail(f"plain tier {_n} ran on CUDA"))
+    return calls
+
+
+def _banded_pairs(B=5, n=24):
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, 4, size=(B, n)).astype(np.uint8)
+    ts = qs.copy()
+    ts[:, ::5] = rng.integers(0, 4, size=ts[:, ::5].shape)
+    return qs, ts, rng.integers(n // 2, n + 1, B), rng.integers(n // 2, n + 1, B)
+
+
+@pytest.mark.parametrize("params,call", [
+    (ScoringParams.linear(dna_matrix(2, -1), 1), ("fixed", "uniform", False)),
+    (AFF, ("fixed", "uniform", True)),
+    (GENERAL, ("fixed", "profile", False)),
+    (GENERAL_AFF, ("fixed", "profile", True)),
+])
+def test_cuda_fixed_band_runs_the_kernel(fake_banded_card, params, call):
+    qs, ts, _, _ = _banded_pairs()
+    wrapper = (sw_banded.sw_banded_static if call[1] == "uniform"
+               else sw_banded.sw_banded_profile)
+    before = (wrapper.launches, wrapper.launches_affine)
+    got = port_traceback.banded_static_align_batch(qs, ts, params, 6)
+    assert fake_banded_card == [call]
+    assert (wrapper.launches, wrapper.launches_affine) == (
+        before[0] + 1, before[1] + call[2])
+    assert len(got) == len(qs) and max(s for s, _ in got) > 0
+
+
+@pytest.mark.parametrize("W,kw,call", [
+    (32, dict(), ("xdrop", 32, False, False, False)),
+    (64, dict(gap_open=3, gap_extend=1), ("xdrop", 64, True, False, False)),
+    (8, dict(compress_history=True), ("xdrop", 8, False, False, True)),
+    (96, dict(matrix=np.arange(16).reshape(4, 4) % 5 - 2), ("xdrop", 96, False, True,
+                                                          False)),
+    (128, dict(gap_open=2, gap_extend=2), ("xdrop", 128, False, False, False)),
+])
+def test_cuda_banded_forward_runs_the_kernel(fake_banded_card, W, kw, call):
+    qs, ts, lq, lt = _banded_pairs()
+    before = (banded_batch.banded_batch.launches,
+              banded_batch.banded_batch.launches_w32_w64)
+    got = port_traceback.banded_align_batch(qs, ts, lq, lt, bandwidth=W,
+                                            x_threshold=20, **kw)
+    assert fake_banded_card == [call]
+    assert (banded_batch.banded_batch.launches,
+            banded_batch.banded_batch.launches_w32_w64) == (
+        before[0] + 1, before[1] + (W in (32, 64)))
+    assert len(got) == len(qs) and all(path[0] == (0, 0) for _, path in got)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: banded_batch.banded_batch(Q, Q, bandwidth=129),
+    lambda: port_traceback.banded_forward_batch(Q, Q, bandwidth=200),
+    lambda: sw_banded.sw_banded_static(Q, Q, ScoringParams.linear(dna_matrix(1, 1), 1)),
+    lambda: sw_banded.sw_banded_static(Q, Q, GENERAL),
+    lambda: port_traceback.banded_static_align_batch(
+        Q, Q, ScoringParams.linear(dna_matrix(1, -1), 0)),
+])
+def test_cuda_banded_raises_without_a_kernel(fake_banded_card, call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call()
+    assert fake_banded_card == []
+
+
+@pytest.mark.parametrize("argv,call", [
+    (["banded", "--fixed", "--random", "4x20x20", "--bandwidth", "6", "--cigar"],
+     ("fixed", "uniform", False)),
+    (["banded", "--fixed", "--alphabet", "protein", "--random", "4x20x20",
+      "--gap-open", "11", "--gap-extend", "1"], ("fixed", "profile", True)),
+    (["banded", "--random", "4x30x30", "--x-drop", "20", "--traceback"],
+     ("xdrop", 32, False, False, False)),
+    (["banded", "--alphabet", "protein", "--random", "4x30x30", "--gap-open", "11",
+      "--gap-extend", "1", "--bandwidth", "64", "--sam"],
+     ("xdrop", 64, True, True, False)),
+])
+def test_cuda_banded_cli_runs_the_kernel(fake_banded_card, argv, call, capsys):
+    from swtpu.cli import main as jax_cli
+
+    cli.main(argv)
+    on_card = capsys.readouterr().out
+    assert fake_banded_card == [call]
     jax_cli(argv)
     assert capsys.readouterr().out == on_card and len(on_card.splitlines()) >= 4
