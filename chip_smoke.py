@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's five main paths on the card, through the entry points
+Drives the port's six main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
@@ -16,10 +16,12 @@ lengths, traceback, the ``semiglobal`` and ``global`` CLI; the uniform and
 profile forms of ``csrc/sw_semiglobal.cu``) and the banded path (fixed
 band at BASELINE config 2 through ``csrc/sw_banded.cu``, the per-round
 adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
-``banded`` CLI).
+``banded`` CLI) and the block-adaptive band (``csrc/sw_block.cu``: the
+corridor window gather B10 and the block row-scan B9; the device walkers
+of ``csrc/sw_walk.cu``; ``banded --block-adaptive``).
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on the six CUDA sources at once; registers, spills and
+   2. build: nvcc on the eight CUDA sources at once; registers, spills and
       shared memory of each kernel;
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
@@ -29,12 +31,12 @@ adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
       against its plain version bit for bit, drift included, and on the
       pad cases where the bf16 tier matches pads; 64-pair spot checks
       against the numpy oracle; the eight semi-global instantiations
-      (argmax and pinned) on 32768 x 128 x 128 (half related pairs),
+      (argmax and pinned) on 8192 x 128 x 128 (half related pairs),
       1000 x 90 x 200 with internal pads and per-pair lengths down to 0,
       33 x 7 x 1 and 4 x 40 x 2560, under (1,1,1), (2,1,1), (2,3,5,1),
       (2,3,2,2), BLOSUM62 linear 11 and Gotoh 11/1 and a 4x4 DNA matrix
-      linear 2 and Gotoh 3/1, and on 64 pairs against the oracle copy;
-      the fixed-band kernel, both forms, at W = 8 to 160 on 32768 x 128 x
+      linear 2 and Gotoh 3/1, and on 16 pairs against the oracle copy;
+      the fixed-band kernel, both forms, at W = 8 to 160 on 8192 x 128 x
       128 (half related), 1000 x 90 x 200 with internal pads and lengths,
       64 x 40 x 300, 64 x 300 x 40 and 33 x 7 x 1 under (1,-1,1),
       (10,-30,15), Gotoh (1,-1,3,1), BLOSUM62 11 and 11/1 and a 4x4 DNA
@@ -44,11 +46,20 @@ adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
       with lengths (64 short queries whose bands run off the target),
       Gotoh with the 8-bit history and a non-homologous (1,3,2) X = 40
       set at every W, and at W = 32 and 96 also protein BLOSUM62 11/1 at
-      X = 120 and scores only; 8 pairs against the oracle copy;
+      X = 120 and scores only; 8 pairs against the oracle copy; the block
+      tier's B9 and B10 under its loop against the plain loop in every
+      field (histories, and bases / deltas below n_rows) on 300 pairs of
+      256 (40 random, whose bands die early at X = 30) at W = 16, 32, 64,
+      96 and 112 with K = 1 and 129 - W (and 32 at W = 64), linear, Gotoh
+      3/1, BLOSUM62 and per-pair lengths (a length 0, pairs that end
+      inside a block), an all-dead start, B10 alone at bases far outside
+      the targets, and the wires of both device walkers (``block_walk``,
+      ``xdrop_walk``) against their plain versions (the host walks,
+      encoded);
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
       (10, -30, open 40, extend 15), timed with CUDA events; the first
-      262,144 scores held against the plain version on the card;
+      65,536 scores held against the plain version on the card;
    5. DNA main path, traceback: ``sw_align_batch`` on 64 related pairs,
       linear and affine, with endpoint, rescoring, CIGAR and SAM checks;
       the device endpoints held against the plain version;
@@ -57,7 +68,7 @@ adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
    7. protein main path, scores: ``best_engine`` at 1,048,576 x
       (128 x 128) random protein, BLOSUM62 linear 11 and Gotoh 11/1
       (the JAX package's ``bench_protein`` scorings), timed; the first
-      262,144 scores held against the plain version on the card, in chunks;
+      65,536 scores held against the plain version on the card, in chunks;
    8. protein main path, BASELINE config 3: 64 mutated 120-mer fragments
       against the 256 SwissProt-like targets of
       ``swtpu/data/swissprot_like_256.fasta`` (read as data), 16,384 pairs
@@ -102,7 +113,7 @@ adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
       (the JAX package's ``bench_semiglobal_full`` inputs at the headline
       scale): random DNA under (1,1,1) and (2,3,5,1), random protein under
       BLOSUM62 linear 11 and Gotoh 11/1, through ``semiglobal_batch`` /
-      ``semiglobal_profile``, timed; the first 262,144 scores and endpoints
+      ``semiglobal_profile``, timed; the first 65,536 scores and endpoints
       held against the plain version on the card, 16 against the oracle copy;
   18. global path at 1M pairs: DNA (1,1,1) and protein Gotoh 11/1, pinned;
   19. varlen: 32,768 DNA pairs, query lengths 96-128, target lengths
@@ -115,7 +126,7 @@ adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
   22. fixed-band path, BASELINE config 2: 1,048,576 random 128 x 128
       pairs at W = 32, DNA (1,-1,1) and Gotoh (1,-1,3,1), protein
       BLOSUM62 11 and 11/1, through ``banded_static_scores``, timed in
-      band GCUPS over the in-band cells; the first 262,144 scores against
+      band GCUPS over the in-band cells; the first 65,536 scores against
       the plain version, 64 against the oracle copy; 2048 related 2048-mers;
   23. per-round adaptive band on the JAX ``bench_suite``'s sets: 256
       related DNA 2048-mers at W = 32, X = 70 (scores only, and with the
@@ -125,18 +136,37 @@ adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
       16,384 pairs scores only; band GCUPS count rounds written x W; each
       scoring and the history against the plain version (W = 64 against
       the oracle copy on 2 pairs), and the 16,384 pairs' bound;
-  24. traceback: ``banded_static_align_batch`` on 256 related 128-mers
+  24. traceback: ``banded_static_align_batch`` on 64 related 128-mers
       (DNA linear and Gotoh, protein 11/1), paths in the corridor and
-      rescored; ``banded_align_batch`` on 64 related 2048-mers (linear,
+      rescored; ``banded_align_batch`` on 16 related 2048-mers (linear,
       Gotoh, protein), paths from the origin rescored, 2 against the
       oracle copy, and on 16 of them at W = 96;
   25. the ``banded`` CLI (``--fixed`` and the per-round band at W = 96,
-      DNA and protein) against the oracle copy; ``--block-adaptive``
-      refuses.
+      DNA and protein) against the oracle copy;
+  26. the block tier's forward on ``bench_suite``'s block rows at W = 64:
+      256 related 2048-mers at K = 32 and 64, 1024 at K = 64, Gotoh 3/1 and
+      protein BLOSUM62 11/1 at X = 120, through ``banded_block_batch``,
+      timed (band GCUPS over n_rows x W) and at X = 2^20 through every block
+      (``bench_forward_fn``); the first 64 pairs against the plain version in
+      every field (the 1024 pairs, four copies of the 256: their first 256
+      against the 256-pair run), 2 against the oracle copy; B9 alone on the
+      1024 pairs
+      (row 11) and the 256 (row 12), B10 alone (row 13), their plain times
+      and bounds (``block_ops``);
+  27. ``banded_block_align_device`` on 8 and 128 related 16384-mers (W =
+      64, K = 64, X = 70, (1,1,1)): wall time, paths from the origin
+      rescored, scores against the forward, 2 pairs against the oracle
+      copy; ``block_walk`` alone against its plain version;
+  28. ``banded_align_batch`` on 8 related 16384-mers at W = 32: the device
+      walk (``xdrop_walk``) against the host walk over the 8-bit history,
+      rescored, 1 pair against the oracle copy; ``xdrop_walk`` alone;
+  29. ``banded --block-adaptive``: DNA scores, ``--traceback --cigar``,
+      protein, Gotoh and per-pair lengths (FASTA) against records built
+      from the oracle copy; its two refusals.
 
-Launch counts are zeroed just before each path (phases 4, 7, 11, 17 and
-22) and read just after it (phases 6, 10, 15, 21 and 25); every kernel of
-a path must have launched in its window. Inside the config-4 window the calls that
+Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22
+and 26) and read just after it (phases 6, 10, 15, 21, 25 and 29); every
+kernel of a path must have launched in its window. Inside the config-4 window the calls that
 are not the path's own (the fused unit and split on staged tensors, the
 per-part times, the reference checks, phase 14) run between a
 ``snapshot`` of the counts and their ``restore``, so the window counts
@@ -166,11 +196,12 @@ SEED = 10000
 T_START = time.perf_counter()  # phase headers and the total count from here
 # the 1M-pair calls (phases 4, 7, 17, 18, 22) are held against their plain
 # version on their first quarter
-CHECK_PAIRS = 1 << 18
+CHECK_PAIRS = 1 << 16
 ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
 SEMIGLOBAL = "sw_semiglobal.cu"
 BANDED, XDROP = "sw_banded.cu", "sw_xdrop.cu"
-SOURCES = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL, BANDED, XDROP]
+BLOCK, WALK = "sw_block.cu", "sw_walk.cu"
+SOURCES = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL, BANDED, XDROP, BLOCK, WALK]
 SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like_256.fasta"
 # DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
 # at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
@@ -259,6 +290,20 @@ KERNELS = {
                      "swtpu/kernels/pallas/banded_batch.py:493", None, 0, 0),
     "banded_batch_w32_w64": (XDROP, ("sw_xdrop_kernelILi1E", "sw_xdrop_kernelILi2E"),
                              "swtpu/kernels/pallas/banded_packed.py:412", None, 0, 0),
+    # the block tier: one B9 kernel for both TPU forms (its launches on the
+    # batches JAX would have folded count for row 12: see b9_shape); ops
+    # per band cell, pair-row and pair-block: see block_ops
+    "block_rows": (BLOCK, "block_rows_kernel",
+                   "swtpu/kernels/pallas/banded_block.py:827", None, 0, 0),
+    "block_rows_small": (BLOCK, "block_rows_kernel",
+                         "swtpu/kernels/pallas/banded_block.py:761", None, 0, 0),
+    "block_gather": (BLOCK, "block_gather_kernel",
+                     "swtpu/kernels/pallas/banded_block.py:872", None, 0, 0),
+    # the device walkers port XLA code (no row of the TPU table)
+    "block_walk": (WALK, "block_walk_kernel",
+                   "swtpu/kernels/pallas/banded_block.py:1275", None, 0, 0),
+    "xdrop_walk": (WALK, "xdrop_walk_kernel",
+                   "swtpu/kernels/xla/banded_scan.py:334", None, 0, 0),
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
@@ -266,6 +311,7 @@ PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
 CONFIG4_PATH = ["sw_bf16", "sw_batch"]
 SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
 BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
+BLOCK_PATH = [k for k, v in KERNELS.items() if v[0] in (BLOCK, WALK)]
 
 
 def xdrop_ops(affine, matrix):
@@ -283,6 +329,34 @@ def xdrop_ops(affine, matrix):
     test of cells past W, the band shifts' selects, and the per-round work
     that every lane repeats."""
     return 15 + 10 * affine - 2 * matrix, 10
+
+
+def block_ops(affine, matrix, W):
+    """int32 ops the block X-drop function needs (oracle/banded_block.py):
+    (per band cell, per pair and row, per pair and block), counted as
+    xdrop_ops counts. Per cell, linear: the uniform score 3 (compare, pad
+    test, select; the matrix: the table offset add 1, its lookup counted
+    apart), the diagonal 3 (dead test, add, floor at 0), up 2 and left 2
+    (subtract, max: with gaps >= 0 the floor makes the dead tests
+    redundant) and the row max 1: 11. Gotoh: the score 3, the diagonal 3,
+    F 5 and E 5 (two dead tests, two subtracts, a max each), H's max 3, the
+    death 3 (compare, two selects), the floors of E and F 2 and the row max
+    1: 25. Per pair and row: the row's base, the pin chain 2, the slot-0
+    left test 2, the query code offset, the strict row-max test, and the
+    column-0 pin, which holds at most one slot a row (linear 2: compare,
+    select; Gotoh 4: compare, three selects): 9 linear, 11 Gotoh. Per pair
+    and block: the X-drop and the first argmax 4 a slot (compare, select,
+    compare, select), the realign 1 a slot (Gotoh 3: F too), the delta
+    clip 4, the state and bookkeeping 10: 5 W + 14 linear, 7 W + 14 Gotoh."""
+    cell = (25 if affine else 11) - 2 * matrix
+    return cell, 9 + 2 * affine, 5 * W + 14 + 2 * W * affine
+
+
+#: int32 ops a device-walk step needs: the three neighbours' reads (row
+#: base or pos_y, slot, band test, dead test: 8 each), the score 4, the
+#: three equality tests with their guards 9, the move select and the cursor
+#: updates 6, the 2-bit packing 3
+WALK_OPS = 46
 
 
 def in_band_cells(n, m, W):
@@ -401,6 +475,21 @@ def rescore(path, q, t, params):
     return total
 
 
+def decode_times(decode, wire, reps=2):
+    """``decode`` (the port's decode_device_walk) of a device walk's wire
+    alone, the best of ``reps``: (ms to arrays, as bench_suite decodes; ms
+    to the (score, path) lists the entry points return). The result is
+    freed after the span, as a caller keeps it."""
+    best = [float("inf"), float("inf")]
+    for _ in range(reps):
+        for k, as_arrays in enumerate((True, False)):
+            t0 = time.perf_counter()
+            out = decode(wire, as_arrays=as_arrays)
+            best[k] = min(best[k], (time.perf_counter() - t0) * 1e3)
+            del out
+    return best
+
+
 def run_cli(cli_main, argv):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -420,8 +509,8 @@ def main():
 
     from swtpu_torch.batch import (
         banded_align_batch, banded_forward_batch, banded_static_align_batch,
-        nw_align_batch, promote, semiglobal_align_batch, sw_align_batch,
-        sw_scores_promoted, sw_scores_varlen,
+        banded_walk_batch, nw_align_batch, promote, semiglobal_align_batch,
+        sw_align_batch, sw_scores_promoted, sw_scores_varlen,
     )
     from swtpu_torch.batch.bucketing import _fused_masked_engine
     from swtpu_torch.batch.traceback import banded_static_scores
@@ -435,12 +524,17 @@ def main():
         DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
     )
     from swtpu_torch.kernels import (
-        _build, banded_batch as kbb, semiglobal_batch as ksg,
-        semiglobal_profile as ksp, sw_affine as ka, sw_banded as ksb,
-        sw_batch as kb, sw_bf16 as kbf, sw_profile as kp,
+        _build, banded_batch as kbb, banded_block as kbk, device_walk as kdw,
+        semiglobal_batch as ksg, semiglobal_profile as ksp, sw_affine as ka,
+        sw_banded as ksb, sw_batch as kb, sw_bf16 as kbf, sw_profile as kp,
     )
-    from swtpu_torch.kernels.banded_scan import BandedBatchResult, _prep_padded
+    from swtpu_torch.kernels.banded_scan import (
+        BandedBatchResult, _prep_padded, decode_device_walk,
+    )
     from swtpu_torch.oracle.banded_affine import banded_affine_xdrop
+    from swtpu_torch.oracle.banded_block import (
+        banded_xdrop_block, banded_xdrop_block_affine,
+    )
     from swtpu_torch.oracle.banded_static import sw_banded_static_score_batch
     from swtpu_torch.oracle.affine import (
         sw_affine_score_batch, sw_affine_traceback,
@@ -547,6 +641,11 @@ def main():
         return ("sw_banded_static" if uniform else "sw_banded_profile") + (
             "" if p.is_linear else "_affine")
 
+    block_wrappers = {
+        "block_rows": kbk.block_rows, "block_rows_small": kbk.block_rows,
+        "block_gather": kbk.block_gather, "block_walk": kdw.block_walk,
+        "xdrop_walk": kdw.xdrop_walk,
+    }
     banded_wrappers = {
         "sw_banded_static": ksb.sw_banded_static,
         "sw_banded_static_affine": ksb.sw_banded_static,
@@ -561,7 +660,13 @@ def main():
         # of the affine instantiation; the semi-global wrappers those of
         # the affine, the pinned and the affine pinned ones; the fixed-band
         # wrappers those of the affine form; the per-round wrapper those
-        # at W = 32 or 64
+        # at W = 32 or 64; B9's are split by batch shape (b9_shape)
+        if name in BLOCK_PATH:
+            w = block_wrappers[name]
+            if w is kbk.block_rows:
+                return (b9_folded["launches"] if name.endswith("_small")
+                        else w.launches - b9_folded["launches"])
+            return w.launches
         if name in BANDED_PATH:
             w = banded_wrappers[name]
             if w is kbb.banded_batch:
@@ -586,16 +691,38 @@ def main():
         return (kern.launches_affine if "affine" in name
                 else kern.launches - kern.launches_affine)
 
+    b9_folded = {"launches": 0}
+
+    def jax_folds(B, W, affine):
+        """Whether JAX ran B9 at this shape on its folded kernel (``_fold_G``
+        > 1 in swtpu/kernels/pallas/banded_block.py): a linear batch under 8
+        x 128 pairs whose fold leaves segments of at least 2 slots."""
+        S = -(-B // 128)
+        if affine or S >= 8 or 8 % S:
+            return False
+        return W % (8 // S) == 0 and W // (8 // S) >= 2
+
+    @contextlib.contextmanager
+    def b9_shape(B, W, affine):
+        """B9's launches inside count for row 12 where JAX would have run
+        its folded kernel at this batch shape, else for row 11."""
+        before = kbk.block_rows.launches
+        yield
+        if jax_folds(B, W, affine):
+            b9_folded["launches"] += kbk.block_rows.launches - before
+
     wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
     wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile, ksb.sw_banded_static,
-                 ksb.sw_banded_profile, kbb.banded_batch]
+                 ksb.sw_banded_profile, kbb.banded_batch, kbk.block_gather,
+                 kbk.block_rows, kdw.block_walk, kdw.xdrop_walk]
 
     def counts_of(w):
         return {k: v for k, v in vars(w).items() if k.startswith("launches")}
 
     def zero_launches(names):
         for name in names:
-            w = (banded_wrappers[name] if name in BANDED_PATH else
+            w = (block_wrappers[name] if name in BLOCK_PATH else
+                 banded_wrappers[name] if name in BANDED_PATH else
                  (sg_fns if name in SEMIGLOBAL_PATH else kernel_fns)[name][0])
             for k in counts_of(w):
                 setattr(w, k, 0)
@@ -630,6 +757,7 @@ def main():
     print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
           f"(0.0 s means they were already built)", flush=True)
     seen = set()
+    many = {}  # B9's 60 instantiations: one summary line
     for source in sources:
         for e in re.split(r"Compiling entry function '", _build.build_log(source))[1:]:
             mangled = e.split("'")[0]
@@ -643,10 +771,20 @@ def main():
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
             smem = re.search(r"(\d+) bytes smem", e)
             check(regs and spill, f"no register report for {name}")
+            if "block_rows" in names:
+                many.setdefault("/".join(names), []).append(
+                    (int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
+                seen.update(names)
+                continue
             print(f"{name}: registers {regs.group(1)}, spill stores "
                   f"{spill.group(1)} B, spill loads {spill.group(2)} B, shared "
                   f"memory {smem.group(1) if smem else 0} B", flush=True)
             seen.update(names)
+    for name, stats in many.items():
+        regs_, st_, ld_ = zip(*stats)
+        print(f"{name} <WR, AFFINE, MATRIX, VARLEN, HIST>: {len(stats)} "
+              f"instantiations, registers {min(regs_)}-{max(regs_)}, spill stores "
+              f"max {max(st_)} B, spill loads max {max(ld_)} B", flush=True)
     check(seen == set(KERNELS), f"nvcc built {sorted(seen)}")
 
     # 3. kernels vs plain versions -----------------------------------------
@@ -848,8 +986,8 @@ def main():
         ("DNA matrix 2", ScoringParams.linear(DNA_GENERAL, 2)),
         ("DNA matrix 3/1", ScoringParams(DNA_GENERAL, gap_open=3, gap_extend=1)),
     ]
-    sg_first64 = {}
-    for label, B, n, m in (("32768x128x128", 32768, 128, 128),
+    sg_first16 = {}
+    for label, B, n, m in (("8192x128x128", 8192, 128, 128),
                            ("1000x90x200 varlen, internal pads", 1000, 90, 200),
                            ("33x7x1", 33, 7, 1), ("4x40x2560", 4, 40, 2560)):
         codes = {4: semiglobal_pairs(sgrng, B, n, m, 4),
@@ -863,8 +1001,8 @@ def main():
             lq, lt = sgrng.integers(0, n + 1, B), sgrng.integers(0, m + 1, B)
             lq[:3], lt[:3] = (0, n, 0), (m, 0, 0)
             lens = dict(lens_q=lq, lens_t=lt)
-        if B == 32768:
-            sg_first64 = {A: (qh[:64], th[:64]) for A, (qh, th) in codes.items()}
+        if B == 8192:
+            sg_first16 = {A: (qh[:16], th[:16]) for A, (qh, th) in codes.items()}
         dev_codes = {A: (torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev))
                      for A, (qh, th) in codes.items()}
         for slabel, sc in sg_scorings:
@@ -884,20 +1022,20 @@ def main():
                   f"max |kernel - plain| = 0; {inside[0]} of {B} argmax endpoints "
                   f"inside the matrix", flush=True)
     del dev_codes, qd, td
-    # 64-pair spot checks against the oracle copy (the first 64 of the
-    # 32768 set: related pairs)
+    # 16-pair spot checks against the oracle copy (the first 16 of the
+    # 8192 set: related pairs)
     for slabel, sc in (("(1,1,1)", SG_111), ("(2,3,5,1)", SG_AFF),
                        ("BLOSUM62 11", P_LIN), ("BLOSUM62 11/1", P_GOTOH)):
-        qh, th = sg_first64[sg_letters(sc)]
+        qh, th = sg_first16[sg_letters(sc)]
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
         for pin in (False, True):
             sc_d, ei, ej = (x.cpu().numpy() for x in sg_run(sc, qd, td, pin_end=pin))
             walker = sg_oracle(sc, pin)
-            for b in range(64):
+            for b in range(16):
                 s0, path = walker(qh[b], th[b])
                 check((s0, path[-1]) == (sc_d[b], (ei[b], ej[b])),
                       f"{sg_name(sc, pin)} vs the oracle copy at pair {b}")
-        print(f"oracle spot check, 64 pairs, {slabel}: {sg_name(sc, False)} and "
+        print(f"oracle spot check, 16 pairs, {slabel}: {sg_name(sc, False)} and "
               f"{sg_name(sc, True)} scores and endpoints equal", flush=True)
     del qd, td
     torch.cuda.empty_cache()
@@ -933,7 +1071,7 @@ def main():
     def fixed_name(kern, p):
         return kern.__name__ + ("" if p.is_linear else "_affine")
 
-    for label, B, n, m in (("32768x128x128", 32768, 128, 128),
+    for label, B, n, m in (("8192x128x128", 8192, 128, 128),
                            ("1000x90x200 varlen, internal pads", 1000, 90, 200),
                            ("64x40x300", 64, 40, 300), ("64x300x40", 64, 300, 40),
                            ("33x7x1", 33, 7, 1)):
@@ -962,7 +1100,7 @@ def main():
                     check(err == 0, f"{name} differs from its plain version on "
                           f"{label} {slabel} W={W}")
                     names.add(name)
-                if B == 32768 and W == 32:
+                if B == 8192 and W == 32:
                     qh, th = codes[A]
                     check(np.array_equal(want[:64].cpu().numpy(),
                                          sw_banded_static_score_batch(qh[:64], th[:64],
@@ -970,7 +1108,7 @@ def main():
                           f"fixed band vs the oracle copy, {slabel}")
             print(f"{label} {slabel}: {', '.join(sorted(names))} at W = 8, 32, 64, "
                   f"96, 160: max |kernel - plain| = 0"
-                  + ("; 64 pairs equal the oracle copy at W = 32" if B == 32768
+                  + ("; 64 pairs equal the oracle copy at W = 32" if B == 8192
                      else ""), flush=True)
     del dev_codes, qd, td
     mark("per-round kernel")
@@ -1065,6 +1203,109 @@ def main():
     print("per-round kernel at W = 32: 8 varlen DNA pairs equal the oracle copy "
           "(score, rounds, history, pos_y)", flush=True)
     del xdev
+    torch.cuda.empty_cache()
+    mark("block tier")
+    # B9 and B10 (rows 11-13) through the block loop against the plain loop,
+    # every field (history, and bases / deltas below n_rows): 300 pairs of
+    # 256 (260 related, 40 random), W = 16, 32, 64, 96 and 112 with K = 1
+    # and 129 - W (and 32 at W = 64: bench_suite's), linear, Gotoh 3/1 at
+    # X = 30 (the random pairs' bands die
+    # early), BLOSUM62 at X = 60 and per-pair lengths at X = 30 (pairs
+    # ending inside a block, one of length 0); an all-dead start; B10 alone
+    # at bases far outside the targets; both walkers' wires against their
+    # plain versions
+    brng = np.random.default_rng(SEED + 12)
+    B, L = 300, 256
+    bq = brng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    bt = np.stack([mutate(brng, q, out_len=L) for q in bq])
+    bt[-40:] = brng.integers(0, 4, size=(40, L))
+    bpq = brng.integers(0, 20, size=(B, L), dtype=np.uint8)
+    bpt = bpq.copy()
+    bpt[:, ::3] = brng.integers(0, 20, size=bpt[:, ::3].shape)
+    blq, blt = brng.integers(0, L + 1, B), brng.integers(L // 2, L + 1, B)
+    blq[:2] = (0, 7)
+    bdev = {k: torch.from_numpy(v).to(dev) for k, v in
+            (("q", bq), ("t", bt), ("pq", bpq), ("pt", bpt))}
+    block_modes = [
+        ("DNA (1,1,1)", "q", "t", dict()),
+        ("DNA Gotoh 3/1 X=30", "q", "t", dict(gap_open=3, gap_extend=1, x_threshold=30)),
+        ("protein BLOSUM62 X=60", "pq", "pt", dict(matrix=BLOSUM62, x_threshold=60)),
+        ("DNA varlen X=30", "q", "t", dict(lens_q=blq, lens_t=blt, x_threshold=30)),
+    ]
+
+    def block_fields(res, K):
+        """Every field of a block-tier result on the card, the history zeroed
+        at and past each pair's n_rows and bases / deltas past its last block
+        (every consumer reads below them)."""
+        nr = res.n_rows
+        rows_ = torch.arange(res.band_history.shape[0], device=dev)[:, None] < nr[None]
+        blocks = (torch.arange(res.bases.shape[0], device=dev)[:, None]
+                  < ((nr.long() + K - 1) // K)[None])
+        return (res.score, res.end_y, res.end_j, nr,
+                torch.where(rows_[:, None, :], res.band_history, 0),
+                torch.where(blocks, res.bases, 0), torch.where(blocks, res.deltas, 0))
+
+    def block_check(q, t, K, label, **kw):
+        """The kernels' loop against the plain loop on the card; returns the
+        kernels' result."""
+        kw = dict(kw, block=K, with_history=True, with_meta=True)
+        got = kbk.banded_block_batch(q, t, **kw)
+        torch.cuda.synchronize()
+        want = kbk.banded_block_batch_plain(q, t, device=dev, **kw)
+        err = max_abs_err(block_fields(got, K), block_fields(want, K))
+        for name in ("block_rows", "block_gather"):
+            max_err[name] = max(max_err[name], err)
+        check(err == 0, f"block tier differs from its plain version on {label}")
+        return got
+
+    for W in (16, 32, 64, 96, 112):
+        Ks = sorted({1, 129 - W} | ({32} if W == 64 else set()))
+        for label, qk, tk, kw in block_modes:
+            for K in Ks:
+                res = block_check(bdev[qk], bdev[tk], K, f"{label} W={W} K={K}",
+                                  width=W, **kw)
+            nr = res.n_rows.cpu().numpy()
+            full = blq if "lens_q" in kw else np.full(B, L)
+            print(f"block tier W={W} K={Ks} {label}: every field equals the plain "
+                  f"version; {int((nr < full).sum())} of {B} bands died early",
+                  flush=True)
+    zq, zt = torch.zeros((64, 96), dtype=torch.uint8, device=dev), torch.ones(
+        (64, 96), dtype=torch.uint8, device=dev)
+    res = block_check(zq, zt, 8, "an all-dead start", width=16, mismatch=5, gap=5,
+                      x_threshold=1)
+    check(int(res.end_y.abs().sum() + res.end_j.abs().sum() + res.score.abs().sum())
+          == 0, "all-dead start: score 0 at (0, 0)")
+    t16 = bdev["t"].to(torch.int16).contiguous()
+    gb = torch.from_numpy(brng.integers(-300, 600, B).astype(np.int32)).to(dev)
+    for C in (1, 64, 127):
+        err = max_abs_err(kbk.block_gather(t16, gb, C), kbk.block_gather_plain(t16, gb, C))
+        max_err["block_gather"] = max(max_err["block_gather"], err)
+        check(err == 0, f"block_gather differs from its plain version at C={C}")
+    for label, qk, tk, kw in (block_modes[0], block_modes[2], block_modes[3]):
+        run = kbk._setup(bdev[qk], bdev[tk], 1, 1, 1, 64, 32, kw.get("x_threshold", 70),
+                         None, kw.get("matrix"), True, None, None, kw.get("lens_q"),
+                         kw.get("lens_t"), dev)
+        kbk._forward(run)
+        wire = kdw.block_walk(run)
+        err = max_abs_err(wire.cpu(), kdw.block_walk_plain(run))
+        max_err["block_walk"] = max(max_err["block_walk"], err)
+        check(err == 0, f"block_walk's wire differs from its plain version on {label}")
+    for label, qk, tk, kw in (block_modes[0], block_modes[2]):
+        kw = {k: v for k, v in kw.items() if k != "x_threshold"}
+        X = 120 if "matrix" in kw else 70
+        res = kbb.banded_batch(bdev[qk], bdev[tk], blq, blt, bandwidth=32,
+                               x_threshold=X, compress_history=False, **kw)
+        pad = _prep_padded(bdev[qk], bdev[tk], blq, blt, 32, dev, torch.int16)
+        wire = kdw.xdrop_walk(res, pad, 32, X, **kw)
+        want = kdw.xdrop_walk_plain(res, pad, 32, X, **kw)
+        err = max_abs_err(wire.cpu(), want)
+        max_err["xdrop_walk"] = max(max_err["xdrop_walk"], err)
+        check(err == 0, f"xdrop_walk's wire differs from its plain version on {label}")
+    print("block tier: an all-dead start (score 0 at (0, 0)) and B10 alone at bases "
+          "-300..600 equal the plain versions; block_walk (DNA, protein, varlen) and "
+          "xdrop_walk (DNA varlen, protein X=120) write the plain versions' wires",
+          flush=True)
+    del bdev, zq, zt, t16
     torch.cuda.empty_cache()
 
     # DNA main path: counts from here to the end of phase 6 ----------------
@@ -1199,7 +1440,7 @@ def main():
 
     # 7. protein main path, scores -----------------------------------------
     phase("7 protein main path, scores: best_engine at 1,048,576 x (128x128)")
-    B, n, m, chunk = 1 << 20, 128, 128, 1 << 17
+    B, n, m, chunk = 1 << 20, 128, 128, 1 << 15
     prng = np.random.default_rng(SEED)
     qh, th = random_protein(prng, (B, n)), random_protein(prng, (B, m))
     qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
@@ -1837,7 +2078,7 @@ def main():
 
     # 17. semi-global path, scores and endpoints at 1M pairs ---------------
     phase("17 semi-global path, scores and endpoints at 1,048,576 x (128x128)")
-    B, n, m, chunk = 1 << 20, 128, 128, 1 << 17
+    B, n, m, chunk = 1 << 20, 128, 128, 1 << 15
     srng = np.random.default_rng(SEED + 6)
     big = {4: random_codes(srng, (B, n)), 20: random_protein(srng, (B, n))}
     big = {A: (torch.from_numpy(qh).to(dev),
@@ -2022,7 +2263,7 @@ def main():
 
     # 22. fixed-band path, BASELINE config 2 -------------------------------
     phase("22 fixed-band path, BASELINE config 2: 1,048,576 x (128x128) at W = 32")
-    B, n, Wf, chunk = 1 << 20, 128, 32, 1 << 17
+    B, n, Wf, chunk = 1 << 20, 128, 32, 1 << 15
     grng = np.random.default_rng(SEED + 10)
     big = {4: (random_codes(grng, (B, n)), random_codes(grng, (B, n))),
            20: (random_protein(grng, (B, n)), random_protein(grng, (B, n)))}
@@ -2192,11 +2433,11 @@ def main():
     torch.cuda.empty_cache()
 
     # 24. banded traceback ---------------------------------------------------
-    phase("24 banded traceback: banded_static_align_batch on 256 related "
-          "128-mers, banded_align_batch on 64 related 2048-mers")
+    phase("24 banded traceback: banded_static_align_batch on 64 related "
+          "128-mers, banded_align_batch on 16 related 2048-mers")
     trng = np.random.default_rng(SEED + 11)
-    dq, dt = related_pairs(trng, 256, 128)
-    pq2, pt2 = related_pairs(trng, 256, 128, letters=20)
+    dq, dt = related_pairs(trng, 64, 128)
+    pq2, pt2 = related_pairs(trng, 64, 128, letters=20)
     for label, p, q, t in (("DNA (1,-1,1)", FIX_111, dq, dt),
                            ("DNA Gotoh (1,-1,3,1)", FIX_AFF, dq, dt),
                            ("protein BLOSUM62 11/1", P_GOTOH, pq2, pt2)):
@@ -2212,7 +2453,7 @@ def main():
                 continue
             check(all(abs(i - j) <= Wf for i, j in path), f"fixed band: corridor, {b}")
             check(rescore(path, q[b], t[b], p) == score, f"fixed band: rescore, {b}")
-        print(f"banded_static_align_batch {label}: 256 pairs, {walk_s:.2f} s wall "
+        print(f"banded_static_align_batch {label}: 64 pairs, {walk_s:.2f} s wall "
               f"(host walk), mean score {float(np.mean([r[0] for r in res])):.2f}; "
               f"paths in the corridor and rescored", flush=True)
     for label, key, kw, p in (
@@ -2223,7 +2464,7 @@ def main():
              dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120),
              P_GOTOH)):
         qd, td = sets[key]
-        q, t = qd[:64].cpu().numpy(), td[:64].cpu().numpy()
+        q, t = qd[:16].cpu().numpy(), td[:16].cpu().numpy()
         t0 = time.perf_counter()
         res = banded_align_batch(q, t, **kw)
         walk_s = time.perf_counter() - t0
@@ -2239,7 +2480,7 @@ def main():
             else:
                 ref = banded_xdrop(q[b], t[b])
             check(res[b] == ref, f"banded_align_batch {label} vs the oracle copy, {b}")
-        print(f"banded_align_batch {label}: 64 pairs, {walk_s:.2f} s wall (device "
+        print(f"banded_align_batch {label}: 16 pairs, {walk_s:.2f} s wall (device "
               f"forward and host walk), mean score "
               f"{float(np.mean([r[0] for r in res])):.1f}, mean path "
               f"{float(np.mean([len(r[1]) for r in res])):.0f} cells; paths from the "
@@ -2291,20 +2532,396 @@ def main():
         check(ok, f"{' '.join(argv[:3])} vs the oracle copy")
         print(f"{' '.join(argv[:4])} ...: {nb} records equal the oracle copy; first: "
               f"{lines[-1][:100]}", flush=True)
-    try:
-        run_cli(cli_main, ["banded", "--block-adaptive", "--random", "4x64x64"])
-        check(False, "banded --block-adaptive ran")
-    except SystemExit as e:
-        check("ROADMAP.md queue A item 10" in str(e), "banded --block-adaptive message")
-        print(f"banded --block-adaptive refuses: {e}", flush=True)
 
     banded_counts = {name: launches(name) for name in BANDED_PATH}
     print(f"banded path launches: {banded_counts}", flush=True)
     check(all(v > 0 for v in banded_counts.values()),
           f"a kernel was not launched on the banded path: {banded_counts}")
+
+    # block tier path: counts from here to the end of phase 29 --------------
+    zero_launches(BLOCK_PATH)
+    b9_folded["launches"] = 0
+    # 26. block tier forward ---------------------------------------------------
+    phase("26 block tier forward: bench_suite's block rows at W = 64 (256 and 1024 "
+          "related 2048-mers, K = 32 and 64, Gotoh 3/1, protein BLOSUM62 11/1)")
+    print(smi, flush=True)
+    prng = np.random.default_rng(SEED + 13)
+    bpq = prng.integers(0, 24, size=(Ba, La)).astype(np.uint8)
+    bpt = bpq.copy()
+    for b in range(Ba):
+        idx = prng.integers(0, La, La // 3)
+        bpt[b, idx] = prng.integers(0, 24, La // 3)
+    block_sets = {"dna": (adq_d, adt_d), "dna1024": (adq_d.repeat(4, 1), adt_d.repeat(4, 1)),
+                  "protein": (torch.from_numpy(bpq).to(dev), torch.from_numpy(bpt).to(dev))}
+    block_rows_spec = [
+        ("DNA (1,1,1) W=64 K=32, 256 pairs", "dna", dict(block=32)),
+        ("DNA (1,1,1) W=64 K=64, 256 pairs", "dna", dict(block=64)),
+        ("DNA (1,1,1) W=64 K=64, 1024 pairs", "dna1024", dict(block=64)),
+        ("DNA Gotoh 3/1 W=64 K=64, 256 pairs", "dna",
+         dict(block=64, gap_open=3, gap_extend=1)),
+        ("protein BLOSUM62 11/1 X=120 W=64 K=64, 256 pairs", "protein",
+         dict(block=64, matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120)),
+    ]
+    for label, key, kw in block_rows_spec:
+        with b9_shape(block_sets[key][0].shape[0], 64, "gap_open" in kw):
+            qd, td = block_sets[key]
+            K, Bb = kw["block"], qd.shape[0]
+            res = kbk.banded_block_batch(qd, td, width=64, **kw)
+            sec = time_kernel(lambda q, t, kw=kw: kbk.banded_block_batch(q, t, width=64, **kw),
+                              (qd, td), iters=5)
+            nrows = int(res.n_rows.sum())
+            # the alive band (X = 2^20: no pair dies) through every block
+            fn, args = kbk.bench_forward_fn(qd, td, width=64, **dict(kw, x_threshold=1 << 20))
+            alive = time_kernel(fn, args, iters=3)
+            fields = (res.score, res.end_y, res.end_j, res.n_rows)
+            if key == "dna1024":  # four copies of the 256 pairs, checked below
+                check(all(torch.equal(a[:256], b) for a, b in zip(fields, first256)),
+                      f"block tier on {label}: the first 256 pairs vs the 256-pair run")
+                checked = "the first 256 equal the 256-pair run"
+            else:
+                saved = snapshot()  # checks: the first 64 pairs against the plain version
+                got64 = kbk.banded_block_batch(qd[:64], td[:64], width=64,
+                                               with_history=True, with_meta=True, **kw)
+                want64 = kbk.banded_block_batch_plain(qd[:64], td[:64], width=64,
+                                                      with_history=True, with_meta=True,
+                                                      device=dev, **kw)
+                restore(saved)
+                err = max_abs_err(block_fields(got64, K), block_fields(want64, K))
+                for name in ("block_rows", "block_gather"):
+                    max_err[name] = max(max_err[name], err)
+                check(err == 0 and all(torch.equal(a[:64], b) for a, b in zip(
+                    fields, (got64.score, got64.end_y, got64.end_j, got64.n_rows))),
+                    f"block tier on {label}: the first 64 pairs vs the plain version")
+                del got64, want64
+                if key == "dna" and K == 64:
+                    first256 = fields
+                qh, th = qd[:2].cpu().numpy(), td[:2].cpu().numpy()
+                okw = dict(width=64, block=K, x_threshold=kw.get("x_threshold", 70),
+                           matrix=kw.get("matrix"), return_state=True)
+                for b in range(2):
+                    st = (banded_xdrop_block_affine(
+                        qh[b], th[b], gap_open=kw["gap_open"], gap_extend=kw["gap_extend"],
+                        **okw) if "gap_open" in kw else banded_xdrop_block(qh[b], th[b], **okw))
+                    check((st.score, st.end, st.n_rows) == (
+                        int(res.score[b]), (int(res.end_y[b]), int(res.end_j[b])),
+                        int(res.n_rows[b])), f"block tier on {label} vs the oracle copy, {b}")
+                checked = ("the first 64 pairs equal the plain version in every field, 2 "
+                           "the oracle copy")
+            print(f"{label}: {sec * 1e3:.3f} ms per call, {nrows * 64 / sec / 1e9:.2f} band "
+                  f"GCUPS over n_rows x W ({nrows} rows), {Bb / sec:.0f} alignments/s; "
+                  f"alive band (X = 2^20, every block) {alive * 1e3:.3f} ms, "
+                  f"{Bb * La * 64 / alive / 1e9:.2f} band GCUPS; mean score "
+                  f"{res.score.float().mean().item():.1f}; {checked} [{smi}]", flush=True)
+    del first256
+    # rows 11-13: B9 alone on the 1024 pairs (row 11: JAX's straight kernel)
+    # and the 256 pairs (row 12: where JAX folded), B10 on the 256 pairs;
+    # each block's window recorded from one forward, then replayed with the
+    # state reset (six copies) per call; scores and endpoints, no history
+    W = 64
+    bc, br, bblk = block_ops(False, False, W)
+    for key, b9name in (("dna1024", "block_rows"), ("dna", "block_rows_small")):
+        with b9_shape(block_sets[key][0].shape[0], W, False):
+            qd, td = block_sets[key]
+            K = 64
+            rr = kbk._setup(qd, td, 1, 1, 1, W, K, 70, None, None, False, None, None, None,
+                            None, dev)
+            state_of = lambda r: (r.carried, r.state, r.done, r.n_rows, r.bases,  # noqa: E731
+                                  r.deltas)
+            init = [x.clone() for x in state_of(rr)]
+
+            def reset(rr=rr, init=init):
+                for x, x0 in zip(state_of(rr), init):
+                    x.copy_(x0)
+
+            NB = La // K
+            wins, gbases = [], []
+            for b in range(NB):
+                gbases.append(rr.state[0].clone())
+                wins.append(kbk.gather_launch_t(rr.t16, rr.state[0], K + W - 1))
+                kbk.rows_launch_t(rr, b, K, wins[-1])
+            final = [x.clone() for x in state_of(rr)]
+            check(jax_folds(qd.shape[0], W, False) == (b9name == "block_rows_small"),
+                  "row 11 / 12 split")
+
+            def replay(step, rr=rr, wins=wins, reset=reset):
+                reset()
+                for b in range(NB):
+                    step(rr, b, K, wins[b])
+
+            ms = time_kernel(replay, (kbk.block_rows,), iters=5) * 1e3
+            kernel_ms = time_kernel(replay, (kbk.rows_launch_t,), iters=5) * 1e3
+            check(all(torch.equal(a, b) for a, b in zip(state_of(rr), final)),
+                  f"{b9name}: replay vs the forward")
+            plain_ms = time_kernel(replay, (kbk.block_rows_plain,), iters=1, warmup=0,
+                                   reps=1) * 1e3
+            err = max_abs_err(state_of(rr), tuple(final))
+            max_err[b9name] = max(max_err[b9name], err)
+            check(err == 0, f"{b9name} replay differs from its plain version")
+            nr = rr.n_rows.long()
+            nrows, pblocks = int(nr.sum()), int(((nr + K - 1) // K).sum())
+            ops = nrows * W * bc + nrows * br + pblocks * bblk
+            bytes_ = (2 * nrows + 2 * (K + W - 1) * pblocks + 2 * 4 * W * pblocks
+                      + 2 * 16 * pblocks + 16 * qd.shape[0])
+            times = {"int32 ops": ops / int32_rate * 1e3, "bytes": bytes_ / HBM_BYTES_PER_S * 1e3}
+            binds = max(times, key=times.get)
+            rows.append(dict(
+                name=b9name, route="cuda", source=f"swtpu_torch/csrc/{BLOCK}",
+                replaces=KERNELS[b9name][2], launches=None, max_abs_err=max_err[b9name],
+                ms=ms, plain_ms=plain_ms, bound_ms=times[binds],
+                bound_by="bytes" if binds == "bytes" else "operations", library_ms=None,
+                kernel_ms=kernel_ms))
+            print(f"{b9name}, {qd.shape[0]} related 2048-mers, W={W} K={K}, {NB} blocks: "
+                  f"wrapper {ms:.4f} ms ({times[binds] / ms:.1%} of the bound), launches "
+                  f"alone {kernel_ms:.4f} ms, plain {plain_ms:.1f} ms (equal), bound "
+                  f"{times[binds]:.4f} ms by {binds} ({bc} int32 ops per band cell over "
+                  f"{nrows * W} cells, {br} per pair-row, {bblk} per pair-block over "
+                  f"{pblocks}: {times['int32 ops']:.4f} ms; {bytes_} bytes: "
+                  f"{times['bytes']:.4f} ms; at {sm_clock_mhz:.0f} MHz), "
+                  f"{nrows * W / kernel_ms / 1e6:.2f} band GCUPS alone", flush=True)
+        if key != "dna":
+            continue
+
+        def gathers(fn, t16=rr.t16, gbases=gbases, K=K):
+            return [fn(t16, gbases[b], K + W - 1) for b in range(NB)]
+
+        err = max(max_abs_err(g, w) for g, w in zip(gathers(kbk.block_gather), wins))
+        err = max(err, max(max_abs_err(g, w) for g, w in
+                           zip(gathers(kbk.block_gather_plain), wins)))
+        max_err["block_gather"] = max(max_err["block_gather"], err)
+        check(err == 0, "block_gather differs from its plain version on the 2048-mers")
+        ms = time_kernel(gathers, (kbk.block_gather,), iters=5) * 1e3
+        kernel_ms = time_kernel(gathers, (kbk.gather_launch_t,), iters=5) * 1e3
+        plain_ms = time_kernel(gathers, (kbk.block_gather_plain,), iters=1, warmup=1,
+                               reps=1) * 1e3
+        elems = (K + W - 1) * NB * qd.shape[0]  # B10 writes every pair's window
+        times = {"int32 ops": 6 * elems / int32_rate * 1e3,
+                 "bytes": (4 * elems + 4 * NB * qd.shape[0]) / HBM_BYTES_PER_S * 1e3}
+        binds = max(times, key=times.get)
+        rows.append(dict(
+            name="block_gather", route="cuda", source=f"swtpu_torch/csrc/{BLOCK}",
+            replaces=KERNELS["block_gather"][2], launches=None,
+            max_abs_err=max_err["block_gather"], ms=ms, plain_ms=plain_ms,
+            bound_ms=times[binds], bound_by="bytes" if binds == "bytes" else "operations",
+            library_ms=None, kernel_ms=kernel_ms))
+        print(f"block_gather, the same {NB} blocks: wrapper {ms:.4f} ms "
+              f"({times[binds] / ms:.1%} of the bound), launches alone {kernel_ms:.4f} "
+              f"ms, plain {plain_ms:.2f} ms (equal), bound {times[binds]:.4f} ms by "
+              f"{binds} ({elems} window codes: 2 bytes read and 2 written each, 6 "
+              f"int32 ops each)", flush=True)
+    del rr, wins, gbases, init, final, block_sets
+    torch.cuda.empty_cache()
+
+    # 27. block tier traceback at reference scale ------------------------------
+    phase("27 block tier traceback: banded_block_align_device on 8 and 128 related "
+          "16384-mers, W = 64, K = 64, X = 70, (1,1,1)")
+    lrng = np.random.default_rng(SEED + 14)
+    L16 = 16384
+    q16 = lrng.integers(0, 4, size=(128, L16)).astype(np.uint8)
+    t16h = np.stack([mutate(lrng, q, out_len=L16) for q in q16])
+    p111 = ScoringParams.linear(dna_matrix(1, -1), 1)
+    for Bb in (8, 128):
+        with b9_shape(Bb, 64, False):
+            q, t = q16[:Bb], t16h[:Bb]
+            kbk.banded_block_align_device(q, t, width=64, block=64)  # warm-up
+            t0 = time.perf_counter()
+            out = kbk.banded_block_align_device(q, t, width=64, block=64)
+            wall = time.perf_counter() - t0
+            for b, (score, path) in enumerate(out):
+                check(path[0] == (0, 0) and rescore(path, q[b], t[b], p111) == score,
+                      f"16K block traceback: path of pair {b}")
+            # where the wall goes: the forward with its history and the walk on
+            # staged tensors (CUDA events), the host decode of the wire alone
+            run = kbk._setup(q, t, 1, 1, 1, 64, 64, 70, None, None, True, None, None, None,
+                             None, dev)
+            fwd_ms = time_kernel(lambda run=run: kbk._forward(kbk._new_run(
+                run.qT, run.t16, None, None, None, None, 64, 64, 70, 1, 1, 1, None, None,
+                32, True)), (), iters=2) * 1e3
+            kbk._forward(run)
+            walk_ms = time_kernel(kdw.block_walk, (run,), iters=3) * 1e3
+            wire = kdw.block_walk(run).cpu()
+            arr_ms, list_ms = decode_times(decode_device_walk, wire)
+            check(decode_device_walk(wire) == out, "16K block traceback: decode")
+            check([s0 for s0, _ in out] == (run.state[1] - 70).cpu().tolist(),
+                  "16K block traceback: scores vs the forward")
+            if Bb == 8:
+                out8, walk_run, walk_wire = out, run, wire
+            print(f"{Bb} pairs: {wall * 1e3:.1f} ms wall (upload, forward, device walk, "
+                  f"wire fetch, decode to lists), {Bb / wall:.1f} alignments/s; on staged "
+                  f"tensors the forward with history {fwd_ms:.1f} ms, the walk "
+                  f"{walk_ms:.1f} ms; the host decode alone {arr_ms:.1f} ms to arrays "
+                  f"(bench_suite's), {list_ms:.1f} ms to tuple lists; mean path "
+                  f"{np.mean([len(p) for _, p in out]):.0f} cells, mean score "
+                  f"{np.mean([s0 for s0, _ in out]):.1f}; paths from the origin rescored "
+                  f"[{smi}]", flush=True)
+    for b in range(2):
+        check(out8[b] == banded_xdrop_block(q16[b], t16h[b], width=64, block=64),
+              f"16K block traceback vs the oracle copy, pair {b}")
+    # the block walker's row on the 8 pairs
+    run, wire = walk_run, walk_wire
+    plain_ms = time_kernel(kdw.block_walk_plain, (run,), iters=1, warmup=0, reps=1) * 1e3
+    err = max_abs_err(wire, kdw.block_walk_plain(run))
+    max_err["block_walk"] = max(max_err["block_walk"], err)
+    check(err == 0, "block_walk differs from its plain version at 16K")
+    ms = time_kernel(kdw.block_walk, (run,), iters=5) * 1e3
+    kernel_ms = time_kernel(kdw.block_walk_launch_t, (run,), iters=5) * 1e3
+    steps = int(np.ascontiguousarray(wire[:, 12:16].numpy()).view("<i4").sum())
+    times = {"int32 ops": steps * WALK_OPS / int32_rate * 1e3,
+             "bytes": (steps * 24 + wire.numel()) / HBM_BYTES_PER_S * 1e3}
+    binds = max(times, key=times.get)
+    rows.append(dict(
+        name="block_walk", route="cuda", source=f"swtpu_torch/csrc/{WALK}",
+        replaces=KERNELS["block_walk"][2], launches=None, max_abs_err=max_err["block_walk"],
+        ms=ms, plain_ms=plain_ms, bound_ms=times[binds],
+        bound_by="bytes" if binds == "bytes" else "operations", library_ms=None,
+        kernel_ms=kernel_ms))
+    print(f"block_walk, 8 pairs of 16384-mers ({steps} steps): wrapper {ms:.4f} ms, "
+          f"launch alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.2%} of the "
+          f"bound), plain (host walk, encoded) {plain_ms:.1f} ms, equal wires; bound "
+          f"{times[binds]:.4f} ms by {binds} ({WALK_OPS} int32 ops and 24 bytes a step: "
+          f"the walk is a chain of dependent loads, so latency binds it)", flush=True)
+    del run, wire, walk_run, walk_wire
+    torch.cuda.empty_cache()
+
+    # 28. per-round band at reference scale: the device walk --------------------
+    phase("28 per-round band at reference scale: banded_align_batch on 8 related "
+          "16384-mers, W = 32, X = 70 (linear: the walk runs on the card)")
+    q, t = q16[:8], t16h[:8]
+    banded_align_batch(q, t)  # warm-up
+    before = kdw.xdrop_walk.launches
+    t0 = time.perf_counter()
+    out = banded_align_batch(q, t)
+    wall = time.perf_counter() - t0
+    check(kdw.xdrop_walk.launches == before + 1, "banded_align_batch at 16K walks on the card")
+    saved = snapshot()
+    t0 = time.perf_counter()
+    host = banded_walk_batch(q, t, banded_forward_batch(q, t))
+    host_s = time.perf_counter() - t0
+    res = kbb.banded_batch(q, t, bandwidth=32, compress_history=False)
+    restore(saved)
+    check(out == host, "16K per-round: the device walk vs the host walk")
+    for b, (score, path) in enumerate(out):
+        check(path[0] == (0, 0) and rescore(path, q[b], t[b], p111) == score,
+              f"16K per-round traceback: path of pair {b}")
+    check(out[0] == banded_xdrop(q[0], t[0]), "16K per-round vs the oracle copy")
+    print(f"8 pairs: {wall * 1e3:.1f} ms wall (upload, per-round forward, device walk, "
+          f"wire, decode) against {host_s * 1e3:.1f} ms with the host walk over the "
+          f"8-bit history; equal paths, rescored, 1 equals the oracle copy; mean path "
+          f"{np.mean([len(p) for _, p in out]):.0f} cells [{smi}]", flush=True)
+    q_d, t_d = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+    pad = _prep_padded(q_d, t_d, None, None, 32, dev, torch.int16)
+    pad32 = (*pad[:2], pad[2].int(), pad[3].int())
+    wire = kdw.xdrop_walk(res, pad)
+    fwd_ms = time_kernel(lambda: kbb.banded_batch(q_d, t_d, bandwidth=32,
+                                                  compress_history=False),
+                         (), iters=2) * 1e3
+    arr_ms, list_ms = decode_times(decode_device_walk, wire.cpu())
+    check(decode_device_walk(wire.cpu()) == out, "16K per-round: decode")
+    print(f"on staged tensors: the per-round forward with its int32 history "
+          f"{fwd_ms:.1f} ms; the host decode alone {arr_ms:.1f} ms to arrays, "
+          f"{list_ms:.1f} ms to tuple lists", flush=True)
+    plain_ms = time_kernel(kdw.xdrop_walk_plain, (res, pad), iters=1, warmup=0,
+                           reps=1) * 1e3
+    err = max_abs_err(wire.cpu(), kdw.xdrop_walk_plain(res, pad))
+    max_err["xdrop_walk"] = max(max_err["xdrop_walk"], err)
+    check(err == 0, "xdrop_walk differs from its plain version at 16K")
+    ms = time_kernel(kdw.xdrop_walk, (res, pad), iters=5) * 1e3
+    kernel_ms = time_kernel(kdw.xdrop_walk_launch_t, (res, pad32, 32, 70, 1, 1, 1),
+                            iters=5) * 1e3
+    steps = int(np.ascontiguousarray(wire[:, 12:16].cpu().numpy()).view("<i4").sum())
+    times = {"int32 ops": steps * WALK_OPS / int32_rate * 1e3,
+             "bytes": (steps * 24 + wire.numel()) / HBM_BYTES_PER_S * 1e3}
+    binds = max(times, key=times.get)
+    rows.append(dict(
+        name="xdrop_walk", route="cuda", source=f"swtpu_torch/csrc/{WALK}",
+        replaces=KERNELS["xdrop_walk"][2], launches=None, max_abs_err=max_err["xdrop_walk"],
+        ms=ms, plain_ms=plain_ms, bound_ms=times[binds],
+        bound_by="bytes" if binds == "bytes" else "operations", library_ms=None,
+        kernel_ms=kernel_ms))
+    print(f"xdrop_walk, the same 8 pairs ({steps} steps): wrapper {ms:.4f} ms, launch "
+          f"alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.2%} of the bound), "
+          f"plain (host walk, encoded) {plain_ms:.1f} ms, equal wires; bound "
+          f"{times[binds]:.4f} ms by {binds}", flush=True)
+    del res, pad, wire, q16, t16h
+    torch.cuda.empty_cache()
+
+    # 29. the banded --block-adaptive CLI ---------------------------------------
+    phase("29 banded --block-adaptive CLI: DNA, protein, Gotoh, per-pair lengths, "
+          "--traceback / --cigar, and the two refusals")
+    crng = np.random.default_rng(SEED + 15)
+    tmp = tempfile.TemporaryDirectory()
+    fq, ft = Path(tmp.name) / "q.fa", Path(tmp.name) / "t.fa"
+    vq = [crng.integers(0, 4, int(crng.integers(300, 1201))).astype(np.uint8)
+          for _ in range(8)]
+    vt = [mutate(crng, q_) for q_ in vq]
+    write_fasta(str(fq), [(f"q{p}", decode_dna(x)) for p, x in enumerate(vq)])
+    write_fasta(str(ft), [(f"t{p}", decode_dna(x)) for p, x in enumerate(vt)])
+
+    def cli_random(spec, A):
+        b_, n_, m_ = (int(x) for x in spec.split("x"))
+        rs = np.random.default_rng(SEED)  # the CLI's --random inputs
+        return (list(rs.integers(0, A, size=(b_, n_)).astype(np.uint8)),
+                list(rs.integers(0, A, size=(b_, m_)).astype(np.uint8)))
+
+    cli_cases = [
+        (["--random", "16x2048x2048", "--bandwidth", "32"], 4, dict()),
+        (["--random", "8x1024x1024", "--bandwidth", "32", "--traceback", "--cigar"], 4,
+         dict()),
+        (["--alphabet", "protein", "--random", "8x600x600", "--bandwidth", "32",
+          "--x-drop", "120"], 20, dict(matrix=BLOSUM62, x_threshold=120)),
+        (["--random", "8x1024x1024", "--bandwidth", "32", "--gap-open", "3",
+          "--gap-extend", "1"], 4, dict(gap_open=3, gap_extend=1)),
+        (["--queries", str(fq), "--targets", str(ft), "--bandwidth", "32", "--traceback"],
+         4, dict()),
+    ]
+    for argv, A, kw in cli_cases:
+        if "--random" in argv:
+            cq, ct = cli_random(argv[argv.index("--random") + 1], A)
+            names = [f"pair{p}" for p in range(len(cq))]
+        else:
+            cq, ct, names = vq, vt, [f"q{p}|t{p}" for p in range(len(vq))]
+        with b9_shape(len(cq), 64, "gap_open" in kw):
+            lines = [json.loads(x) for x in run_cli(
+                cli_main, ["banded", "--block-adaptive"] + argv)]
+        okw = dict(width=64, block=32, x_threshold=kw.get("x_threshold", 70),
+                   matrix=kw.get("matrix"))
+        ok = len(lines) == len(cq)
+        for rec, name, q_, t_ in zip(lines, names, cq, ct):
+            if "gap_open" in kw:
+                st = banded_xdrop_block_affine(q_, t_, gap_open=3, gap_extend=1,
+                                               return_state=True, **okw)
+            else:
+                st = banded_xdrop_block(q_, t_, return_state=True, **okw)
+            want = dict(pair=name, score=st.score)
+            if "--traceback" in argv or "--cigar" in argv:
+                want.update(start=list(st.path[0]), end=list(st.path[-1]))
+                if "--traceback" in argv:
+                    want["path"] = [list(x) for x in st.path]
+                if "--cigar" in argv:
+                    want["cigar"] = path_to_cigar(st.path, q_, t_)
+            else:
+                want["end"] = list(st.end)
+            ok = ok and rec == want
+        check(ok, f"banded --block-adaptive {' '.join(argv[:2])} vs the oracle copy")
+        print(f"banded --block-adaptive {' '.join(argv)}: {len(lines)} records equal "
+              f"the oracle copy's; first: {json.dumps(lines[0])[:100]}", flush=True)
+    for argv, msg in ((["--random", "2x64x64", "--gap-open", "3", "--cigar"],
+                       "affine traceback"),
+                      (["--queries", str(fq), "--targets", str(ft), "--gap-open", "3"],
+                       "uniform lengths")):
+        try:
+            run_cli(cli_main, ["banded", "--block-adaptive"] + argv)
+            check(False, f"banded --block-adaptive {argv} ran")
+        except SystemExit as e:
+            check(msg in str(e), f"banded --block-adaptive refusal: {e}")
+            print(f"banded --block-adaptive refuses ({msg}): {e}", flush=True)
+    tmp.cleanup()
+    block_counts = {name: launches(name) for name in BLOCK_PATH}
+    print(f"block tier path launches: {block_counts}", flush=True)
+    check(all(v > 0 for v in block_counts.values()),
+          f"a kernel was not launched on the block tier path: {block_counts}")
     for row in rows:
         if row["launches"] is None:
-            row["launches"] = {**sg_counts, **banded_counts}[row["name"]]
+            row["launches"] = {**sg_counts, **banded_counts, **block_counts}[row["name"]]
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))

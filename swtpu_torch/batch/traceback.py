@@ -9,8 +9,9 @@ X-drop family (``banded_forward_batch``, ``banded_walk_batch``,
 ``banded_affine_traceback``). The device computes every pair's score and
 endpoint (banded: its band history) in one batched call; the host then
 walks each path with the numpy oracles (diag → up → left tie-break,
-first maximum in row-major order). A C++ host walker is later work
-(ROADMAP.md).
+first maximum in row-major order), except linear per-round pairs at
+reference-scale geometry on the card, which walk on the card. A C++ host
+walker is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ import numpy as np
 
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels.banded_batch import banded_batch
-from swtpu_torch.kernels.banded_scan import BandedBatchResult
+from swtpu_torch.kernels.banded_scan import (
+    BandedBatchResult,
+    banded_xdrop_align_device,
+)
 from swtpu_torch.kernels.semiglobal_batch import semiglobal_batch
 from swtpu_torch.kernels.semiglobal_profile import semiglobal_profile
 from swtpu_torch.kernels.semiglobal_scan import gaps
@@ -591,12 +595,23 @@ def banded_align_batch(
     bit-identical to ``oracle.banded_xdrop`` (linear gaps) /
     ``oracle.banded_affine.banded_affine_xdrop`` (gap_open !=
     gap_extend). ``matrix`` selects the general-substitution-matrix /
-    protein mode (match/mismatch ignored). JAX's device walker for
-    reference-scale linear pairs on the TPU is not ported (ROADMAP): the
-    walk is on the host at every geometry.
+    protein mode (match/mismatch ignored). At reference-scale geometry on
+    the card (linear gaps, n + m + 1 > 6000: JAX's rule for the TPU) the
+    walk runs on the card too (``banded_scan.banded_xdrop_align_device``),
+    so only scores and move strings cross to the host; the output is the
+    same either way. Affine keeps the host walk (E/F reconstruction lives
+    there).
     """
     qs = np.asarray(qs)
     ts = np.asarray(ts)
+    if gap_open is not None and gap_open == gap_extend:
+        gap, gap_open, gap_extend = gap_open, None, None
+    if (gap_open is None and qs.shape[1] + ts.shape[1] + 1 > 6000
+            and resolve_device(device).type == "cuda"):
+        return banded_xdrop_align_device(
+            qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth, x_threshold,
+            matrix=matrix, device=device,
+        )
     res = banded_forward_batch(
         qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth,
         x_threshold, compress_history=compress_history, gap_open=gap_open,

@@ -8,8 +8,8 @@ X-drop semi-global alignment; ``--fixed``: local alignment in the fixed
 corridor |i - j| <= bandwidth) and ``pack`` (DNA FASTA <-> the 2-bit
 ``.npz`` container). Output is the same JSON lines (or SAM) as
 ``python -m swtpu`` prints for the same arguments. ``banded
---block-adaptive`` (the block tier) is not ported yet and exits with a
-message (ROADMAP.md queue A item 10).
+--block-adaptive`` runs the block tier (width 2 x bandwidth, block
+bandwidth) on the card, where JAX runs it only on the TPU.
 
 Usage:
   python -m swtpu_torch align --random 1024x128x128 --scoring 10,-30 --gap 15
@@ -25,6 +25,8 @@ Usage:
   python -m swtpu_torch banded --random 8x200x200 --x-drop 70 --cigar
   python -m swtpu_torch banded --alphabet protein --random 8x128x128 --gap-open 11 --gap-extend 1 --x-drop 120 --sam
   python -m swtpu_torch banded --fixed --random 64x128x128 --bandwidth 32
+  python -m swtpu_torch banded --block-adaptive --random 8x2048x2048 --bandwidth 32 --cigar
+  python -m swtpu_torch banded --block-adaptive --alphabet protein --random 8x300x300 --x-drop 120
   python -m swtpu_torch banded --fixed --random 8x128x128 --gap-open 3 --gap-extend 1 --traceback
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
@@ -244,11 +246,60 @@ def cmd_banded(args):
             print(json.dumps(dict(pair=name, score=int(s))))
         return
     if args.block_adaptive:
-        raise SystemExit(
-            "--block-adaptive is the block tier (kernels B9-B10), not ported "
-            "yet: ROADMAP.md queue A item 10; the default per-round engine "
-            "runs on the card"
+        # the block-adaptive tier: linear / affine / protein; per-pair lens on
+        # linear gaps only; the device walk for paths (linear)
+        from swtpu_torch.kernels.banded_block import (
+            banded_block_align_device,
+            banded_block_batch,
         )
+
+        varlen = not (np.all(ql == ql[0]) and np.all(tl == tl[0]))
+        if varlen and args.gap_open is not None:
+            raise SystemExit(
+                "--block-adaptive affine needs uniform lengths; the "
+                "linear engines take per-pair lens (round 5)"
+            )
+        kw = dict(
+            match=match, mismatch=abs(mismatch),
+            width=args.bandwidth * 2, block=args.bandwidth,
+            x_threshold=args.x_drop,
+            matrix=_scoring(args).matrix if args.alphabet == "protein" else None,
+            device=args.device,
+        )
+        qs2 = qs[:, : int(ql.max())]
+        ts2 = ts[:, : int(tl.max())]
+        if varlen:
+            kw["lens_q"] = ql
+            kw["lens_t"] = tl
+        if args.traceback or args.cigar:
+            if args.gap_open is not None:
+                raise SystemExit(
+                    "--block-adaptive affine traceback: use the python "
+                    "API (banded_block_traceback_host); the CLI device "
+                    "walk is linear-gap"
+                )
+            out = banded_block_align_device(qs2, ts2, gap=args.gap, **kw)
+            for k, (name, (score, path)) in enumerate(zip(names, out)):
+                rec = dict(pair=name, score=score, start=path[0], end=path[-1])
+                if args.traceback:
+                    rec["path"] = path
+                if args.cigar:
+                    rec["cigar"] = path_to_cigar(path, qs2[k], ts2[k])
+                print(json.dumps(rec))
+            return
+        res = banded_block_batch(
+            qs2, ts2,
+            gap=args.gap if args.gap_open is None else 1,
+            gap_open=args.gap_open,
+            gap_extend=args.gap_extend if args.gap_open is not None else None,
+            **kw,
+        ).numpy()
+        for k, name in enumerate(names):
+            print(json.dumps(dict(
+                pair=name, score=int(res.score[k]),
+                end=[int(res.end_y[k]), int(res.end_j[k])],
+            )))
+        return
     from swtpu_torch.batch import banded_align_batch
 
     # linear and affine ride the same device forward pass; affine paths
@@ -382,8 +433,9 @@ def build_parser():
     p.add_argument(
         "--block-adaptive",
         action="store_true",
-        help="the block-adaptive tier: not ported yet (ROADMAP.md queue A "
-        "item 10); exits with a message",
+        help="the block-adaptive tier: a corridor of 2 x bandwidth slots "
+        "recentred every bandwidth rows (scores and endpoints; paths with "
+        "--traceback/--cigar, linear gaps)",
     )
     p.set_defaults(fn=cmd_banded)
 

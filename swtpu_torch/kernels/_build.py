@@ -27,14 +27,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: every CUDA source of the port: the row-scan (uniform scoring), the
 #: profile (general matrix), the bf16 tier, semi-global / global, the
-#: fixed band and the per-round adaptive band
+#: fixed band, the per-round adaptive band, the block tier (gather and
+#: rows) and the banded device walkers
 SOURCES = ("sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu", "sw_semiglobal.cu",
-           "sw_banded.cu", "sw_xdrop.cu")
+           "sw_banded.cu", "sw_xdrop.cu", "sw_block.cu", "sw_walk.cu")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # optimise a source's kernels on several threads (sw_block.cu has 60)
+    "--split-compile=0",
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,13 @@ carried over: each round gathers its band's characters directly. The
 loop stops once every pair is done (checked every 32 rounds) and fills
 the remaining rounds as the XLA tier's masked rounds leave them: history
 and positions 0, offsets the final max_score - X.
+
+Also here, as in the XLA module: ``banded_xdrop_align_device`` (forward
+and traceback on the device, only scores and move strings to the host;
+``_banded_fwd_walk_impl``'s walk is ``device_walk.xdrop_walk``) and
+``decode_device_walk``, the numpy decoder of the 2-bit move wire that both
+device walkers write (JAX decodes in C++ when its native module is built;
+both give the same tuples).
 """
 
 from __future__ import annotations
@@ -288,3 +295,71 @@ def banded_xdrop_batch(
         hist = torch.where(hist > 0, hist - offs[:, :, None] + 1, zero).to(torch.uint8)
         return BandedBatchResult(score, max_round, n_rounds, hist, posy, offs)
     return BandedBatchResult(score, max_round, n_rounds, hist, posy)
+
+
+def banded_xdrop_align_device(
+    qs,
+    ts,
+    lens_q=None,
+    lens_t=None,
+    match=1,
+    mismatch=1,
+    gap=1,
+    bandwidth=32,
+    x_threshold=70,
+    matrix=None,
+    device=None,
+):
+    """Batched adaptive-banded X-drop alignment, forward AND traceback on
+    the device (linear gaps). Output bit-equal to ``banded_align_batch``'s
+    host walk; only scores and move strings cross to the host. On the card
+    the forward is the per-round kernel (``banded_batch.banded_batch``,
+    int32 history) and the walk ``device_walk.xdrop_walk``; on the CPU their
+    plain versions. Returns [(score, path)] per pair."""
+    from swtpu_torch.kernels.banded_batch import banded_batch
+    from swtpu_torch.kernels.device_walk import xdrop_walk
+
+    dev = resolve_device(device, like=qs)
+    W = int(bandwidth)
+    res = banded_batch(qs, ts, lens_q, lens_t, match, mismatch, gap, W, x_threshold,
+                       with_history=True, compress_history=False, matrix=matrix,
+                       device=dev)
+    padded = _prep_padded(qs, ts, lens_q, lens_t, W, dev, torch.int16)
+    wire = xdrop_walk(res, padded, W, x_threshold, match, mismatch, gap, matrix)
+    return decode_device_walk(wire)
+
+
+def decode_device_walk(wire, as_arrays=False):
+    """Host decode of the device walkers' wire format: per pair 20 bytes of
+    meta (score, start_y, start_x, n_steps, ok: little-endian int32)
+    followed by 2-bit packed moves (0 diag, 1 up, 2 left, 3 done).
+
+    Default: [(score, path)] tuple lists with the host walkers' path
+    convention (origin -> start cell). ``as_arrays=True`` returns (scores
+    int32 [B], path_len int32 [B], paths int32 [B, max_points, 2]) instead.
+    A pair whose walk stalled (ok 0) raises AssertionError, as the host
+    walkers do.
+    """
+    wire = np.ascontiguousarray(_host(wire))
+    meta = np.ascontiguousarray(wire[:, :20]).view("<i4").T  # [5, B]
+    packed = wire[:, 20:]
+    score, sy, sx, nsteps, ok = meta
+    moves = (packed[:, :, None] >> (np.arange(4, dtype=np.uint8) * 2)[None, None]) & 3
+    moves = moves.reshape(packed.shape[0], -1)
+    out, arrs = [], []
+    for b in range(packed.shape[0]):
+        if not ok[b]:
+            raise AssertionError(f"inconsistent device banded traceback at pair {b}")
+        mv = moves[b, : nsteps[b]].astype(np.int64)
+        ys = np.concatenate([[sy[b]], sy[b] - np.cumsum((mv == 0) | (mv == 1))])
+        xs = np.concatenate([[sx[b]], sx[b] - np.cumsum((mv == 0) | (mv == 2))])
+        if as_arrays:
+            arrs.append(np.stack([ys[::-1], xs[::-1]], axis=1))
+            continue
+        out.append((int(score[b]), list(zip(ys[::-1].tolist(), xs[::-1].tolist()))))
+    if as_arrays:
+        paths = np.zeros((packed.shape[0], 4 * packed.shape[1] + 1, 2), np.int32)
+        for b, a in enumerate(arrs):
+            paths[b, : len(a)] = a
+        return score.astype(np.int32), (nsteps + 1).astype(np.int32), paths
+    return out

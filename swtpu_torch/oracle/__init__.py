@@ -20,3 +20,11 @@ from swtpu_torch.oracle.banded_static import (  # noqa: F401
     sw_banded_static_score_batch,
     sw_banded_static_traceback,
 )
+from swtpu_torch.oracle.banded_block import (  # noqa: F401
+    BandedBlockResult,
+    banded_xdrop_block,
+    banded_xdrop_block_affine,
+    reconstruct_block_ef,
+    walk_block_history,
+    walk_block_history_affine,
+)

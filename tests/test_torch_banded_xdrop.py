@@ -291,9 +291,3 @@ def _run(cli, argv):
 def test_cli_equals_jax(argv):
     out = _run(port_cli, argv + ["--device", "cpu"])
     assert out == _run(jax_cli, argv) and len(out.splitlines()) >= 4
-
-
-def test_cli_block_adaptive_refuses():
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 10"):
-        port_cli(["banded", "--block-adaptive", "--random", "2x40x40",
-                  "--device", "cpu"])

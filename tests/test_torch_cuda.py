@@ -22,7 +22,13 @@ fixed-band kernel (``sw_banded_static``, ``sw_banded_profile``) equals
 its plain version on ragged shapes, W from 0 past max(n, m), pads and
 lengths; the per-round banded kernel (``banded_batch``) equals its plain
 version in every field at W from 8 to 128, and the banded alignment entry
-points on the card equal themselves on the CPU.
+points on the card equal themselves on the CPU. The block tier's kernels
+(``block_gather``, ``block_rows``) equal their plain versions in every
+field below n_rows (histories, bases and deltas included) at W from 16 to
+112 with K up to 129 - W, linear, Gotoh, BLOSUM62 and per-pair lengths;
+the device walkers (``block_walk``, ``xdrop_walk``) write the plain
+versions' wires; ``banded --block-adaptive`` and reference-scale
+``banded_align_batch`` on the card equal themselves on the CPU.
 """
 
 import numpy as np
@@ -39,8 +45,8 @@ from swtpu_torch.core.scoring import (
     DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
 )
 from swtpu_torch.kernels import (
-    banded_batch, semiglobal_batch, semiglobal_profile, sw_affine, sw_banded,
-    sw_batch, sw_bf16, sw_profile,
+    banded_batch, banded_block, banded_scan, device_walk, semiglobal_batch,
+    semiglobal_profile, sw_affine, sw_banded, sw_batch, sw_bf16, sw_profile,
 )
 from swtpu_torch.kernels.banded_scan import BandedBatchResult, _prep_padded
 from swtpu_torch.oracle import (
@@ -705,3 +711,134 @@ def test_banded_align_on_card_equals_cpu(card, scoring):
     for W in (32, 96):
         assert banded_align_batch(qh, th, bandwidth=W, **kw) == banded_align_batch(
             qh, th, bandwidth=W, device="cpu", **kw)
+
+
+BLOCK_MODES = {
+    "linear": dict(),
+    "gotoh_31": dict(gap_open=3, gap_extend=1),
+    "blosum62": dict(matrix=BLOSUM62, x_threshold=60),
+    "varlen_x30": dict(lens=True, x_threshold=30),
+}
+
+
+def block_fields(res, K):
+    """Every field of a block-tier result, the history zeroed at and past
+    each pair's n_rows and bases / deltas past its last block (consumers
+    read below them)."""
+    nr = res.n_rows
+    dev = nr.device
+    rows = torch.arange(res.band_history.shape[0], device=dev)[:, None] < nr[None]
+    blocks = (torch.arange(res.bases.shape[0], device=dev)[:, None]
+              < ((nr.long() + K - 1) // K)[None])
+    return [res.score, res.end_y, res.end_j, nr,
+            torch.where(rows[:, None, :], res.band_history, 0),
+            torch.where(blocks, res.bases, 0), torch.where(blocks, res.deltas, 0)]
+
+
+@pytest.mark.parametrize("W,K", [(16, 1), (16, 113), (32, 16), (48, 33), (64, 32),
+                                 (64, 65), (96, 8), (112, 17)])
+@pytest.mark.parametrize("mode", list(BLOCK_MODES))
+def test_block_kernels_equal_plain_on_card(card, mode, W, K):
+    kw = dict(BLOCK_MODES[mode], width=W, block=K, with_history=True, with_meta=True)
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 200, 230, card)
+    if kw.pop("lens", False):
+        kw.update(lens)
+        kw["lens_q"][:3] = (0, K, K + 1)  # a zero length, a block end, past it
+    rows, gather = banded_block.block_rows, banded_block.block_gather
+    before = (rows.launches, gather.launches)
+    got = banded_block.banded_block_batch(qs, ts, **kw)
+    torch.cuda.synchronize()
+    assert rows.launches > before[0] and gather.launches - before[1] == (
+        rows.launches - before[0])
+    want = banded_block.banded_block_batch_plain(qs, ts, device=card, **kw)
+    names = ("score", "end_y", "end_j", "n_rows", "history", "bases", "deltas")
+    for name, g, w in zip(names, block_fields(got, K), block_fields(want, K),
+                          strict=True):
+        assert g.device.type == "cuda" and torch.equal(g, w), (mode, W, K, name)
+
+
+def test_block_gather_equals_plain_on_card(card):
+    rng = np.random.default_rng(10000)
+    t = torch.from_numpy(rng.integers(-1, 20, size=(300, 500)).astype(np.int16)).to(card)
+    bases = torch.from_numpy(rng.integers(-200, 700, 300).astype(np.int32)).to(card)
+    for C in (1, 47, 127):
+        assert torch.equal(banded_block.block_gather(t, bases, C),
+                           banded_block.block_gather_plain(t, bases, C))
+
+
+def test_block_guards_on_card(card):
+    q = torch.zeros((4, 40), dtype=torch.uint8, device=card)
+    before = banded_block.block_rows.launches
+    for kw, err in ((dict(width=40), ValueError), (dict(width=64, block=66), ValueError),
+                    (dict(gap_open=3, gap_extend=1, lens_q=[3] * 4), NotImplementedError)):
+        with pytest.raises(err):
+            banded_block.banded_block_batch(q, q, **kw)
+    assert banded_block.block_rows.launches == before
+
+
+@pytest.mark.parametrize("mode", ["linear", "blosum62", "varlen_x30"])
+def test_block_walk_equals_plain_on_card(card, mode):
+    kw = dict(BLOCK_MODES[mode])
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 100, 300, card)
+    if kw.pop("lens", False):
+        kw.update(lens)
+    run = banded_block._setup(qs, ts, 1, 1, 1, 64, 32, kw.get("x_threshold", 70), None,
+                              kw.get("matrix"), True, None, None, kw.get("lens_q"),
+                              kw.get("lens_t"), card)
+    banded_block._forward(run)
+    before = device_walk.block_walk.launches
+    wire = device_walk.block_walk(run)
+    assert device_walk.block_walk.launches == before + 1 and wire.device.type == "cuda"
+    assert torch.equal(wire.cpu(), device_walk.block_walk_plain(run))
+
+
+@pytest.mark.parametrize("mode", ["linear", "blosum62"])
+def test_xdrop_walk_equals_plain_on_card(card, mode):
+    kw = dict(matrix=BLOSUM62, x_threshold=120) if mode == "blosum62" else {}
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20 if kw else 4, 100, 300, card)
+    res = banded_batch.banded_batch(qs, ts, bandwidth=32, compress_history=False,
+                                    **lens, **kw)
+    pad = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], 32, card, torch.int16)
+    before = device_walk.xdrop_walk.launches
+    wire = device_walk.xdrop_walk(res, pad, 32, **kw)
+    assert device_walk.xdrop_walk.launches == before + 1
+    assert torch.equal(wire.cpu(), device_walk.xdrop_walk_plain(res, pad, 32, **kw))
+
+
+def test_reference_scale_banded_align_walks_on_card(card):
+    """n + m + 1 > 6000, linear: banded_align_batch walks on the card."""
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, 4, size=(4, 3200)).astype(np.uint8)
+    ts = np.stack([mutate(rng, q, out_len=3200) for q in qs])
+    before = device_walk.xdrop_walk.launches
+    got = banded_align_batch(qs, ts, bandwidth=32)
+    assert device_walk.xdrop_walk.launches == before + 1
+    assert got == banded_align_batch(qs, ts, bandwidth=32, device="cpu")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--random", "8x300x300", "--bandwidth", "32", "--cigar"],
+    ["--alphabet", "protein", "--random", "8x200x200", "--bandwidth", "16",
+     "--x-drop", "120"],
+    ["--random", "8x300x300", "--bandwidth", "32", "--gap-open", "3", "--gap-extend",
+     "1"],
+])
+def test_block_cli_on_card_equals_cpu(card, argv):
+    import contextlib
+    import io
+
+    from swtpu_torch.cli import main
+
+    def run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["banded", "--block-adaptive"] + argv + ["--device", device])
+        return buf.getvalue()
+
+    before = banded_block.block_rows.launches
+    on_card = run("cuda")
+    assert banded_block.block_rows.launches > before
+    assert on_card == run("cpu") and len(on_card.splitlines()) == 8

@@ -19,7 +19,8 @@
   matrix, profile form for any other), ``banded_forward_batch``,
   ``banded_align_batch`` and ``banded`` the per-round kernel at every
   bandwidth up to 128, never the plain tiers; scoring or widths the
-  kernels do not take raise.
+  kernels do not take raise; the block tier's entry points and
+  ``banded --block-adaptive`` raise without a card too.
 """
 
 import json
@@ -45,7 +46,9 @@ from swtpu_torch.kernels import (
     _build,
     affine_scan,
     banded_batch,
+    banded_block,
     banded_scan,
+    device_walk,
     semiglobal_batch,
     semiglobal_profile,
     semiglobal_scan,
@@ -70,7 +73,9 @@ WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
             sw_profile.sw_profile, sw_profile.sw_profile_ends,
             sw_bf16.sw_bf16, semiglobal_batch.semiglobal_batch,
             semiglobal_profile.semiglobal_profile, sw_banded.sw_banded_static,
-            sw_banded.sw_banded_profile, banded_batch.banded_batch]
+            sw_banded.sw_banded_profile, banded_batch.banded_batch,
+            banded_block.block_gather, banded_block.block_rows,
+            device_walk.block_walk, device_walk.xdrop_walk]
 
 
 def _module_names():
@@ -170,6 +175,11 @@ NO_DEVICE_CALLS = {
     "banded_forward_batch": lambda: port_traceback.banded_forward_batch(Q, Q),
     "banded_align_batch":
         lambda: port_traceback.banded_align_batch(Q, Q, gap_open=3, gap_extend=1),
+    "banded_block_batch":
+        lambda: banded_block.banded_block_batch(Q, Q, width=16, block=8),
+    "banded_block_align_device":
+        lambda: banded_block.banded_block_align_device(Q, Q, width=16, block=8),
+    "banded_xdrop_align_device": lambda: banded_scan.banded_xdrop_align_device(Q, Q),
 }
 
 
@@ -191,6 +201,8 @@ def test_no_card_entry_without_device_raises(entry):
     ["banded", "--random", "2x8x8", "--cigar"],
     ["banded", "--fixed", "--random", "2x8x8"],
     ["banded", "--fixed", "--alphabet", "protein", "--random", "2x8x8", "--sam"],
+    ["banded", "--block-adaptive", "--random", "2x8x8", "--bandwidth", "8"],
+    ["banded", "--block-adaptive", "--random", "2x8x8", "--bandwidth", "8", "--cigar"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
