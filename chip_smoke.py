@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's six main paths on the card, through the entry points
+Drives the port's seven main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
@@ -18,10 +18,14 @@ band at BASELINE config 2 through ``csrc/sw_banded.cu``, the per-round
 adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
 ``banded`` CLI) and the block-adaptive band (``csrc/sw_block.cu``: the
 corridor window gather B10 and the block row-scan B9; the device walkers
-of ``csrc/sw_walk.cu``; ``banded --block-adaptive``).
+of ``csrc/sw_walk.cu``; ``banded --block-adaptive``) and long pairs on
+one card (``longpair_sw_score`` / ``_ends`` / ``_align`` through the strip
+tile of ``csrc/sw_strip.cu``, B13; the anti-diagonal ``wavefront``
+schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
+--engine wavefront`` CLI).
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on the eight CUDA sources at once; registers, spills and
+   2. build: nvcc on the ten CUDA sources at once; registers, spills and
       shared memory of each kernel;
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
@@ -33,12 +37,13 @@ of ``csrc/sw_walk.cu``; ``banded --block-adaptive``).
       against the numpy oracle; the eight semi-global instantiations
       (argmax and pinned) on 8192 x 128 x 128 (half related pairs),
       1000 x 90 x 200 with internal pads and per-pair lengths down to 0,
-      33 x 7 x 1 and 4 x 40 x 2560, under (1,1,1), (2,1,1), (2,3,5,1),
+      33 x 7 x 1 and 4 x 40 x 1024, under (1,1,1), (2,1,1), (2,3,5,1),
       (2,3,2,2), BLOSUM62 linear 11 and Gotoh 11/1 and a 4x4 DNA matrix
-      linear 2 and Gotoh 3/1, and on 16 pairs against the oracle copy;
-      the fixed-band kernel, both forms, at W = 8 to 160 on 8192 x 128 x
-      128 (half related), 1000 x 90 x 200 with internal pads and lengths,
-      64 x 40 x 300, 64 x 300 x 40 and 33 x 7 x 1 under (1,-1,1),
+      linear 2 and Gotoh 3/1, and on 8 pairs against the oracle copy;
+      the fixed-band kernel, both forms, at W = 8, 32, 64, 96 and 160 on
+      8192 x 128 x 128 (half related) and W = 8, 32 and 160 on 1000 x 90 x
+      200 with internal pads and lengths, 64 x 40 x 300, 64 x 300 x 40 and
+      33 x 7 x 1 under (1,-1,1),
       (10,-30,15), Gotoh (1,-1,3,1), BLOSUM62 11 and 11/1 and a 4x4 DNA
       matrix 3/1, 64 pairs against the oracle copy; the per-round kernel
       at W = 8, 32, 64, 96 and 128 in every field (history, pos_y and
@@ -55,7 +60,15 @@ of ``csrc/sw_walk.cu``; ``banded --block-adaptive``).
       inside a block), an all-dead start, B10 alone at bases far outside
       the targets, and the wires of both device walkers (``block_walk``,
       ``xdrop_walk``) against their plain versions (the host walks,
-      encoded);
+      encoded); the strip tile (B13) against the plain column-scan tile on
+      every return at R x C = 1 x 1, 7 x 300, 1000 x 64, 1499 x 700 (a prime
+      R), 4096 x 4096, 8191 x 48 (8 rows a thread), 16384 x 64 and 16383
+      x 33 (16 rows a thread, the main path's instantiations, the last
+      thread ragged) under (1,-1,1),
+      Gotoh (2,-3,5,1), BLOSUM62 11/1 and a 4x4 matrix, with non-zero and
+      -2^20 boundaries, pads and an all-negative tile; the wavefront kernel (B14) against its plain
+      version on 8192 x 128 x 128 (10,-30,15), 300 x 100 x 150 (1,-1,1) and
+      1024 x 128 x 128 protein BLOSUM62 11, pads included;
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
       (10, -30, open 40, extend 15), timed with CUDA events; the first
@@ -139,7 +152,7 @@ of ``csrc/sw_walk.cu``; ``banded --block-adaptive``).
   24. traceback: ``banded_static_align_batch`` on 64 related 128-mers
       (DNA linear and Gotoh, protein 11/1), paths in the corridor and
       rescored; ``banded_align_batch`` on 16 related 2048-mers (linear,
-      Gotoh, protein), paths from the origin rescored, 2 against the
+      Gotoh, protein), paths from the origin rescored, 1 against the
       oracle copy, and on 16 of them at W = 96;
   25. the ``banded`` CLI (``--fixed`` and the per-round band at W = 96,
       DNA and protein) against the oracle copy;
@@ -155,17 +168,39 @@ of ``csrc/sw_walk.cu``; ``banded --block-adaptive``).
       and bounds (``block_ops``);
   27. ``banded_block_align_device`` on 8 and 128 related 16384-mers (W =
       64, K = 64, X = 70, (1,1,1)): wall time, paths from the origin
-      rescored, scores against the forward, 2 pairs against the oracle
+      rescored, scores against the forward, 1 pair against the oracle
       copy; ``block_walk`` alone against its plain version;
   28. ``banded_align_batch`` on 8 related 16384-mers at W = 32: the device
       walk (``xdrop_walk``) against the host walk over the 8-bit history,
       rescored, 1 pair against the oracle copy; ``xdrop_walk`` alone;
   29. ``banded --block-adaptive``: DNA scores, ``--traceback --cigar``,
       protein, Gotoh and per-pair lengths (FASTA) against records built
-      from the oracle copy; its two refusals.
+      from the oracle copy; its two refusals;
+  30. long pairs: ``longpair_sw_ends`` and ``longpair_sw_score`` on one
+      related 16384 x 16384 DNA pair (~85% identity), (1,-1,1) and Gotoh
+      (2,-3,5,1), one whole-target block (the default); wall per call, B13's
+      launches a sweep, B13 alone (CUDA events) and GCUPS; B13's row on a
+      related 4096 x 4096 linear tile: wrapper, launch alone, the plain
+      tile's time and every return held equal;
+  31. ``longpair_sw_align`` (device forward, low-memory host walk) on the
+      16K linear pair and on a Gotoh 4096 x 4096 pair, and ``longpair_sw_ends``
+      and ``_align`` on a BLOSUM62 11/1 4096 x 4096 pair: paths rescored,
+      endpoints equal to the forward's, the 4096 x 4096 sweeps against the
+      plain tile; host walk seconds; the 16K linear and Gotoh (score,
+      end_i, end_j) against an independent forward, the host's full
+      low-memory pass (``sw_traceback_lowmem`` without ends: the matrix
+      maximum and its row-major-first cell), the linear path equal to
+      ``longpair_sw_align``'s;
+  32. the wavefront schedule through ``variant_engine("wavefront")`` (what
+      ``align --engine wavefront`` runs): 128 and 8192 pairs of 128 x 128
+      under (10,-30,15) and (1,-1,1), BLOSUM62 11, against ``best_engine``;
+      queries past 128 (2 x (512 x 384), 2 x (1024 x 256)) through the strip
+      tile;
+  33. the ``longpair`` CLI (DNA with ``--cigar``, protein Gotoh) and ``align
+      --engine wavefront`` against the oracle copy.
 
-Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22
-and 26) and read just after it (phases 6, 10, 15, 21, 25 and 29); every
+Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
+26 and 30) and read just after it (phases 6, 10, 15, 21, 25, 29 and 33); every
 kernel of a path must have launched in its window. Inside the config-4 window the calls that
 are not the path's own (the fused unit and split on staged tensors, the
 per-part times, the reference checks, phase 14) run between a
@@ -201,7 +236,9 @@ ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
 SEMIGLOBAL = "sw_semiglobal.cu"
 BANDED, XDROP = "sw_banded.cu", "sw_xdrop.cu"
 BLOCK, WALK = "sw_block.cu", "sw_walk.cu"
-SOURCES = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL, BANDED, XDROP, BLOCK, WALK]
+STRIP, WAVEFRONT = "sw_strip.cu", "sw_wavefront.cu"
+SOURCES = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL, BANDED, XDROP, BLOCK, WALK, STRIP,
+           WAVEFRONT]
 SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like_256.fasta"
 # DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
 # at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
@@ -304,6 +341,12 @@ KERNELS = {
                    "swtpu/kernels/pallas/banded_block.py:1275", None, 0, 0),
     "xdrop_walk": (WALK, "xdrop_walk_kernel",
                    "swtpu/kernels/xla/banded_scan.py:334", None, 0, 0),
+    # the long-pair strip tile <BR, AFFINE> (B13) and the wavefront (B14);
+    # ops per cell: see strip_ops and WAVE_OPS
+    "strip_tile": (STRIP, ("strip_tile_kernel",),
+                   "swtpu/kernels/pallas/longpair_strip.py:263", None, 0, 0),
+    "sw_wavefront": (WAVEFRONT, "sw_wavefront_kernel",
+                     "swtpu/kernels/pallas/sw_wavefront.py:110", None, 0, 0),
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
@@ -312,6 +355,7 @@ CONFIG4_PATH = ["sw_bf16", "sw_batch"]
 SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
 BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
 BLOCK_PATH = [k for k, v in KERNELS.items() if v[0] in (BLOCK, WALK)]
+LONGPAIR_PATH = ["strip_tile", "sw_wavefront"]
 
 
 def xdrop_ops(affine, matrix):
@@ -351,6 +395,22 @@ def block_ops(affine, matrix, W):
     cell = (25 if affine else 11) - 2 * matrix
     return cell, 9 + 2 * affine, 5 * W + 14 + 2 * W * affine
 
+
+def strip_ops(affine):
+    """int32 ops the tile function needs per DP cell, counted as the
+    kernel table counts them: the score (the table offset add; its lookup
+    counted apart), linear H 5 (diagonal add, floor at 0, max of up and
+    left, the gap subtract, the max), Gotoh E 3 and F 3 (two subtracts and
+    a max each), the candidate 3 (add, max with E, floor at 0) and H's max
+    with F 1, and the row-major-first endpoint 3 (compare, two selects):
+    9 linear, 14 Gotoh."""
+    return 14 if affine else 9
+
+
+#: int32 ops the wavefront function needs per real cell: the score (the
+#: table offset add; its lookup counted apart), H 6 (the diagonal add, two
+#: gap subtracts, three maxes with the floor), the running best 1
+WAVE_OPS = 8
 
 #: int32 ops a device-walk step needs: the three neighbours' reads (row
 #: base or pos_y, slot, band test, dead test: 8 each), the score 4, the
@@ -525,8 +585,9 @@ def main():
     )
     from swtpu_torch.kernels import (
         _build, banded_batch as kbb, banded_block as kbk, device_walk as kdw,
-        semiglobal_batch as ksg, semiglobal_profile as ksp, sw_affine as ka,
-        sw_banded as ksb, sw_batch as kb, sw_bf16 as kbf, sw_profile as kp,
+        longpair_strip as kls, semiglobal_batch as ksg, semiglobal_profile as ksp,
+        sw_affine as ka, sw_banded as ksb, sw_batch as kb, sw_bf16 as kbf,
+        sw_profile as kp, sw_wavefront as kwf,
     )
     from swtpu_torch.kernels.banded_scan import (
         BandedBatchResult, _prep_padded, decode_device_walk,
@@ -545,7 +606,9 @@ def main():
     )
     from swtpu_torch.oracle.sw import sw_score, sw_score_batch, sw_traceback
     from swtpu_torch.ops import best_ends_engine, best_engine
-    from swtpu_torch.ops.variants import resolve_engine
+    from swtpu_torch.ops.variants import resolve_engine, variant_engine
+    from swtpu_torch.batch.lowmem import sw_traceback_lowmem
+    from swtpu_torch.parallel import longpair as lp
     from swtpu_torch.utils import time_kernel
 
     dev = torch.device("cuda")
@@ -656,6 +719,10 @@ def main():
     }
 
     def launches(name):
+        if name == "strip_tile":  # B13: its linear and affine calls
+            return kls.tile_strip_linear.launches + kls.tile_strip_affine.launches
+        if name == "sw_wavefront":
+            return kwf.sw_wavefront.launches
         # the profile wrappers count all their launches and, apart, those
         # of the affine instantiation; the semi-global wrappers those of
         # the affine, the pinned and the affine pinned ones; the fixed-band
@@ -714,13 +781,20 @@ def main():
     wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
     wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile, ksb.sw_banded_static,
                  ksb.sw_banded_profile, kbb.banded_batch, kbk.block_gather,
-                 kbk.block_rows, kdw.block_walk, kdw.xdrop_walk]
+                 kbk.block_rows, kdw.block_walk, kdw.xdrop_walk,
+                 kls.tile_strip_linear, kls.tile_strip_affine, kwf.sw_wavefront]
+    longpair_wrappers = {"strip_tile": (kls.tile_strip_linear, kls.tile_strip_affine),
+                         "sw_wavefront": (kwf.sw_wavefront,)}
 
     def counts_of(w):
         return {k: v for k, v in vars(w).items() if k.startswith("launches")}
 
     def zero_launches(names):
         for name in names:
+            if name in LONGPAIR_PATH:
+                for w in longpair_wrappers[name]:
+                    w.launches = 0
+                continue
             w = (block_wrappers[name] if name in BLOCK_PATH else
                  banded_wrappers[name] if name in BANDED_PATH else
                  (sg_fns if name in SEMIGLOBAL_PATH else kernel_fns)[name][0])
@@ -829,26 +903,26 @@ def main():
     # the profile kernels: protein and general DNA matrices (their own
     # generator, so the DNA phases keep their inputs)
     prng = np.random.default_rng(SEED + 1)
-    prot_q = random_protein(prng, (32768, 128))
-    prot_t = random_protein(prng, (32768, 128))
+    prot_q = random_protein(prng, (8192, 128))
+    prot_t = random_protein(prng, (8192, 128))
     ptail_q = random_protein(prng, (1000, 90))
     ptail_q[:, 70:] = 24
     ptail_t = random_protein(prng, (1000, 200))
     ptail_t[:500, 180:] = 25
-    dna_n_q, dna_n_t = flag_q.copy(), flag_t.copy()  # internal N (code 4)
+    dna_n_q, dna_n_t = flag_q[:8192].copy(), flag_t[:8192].copy()  # internal N (code 4)
     dna_n_q[prng.random(dna_n_q.shape) < 0.05] = 4
     dna_n_t[prng.random(dna_n_t.shape) < 0.05] = 4
     profile_cases = [
-        ("32768x128x128 protein", prot_q, prot_t, [P_LIN, P_GOTOH]),
+        ("8192x128x128 protein", prot_q, prot_t, [P_LIN, P_GOTOH]),
         ("1000x90x200 protein pad tail", ptail_q, ptail_t, [P_LIN, P_GOTOH]),
-        ("32768x128x128 DNA general matrix, internal N", dna_n_q, dna_n_t, [
+        ("8192x128x128 DNA general matrix, internal N", dna_n_q, dna_n_t, [
             ScoringParams.linear(DNA_GENERAL, 2),
             ScoringParams(DNA_GENERAL, gap_open=3, gap_extend=1),
         ]),
-        ("32768x128x128 protein tie-rich", prot_q, prot_t,
+        ("8192x128x128 protein tie-rich", prot_q, prot_t,
          [ScoringParams.linear(BLOSUM62, 1)]),
-        ("4x40x2560 protein", random_protein(prng, (4, 40)),
-         random_protein(prng, (4, 2560)), [P_LIN, P_GOTOH]),
+        ("4x40x1024 protein", random_protein(prng, (4, 40)),
+         random_protein(prng, (4, 1024)), [P_LIN, P_GOTOH]),
         ("33x7x1 protein", random_protein(prng, (33, 7)),
          random_protein(prng, (33, 1)), [P_LIN, P_GOTOH]),
     ]
@@ -885,7 +959,7 @@ def main():
     bf16_cases = [
         ("32768x128x128", flag_q, flag_t),
         ("1000x90x200 pad tail", odd_q, odd_t),
-        ("4x40x2560", random_codes(brng, (4, 40)), random_codes(brng, (4, 2560))),
+        ("4x40x1024", random_codes(brng, (4, 40)), random_codes(brng, (4, 1024))),
         ("33x7x1", random_codes(brng, (33, 7)), random_codes(brng, (33, 1))),
     ]
     for label, qh, th in bf16_cases:
@@ -989,7 +1063,7 @@ def main():
     sg_first16 = {}
     for label, B, n, m in (("8192x128x128", 8192, 128, 128),
                            ("1000x90x200 varlen, internal pads", 1000, 90, 200),
-                           ("33x7x1", 33, 7, 1), ("4x40x2560", 4, 40, 2560)):
+                           ("33x7x1", 33, 7, 1), ("4x40x1024", 4, 40, 1024)):
         codes = {4: semiglobal_pairs(sgrng, B, n, m, 4),
                  20: semiglobal_pairs(sgrng, B, n, m, 20)}
         lens = {}
@@ -1002,7 +1076,7 @@ def main():
             lq[:3], lt[:3] = (0, n, 0), (m, 0, 0)
             lens = dict(lens_q=lq, lens_t=lt)
         if B == 8192:
-            sg_first16 = {A: (qh[:16], th[:16]) for A, (qh, th) in codes.items()}
+            sg_first16 = {A: (qh[:8], th[:8]) for A, (qh, th) in codes.items()}
         dev_codes = {A: (torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev))
                      for A, (qh, th) in codes.items()}
         for slabel, sc in sg_scorings:
@@ -1022,8 +1096,8 @@ def main():
                   f"max |kernel - plain| = 0; {inside[0]} of {B} argmax endpoints "
                   f"inside the matrix", flush=True)
     del dev_codes, qd, td
-    # 16-pair spot checks against the oracle copy (the first 16 of the
-    # 8192 set: related pairs)
+    # 8-pair spot checks against the oracle copy (the first 8 of the 8192
+    # set: related pairs)
     for slabel, sc in (("(1,1,1)", SG_111), ("(2,3,5,1)", SG_AFF),
                        ("BLOSUM62 11", P_LIN), ("BLOSUM62 11/1", P_GOTOH)):
         qh, th = sg_first16[sg_letters(sc)]
@@ -1031,11 +1105,11 @@ def main():
         for pin in (False, True):
             sc_d, ei, ej = (x.cpu().numpy() for x in sg_run(sc, qd, td, pin_end=pin))
             walker = sg_oracle(sc, pin)
-            for b in range(16):
+            for b in range(8):
                 s0, path = walker(qh[b], th[b])
                 check((s0, path[-1]) == (sc_d[b], (ei[b], ej[b])),
                       f"{sg_name(sc, pin)} vs the oracle copy at pair {b}")
-        print(f"oracle spot check, 16 pairs, {slabel}: {sg_name(sc, False)} and "
+        print(f"oracle spot check, 8 pairs, {slabel}: {sg_name(sc, False)} and "
               f"{sg_name(sc, True)} scores and endpoints equal", flush=True)
     del qd, td
     torch.cuda.empty_cache()
@@ -1089,7 +1163,8 @@ def main():
             A = 4 if p.alphabet_size == 4 else 20
             qd, td = dev_codes[A]
             names = set()
-            for W in (8, 32, 64, 96, 160):
+            widths = (8, 32, 64, 96, 160) if B == 8192 else (8, 32, 160)
+            for W in widths:
                 want = ksb.sw_banded_plain(qd, td, p, W, **lens)
                 for kern in fixed_kernels(p):
                     name = fixed_name(kern, p)
@@ -1106,8 +1181,8 @@ def main():
                                          sw_banded_static_score_batch(qh[:64], th[:64],
                                                                       p, W)),
                           f"fixed band vs the oracle copy, {slabel}")
-            print(f"{label} {slabel}: {', '.join(sorted(names))} at W = 8, 32, 64, "
-                  f"96, 160: max |kernel - plain| = 0"
+            print(f"{label} {slabel}: {', '.join(sorted(names))} at W = "
+                  f"{', '.join(map(str, widths))}: max |kernel - plain| = 0"
                   + ("; 64 pairs equal the oracle copy at W = 32" if B == 8192
                      else ""), flush=True)
     del dev_codes, qd, td
@@ -1307,6 +1382,87 @@ def main():
           flush=True)
     del bdev, zq, zt, t16
     torch.cuda.empty_cache()
+    mark("strip tile (B13) vs the plain column-scan tile")
+    srng = np.random.default_rng(SEED + 16)
+    NEGB = kls.NEGB
+    strip_scorings = [("(1,-1,1)", DNA_111),
+                      ("Gotoh (2,-3,5,1)", ScoringParams(dna_matrix(2, -3), 5, 1)),
+                      ("BLOSUM62 11/1", P_GOTOH),
+                      ("4x4 matrix linear 2", ScoringParams.linear(DNA_GENERAL, 2))]
+
+    def strip_pair(rng_, p, R, C, bounds):
+        """Codes with in-length pads on both sides, and boundaries: random
+        H, E and F (non-zero), or all -2^20."""
+        letters = 20 if p.alphabet_size > 4 else 4
+        q, t = rng_.integers(0, letters, R), rng_.integers(0, letters, C)
+        q[rng_.random(R) < 0.02] = p.alphabet_size
+        t[rng_.random(C) < 0.02] = p.alphabet_size + 1
+        if bounds == "random":
+            return q, t, (rng_.integers(-5, 60, C), rng_.integers(-40, 40, C),
+                          rng_.integers(-5, 60, R), rng_.integers(-40, 40, R), 7)
+        nc, nr = np.full(C, NEGB), np.full(R, NEGB)
+        return q, t, (nc, nc, nr, nr, NEGB)
+
+    def strip_run(q, t, b, p, device=dev):
+        """B13 through its entry points (strip_tile / strip_tile_affine)."""
+        top, topf, left, lefte, corner = b
+        if p.is_linear:
+            return kls.strip_tile(q, t, top, left, corner, p, device=device)
+        return kls.strip_tile_affine(q, t, top, topf, left, lefte, corner, p,
+                                     device=device)
+
+    def strip_plain(q, t, b, p):
+        """The plain column-scan tile, on the card."""
+        table = torch.as_tensor(kls._extended_table(p), device=dev)
+        top, topf, left, lefte, corner = b
+        if p.is_linear:
+            return kls._tile_colscan(q, t, top, left, corner, table, p.alphabet_size,
+                                     p.gap)
+        return kls._tile_colscan_affine(q, t, top, topf, left, lefte, corner, table,
+                                        p.alphabet_size, p.gap_open, p.gap_extend)
+
+    n_tiles = 0
+    # 8191 x 48: 8 rows a thread; 16384 x 64 and 16383 x 33: the main
+    # path's 16 rows a thread (linear and affine), the last thread's rows
+    # ragged in the second
+    for R, C in ((1, 1), (7, 300), (1000, 64), (1499, 700), (4096, 4096),
+                 (8191, 48), (16384, 64), (16383, 33)):
+        for k, (label, p) in enumerate(strip_scorings):
+            # the 4096 x 4096 tiles: one boundary kind a scoring, in turn
+            kinds = (("random", "neg") if R * C < 1 << 22
+                     else (("random", "neg")[k % 2],))
+            for bounds in kinds:
+                q, t, b = strip_pair(srng, p, R, C, bounds)
+                err = max_abs_err(strip_run(q, t, b, p), strip_plain(q, t, b, p))
+                max_err["strip_tile"] = max(max_err["strip_tile"], err)
+                check(err == 0, f"strip tile differs from the plain tile at {R} x {C}, "
+                      f"{label}, {bounds} boundaries")
+                n_tiles += 1
+    neg = ScoringParams.linear(dna_matrix(-1, -1), 1)  # no positive cell
+    zq, zb = np.zeros(300, np.int64), (np.zeros(200), None, np.zeros(300), None, 0)
+    got = strip_run(zq, zq[:200], zb, neg)
+    err = max_abs_err(got, strip_plain(zq, zq[:200], zb, neg))
+    check(err == 0 and [int(x) for x in got[2:]] == [0, 0, 0],
+          "strip tile on an all-negative tile: best 0 at (0, 0)")
+    print(f"strip tile: {n_tiles + 1} tiles (R x C from 1 x 1 to 4096 x 4096, 8191 x "
+          "48, 16384 x 64 and 16383 x 33, a prime R, four scorings, non-zero and -2^20 boundaries, pads, an all-negative "
+          "tile) equal the plain tile on every return", flush=True)
+    mark("wavefront kernel (B14) vs its plain version")
+    for label, p, B, n, m, letters in (
+            ("8192 x 128 x 128, (10,-30,15)", DNA_10_30_15, 8192, 128, 128, 4),
+            ("300 x 100 x 150, (1,-1,1)", DNA_111, 300, 100, 150, 4),
+            ("1024 x 128 x 128, protein BLOSUM62 11", P_LIN, 1024, 128, 128, 20)):
+        qs = srng.integers(0, letters, (B, n)).astype(np.uint8)
+        ts = srng.integers(0, letters, (B, m)).astype(np.uint8)
+        qs[:, n - 5:] = p.alphabet_size  # tail pads
+        ts[srng.random(ts.shape) < 0.02] = p.alphabet_size + 1  # internal pads
+        qd, td = torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev)
+        err = max_abs_err(kwf.sw_wavefront(qd, td, p), kwf.sw_wavefront_plain(qd, td, p))
+        max_err["sw_wavefront"] = max(max_err["sw_wavefront"], err)
+        check(err == 0, f"sw_wavefront differs from its plain version on {label}")
+        print(f"sw_wavefront on {label} (tail and internal pads): equal to its plain "
+              "version", flush=True)
+    del qd, td, zq
 
     # DNA main path: counts from here to the end of phase 6 ----------------
     zero_launches(DNA_PATH)
@@ -2471,15 +2627,14 @@ def main():
         for b, (score, path) in enumerate(res):
             check(path[0] == (0, 0) and rescore(path, q[b], t[b], p) == score,
                   f"banded_align_batch {label}: path of pair {b}")
-        for b in range(2):
-            if "gap_open" in kw:
-                ref = banded_affine_xdrop(q[b], t[b], 1, 1, kw["gap_open"],
-                                          kw["gap_extend"],
-                                          x_threshold=kw.get("x_threshold", 70),
-                                          matrix=kw.get("matrix"))
-            else:
-                ref = banded_xdrop(q[b], t[b])
-            check(res[b] == ref, f"banded_align_batch {label} vs the oracle copy, {b}")
+        if "gap_open" in kw:
+            ref = banded_affine_xdrop(q[0], t[0], 1, 1, kw["gap_open"],
+                                      kw["gap_extend"],
+                                      x_threshold=kw.get("x_threshold", 70),
+                                      matrix=kw.get("matrix"))
+        else:
+            ref = banded_xdrop(q[0], t[0])
+        check(res[0] == ref, f"banded_align_batch {label} vs the oracle copy, pair 0")
         print(f"banded_align_batch {label}: 16 pairs, {walk_s:.2f} s wall (device "
               f"forward and host walk), mean score "
               f"{float(np.mean([r[0] for r in res])):.1f}, mean path "
@@ -2753,9 +2908,8 @@ def main():
                   f"{np.mean([len(p) for _, p in out]):.0f} cells, mean score "
                   f"{np.mean([s0 for s0, _ in out]):.1f}; paths from the origin rescored "
                   f"[{smi}]", flush=True)
-    for b in range(2):
-        check(out8[b] == banded_xdrop_block(q16[b], t16h[b], width=64, block=64),
-              f"16K block traceback vs the oracle copy, pair {b}")
+    check(out8[0] == banded_xdrop_block(q16[0], t16h[0], width=64, block=64),
+          "16K block traceback vs the oracle copy, pair 0")
     # the block walker's row on the 8 pairs
     run, wire = walk_run, walk_wire
     plain_ms = time_kernel(kdw.block_walk_plain, (run,), iters=1, warmup=0, reps=1) * 1e3
@@ -2919,9 +3073,256 @@ def main():
     print(f"block tier path launches: {block_counts}", flush=True)
     check(all(v > 0 for v in block_counts.values()),
           f"a kernel was not launched on the block tier path: {block_counts}")
+
+    # long-pair path: counts from here to the end of phase 33 ------------------
+    zero_launches(LONGPAIR_PATH)
+    # 30. long pairs on one card ------------------------------------------------
+    phase("30 long pairs: longpair_sw_ends / longpair_sw_score on one related 16384 x "
+          "16384 DNA pair, (1,-1,1) and Gotoh (2,-3,5,1)")
+    print(smi, flush=True)
+    lrng = np.random.default_rng(SEED)
+    L = 16384
+    lq = lrng.integers(0, 4, L).astype(np.uint8)
+    # ~85% identity: 10% substitutions, 2.5% insertions and deletions
+    lt = mutate(lrng, lq, p_mismatch=0.1, p_insert=0.025, p_delete=0.025, out_len=L)
+    LP_GOTOH = ScoringParams(dna_matrix(2, -3), 5, 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    zl, nl = torch.zeros(L, **i32), torch.full((L,), NEGB, **i32)
+    zl1, nl1 = torch.zeros(L + 1, **i32), torch.full((L + 1,), NEGB, **i32)
+    strip_timed, lp_ends = {}, {}
+    for label, p in (("(1,-1,1)", DNA_111), ("Gotoh (2,-3,5,1)", LP_GOTOH)):
+        before = launches("strip_tile")
+        ends = lp.longpair_sw_ends(lq, lt, p)
+        lp_ends[label] = ends
+        per_sweep = launches("strip_tile") - before
+        check(lp.longpair_sw_score(lq, lt, p) == ends[0] > 0,
+              f"longpair_sw_score vs _ends on {label}")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = lp.longpair_sw_ends(lq, lt, p)
+            walls.append(time.perf_counter() - t0)
+            check(again == ends, f"longpair_sw_ends on {label} is repeatable")
+        wall_ms = min(walls) * 1e3
+        # B13 alone on the sweep's one tile, its inputs staged on the card
+        q8, t8 = kls.stage_codes(lq, p, dev), kls.stage_codes(lt, p, dev)
+        table = kp.profile_table(p, dev)
+        affine = not p.is_linear
+
+        def bare(p=p, q8=q8, t8=t8, table=table, affine=affine):
+            return kls.strip_launch_t(q8, t8, table, zl, nl if affine else None, zl1,
+                                      nl1 if affine else None, p)
+
+        out = bare()
+        check(tuple(int(x) for x in out[-3:]) == ends, f"B13 alone vs the sweep, {label}")
+        kernel_ms = time_kernel(bare, (), iters=3, warmup=1) * 1e3
+        strip_timed[label] = (p, q8, t8, table, bare, kernel_ms)
+        print(f"{label}: (score, end_i, end_j) = {ends}; block {L} (the default), "
+              f"{per_sweep} B13 launch a sweep; longpair_sw_ends {wall_ms:.3f} ms wall "
+              f"({L * L / wall_ms / 1e6:.2f} GCUPS); B13 alone {kernel_ms:.3f} ms "
+              f"({L * L / kernel_ms / 1e6:.2f} GCUPS, one block on one of {n_sm} SMs)",
+              flush=True)
+    # B13's row: a related 4096 x 4096 pair's linear tile (the size of
+    # phase 31's sweeps) through the wrapper, alone, and the plain tile on
+    # the card once (its time, and every return held equal)
+    q4 = lrng.integers(0, 4, 4096).astype(np.uint8)
+    t4 = mutate(lrng, q4, p_mismatch=0.1, p_insert=0.025, p_delete=0.025)
+    p = DNA_111
+    q8, t8 = kls.stage_codes(q4, p, dev), kls.stage_codes(t4, p, dev)
+    table = kp.profile_table(p, dev)
+    z, z1 = torch.zeros(4096, **i32), torch.zeros(4097, **i32)
+
+    def bare(q8=q8, t8=t8, table=table):
+        return kls.strip_launch_t(q8, t8, table, z, None, z1, None, DNA_111)
+
+    saved = snapshot()  # the row's wrapper timing is not the path's own
+    ms = time_kernel(lambda: kls.tile_strip_linear(q8, t8, z, z1, p, table=table), (),
+                     iters=5) * 1e3
+    restore(saved)
+    kernel_ms = time_kernel(bare, (), iters=5) * 1e3
+    t0 = time.perf_counter()
+    want = strip_plain(q4, t4, (z, None, z, None, 0), p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(bare(), want)
+    max_err["strip_tile"] = max(max_err["strip_tile"], err)
+    check(err == 0, "B13 differs from the plain tile on the 4096 x 4096 linear tile")
+    cells = 4096 * 4096
+    times = {"int32 ops": cells * strip_ops(False) / int32_rate * 1e3,
+             "shared-memory lookups": cells / lookup_rate * 1e3,
+             "bytes": (2 * 4096 + 4 * (2 * 4096 + 1) + 4 * 2 * 4096 + 12)
+             / HBM_BYTES_PER_S * 1e3}
+    binds = max(times, key=times.get)
+    rows.append(dict(
+        name="strip_tile", route="cuda", source=f"swtpu_torch/csrc/{STRIP}",
+        replaces=KERNELS["strip_tile"][2], launches=None,
+        max_abs_err=max_err["strip_tile"], ms=ms, plain_ms=plain_ms,
+        bound_ms=times[binds], bound_by="bytes" if binds == "bytes" else "operations",
+        library_ms=None, kernel_ms=kernel_ms))
+    lin16 = strip_timed["(1,-1,1)"][-1]
+    print(f"strip_tile (B13), a related 4096 x 4096 linear tile: wrapper {ms:.3f} ms "
+          f"({times[binds] / ms:.2%} of the bound), launch alone {kernel_ms:.3f} ms, "
+          f"plain tile {plain_ms:.1f} ms (every return equal), bound {times[binds]:.4f} "
+          f"ms by {binds} ({strip_ops(False)} int32 ops a cell: "
+          f"{times['int32 ops']:.4f} ms; one lookup a cell: "
+          f"{times['shared-memory lookups']:.4f} ms; at {sm_clock_mhz:.0f} MHz); at "
+          f"16384 x 16384 alone {lin16:.3f} ms linear ("
+          f"{16 * times['int32 ops'] / lin16:.2%} of its bound), "
+          f"{strip_timed['Gotoh (2,-3,5,1)'][-1]:.3f} ms Gotoh (bound "
+          f"{16 * cells * strip_ops(True) / int32_rate * 1e3:.4f} ms)", flush=True)
+    del strip_timed, bare, q8, t8, want
+
+    # 31. long-pair traceback -------------------------------------------------
+    phase("31 long-pair traceback: longpair_sw_align on the 16K linear pair and a "
+          "Gotoh 4096 x 4096 pair; a BLOSUM62 11/1 4096 x 4096 pair")
+
+    def long_align(label, q, t, p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ends = lp.longpair_sw_ends(q, t, p)
+        fwd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        score, path = lp.longpair_sw_align(q, t, p)
+        wall = time.perf_counter() - t0
+        check(score == ends[0] > 0 and tuple(path[-1]) == ends[1:]
+              and rescore(path, q, t, p) == score,
+              f"longpair_sw_align on {label}: path vs the device forward")
+        print(f"{label}: score {score}, end {path[-1]}, start {path[0]}, {len(path)} "
+              f"path cells rescored; longpair_sw_align {wall:.2f} s wall (device "
+              f"forward {fwd * 1e3:.1f} ms, host walk {wall - fwd:.2f} s)", flush=True)
+        return score, path
+
+    lin = long_align("16384 x 16384 (1,-1,1)", lq, lt, DNA_111)
+    # the 16K sweeps against an independent forward: the host's full
+    # low-memory pass finds the matrix maximum and its row-major-first cell
+    for label, p in (("(1,-1,1)", DNA_111), ("Gotoh (2,-3,5,1)", LP_GOTOH)):
+        t0 = time.perf_counter()
+        sc, path = sw_traceback_lowmem(lq, lt, p, ends=None)
+        host_s = time.perf_counter() - t0
+        check((sc, *path[-1]) == lp_ends[label] and rescore(path, lq, lt, p) == sc,
+              f"the 16K {label} sweep vs the host's full forward")
+        if p is DNA_111:
+            check((sc, path) == lin, "longpair_sw_align's 16K path vs the host's "
+                  "full forward and walk")
+        print(f"16384 x 16384 {label}: the host's full forward and walk "
+              f"(sw_traceback_lowmem, no ends, {host_s:.2f} s) give "
+              f"{(sc, *path[-1])}, the sweep's (score, end_i, end_j)", flush=True)
+    pq = lrng.integers(0, 20, 4096).astype(np.uint8)
+    pt = pq.copy()
+    sub = lrng.random(4096) < 0.15
+    pt[sub] = lrng.integers(0, 20, int(sub.sum()))
+    pt = np.concatenate([lrng.integers(0, 20, 7).astype(np.uint8), pt])[:4096]
+    z4, n4 = np.zeros(4096), np.full(4096, NEGB)
+    for label, q_, t_, p in (("4096 x 4096 Gotoh (2,-3,5,1)", q4, t4, LP_GOTOH),
+                             ("4096 x 4096 protein BLOSUM62 11/1", pq, pt, P_GOTOH)):
+        score, path = long_align(label, q_, t_, p)
+        want = strip_plain(q_, t_, (z4, n4, z4, n4, 0), p)
+        check(tuple(int(x) for x in want[-3:]) == (score, *path[-1]),
+              f"the {label} sweep vs the plain tile")
+    print("the 4096 x 4096 sweeps equal the plain tile's (best, end_i, end_j)",
+          flush=True)
+    del zl, nl, zl1, nl1
+
+    # 32. the wavefront schedule ----------------------------------------------
+    phase("32 the wavefront schedule (align --engine wavefront): 128 and 8192 pairs of "
+          "128 x 128, (10,-30,15), (1,-1,1), BLOSUM62 11; queries past 128")
+    print(smi, flush=True)
+    wrng = np.random.default_rng(SEED + 17)
+    for label, p, B, letters in (
+            ("(10,-30,15)", DNA_10_30_15, 128, 4), ("(10,-30,15)", DNA_10_30_15, 8192, 4),
+            ("(1,-1,1)", DNA_111, 128, 4), ("(1,-1,1)", DNA_111, 8192, 4),
+            ("BLOSUM62 11", P_LIN, 128, 20), ("BLOSUM62 11", P_LIN, 8192, 20)):
+        qd = torch.from_numpy(wrng.integers(0, letters, (B, 128)).astype(np.uint8)).to(dev)
+        td = torch.from_numpy(wrng.integers(0, letters, (B, 128)).astype(np.uint8)).to(dev)
+        fn = variant_engine("wavefront", p, 128)
+        got = fn(qd, td)
+        ms = time_kernel(fn, (qd, td), iters=20) * 1e3
+        saved = snapshot()  # the check runs another path's kernel
+        check(torch.equal(got, best_engine(p)(qd, td)),
+              f"wavefront vs best_engine, {label}, {B} pairs")
+        restore(saved)
+        print(f"wavefront {label}, {B} pairs of 128 x 128: {ms:.4f} ms a call, "
+              f"{B * 128 * 128 / ms / 1e6:.1f} GCUPS; equal to best_engine's kernel",
+              flush=True)
+        if B == 8192 and p is DNA_10_30_15:  # B14's row
+            saved = snapshot()  # the row's wrapper timing is not the path's own
+            wms = time_kernel(kwf.sw_wavefront, (qd, td, p), iters=20) * 1e3
+            restore(saved)
+            wtable = kwf.wavefront_table(p, dev)
+            kernel_ms = time_kernel(kwf.wavefront_launch_t, (qd, td, wtable, p),
+                                    iters=20) * 1e3
+            plain_ms = time_kernel(kwf.sw_wavefront_plain, (qd, td, p), iters=1,
+                                   warmup=1, reps=1) * 1e3
+            cells = B * 128 * 128
+            times = {"int32 ops": cells * WAVE_OPS / int32_rate * 1e3,
+                     "shared-memory lookups": cells / lookup_rate * 1e3,
+                     "bytes": (B * 256 + 4 * B) / HBM_BYTES_PER_S * 1e3}
+            binds = max(times, key=times.get)
+            rows.append(dict(
+                name="sw_wavefront", route="cuda", source=f"swtpu_torch/csrc/{WAVEFRONT}",
+                replaces=KERNELS["sw_wavefront"][2], launches=None,
+                max_abs_err=max_err["sw_wavefront"], ms=wms, plain_ms=plain_ms,
+                bound_ms=times[binds],
+                bound_by="bytes" if binds == "bytes" else "operations",
+                library_ms=None, kernel_ms=kernel_ms))
+            print(f"sw_wavefront (B14), 8192 x 128 x 128 (10,-30,15): wrapper {wms:.4f} "
+                  f"ms ({times[binds] / wms:.1%} of the bound), launch alone "
+                  f"{kernel_ms:.4f} ms ({times[binds] / kernel_ms:.1%}), plain "
+                  f"{plain_ms:.1f} ms, bound {times[binds]:.4f} ms by {binds} "
+                  f"({WAVE_OPS} int32 ops a real cell: {times['int32 ops']:.4f} ms; one "
+                  f"lookup: {times['shared-memory lookups']:.4f} ms)", flush=True)
+    for B, n, m in ((2, 512, 384), (2, 1024, 256)):
+        qd = torch.from_numpy(wrng.integers(0, 4, (B, n)).astype(np.uint8)).to(dev)
+        td = torch.from_numpy(wrng.integers(0, 4, (B, m)).astype(np.uint8)).to(dev)
+        fn = variant_engine("wavefront", DNA_111, n)
+        before = launches("strip_tile")
+        got = fn(qd, td)
+        per = launches("strip_tile") - before
+        ms = time_kernel(fn, (qd, td), iters=3) * 1e3
+        saved = snapshot()
+        check(torch.equal(got, best_engine(DNA_111)(qd, td)) and per == B,
+              f"wavefront on {B} x ({n} x {m}): the strip tile, a launch a pair")
+        restore(saved)
+        print(f"wavefront on {B} x ({n} x {m}): {per} strip-tile launches a call (one a "
+              f"pair), {ms:.3f} ms; equal to best_engine's kernel", flush=True)
+    del qd, td
+
+    # 33. the longpair CLI and align --engine wavefront -------------------------
+    phase("33 the longpair CLI and align --engine wavefront against the oracle copy")
+    for argv, A, p in (
+            (["longpair", "--random", "2x1200x1000", "--cigar"], 4, DNA_111),
+            (["longpair", "--alphabet", "protein", "--random", "1x900x800", "--gap-open",
+              "11", "--gap-extend", "1", "--traceback"], 20, P_GOTOH)):
+        lines = [json.loads(x) for x in run_cli(cli_main, argv)]
+        cq, ct = cli_random(argv[argv.index("--random") + 1], A)
+        ok = len(lines) == len(cq)
+        for k, (rec, q_, t_) in enumerate(zip(lines, cq, ct)):
+            sc, path = (sw_traceback if p.is_linear else sw_affine_traceback)(q_, t_, p)
+            want = dict(pair=f"pair{k}", score=sc)
+            if "--traceback" in argv:
+                want["path"] = [list(x) for x in path]
+            if "--cigar" in argv:
+                want["cigar"] = path_to_cigar(path, q_, t_, query_len=len(q_))
+            ok = ok and rec == want
+        check(ok, f"{' '.join(argv[:4])} vs the oracle copy")
+        print(f"{' '.join(argv)}: {len(lines)} records equal the oracle copy's; first: "
+              f"{json.dumps(lines[0])[:100]}", flush=True)
+    argv = ["align", "--random", "128x128x128", "--scoring", "10,-30", "--gap", "15",
+            "--engine", "wavefront"]
+    lines = [json.loads(x)["score"] for x in run_cli(cli_main, argv)]
+    cq, ct = cli_random("128x128x128", 4)
+    check(lines == sw_score_batch(np.stack(cq), np.stack(ct), DNA_10_30_15).tolist(),
+          "align --engine wavefront vs the oracle copy")
+    print(f"{' '.join(argv)}: 128 scores equal the oracle copy's", flush=True)
+    longpair_counts = {name: launches(name) for name in LONGPAIR_PATH}
+    print(f"long-pair path launches: {longpair_counts}", flush=True)
+    check(all(v > 0 for v in longpair_counts.values()),
+          f"a kernel was not launched on the long-pair path: {longpair_counts}")
     for row in rows:
         if row["launches"] is None:
-            row["launches"] = {**sg_counts, **banded_counts, **block_counts}[row["name"]]
+            row["launches"] = {**sg_counts, **banded_counts, **block_counts,
+                               **longpair_counts}[row["name"]]
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))

@@ -1,12 +1,13 @@
 """swtpu_torch command-line interface: ``align``, ``semiglobal``,
-``global``, ``banded`` and ``pack``.
+``global``, ``banded``, ``longpair`` and ``pack``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
 query/target pairs), ``semiglobal`` and ``global`` (semi-global and
 Needleman-Wunsch alignment with traceback), ``banded`` (adaptive-banded
 X-drop semi-global alignment; ``--fixed``: local alignment in the fixed
-corridor |i - j| <= bandwidth) and ``pack`` (DNA FASTA <-> the 2-bit
-``.npz`` container). Output is the same JSON lines (or SAM) as
+corridor |i - j| <= bandwidth), ``longpair`` (one long pair on one
+card, tile by tile) and ``pack`` (DNA FASTA <-> the 2-bit ``.npz``
+container). Output is the same JSON lines (or SAM) as
 ``python -m swtpu`` prints for the same arguments. ``banded
 --block-adaptive`` runs the block tier (width 2 x bandwidth, block
 bandwidth) on the card, where JAX runs it only on the TPU.
@@ -28,6 +29,9 @@ Usage:
   python -m swtpu_torch banded --block-adaptive --random 8x2048x2048 --bandwidth 32 --cigar
   python -m swtpu_torch banded --block-adaptive --alphabet protein --random 8x300x300 --x-drop 120
   python -m swtpu_torch banded --fixed --random 8x128x128 --gap-open 3 --gap-extend 1 --traceback
+  python -m swtpu_torch align --random 128x128x128 --scoring 10,-30 --gap 15 --engine wavefront
+  python -m swtpu_torch longpair --random 1x16384x16384 --traceback
+  python -m swtpu_torch longpair --queries q.fa --targets t.fa --block 4096 --cigar
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
 
@@ -36,14 +40,17 @@ rather than run on the CPU. ``--alphabet protein`` scores with BLOSUM62
 (``--scoring`` is then ignored). Inputs ending in ``.npz`` are read as
 the 2-bit container (DNA only). ``--engine`` names a score engine of
 ``ops.variants.VARIANTS`` for linear scores; a name whose guard does not
-pass, an unknown name and the default ``xla_diag`` run ``best_engine``
-(a kernel on the card, the plain tier on the CPU).
+pass and an unknown name run ``best_engine`` (a kernel on the card, the
+plain tier on the CPU), and so do the plain tiers' names (the default
+``xla_diag``, ``colscan``) on the card. ``longpair --devices`` takes 1
+only (the sharded sweep is ROADMAP.md queue A item 12b).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import torch
@@ -333,6 +340,73 @@ def cmd_banded(args):
         print(json.dumps(rec))
 
 
+def cmd_longpair(args):
+    """One long pair at a time on one card: the query in strips of at
+    most 16384 rows, the target in column blocks, tile by tile
+    (parallel/longpair.py). The sharded sweep over several devices is
+    ROADMAP.md queue A item 12b."""
+    from swtpu_torch.parallel import longpair_sw_align, longpair_sw_score
+
+    if args.devices not in (None, 1):
+        raise SystemExit(
+            f"longpair runs on one card (--devices 1); a mesh of {args.devices} "
+            "devices needs the sharded sweeps (ROADMAP.md queue A item 12b)"
+        )
+    names, qs, ts, ql, tl = _load_pair_inputs(args)
+    params = _scoring(args)
+    sam_rows = []  # (name, trimmed q, trimmed t, score, path)
+    for name, q, t, lq, lt in zip(names, qs, ts, ql, tl):
+        q, t = q[:lq], t[:lt]
+        # block divisibility: trim the target to the block grid
+        if len(q) < 1 or len(t) < (args.block or 1):
+            blk = args.block if args.block is not None else "auto"
+            raise SystemExit(
+                f"longpair needs len(q) >= devices (1) and len(t) >="
+                f" --block ({blk}); got {len(q)}x{len(t)} for"
+                f" {name} — lower --block/--devices or use `align`"
+            )
+        # auto: one block of the whole target (JAX's step-count-optimal
+        # block at one device), so the target is never trimmed
+        block = len(t) if args.block is None else args.block
+        if len(t) % block:
+            new_lt = len(t) - len(t) % block
+            print(
+                f"warning: {name}: target trimmed {len(t)} -> {new_lt} to a"
+                f" multiple of --block ({block}); reported score is for"
+                " the TRIMMED pair",
+                file=sys.stderr,
+            )
+            t = t[:new_lt]
+        if args.traceback or args.cigar or args.sam:
+            score, path = longpair_sw_align(q, t, params, block=block,
+                                            device=args.device)
+            if args.sam:
+                sam_rows.append((name, q, t, score, path))
+                continue
+            rec = dict(pair=name, score=score)
+            if args.traceback:
+                rec["path"] = path
+            if args.cigar:
+                from swtpu_torch.core.cigar import path_to_cigar
+
+                rec["cigar"] = path_to_cigar(path, q, t, query_len=len(q))
+            print(json.dumps(rec))
+        else:
+            score = longpair_sw_score(q, t, params, block=block,
+                                      device=args.device)
+            print(json.dumps(dict(pair=name, score=score)))
+    if sam_rows:
+        _emit_sam(
+            [r[0] for r in sam_rows],
+            [r[1] for r in sam_rows],
+            [r[2] for r in sam_rows],
+            [len(r[1]) for r in sam_rows],
+            [len(r[2]) for r in sam_rows],
+            args.alphabet,
+            [(r[3], r[4]) for r in sam_rows],
+        )
+
+
 def cmd_pack(args):
     """DNA FASTA <-> 2-bit packed .npz batch container."""
     import os
@@ -402,9 +476,10 @@ def build_parser():
     common(p)
     p.add_argument(
         "--engine", default="xla_diag",
-        help="score engine for linear scoring (oracle|xla_diag|rowscan|"
-        "rowscan_prof|rowscan_bf16); a name whose guard fails, or that is "
-        "not ported, runs best_engine",
+        help="score engine for linear scoring (oracle|xla_diag|wavefront|"
+        "colscan|rowscan|rowscan_prof|rowscan_bf16); on the card the plain "
+        "tiers' names (xla_diag, colscan), a name whose guard fails and an "
+        "unknown name run best_engine",
     )
     p.set_defaults(fn=cmd_align)
 
@@ -438,6 +513,22 @@ def build_parser():
         "--traceback/--cigar, linear gaps)",
     )
     p.set_defaults(fn=cmd_banded)
+
+    p = sub.add_parser(
+        "longpair", help="one long pair on one card, tile by tile"
+    )
+    common(p)
+    p.add_argument(
+        "--block", type=int, default=None,
+        help="column-block width (default: auto — one block of the whole "
+        "target, the step-count-optimal block on one device)",
+    )
+    p.add_argument(
+        "--devices", type=int, default=None,
+        help="devices of the sweep: 1 (the default); more are ROADMAP.md "
+        "queue A item 12b",
+    )
+    p.set_defaults(fn=cmd_longpair)
 
     p = sub.add_parser(
         "pack",

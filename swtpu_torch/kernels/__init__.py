@@ -24,6 +24,13 @@ each with its plain PyTorch version beside it.
 - ``device_walk``  the banded device walkers ``block_walk`` and
                   ``xdrop_walk`` (kernels), the host walks as their plain
                   versions;
+- ``longpair_strip``  one tile of a long pair: ``tile_strip_linear`` /
+                  ``tile_strip_affine`` (kernel), ``strip_tile`` /
+                  ``strip_tile_affine``, the plain tiles
+                  ``_tile_colscan`` / ``_tile_colscan_affine``;
+- ``sw_wavefront``  the anti-diagonal schedule: ``sw_wavefront``
+                  (kernel), ``sw_wavefront_plain``;
+- ``colscan``     the column-parallel schedule (a plain tier, CPU only);
 - ``sw_scan``, ``affine_scan``  the plain anti-diagonal tiers;
 - ``unpack``      the 2-bit DNA decode / encode as torch ops on a device;
 - ``_build``      nvcc at first use, ctypes loading.

@@ -28,9 +28,11 @@ BUILD_DIR = _PKG / "_build"
 #: every CUDA source of the port: the row-scan (uniform scoring), the
 #: profile (general matrix), the bf16 tier, semi-global / global, the
 #: fixed band, the per-round adaptive band, the block tier (gather and
-#: rows) and the banded device walkers
+#: rows), the banded device walkers, the long-pair strip tile and the
+#: wavefront schedule
 SOURCES = ("sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu", "sw_semiglobal.cu",
-           "sw_banded.cu", "sw_xdrop.cu", "sw_block.cu", "sw_walk.cu")
+           "sw_banded.cu", "sw_xdrop.cu", "sw_block.cu", "sw_walk.cu",
+           "sw_strip.cu", "sw_wavefront.cu")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,0 +1,403 @@
+"""One R x C tile of a single long pair's DP matrix: the CUDA strip tile
+and its plain PyTorch version.
+
+Port of ``swtpu/kernels/pallas/longpair_strip.py`` (``strip_tile``,
+``strip_tile_affine`` and the per-tile calls ``tile_strip_linear`` /
+``tile_strip_affine``). The kernel is ``csrc/sw_strip.cu``, whose head
+note says what it replaces, what bounds it and how. The plain version is
+the column-scan tile here (``_tile_colscan``, ``_tile_colscan_affine``:
+the XLA tiles of ``swtpu/parallel/longpair.py``, bit-equal to JAX's;
+``tile_sw_reference`` is their numpy mirror); the kernel returns the
+same tuples bit for bit: the bottom boundary row(s), the right boundary
+column(s), the tile best and its 1-based row-major-first endpoint.
+
+Pads follow the column-scan tile (JAX's XLA tier): every code >= the
+alphabet size scores -2^20 under any matrix, an in-length ``N`` against
+an ``N`` included. JAX's Pallas tile has a uniform shortcut that matches
+equal codes, pads too, so the two differ on in-length pads (ROADMAP.md
+queue C); the port follows its plain tile.
+
+The per-tile calls run where their tensors lie: on the CPU the plain
+tile, on a CUDA device the kernel, which they never replace with the
+plain tile; a failed build or launch, or a tile the kernel does not take
+(a negative gap, more than 30 letters, more than ``STRIP_ROWS`` rows),
+raises. Each counts its launches in ``<call>.launches``. The TPU
+staging (the skewed target, the (8, 128) slot layout, the one-hot
+profile matmul) is layout for the TPU's vregs and is not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from swtpu_torch.core.scoring import ScoringParams
+from swtpu_torch.kernels import _build
+from swtpu_torch.kernels.sw_batch import ptr
+from swtpu_torch.kernels.sw_profile import MAX_LETTERS, profile_table
+from swtpu_torch.kernels.sw_scan import _extended_table, select_scores
+from swtpu_torch.utils.device import resolve_device
+
+SOURCE = "sw_strip.cu"
+MAX_THREADS = 1024  # one CUDA block a tile; thread I owns rows [I*br, I*br + br)
+NEGB = -(2**20)  # "outside the tile" marker
+#: rows of one strip: the CUDA tile's most (1024 threads x 16 rows); a
+#: longer query is swept strip after strip
+STRIP_ROWS = 16384
+_BIG = 1 << 30
+
+
+def _vec(x, device, dtype=torch.int32) -> torch.Tensor:
+    """A 1-D (or 0-D) tensor of ``dtype`` on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def _tile_profile(q_slot, table):
+    """[R+1, stride] per-slot substitution profile: one gather per tile."""
+    return table[q_slot]
+
+
+def _prof_select(prof, t_j, n_codes):
+    """s[i] = prof[i, t_j] through the shared select tree
+    (``sw_scan.select_scores``): every extended-table column >= n_codes
+    is all -2^20, the tree's fall-through value."""
+    return select_scores(prof, t_j, n_codes)
+
+
+def _prefix_shifts(R):
+    """Shifts 1, 2, 4, ... <= R: ceil(log2(R + 1)) doublings cover the
+    vertical chain of R + 1 slots."""
+    shifts, sh = [], 1
+    while sh <= R:
+        shifts.append(sh)
+        sh *= 2
+    return shifts
+
+
+def _shift_fill(x, shv):
+    """[NEGB] * shv followed by x[:-shv]."""
+    return torch.cat([torch.full((shv,), NEGB, dtype=x.dtype, device=x.device),
+                      x[:-shv]])
+
+
+def _tile_setup(q, t, left_col, corner, table):
+    dev = table.device
+    q = _vec(q, dev, torch.int64)
+    t = _vec(t, dev, torch.int64)
+    stride = table.shape[0]
+    ghost_q = stride - 2
+    q_slot = torch.cat([q.new_full((1,), ghost_q), q.clamp(max=ghost_q)])
+    prof = _tile_profile(q_slot, table)  # [R+1, stride]
+    left_ext = torch.cat([_vec(corner, dev).reshape(1), _vec(left_col, dev)])
+    return q.shape[0], t, prof, left_ext
+
+
+def _tile_end(best_vec, bestj_vec, iota):
+    """Row-major-first tile endpoint: max value, then min slot (row),
+    then that slot's earliest column; a best <= 0 maps to (0, 0, 0)."""
+    vmax = best_vec.max()
+    i_at = torch.where(best_vec == vmax, iota, torch.full_like(iota, _BIG)).min()
+    bj = bestj_vec[i_at]
+    zero = vmax <= 0
+    nil = torch.zeros((), dtype=torch.int32, device=best_vec.device)
+    best = torch.clamp(vmax, min=0)
+    bi = torch.where(zero, nil, i_at.to(torch.int32))
+    bj = torch.where(zero, nil, bj)
+    return best, bi, bj
+
+
+def _tile_colscan(q, t, top_row, left_col, corner, table, n_codes, gap):
+    """One R x C linear-gap tile on the column-parallel schedule.
+
+    q: [R] strip codes, t: [C] block codes; top_row: [C] = H of the row
+    above the tile; left_col: [R] = H of the column left of it; corner:
+    H above-left; table: [stride, stride] int32 extended table (on the
+    device the tile runs on); n_codes: the alphabet size. Returns
+    (bottom_row [C], right_col [R], best, bi, bj): the tile's last row
+    and column, its best cell and the 1-based tile-local row-major-first
+    endpoint of that best ((0, 0) when it is <= 0).
+
+    The schedule of JAX's ``_tile_colscan``: scan the target positions;
+    the query column is one vector whose vertical chain is the
+    closed-form max-plus prefix (log-doubling over static shifts); per
+    slot a running max with strict '>' keeps each row's earliest column.
+    """
+    R, t, prof, left_ext = _tile_setup(q, t, left_col, corner, table)
+    C = t.shape[0]
+    dev = prof.device
+    top_row = _vec(top_row, dev)
+    iota = torch.arange(R + 1, device=dev)
+    g32 = int(gap)
+    shifts = _prefix_shifts(R)
+    hprev = left_ext
+    best_vec = torch.full((R + 1,), NEGB, dtype=torch.int32, device=dev)
+    bestj_vec = torch.zeros((R + 1,), dtype=torch.int32, device=dev)
+    bottom = torch.empty((C,), dtype=torch.int32, device=dev)
+    neg1 = torch.full((1,), NEGB, dtype=torch.int32, device=dev)
+    for j in range(1, C + 1):
+        s = _prof_select(prof, t[j - 1], n_codes)
+        diag = torch.cat([neg1, hprev[:-1]])
+        pre = torch.clamp(torch.maximum(diag + s, hprev - g32), min=0)
+        # slot 0 is the top boundary value; it seeds the vertical chain
+        pre[0] = top_row[j - 1]
+        h = pre
+        for shv in shifts:
+            h = torch.maximum(h, _shift_fill(h, shv) - shv * g32)
+        masked = h.clone()
+        masked[0] = NEGB
+        upd = masked > best_vec
+        best_vec = torch.where(upd, masked, best_vec)
+        bestj_vec = torch.where(upd, torch.full_like(bestj_vec, j), bestj_vec)
+        bottom[j - 1] = h[R]
+        hprev = h
+    best, bi, bj = _tile_end(best_vec, bestj_vec, iota)
+    return bottom, hprev[1:], best, bi, bj
+
+
+def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
+                         corner, table, n_codes, go, ge):
+    """One R x C affine (Gotoh) tile on the column-parallel schedule.
+
+    Extra boundary state beside ``_tile_colscan``'s: top_row_f [C] = F of
+    the row above (F crosses strip boundaries), left_col_e [R] = E of the
+    column to the left (E crosses column blocks). Returns (bottom_row,
+    bottom_row_f, right_col, right_col_e, best, bi, bj).
+
+    The F chain inside a column is JAX's decoupled form: a max-plus
+    prefix over X[k] = pre[k] - go (slot 0 folds the F boundary), whose
+    F-from-F branch through H is dropped. That equals Gotoh's F when
+    gap_open >= gap_extend; E is a carried per-slot recurrence.
+    """
+    R, t, prof, left_ext = _tile_setup(q, t, left_col, corner, table)
+    C = t.shape[0]
+    dev = prof.device
+    top_row = _vec(top_row, dev)
+    top_row_f = _vec(top_row_f, dev)
+    left_ext_e = torch.cat([torch.full((1,), NEGB, dtype=torch.int32, device=dev),
+                            _vec(left_col_e, dev)])
+    iota = torch.arange(R + 1, device=dev)
+    go32, ge32 = int(go), int(ge)
+    shifts = _prefix_shifts(R)
+    hprev, eprev = left_ext, left_ext_e
+    best_vec = torch.full((R + 1,), NEGB, dtype=torch.int32, device=dev)
+    bestj_vec = torch.zeros((R + 1,), dtype=torch.int32, device=dev)
+    bots = torch.empty((C,), dtype=torch.int32, device=dev)
+    bots_f = torch.empty((C,), dtype=torch.int32, device=dev)
+    neg1 = torch.full((1,), NEGB, dtype=torch.int32, device=dev)
+    for j in range(1, C + 1):
+        top_j, top_f_j = top_row[j - 1], top_row_f[j - 1]
+        s = _prof_select(prof, t[j - 1], n_codes)
+        diag = torch.cat([neg1, hprev[:-1]])
+        e_cur = torch.maximum(eprev - ge32, hprev - go32)
+        pre = torch.clamp(torch.maximum(diag + s, e_cur), min=0)
+        pre[0] = top_j
+        # F chain: prefix over X (slot 0 folds the F boundary)
+        x = pre - go32
+        x[0] = torch.maximum(top_j - go32, top_f_j - ge32)
+        p = x
+        for shv in shifts:
+            p = torch.maximum(p, _shift_fill(p, shv) - shv * ge32)
+        f_cur = torch.cat([neg1, p[:-1]])
+        f_cur[0] = top_f_j
+        h = torch.maximum(pre, f_cur)
+        h[0] = top_j
+        masked = h.clone()
+        masked[0] = NEGB
+        upd = masked > best_vec
+        best_vec = torch.where(upd, masked, best_vec)
+        bestj_vec = torch.where(upd, torch.full_like(bestj_vec, j), bestj_vec)
+        bots[j - 1] = h[R]
+        bots_f[j - 1] = f_cur[R]
+        hprev, eprev = h, e_cur
+    best, bi, bj = _tile_end(best_vec, bestj_vec, iota)
+    return bots, bots_f, hprev[1:], eprev[1:], best, bi, bj
+
+
+def tile_sw_reference(q, t, top_row, left_col, corner, matrix, gap):
+    """numpy mirror of the linear tile for unit tests (matrix: [A, A]
+    scores): (bottom_row, right_col, best)."""
+    R, C = len(q), len(t)
+    H = np.zeros((R + 1, C + 1), np.int64)
+    H[0, 0] = corner
+    H[0, 1:] = top_row
+    H[1:, 0] = left_col
+    best = 0
+    for i in range(1, R + 1):
+        for j in range(1, C + 1):
+            s = matrix[q[i - 1], t[j - 1]]
+            H[i, j] = max(
+                0, H[i - 1, j - 1] + s, H[i - 1, j] - gap, H[i, j - 1] - gap
+            )
+            best = max(best, H[i, j])
+    return H[R, 1:], H[1:, C], best
+
+
+
+def rows_per_thread(R: int) -> int:
+    """br: the smallest power of two with ceil(R / br) <= 1024 threads
+    (the kernel's instantiations: 1, 2, 4, 8, 16)."""
+    br = 1
+    while -(-R // br) > MAX_THREADS:
+        br *= 2
+    return br
+
+
+def strip_refusal(params: ScoringParams, R: int, C: int):
+    """Why the kernel does not take this tile, or None when it does."""
+    if params.alphabet_size > MAX_LETTERS:
+        return (f"the strip kernel takes at most {MAX_LETTERS} letters (got "
+                f"{params.alphabet_size}); no kernel in ROADMAP.md queue B takes "
+                "more: run it on the CPU")
+    if min(params.gap_open, params.gap_extend) < 0:
+        return ("the strip kernel needs gaps >= 0 (got "
+                f"{params.gap_open}, {params.gap_extend}); no kernel in ROADMAP.md "
+                "queue B takes a negative gap: run it on the CPU")
+    if not 1 <= R <= STRIP_ROWS or C < 1:
+        return (f"the strip kernel takes 1..{STRIP_ROWS} rows and >= 1 column (got "
+                f"{R} x {C}); the long-pair sweep cuts longer queries into strips")
+    return None
+
+
+def stage_codes(x, params: ScoringParams, device) -> torch.Tensor:
+    """Codes as the kernel reads them: uint8 on ``device``. uint8 codes
+    pass as they are (the kernel clamps them to the table's last code);
+    wider ones outside the alphabet map to that code (all -2^20), as the
+    plain tile scores them."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.uint8:
+        return x.to(device).contiguous()
+    x = _vec(x, device, torch.int64)
+    pad = _extended_table(params).shape[0] - 1
+    ok = (x >= 0) & (x < params.alphabet_size)
+    return torch.where(ok, x, torch.full_like(x, pad)).to(torch.uint8)
+
+
+def _strip_fn():
+    lib = _build.load(SOURCE)
+    fn = lib.swtpu_strip_tile
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, i, p, p, p, i] + [p] * 9 + [i] * 4 + [p]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def strip_launch_t(q, t, table, top, topf, left_ext, left_ext_e,
+                   params: ScoringParams):
+    """The launch alone, on inputs already staged on one CUDA device:
+    q [R], t [C] uint8 (``stage_codes``), table the [stride, stride]
+    extended table (``sw_profile.profile_table``), top [C], left_ext
+    [R + 1] (corner first) int32, and for affine topf [C], left_ext_e
+    [R + 1]. Returns the tile's outputs as the plain tile does."""
+    affine = not params.is_linear
+    R, C = int(q.shape[0]), int(t.shape[0])
+    reason = strip_refusal(params, R, C)
+    if reason:
+        raise NotImplementedError(reason)
+    dev = q.device
+    ins = [q, t, table, top, left_ext] + ([topf, left_ext_e] if affine else [])
+    want = [(torch.uint8, (R,)), (torch.uint8, (C,)), (torch.int32, None),
+            (torch.int32, (C,)), (torch.int32, (R + 1,))] + (
+        [(torch.int32, (C,)), (torch.int32, (R + 1,))] if affine else [])
+    for x, (dtype, shape) in zip(ins, want):
+        if (x.device != dev or x.dtype != dtype or not x.is_contiguous()
+                or (shape is not None and tuple(x.shape) != shape)):
+            raise ValueError(
+                f"the strip kernel takes contiguous {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    bottom = torch.empty((C,), **i32)
+    right = torch.empty((R,), **i32)
+    bottom_f = torch.empty((C,), **i32) if affine else bottom
+    right_e = torch.empty((R,), **i32) if affine else right
+    out3 = torch.empty((3,), **i32)
+    go, ge = params.gap_open, params.gap_extend
+    lib, fn = _strip_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            int(affine), rows_per_thread(R), ptr(q), ptr(t), ptr(table),
+            table.shape[0], ptr(top), ptr(topf if affine else top), ptr(left_ext),
+            ptr(left_ext_e if affine else left_ext), ptr(bottom), ptr(bottom_f),
+            ptr(right), ptr(right_e), ptr(out3), R, C, go, ge, stream,
+        )
+    _build.check(lib, err, "sw_strip")
+    if affine:
+        return bottom, bottom_f, right, right_e, out3[0], out3[1], out3[2]
+    return bottom, right, out3[0], out3[1], out3[2]
+
+
+def _cuda_stage(q, t, table, params, dev):
+    q = stage_codes(q, params, dev)
+    t = stage_codes(t, params, dev)
+    if table is None:
+        table = profile_table(params, dev)
+    return q, t, table
+
+
+def tile_strip_linear(q, t, top_row, left_ext, params: ScoringParams, table=None):
+    """One linear tile: (bottom_row, right_col, best, bi, bj), bit-equal
+    to ``_tile_colscan``. ``left_ext`` [R + 1] is the
+    corner then the left column; ``table`` (optional, CUDA only) is the
+    extended table already on the card. Runs where ``top_row`` lies."""
+    if not params.is_linear:
+        raise ValueError("tile_strip_linear takes linear scoring")
+    dev = top_row.device
+    if dev.type == "cpu":
+        return _tile_colscan(q, t, top_row, left_ext[1:], left_ext[0],
+                             torch.as_tensor(_extended_table(params)),
+                             params.alphabet_size, params.gap)
+    q, t, table = _cuda_stage(q, t, table, params, dev)
+    out = strip_launch_t(q, t, table, top_row, None, left_ext, None, params)
+    tile_strip_linear.launches += 1
+    return out
+
+
+def tile_strip_affine(q, t, top_row, top_row_f, left_ext, left_ext_e,
+                      params: ScoringParams, table=None):
+    """One affine tile: (bottom_row, bottom_row_f, right_col, right_col_e,
+    best, bi, bj), bit-equal to ``_tile_colscan_affine``.
+    ``left_ext_e`` [R + 1] is -2^20 then the left column's E."""
+    dev = top_row.device
+    if dev.type == "cpu":
+        return _tile_colscan_affine(
+            q, t, top_row, top_row_f, left_ext[1:], left_ext_e[1:], left_ext[0],
+            torch.as_tensor(_extended_table(params)), params.alphabet_size,
+            params.gap_open, params.gap_extend)
+    q, t, table = _cuda_stage(q, t, table, params, dev)
+    out = strip_launch_t(q, t, table, top_row, top_row_f, left_ext, left_ext_e,
+                         params)
+    tile_strip_affine.launches += 1
+    return out
+
+
+tile_strip_linear.launches = 0
+tile_strip_affine.launches = 0
+
+
+def _left_ext(first, col, dev):
+    """[first, col...] as one contiguous int32 vector on ``dev``."""
+    return torch.cat([_vec(first, dev).reshape(1), _vec(col, dev)])
+
+
+def strip_tile(q, t, top_row, left_col, corner, params: ScoringParams, device=None):
+    """Standalone one-tile API: the returns of ``_tile_colscan`` (tensors
+    on ``device``, default the card). Linear scoring only."""
+    if not params.is_linear:
+        raise NotImplementedError("affine standalone tile: use strip_tile_affine")
+    dev = resolve_device(device, like=top_row)
+    return tile_strip_linear(q, t, _vec(top_row, dev).contiguous(),
+                             _left_ext(corner, left_col, dev), params)
+
+
+def strip_tile_affine(q, t, top_row, top_row_f, left_col, left_col_e, corner,
+                      params: ScoringParams, device=None):
+    """Affine standalone one-tile API: the ``_tile_colscan_affine``
+    7-tuple (tensors on ``device``, default the card)."""
+    dev = resolve_device(device, like=top_row)
+    return tile_strip_affine(
+        q, t, _vec(top_row, dev).contiguous(), _vec(top_row_f, dev).contiguous(),
+        _left_ext(corner, left_col, dev), _left_ext(NEGB, left_col_e, dev), params)

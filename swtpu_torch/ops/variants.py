@@ -18,12 +18,14 @@ around a kernel: the wrappers' own guards (``sw_batch._guard_linear``,
 engine is chosen, and one that fails, fails there.
 
 ``VARIANTS`` is the registry of named score engines (``align
---engine``), holding the names whose engines the port has: ``oracle``
-(the numpy oracle), ``xla_diag`` (the plain tier, on the CPU only),
-``rowscan``, ``rowscan_prof`` and ``rowscan_bf16`` (the kernels). Each
-name has a guard predicate (``variant_supported``), and
-``variant_engine`` picks from the predicates, before anything runs, the
-engine the CLI uses.
+--engine``), JAX's names in JAX's order: ``oracle`` (the numpy oracle),
+``xla_diag`` (the plain anti-diagonal tier), ``wavefront`` (the
+anti-diagonal kernel, ``kernels/sw_wavefront.py``), ``colscan`` (the
+column-parallel plain tier), ``rowscan``, ``rowscan_prof`` and
+``rowscan_bf16`` (the row-scan kernels). The plain tiers' names
+(``xla_diag``, ``colscan``) run on the CPU only. Each name has a guard
+predicate (``variant_supported``), and ``variant_engine`` picks from the
+predicates, before anything runs, the engine the CLI uses.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from swtpu_torch.kernels.affine_scan import (
     sw_affine_batch_diag,
     sw_affine_batch_diag_ends,
 )
+from swtpu_torch.kernels.colscan import sw_batch_colscan
 from swtpu_torch.kernels.sw_affine import _guard_affine, sw_affine, sw_affine_ends
 from swtpu_torch.kernels.sw_batch import (
     _guard_linear,
@@ -53,6 +56,7 @@ from swtpu_torch.kernels.sw_profile import (
     sw_profile_ends,
 )
 from swtpu_torch.kernels.sw_scan import sw_batch_diag, sw_batch_diag_ends
+from swtpu_torch.kernels.sw_wavefront import sw_wavefront
 from swtpu_torch.utils.device import resolve_device
 
 
@@ -145,6 +149,14 @@ def _xla_diag(qs, ts, params: ScoringParams, device=None):
     return sw_batch_diag(qs, ts, params, dev)
 
 
+def _wavefront(qs, ts, params: ScoringParams, device=None):
+    return sw_wavefront(qs, ts, params, device)
+
+
+def _colscan(qs, ts, params: ScoringParams, device=None):
+    return sw_batch_colscan(qs, ts, params, device)
+
+
 def _rowscan(qs, ts, params: ScoringParams, device=None):
     return sw_batch(qs, ts, params, device)
 
@@ -161,6 +173,8 @@ def _rowscan_bf16(qs, ts, params: ScoringParams, device=None):
 VARIANTS: Dict[str, Callable] = {
     "oracle": _oracle,
     "xla_diag": _xla_diag,
+    "wavefront": _wavefront,
+    "colscan": _colscan,
     "rowscan": _rowscan,
     "rowscan_prof": _rowscan_prof,
     "rowscan_bf16": _rowscan_bf16,
@@ -184,19 +198,26 @@ def variant_supported(name: str, params: ScoringParams, n: int) -> bool:
         return profile_refusal(params) is None
     if name == "rowscan_bf16":
         return bf16_tier_supported(params, padded_rows(n))
-    return params.is_linear  # oracle, xla_diag: the linear tiers
+    # oracle, xla_diag, wavefront, colscan: the linear engines (align
+    # uses variants only under linear scoring)
+    return params.is_linear
+
+
+#: the plain tiers' names: on the card their place is best_engine's
+PLAIN_TIERS = ("xla_diag", "colscan")
 
 
 def variant_engine(name: str, params: ScoringParams, n: int,
                    device=None) -> Callable:
     """fn(qs, ts) -> [B] int32 scores for ``align --engine name`` on
     [B, n] queries. A registered name whose predicate passes runs its
-    own engine; ``xla_diag``, a name whose predicate fails and a name
-    the registry lacks run ``best_engine`` (on the card a kernel, on the
-    CPU the plain tier), as JAX falls back to its XLA tier. Decided
-    before anything runs."""
+    own engine; on the card a plain tier's name (``xla_diag``,
+    ``colscan``), and anywhere a name whose predicate fails or that the
+    registry lacks, run ``best_engine`` (on the card a kernel, on the CPU
+    the plain tier), as JAX falls back to its XLA tier. Decided before
+    anything runs."""
     dev = resolve_device(device)
-    if (name in VARIANTS and name != "xla_diag"
+    if (name in VARIANTS and not (dev.type != "cpu" and name in PLAIN_TIERS)
             and variant_supported(name, params, n)):
         fn = VARIANTS[name]
         return lambda q, t: fn(q, t, params, dev)

@@ -28,7 +28,13 @@ field below n_rows (histories, bases and deltas included) at W from 16 to
 112 with K up to 129 - W, linear, Gotoh, BLOSUM62 and per-pair lengths;
 the device walkers (``block_walk``, ``xdrop_walk``) write the plain
 versions' wires; ``banded --block-adaptive`` and reference-scale
-``banded_align_batch`` on the card equal themselves on the CPU.
+``banded_align_batch`` on the card equal themselves on the CPU. The
+strip tile (``tile_strip_linear``, ``tile_strip_affine``) equals the
+plain column-scan tile on every return at R from 1 to 16384 (br 1 to 16,
+ragged R), C from 1, non-zero and -2^20 boundaries, pads and an
+all-negative tile; the long-pair entries, the wavefront kernel
+(``sw_wavefront``) and the ``longpair`` / ``align --engine wavefront``
+CLI on the card equal themselves on the CPU.
 """
 
 import numpy as np
@@ -45,8 +51,9 @@ from swtpu_torch.core.scoring import (
     DNA_10_30_15, DNA_111, ScoringParams, dna_matrix,
 )
 from swtpu_torch.kernels import (
-    banded_batch, banded_block, banded_scan, device_walk, semiglobal_batch,
-    semiglobal_profile, sw_affine, sw_banded, sw_batch, sw_bf16, sw_profile,
+    banded_batch, banded_block, banded_scan, device_walk, longpair_strip,
+    semiglobal_batch, semiglobal_profile, sw_affine, sw_banded, sw_batch, sw_bf16,
+    sw_profile, sw_wavefront,
 )
 from swtpu_torch.kernels.banded_scan import BandedBatchResult, _prep_padded
 from swtpu_torch.oracle import (
@@ -54,6 +61,7 @@ from swtpu_torch.oracle import (
     sw_affine_traceback, sw_score_batch, sw_traceback,
 )
 from swtpu_torch.oracle.affine import sw_affine_score_batch
+from swtpu_torch.parallel import longpair
 
 pytestmark = pytest.mark.cuda
 
@@ -842,3 +850,140 @@ def test_block_cli_on_card_equals_cpu(card, argv):
     on_card = run("cuda")
     assert banded_block.block_rows.launches > before
     assert on_card == run("cpu") and len(on_card.splitlines()) == 8
+
+
+G4 = np.array([[3, -2, -1, -2], [-2, 3, -2, -1], [-1, -2, 3, -2], [-2, -1, -2, 3]])
+STRIP_SCORINGS = {
+    "dna_111": DNA_111,
+    "gotoh_2_3_5_1": ScoringParams(dna_matrix(2, -3), 5, 1),
+    "go_lt_ge": ScoringParams(dna_matrix(1, -1), 1, 3),
+    "blosum62_11": ScoringParams.linear(BLOSUM62, 11),
+    "blosum62_11_1": ScoringParams(BLOSUM62, 11, 1),
+    "g4_2": ScoringParams.linear(G4, 2),
+    "g4_3_1": ScoringParams(G4, 3, 1),
+}
+
+
+def _strip_case(rng, p, R, C, bounds):
+    letters = 20 if p.alphabet_size > 4 else 4
+    q, t = rng.integers(0, letters, R), rng.integers(0, letters, C)
+    q[rng.random(R) < 0.03] = p.alphabet_size
+    t[rng.random(C) < 0.03] = p.alphabet_size + 1
+    if bounds == "random":
+        return q, t, (rng.integers(-5, 60, C), rng.integers(-40, 40, C),
+                      rng.integers(-5, 60, R), rng.integers(-40, 40, R), 7)
+    if bounds == "neg":
+        nc, nr = np.full(C, -(2**20)), np.full(R, -(2**20))
+        return q, t, (nc, nc, nr, nr, -(2**20))
+    return q, t, (np.zeros(C), np.full(C, -(2**20)), np.zeros(R), np.full(R, -(2**20)),
+                  0)
+
+
+def _strip(q, t, b, p, device):
+    top, topf, left, lefte, corner = b
+    if p.is_linear:
+        return longpair_strip.strip_tile(q, t, top, left, corner, p, device=device)
+    return longpair_strip.strip_tile_affine(q, t, top, topf, left, lefte, corner, p,
+                                            device=device)
+
+
+@pytest.mark.parametrize("R,C", [(1, 1), (7, 300), (33, 1), (1000, 64), (1031, 2),
+                                 (1500, 700), (2053, 129), (4096, 257), (16384, 9)])
+@pytest.mark.parametrize("scoring", list(STRIP_SCORINGS))
+def test_strip_tile_equals_plain_on_card(card, scoring, R, C):
+    p = STRIP_SCORINGS[scoring]
+    rng = np.random.default_rng(10000 + R + C)
+    for bounds in ("random", "neg", "zero"):
+        q, t, b = _strip_case(rng, p, R, C, bounds)
+        got = _strip(q, t, b, p, card)
+        want = _strip(q, t, b, p, "cpu")
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), (bounds, R, C)
+
+
+def test_strip_tile_all_negative_and_guards_on_card(card):
+    p = ScoringParams.linear(dna_matrix(-1, -1), 1)
+    q = np.zeros(50, np.uint8)
+    got = longpair_strip.strip_tile(q, q, np.zeros(50), np.zeros(50), 0, p, device=card)
+    assert [int(x) for x in got[2:]] == [0, 0, 0]
+    before = longpair_strip.tile_strip_linear.launches
+    with pytest.raises(NotImplementedError, match="negative gap"):
+        longpair_strip.strip_tile(q, q, np.zeros(50), np.zeros(50), 0,
+                                  ScoringParams.linear(dna_matrix(1, -1), -1),
+                                  device=card)
+    with pytest.raises(NotImplementedError, match="rows"):
+        longpair_strip.strip_tile(np.zeros(16385, np.uint8), q, np.zeros(50),
+                                  np.zeros(16385), 0, DNA_111, device=card)
+    assert longpair_strip.tile_strip_linear.launches == before
+    with pytest.raises(NotImplementedError, match="engine='xla'"):
+        longpair.longpair_sw_score(q, q, DNA_111, engine="xla", device=card)
+
+
+@pytest.mark.parametrize("scoring,n,m,block", [
+    ("dna_111", 3000, 2500, None), ("dna_111", 3000, 2500, 500),
+    ("gotoh_2_3_5_1", 2000, 1800, 600), ("blosum62_11_1", 1200, 1000, None),
+    ("dna_111", 17000, 300, None),
+])
+def test_longpair_on_card_equals_cpu(card, scoring, n, m, block):
+    p = STRIP_SCORINGS[scoring]
+    rng = np.random.default_rng(10000)
+    letters = 20 if p.alphabet_size > 4 else 4
+    q = rng.integers(0, letters, n).astype(np.uint8)
+    t = np.concatenate([rng.integers(0, letters, 7), q])[:m].copy()
+    t[rng.random(m) < 0.15] = rng.integers(0, letters, 1)
+    before = (longpair_strip.tile_strip_linear.launches
+              + longpair_strip.tile_strip_affine.launches)
+    got = longpair.longpair_sw_ends(q, t, p, block=block, device=card)
+    after = (longpair_strip.tile_strip_linear.launches
+             + longpair_strip.tile_strip_affine.launches)
+    strips = -(-n // longpair.STRIP_ROWS)
+    assert after - before == strips * (m // (block or m))
+    assert got == longpair.longpair_sw_ends(q, t, p, block=block, device="cpu")
+    if n * m <= 4_000_000:
+        assert longpair.longpair_sw_align(q, t, p, block=block, device=card)[0] == got[0]
+
+
+@pytest.mark.parametrize("B,n,m,scoring", [
+    (300, 100, 150, "dna_111"), (257, 128, 128, "dna_10_30_15"),
+    (64, 128, 128, "blosum62_11"), (33, 7, 1, "dna_111"), (40, 128, 700, "g4_2"),
+    (5, 1, 64, "dna_111"),
+])
+def test_wavefront_equals_plain_on_card(card, B, n, m, scoring):
+    p = DNA_10_30_15 if scoring == "dna_10_30_15" else STRIP_SCORINGS[scoring]
+    rng = np.random.default_rng(10000 + n + m)
+    letters = 20 if p.alphabet_size > 4 else 4
+    qs = rng.integers(0, letters, (B, n)).astype(np.uint8)
+    ts = rng.integers(0, letters, (B, m)).astype(np.uint8)
+    qs[:, n - n // 5:] = p.alphabet_size
+    ts[rng.random(ts.shape) < 0.03] = p.alphabet_size + 1
+    before = sw_wavefront.sw_wavefront.launches
+    got = sw_wavefront.sw_wavefront(qs, ts, p, device=card)
+    assert sw_wavefront.sw_wavefront.launches == before + 1
+    assert torch.equal(got, sw_wavefront.sw_wavefront_plain(qs, ts, p, device=card))
+    assert torch.equal(got.cpu(), sw_wavefront.sw_wavefront(qs, ts, p, device="cpu"))
+
+
+def test_wavefront_long_queries_on_card(card):
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, 4, (2, 512)).astype(np.uint8)
+    ts = rng.integers(0, 4, (2, 384)).astype(np.uint8)
+    before = longpair_strip.tile_strip_linear.launches
+    got = sw_wavefront.sw_wavefront(qs, ts, DNA_111, device=card)
+    assert longpair_strip.tile_strip_linear.launches == before + 2
+    assert got.cpu().tolist() == sw_score_batch(qs, ts, DNA_111).tolist()
+
+
+@pytest.mark.parametrize("argv", [
+    ["longpair", "--random", "2x3000x2000", "--cigar"],
+    ["longpair", "--alphabet", "protein", "--random", "1x900x800", "--gap-open", "11",
+     "--gap-extend", "1", "--block", "300", "--sam"],
+    ["align", "--random", "64x128x128", "--scoring", "10,-30", "--gap", "15",
+     "--engine", "wavefront"],
+])
+def test_longpair_and_wavefront_cli_on_card_equals_cpu(card, argv, capsys):
+    from swtpu_torch.cli import main
+
+    main(argv)
+    on_card = capsys.readouterr().out
+    main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out == on_card and on_card

@@ -20,7 +20,12 @@
   ``banded_align_batch`` and ``banded`` the per-round kernel at every
   bandwidth up to 128, never the plain tiers; scoring or widths the
   kernels do not take raise; the block tier's entry points and
-  ``banded --block-adaptive`` raise without a card too.
+  ``banded --block-adaptive`` raise without a card too;
+- likewise long pairs and the wavefront: ``longpair_sw_score`` /
+  ``_ends`` / ``_align`` and the ``longpair`` CLI sweep through the strip
+  tile's kernel wrappers, never the plain tile, and ``sw_wavefront`` and
+  ``align --engine wavefront`` launch the wavefront kernel; ``colscan``
+  (a plain tier) runs ``best_engine``'s kernel there.
 """
 
 import json
@@ -48,7 +53,9 @@ from swtpu_torch.kernels import (
     banded_batch,
     banded_block,
     banded_scan,
+    colscan,
     device_walk,
+    longpair_strip,
     semiglobal_batch,
     semiglobal_profile,
     semiglobal_scan,
@@ -58,8 +65,10 @@ from swtpu_torch.kernels import (
     sw_bf16,
     sw_profile,
     sw_scan,
+    sw_wavefront,
 )
 from swtpu_torch.ops import variants
+from swtpu_torch.parallel import longpair
 from swtpu_torch.utils import device as port_device
 from swtpu_torch.utils import timing
 
@@ -75,7 +84,10 @@ WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
             semiglobal_profile.semiglobal_profile, sw_banded.sw_banded_static,
             sw_banded.sw_banded_profile, banded_batch.banded_batch,
             banded_block.block_gather, banded_block.block_rows,
-            device_walk.block_walk, device_walk.xdrop_walk]
+            device_walk.block_walk, device_walk.xdrop_walk,
+            longpair_strip.tile_strip_linear, longpair_strip.tile_strip_affine,
+            sw_wavefront.sw_wavefront]
+STRIP_WRAPPERS = (longpair_strip.tile_strip_linear, longpair_strip.tile_strip_affine)
 
 
 def _module_names():
@@ -180,6 +192,16 @@ NO_DEVICE_CALLS = {
     "banded_block_align_device":
         lambda: banded_block.banded_block_align_device(Q, Q, width=16, block=8),
     "banded_xdrop_align_device": lambda: banded_scan.banded_xdrop_align_device(Q, Q),
+    "longpair_sw_score": lambda: longpair.longpair_sw_score(Q[0], Q[0], DNA_10_30_15),
+    "longpair_sw_ends": lambda: longpair.longpair_sw_ends(Q[0], Q[0], AFF),
+    "longpair_sw_align": lambda: longpair.longpair_sw_align(Q[0], Q[0], GENERAL),
+    "strip_tile": lambda: longpair_strip.strip_tile(Q[0], Q[0], Q[0], Q[0], 0,
+                                                    DNA_10_30_15),
+    "strip_tile_affine": lambda: longpair_strip.strip_tile_affine(
+        Q[0], Q[0], Q[0], Q[0], Q[0], Q[0], 0, AFF),
+    "sw_wavefront": lambda: sw_wavefront.sw_wavefront(Q, Q, DNA_10_30_15),
+    "sw_wavefront_plain": lambda: sw_wavefront.sw_wavefront_plain(Q, Q, GENERAL),
+    "sw_batch_colscan": lambda: colscan.sw_batch_colscan(Q, Q, DNA_10_30_15),
 }
 
 
@@ -203,6 +225,9 @@ def test_no_card_entry_without_device_raises(entry):
     ["banded", "--fixed", "--alphabet", "protein", "--random", "2x8x8", "--sam"],
     ["banded", "--block-adaptive", "--random", "2x8x8", "--bandwidth", "8"],
     ["banded", "--block-adaptive", "--random", "2x8x8", "--bandwidth", "8", "--cigar"],
+    ["longpair", "--random", "1x40x40"],
+    ["longpair", "--random", "1x40x40", "--cigar"],
+    ["align", "--random", "2x8x8", "--engine", "wavefront"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
@@ -253,8 +278,12 @@ def fake_card(monkeypatch):
         lambda q, t, p, allow_overflow=False, device=None:
             calls.append(("sw_bf16", device.type)) or "sw_bf16",
     )
+    monkeypatch.setattr(
+        variants, "sw_wavefront",
+        lambda q, t, p, d: calls.append(("sw_wavefront", d.type)) or "sw_wavefront",
+    )
     for name in ("sw_batch_diag", "sw_batch_diag_ends", "sw_affine_batch_diag",
-                 "sw_affine_batch_diag_ends"):
+                 "sw_affine_batch_diag_ends", "sw_batch_colscan"):
         monkeypatch.setattr(
             variants, name,
             lambda *a, _n=name: pytest.fail(f"plain tier {_n} ran on CUDA"),
@@ -303,14 +332,17 @@ def test_cuda_dispatch_raises_without_a_kernel(fake_card, params):
     ("rowscan", DNA_10_30_15, 128, "sw_batch"),
     ("rowscan_prof", DNA_10_30_15, 128, "sw_profile"),
     ("xla_diag", DNA_10_30_15, 128, "sw_batch"),
-    ("wavefront", DNA_10_30_15, 128, "sw_batch"),
+    ("wavefront", DNA_10_30_15, 128, "sw_wavefront"),
+    ("wavefront", GENERAL, 200, "sw_wavefront"),
+    ("colscan", DNA_10_30_15, 128, "sw_batch"),
+    ("colscan", GENERAL, 128, "sw_profile"),
     ("no_such_engine", GENERAL, 128, "sw_profile"),
 ])
 def test_cuda_engine_option_picks_by_predicate(fake_card, engine, params, n,
                                                kernel):
     """``align --engine``: a name whose guard passes runs its kernel; the
-    plain tier's name, an unported or unknown name and a failed guard run
-    best_engine's kernel. Decided before anything runs, so exactly one
+    plain tiers' names (xla_diag, colscan), an unknown name and a failed
+    guard run best_engine's kernel. Decided before anything runs, so exactly one
     wrapper is called and none raises."""
     fn = variants.variant_engine(engine, params, n)
     assert fake_card == []
@@ -320,8 +352,9 @@ def test_cuda_engine_option_picks_by_predicate(fake_card, engine, params, n,
 
 def test_variant_registry_holds_the_ported_names():
     assert sorted(variants.VARIANTS) == [
-        "oracle", "rowscan", "rowscan_bf16", "rowscan_prof", "xla_diag"]
-    for name in ("wavefront", "colscan", "nope"):
+        "colscan", "oracle", "rowscan", "rowscan_bf16", "rowscan_prof", "wavefront",
+        "xla_diag"]
+    for name in ("nope", "wavefronts"):
         with pytest.raises(KeyError, match="unknown variant"):
             variants.get_variant(name)
 
@@ -598,3 +631,116 @@ def test_cuda_banded_cli_runs_the_kernel(fake_banded_card, argv, call, capsys):
     assert fake_banded_card == [call]
     jax_cli(argv)
     assert capsys.readouterr().out == on_card and len(on_card.splitlines()) >= 4
+
+
+@pytest.fixture
+def fake_strip_card(monkeypatch):
+    """Pretend a card exists for the long-pair sweep and the wavefront:
+    codes and tables stay on the CPU, the strip tile's kernel wrappers
+    and the wavefront launch are recorders that return the plain
+    versions' results, computed apart; the plain versions as the sweep
+    and the wrapper see them fail."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls = []
+    cpu = torch.device("cpu")
+    stage = longpair_strip.stage_codes
+    tile, tile_affine = longpair_strip.tile_strip_linear, longpair_strip.tile_strip_affine
+    as_codes = sw_wavefront.as_codes
+    plain_wave = sw_wavefront.sw_wavefront_plain
+
+    def strip(*a, table=None, _affine=False):
+        calls.append(("strip", _affine))
+        assert table is not None and table.device == cpu
+        fn = (tile_affine if _affine else tile)
+        fn.launches += 1
+        return fn(*a)
+
+    def wave_launch(qs, ts, table, params):
+        calls.append(("wavefront",))
+        return plain_wave(qs, ts, params, cpu)
+
+    monkeypatch.setattr(longpair_strip, "stage_codes",
+                        lambda x, p, d: stage(x, p, cpu))
+    monkeypatch.setattr(sw_profile, "profile_table",
+                        lambda p, d: torch.as_tensor(sw_scan._extended_table(p)))
+    monkeypatch.setattr(longpair_strip, "tile_strip_linear", strip)
+    monkeypatch.setattr(longpair_strip, "tile_strip_affine",
+                        lambda *a, table=None: strip(*a, table=table, _affine=True))
+    monkeypatch.setattr(sw_wavefront, "as_codes", lambda x, d: as_codes(x, cpu))
+    monkeypatch.setattr(sw_wavefront, "wavefront_table",
+                        lambda p, d: torch.as_tensor(sw_wavefront._profile_table(p)))
+    monkeypatch.setattr(sw_wavefront, "wavefront_launch_t", wave_launch)
+    for mod, name in ((longpair, "_tile_colscan"), (longpair, "_tile_colscan_affine"),
+                      (sw_wavefront, "sw_wavefront_plain")):
+        monkeypatch.setattr(
+            mod, name,
+            lambda *a, _n=name, **k: pytest.fail(f"plain tier {_n} ran on CUDA"))
+    return calls
+
+
+def _long_pair(n=150, m=120):
+    rng = np.random.default_rng(10000)
+    q = rng.integers(0, 4, n).astype(np.uint8)
+    t = np.concatenate([rng.integers(0, 4, 5), q])[:m].astype(np.uint8)
+    t[::9] = rng.integers(0, 4, t[::9].shape)
+    return q, t
+
+
+@pytest.mark.parametrize("entry,params,block,tiles", [
+    ("score", DNA_10_30_15, None, 1),
+    ("ends", AFF, 40, 3),
+    ("align", ScoringParams.linear(dna_matrix(2, -1), 1), 30, 4),
+    ("align", GENERAL_AFF, None, 1),
+])
+def test_cuda_longpair_sweeps_through_the_strip_kernel(fake_strip_card, entry, params,
+                                                       block, tiles):
+    from swtpu_torch.oracle.affine import sw_affine_traceback
+    from swtpu_torch.oracle.sw import sw_traceback
+
+    q, t = _long_pair()
+    affine = not params.is_linear
+    before = [w.launches for w in STRIP_WRAPPERS]
+    fn = getattr(longpair, f"longpair_sw_{entry}")
+    got = fn(q, t, params, block=block)
+    assert fake_strip_card == [("strip", affine)] * tiles
+    assert [w.launches for w in STRIP_WRAPPERS] == [
+        before[0] + tiles * (not affine), before[1] + tiles * affine]
+    m = t.shape[0] // (block or t.shape[0]) * (block or t.shape[0])
+    score, path = (sw_affine_traceback if affine else sw_traceback)(q, t[:m], params)
+    want = {"score": score, "ends": (score, *path[-1]), "align": (score, path)}[entry]
+    assert got == want
+
+
+@pytest.mark.parametrize("params", [DNA_10_30_15, GENERAL])
+def test_cuda_wavefront_runs_the_kernel(fake_strip_card, params):
+    qs = np.random.default_rng(10000).integers(0, 4, (6, 100)).astype(np.uint8)
+    ts = np.roll(qs, 3, axis=1)
+    before = sw_wavefront.sw_wavefront.launches
+    got = sw_wavefront.sw_wavefront(qs, ts, params)
+    assert fake_strip_card == [("wavefront",)]
+    assert sw_wavefront.sw_wavefront.launches == before + 1
+    assert np.array_equal(got.numpy(), sw_scan.sw_batch_diag(qs, ts, params, "cpu").numpy())
+    with pytest.raises(NotImplementedError, match="affine wavefront"):
+        sw_wavefront.sw_wavefront(qs, ts, AFF)
+
+
+@pytest.mark.parametrize("argv,call", [
+    (["longpair", "--random", "2x150x120", "--block", "40", "--cigar"],
+     [("strip", False)] * 6),
+    (["longpair", "--alphabet", "protein", "--random", "1x80x64", "--gap-open", "11",
+      "--gap-extend", "1"], [("strip", True)]),
+    (["align", "--random", "4x100x120", "--scoring", "2,-1", "--engine", "wavefront"],
+     [("wavefront",)]),
+])
+def test_cuda_longpair_and_wavefront_cli_run_the_kernels(fake_strip_card, argv, call,
+                                                         capsys):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from swtpu.cli import main as jax_cli
+
+    cli.main(argv)
+    on_card = capsys.readouterr().out
+    assert fake_strip_card == call
+    with pltpu.force_tpu_interpret_mode():  # JAX's wavefront is a Pallas kernel
+        jax_cli(argv + (["--devices", "1"] if argv[0] == "longpair" else []))
+    assert capsys.readouterr().out == on_card and len(on_card.splitlines()) >= 1
