@@ -17,10 +17,14 @@ profile forms of ``csrc/sw_semiglobal.cu``) and the banded path (fixed
 band at BASELINE config 2 through ``csrc/sw_banded.cu``, the per-round
 adaptive X-drop band through ``csrc/sw_xdrop.cu``, traceback, the
 ``banded`` CLI) and the block-adaptive band (``csrc/sw_block.cu``: the
-corridor window gather B10 and the block row-scan B9; the device walkers
-of ``csrc/sw_walk.cu``; ``banded --block-adaptive``) and long pairs on
-one card (``longpair_sw_score`` / ``_ends`` / ``_align`` through the strip
-tile of ``csrc/sw_strip.cu``, B13; the anti-diagonal ``wavefront``
+block row-scan B9, the whole forward in one launch that reads the
+corridor window in place, a warp per pair; for negative gap penalties
+the window gather B10 and the per-block B9 under the host loop; the
+device walkers of ``csrc/sw_walk.cu``; ``banded --block-adaptive``) and
+long pairs on one card (``longpair_sw_score`` / ``_ends`` / ``_align``
+through the strip tile of ``csrc/sw_strip.cu``, B13: row bands of a warp
+each on many SMs, beside the earlier one-block kernel; the anti-diagonal
+``wavefront``
 schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
 --engine wavefront`` CLI).
 
@@ -52,21 +56,23 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       Gotoh with the 8-bit history and a non-homologous (1,3,2) X = 40
       set at every W, and at W = 32 and 96 also protein BLOSUM62 11/1 at
       X = 120 and scores only; 8 pairs against the oracle copy; the block
-      tier's B9 and B10 under its loop against the plain loop in every
-      field (histories, and bases / deltas below n_rows) on 300 pairs of
-      256 (40 random, whose bands die early at X = 30) at W = 16, 32, 64,
-      96 and 112 with K = 1 and 129 - W (and 32 at W = 64), linear, Gotoh
-      3/1, BLOSUM62 and per-pair lengths (a length 0, pairs that end
-      inside a block), an all-dead start, B10 alone at bases far outside
-      the targets, and the wires of both device walkers (``block_walk``,
-      ``xdrop_walk``) against their plain versions (the host walks,
-      encoded); the strip tile (B13) against the plain column-scan tile on
-      every return at R x C = 1 x 1, 7 x 300, 1000 x 64, 1499 x 700 (a prime
-      R), 4096 x 4096, 8191 x 48 (8 rows a thread), 16384 x 64 and 16383
-      x 33 (16 rows a thread, the main path's instantiations, the last
-      thread ragged) under (1,-1,1),
-      Gotoh (2,-3,5,1), BLOSUM62 11/1 and a 4x4 matrix, with non-zero and
-      -2^20 boundaries, pads and an all-negative tile; the wavefront kernel (B14) against its plain
+      tier's one-launch B9 against the plain loop in every field, whole
+      (histories, bases and deltas past each pair's end too) on 300 pairs
+      of 256 (40 random, whose bands die early at X = 30) at W = 16, 32,
+      64, 96 and 112 with K = 1 and 129 - W (and 32 at W = 64) and W = 48,
+      80 and 128 at K = 129 - W, linear, Gotoh 3/1, BLOSUM62 and per-pair
+      lengths (a length 0, pairs that end inside a block), an all-dead
+      start, the negative-gap route (B10 and the per-block B9, linear -1
+      and Gotoh 2/-1), B10 alone at bases far outside the targets, and the
+      wires of both device walkers (``block_walk``, ``xdrop_walk``) against
+      their plain versions (the host walks, encoded); the strip tile (B13),
+      pipelined and one-block, against the plain column-scan tile on every
+      return at R x C = 1 x 1, 7 x 300, 1000 x 64, 1499 x 700 (a prime R),
+      4096 x 4096, 8191 x 48, 16384 x 64 and 16383 x 33 (the one-block
+      kernel's 8 and 16 rows a thread, the last thread ragged) under
+      (1,-1,1), Gotoh (2,-3,5,1), BLOSUM62 11/1 and a 4x4 matrix, with
+      non-zero and -2^20 boundaries, pads and an all-negative tile; the
+      wavefront kernel (B14) against its plain
       version on 8192 x 128 x 128 (10,-30,15), 300 x 100 x 150 (1,-1,1) and
       1024 x 128 x 128 protein BLOSUM62 11, pads included;
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
@@ -162,14 +168,16 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       timed (band GCUPS over n_rows x W) and at X = 2^20 through every block
       (``bench_forward_fn``); the first 64 pairs against the plain version in
       every field (the 1024 pairs, four copies of the 256: their first 256
-      against the 256-pair run), 2 against the oracle copy; B9 alone on the
-      1024 pairs
-      (row 11) and the 256 (row 12), B10 alone (row 13), their plain times
-      and bounds (``block_ops``);
+      against the 256-pair run), 2 against the oracle copy; B9 (one launch
+      a forward) through its wrapper and alone on the 1024 pairs (row 11)
+      and the 256 (row 12), beside the earlier per-block kernel over the
+      same blocks and the earlier forward (B10 and B9 a block), B10 alone
+      (row 13), their plain times and bounds (``block_ops``);
   27. ``banded_block_align_device`` on 8 and 128 related 16384-mers (W =
       64, K = 64, X = 70, (1,1,1)): wall time, paths from the origin
       rescored, scores against the forward, 1 pair against the oracle
-      copy; ``block_walk`` alone against its plain version;
+      copy; the forward beside the earlier per-block forward; ``block_walk``
+      alone against its plain version;
   28. ``banded_align_batch`` on 8 related 16384-mers at W = 32: the device
       walk (``xdrop_walk``) against the host walk over the 8-bit history,
       rescored, 1 pair against the oracle copy; ``xdrop_walk`` alone;
@@ -179,9 +187,10 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
   30. long pairs: ``longpair_sw_ends`` and ``longpair_sw_score`` on one
       related 16384 x 16384 DNA pair (~85% identity), (1,-1,1) and Gotoh
       (2,-3,5,1), one whole-target block (the default); wall per call, B13's
-      launches a sweep, B13 alone (CUDA events) and GCUPS; B13's row on a
-      related 4096 x 4096 linear tile: wrapper, launch alone, the plain
-      tile's time and every return held equal;
+      launches a sweep, B13 alone (CUDA events), its bands and warps, and
+      GCUPS, beside the one-block kernel; B13's row on a related 4096 x 4096
+      linear tile: wrapper, launch alone (pipelined and one-block), the
+      plain tile's time and every return held equal;
   31. ``longpair_sw_align`` (device forward, low-memory host walk) on the
       16K linear pair and on a Gotoh 4096 x 4096 pair, and ``longpair_sw_ends``
       and ``_align`` on a BLOSUM62 11/1 4096 x 4096 pair: paths rescored,
@@ -201,7 +210,10 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
 
 Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
 26 and 30) and read just after it (phases 6, 10, 15, 21, 25, 29 and 33); every
-kernel of a path must have launched in its window. Inside the config-4 window the calls that
+kernel of a path must have launched in its window (B10 excepted: the block
+tier's one-launch B9 reads the corridor window itself, so B10 runs only on
+the negative-gap route and its count there must be 0); B13's are also
+counted by tile size. Inside the config-4 window the calls that
 are not the path's own (the fused unit and split on staged tensors, the
 per-part times, the reference checks, phase 14) run between a
 ``snapshot`` of the counts and their ``restore``, so the window counts
@@ -327,12 +339,14 @@ KERNELS = {
                      "swtpu/kernels/pallas/banded_batch.py:493", None, 0, 0),
     "banded_batch_w32_w64": (XDROP, ("sw_xdrop_kernelILi1E", "sw_xdrop_kernelILi2E"),
                              "swtpu/kernels/pallas/banded_packed.py:412", None, 0, 0),
-    # the block tier: one B9 kernel for both TPU forms (its launches on the
-    # batches JAX would have folded count for row 12: see b9_shape); ops
-    # per band cell, pair-row and pair-block: see block_ops
-    "block_rows": (BLOCK, "block_rows_kernel",
+    # the block tier: B9 for both TPU forms, the one-launch forward (a warp
+    # per pair) and, for negative gap penalties, the per-block kernel (a
+    # thread per pair); its launches on the batches JAX would have folded
+    # count for row 12 (see b9_shape); ops per band cell, pair-row and
+    # pair-block: see block_ops
+    "block_rows": (BLOCK, ("block_fwd_kernel", "block_rows_kernel"),
                    "swtpu/kernels/pallas/banded_block.py:827", None, 0, 0),
-    "block_rows_small": (BLOCK, "block_rows_kernel",
+    "block_rows_small": (BLOCK, ("block_fwd_kernel", "block_rows_kernel"),
                          "swtpu/kernels/pallas/banded_block.py:761", None, 0, 0),
     "block_gather": (BLOCK, "block_gather_kernel",
                      "swtpu/kernels/pallas/banded_block.py:872", None, 0, 0),
@@ -341,9 +355,10 @@ KERNELS = {
                    "swtpu/kernels/pallas/banded_block.py:1275", None, 0, 0),
     "xdrop_walk": (WALK, "xdrop_walk_kernel",
                    "swtpu/kernels/xla/banded_scan.py:334", None, 0, 0),
-    # the long-pair strip tile <BR, AFFINE> (B13) and the wavefront (B14);
+    # the long-pair strip tile <BR, AFFINE> (B13: the pipelined warp bands,
+    # and the one-block kernel timed beside it) and the wavefront (B14);
     # ops per cell: see strip_ops and WAVE_OPS
-    "strip_tile": (STRIP, ("strip_tile_kernel",),
+    "strip_tile": (STRIP, ("strip_pipe_kernel", "strip_tile_kernel"),
                    "swtpu/kernels/pallas/longpair_strip.py:263", None, 0, 0),
     "sw_wavefront": (WAVEFRONT, "sw_wavefront_kernel",
                      "swtpu/kernels/pallas/sw_wavefront.py:110", None, 0, 0),
@@ -704,10 +719,13 @@ def main():
         return ("sw_banded_static" if uniform else "sw_banded_profile") + (
             "" if p.is_linear else "_affine")
 
+    # B9's two kernels (the one-launch forward, the per-block kernel of the
+    # negative-gap route) count together
+    b9_wrappers = (kbk.block_forward, kbk.block_rows)
     block_wrappers = {
-        "block_rows": kbk.block_rows, "block_rows_small": kbk.block_rows,
-        "block_gather": kbk.block_gather, "block_walk": kdw.block_walk,
-        "xdrop_walk": kdw.xdrop_walk,
+        "block_rows": b9_wrappers, "block_rows_small": b9_wrappers,
+        "block_gather": (kbk.block_gather,), "block_walk": (kdw.block_walk,),
+        "xdrop_walk": (kdw.xdrop_walk,),
     }
     banded_wrappers = {
         "sw_banded_static": ksb.sw_banded_static,
@@ -729,11 +747,11 @@ def main():
         # wrappers those of the affine form; the per-round wrapper those
         # at W = 32 or 64; B9's are split by batch shape (b9_shape)
         if name in BLOCK_PATH:
-            w = block_wrappers[name]
-            if w is kbk.block_rows:
+            total = sum(w.launches for w in block_wrappers[name])
+            if block_wrappers[name] is b9_wrappers:
                 return (b9_folded["launches"] if name.endswith("_small")
-                        else w.launches - b9_folded["launches"])
-            return w.launches
+                        else total - b9_folded["launches"])
+            return total
         if name in BANDED_PATH:
             w = banded_wrappers[name]
             if w is kbb.banded_batch:
@@ -773,15 +791,15 @@ def main():
     def b9_shape(B, W, affine):
         """B9's launches inside count for row 12 where JAX would have run
         its folded kernel at this batch shape, else for row 11."""
-        before = kbk.block_rows.launches
+        before = sum(w.launches for w in b9_wrappers)
         yield
         if jax_folds(B, W, affine):
-            b9_folded["launches"] += kbk.block_rows.launches - before
+            b9_folded["launches"] += sum(w.launches for w in b9_wrappers) - before
 
     wrappers = list({id(v[0]): v[0] for v in kernel_fns.values()}.values())
     wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile, ksb.sw_banded_static,
                  ksb.sw_banded_profile, kbb.banded_batch, kbk.block_gather,
-                 kbk.block_rows, kdw.block_walk, kdw.xdrop_walk,
+                 kbk.block_rows, kbk.block_forward, kdw.block_walk, kdw.xdrop_walk,
                  kls.tile_strip_linear, kls.tile_strip_affine, kwf.sw_wavefront]
     longpair_wrappers = {"strip_tile": (kls.tile_strip_linear, kls.tile_strip_affine),
                          "sw_wavefront": (kwf.sw_wavefront,)}
@@ -791,12 +809,12 @@ def main():
 
     def zero_launches(names):
         for name in names:
-            if name in LONGPAIR_PATH:
-                for w in longpair_wrappers[name]:
+            if name in LONGPAIR_PATH or name in BLOCK_PATH:
+                for w in (longpair_wrappers if name in LONGPAIR_PATH
+                          else block_wrappers)[name]:
                     w.launches = 0
                 continue
-            w = (block_wrappers[name] if name in BLOCK_PATH else
-                 banded_wrappers[name] if name in BANDED_PATH else
+            w = (banded_wrappers[name] if name in BANDED_PATH else
                  (sg_fns if name in SEMIGLOBAL_PATH else kernel_fns)[name][0])
             for k in counts_of(w):
                 setattr(w, k, 0)
@@ -831,7 +849,7 @@ def main():
     print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
           f"(0.0 s means they were already built)", flush=True)
     seen = set()
-    many = {}  # B9's 60 instantiations: one summary line
+    many = {}  # B9's instantiations: one summary line a kernel
     for source in sources:
         for e in re.split(r"Compiling entry function '", _build.build_log(source))[1:]:
             mangled = e.split("'")[0]
@@ -846,7 +864,9 @@ def main():
             smem = re.search(r"(\d+) bytes smem", e)
             check(regs and spill, f"no register report for {name}")
             if "block_rows" in names:
-                many.setdefault("/".join(names), []).append(
+                kern = "block_fwd_kernel" if "block_fwd_kernel" in mangled else (
+                    "block_rows_kernel")
+                many.setdefault(kern, []).append(
                     (int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
                 seen.update(names)
                 continue
@@ -856,7 +876,9 @@ def main():
             seen.update(names)
     for name, stats in many.items():
         regs_, st_, ld_ = zip(*stats)
-        print(f"{name} <WR, AFFINE, MATRIX, VARLEN, HIST>: {len(stats)} "
+        first = "S" if name == "block_fwd_kernel" else "WR"
+        print(f"block_rows/block_rows_small {name} <{first}, AFFINE, MATRIX, VARLEN, "
+              f"HIST>: {len(stats)} "
               f"instantiations, registers {min(regs_)}-{max(regs_)}, spill stores "
               f"max {max(st_)} B, spill loads max {max(ld_)} B", flush=True)
     check(seen == set(KERNELS), f"nvcc built {sorted(seen)}")
@@ -1280,14 +1302,16 @@ def main():
     del xdev
     torch.cuda.empty_cache()
     mark("block tier")
-    # B9 and B10 (rows 11-13) through the block loop against the plain loop,
-    # every field (history, and bases / deltas below n_rows): 300 pairs of
-    # 256 (260 related, 40 random), W = 16, 32, 64, 96 and 112 with K = 1
-    # and 129 - W (and 32 at W = 64: bench_suite's), linear, Gotoh 3/1 at
-    # X = 30 (the random pairs' bands die
-    # early), BLOSUM62 at X = 60 and per-pair lengths at X = 30 (pairs
-    # ending inside a block, one of length 0); an all-dead start; B10 alone
-    # at bases far outside the targets; both walkers' wires against their
+    # B9 (rows 11-12) against the plain loop, every field whole (history,
+    # bases / deltas, past each pair's end too): the one-launch forward on
+    # 300 pairs of 256 (260 related, 40 random), W = 16, 32, 64, 96 and 112
+    # with K = 1 and 129 - W (and 32 at W = 64: bench_suite's), W = 48, 80
+    # and 128 at K = 129 - W (each lane's slot count with phantom slots),
+    # linear, Gotoh 3/1 at X = 30 (the random pairs' bands die early),
+    # BLOSUM62 at X = 60 and per-pair lengths at X = 30 (pairs ending
+    # inside a block, one of length 0); an all-dead start; the negative-gap
+    # route (B10 and the per-block B9 under the host loop); B10 alone at
+    # bases far outside the targets; both walkers' wires against their
     # plain versions
     brng = np.random.default_rng(SEED + 12)
     B, L = 300, 256
@@ -1308,33 +1332,26 @@ def main():
         ("DNA varlen X=30", "q", "t", dict(lens_q=blq, lens_t=blt, x_threshold=30)),
     ]
 
-    def block_fields(res, K):
-        """Every field of a block-tier result on the card, the history zeroed
-        at and past each pair's n_rows and bases / deltas past its last block
-        (every consumer reads below them)."""
-        nr = res.n_rows
-        rows_ = torch.arange(res.band_history.shape[0], device=dev)[:, None] < nr[None]
-        blocks = (torch.arange(res.bases.shape[0], device=dev)[:, None]
-                  < ((nr.long() + K - 1) // K)[None])
-        return (res.score, res.end_y, res.end_j, nr,
-                torch.where(rows_[:, None, :], res.band_history, 0),
-                torch.where(blocks, res.bases, 0), torch.where(blocks, res.deltas, 0))
+    def block_fields(res):
+        """Every field of a block-tier result, whole."""
+        return (res.score, res.end_y, res.end_j, res.n_rows, res.band_history,
+                res.bases, res.deltas)
 
     def block_check(q, t, K, label, **kw):
-        """The kernels' loop against the plain loop on the card; returns the
+        """The kernels against the plain loop on the card; returns the
         kernels' result."""
         kw = dict(kw, block=K, with_history=True, with_meta=True)
         got = kbk.banded_block_batch(q, t, **kw)
         torch.cuda.synchronize()
         want = kbk.banded_block_batch_plain(q, t, device=dev, **kw)
-        err = max_abs_err(block_fields(got, K), block_fields(want, K))
-        for name in ("block_rows", "block_gather"):
-            max_err[name] = max(max_err[name], err)
+        err = max_abs_err(block_fields(got), block_fields(want))
+        max_err["block_rows"] = max(max_err["block_rows"], err)
         check(err == 0, f"block tier differs from its plain version on {label}")
         return got
 
-    for W in (16, 32, 64, 96, 112):
-        Ks = sorted({1, 129 - W} | ({32} if W == 64 else set()))
+    for W in (16, 32, 48, 64, 80, 96, 112, 128):
+        Ks = sorted({129 - W} | ({1, 32 if W == 64 else 1}
+                                 if W in (16, 32, 64, 96, 112) else set()))
         for label, qk, tk, kw in block_modes:
             for K in Ks:
                 res = block_check(bdev[qk], bdev[tk], K, f"{label} W={W} K={K}",
@@ -1350,6 +1367,58 @@ def main():
                       x_threshold=1)
     check(int(res.end_y.abs().sum() + res.end_j.abs().sum() + res.score.abs().sum())
           == 0, "all-dead start: score 0 at (0, 0)")
+    # the negative-gap route: B10 and the per-block B9 (the oracle's serial
+    # chain) under the host loop, not the one-launch forward, on every
+    # per-block instantiation: each register width (WR = 16, 32, 48, 64) and
+    # the shared-memory form (W = 112), linear, per-pair lengths, BLOSUM62,
+    # BLOSUM62 with lengths, Gotoh and Gotoh BLOSUM62, histories on and off
+    # (64 pairs of 80: the plain loop's serial chain is a launch a slot)
+    nrng = np.random.default_rng(SEED + 18)
+    nb, nn = 64, 80
+    nq = nrng.integers(0, 20, size=(nb, nn), dtype=np.uint8)
+    nt = nq.copy()
+    nt[:, ::4] = nrng.integers(0, 20, size=nt[:, ::4].shape)
+    nt[-16:] = nrng.integers(0, 20, size=(16, nn))
+    nlq, nlt = nrng.integers(0, nn + 1, nb), nrng.integers(nn // 2, nn + 1, nb)
+    nlq[:2] = (0, 7)
+    ndna = [torch.from_numpy(x % 4).to(dev) for x in (nq, nt)]
+    nprot = [torch.from_numpy(x).to(dev) for x in (nq, nt)]
+    lens = dict(lens_q=nlq, lens_t=nlt)
+    neg_modes = [
+        ("linear -1", ndna, dict(gap=-1, x_threshold=20)),
+        ("linear -1 varlen", ndna, dict(gap=-1, x_threshold=20, **lens)),
+        ("BLOSUM62 -1", nprot, dict(matrix=BLOSUM62, gap=-1, x_threshold=40)),
+        ("BLOSUM62 -1 varlen", nprot, dict(matrix=BLOSUM62, gap=-1, x_threshold=40,
+                                           **lens)),
+        ("Gotoh 2/-1", ndna, dict(gap_open=2, gap_extend=-1, x_threshold=20)),
+        ("Gotoh BLOSUM62 2/-1", nprot, dict(matrix=BLOSUM62, gap_open=2, gap_extend=-1,
+                                            x_threshold=40)),
+    ]
+    n_neg = 0
+    for W, K in ((16, 8), (32, 16), (48, 33), (64, 65), (112, 17)):
+        for label, (q, t), kw in neg_modes:
+            kw = dict(kw, width=W, block=K, with_meta=True)
+            want = kbk.banded_block_batch_plain(q, t, device=dev, with_history=True, **kw)
+            for hist in (True, False):
+                before = (kbk.block_forward.launches, kbk.block_rows.launches,
+                          kbk.block_gather.launches)
+                got = kbk.banded_block_batch(q, t, with_history=hist, **kw)
+                runs = (kbk.block_forward.launches - before[0],
+                        kbk.block_rows.launches - before[1],
+                        kbk.block_gather.launches - before[2])
+                check(runs[0] == 0 and runs[1] == runs[2] > 0,
+                      f"negative gaps take the per-block kernels: {runs}")
+                pick = (lambda f: f) if hist else (lambda f: f[:4] + f[5:])  # noqa: E731
+                err = max_abs_err(pick(block_fields(got)), pick(block_fields(want)))
+                max_err["block_rows"] = max(max_err["block_rows"], err)
+                check(err == 0 and (hist or got.band_history is None),
+                      f"the per-block kernels differ from the plain loop on {label} W={W} "
+                      f"K={K}, history {hist}")
+                n_neg += 1
+    print(f"block tier: negative gap penalties run B10 and the per-block B9 under the "
+          f"host loop, equal to the plain loop on {n_neg} runs (W = 16, 32, 48, 64 in "
+          f"registers, 112 in shared memory; linear, lengths, BLOSUM62, BLOSUM62 with "
+          f"lengths, Gotoh, Gotoh BLOSUM62; histories on and off)", flush=True)
     t16 = bdev["t"].to(torch.int16).contiguous()
     gb = torch.from_numpy(brng.integers(-300, 600, B).astype(np.int32)).to(dev)
     for C in (1, 64, 127):
@@ -1421,10 +1490,24 @@ def main():
         return kls._tile_colscan_affine(q, t, top, topf, left, lefte, corner, table,
                                         p.alphabet_size, p.gap_open, p.gap_extend)
 
+    def strip_one_block(q, t, b, p):
+        """The one-block B13 (the earlier schedule) on the same tile."""
+        q8, t8 = kls.stage_codes(q, p, dev), kls.stage_codes(t, p, dev)
+        top, topf, left, lefte, corner = b
+        i32v = (lambda x: torch.as_tensor(np.asarray(x)).to(dev, torch.int32)  # noqa: E731
+                .contiguous())
+        lext = torch.cat([i32v([corner]), i32v(left)])
+        lexte = torch.cat([i32v([NEGB]), i32v(lefte)]) if not p.is_linear else None
+        return kls._one_block_launch_t(q8, t8, kp.profile_table(p, dev), i32v(top),
+                                       None if p.is_linear else i32v(topf), lext, lexte,
+                                       p)
+
     n_tiles = 0
-    # 8191 x 48: 8 rows a thread; 16384 x 64 and 16383 x 33: the main
-    # path's 16 rows a thread (linear and affine), the last thread's rows
-    # ragged in the second
+    # the pipelined kernel through the entry points and the one-block
+    # kernel, both against the plain tile; 8191 x 48, 16384 x 64 and 16383
+    # x 33: the one-block kernel's 8 and 16 rows a thread, the last
+    # thread's rows ragged in the third; the pipelined kernel's bands as
+    # strip_plan picks them (printed)
     for R, C in ((1, 1), (7, 300), (1000, 64), (1499, 700), (4096, 4096),
                  (8191, 48), (16384, 64), (16383, 33)):
         for k, (label, p) in enumerate(strip_scorings):
@@ -1433,11 +1516,15 @@ def main():
                      else (("random", "neg")[k % 2],))
             for bounds in kinds:
                 q, t, b = strip_pair(srng, p, R, C, bounds)
-                err = max_abs_err(strip_run(q, t, b, p), strip_plain(q, t, b, p))
+                want = strip_plain(q, t, b, p)
+                err = max(max_abs_err(strip_run(q, t, b, p), want),
+                          max_abs_err(strip_one_block(q, t, b, p), want))
                 max_err["strip_tile"] = max(max_err["strip_tile"], err)
                 check(err == 0, f"strip tile differs from the plain tile at {R} x {C}, "
                       f"{label}, {bounds} boundaries")
                 n_tiles += 1
+        print(f"strip tile {R} x {C}: rows a lane and bands {kls.strip_plan(R, C)}",
+              flush=True)
     neg = ScoringParams.linear(dna_matrix(-1, -1), 1)  # no positive cell
     zq, zb = np.zeros(300, np.int64), (np.zeros(200), None, np.zeros(300), None, 0)
     got = strip_run(zq, zq[:200], zb, neg)
@@ -1445,8 +1532,9 @@ def main():
     check(err == 0 and [int(x) for x in got[2:]] == [0, 0, 0],
           "strip tile on an all-negative tile: best 0 at (0, 0)")
     print(f"strip tile: {n_tiles + 1} tiles (R x C from 1 x 1 to 4096 x 4096, 8191 x "
-          "48, 16384 x 64 and 16383 x 33, a prime R, four scorings, non-zero and -2^20 boundaries, pads, an all-negative "
-          "tile) equal the plain tile on every return", flush=True)
+          "48, 16384 x 64 and 16383 x 33, a prime R, four scorings, non-zero and -2^20 "
+          "boundaries, pads, an all-negative tile) equal the plain tile on every return, "
+          "the pipelined and the one-block kernel alike", flush=True)
     mark("wavefront kernel (B14) vs its plain version")
     for label, p, B, n, m, letters in (
             ("8192 x 128 x 128, (10,-30,15)", DNA_10_30_15, 8192, 128, 128, 4),
@@ -2741,9 +2829,10 @@ def main():
                                                       with_history=True, with_meta=True,
                                                       device=dev, **kw)
                 restore(saved)
-                err = max_abs_err(block_fields(got64, K), block_fields(want64, K))
-                for name in ("block_rows", "block_gather"):
-                    max_err[name] = max(max_err[name], err)
+                err = max_abs_err(block_fields(got64), block_fields(want64))
+                name = "block_rows_small" if jax_folds(Bb, 64, "gap_open" in kw) else (
+                    "block_rows")
+                max_err[name] = max(max_err[name], err)
                 check(err == 0 and all(torch.equal(a[:64], b) for a, b in zip(
                     fields, (got64.score, got64.end_y, got64.end_j, got64.n_rows))),
                     f"block tier on {label}: the first 64 pairs vs the plain version")
@@ -2768,10 +2857,13 @@ def main():
                   f"{Bb * La * 64 / alive / 1e9:.2f} band GCUPS; mean score "
                   f"{res.score.float().mean().item():.1f}; {checked} [{smi}]", flush=True)
     del first256
-    # rows 11-13: B9 alone on the 1024 pairs (row 11: JAX's straight kernel)
-    # and the 256 pairs (row 12: where JAX folded), B10 on the 256 pairs;
-    # each block's window recorded from one forward, then replayed with the
-    # state reset (six copies) per call; scores and endpoints, no history
+    # rows 11-13: B9 on the 1024 pairs (row 11: JAX's straight kernel) and
+    # the 256 pairs (row 12: where JAX folded), B10 on the 256 pairs. B9 is
+    # one launch a forward: through its wrapper and alone, the state reset
+    # before each; beside it, in the same run, the earlier per-block kernel
+    # (a thread per pair, now the negative-gap route) replayed over each block's
+    # recorded window, and the earlier whole forward (B10 and the per-block
+    # B9 under the host loop); scores and endpoints, no history
     W = 64
     bc, br, bblk = block_ops(False, False, W)
     for key, b9name in (("dna1024", "block_rows"), ("dna", "block_rows_small")):
@@ -2788,13 +2880,29 @@ def main():
                 for x, x0 in zip(state_of(rr), init):
                     x.copy_(x0)
 
+            # every time below runs reset() before each forward and has
+            # reset's own time taken off
+            reset_ms = time_kernel(reset, (), iters=5) * 1e3
+            saved = snapshot()  # the row's own timings are not the path's
+            kbk.block_forward(rr)
+            final = [x.clone() for x in state_of(rr)]
+            ms = time_kernel(lambda rr=rr, reset=reset: (reset(), kbk.block_forward(rr)),
+                             (), iters=5) * 1e3 - reset_ms
+            restore(saved)
+            kernel_ms = time_kernel(
+                lambda rr=rr, reset=reset: (reset(), kbk.forward_launch_t(rr)), (),
+                iters=5) * 1e3 - reset_ms
+            check(all(torch.equal(a, b) for a, b in zip(state_of(rr), final)),
+                  f"{b9name}: repeated forwards agree")
             NB = La // K
+            reset()
             wins, gbases = [], []
             for b in range(NB):
                 gbases.append(rr.state[0].clone())
                 wins.append(kbk.gather_launch_t(rr.t16, rr.state[0], K + W - 1))
                 kbk.rows_launch_t(rr, b, K, wins[-1])
-            final = [x.clone() for x in state_of(rr)]
+            check(all(torch.equal(a, b) for a, b in zip(state_of(rr), final)),
+                  f"{b9name}: the per-block kernel vs the one-launch forward")
             check(jax_folds(qd.shape[0], W, False) == (b9name == "block_rows_small"),
                   "row 11 / 12 split")
 
@@ -2803,20 +2911,28 @@ def main():
                 for b in range(NB):
                     step(rr, b, K, wins[b])
 
-            ms = time_kernel(replay, (kbk.block_rows,), iters=5) * 1e3
-            kernel_ms = time_kernel(replay, (kbk.rows_launch_t,), iters=5) * 1e3
-            check(all(torch.equal(a, b) for a, b in zip(state_of(rr), final)),
-                  f"{b9name}: replay vs the forward")
+            saved = snapshot()  # the earlier kernel's timings are not the path's own
+            earlier_ms = time_kernel(replay, (kbk.block_rows,), iters=5) * 1e3 - reset_ms
+            restore(saved)
+            earlier_kernel_ms = time_kernel(replay, (kbk.rows_launch_t,),
+                                            iters=5) * 1e3 - reset_ms
+            earlier_fwd_ms = time_kernel(
+                lambda rr=rr, reset=reset: (reset(), kbk.block_loop(
+                    rr, True, kbk.gather_launch_t, kbk.rows_launch_t)), (),
+                iters=5) * 1e3 - reset_ms
             plain_ms = time_kernel(replay, (kbk.block_rows_plain,), iters=1, warmup=0,
-                                   reps=1) * 1e3
+                                   reps=1) * 1e3 - reset_ms
             err = max_abs_err(state_of(rr), tuple(final))
             max_err[b9name] = max(max_err[b9name], err)
-            check(err == 0, f"{b9name} replay differs from its plain version")
+            check(err == 0, f"{b9name}: the plain version differs from the kernel")
             nr = rr.n_rows.long()
             nrows, pblocks = int(nr.sum()), int(((nr + K - 1) // K).sum())
+            Bq = qd.shape[0]
             ops = nrows * W * bc + nrows * br + pblocks * bblk
-            bytes_ = (2 * nrows + 2 * (K + W - 1) * pblocks + 2 * 4 * W * pblocks
-                      + 2 * 16 * pblocks + 16 * qd.shape[0])
+            # each input once (query and target codes 2 B, the start carry
+            # and state), each output once (carry and state, bases / deltas)
+            bytes_ = (2 * nrows + 2 * (nrows + W * Bq) + 2 * 4 * W * Bq + 2 * 16 * Bq
+                      + 8 * pblocks)
             times = {"int32 ops": ops / int32_rate * 1e3, "bytes": bytes_ / HBM_BYTES_PER_S * 1e3}
             binds = max(times, key=times.get)
             rows.append(dict(
@@ -2824,27 +2940,35 @@ def main():
                 replaces=KERNELS[b9name][2], launches=None, max_abs_err=max_err[b9name],
                 ms=ms, plain_ms=plain_ms, bound_ms=times[binds],
                 bound_by="bytes" if binds == "bytes" else "operations", library_ms=None,
-                kernel_ms=kernel_ms))
-            print(f"{b9name}, {qd.shape[0]} related 2048-mers, W={W} K={K}, {NB} blocks: "
-                  f"wrapper {ms:.4f} ms ({times[binds] / ms:.1%} of the bound), launches "
-                  f"alone {kernel_ms:.4f} ms, plain {plain_ms:.1f} ms (equal), bound "
-                  f"{times[binds]:.4f} ms by {binds} ({bc} int32 ops per band cell over "
-                  f"{nrows * W} cells, {br} per pair-row, {bblk} per pair-block over "
-                  f"{pblocks}: {times['int32 ops']:.4f} ms; {bytes_} bytes: "
-                  f"{times['bytes']:.4f} ms; at {sm_clock_mhz:.0f} MHz), "
-                  f"{nrows * W / kernel_ms / 1e6:.2f} band GCUPS alone", flush=True)
+                kernel_ms=kernel_ms, earlier_ms=earlier_ms,
+                earlier_kernel_ms=earlier_kernel_ms))
+            print(f"{b9name}, {Bq} related 2048-mers, W={W} K={K}: one launch a forward, "
+                  f"wrapper {ms:.4f} ms ({times[binds] / ms:.1%} of the bound), launch "
+                  f"alone {kernel_ms:.4f} ms (the state reset's {reset_ms:.4f} ms "
+                  f"taken off every time here); the earlier per-block kernel over the same {NB} blocks: "
+                  f"wrapper {earlier_ms:.4f} ms, launches alone {earlier_kernel_ms:.4f} "
+                  f"ms ({times[binds] / earlier_kernel_ms:.1%}), the earlier forward "
+                  f"(B10 and B9 a block, host poll) {earlier_fwd_ms:.4f} ms; plain "
+                  f"{plain_ms:.1f} ms (equal), bound {times[binds]:.4f} ms by {binds} "
+                  f"({bc} int32 ops per band cell over {nrows * W} cells, {br} per "
+                  f"pair-row, {bblk} per pair-block over {pblocks}: "
+                  f"{times['int32 ops']:.4f} ms; {bytes_} bytes: {times['bytes']:.4f} "
+                  f"ms; at {sm_clock_mhz:.0f} MHz), {nrows * W / kernel_ms / 1e6:.2f} "
+                  f"band GCUPS alone [{smi}]", flush=True)
         if key != "dna":
             continue
 
         def gathers(fn, t16=rr.t16, gbases=gbases, K=K):
             return [fn(t16, gbases[b], K + W - 1) for b in range(NB)]
 
+        saved = snapshot()  # B10 is off the path: the one-launch B9 reads in place
         err = max(max_abs_err(g, w) for g, w in zip(gathers(kbk.block_gather), wins))
         err = max(err, max(max_abs_err(g, w) for g, w in
                            zip(gathers(kbk.block_gather_plain), wins)))
         max_err["block_gather"] = max(max_err["block_gather"], err)
         check(err == 0, "block_gather differs from its plain version on the 2048-mers")
         ms = time_kernel(gathers, (kbk.block_gather,), iters=5) * 1e3
+        restore(saved)
         kernel_ms = time_kernel(gathers, (kbk.gather_launch_t,), iters=5) * 1e3
         plain_ms = time_kernel(gathers, (kbk.block_gather_plain,), iters=1, warmup=1,
                                reps=1) * 1e3
@@ -2888,9 +3012,14 @@ def main():
             # staged tensors (CUDA events), the host decode of the wire alone
             run = kbk._setup(q, t, 1, 1, 1, 64, 64, 70, None, None, True, None, None, None,
                              None, dev)
-            fwd_ms = time_kernel(lambda run=run: kbk._forward(kbk._new_run(
-                run.qT, run.t16, None, None, None, None, 64, 64, 70, 1, 1, 1, None, None,
-                32, True)), (), iters=2) * 1e3
+            def fresh(run=run):
+                return kbk._new_run(run.qT, run.t16, None, None, None, None, 64, 64, 70,
+                                    1, 1, 1, None, None, 32, True)
+
+            fwd_ms = time_kernel(lambda: kbk._forward(fresh()), (), iters=2) * 1e3
+            # beside it, the earlier forward: B10 and the per-block B9 a block
+            earlier_fwd_ms = time_kernel(lambda: kbk.block_loop(
+                fresh(), True, kbk.gather_launch_t, kbk.rows_launch_t), (), iters=2) * 1e3
             kbk._forward(run)
             walk_ms = time_kernel(kdw.block_walk, (run,), iters=3) * 1e3
             wire = kdw.block_walk(run).cpu()
@@ -2902,7 +3031,8 @@ def main():
                 out8, walk_run, walk_wire = out, run, wire
             print(f"{Bb} pairs: {wall * 1e3:.1f} ms wall (upload, forward, device walk, "
                   f"wire fetch, decode to lists), {Bb / wall:.1f} alignments/s; on staged "
-                  f"tensors the forward with history {fwd_ms:.1f} ms, the walk "
+                  f"tensors the forward with history {fwd_ms:.1f} ms (the earlier "
+                  f"per-block forward {earlier_fwd_ms:.1f} ms), the walk "
                   f"{walk_ms:.1f} ms; the host decode alone {arr_ms:.1f} ms to arrays "
                   f"(bench_suite's), {list_ms:.1f} ms to tuple lists; mean path "
                   f"{np.mean([len(p) for _, p in out]):.0f} cells, mean score "
@@ -3070,8 +3200,13 @@ def main():
             print(f"banded --block-adaptive refuses ({msg}): {e}", flush=True)
     tmp.cleanup()
     block_counts = {name: launches(name) for name in BLOCK_PATH}
-    print(f"block tier path launches: {block_counts}", flush=True)
-    check(all(v > 0 for v in block_counts.values()),
+    print(f"block tier path launches: {block_counts} (B10 launches only on the "
+          f"negative-gap route: the one-launch B9 reads the corridor window in "
+          f"place; of B9's, {kbk.block_forward.launches} one-launch forwards, "
+          f"{kbk.block_rows.launches} per-block launches)", flush=True)
+    check(kbk.block_rows.launches == 0 and block_counts["block_gather"] == 0,
+          "the block tier path's forwards are one launch each (no B10, no per-block B9)")
+    check(all(v > 0 for k, v in block_counts.items() if k != "block_gather"),
           f"a kernel was not launched on the block tier path: {block_counts}")
 
     # long-pair path: counts from here to the end of phase 33 ------------------
@@ -3089,7 +3224,41 @@ def main():
     i32 = dict(dtype=torch.int32, device=dev)
     zl, nl = torch.zeros(L, **i32), torch.full((L,), NEGB, **i32)
     zl1, nl1 = torch.zeros(L + 1, **i32), torch.full((L + 1,), NEGB, **i32)
-    strip_timed, lp_ends = {}, {}
+    strip_timed, lp_ends, strip_br_ms = {}, {}, {}
+
+    def br_sweep(label, sargs, out, rounds=3):
+        """B13 alone at every rows-a-lane (1, 2, 4, 8, 16) on one staged tile,
+        each held equal to ``out``: the least of ``rounds`` interleaved
+        timings (a card's clocks drift within a run), printed beside
+        strip_plan's pick. PERF.md section 6 reads the rule from these."""
+        R, C = int(sargs[0].shape[0]), int(sargs[1].shape[0])
+        by_br = {}
+        for br in (1, 2, 4, 8, 16):
+            got = kls._pipe_launch(*sargs, br=br)[0]
+            check(all(torch.equal(a, b) for a, b in zip(got, out)),
+                  f"B13 at {br} rows a lane differs on {label}")
+        for _ in range(rounds):
+            for br in (1, 2, 4, 8, 16):
+                ms_ = time_kernel(lambda br=br: kls._pipe_launch(*sargs, br=br), (),
+                                  iters=2, warmup=1, reps=1) * 1e3
+                by_br[br] = min(by_br.get(br, float("inf")), ms_)
+        pick = kls.strip_plan(R, C)[0]
+        fastest = min(by_br, key=by_br.get)
+        strip_br_ms[label] = dict(by_br=by_br, pick=pick, fastest=fastest)
+        print(f"B13 alone on {label} by rows a lane (bands): " + ", ".join(
+            f"{br} ({-(-R // (32 * br))}): {t_:.4f} ms" for br, t_ in by_br.items())
+            + f"; strip_plan picks {pick} ({by_br[pick]:.4f} ms), the fastest is "
+            f"{fastest} ({by_br[pick] / by_br[fastest] - 1:.1%} slower) [{smi}]",
+            flush=True)
+    # B13's main-path launches by tile size (PERF.md splits its row by size)
+    strip_sizes = {"16384 x 16384": 0, "4096 x 4096": 0, "wavefront queries": 0,
+                   "CLI tiles": 0}
+    strip_mark = [launches("strip_tile")]
+
+    def strip_count(size):
+        now = launches("strip_tile")
+        strip_sizes[size] += now - strip_mark[0]
+        strip_mark[0] = now
     for label, p in (("(1,-1,1)", DNA_111), ("Gotoh (2,-3,5,1)", LP_GOTOH)):
         before = launches("strip_tile")
         ends = lp.longpair_sw_ends(lq, lt, p)
@@ -3110,19 +3279,27 @@ def main():
         table = kp.profile_table(p, dev)
         affine = not p.is_linear
 
-        def bare(p=p, q8=q8, t8=t8, table=table, affine=affine):
-            return kls.strip_launch_t(q8, t8, table, zl, nl if affine else None, zl1,
-                                      nl1 if affine else None, p)
+        sargs = (q8, t8, table, zl, nl if affine else None, zl1, nl1 if affine else None,
+                 p)
 
-        out = bare()
+        def bare(launch=kls.strip_launch_t, sargs=sargs):
+            return launch(*sargs)
+
+        out, grid = kls._pipe_launch(*sargs)
         check(tuple(int(x) for x in out[-3:]) == ends, f"B13 alone vs the sweep, {label}")
+        check(all(torch.equal(a, b) for a, b in zip(out, bare(kls._one_block_launch_t))),
+              f"B13's pipelined and one-block kernels on the 16K tile, {label}")
         kernel_ms = time_kernel(bare, (), iters=3, warmup=1) * 1e3
-        strip_timed[label] = (p, q8, t8, table, bare, kernel_ms)
+        earlier_ms = time_kernel(bare, (kls._one_block_launch_t,), iters=3, warmup=1) * 1e3
+        strip_timed[label] = (kernel_ms, earlier_ms)
+        br_sweep(f"16384 x 16384 {label}", sargs, out)
         print(f"{label}: (score, end_i, end_j) = {ends}; block {L} (the default), "
               f"{per_sweep} B13 launch a sweep; longpair_sw_ends {wall_ms:.3f} ms wall "
               f"({L * L / wall_ms / 1e6:.2f} GCUPS); B13 alone {kernel_ms:.3f} ms "
-              f"({L * L / kernel_ms / 1e6:.2f} GCUPS, one block on one of {n_sm} SMs)",
-              flush=True)
+              f"({L * L / kernel_ms / 1e6:.2f} GCUPS: rows a lane and bands "
+              f"{kls.strip_plan(L, L)}, {grid} warps, one a CTA, on {n_sm} SMs); the "
+              f"one-block kernel beside it {earlier_ms:.3f} ms (one CTA)", flush=True)
+    strip_count("16384 x 16384")
     # B13's row: a related 4096 x 4096 pair's linear tile (the size of
     # phase 31's sweeps) through the wrapper, alone, and the plain tile on
     # the card once (its time, and every return held equal)
@@ -3133,19 +3310,23 @@ def main():
     table = kp.profile_table(p, dev)
     z, z1 = torch.zeros(4096, **i32), torch.zeros(4097, **i32)
 
-    def bare(q8=q8, t8=t8, table=table):
-        return kls.strip_launch_t(q8, t8, table, z, None, z1, None, DNA_111)
+    sargs = (q8, t8, table, z, None, z1, None, DNA_111)
+
+    def bare(launch=kls.strip_launch_t, sargs=sargs):
+        return launch(*sargs)
 
     saved = snapshot()  # the row's wrapper timing is not the path's own
     ms = time_kernel(lambda: kls.tile_strip_linear(q8, t8, z, z1, p, table=table), (),
                      iters=5) * 1e3
     restore(saved)
     kernel_ms = time_kernel(bare, (), iters=5) * 1e3
+    earlier_ms = time_kernel(bare, (kls._one_block_launch_t,), iters=5) * 1e3
     t0 = time.perf_counter()
     want = strip_plain(q4, t4, (z, None, z, None, 0), p)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max_abs_err(bare(), want)
+    err = max(max_abs_err(bare(), want), max_abs_err(bare(kls._one_block_launch_t), want))
+    br_sweep("4096 x 4096 (1,-1,1)", sargs, bare())
     max_err["strip_tile"] = max(max_err["strip_tile"], err)
     check(err == 0, "B13 differs from the plain tile on the 4096 x 4096 linear tile")
     cells = 4096 * 4096
@@ -3159,19 +3340,47 @@ def main():
         replaces=KERNELS["strip_tile"][2], launches=None,
         max_abs_err=max_err["strip_tile"], ms=ms, plain_ms=plain_ms,
         bound_ms=times[binds], bound_by="bytes" if binds == "bytes" else "operations",
-        library_ms=None, kernel_ms=kernel_ms))
-    lin16 = strip_timed["(1,-1,1)"][-1]
+        library_ms=None, kernel_ms=kernel_ms, earlier_kernel_ms=earlier_ms))
+    (lin16, lin16_old), (aff16, aff16_old) = (strip_timed["(1,-1,1)"],
+                                              strip_timed["Gotoh (2,-3,5,1)"])
+    aff_bound = 16 * cells * strip_ops(True) / int32_rate * 1e3
+    rows[-1].update(kernel_ms_16k=lin16, earlier_kernel_ms_16k=lin16_old,
+                    bound_ms_16k=16 * times["int32 ops"], kernel_ms_16k_gotoh=aff16,
+                    earlier_kernel_ms_16k_gotoh=aff16_old, bound_ms_16k_gotoh=aff_bound)
     print(f"strip_tile (B13), a related 4096 x 4096 linear tile: wrapper {ms:.3f} ms "
-          f"({times[binds] / ms:.2%} of the bound), launch alone {kernel_ms:.3f} ms, "
-          f"plain tile {plain_ms:.1f} ms (every return equal), bound {times[binds]:.4f} "
-          f"ms by {binds} ({strip_ops(False)} int32 ops a cell: "
-          f"{times['int32 ops']:.4f} ms; one lookup a cell: "
+          f"({times[binds] / ms:.2%} of the bound), launch alone {kernel_ms:.3f} ms "
+          f"(rows a lane and bands {kls.strip_plan(4096, 4096)}; the one-block kernel "
+          f"{earlier_ms:.3f} ms), plain tile {plain_ms:.1f} ms (every return equal), "
+          f"bound {times[binds]:.4f} ms by {binds} ({strip_ops(False)} int32 ops a "
+          f"cell: {times['int32 ops']:.4f} ms; one lookup a cell: "
           f"{times['shared-memory lookups']:.4f} ms; at {sm_clock_mhz:.0f} MHz); at "
           f"16384 x 16384 alone {lin16:.3f} ms linear ("
-          f"{16 * times['int32 ops'] / lin16:.2%} of its bound), "
-          f"{strip_timed['Gotoh (2,-3,5,1)'][-1]:.3f} ms Gotoh (bound "
-          f"{16 * cells * strip_ops(True) / int32_rate * 1e3:.4f} ms)", flush=True)
-    del strip_timed, bare, q8, t8, want
+          f"{16 * times['int32 ops'] / lin16:.2%} of its bound; one-block "
+          f"{lin16_old:.3f} ms), {aff16:.3f} ms Gotoh ({aff_bound / aff16:.2%} of its "
+          f"bound {aff_bound:.4f} ms; one-block {aff16_old:.3f} ms)", flush=True)
+    # strip_plan's rule against every rows-a-lane on the other tile shapes:
+    # square, tall, wide, thin, the wavefront's long queries, a short strip
+    swrng = np.random.default_rng(SEED + 19)
+    for R, C, p in ((1024, 1024, DNA_111), (4096, 4096, LP_GOTOH), (16384, 4096, DNA_111),
+                    (4096, 16384, DNA_111), (16384, 64, DNA_111), (1024, 256, DNA_111),
+                    (512, 384, DNA_111), (1499, 700, DNA_111), (40, 1024, DNA_111)):
+        sq = swrng.integers(0, 4, R).astype(np.uint8)
+        st = mutate(swrng, np.resize(sq, C), p_mismatch=0.1, out_len=C)
+        affine = not p.is_linear
+        zc, nc = torch.zeros(C, **i32), torch.full((C,), NEGB, **i32)
+        zr, nr = torch.zeros(R + 1, **i32), torch.full((R + 1,), NEGB, **i32)
+        sargs = (kls.stage_codes(sq, p, dev), kls.stage_codes(st, p, dev),
+                 kp.profile_table(p, dev), zc, nc if affine else None, zr,
+                 nr if affine else None, p)
+        br_sweep(f"{R} x {C} {'Gotoh (2,-3,5,1)' if affine else '(1,-1,1)'}", sargs,
+                 kls.strip_launch_t(*sargs))
+    regret = {k: v["by_br"][v["pick"]] / v["by_br"][v["fastest"]] - 1
+              for k, v in strip_br_ms.items()}
+    worst = max(regret, key=regret.get)
+    print(f"strip_plan's pick against the fastest rows a lane on {len(regret)} tiles: "
+          f"{sum(r == 0 for r in regret.values())} the fastest, the worst {worst} "
+          f"{regret[worst]:.1%} slower [{smi}]", flush=True)
+    del strip_timed, strip_br_ms, bare, q8, t8, want
 
     # 31. long-pair traceback -------------------------------------------------
     phase("31 long-pair traceback: longpair_sw_align on the 16K linear pair and a "
@@ -3193,7 +3402,9 @@ def main():
               f"forward {fwd * 1e3:.1f} ms, host walk {wall - fwd:.2f} s)", flush=True)
         return score, path
 
+    strip_mark[0] = launches("strip_tile")  # the row's timing above is restored
     lin = long_align("16384 x 16384 (1,-1,1)", lq, lt, DNA_111)
+    strip_count("16384 x 16384")
     # the 16K sweeps against an independent forward: the host's full
     # low-memory pass finds the matrix maximum and its row-major-first cell
     for label, p in (("(1,-1,1)", DNA_111), ("Gotoh (2,-3,5,1)", LP_GOTOH)):
@@ -3272,6 +3483,7 @@ def main():
                   f"{plain_ms:.1f} ms, bound {times[binds]:.4f} ms by {binds} "
                   f"({WAVE_OPS} int32 ops a real cell: {times['int32 ops']:.4f} ms; one "
                   f"lookup: {times['shared-memory lookups']:.4f} ms)", flush=True)
+    strip_count("4096 x 4096")
     for B, n, m in ((2, 512, 384), (2, 1024, 256)):
         qd = torch.from_numpy(wrng.integers(0, 4, (B, n)).astype(np.uint8)).to(dev)
         td = torch.from_numpy(wrng.integers(0, 4, (B, m)).astype(np.uint8)).to(dev)
@@ -3289,6 +3501,7 @@ def main():
     del qd, td
 
     # 33. the longpair CLI and align --engine wavefront -------------------------
+    strip_count("wavefront queries")
     phase("33 the longpair CLI and align --engine wavefront against the oracle copy")
     for argv, A, p in (
             (["longpair", "--random", "2x1200x1000", "--cigar"], 4, DNA_111),
@@ -3315,6 +3528,8 @@ def main():
     check(lines == sw_score_batch(np.stack(cq), np.stack(ct), DNA_10_30_15).tolist(),
           "align --engine wavefront vs the oracle copy")
     print(f"{' '.join(argv)}: 128 scores equal the oracle copy's", flush=True)
+    strip_count("CLI tiles")
+    print(f"B13 launches on the long-pair path by tile size: {strip_sizes}", flush=True)
     longpair_counts = {name: launches(name) for name in LONGPAIR_PATH}
     print(f"long-pair path launches: {longpair_counts}", flush=True)
     check(all(v > 0 for v in longpair_counts.values()),

@@ -18,8 +18,10 @@ each with its plain PyTorch version beside it.
 - ``banded_batch``  per-round adaptive-band X-drop: ``banded_batch``
                   (kernel), ``banded_batch_plain``; ``banded_scan`` its
                   plain tier (the XLA tier's copy) and result type;
-- ``banded_block``  the block-adaptive band: ``block_gather`` (B10) and
-                  ``block_rows`` (B9) (kernels) with their plain versions,
+- ``banded_block``  the block-adaptive band: ``block_forward`` (B9, one
+                  launch a forward) and, for negative gaps,
+                  ``block_gather`` (B10) and ``block_rows`` (B9 a block)
+                  (kernels) with their plain versions,
                   ``banded_block_batch``, ``banded_block_align_device``;
 - ``device_walk``  the banded device walkers ``block_walk`` and
                   ``xdrop_walk`` (kernels), the host walks as their plain

@@ -10,32 +10,34 @@ and ``bench_forward_fn``. The contract is ``oracle.banded_block``
 scores, row-major-first endpoints, n_rows, per-block bases/deltas and the
 H-only band history, bit for bit.
 
-Two kernels of ``csrc/sw_block.cu`` run each block, as JAX's
-``lax.while_loop`` ran its two Pallas calls:
+The forward is B9, :func:`block_forward` (``_block_kernel`` and
+``_block_kernel_folded``, one kernel for both: the fold is TPU layout),
+one launch of ``csrc/sw_block.cu`` for every block of every pair, a warp
+a pair: each pair runs its blocks until it is done, reads its corridor
+window in place (B10's function), and does each block's end (X-drop
+against the updated max, dead test, first-argmax recentering, realign)
+and the loop's bookkeeping (done, n_rows, bases, deltas, the history rows,
+the final-row X-drop of a varlen pair that ends inside the block). Its
+left chain is a max-plus scan across the warp, exact for gap penalties
+>= 0; a negative penalty takes the oracle's serial chain in the earlier
+per-block kernels under the host loop (:func:`block_loop`): B10,
+:func:`block_gather` (``_gather_kernel`` / ``_gather_twin``: each pair's
+window, ``win[c, b] = t[b, base_b + c - 1]``, -1 outside the target or
+past its length, [K + W - 1, B]), then the per-block B9,
+:func:`block_rows`, a thread per pair, each block, asking ``done.all()``
+every :data:`POLL` blocks. The blocks after a pair is done hold what that
+loop leaves, in both routes: its frozen base and delta 0 where the loop ran
+them, zeros past the poll that saw every pair done. The device walk is
+``block_walk`` of ``csrc/sw_walk.cu`` (``kernels.device_walk``).
 
-- B10, :func:`block_gather` (``_gather_kernel`` / ``_gather_twin``): each
-  pair's corridor window, ``win[c, b] = t[b, base_b + c - 1]``, -1 outside
-  the target or past its length, in the slot-major [K + W - 1, B] layout
-  B9 reads (JAX's ``twin``);
-- B9, :func:`block_rows` (``_block_kernel`` and ``_block_kernel_folded``,
-  one kernel for both: the fold is TPU layout): the block's K rows for
-  every live pair, then the block-end work (X-drop against the updated
-  max, dead test, first-argmax recentering, realign) and the loop's
-  bookkeeping (done mask, n_rows, bases, deltas, the history rows, the
-  final-row X-drop of a varlen pair that ends inside the block), updating
-  the carried rows and state in place.
-
-The host loop launches B10 then B9 per block and asks ``done.all()`` every
-:data:`POLL` blocks: frozen pairs make extra blocks no-ops. The device walk
-is ``block_walk`` of ``csrc/sw_walk.cu`` (``kernels.device_walk``).
-
-On the CPU every step runs its plain version; on a CUDA device the kernels,
-never the plain versions: a failed build or launch raises. The plain B9
-computes each row's left chain as a max-plus scan (a cummax in gap-rebiased
-coordinates, segmented at the column-0 pin): the oracle's dead tests only
-drop terms that are at most 0 when every gap penalty is >= 0, so the scan is
-exact there; a negative penalty runs the oracle's serial chain over the
-slots instead.
+On the CPU every step runs its plain version (the loop with the plain B10
+and B9; :func:`block_forward_plain` mirrors the one-launch schedule); on a
+CUDA device the kernels, never the plain versions: a failed build or
+launch raises. The plain B9 computes each row's left chain as a max-plus
+scan (a cummax in gap-rebiased coordinates, segmented at the column-0
+pin): the oracle's dead tests only drop terms that are at most 0 when
+every gap penalty is >= 0, so the scan is exact there; a negative penalty
+runs the oracle's serial chain over the slots instead.
 """
 
 from __future__ import annotations
@@ -477,15 +479,265 @@ def block_rows(run: _Run, b: int, Kb: int, win: torch.Tensor) -> None:
 block_rows.launches = 0
 
 
-def _forward(run: _Run, early_exit: bool = True, plain: bool = False) -> _Run:
-    """The loop over blocks (``_banded_block_impl``): B10 then B9 per block;
-    the full blocks stop early once every pair is done (checked every
-    :data:`POLL` blocks), the tail block of n % K rows always runs.
-    ``plain``: the plain versions on any device (what the card's checks
-    hold the kernels against)."""
+# --- B9 as one launch: the whole forward, a warp per pair -------------------
+
+LANES = 32  # a warp: the lanes that share one pair's band
+
+
+def lane_slots(W: int) -> int:
+    """Slots a lane holds in the one-launch forward: ceil(W / 32); lane l
+    holds slots [l * S, l * S + S), the ones past W are phantoms."""
+    return -(-W // LANES)
+
+
+def _lane_chain(a, first, step, S):
+    """The max-plus chain x_k = max(a_k, x_{k-1} - step), x_{-1} = first,
+    over [B, 32 * S] slots as a warp computes it: a serial pass over each
+    lane's S slots, an inclusive Hillis-Steele scan of the lane totals over
+    the 32 lanes (shift d carries d * S slots of decay), the exclusive carry
+    into each lane and a second serial pass. 0 is the identity: a >= 0 and
+    first >= 0, and a chain term <= 0 never wins."""
+    B = a.shape[0]
+    a3 = a.view(B, LANES, S)
+    t = torch.zeros((B, LANES), dtype=a.dtype, device=a.device)
+    t[:, 0] = first
+    for s in range(S):
+        t = torch.maximum(a3[:, :, s], t - step)
+    d = 1
+    while d < LANES:
+        shifted = torch.cat([torch.zeros_like(t[:, :d]), t[:, :-d]], 1)
+        t = torch.maximum(t, shifted - d * S * step)
+        d *= 2
+    h = torch.cat([first[:, None], t[:, :-1]], 1)
+    out = torch.empty_like(a3)
+    for s in range(S):
+        h = torch.maximum(a3[:, :, s], h - step)
+        out[:, :, s] = h
+    return out.view(B, LANES * S)
+
+
+def _scan_exact(run: _Run) -> bool:
+    """Whether the warp's max-plus scan computes the left chain exactly:
+    gap penalties >= 0 (linear gap; Gotoh's open and extend)."""
+    return min(run.go, run.ge) >= 0 if run.affine else run.gap >= 0
+
+
+def _stop_block(run: _Run, dlive: torch.Tensor, early_exit: bool) -> int:
+    """The full blocks the host loop would run: all of them, or up to the
+    first multiple of POLL past every pair's last live block."""
+    NBf = run.n // run.K
+    if not early_exit or dlive.numel() == 0:
+        return NBf
+    most = int(dlive.max())
+    return min(NBf, -(-most // POLL) * POLL)
+
+
+def block_forward_plain(run: _Run, early_exit: bool = True) -> _Run:
+    """Plain PyTorch mirror of :func:`block_forward`'s schedule, in place on
+    ``run``: each pair runs its blocks until it is done (per-pair early
+    stop), reads its corridor window from ``t16`` at its base (no B10), and
+    computes each row as a warp does (``lane_slots`` slots a lane, the left
+    chain by :func:`_lane_chain`, the column-0 pin as a candidate: every
+    slot left of it holds a negative column, dead since the start); each
+    lane keeps its own best (strict >, rows then slots in order) and the
+    block end reduces them (value, then least row, then least column).
+    Blocks after a pair is done get its frozen base and delta 0 as far as
+    the host loop of :func:`_forward` would have run them (POLL), the tail
+    block always. Gap penalties >= 0 only."""
+    if not _scan_exact(run):
+        raise ValueError("the one-launch forward takes gap penalties >= 0")
+    W, K, n, X, D = run.W, run.K, run.n, run.X, run.D
+    B, dev = run.B, run.qT.device
+    S = lane_slots(W)
+    NS = LANES * S
+    i64 = dict(dtype=torch.int64, device=dev)
+    m = run.t16.shape[1]
+    NBf, K_tail = divmod(n, K)
+    NB = NBf + (1 if K_tail else 0)
+    k = torch.arange(NS, **i64)
+    valid = (k < W)[None]
+    lane_of = k // S
+
+    def slots(x, fill):  # [W, B] -> [B, NS]
+        out = torch.full((B, NS), fill, **i64)
+        out[:, :W] = x.t().to(torch.int64)
+        return out
+
+    affine = run.affine
+    P = slots(run.carried[:W], 0)
+    PF = slots(run.carried[W:], EF_DEAD) if affine else None
+    base = run.state[0].to(torch.int64)
+    lb_v = run.state[1].to(torch.int64)[:, None].repeat(1, LANES)
+    lb_y = run.state[2].to(torch.int64)[:, None].repeat(1, LANES)
+    lb_j = run.state[3].to(torch.int64)[:, None].repeat(1, LANES)
+    lens = (torch.full((B,), n, **i64) if run.lens_q is None
+            else run.lens_q.to(torch.int64))
+    done = run.done != 0
+    dlive = torch.zeros((B,), **i64)
+    n_rows = run.n_rows.to(torch.int64)
+    zero_col = torch.zeros((B, 1), **i64)
+    for blk in range(NB):
+        live = ~done
+        if not bool(live.any()):
+            break
+        Kb = K if blk < NBf else K_tail
+        y0, last_y = blk * K, blk * K + Kb
+        pos = base[:, None] + torch.arange(Kb + W - 1, **i64)[None] - 1
+        inside = (pos >= 0) & (pos < m)
+        win = (torch.full(pos.shape, -1, **i64) if m == 0 else torch.where(
+            inside, run.t16.to(torch.int64).gather(1, pos.clamp(0, m - 1)), -1))
+        for r in range(Kb):
+            y = y0 + r + 1
+            act = live & (y <= lens)
+            bpr = base + r
+            qc = run.qT[y - 1].to(torch.int64)[:, None]
+            s = _scores(run, qc, win[:, r + k.clamp(max=W - 1)])
+            Pn = torch.cat([P[:, 1:], zero_col], 1)
+            Pn[:, W - 1:] = 0
+            pin = valid & ((bpr[:, None] + k) == 0)
+            if not affine:
+                g = run.gap
+                pinv = max(X - y * g, 0)
+                a = torch.maximum(torch.where(P > 0, P + s, 0),
+                                  torch.where(Pn > 0, Pn - g, 0)).clamp(min=0)
+                a = torch.where(valid, torch.where(pin, pinv, a), 0)
+                H = _lane_chain(a, torch.where(bpr == 1, pinv, 0), g, S)
+                F = None
+            else:
+                go, ge = run.go, run.ge
+                chain = X - go - (y - 1) * ge
+                pin_h = max(chain, 0)
+                PFn = torch.cat([PF[:, 1:], torch.full_like(zero_col, EF_DEAD)], 1)
+                PFn[:, W - 1:] = EF_DEAD
+                f = torch.maximum(torch.where(PFn > EF_CUT, PFn - ge, MINF),
+                                  torch.where(Pn > 0, Pn - go, MINF))
+                a = torch.maximum(torch.where(P > 0, P + s, MINF), f).clamp(min=0)
+                a = torch.where(valid, torch.where(pin, pin_h, a), 0)
+                # E's positive part: z_k = max(a_k - go, z_{k-1} - min(go, ge)),
+                # H_k = max(a_k, z_{k-1}), z_{-1} from column 0 (bpr == 1)
+                zfirst = torch.where(bpr == 1, pin_h - go, 0).clamp(min=0)
+                z = _lane_chain((a - go).clamp(min=0), zfirst, min(go, ge), S)
+                H = torch.maximum(a, torch.cat([zfirst[:, None], z[:, :-1]], 1))
+                F = torch.where(pin, chain, f)
+                F = torch.where(H == 0, EF_DEAD, F.clamp(min=EF_DEAD))
+                F = torch.where(valid, F, EF_DEAD)
+            H = torch.where(act[:, None], H, P)
+            if affine:
+                F = torch.where(act[:, None], F, PF)
+            for s_ in range(S):  # each lane's best, its slots in order
+                col = torch.arange(LANES, device=dev) * S + s_
+                v = H[:, col]
+                upd = act[:, None] & (col < W)[None] & (v > lb_v)
+                lb_v = torch.where(upd, v, lb_v)
+                lb_y = torch.where(upd, y, lb_y)
+                lb_j = torch.where(upd, bpr[:, None] + col[None], lb_j)
+            P, PF = H, F
+            if run.hist is not None:
+                idx = live.nonzero().flatten()
+                run.hist[y - 1, :, idx] = H[idx, :W].t().to(torch.int32)
+        # block end: the max over the lanes, X-drop, first argmax, realign
+        M = lb_v.max(1).values
+        z = torch.where(valid & (P >= (M - X)[:, None]), P, 0)
+        if run.hist is not None:
+            idx = live.nonzero().flatten()
+            run.hist[last_y - 1, :, idx] = z[idx, :W].t().to(torch.int32)
+            if run.lens_q is not None:
+                idx = (live & (lens < last_y) & (lens > y0)).nonzero().flatten()
+                if idx.numel():
+                    run.hist[lens[idx] - 1, :, idx] = z[idx, :W].to(torch.int32)
+        am_v = z.max(1).values
+        am_k = (z == am_v[:, None]).to(torch.int8).argmax(1)
+        alive = am_v > 0
+        delta = torch.where(alive, (am_k - W // 2).clamp(-D, D), 0)
+        src = k[None] + delta[:, None]
+        inr = valid & (src >= 0) & (src < W)
+        srcc = src.clamp(0, W - 1)
+        Pnew = torch.where(inr, z.gather(1, srcc), 0)
+        if affine:
+            PFz = torch.where(z == 0, EF_DEAD, PF)
+            PFnew = torch.where(inr, PFz.gather(1, srcc), EF_DEAD)
+            PF = torch.where(live[:, None], PFnew, PF)
+        last = last_y >= lens
+        run.bases[blk] = torch.where(live, base, run.bases[blk].to(torch.int64)).to(
+            torch.int32)
+        run.deltas[blk] = torch.where(live & ~last & alive, delta, 0).to(torch.int32)
+        P = torch.where(live[:, None], Pnew, P)
+        base = torch.where(live & alive, base + Kb + delta, base)
+        n_rows = torch.where(live, torch.clamp(lens, max=last_y), n_rows)
+        ended = live & (~alive | last)
+        dlive = torch.where(ended, blk + 1, dlive)
+        done = done | ended
+    # blocks after each pair is done: its frozen base and delta 0 where the
+    # host loop would have run them (the tail block always runs)
+    b_stop = _stop_block(run, dlive, early_exit)
+    for blk in range(NB):
+        ran = blk < b_stop or blk == NBf
+        frozen = done & (dlive <= blk) & ran
+        run.bases[blk] = torch.where(frozen, base, run.bases[blk].to(torch.int64)).to(
+            torch.int32)
+        run.deltas[blk] = torch.where(frozen, 0, run.deltas[blk])
+    M = lb_v.max(1).values
+    at_m = lb_v == M[:, None]
+    ey = torch.where(at_m, lb_y, _BIG).min(1).values
+    ej = torch.where(at_m & (lb_y == ey[:, None]), lb_j, _BIG).min(1).values
+    run.state.copy_(torch.stack([base, M, ey, ej]).to(torch.int32))
+    carried = P[:, :W].t()
+    if affine:
+        carried = torch.cat([carried, PF[:, :W].t()])
+    run.carried.copy_(carried.to(torch.int32))
+    run.n_rows.copy_(n_rows.to(torch.int32))
+    run.done.copy_(done.to(torch.int32))
+    return run
+
+
+def forward_launch_t(run: _Run, early_exit: bool = True) -> None:
+    """The one-launch B9 alone on ``run``'s CUDA tensors (gap penalties
+    >= 0); updates them in place."""
+    dev = run.qT.device
+    B, W, n = run.B, run.W, run.n
+    if dev.type != "cuda":
+        raise ValueError(f"the block kernel runs on a CUDA device, got {dev}")
+    if not _scan_exact(run):
+        raise ValueError("the one-launch forward takes gap penalties >= 0")
+    if n * W * B >= 2**31 or B * run.t16.shape[1] >= 2**31:
+        raise ValueError(f"shape too large for one launch: {B}, {n}, {W}")
+    stride = 0 if run.table is None else run.table.shape[0]
+    scratch = torch.zeros((2 + B,), dtype=torch.int32, device=dev)
+    lib, fn = _lib_fn("swtpu_block_forward", [_I] + [_P] * 12 + [_I] * 15 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(
+            int(run.affine), ptr(run.qT), ptr(run.t16), ptr(run.table),
+            ptr(run.lens_q), ptr(run.carried), ptr(run.state), ptr(run.done),
+            ptr(run.n_rows), ptr(run.bases), ptr(run.deltas), ptr(run.hist),
+            ptr(scratch), B, n, run.t16.shape[1], W, run.K, run.X, run.match,
+            run.mismatch, run.gap, run.go or 0, run.ge or 0, run.D, stride,
+            int(early_exit), POLL, _cuda_stream(dev),
+        )
+    _build.check(lib, err, "block_forward")
+
+
+def block_forward(run: _Run, early_exit: bool = True) -> _Run:
+    """B9 as one launch: the whole forward, every block of every pair, a
+    warp per pair (the kernel on CUDA tensors, its schedule's plain mirror
+    :func:`block_forward_plain` on CPU ones). Gap penalties >= 0. Counts
+    its launches in ``block_forward.launches``."""
+    if run.qT.device.type == "cpu":
+        return block_forward_plain(run, early_exit)
+    if run.n and run.B:
+        forward_launch_t(run, early_exit)
+        block_forward.launches += 1
+    return run
+
+
+block_forward.launches = 0
+
+
+def block_loop(run: _Run, early_exit: bool = True, gather=block_gather,
+               rows=block_rows) -> _Run:
+    """The loop over blocks: B10 then B9 per block, in place on ``run``; the
+    full blocks stop early once every pair is done (checked every
+    :data:`POLL` blocks), the tail block of n % K rows always runs."""
     n, K, W = run.n, run.K, run.W
-    gather = block_gather_plain if plain else block_gather
-    rows = block_rows_plain if plain else block_rows
     NBf, K_tail = divmod(n, K)
     for b in range(NBf):
         if early_exit and b and b % POLL == 0 and not bool((run.done == 0).any()):
@@ -494,6 +746,21 @@ def _forward(run: _Run, early_exit: bool = True, plain: bool = False) -> _Run:
     if K_tail:
         rows(run, NBf, K_tail, gather(run.t16, run.state[0], K_tail + W - 1))
     return run
+
+
+def _forward(run: _Run, early_exit: bool = True, plain: bool = False) -> _Run:
+    """The forward (``_banded_block_impl``). On a CUDA device with gap
+    penalties >= 0: one B9 launch (:func:`block_forward`). Otherwise
+    :func:`block_loop`: on the card with the per-block kernels (negative
+    penalties: the oracle's serial chain, which the warp's scan does not
+    compute), on the CPU or with ``plain`` with their plain versions
+    (what the card's checks hold the kernels against)."""
+    on_card = not plain and run.qT.device.type != "cpu"
+    if on_card and _scan_exact(run):
+        return block_forward(run, early_exit)
+    if on_card:
+        return block_loop(run, early_exit)
+    return block_loop(run, early_exit, block_gather_plain, block_rows_plain)
 
 
 def _setup(qs, ts, match, mismatch, gap, width, block, x_threshold, dmax, matrix,

@@ -9,7 +9,12 @@ the column-scan tile here (``_tile_colscan``, ``_tile_colscan_affine``:
 the XLA tiles of ``swtpu/parallel/longpair.py``, bit-equal to JAX's;
 ``tile_sw_reference`` is their numpy mirror); the kernel returns the
 same tuples bit for bit: the bottom boundary row(s), the right boundary
-column(s), the tile best and its 1-based row-major-first endpoint.
+column(s), the tile best and its 1-based row-major-first endpoint. The
+kernel runs the tile in row bands of a warp each on many SMs
+(``strip_plan`` picks the bands); ``_tile_pipeline`` mirrors that
+decomposition with plain sub-tiles. The earlier one-block kernel stays
+beside it (``_one_block_launch_t``, off the main path) to be timed
+against it.
 
 Pads follow the column-scan tile (JAX's XLA tier): every code >= the
 alphabet size scores -2^20 under any matrix, an in-length ``N`` against
@@ -29,6 +34,7 @@ profile matmul) is layout for the TPU's vregs and is not carried over.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -43,8 +49,8 @@ from swtpu_torch.utils.device import resolve_device
 SOURCE = "sw_strip.cu"
 MAX_THREADS = 1024  # one CUDA block a tile; thread I owns rows [I*br, I*br + br)
 NEGB = -(2**20)  # "outside the tile" marker
-#: rows of one strip: the CUDA tile's most (1024 threads x 16 rows); a
-#: longer query is swept strip after strip
+#: rows of one strip: the one-block kernel's most (1024 threads x 16
+#: rows); a longer query is swept strip after strip
 STRIP_ROWS = 16384
 _BIG = 1 << 30
 
@@ -159,7 +165,7 @@ def _tile_colscan(q, t, top_row, left_col, corner, table, n_codes, gap):
 
 
 def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
-                         corner, table, n_codes, go, ge):
+                         corner, table, n_codes, go, ge, top_pre=None, with_pre=False):
     """One R x C affine (Gotoh) tile on the column-parallel schedule.
 
     Extra boundary state beside ``_tile_colscan``'s: top_row_f [C] = F of
@@ -171,12 +177,18 @@ def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
     prefix over X[k] = pre[k] - go (slot 0 folds the F boundary), whose
     F-from-F branch through H is dropped. That equals Gotoh's F when
     gap_open >= gap_extend; E is a carried per-slot recurrence.
+
+    ``top_pre`` [C] (default: ``top_row``) is the E-and-diagonal candidate
+    of the row above, which the F chain reads: a tile cut out of a taller
+    one gets its upper neighbour's, so that the cut is exact for any gaps
+    >= 0. ``with_pre`` appends the bottom row's candidate to the returns.
     """
     R, t, prof, left_ext = _tile_setup(q, t, left_col, corner, table)
     C = t.shape[0]
     dev = prof.device
     top_row = _vec(top_row, dev)
     top_row_f = _vec(top_row_f, dev)
+    top_pre = top_row if top_pre is None else _vec(top_pre, dev)
     left_ext_e = torch.cat([torch.full((1,), NEGB, dtype=torch.int32, device=dev),
                             _vec(left_col_e, dev)])
     iota = torch.arange(R + 1, device=dev)
@@ -187,6 +199,7 @@ def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
     bestj_vec = torch.zeros((R + 1,), dtype=torch.int32, device=dev)
     bots = torch.empty((C,), dtype=torch.int32, device=dev)
     bots_f = torch.empty((C,), dtype=torch.int32, device=dev)
+    bots_pre = torch.empty((C,), dtype=torch.int32, device=dev)
     neg1 = torch.full((1,), NEGB, dtype=torch.int32, device=dev)
     for j in range(1, C + 1):
         top_j, top_f_j = top_row[j - 1], top_row_f[j - 1]
@@ -197,7 +210,7 @@ def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
         pre[0] = top_j
         # F chain: prefix over X (slot 0 folds the F boundary)
         x = pre - go32
-        x[0] = torch.maximum(top_j - go32, top_f_j - ge32)
+        x[0] = torch.maximum(top_pre[j - 1] - go32, top_f_j - ge32)
         p = x
         for shv in shifts:
             p = torch.maximum(p, _shift_fill(p, shv) - shv * ge32)
@@ -212,9 +225,11 @@ def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
         bestj_vec = torch.where(upd, torch.full_like(bestj_vec, j), bestj_vec)
         bots[j - 1] = h[R]
         bots_f[j - 1] = f_cur[R]
+        bots_pre[j - 1] = pre[R]
         hprev, eprev = h, e_cur
     best, bi, bj = _tile_end(best_vec, bestj_vec, iota)
-    return bots, bots_f, hprev[1:], eprev[1:], best, bi, bj
+    out = (bots, bots_f, hprev[1:], eprev[1:], best, bi, bj)
+    return out + (bots_pre,) if with_pre else out
 
 
 def tile_sw_reference(q, t, top_row, left_col, corner, matrix, gap):
@@ -246,6 +261,91 @@ def rows_per_thread(R: int) -> int:
     return br
 
 
+#: the lanes of a band's warp; a row band is BAND_LANES x br rows
+BAND_LANES = 32
+
+
+def strip_plan(R: int, C: int):
+    """(br, bands) of the pipelined tile: the rows a lane holds and the row
+    bands of BAND_LANES x br rows, a warp each, on as many SMs. br is the
+    power of two in 1..16 nearest 4R / C, so that bands = C / 128: a band
+    sweeps C + 31 steps and lags the band above by a few dozen, and a
+    step's cost grows with br. The rule is read off the H100: chip_smoke.py
+    times every br beside this pick on square, tall, wide and thin tiles
+    (PERF.md section 6); square tiles take 4 rows a lane, tall thin ones
+    16, wide ones 1."""
+    e = round(math.log2(4 * R / C))
+    br = 1 << min(4, max(0, e))
+    return br, -(-R // (BAND_LANES * br))
+
+
+def _tile_pipeline(q, t, top_row, top_row_f, left_col, left_col_e, corner, table,
+                   n_codes, go, ge, band_rows, cols, affine):
+    """Plain mirror of the pipelined kernel's decomposition: the R x C tile
+    cut into bands of ``band_rows`` rows and blocks of ``cols`` columns,
+    sub-tile (d, b) run by the plain tile at step d + b from band d - 1's
+    last row (H; Gotoh also F and the E-and-diagonal candidate the F chain
+    reads), block b - 1's right column (H, E) and the corner, the bests
+    merged row-major first (value, least row, least column). Returns what
+    the whole tile's plain version returns. ``go`` is the linear gap."""
+    dev = table.device
+    q = _vec(q, dev, torch.int64)
+    t = _vec(t, dev, torch.int64)
+    R, C = q.shape[0], t.shape[0]
+    top = _vec(top_row, dev)
+    left = torch.cat([_vec(corner, dev).reshape(1), _vec(left_col, dev)])
+    D, NBc = -(-R // band_rows), -(-C // cols)
+    below = {}  # (d, b) -> sub-tile (d, b)'s last row: (H, F, pre)
+    lcol = {}  # d -> band d's right column so far: (H, E)
+    bottom, bottom_f = torch.empty_like(top), torch.empty_like(top)
+    right = torch.empty((R,), dtype=torch.int32, device=dev)
+    right_e = torch.empty((R,), dtype=torch.int32, device=dev)
+    best = (0, _BIG, _BIG)  # value, 0-based row, 0-based column
+    for step in range(D + NBc - 1):
+        for d in range(max(0, step - NBc + 1), min(D, step + 1)):
+            b = step - d
+            r0, r1 = d * band_rows, min(R, (d + 1) * band_rows)
+            c0, c1 = b * cols, min(C, (b + 1) * cols)
+            if d:
+                top_b, topf_b, pre_b = below[d - 1, b]
+                corner_b = below[d - 1, b - 1][0][-1] if b else left[r0]
+            else:
+                top_b, pre_b = top[c0:c1], None
+                topf_b = _vec(top_row_f, dev)[c0:c1] if affine else None
+                corner_b = top[c0 - 1] if b else left[r0]
+            hl, el = lcol.get(d, (left[r0 + 1:r1 + 1], _vec(left_col_e, dev)[r0:r1]
+                                  if affine else None))
+            if affine:
+                bot, bot_f, rc, rce, tb, ti, tj, bot_pre = _tile_colscan_affine(
+                    q[r0:r1], t[c0:c1], top_b, topf_b, hl, el, corner_b, table, n_codes,
+                    go, ge, top_pre=pre_b, with_pre=True)
+            else:
+                bot, rc, tb, ti, tj = _tile_colscan(q[r0:r1], t[c0:c1], top_b, hl,
+                                                    corner_b, table, n_codes, go)
+                bot_f = bot_pre = rce = None
+            below[d, b] = (bot, bot_f, bot_pre)
+            lcol[d] = (rc, rce)
+            if d == D - 1:
+                bottom[c0:c1] = bot
+                if affine:
+                    bottom_f[c0:c1] = bot_f
+            if b == NBc - 1:
+                right[r0:r1] = rc
+                if affine:
+                    right_e[r0:r1] = rce
+            cand = (int(tb), r0 + int(ti) - 1, c0 + int(tj) - 1)
+            if cand[0] > best[0] or (cand[0] == best[0] > 0 and cand[1:] < best[1:]):
+                best = cand
+    i32 = dict(dtype=torch.int32, device=dev)
+    found = best[0] > 0
+    out3 = (torch.tensor(best[0], **i32),
+            torch.tensor(best[1] + 1 if found else 0, **i32),
+            torch.tensor(best[2] + 1 if found else 0, **i32))
+    if affine:
+        return (bottom, bottom_f, right, right_e) + out3
+    return (bottom, right) + out3
+
+
 def strip_refusal(params: ScoringParams, R: int, C: int):
     """Why the kernel does not take this tile, or None when it does."""
     if params.alphabet_size > MAX_LETTERS:
@@ -275,23 +375,23 @@ def stage_codes(x, params: ScoringParams, device) -> torch.Tensor:
     return torch.where(ok, x, torch.full_like(x, pad)).to(torch.uint8)
 
 
-def _strip_fn():
+def _strip_fn(name):
     lib = _build.load(SOURCE)
-    fn = lib.swtpu_strip_tile
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, i] + [p] * 9 + [i] * 4 + [p]
+        if name == "swtpu_strip_tile":
+            fn.argtypes = [i, i, p, p, p, i] + [p] * 9 + [i] * 4 + [p]
+        else:
+            fn.argtypes = [i, i, p, p, p, i] + [p] * 12 + [i] * 5 + [
+                ctypes.POINTER(ctypes.c_int), p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def strip_launch_t(q, t, table, top, topf, left_ext, left_ext_e,
-                   params: ScoringParams):
-    """The launch alone, on inputs already staged on one CUDA device:
-    q [R], t [C] uint8 (``stage_codes``), table the [stride, stride]
-    extended table (``sw_profile.profile_table``), top [C], left_ext
-    [R + 1] (corner first) int32, and for affine topf [C], left_ext_e
-    [R + 1]. Returns the tile's outputs as the plain tile does."""
+def _check_staged(q, t, table, top, topf, left_ext, left_ext_e, params: ScoringParams):
+    """Refuses a tile the kernels do not take and inputs not staged as they
+    read them; returns (R, C, affine)."""
     affine = not params.is_linear
     R, C = int(q.shape[0]), int(t.shape[0])
     reason = strip_refusal(params, R, C)
@@ -308,26 +408,79 @@ def strip_launch_t(q, t, table, top, topf, left_ext, left_ext_e,
             raise ValueError(
                 f"the strip kernel takes contiguous {dtype} {shape} on {dev}, got "
                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    i32 = dict(dtype=torch.int32, device=dev)
+    return R, C, affine
+
+
+def _outputs_and_args(q, t, table, top, topf, left_ext, left_ext_e, R, C, affine):
+    """The tile's output tensors and the pointer arguments both kernels take."""
+    i32 = dict(dtype=torch.int32, device=q.device)
     bottom = torch.empty((C,), **i32)
     right = torch.empty((R,), **i32)
     bottom_f = torch.empty((C,), **i32) if affine else bottom
     right_e = torch.empty((R,), **i32) if affine else right
     out3 = torch.empty((3,), **i32)
-    go, ge = params.gap_open, params.gap_extend
-    lib, fn = _strip_fn()
+    args = (ptr(q), ptr(t), ptr(table), table.shape[0], ptr(top),
+            ptr(topf if affine else top), ptr(left_ext),
+            ptr(left_ext_e if affine else left_ext), ptr(bottom), ptr(bottom_f),
+            ptr(right), ptr(right_e), ptr(out3))
+    if affine:
+        return (bottom, bottom_f, right, right_e, out3[0], out3[1], out3[2]), args
+    return (bottom, right, out3[0], out3[1], out3[2]), args
+
+
+def _pipe_launch(q, t, table, top, topf, left_ext, left_ext_e, params: ScoringParams,
+                 br=None):
+    """The pipelined kernel on staged inputs (see ``strip_launch_t``) at
+    ``br`` rows a lane (default ``strip_plan``'s): (the tile's outputs, the
+    warps launched, one a CTA)."""
+    R, C, affine = _check_staged(q, t, table, top, topf, left_ext, left_ext_e, params)
+    outs, args = _outputs_and_args(q, t, table, top, topf, left_ext, left_ext_e, R, C,
+                                   affine)
+    br = strip_plan(R, C)[0] if br is None else br
+    bands = -(-R // (BAND_LANES * br))
+    dev = q.device
+    # band g > 0 reads band g - 1's last row: H, and for Gotoh pre and F
+    hand = torch.zeros((max(1, (bands - 1) * (3 if affine else 1) * C),),
+                       dtype=torch.int64, device=dev)
+    done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cands = torch.empty((3 * bands,), dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            int(affine), rows_per_thread(R), ptr(q), ptr(t), ptr(table),
-            table.shape[0], ptr(top), ptr(topf if affine else top), ptr(left_ext),
-            ptr(left_ext_e if affine else left_ext), ptr(bottom), ptr(bottom_f),
-            ptr(right), ptr(right_e), ptr(out3), R, C, go, ge, stream,
-        )
+        lib, fn = _strip_fn("swtpu_strip_pipe")
+        err = fn(int(affine), br, *args, ptr(hand), ptr(done), ptr(cands), R, C,
+                 params.gap_open, params.gap_extend, bands, ctypes.byref(grid), stream)
     _build.check(lib, err, "sw_strip")
-    if affine:
-        return bottom, bottom_f, right, right_e, out3[0], out3[1], out3[2]
-    return bottom, right, out3[0], out3[1], out3[2]
+    return outs, grid.value
+
+
+def strip_launch_t(q, t, table, top, topf, left_ext, left_ext_e, params: ScoringParams):
+    """The launch alone, on inputs already staged on one CUDA device:
+    q [R], t [C] uint8 (``stage_codes``), table the [stride, stride]
+    extended table (``sw_profile.profile_table``), top [C], left_ext
+    [R + 1] (corner first) int32, and for affine topf [C], left_ext_e
+    [R + 1]. Returns the tile's outputs as the plain tile does. The
+    pipelined kernel runs the tile in ``strip_plan(R, C)``'s row bands, a
+    warp each, on as many SMs."""
+    return _pipe_launch(q, t, table, top, topf, left_ext, left_ext_e, params)[0]
+
+
+def _one_block_launch_t(q, t, table, top, topf, left_ext, left_ext_e,
+                        params: ScoringParams):
+    """The earlier one-CTA kernel on the same staged inputs and with the
+    same returns as ``strip_launch_t``: off the main path, kept to be
+    timed beside the pipelined kernel."""
+    R, C, affine = _check_staged(q, t, table, top, topf, left_ext, left_ext_e, params)
+    outs, args = _outputs_and_args(q, t, table, top, topf, left_ext, left_ext_e, R, C,
+                                   affine)
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib, fn = _strip_fn("swtpu_strip_tile")
+        err = fn(int(affine), rows_per_thread(R), *args, R, C, params.gap_open,
+                 params.gap_extend, stream)
+    _build.check(lib, err, "sw_strip")
+    return outs
 
 
 def _cuda_stage(q, t, table, params, dev):

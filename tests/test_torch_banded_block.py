@@ -15,6 +15,15 @@ port, tolerance 0:
   Gotoh, open == extend routed to linear, per-pair lengths with pairs
   that end inside a block, an explicit dmax, negative gap penalties (the
   plain tier's serial chain);
+- the plain mirror of the one-launch forward's schedule
+  (``block_forward`` on CPU tensors: per-pair early stop, the corridor
+  window read in place, each row as a warp computes it) against the plain
+  loop in every field, whole (history, bases and deltas past each pair's
+  end, the carry and state), and against ``swtpu``'s oracle pair by pair,
+  at W in {16, 64, 128} with K = 1 and 129 - W, early death, per-pair
+  lengths, Gotoh (open below extend too) and BLOSUM62, both early-exit
+  modes; the route by gap sign on a faked card (negative penalties take
+  the per-block kernels);
 - one interpret-mode call of ``banded_block_batch_pallas`` (about 13 s),
   equal to the port field for field below each pair's n_rows; the JAX
   device walk takes about 26 s in interpret mode, so the port's walk is
@@ -35,6 +44,7 @@ The CUDA kernels are held against their plain versions on the card
 
 import contextlib
 import io
+import types
 
 import jax  # noqa: F401  (conftest keeps JAX on the CPU)
 import numpy as np
@@ -267,6 +277,113 @@ def test_wrapper_equals_pallas():
                                       want.band_history[:nr, :, p])
         np.testing.assert_array_equal(got.bases[:nb, p], want.bases[:nb, p])
         np.testing.assert_array_equal(got.deltas[:nb, p], want.deltas[:nb, p])
+
+
+# -- the one-launch forward's schedule ------------------------------------------
+
+# case -> (set, forward keyword arguments, use lengths)
+SCHEDULE_CASES = {
+    "w16_k1": ("dna", dict(width=16, block=1), False),
+    "w16_k113_tail_only": ("tail", dict(width=16, block=113, mismatch=3, gap=2,
+                                        x_threshold=12), False),
+    "w16_k8_early_death": ("random", dict(width=16, block=8, mismatch=3, gap=2,
+                                          x_threshold=10), False),
+    "w64_k1": ("dna", dict(width=64, block=1, match=2), False),
+    "w64_k65_gotoh": ("dna", dict(width=64, block=65, gap_open=3, gap_extend=1),
+                      False),
+    "w64_k65_varlen": ("dna", dict(width=64, block=65, x_threshold=30), True),
+    "w128_k1_blosum62": ("protein", dict(width=128, block=1, matrix=BLOSUM62,
+                                         x_threshold=60), False),
+    "w128_k1_gotoh_open_lt_extend": ("dna", dict(width=128, block=1, gap_open=1,
+                                                 gap_extend=2), False),
+    "w48_k16_dmax_past_block": ("dna", dict(width=48, block=16, dmax=20,
+                                            x_threshold=25), False),
+}
+
+
+def schedule_inputs(case):
+    kind, kw, lens = SCHEDULE_CASES[case]
+    kw = dict(kw)
+    if kind == "protein":
+        qs, ts, rng = protein_set()
+    elif kind == "tail":
+        qs, ts, rng = dna_set(n=77, m=90)
+        ts[-1] = rng.integers(0, 4, size=90)
+    else:
+        qs, ts, rng = dna_set(homologous=kind == "dna")
+    if lens:
+        kw["lens_q"], kw["lens_t"] = lens_with_enders(rng, len(qs), qs.shape[1],
+                                                      ts.shape[1], kw["block"])
+    return qs, ts, kw
+
+
+def run_of(qs, ts, kw, with_history=True):
+    """A forward's device state on the CPU (``banded_block._Run``)."""
+    g = kw.get
+    return banded_block._setup(
+        qs, ts, g("match", 1), g("mismatch", 1), g("gap", 1), kw["width"], kw["block"],
+        g("x_threshold", 70), g("dmax"), g("matrix"), with_history, g("gap_open"),
+        g("gap_extend"), g("lens_q"), g("lens_t"), "cpu")
+
+
+RUN_FIELDS = ("state", "n_rows", "bases", "deltas", "hist", "carried", "done")
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_forward_schedule_mirror(case, early_exit):
+    qs, ts, kw = schedule_inputs(case)
+    mirror, loop = run_of(qs, ts, kw), run_of(qs, ts, kw)
+    before = banded_block.block_forward.launches
+    banded_block.block_forward(mirror, early_exit)  # CPU tensors: the mirror
+    assert banded_block.block_forward.launches == before
+    banded_block._forward(loop, early_exit)  # the plain loop
+    for f in RUN_FIELDS:
+        assert torch.equal(getattr(mirror, f), getattr(loop, f)), f
+    K = kw["block"]
+    res = banded_block._result(mirror, True).numpy()
+    walk_kw = {k: v for k, v in kw.items()
+               if k in ("match", "mismatch", "gap", "x_threshold", "matrix",
+                        "gap_open", "gap_extend")}
+    lq, lt = kw.get("lens_q"), kw.get("lens_t")
+    trim = (lambda x, ls: x if ls is None else  # noqa: E731
+            [x[p, : ls[p]] for p in range(len(x))])
+    paths = banded_block.banded_block_traceback_host(
+        res, trim(qs, lq), trim(ts, lt), block=K, **walk_kw)
+    deaths = 0
+    for p, ora in oracle_pairs(qs, ts, kw):
+        assert_pair(res, paths, p, ora, K)
+        deaths += ora.n_rows < (qs.shape[1] if lq is None else lq[p])
+    if case == "w16_k8_early_death":
+        assert deaths == len(qs) and max(res.n_rows) <= 4 * K  # all done before a poll
+
+
+def test_forward_schedule_mirror_refuses_negative_gaps():
+    qs, ts, _ = dna_set(B=2, n=30, m=30)
+    for kw in (dict(gap=-1), dict(gap_open=2, gap_extend=-1)):
+        with pytest.raises(ValueError, match=">= 0"):
+            banded_block.block_forward(run_of(qs, ts, dict(kw, width=16, block=8)))
+
+
+@pytest.mark.parametrize("kw,route", [
+    (dict(), "one launch"), (dict(gap=0), "one launch"),
+    (dict(gap_open=3, gap_extend=1), "one launch"),
+    (dict(gap=-1), "per block"), (dict(gap_open=2, gap_extend=-1), "per block"),
+    (dict(gap_open=-1, gap_extend=1), "per block"),
+])
+def test_forward_routes_by_gap_sign_on_a_faked_card(monkeypatch, kw, route):
+    """On the card, gap penalties >= 0 run the one-launch forward; a
+    negative penalty (the oracle's serial chain) the per-block kernels."""
+    qs, ts, _ = dna_set(B=2, n=30, m=30)
+    run = run_of(qs, ts, dict(kw, width=16, block=8))
+    calls = []
+    monkeypatch.setattr(banded_block, "block_forward",
+                        lambda r, early_exit=True: calls.append("one launch") or r)
+    monkeypatch.setattr(banded_block, "block_loop",
+                        lambda r, early_exit=True, *a: calls.append("per block") or r)
+    run.qT = types.SimpleNamespace(device=torch.device("cuda"))
+    banded_block._forward(run)
+    assert calls == [route]
 
 
 # -- B10 -----------------------------------------------------------------------

@@ -22,17 +22,23 @@ fixed-band kernel (``sw_banded_static``, ``sw_banded_profile``) equals
 its plain version on ragged shapes, W from 0 past max(n, m), pads and
 lengths; the per-round banded kernel (``banded_batch``) equals its plain
 version in every field at W from 8 to 128, and the banded alignment entry
-points on the card equal themselves on the CPU. The block tier's kernels
-(``block_gather``, ``block_rows``) equal their plain versions in every
-field below n_rows (histories, bases and deltas included) at W from 16 to
-112 with K up to 129 - W, linear, Gotoh, BLOSUM62 and per-pair lengths;
+points on the card equal themselves on the CPU. The block tier's
+one-launch forward (``block_forward``) equals the plain loop in every
+field, whole (histories, bases and deltas past each pair's end too), at
+W from 16 to 128 with K up to 129 - W, linear, Gotoh, BLOSUM62 and
+per-pair lengths; negative gap penalties run the per-block kernels
+(``block_gather``, ``block_rows``) under the host loop, equal to it too
+on the same W / K grid and scorings (linear, Gotoh, BLOSUM62, per-pair
+lengths);
 the device walkers (``block_walk``, ``xdrop_walk``) write the plain
 versions' wires; ``banded --block-adaptive`` and reference-scale
 ``banded_align_batch`` on the card equal themselves on the CPU. The
-strip tile (``tile_strip_linear``, ``tile_strip_affine``) equals the
-plain column-scan tile on every return at R from 1 to 16384 (br 1 to 16,
-ragged R), C from 1, non-zero and -2^20 boundaries, pads and an
-all-negative tile; the long-pair entries, the wavefront kernel
+strip tile (``tile_strip_linear``, ``tile_strip_affine``: the pipelined
+warp bands) equals the plain column-scan tile on every return at R from 1
+to 16384 (br 1 to 16, ragged R), C from 1, non-zero and -2^20
+boundaries, pads and an all-negative tile, and the one-block kernel
+equals it; a tile of 1024 rows or more runs on more than one warp (CTA);
+the long-pair entries, the wavefront kernel
 (``sw_wavefront``) and the ``longpair`` / ``align --engine wavefront``
 CLI on the card equal themselves on the CPU.
 """
@@ -729,22 +735,19 @@ BLOCK_MODES = {
 }
 
 
-def block_fields(res, K):
-    """Every field of a block-tier result, the history zeroed at and past
-    each pair's n_rows and bases / deltas past its last block (consumers
-    read below them)."""
-    nr = res.n_rows
-    dev = nr.device
-    rows = torch.arange(res.band_history.shape[0], device=dev)[:, None] < nr[None]
-    blocks = (torch.arange(res.bases.shape[0], device=dev)[:, None]
-              < ((nr.long() + K - 1) // K)[None])
-    return [res.score, res.end_y, res.end_j, nr,
-            torch.where(rows[:, None, :], res.band_history, 0),
-            torch.where(blocks, res.bases, 0), torch.where(blocks, res.deltas, 0)]
+def block_fields(res):
+    """Every field of a block-tier result, whole."""
+    return [res.score, res.end_y, res.end_j, res.n_rows, res.band_history, res.bases,
+            res.deltas]
+
+
+def block_launches():
+    return (banded_block.block_forward.launches, banded_block.block_rows.launches,
+            banded_block.block_gather.launches)
 
 
 @pytest.mark.parametrize("W,K", [(16, 1), (16, 113), (32, 16), (48, 33), (64, 32),
-                                 (64, 65), (96, 8), (112, 17)])
+                                 (64, 65), (80, 49), (96, 8), (112, 17), (128, 1)])
 @pytest.mark.parametrize("mode", list(BLOCK_MODES))
 def test_block_kernels_equal_plain_on_card(card, mode, W, K):
     kw = dict(BLOCK_MODES[mode], width=W, block=K, with_history=True, with_meta=True)
@@ -753,17 +756,70 @@ def test_block_kernels_equal_plain_on_card(card, mode, W, K):
     if kw.pop("lens", False):
         kw.update(lens)
         kw["lens_q"][:3] = (0, K, K + 1)  # a zero length, a block end, past it
-    rows, gather = banded_block.block_rows, banded_block.block_gather
-    before = (rows.launches, gather.launches)
+    before = block_launches()
     got = banded_block.banded_block_batch(qs, ts, **kw)
     torch.cuda.synchronize()
-    assert rows.launches > before[0] and gather.launches - before[1] == (
-        rows.launches - before[0])
+    # one launch a forward, no B10 and no per-block B9
+    assert block_launches() == (before[0] + 1, before[1], before[2])
     want = banded_block.banded_block_batch_plain(qs, ts, device=card, **kw)
     names = ("score", "end_y", "end_j", "n_rows", "history", "bases", "deltas")
-    for name, g, w in zip(names, block_fields(got, K), block_fields(want, K),
-                          strict=True):
+    for name, g, w in zip(names, block_fields(got), block_fields(want), strict=True):
         assert g.device.type == "cuda" and torch.equal(g, w), (mode, W, K, name)
+
+
+NEG_BLOCK_MODES = {
+    "linear_-1": dict(gap=-1, x_threshold=20),
+    "linear_-2_x30": dict(gap=-2, x_threshold=30),
+    "gotoh_2_-1": dict(gap_open=2, gap_extend=-1, x_threshold=20),
+    "blosum62_-1": dict(matrix=BLOSUM62, gap=-1, x_threshold=60),
+    "varlen_-1_x30": dict(lens=True, gap=-1, x_threshold=30),
+}
+
+
+@pytest.mark.parametrize("W,K", [(16, 1), (16, 113), (32, 16), (48, 33), (64, 32),
+                                 (64, 65), (80, 49), (96, 8), (112, 17), (128, 1)])
+@pytest.mark.parametrize("mode", list(NEG_BLOCK_MODES))
+def test_block_negative_gaps_take_the_per_block_kernels_on_card(card, mode, W, K):
+    """Negative gap penalties run B10 and the per-block B9 under the host
+    loop: every register width (WR 16-64) and the shared-memory form (W =
+    80-128), linear, Gotoh, BLOSUM62 and per-pair lengths, histories on
+    and off, equal to the plain loop in every field."""
+    kw = dict(NEG_BLOCK_MODES[mode], width=W, block=K, with_meta=True,
+              with_history=(W, K) != (64, 32))
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 160, 170, card)
+    if kw.pop("lens", False):
+        kw.update(lens)
+        kw["lens_q"][:3] = (0, K, K + 1)  # a zero length, a block end, past it
+    before = block_launches()
+    got = banded_block.banded_block_batch(qs, ts, **kw)
+    runs = [a - b for a, b in zip(block_launches(), before)]
+    assert runs[0] == 0 and runs[1] == runs[2] > 0
+    want = banded_block.banded_block_batch_plain(qs, ts, device=card, **kw)
+    names = ("score", "end_y", "end_j", "n_rows", "history", "bases", "deltas")
+    for name, g, w in zip(names, block_fields(got), block_fields(want), strict=True):
+        if g is None:
+            assert w is None and not kw["with_history"], name
+            continue
+        assert g.device.type == "cuda" and torch.equal(g, w), (mode, W, K, name)
+
+
+def test_block_forward_early_stop_on_card(card):
+    """Most pairs die in their first blocks, a few live to the end: the
+    blocks after each pair's end hold what the host loop's poll leaves."""
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, 4, size=(300, 400)).astype(np.uint8)
+    ts = rng.integers(0, 4, size=(300, 400)).astype(np.uint8)
+    ts[:5] = np.stack([mutate(rng, q, out_len=400) for q in qs[:5]])
+    for early in (True, False):
+        runs = [banded_block._setup(qs, ts, 1, 3, 2, 32, 16, 10, None, None, True,
+                                    None, None, None, None, dev)
+                for dev in (card, card)]
+        banded_block.block_forward(runs[0], early_exit=early)
+        banded_block._forward(runs[1], early_exit=early, plain=True)
+        for f in ("state", "n_rows", "bases", "deltas", "hist", "carried"):
+            assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), (early, f)
+    assert int((runs[0].n_rows < 400).sum()) >= 250
 
 
 def test_block_gather_equals_plain_on_card(card):
@@ -777,12 +833,12 @@ def test_block_gather_equals_plain_on_card(card):
 
 def test_block_guards_on_card(card):
     q = torch.zeros((4, 40), dtype=torch.uint8, device=card)
-    before = banded_block.block_rows.launches
+    before = block_launches()
     for kw, err in ((dict(width=40), ValueError), (dict(width=64, block=66), ValueError),
                     (dict(gap_open=3, gap_extend=1, lens_q=[3] * 4), NotImplementedError)):
         with pytest.raises(err):
             banded_block.banded_block_batch(q, q, **kw)
-    assert banded_block.block_rows.launches == before
+    assert block_launches() == before
 
 
 @pytest.mark.parametrize("mode", ["linear", "blosum62", "varlen_x30"])
@@ -846,9 +902,9 @@ def test_block_cli_on_card_equals_cpu(card, argv):
             main(["banded", "--block-adaptive"] + argv + ["--device", device])
         return buf.getvalue()
 
-    before = banded_block.block_rows.launches
+    before = banded_block.block_forward.launches
     on_card = run("cuda")
-    assert banded_block.block_rows.launches > before
+    assert banded_block.block_forward.launches > before
     assert on_card == run("cpu") and len(on_card.splitlines()) == 8
 
 
@@ -899,6 +955,32 @@ def test_strip_tile_equals_plain_on_card(card, scoring, R, C):
         want = _strip(q, t, b, p, "cpu")
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu()), (bounds, R, C)
+
+
+@pytest.mark.parametrize("R,C,scoring", [(40, 1024, "gotoh_2_3_5_1"),
+                                         (1024, 256, "dna_111"), (1499, 700, "g4_3_1"),
+                                         (4096, 4096, "gotoh_2_3_5_1"),
+                                         (16383, 33, "blosum62_11_1")])
+def test_strip_tile_one_block_equals_pipelined_on_card(card, R, C, scoring):
+    """The earlier one-block kernel equals the pipelined one; a tile of 1024
+    rows or more runs on several warps (one a CTA)."""
+    p = STRIP_SCORINGS[scoring]
+    rng = np.random.default_rng(10000 + R)
+    q, t, (top, topf, left, lefte, corner) = _strip_case(rng, p, R, C, "random")
+    affine = not p.is_linear
+    i32 = (lambda x: torch.as_tensor(np.asarray(x)).to(card, torch.int32).contiguous())
+    lext = torch.cat([i32([corner]), i32(left)])
+    lexte = torch.cat([i32([-(2**20)]), i32(lefte)]) if affine else None
+    args = (longpair_strip.stage_codes(q, p, card), longpair_strip.stage_codes(t, p, card),
+            sw_profile.profile_table(p, card), i32(top), i32(topf) if affine else None,
+            lext, lexte, p)
+    got, grid = longpair_strip._pipe_launch(*args)
+    br, bands = longpair_strip.strip_plan(R, C)
+    assert grid == bands and (R < 1024 or bands > 1)
+    for g, w in zip(got, longpair_strip.strip_launch_t(*args), strict=True):
+        assert torch.equal(g, w)
+    for g, w in zip(got, longpair_strip._one_block_launch_t(*args), strict=True):
+        assert torch.equal(g, w)
 
 
 def test_strip_tile_all_negative_and_guards_on_card(card):

@@ -84,7 +84,7 @@ WRAPPERS = [sw_batch.sw_batch, sw_batch.sw_batch_ends,
             semiglobal_profile.semiglobal_profile, sw_banded.sw_banded_static,
             sw_banded.sw_banded_profile, banded_batch.banded_batch,
             banded_block.block_gather, banded_block.block_rows,
-            device_walk.block_walk, device_walk.xdrop_walk,
+            banded_block.block_forward, device_walk.block_walk, device_walk.xdrop_walk,
             longpair_strip.tile_strip_linear, longpair_strip.tile_strip_affine,
             sw_wavefront.sw_wavefront]
 STRIP_WRAPPERS = (longpair_strip.tile_strip_linear, longpair_strip.tile_strip_affine)

@@ -5,6 +5,15 @@ one-device sweep against the JAX package (seed 10000, tolerance 0).
   CUDA strip tile) equal JAX's XLA tiles on every return, under uniform
   DNA, a 4x4 matrix and BLOSUM62, with non-zero boundaries and in-length
   pads, at R in {1, 7, 33, 97} and C in {1, 40, 130};
+- the plain mirror of the pipelined CUDA tile's decomposition
+  (``_tile_pipeline``: row bands and column blocks of plain sub-tiles,
+  the bands' last rows handed down with the E-and-diagonal candidate the
+  F chain reads, the bests merged row-major first) equals the whole
+  plain tile and JAX's XLA tile on every return, with bands and blocks
+  that do not divide R and C, Gotoh with gap_open below gap_extend too,
+  and at the bands ``strip_plan`` picks; ``strip_plan`` covers R with at
+  most 16 rows a lane, puts 1024 rows or more on several warps and picks
+  the power of two nearest 4R / C;
 - ``strip_tile`` / ``strip_tile_affine`` equal one interpret-mode call
   each of JAX's Pallas strip tile on pad-free codes; on in-length pads
   the port equals the XLA tile and the Pallas tile does not (its uniform
@@ -107,6 +116,77 @@ def test_plain_tile_matches_jax_xla_tile(name, R, C):
         _same(kls.strip_tile_affine(x["q"], x["t"], x["top"], x["topf"], x["left"],
                                     x["lefte"], x["corner"], p, device="cpu"), want)
     _same(got, want)
+
+
+@pytest.mark.parametrize("name,R,C,band_rows,cols", [
+    ("dna", 97, 130, 10, 33), ("g4", 33, 40, 7, 9), ("dna", 7, 130, 3, 130),
+    ("blosum", 33, 130, 32, 17), ("dna_gotoh", 97, 130, 25, 40),
+    ("g4_gotoh", 33, 40, 5, 7), ("blosum_gotoh", 33, 40, 33, 11),
+    ("go_lt_ge", 97, 40, 16, 13), ("dna", 1, 40, 1, 3), ("dna_gotoh", 33, 1, 4, 1),
+])
+def test_pipelined_tile_mirror_matches_plain_and_jax(name, R, C, band_rows, cols):
+    p = SCORINGS.get(name) or ScoringParams(dna_matrix(2, -3), 1, 3)
+    rng = np.random.default_rng(SEED + R * 1000 + C)
+    x = _tile_inputs(rng, p, R, C)
+    i32 = lambda a: jnp.asarray(a, jnp.int32)  # noqa: E731
+    table = jnp.asarray(jax_table(_jp(p)))
+    ptable = torch.as_tensor(kls._extended_table(p))
+    A = p.alphabet_size
+    got = kls._tile_pipeline(x["q"], x["t"], x["top"], x["topf"], x["left"], x["lefte"],
+                             x["corner"], ptable, A, p.gap_open, p.gap_extend,
+                             band_rows, cols, not p.is_linear)
+    if p.is_linear:
+        want = _jax_tile(i32(x["q"]), i32(x["t"]), i32(x["top"]), i32(x["left"]),
+                         i32(x["corner"]), table, A, i32(p.gap))
+        plain = kls._tile_colscan(x["q"], x["t"], x["top"], x["left"], x["corner"],
+                                  ptable, A, p.gap)
+    else:
+        want = _jax_tile_affine(
+            i32(x["q"]), i32(x["t"]), i32(x["top"]), i32(x["topf"]), i32(x["left"]),
+            i32(x["lefte"]), i32(x["corner"]), table, A, i32(p.gap_open),
+            i32(p.gap_extend))
+        plain = kls._tile_colscan_affine(x["q"], x["t"], x["top"], x["topf"],
+                                         x["left"], x["lefte"], x["corner"], ptable, A,
+                                         p.gap_open, p.gap_extend)
+    _same(got, plain)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("R,C", [(300, 257), (600, 41), (1024, 256), (1500, 700)])
+def test_pipelined_tile_mirror_at_the_planned_bands(R, C):
+    br, bands = kls.strip_plan(R, C)
+    assert bands == -(-R // (kls.BAND_LANES * br)) and br in (1, 2, 4, 8, 16)
+    assert R < 1024 or bands > 1  # 1024 rows or more: several warps
+    rng = np.random.default_rng(SEED + R)
+    for p in (DNA_111, SCORINGS["dna_gotoh"]):
+        x = _tile_inputs(rng, p, R, C)
+        ptable = torch.as_tensor(kls._extended_table(p))
+        A = p.alphabet_size
+        got = kls._tile_pipeline(x["q"], x["t"], x["top"], x["topf"], x["left"],
+                                 x["lefte"], x["corner"], ptable, A, p.gap_open,
+                                 p.gap_extend, kls.BAND_LANES * br, 32, not p.is_linear)
+        if p.is_linear:
+            want = kls._tile_colscan(x["q"], x["t"], x["top"], x["left"], x["corner"],
+                                     ptable, A, p.gap)
+        else:
+            want = kls._tile_colscan_affine(x["q"], x["t"], x["top"], x["topf"],
+                                            x["left"], x["lefte"], x["corner"], ptable,
+                                            A, p.gap_open, p.gap_extend)
+        _same(got, want)
+
+
+def test_strip_plan_shapes():
+    for R, C in ((1, 1), (16384, 16384), (4096, 4096), (16384, 64), (40, 1024),
+                 (1024, 256), (512, 384), (16383, 33)):
+        br, bands = kls.strip_plan(R, C)
+        assert (bands - 1) * kls.BAND_LANES * br < R <= bands * kls.BAND_LANES * br
+    # a wide tile takes thinner bands than a tall thin one
+    assert kls.strip_plan(16384, 16384)[0] < kls.strip_plan(16384, 64)[0]
+    # br is the power of two nearest 4R / C, in 1..16
+    for (R, C), br in (((16384, 16384), 4), ((1024, 1024), 4), ((16384, 4096), 16),
+                       ((4096, 16384), 1), ((512, 384), 4), ((1499, 700), 8),
+                       ((16384, 64), 16), ((40, 1024), 1)):
+        assert kls.strip_plan(R, C)[0] == br, (R, C)
 
 
 def test_plain_tile_matches_numpy_reference():
