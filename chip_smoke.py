@@ -64,8 +64,10 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       lengths (a length 0, pairs that end inside a block), an all-dead
       start, the negative-gap route (B10 and the per-block B9, linear -1
       and Gotoh 2/-1), B10 alone at bases far outside the targets, and the
-      wires of both device walkers (``block_walk``, ``xdrop_walk``) against
-      their plain versions (the host walks, encoded); the strip tile (B13),
+      wires of both device walkers (``block_walk``, ``xdrop_walk``: their
+      default chunks and chunks of 3 rows / 2 rounds, and the earlier
+      serial kernels) against their plain versions (the host walks,
+      encoded); the strip tile (B13),
       pipelined and one-block, against the plain column-scan tile on every
       return at R x C = 1 x 1, 7 x 300, 1000 x 64, 1499 x 700 (a prime R),
       4096 x 4096, 8191 x 48, 16384 x 64 and 16383 x 33 (the one-block
@@ -177,10 +179,16 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       64, K = 64, X = 70, (1,1,1)): wall time, paths from the origin
       rescored, scores against the forward, 1 pair against the oracle
       copy; the forward beside the earlier per-block forward; ``block_walk``
-      alone against its plain version;
+      on every pair against its plain version and the earlier serial
+      kernel, and with 1 and GROUP pairs a producer CTA, timed through its
+      wrapper and alone (its default and both groupings) beside the serial
+      kernel, ns a step of the longest pair; the wall's forward / walk /
+      decode split;
   28. ``banded_align_batch`` on 8 related 16384-mers at W = 32: the device
       walk (``xdrop_walk``) against the host walk over the 8-bit history,
-      rescored, 1 pair against the oracle copy; ``xdrop_walk`` alone;
+      rescored, 1 pair against the oracle copy; ``xdrop_walk`` against its
+      plain version and the serial kernel, timed as in phase 27, and the
+      forward / walk / decode split;
   29. ``banded --block-adaptive``: DNA scores, ``--traceback --cigar``,
       protein, Gotoh and per-pair lengths (FASTA) against records built
       from the oracle copy; its two refusals;
@@ -218,8 +226,10 @@ are not the path's own (the fused unit and split on staged tensors, the
 per-part times, the reference checks, phase 14) run between a
 ``snapshot`` of the counts and their ``restore``, so the window counts
 only what ``sw_scores_varlen``, the promotion entry points, the traceback
-sample and the CLI launched. Any failed check raises, and the run exits
-nonzero. Without a card it exits 2 and prints no result.
+sample and the CLI launched; so do the checks and the rows' own timings
+in the windows of the semi-global, banded, block and long-pair paths
+(phases 20, 24, 26-28, 30 and 32). Any failed check raises, and the run
+exits nonzero. Without a card it exits 2 and prints no result.
 
     python3 chip_smoke.py
 """
@@ -350,10 +360,11 @@ KERNELS = {
                          "swtpu/kernels/pallas/banded_block.py:761", None, 0, 0),
     "block_gather": (BLOCK, "block_gather_kernel",
                      "swtpu/kernels/pallas/banded_block.py:872", None, 0, 0),
-    # the device walkers port XLA code (no row of the TPU table)
-    "block_walk": (WALK, "block_walk_kernel",
+    # the device walkers port XLA code (no row of the TPU table): the map
+    # kernels, and the earlier one-thread-a-pair kernels timed beside them
+    "block_walk": (WALK, ("block_walk_kernel", "block_walk_serial_kernel"),
                    "swtpu/kernels/pallas/banded_block.py:1275", None, 0, 0),
-    "xdrop_walk": (WALK, "xdrop_walk_kernel",
+    "xdrop_walk": (WALK, ("xdrop_walk_kernel", "xdrop_walk_serial_kernel"),
                    "swtpu/kernels/xla/banded_scan.py:334", None, 0, 0),
     # the long-pair strip tile <BR, AFFINE> (B13: the pipelined warp bands,
     # and the one-block kernel timed beside it) and the wavefront (B14);
@@ -858,7 +869,9 @@ def main():
             check(names, f"unknown kernel in nvcc report: {e[:80]}")
             inst = re.search(r"kernelI(.*)EEv", mangled)
             several = len(names) > 1 or isinstance(KERNELS[names[0]][1], tuple)
-            name = "/".join(names) + (f" <{inst.group(1)}>" if several else "")
+            tag = (f" <{inst.group(1)}>" if inst else " (" + next(
+                f for f in tup(KERNELS[names[0]][1]) if f in mangled) + ")")
+            name = "/".join(names) + (tag if several else "")
             regs = re.search(r"Used (\d+) registers", e)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
             smem = re.search(r"(\d+) bytes smem", e)
@@ -1430,25 +1443,38 @@ def main():
                          None, kw.get("matrix"), True, None, None, kw.get("lens_q"),
                          kw.get("lens_t"), dev)
         kbk._forward(run)
-        wire = kdw.block_walk(run)
-        err = max_abs_err(wire.cpu(), kdw.block_walk_plain(run))
-        max_err["block_walk"] = max(max_err["block_walk"], err)
-        check(err == 0, f"block_walk's wire differs from its plain version on {label}")
+        want = kdw.block_walk_plain(run)
+        # the map kernel through its wrapper, a pair and GROUP pairs a
+        # producer CTA at the default chunk and at chunks of 3 rows, the
+        # earlier serial kernel
+        for wire in (kdw.block_walk(run), *(kdw.block_walk_launch_t(run, _chunk=C, _group=G)
+                                            for C in (None, 3) for G in (1, kdw.GROUP)),
+                     kdw._block_serial_launch_t(run)):
+            err = max_abs_err(wire.cpu(), want)
+            max_err["block_walk"] = max(max_err["block_walk"], err)
+            check(err == 0, f"block_walk's wire differs from its plain version on {label}")
     for label, qk, tk, kw in (block_modes[0], block_modes[2]):
         kw = {k: v for k, v in kw.items() if k != "x_threshold"}
         X = 120 if "matrix" in kw else 70
         res = kbb.banded_batch(bdev[qk], bdev[tk], blq, blt, bandwidth=32,
                                x_threshold=X, compress_history=False, **kw)
         pad = _prep_padded(bdev[qk], bdev[tk], blq, blt, 32, dev, torch.int16)
-        wire = kdw.xdrop_walk(res, pad, 32, X, **kw)
         want = kdw.xdrop_walk_plain(res, pad, 32, X, **kw)
-        err = max_abs_err(wire.cpu(), want)
-        max_err["xdrop_walk"] = max(max_err["xdrop_walk"], err)
-        check(err == 0, f"xdrop_walk's wire differs from its plain version on {label}")
+        pad32 = (*pad[:2], pad[2].int(), pad[3].int())
+        launch = (pad32, 32, X, 1, 1, 1, ksb.banded_table(kw["matrix"], dev)
+                  if "matrix" in kw else None)
+        for wire in (kdw.xdrop_walk(res, pad, 32, X, **kw),
+                     kdw.xdrop_walk_launch_t(res, *launch, _chunk=2),
+                     kdw._xdrop_serial_launch_t(res, *launch)):
+            err = max_abs_err(wire.cpu(), want)
+            max_err["xdrop_walk"] = max(max_err["xdrop_walk"], err)
+            check(err == 0, f"xdrop_walk's wire differs from its plain version on {label}")
     print("block tier: an all-dead start (score 0 at (0, 0)) and B10 alone at bases "
           "-300..600 equal the plain versions; block_walk (DNA, protein, varlen) and "
-          "xdrop_walk (DNA varlen, protein X=120) write the plain versions' wires",
-          flush=True)
+          "xdrop_walk (DNA varlen, protein X=120) write the plain versions' wires, at "
+          "their default chunks and at chunks of 3 rows / 2 rounds (block_walk with 1 "
+          f"and {kdw.GROUP} pairs a producer CTA), and so do the earlier serial "
+          "kernels", flush=True)
     del bdev, zq, zt, t16
     torch.cuda.empty_cache()
     mark("strip tile (B13) vs the plain column-scan tile")
@@ -2998,6 +3024,7 @@ def main():
     q16 = lrng.integers(0, 4, size=(128, L16)).astype(np.uint8)
     t16h = np.stack([mutate(lrng, q, out_len=L16) for q in q16])
     p111 = ScoringParams.linear(dna_matrix(1, -1), 1)
+    walk_times = {}  # pairs: the walkers' times on them
     for Bb in (8, 128):
         with b9_shape(Bb, 64, False):
             q, t = q16[:Bb], t16h[:Bb]
@@ -3009,7 +3036,9 @@ def main():
                 check(path[0] == (0, 0) and rescore(path, q[b], t[b], p111) == score,
                       f"16K block traceback: path of pair {b}")
             # where the wall goes: the forward with its history and the walk on
-            # staged tensors (CUDA events), the host decode of the wire alone
+            # staged tensors (CUDA events), the host decode of the wire alone;
+            # these checks and timings are not the path's own launches
+            saved = snapshot()
             run = kbk._setup(q, t, 1, 1, 1, 64, 64, 70, None, None, True, None, None, None,
                              None, dev)
             def fresh(run=run):
@@ -3021,48 +3050,98 @@ def main():
             earlier_fwd_ms = time_kernel(lambda: kbk.block_loop(
                 fresh(), True, kbk.gather_launch_t, kbk.rows_launch_t), (), iters=2) * 1e3
             kbk._forward(run)
-            walk_ms = time_kernel(kdw.block_walk, (run,), iters=3) * 1e3
             wire = kdw.block_walk(run).cpu()
+            want = kdw.block_walk_plain(run)  # the host walk on every pair
+            err = max_abs_err(wire, want)
+            max_err["block_walk"] = max(max_err["block_walk"], err)
+            check(err == 0, f"block_walk differs from its plain version at {Bb} x 16K")
+            check(torch.equal(kdw._block_serial_launch_t(run).cpu(), want),
+                  "16K block walk: the earlier serial kernel")
+            groups = (1, kdw.GROUP)
+            for G in groups:
+                check(torch.equal(kdw.block_walk_launch_t(run, _group=G).cpu(), want),
+                      f"16K block walk: {G} pairs a producer CTA")
+            # the map kernel through its wrapper and alone (its default, and
+            # a pair / GROUP pairs a producer CTA), the earlier serial kernel
+            # alone, and a step's share of each
+            walk_ms = time_kernel(kdw.block_walk, (run,), iters=5) * 1e3
+            kernel_ms = time_kernel(kdw.block_walk_launch_t, (run,), iters=5) * 1e3
+            group_ms = {G: time_kernel(lambda G=G: kdw.block_walk_launch_t(run, _group=G), (),
+                                       iters=5) * 1e3 for G in groups}
+            serial_ms = time_kernel(kdw._block_serial_launch_t, (run,), iters=2) * 1e3
+            restore(saved)
+            nsteps = np.ascontiguousarray(wire[:, 12:16].numpy()).view("<i4").ravel()
+            walk_times[Bb] = dict(ms=walk_ms, kernel_ms=kernel_ms, earlier_kernel_ms=serial_ms,
+                                  group=kdw.default_group(Bb),
+                                  kernel_ms_by_group={str(G): v for G, v in group_ms.items()},
+                                  steps=int(nsteps.sum()), longest=int(nsteps.max()))
             arr_ms, list_ms = decode_times(decode_device_walk, wire)
             check(decode_device_walk(wire) == out, "16K block traceback: decode")
             check([s0 for s0, _ in out] == (run.state[1] - 70).cpu().tolist(),
                   "16K block traceback: scores vs the forward")
             if Bb == 8:
                 out8, walk_run, walk_wire = out, run, wire
+            by_group = ", ".join(f"{G} a CTA {v:.4f} ms ({v * 1e6 / nsteps.max():.1f} ns a "
+                                 f"step)" for G, v in group_ms.items())
             print(f"{Bb} pairs: {wall * 1e3:.1f} ms wall (upload, forward, device walk, "
                   f"wire fetch, decode to lists), {Bb / wall:.1f} alignments/s; on staged "
                   f"tensors the forward with history {fwd_ms:.1f} ms (the earlier "
-                  f"per-block forward {earlier_fwd_ms:.1f} ms), the walk "
-                  f"{walk_ms:.1f} ms; the host decode alone {arr_ms:.1f} ms to arrays "
-                  f"(bench_suite's), {list_ms:.1f} ms to tuple lists; mean path "
-                  f"{np.mean([len(p) for _, p in out]):.0f} cells, mean score "
-                  f"{np.mean([s0 for s0, _ in out]):.1f}; paths from the origin rescored "
-                  f"[{smi}]", flush=True)
+                  f"per-block forward {earlier_fwd_ms:.1f} ms), the walk {walk_ms:.3f} ms "
+                  f"(the earlier serial kernel {serial_ms:.3f} ms), the host decode "
+                  f"{list_ms:.1f} ms to tuple lists ({arr_ms:.1f} ms to arrays, "
+                  f"bench_suite's): forward + walk + decode {fwd_ms + walk_ms + list_ms:.1f} "
+                  f"ms of the wall; mean path {np.mean([len(p) for _, p in out]):.0f} "
+                  f"cells, mean score {np.mean([s0 for s0, _ in out]):.1f}; paths from the "
+                  f"origin rescored; the wire equals the plain version's and the serial "
+                  f"kernel's; the map kernel alone by pairs a producer CTA: {by_group} "
+                  f"(default {kdw.default_group(Bb)}) [{smi}]", flush=True)
+            if Bb == 128:
+                del run, wire, want
+                torch.cuda.empty_cache()
     check(out8[0] == banded_xdrop_block(q16[0], t16h[0], width=64, block=64),
           "16K block traceback vs the oracle copy, pair 0")
-    # the block walker's row on the 8 pairs
+    # the block walker's row on the 8 pairs, with the 128 pairs' times beside
     run, wire = walk_run, walk_wire
     plain_ms = time_kernel(kdw.block_walk_plain, (run,), iters=1, warmup=0, reps=1) * 1e3
-    err = max_abs_err(wire, kdw.block_walk_plain(run))
-    max_err["block_walk"] = max(max_err["block_walk"], err)
-    check(err == 0, "block_walk differs from its plain version at 16K")
-    ms = time_kernel(kdw.block_walk, (run,), iters=5) * 1e3
-    kernel_ms = time_kernel(kdw.block_walk_launch_t, (run,), iters=5) * 1e3
-    steps = int(np.ascontiguousarray(wire[:, 12:16].numpy()).view("<i4").sum())
-    times = {"int32 ops": steps * WALK_OPS / int32_rate * 1e3,
-             "bytes": (steps * 24 + wire.numel()) / HBM_BYTES_PER_S * 1e3}
-    binds = max(times, key=times.get)
-    rows.append(dict(
-        name="block_walk", route="cuda", source=f"swtpu_torch/csrc/{WALK}",
-        replaces=KERNELS["block_walk"][2], launches=None, max_abs_err=max_err["block_walk"],
-        ms=ms, plain_ms=plain_ms, bound_ms=times[binds],
-        bound_by="bytes" if binds == "bytes" else "operations", library_ms=None,
-        kernel_ms=kernel_ms))
-    print(f"block_walk, 8 pairs of 16384-mers ({steps} steps): wrapper {ms:.4f} ms, "
-          f"launch alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.2%} of the "
-          f"bound), plain (host walk, encoded) {plain_ms:.1f} ms, equal wires; bound "
-          f"{times[binds]:.4f} ms by {binds} ({WALK_OPS} int32 ops and 24 bytes a step: "
-          f"the walk is a chain of dependent loads, so latency binds it)", flush=True)
+
+    def walk_bound(steps, wire_bytes):
+        times = {"int32 ops": steps * WALK_OPS / int32_rate * 1e3,
+                 "bytes": (steps * 24 + wire_bytes) / HBM_BYTES_PER_S * 1e3}
+        binds = max(times, key=times.get)
+        return times[binds], "bytes" if binds == "bytes" else "operations"
+
+    def walk_row(name, t, plain_ms, wire_bytes, **extra):
+        bound, by = walk_bound(t["steps"], wire_bytes)
+        per_step = {k.replace("ms", "ns_a_step"): t[k] * 1e6 / t["longest"]
+                    for k in ("kernel_ms", "earlier_kernel_ms")}
+        rows.append(dict(
+            name=name, route="cuda", source=f"swtpu_torch/csrc/{WALK}",
+            replaces=KERNELS[name][2], launches=None, max_abs_err=max_err[name],
+            ms=t["ms"], plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            kernel_ms=t["kernel_ms"], earlier_kernel_ms=t["earlier_kernel_ms"], **per_step,
+            **{k: t[k] for k in ("group", "kernel_ms_by_group") if k in t}, **extra))
+        print(f"{name}, {t['steps']} steps (longest pair {t['longest']}): wrapper "
+              f"{t['ms']:.4f} ms, launch alone {t['kernel_ms']:.4f} ms "
+              f"({per_step['kernel_ns_a_step']:.1f} ns a step of the longest pair, "
+              f"{bound / t['kernel_ms']:.2%} of the bound), the earlier serial kernel "
+              f"{t['earlier_kernel_ms']:.4f} ms ({per_step['earlier_kernel_ns_a_step']:.1f} "
+              f"ns a step, {t['earlier_kernel_ms'] / t['kernel_ms']:.1f}x); plain (host "
+              f"walk, encoded) {plain_ms:.1f} ms, equal wires; bound {bound:.4f} ms by {by} "
+              f"({WALK_OPS} int32 ops and 24 bytes a step: the walk is a chain of "
+              f"dependent steps, so latency binds it) [{smi}]", flush=True)
+
+    big = walk_times[128]
+    walk_row("block_walk", walk_times[8], plain_ms, wire.numel(),
+             pairs_128=dict(big, bound_ms=walk_bound(big["steps"], 128 * wire.shape[1])[0],
+                            ns_a_step=big["kernel_ms"] * 1e6 / big["longest"],
+                            earlier_ns_a_step=big["earlier_kernel_ms"] * 1e6 / big["longest"]))
+    print(f"block_walk, 128 pairs of 16384-mers ({big['steps']} steps, longest "
+          f"{big['longest']}): wrapper {big['ms']:.4f} ms, launch alone "
+          f"{big['kernel_ms']:.4f} ms ({big['kernel_ms'] * 1e6 / big['longest']:.1f} ns a "
+          f"step), the earlier serial kernel {big['earlier_kernel_ms']:.4f} ms "
+          f"({big['earlier_kernel_ms'] * 1e6 / big['longest']:.1f} ns a step); alone by "
+          f"pairs a producer CTA {big['kernel_ms_by_group']} ms (default "
+          f"{big['group']})", flush=True)
     del run, wire, walk_run, walk_wire
     torch.cuda.empty_cache()
 
@@ -3091,6 +3170,7 @@ def main():
           f"wire, decode) against {host_s * 1e3:.1f} ms with the host walk over the "
           f"8-bit history; equal paths, rescored, 1 equals the oracle copy; mean path "
           f"{np.mean([len(p) for _, p in out]):.0f} cells [{smi}]", flush=True)
+    saved = snapshot()  # the checks and the row's own timings are not the path's
     q_d, t_d = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
     pad = _prep_padded(q_d, t_d, None, None, 32, dev, torch.int16)
     pad32 = (*pad[:2], pad[2].int(), pad[3].int())
@@ -3100,31 +3180,28 @@ def main():
                          (), iters=2) * 1e3
     arr_ms, list_ms = decode_times(decode_device_walk, wire.cpu())
     check(decode_device_walk(wire.cpu()) == out, "16K per-round: decode")
-    print(f"on staged tensors: the per-round forward with its int32 history "
-          f"{fwd_ms:.1f} ms; the host decode alone {arr_ms:.1f} ms to arrays, "
-          f"{list_ms:.1f} ms to tuple lists", flush=True)
     plain_ms = time_kernel(kdw.xdrop_walk_plain, (res, pad), iters=1, warmup=0,
                            reps=1) * 1e3
     err = max_abs_err(wire.cpu(), kdw.xdrop_walk_plain(res, pad))
     max_err["xdrop_walk"] = max(max_err["xdrop_walk"], err)
     check(err == 0, "xdrop_walk differs from its plain version at 16K")
+    check(torch.equal(kdw._xdrop_serial_launch_t(res, pad32, 32, 70, 1, 1, 1), wire),
+          "16K per-round walk: the earlier serial kernel")
     ms = time_kernel(kdw.xdrop_walk, (res, pad), iters=5) * 1e3
     kernel_ms = time_kernel(kdw.xdrop_walk_launch_t, (res, pad32, 32, 70, 1, 1, 1),
                             iters=5) * 1e3
-    steps = int(np.ascontiguousarray(wire[:, 12:16].cpu().numpy()).view("<i4").sum())
-    times = {"int32 ops": steps * WALK_OPS / int32_rate * 1e3,
-             "bytes": (steps * 24 + wire.numel()) / HBM_BYTES_PER_S * 1e3}
-    binds = max(times, key=times.get)
-    rows.append(dict(
-        name="xdrop_walk", route="cuda", source=f"swtpu_torch/csrc/{WALK}",
-        replaces=KERNELS["xdrop_walk"][2], launches=None, max_abs_err=max_err["xdrop_walk"],
-        ms=ms, plain_ms=plain_ms, bound_ms=times[binds],
-        bound_by="bytes" if binds == "bytes" else "operations", library_ms=None,
-        kernel_ms=kernel_ms))
-    print(f"xdrop_walk, the same 8 pairs ({steps} steps): wrapper {ms:.4f} ms, launch "
-          f"alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.2%} of the bound), "
-          f"plain (host walk, encoded) {plain_ms:.1f} ms, equal wires; bound "
-          f"{times[binds]:.4f} ms by {binds}", flush=True)
+    serial_ms = time_kernel(kdw._xdrop_serial_launch_t, (res, pad32, 32, 70, 1, 1, 1),
+                            iters=2) * 1e3
+    restore(saved)
+    nsteps = np.ascontiguousarray(wire[:, 12:16].cpu().numpy()).view("<i4").ravel()
+    print(f"on staged tensors: the per-round forward with its int32 history "
+          f"{fwd_ms:.1f} ms, the walk {ms:.3f} ms (the earlier serial kernel "
+          f"{serial_ms:.3f} ms), the host decode {list_ms:.1f} ms to tuple lists "
+          f"({arr_ms:.1f} ms to arrays): forward + walk + decode "
+          f"{fwd_ms + ms + list_ms:.1f} ms of the {wall * 1e3:.1f} ms wall", flush=True)
+    walk_row("xdrop_walk", dict(ms=ms, kernel_ms=kernel_ms, earlier_kernel_ms=serial_ms,
+                                steps=int(nsteps.sum()), longest=int(nsteps.max())),
+             plain_ms, wire.numel())
     del res, pad, wire, q16, t16h
     torch.cuda.empty_cache()
 

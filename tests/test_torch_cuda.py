@@ -30,9 +30,12 @@ per-pair lengths; negative gap penalties run the per-block kernels
 (``block_gather``, ``block_rows``) under the host loop, equal to it too
 on the same W / K grid and scorings (linear, Gotoh, BLOSUM62, per-pair
 lengths);
-the device walkers (``block_walk``, ``xdrop_walk``) write the plain
-versions' wires; ``banded --block-adaptive`` and reference-scale
-``banded_align_batch`` on the card equal themselves on the CPU. The
+the device walkers (``block_walk``, ``xdrop_walk``: producer CTAs map the
+moves, a follower CTA a pair follows them) write the plain versions' wires
+at W from 16 to 128, on 1, 8 and 1024 pairs, with their default chunks and
+forced small ones, and equal the earlier one-thread-a-pair kernels;
+``banded --block-adaptive`` and reference-scale ``banded_align_batch`` on
+the card equal themselves on the CPU. The
 strip tile (``tile_strip_linear``, ``tile_strip_affine``: the pipelined
 warp bands) equals the plain column-scan tile on every return at R from 1
 to 16384 (br 1 to 16, ragged R), C from 1, non-zero and -2^20
@@ -841,35 +844,109 @@ def test_block_guards_on_card(card):
     assert block_launches() == before
 
 
+WALK_PAIRS = {1: 300, 8: 300, 1024: 64}  # pairs: their length
+
+
+@pytest.mark.parametrize("B", list(WALK_PAIRS))
+@pytest.mark.parametrize("W,K", [(16, 16), (32, 16), (64, 32), (128, 1)])
 @pytest.mark.parametrize("mode", ["linear", "blosum62", "varlen_x30"])
-def test_block_walk_equals_plain_on_card(card, mode):
+def test_block_walk_equals_plain_on_card(card, mode, W, K, B):
+    """The map kernel (its default chunk, and chunks of 3 rows; its default
+    pairs a producer CTA, one and GROUP) writes the plain version's wire:
+    one launch a walk, on the card."""
     kw = dict(BLOCK_MODES[mode])
     rng = np.random.default_rng(10000)
-    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 100, 300, card)
+    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, max(B, 4), WALK_PAIRS[B], card)
+    qs, ts = qs[:B], ts[:B]
     if kw.pop("lens", False):
-        kw.update(lens)
-    run = banded_block._setup(qs, ts, 1, 1, 1, 64, 32, kw.get("x_threshold", 70), None,
+        kw.update({k: v[:B] for k, v in lens.items()})
+        kw["lens_q"][0] = 0
+    run = banded_block._setup(qs, ts, 1, 1, 1, W, K, kw.get("x_threshold", 70), None,
                               kw.get("matrix"), True, None, None, kw.get("lens_q"),
                               kw.get("lens_t"), card)
     banded_block._forward(run)
     before = device_walk.block_walk.launches
     wire = device_walk.block_walk(run)
     assert device_walk.block_walk.launches == before + 1 and wire.device.type == "cuda"
-    assert torch.equal(wire.cpu(), device_walk.block_walk_plain(run))
+    want = device_walk.block_walk_plain(run)
+    assert torch.equal(wire.cpu(), want)
+    for G in (None, 1, device_walk.GROUP):
+        assert torch.equal(device_walk.block_walk_launch_t(run, _chunk=3, _group=G).cpu(),
+                           want)
+        assert torch.equal(device_walk.block_walk_launch_t(run, _group=G).cpu(), want)
 
 
+@pytest.mark.parametrize("B", list(WALK_PAIRS))
+@pytest.mark.parametrize("W", [16, 32, 96, 128])
 @pytest.mark.parametrize("mode", ["linear", "blosum62"])
-def test_xdrop_walk_equals_plain_on_card(card, mode):
+def test_xdrop_walk_equals_plain_on_card(card, mode, W, B):
+    """The per-round map kernel (its default chunk, and chunks of 2 rounds)
+    writes the plain version's wire, one launch a walk: per-pair lengths
+    (one of 0) under (1,1,1), BLOSUM62 at X = 120."""
     kw = dict(matrix=BLOSUM62, x_threshold=120) if mode == "blosum62" else {}
     rng = np.random.default_rng(10000)
-    qs, ts, lens = xdrop_set(rng, 20 if kw else 4, 100, 300, card)
-    res = banded_batch.banded_batch(qs, ts, bandwidth=32, compress_history=False,
+    qs, ts, lens = xdrop_set(rng, 20 if kw else 4, max(B, 4), WALK_PAIRS[B], card)
+    qs, ts = qs[:B], ts[:B]
+    lens = {k: v[:B] for k, v in lens.items()}
+    lens["lens_q"][0] = 0
+    res = banded_batch.banded_batch(qs, ts, bandwidth=W, compress_history=False,
                                     **lens, **kw)
-    pad = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], 32, card, torch.int16)
+    pad = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], W, card, torch.int16)
     before = device_walk.xdrop_walk.launches
-    wire = device_walk.xdrop_walk(res, pad, 32, **kw)
+    wire = device_walk.xdrop_walk(res, pad, W, **kw)
     assert device_walk.xdrop_walk.launches == before + 1
-    assert torch.equal(wire.cpu(), device_walk.xdrop_walk_plain(res, pad, 32, **kw))
+    want = device_walk.xdrop_walk_plain(res, pad, W, **kw)
+    assert torch.equal(wire.cpu(), want)
+    pad32 = (*pad[:2], pad[2].int(), pad[3].int())
+    table = sw_banded.banded_table(BLOSUM62, card) if kw else None
+    small = device_walk.xdrop_walk_launch_t(res, pad32, W, kw.get("x_threshold", 70), 1,
+                                            1, 1, table, _chunk=2)
+    assert torch.equal(small.cpu(), want)
+
+
+def test_serial_walk_kernels_equal_the_map_kernels_on_card(card):
+    """The earlier one-thread-a-pair kernels (off every entry point) and the
+    map kernels write the same wires on the same inputs: 64 related and
+    random pairs with per-pair lengths."""
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 4, 64, 400, card)
+    run = banded_block._setup(qs, ts, 1, 1, 1, 64, 32, 70, None, None, True, None, None,
+                              lens["lens_q"], lens["lens_t"], card)
+    banded_block._forward(run)
+    serial = device_walk._block_serial_launch_t(run)
+    for G in (1, device_walk.GROUP):
+        assert torch.equal(device_walk.block_walk_launch_t(run, _group=G), serial)
+    res = banded_batch.banded_batch(qs, ts, bandwidth=32, compress_history=False, **lens)
+    pad = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], 32, card, torch.int16)
+    pad32 = (*pad[:2], pad[2].int(), pad[3].int())
+    assert torch.equal(device_walk.xdrop_walk_launch_t(res, pad32, 32, 70, 1, 1, 1),
+                       device_walk._xdrop_serial_launch_t(res, pad32, 32, 70, 1, 1, 1))
+
+
+def test_walk_grids_past_what_the_card_holds_on_card(card):
+    """Grids of more CTAs than the card holds at once: 2048 pairs, at least
+    two producer CTAs a pair (a group of pairs, for the block walk's grouped
+    producers) and a follower CTA a pair, of 256 threads. The CTAs take
+    their roles by ticket, producers first, so no follower waiting on a
+    producer can hold its place; the wires equal the plain versions'."""
+    props = torch.cuda.get_device_properties(card)
+    resident = (props.multi_processor_count
+                * getattr(props, "max_threads_per_multi_processor", 2048) // 256)
+    B = 2048
+    assert B + B // device_walk.GROUP * 2 > resident
+    rng = np.random.default_rng(10001)
+    qs, ts, lens = xdrop_set(rng, 4, B, 48, card)
+    run = banded_block._setup(qs, ts, 1, 1, 1, 32, 16, 70, None, None, True, None, None,
+                              lens["lens_q"], lens["lens_t"], card)
+    banded_block._forward(run)
+    want = device_walk.block_walk_plain(run)
+    for G in (1, device_walk.GROUP):
+        assert torch.equal(device_walk.block_walk_launch_t(run, _group=G).cpu(), want)
+    res = banded_batch.banded_batch(qs, ts, bandwidth=32, compress_history=False, **lens)
+    pad = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], 32, card, torch.int16)
+    pad32 = (*pad[:2], pad[2].int(), pad[3].int())
+    assert torch.equal(device_walk.xdrop_walk_launch_t(res, pad32, 32, 70, 1, 1, 1).cpu(),
+                       device_walk.xdrop_walk_plain(res, pad, 32))
 
 
 def test_reference_scale_banded_align_walks_on_card(card):
