@@ -30,14 +30,18 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
 
    1. environment: card name and power limit, device count;
    2. build: nvcc on the ten CUDA sources at once; registers, spills and
-      shared memory of each kernel;
+      shared memory of each kernel; the per-round kernels' round loops as
+      compiled (``cuobjdump -sass``: int32 ALU instructions a cell);
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
       profile kernel on a uniform scoring against the row-scan kernel;
       the bf16 kernel inside its exact range against the row-scan kernel
       too, above it (config 4's promotion workload, ``allow_overflow``)
       against its plain version bit for bit, drift included, and on the
-      pad cases where the bf16 tier matches pads; 64-pair spot checks
+      pad cases where the bf16 tier matches pads; both forms of the profile
+      kernel (a thread per pair, a warp per pair) and the wrapper on every
+      profile case, stripes of 128 rows crossed (n = 129, 300), a config-3
+      bucket's 120 x 800 with padded targets, n = 1; 64-pair spot checks
       against the numpy oracle; the eight semi-global instantiations
       (argmax and pinned) on 8192 x 128 x 128 (half related pairs),
       1000 x 90 x 200 with internal pads and per-pair lengths down to 0,
@@ -90,13 +94,18 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       (128 x 128) random protein, BLOSUM62 linear 11 and Gotoh 11/1
       (the JAX package's ``bench_protein`` scorings), timed; the first
       65,536 scores held against the plain version on the card, in chunks;
+      ``best_ends_engine`` on the same pairs (the thread form's ends), the
+      first 32,768 held;
    8. protein main path, BASELINE config 3: 64 mutated 120-mer fragments
       against the 256 SwissProt-like targets of
       ``swtpu/data/swissprot_like_256.fasta`` (read as data), 16,384 pairs
       in 6 target-length buckets, as the JAX package's
-      ``bench_protein_swissprot`` builds them; wall ms and GCUPS over the
-      real cells; every score against the plain version, 32 against the
-      oracle;
+      ``bench_protein_swissprot`` builds them, each a launch of the profile
+      kernel's warp form; wall ms and GCUPS over the real cells; each
+      bucket's launch alone beside the thread form's and its bound over the
+      real cells; the warp form's four instantiations on the widest bucket
+      (wrapper, alone, plain, bound); every score against the plain
+      version, 32 against the oracle;
    9. protein main path, traceback: ``sw_align_batch`` on 64 related
       protein 128-mers, Gotoh 11/1 and linear 11, with the same checks as
       phase 5 and a protein SEQ in SAM;
@@ -127,9 +136,13 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       and uniform semi-global kernels, protein for the profile kernels;
       the fixed band at W = 32) and for the per-round kernel on 256
       related 2048-mers, scores only, at W = 96 and 32: the wrapper
-      (layout transposes or row padding included) and the launch alone,
-      beside the plain version's time (one call, whose result phase 23
-      reuses) and the bound; the one-line benchmark;
+      (layout transposes or code staging included) and the launch alone,
+      beside the earlier per-round kernel's launch, the plain version's
+      time (one call, whose result phase 23 reuses) and the bound; the
+      profile kernel's form sweep (both forms alone at B = 512 to 131,072
+      pairs of 120 x 128 / 320 / 800, linear and Gotoh, the warp form held
+      against the thread form and, at 512 pairs, the plain version) and the
+      forms ``profile_form`` picks; the one-line benchmark;
   17. semi-global path, scores and endpoints at 1,048,576 x (128 x 128)
       (the JAX package's ``bench_semiglobal_full`` inputs at the headline
       scale): random DNA under (1,1,1) and (2,3,5,1), random protein under
@@ -156,7 +169,8 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       non-homologous (1,3,2) X = 40 early-exit set, W = 64 and 96, and
       16,384 pairs scores only; band GCUPS count rounds written x W; each
       scoring and the history against the plain version (W = 64 against
-      the oracle copy on 2 pairs), and the 16,384 pairs' bound;
+      the oracle copy on 2 pairs), and the 16,384 pairs' bound; ns a round
+      at 1 and 16,384 pairs, the earlier kernel beside;
   24. traceback: ``banded_static_align_batch`` on 64 related 128-mers
       (DNA linear and Gotoh, protein 11/1), paths in the corridor and
       rescored; ``banded_align_batch`` on 16 related 2048-mers (linear,
@@ -221,15 +235,11 @@ Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
-counted by tile size. Inside the config-4 window the calls that
-are not the path's own (the fused unit and split on staged tensors, the
-per-part times, the reference checks, phase 14) run between a
-``snapshot`` of the counts and their ``restore``, so the window counts
-only what ``sw_scores_varlen``, the promotion entry points, the traceback
-sample and the CLI launched; so do the checks and the rows' own timings
-in the windows of the semi-global, banded, block and long-pair paths
-(phases 20, 24, 26-28, 30 and 32). Any failed check raises, and the run
-exits nonzero. Without a card it exits 2 and prints no result.
+counted by tile size. A window counts each entry-point call once: every
+timing loop (``timed``), warm-up and check that launches a kernel runs
+between a ``snapshot`` of the counts and their ``restore`` (``off_path``),
+in every window. Any failed check raises, and the run exits nonzero.
+Without a card it exits 2 and prints no result.
 
     python3 chip_smoke.py
 """
@@ -305,6 +315,16 @@ KERNELS = {
                           "swtpu/kernels/pallas/sw_profile.py:287", 12, 1, 0),
     "sw_profile_affine_ends": (PROFILE, "sw_profile_kernelILb1ELb1E",
                                "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
+    # the profile kernel's warp form (a warp per pair, for batches too small
+    # to fill the card): the same function, so the same counts
+    "sw_profile_warp": (PROFILE, "sw_profile_warp_kernelILb0ELb0E",
+                        "swtpu/kernels/pallas/sw_profile.py:287", 7, 1, 0),
+    "sw_profile_ends_warp": (PROFILE, "sw_profile_warp_kernelILb0ELb1E",
+                             "swtpu/kernels/pallas/sw_profile.py:353", 9, 1, 0),
+    "sw_profile_affine_warp": (PROFILE, "sw_profile_warp_kernelILb1ELb0E",
+                               "swtpu/kernels/pallas/sw_profile.py:287", 12, 1, 0),
+    "sw_profile_affine_ends_warp": (PROFILE, "sw_profile_warp_kernelILb1ELb1E",
+                                    "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
     "sw_bf16": (BF16, "sw_bf16_kernel",
                 "swtpu/kernels/pallas/sw_bf16.py:134", 2, 0, 5),
     # <AFFINE, PROFILE, PIN>; the pinned (global) forms extend the TPU
@@ -342,12 +362,17 @@ KERNELS = {
                           "swtpu/kernels/pallas/sw_banded.py:239", 7, 1, 0),
     "sw_banded_profile_affine": (BANDED, "sw_banded_kernelILb1ELb1E",
                                  "swtpu/kernels/pallas/sw_banded.py:239", 12, 1, 0),
-    # the per-round kernel <CPL, AFFINE>: one source, two TPU rows; the
+    # the per-round kernel <CPL, AFFINE, MATRIX, HIST, EXACT> and, timed
+    # beside it, the earlier one <CPL, AFFINE>: one source, two TPU rows; the
     # W = 32 / 64 calls (CPL 1, 2) stand for the packed TPU kernel. Its ops
     # are counted per cell and per pair and round: see xdrop_ops
-    "banded_batch": (XDROP, tuple(f"sw_xdrop_kernelILi{c}E" for c in (1, 2, 3, 4)),
+    "banded_batch": (XDROP, tuple(f"{k}ILi{c}E" for k in ("xdrop_round_kernel",
+                                                           "sw_xdrop_kernel")
+                                  for c in (1, 2, 3, 4)),
                      "swtpu/kernels/pallas/banded_batch.py:493", None, 0, 0),
-    "banded_batch_w32_w64": (XDROP, ("sw_xdrop_kernelILi1E", "sw_xdrop_kernelILi2E"),
+    "banded_batch_w32_w64": (XDROP, tuple(f"{k}ILi{c}E" for k in ("xdrop_round_kernel",
+                                                                   "sw_xdrop_kernel")
+                                          for c in (1, 2)),
                              "swtpu/kernels/pallas/banded_packed.py:412", None, 0, 0),
     # the block tier: B9 for both TPU forms, the one-launch forward (a warp
     # per pair) and, for negative gap penalties, the per-block kernel (a
@@ -376,7 +401,8 @@ KERNELS = {
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
-                "sw_profile_affine_ends"]
+                "sw_profile_affine_ends", "sw_profile_warp", "sw_profile_ends_warp",
+                "sw_profile_affine_warp", "sw_profile_affine_ends_warp"]
 CONFIG4_PATH = ["sw_bf16", "sw_batch"]
 SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
 BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
@@ -449,6 +475,63 @@ def in_band_cells(n, m, W):
     """Cells (i, j), 1 <= i <= n, 1 <= j <= m, with |i - j| <= W."""
     i = np.arange(1, n + 1)
     return int(np.clip(np.minimum(m, i + W) - np.maximum(1, i - W) + 1, 0, None).sum())
+
+
+#: SASS opcodes that are not int32 ALU work: shuffles and reductions,
+#: memory, control, and the uniform datapath (U*)
+NOT_ALU = ("SHFL", "REDUX", "VOTE", "LDG", "STG", "LDS", "STS", "LDC", "ULDC", "BRA",
+           "BSSY", "BSYNC", "EXIT", "WARPSYNC", "NOP", "CALL", "RET", "BAR", "S2R",
+           "S2UR", "CS2R", "ENDCOLLECTIVE", "ELECT", "PLOP3", "MEMBAR", "ATOM", "RED",
+           "U")
+BRANCH = re.compile(r"BRA(?:\.U)?\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)")
+
+
+def sass_of(lib, fragment, cuobjdump):
+    """[(address, instruction)] of the kernel whose mangled name holds
+    ``fragment`` in a built library (``cuobjdump -sass``)."""
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    for f in re.split(r"\n\s*Function : ", out)[1:]:
+        if fragment in f.split("\n")[0]:
+            return [(int(m.group(1), 16), m.group(2).strip()) for m in (
+                re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", x) for x in f.split("\n"))
+                if m]
+    raise KeyError(fragment)
+
+
+def loop_ops(ins, marker="REDUX"):
+    """int32 ALU instructions in a pass of a kernel's round loop as
+    compiled: the shortest backward branch whose body holds ``marker`` (one
+    a round) and no EXIT (a divergence fallback jumps back into the loop
+    from past it), every instruction of its body counted once but the basic
+    blocks that store (a history write, which a scores-only call skips),
+    register moves apart. Returns (ALU instructions, moves, rounds a pass)."""
+    addr = {a: i for i, (a, _) in enumerate(ins)}
+    best = None
+    for i, (a, op) in enumerate(ins):
+        m = BRANCH.search(op)
+        if m and "BRA.DIV" not in op:
+            tgt = int(m.group(1), 16)
+            body = ins[addr[tgt]:i + 1] if tgt < a and tgt in addr else []
+            if (any(marker in o for _, o in body) and not any("EXIT" in o for _, o in body)
+                    and (best is None or len(body) < len(best))):
+                best = body
+    check(best is not None, f"no round loop holding {marker} in the SASS")
+    targets = {int(x, 16) for _, o in best for x in BRANCH.findall(o)}
+    blocks, cur = [], []
+    for a, o in best:
+        if a in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(o.split()[1] if o.startswith("@") else o.split()[0])
+        if "BRA" in o:
+            blocks.append(cur)
+            cur = []
+    ops = [x for blk in blocks + [cur] if not any(y.startswith("STG") for y in blk)
+           for x in blk]
+    moves = sum(x.startswith(("MOV", "IMAD.MOV")) for x in ops)
+    alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves
+    return alu, moves, sum(marker in x for x in ops)
 
 
 def tup(x):
@@ -657,10 +740,15 @@ def main():
                                    P_GOTOH),
         "sw_bf16": (kbf.sw_bf16, kbf.sw_bf16_plain, DNA_10_30_15),
     }
+    for name in PROTEIN_PATH[4:]:  # the warp form: the same wrappers
+        kernel_fns[name] = kernel_fns[name[:-len("_warp")]]
 
-    def profile_name(ends, p):
+    def profile_name(ends, p, warp=False):
         return "sw_profile" + ("" if p.is_linear else "_affine") + (
-            "_ends" if ends else "")
+            "_ends" if ends else "") + ("_warp" if warp else "")
+
+    def warp_form(B, n, m):
+        return kp.profile_form(B, n, m, n_sm) == "warp"
 
     # the semi-global scorings: uniform ones as the wrapper's keyword
     # arguments (match, mismatch penalty, gaps), general ones as params
@@ -784,8 +872,13 @@ def main():
         kern = kernel_fns[name][0]
         if name not in PROTEIN_PATH:
             return kern.launches
-        return (kern.launches_affine if "affine" in name
-                else kern.launches - kern.launches_affine)
+        # the profile wrappers count every launch, the affine ones, the warp
+        # form's and its affine ones
+        affine, wa = "affine" in name, kern.launches_warp_affine
+        if name.endswith("_warp"):
+            return wa if affine else kern.launches_warp - wa
+        return (kern.launches_affine - wa if affine else
+                kern.launches - kern.launches_affine - kern.launches_warp + wa)
 
     b9_folded = {"launches": 0}
 
@@ -840,6 +933,22 @@ def main():
             for k, v in counts.items():
                 setattr(w, k, v)
 
+    @contextlib.contextmanager
+    def off_path():
+        """Launches inside (a check, a timing loop) are not the path's own:
+        every count is as it was after the block."""
+        saved = snapshot()
+        try:
+            yield
+        finally:
+            restore(saved)
+
+    def timed(fn, args, **kw):
+        """``time_kernel`` off the path: a window counts each entry-point
+        call once, never a timing loop's repeats."""
+        with off_path():
+            return time_kernel(fn, args, **kw)
+
     # 1. environment -------------------------------------------------------
     phase("1 environment")
     smi = nvidia_smi("name,power.limit")
@@ -847,6 +956,14 @@ def main():
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_rate = n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    bf16_rate = n_sm * BF16_RESULTS_PER_SM * sm_clock_mhz * 1e6
+    lookup_rate = n_sm * SMEM_WORDS_PER_SM * sm_clock_mhz * 1e6
+    rows = []  # the kernels line
+
+    def rows_by_name(name):
+        return next(r for r in rows if r["name"] == name)
     print(f"device {kind} count {count} torch {torch.__version__} "
           f"cuda {torch.version.cuda} max SM clock {sm_clock_mhz:.0f} MHz",
           flush=True)
@@ -860,7 +977,7 @@ def main():
     print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
           f"(0.0 s means they were already built)", flush=True)
     seen = set()
-    many = {}  # B9's instantiations: one summary line a kernel
+    many = {}  # B9's and the per-round kernel's instantiations: a line a kernel
     for source in sources:
         for e in re.split(r"Compiling entry function '", _build.build_log(source))[1:]:
             mangled = e.split("'")[0]
@@ -876,9 +993,9 @@ def main():
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
             smem = re.search(r"(\d+) bytes smem", e)
             check(regs and spill, f"no register report for {name}")
-            if "block_rows" in names:
-                kern = "block_fwd_kernel" if "block_fwd_kernel" in mangled else (
-                    "block_rows_kernel")
+            if "block_rows" in names or "xdrop_round_kernel" in mangled:
+                kern = next(k for k in ("block_fwd_kernel", "block_rows_kernel",
+                                        "xdrop_round_kernel") if k in mangled)
                 many.setdefault(kern, []).append(
                     (int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
                 seen.update(names)
@@ -887,14 +1004,34 @@ def main():
                   f"{spill.group(1)} B, spill loads {spill.group(2)} B, shared "
                   f"memory {smem.group(1) if smem else 0} B", flush=True)
             seen.update(names)
-    for name, stats in many.items():
+    templates = {"block_fwd_kernel": "S, AFFINE, MATRIX, VARLEN, HIST",
+                 "block_rows_kernel": "WR, AFFINE, MATRIX, VARLEN, HIST",
+                 "xdrop_round_kernel": "CPL, AFFINE, MATRIX, HIST, EXACT"}
+    for kern, stats in sorted(many.items()):
         regs_, st_, ld_ = zip(*stats)
-        first = "S" if name == "block_fwd_kernel" else "WR"
-        print(f"block_rows/block_rows_small {name} <{first}, AFFINE, MATRIX, VARLEN, "
-              f"HIST>: {len(stats)} "
+        label = ("block_rows/block_rows_small" if kern.startswith("block")
+                 else "banded_batch/banded_batch_w32_w64")
+        print(f"{label} {kern} <{templates[kern]}>: {len(stats)} "
               f"instantiations, registers {min(regs_)}-{max(regs_)}, spill stores "
               f"max {max(st_)} B, spill loads max {max(ld_)} B", flush=True)
     check(seen == set(KERNELS), f"nvcc built {sorted(seen)}")
+    # the per-round kernels' round loops as compiled: int32 ALU instructions
+    # a round over the cells a lane holds (scores only, linear, uniform
+    # scoring, W = 32 and 96), the earlier kernel beside them
+    cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    xdrop_sass = {}
+    for label, frag, cpl in (
+            ("W=32", "xdrop_round_kernelILi1ELb0ELb0ELb0ELb1E", 1),
+            ("W=96", "xdrop_round_kernelILi3ELb0ELb0ELb0ELb1E", 3),
+            ("W=32 Gotoh", "xdrop_round_kernelILi1ELb1ELb0ELb0ELb1E", 1),
+            ("earlier W=32", "sw_xdrop_kernelILi1ELb0E", 1),
+            ("earlier W=96", "sw_xdrop_kernelILi3ELb0E", 3)):
+        alu, moves, passes = loop_ops(sass_of(_build.library_path(XDROP), frag, cuobjdump))
+        xdrop_sass[label] = alu / passes / cpl
+        print(f"per-round kernel {label} ({frag}): round loop {alu} int32 ALU "
+              f"instructions and {moves} moves for {passes} round(s) of {cpl} cell(s) "
+              f"a lane: {alu / passes / cpl:.1f} int32 ops a cell as compiled",
+              flush=True)
 
     # 3. kernels vs plain versions -----------------------------------------
     phase("3 kernels vs plain versions (exact)")
@@ -961,20 +1098,47 @@ def main():
         ("33x7x1 protein", random_protein(prng, (33, 7)),
          random_protein(prng, (33, 1)), [P_LIN, P_GOTOH]),
     ]
+    # the warp form's shapes: stripes of 128 rows (n = 129, 300), a
+    # config-3 bucket's (120 x 800, targets padded with 25 past their
+    # lengths), a one-row query
+    c3q = random_protein(prng, (512, 120))
+    c3t = random_protein(prng, (512, 800))
+    c3t[np.arange(800)[None, :] >= prng.integers(80, 801, 512)[:, None]] = 25
+    w3q, w3t = random_protein(prng, (64, 300)), random_protein(prng, (64, 320))
+    w3q[:16, :300] = w3t[:16, :300]
+    w3q[:, 290:] = 24
+    w3t[::3, 7] = 25
+    profile_cases += [
+        ("512x120x800 protein, config-3 bucket", c3q, c3t, [P_LIN, P_GOTOH]),
+        ("64x300x320 protein, 3 stripes, pads", w3q, w3t, [P_LIN, P_GOTOH]),
+        ("8x129x33 protein", random_protein(prng, (8, 129)),
+         random_protein(prng, (8, 33)), [P_LIN, P_GOTOH]),
+        ("40x1x50 protein", random_protein(prng, (40, 1)),
+         random_protein(prng, (40, 50)), [P_LIN, P_GOTOH]),
+    ]
     for label, qh, th, plist in profile_cases:
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        qT, tT = qd.t().contiguous(), td.t().contiguous()
         for p in plist:
+            table = kp.profile_table(p, dev)
             for ends, kern, plain in ((False, kp.sw_profile, kp.sw_profile_plain),
                                       (True, kp.sw_profile_ends,
                                        kp.sw_profile_ends_plain)):
-                name = profile_name(ends, p)
-                got = kern(qd, td, p)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, plain(qd, td, p))
-                max_err[name] = max(max_err[name], err)
-                print(f"{label} gap=({p.gap_open},{p.gap_extend}) {name}: max "
-                      f"|kernel - plain| = {err}", flush=True)
-                check(err == 0, f"{name} differs from its plain version on {label}")
+                want = plain(qd, td, p)
+                # both forms, and the wrapper (the form profile_form picks)
+                for warp in (False, True):
+                    name = profile_name(ends, p, warp)
+                    got = (kp.profile_warp_launch_t(qd, td, table, p, ends) if warp
+                           else kp.profile_launch_t(qT, tT, table, p, ends))
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, want)
+                    max_err[name] = max(max_err[name], err)
+                    check(err == 0, f"{name} differs from its plain version on {label}")
+                check(max_abs_err(kern(qd, td, p), want) == 0, f"{kern.__name__} on {label}")
+                print(f"{label} gap=({p.gap_open},{p.gap_extend}) {profile_name(ends, p)}"
+                      f" and {profile_name(ends, p, True)}: max |kernel - plain| = 0; the "
+                      f"wrapper ran the {kp.profile_form(*qh.shape, th.shape[1], n_sm)} "
+                      "form", flush=True)
     # the profile kernel on a uniform scoring equals the row-scan kernel
     qd, td = torch.from_numpy(flag_q).to(dev), torch.from_numpy(flag_t).to(dev)
     for p in (DNA_10_30_15, AFF):
@@ -1609,14 +1773,14 @@ def main():
         idx = rng.choice(B, 64, replace=False)
         check(np.array_equal(s_host[idx], batch_oracle(qh[idx], th[idx], p)),
               "best_engine vs oracle on 64 random pairs")
-        sec = time_kernel(fn, (qd, td), iters=10)
+        sec = timed(fn, (qd, td), iters=10)
         cells = B * n * m
         print(f"best_engine gap=({p.gap_open},{p.gap_extend}): "
               f"{sec * 1e3:.3f} ms per call, {cells / sec / 1e9:.1f} GCUPS, "
               f"{1e6 / B * sec * 1e3:.3f} ms per 1M alignments, mean score "
               f"{s_host.mean():.3f} [{smi}]", flush=True)
     # the wrapper's share of that call: the [B, L] -> [L, B] transposes
-    layout_s = time_kernel(
+    layout_s = timed(
         lambda q, t: (q.t().contiguous(), t.t().contiguous()), (qd, td), iters=10
     )
     print(f"of which layout transposes: {layout_s * 1e3:.3f} ms per call",
@@ -1638,7 +1802,7 @@ def main():
             max_err[name] = max(max_err[name], err)
             check(err == 0, f"{name} differs from its plain version on {len(qs)} pairs")
             sc, ei, ej = (x.cpu().numpy() for x in got)
-            ends_s = time_kernel(ends_fn, (qs_d, ts_d))
+            ends_s = timed(ends_fn, (qs_d, ts_d))
             t0 = time.perf_counter()
             res = sw_align_batch(qs, ts, p)
             walk_s = time.perf_counter() - t0
@@ -1741,11 +1905,38 @@ def main():
         idx = rng.choice(B, 64, replace=False)
         check(np.array_equal(s_host[idx], batch_oracle(qh[idx], th[idx], p)),
               "protein best_engine vs oracle on 64 random pairs")
-        sec = time_kernel(fn, (qd, td), iters=10)
+        sec = timed(fn, (qd, td), iters=10)
         cells = B * n * m
         print(f"best_engine BLOSUM62 gap=({p.gap_open},{p.gap_extend}): "
               f"{sec * 1e3:.3f} ms per call, {cells / sec / 1e9:.1f} GCUPS, "
               f"mean score {s_host.mean():.3f} [{smi}]", flush=True)
+        # the endpoints of the same pairs (the traceback's first half at
+        # this scale: the thread form's ends), the first 16,384 held
+        ends = best_ends_engine(p)(qd, td)
+        name = profile_name(True, p)
+        err = max(max_abs_err(tuple(x[lo:lo + chunk // 2] for x in ends),
+                              kp.sw_profile_ends_plain(qd[lo:lo + chunk // 2],
+                                                       td[lo:lo + chunk // 2], p))
+                  for lo in (0, chunk // 2))
+        max_err[name] = max(max_err[name], err)
+        check(err == 0 and torch.equal(ends[0], scores),
+              f"{name} differs from its plain version at 1M protein pairs")
+        ends_s = timed(best_ends_engine(p), (qd, td), iters=5)
+        print(f"best_ends_engine BLOSUM62 gap=({p.gap_open},{p.gap_extend}): "
+              f"{ends_s * 1e3:.3f} ms per call; scores equal best_engine's, the first "
+              f"{chunk} ends the plain version", flush=True)
+        del ends
+        # the thread form's launch alone at this shape, beside its bound
+        qT, tT = qd.t().contiguous(), td.t().contiguous()
+        table = kp.profile_table(p, dev)
+        for ends_ in (False, True):
+            name = profile_name(ends_, p)
+            alone = timed(kp.profile_launch_t, (qT, tT, table, p, ends_), iters=5) * 1e3
+            bound = cells * KERNELS[name][3] / int32_rate * 1e3
+            print(f"  {name} launch alone at 1M pairs {alone:.3f} ms, bound {bound:.3f} "
+                  f"ms ({bound / alone:.1%}), {alone - bound:.3f} ms lost a launch",
+                  flush=True)
+        del qT, tT
     del qd, td, qh, th, scores
     torch.cuda.empty_cache()
 
@@ -1782,15 +1973,21 @@ def main():
           f"{int(lens.max())} (mean {lens.mean():.1f}), buckets of widths "
           f"{[int(b[1].shape[1]) for b in buckets]}; {real_cells} real cells",
           flush=True)
+    bucket_cells = [int(tl[idxs].sum()) * Lq for idxs in bucket_idx]
+    check(all(warp_form(dq.shape[0], Lq, dt.shape[1]) for dq, dt in buckets),
+          "config 3's buckets go to the warp form")
     for p, oracle in ((P_LIN, sw_score_batch), (P_GOTOH, sw_affine_score_batch)):
         fn = best_engine(p)
         got = np.zeros(nq * nt, np.int32)
         err = 0
+        name = profile_name(False, p, warp=True)
+        before = launches(name)
         for idxs, (dq, dt) in zip(bucket_idx, buckets):
             s = fn(dq, dt)
-            err = max(err, max_abs_err(s, kp.sw_profile_plain(dq, dt, p)))
+            with off_path():
+                err = max(err, max_abs_err(s, kp.sw_profile_plain(dq, dt, p)))
             got[idxs] = s.cpu().numpy()
-        name = profile_name(False, p)
+        check(launches(name) == before + nb, f"config 3 runs {name} a bucket")
         max_err[name] = max(max_err[name], err)
         check(err == 0, f"{name} differs from its plain version on config 3")
         want = np.array([int(oracle(qq[k: k + 1], tt[k: k + 1, : lens[k % nt]], p)[0])
@@ -1800,13 +1997,66 @@ def main():
         def run_all(fn=fn):
             return [fn(dq, dt) for dq, dt in buckets]
 
-        sec = time_kernel(run_all, (), iters=5)
+        sec = timed(run_all, (), iters=5)
         print(f"config 3 BLOSUM62 gap=({p.gap_open},{p.gap_extend}): all "
               f"{nb} buckets {sec * 1e3:.3f} ms wall, {real_cells / sec / 1e9:.1f} "
               f"GCUPS over the real cells; every score equals the plain version, "
               f"the first 32 the oracle; mean score {got.mean():.2f} [{smi}]",
               flush=True)
-    del buckets
+        # each bucket's launch alone (the warp form), beside the thread form
+        # on the same bucket, and the bound over its real cells
+        table = kp.profile_table(p, dev)
+        ops, lookups = KERNELS[name][3:5]
+        tot = [0.0, 0.0, 0.0]
+        for k, (dq, dt) in enumerate(buckets):
+            alone = timed(kp.profile_warp_launch_t, (dq, dt, table, p, False),
+                          iters=10) * 1e3
+            qT, tT = dq.t().contiguous(), dt.t().contiguous()
+            thread = timed(kp.profile_launch_t, (qT, tT, table, p, False), iters=5) * 1e3
+            bound = max(bucket_cells[k] * ops / int32_rate,
+                        bucket_cells[k] * lookups / lookup_rate) * 1e3
+            tot = [tot[0] + alone, tot[1] + thread, tot[2] + bound]
+            print(f"  bucket {k}: {dq.shape[0]} pairs of {Lq} x {dt.shape[1]} "
+                  f"({bucket_cells[k]} real cells): warp form alone {alone:.4f} ms, "
+                  f"thread form {thread:.4f} ms, bound {bound:.4f} ms ({ops} int32 ops "
+                  f"a cell), {bound / alone:.1%} of it", flush=True)
+            del qT, tT
+        print(f"  the 6 buckets: warp form alone {tot[0]:.4f} ms, thread form "
+              f"{tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({tot[2] / tot[0]:.1%})", flush=True)
+    # the warp form's four instantiations on the widest bucket: wrapper,
+    # launch alone, plain version, bound (the kernels line's rows)
+    dq, dt = buckets[-1]
+    idxs = bucket_idx[-1]
+    wide_cells = bucket_cells[-1]
+    for p in (P_LIN, P_GOTOH):
+        table = kp.profile_table(p, dev)
+        for ends, kern, plain in ((False, kp.sw_profile, kp.sw_profile_plain),
+                                  (True, kp.sw_profile_ends, kp.sw_profile_ends_plain)):
+            name = profile_name(ends, p, warp=True)
+            ops, lookups = KERNELS[name][3:5]
+            with off_path():
+                t0 = time.perf_counter()
+                want = plain(dq, dt, p)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                err = max_abs_err(kern(dq, dt, p), want)
+            max_err[name] = max(max_err[name], err)
+            check(err == 0, f"{name} differs from its plain version on the widest bucket")
+            ms = timed(kern, (dq, dt, p), iters=10) * 1e3
+            alone = timed(kp.profile_warp_launch_t, (dq, dt, table, p, ends), iters=10) * 1e3
+            bound = max(wide_cells * ops / int32_rate, wide_cells * lookups / lookup_rate,
+                        (dq.numel() + dt.numel() + 4 * table.numel()
+                         + 4 * dq.shape[0] * (3 if ends else 1)) / HBM_BYTES_PER_S) * 1e3
+            rows.append(dict(
+                name=name, route="cuda", source=f"swtpu_torch/csrc/{PROFILE}",
+                replaces=KERNELS[name][2], launches=None, max_abs_err=max_err[name],
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+                library_ms=None, kernel_ms=alone))
+            print(f"{name}, widest bucket ({dq.shape[0]} x {Lq} x {dt.shape[1]}, "
+                  f"{wide_cells} real cells): wrapper {ms:.4f} ms, launch alone "
+                  f"{alone:.4f} ms, plain {plain_ms:.1f} ms (equal), bound {bound:.4f} ms "
+                  f"({bound / alone:.1%})", flush=True)
+    del buckets, dq, dt
     torch.cuda.empty_cache()
 
     # 9. protein main path, traceback --------------------------------------
@@ -1852,7 +2102,8 @@ def main():
           "320-bp windows on the 2-bit wire, DNA (1, -1, 1)")
     B4, N4, M4 = 32768, 300, 320
     sets = [read_set(s, B4, M4) for s in (SEED, SEED + 1, SEED + 2)]
-    sw_scores_varlen(sets[0][0], sets[0][1], DNA_111, sets[0][2], packed=True)
+    with off_path():  # a warm-up, not the path's own call
+        sw_scores_varlen(sets[0][0], sets[0][1], DNA_111, sets[0][2], packed=True)
     walls, results = [], []
     for qs_p, ts_p, lens in sets[1:]:  # distinct data per timed call
         torch.cuda.synchronize()
@@ -1866,8 +2117,9 @@ def main():
           f"GCUPS over the {cells} real cells, {B4 / wall:.0f} alignments/s "
           f"[{smi}]", flush=True)
     # stream_chunks=4: four chunks, each uploaded and run in turn
-    sw_scores_varlen(*sets[0][:2], DNA_111, sets[0][2], packed=True,
-                     stream_chunks=4)  # warm-up: the chunk shapes
+    with off_path():  # a warm-up (the chunk shapes), not the path's own call
+        sw_scores_varlen(*sets[0][:2], DNA_111, sets[0][2], packed=True,
+                         stream_chunks=4)
     chunk_walls = []
     for (qs_p, ts_p, lens), want in zip(sets[1:], results):
         torch.cuda.synchronize()
@@ -1908,7 +2160,7 @@ def main():
     lt_d = torch.full((B4,), M4, dtype=torch.int32, device=dev)
     check(np.array_equal(fused(dq, dt, lq_d, lt_d).cpu().numpy(), results[-1]),
           "the fused unit on device tensors vs sw_scores_varlen")
-    per = time_kernel(lambda a, b: fused(a, b, lq_d, lt_d), (dq, dt), iters=10)
+    per = timed(lambda a, b: fused(a, b, lq_d, lt_d), (dq, dt), iters=10)
     print(f"fused decode + pads + kernel on device tensors: {per * 1e3:.4f} ms, "
           f"{cells / per / 1e9:.1f} GCUPS, {B4 / per:.0f} alignments/s", flush=True)
     # where that time goes: the decode and pads alone (the same unit with
@@ -1918,18 +2170,18 @@ def main():
     qm_d, tm_d = decode(dq, dt, lq_d, lt_d)
     qT, tT = qm_d.t().contiguous(), tm_d.t().contiguous()
     parts = {
-        "decode + pads": time_kernel(lambda a, b: decode(a, b, lq_d, lt_d),
-                                     (dq, dt), iters=10),
-        "layout transposes": time_kernel(
+        "decode + pads": timed(lambda a, b: decode(a, b, lq_d, lt_d),
+                               (dq, dt), iters=10),
+        "layout transposes": timed(
             lambda a, b: (a.t().contiguous(), b.t().contiguous()), (qm_d, tm_d),
             iters=10),
-        "sw_batch launch alone": time_kernel(
+        "sw_batch launch alone": timed(
             lambda: kb.rowscan_launch_t(qT, tT, DNA_111, 1, -1, False, False), (),
             iters=10),
     }
     # the same launch on a quarter of the pairs, whose scratch fits in L2
     qT4, tT4 = qT[:, :B4 // 4].contiguous(), tT[:, :B4 // 4].contiguous()
-    quarter = time_kernel(
+    quarter = timed(
         lambda: kb.rowscan_launch_t(qT4, tT4, DNA_111, 1, -1, False, False), (),
         iters=10)
     print("of which " + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items())
@@ -1962,7 +2214,8 @@ def main():
     # 12. config 4, promotion ----------------------------------------------
     phase("12 BASELINE config 4, promotion: 32,768 pairs of 300 x 320, 1/8 "
           "homologous, bf16 tier + int32 re-run")
-    promote.sw_scores_promoted_device(prom_warm, prom_t, DNA_111)  # warm-up
+    with off_path():  # a warm-up, not the path's own call
+        promote.sw_scores_promoted_device(prom_warm, prom_t, DNA_111)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scores, promoted = promote.sw_scores_promoted_device(prom_q, prom_t, DNA_111)
@@ -1982,16 +2235,16 @@ def main():
     check(np.array_equal(split[0].cpu().numpy(), scores)
           and np.array_equal(split[1].cpu().numpy(), promoted),
           "the fused split vs sw_scores_promoted_device")
-    per = time_kernel(lambda a, b: promote.promoted_split(a, b, DNA_111, cap)[0],
-                      (qd, td), iters=10)
+    per = timed(lambda a, b: promote.promoted_split(a, b, DNA_111, cap)[0],
+                (qd, td), iters=10)
     print(f"fused split (bf16 pass, mask, capped compaction, int32 re-run of "
           f"{cap} slots, scatter) on device tensors: {per * 1e3:.4f} ms, "
           f"{B4 / per:.0f} alignments/s", flush=True)
     parts = {
-        "bf16 pass (sw_bf16, all pairs)": time_kernel(
+        "bf16 pass (sw_bf16, all pairs)": timed(
             lambda a, b: kbf.sw_bf16(a, b, DNA_111, allow_overflow=True),
             (qd, td), iters=10),
-        f"int32 re-run (sw_batch, {cap} pairs)": time_kernel(
+        f"int32 re-run (sw_batch, {cap} pairs)": timed(
             lambda a, b: kb.sw_batch(a, b, DNA_111), (qd[:cap], td[:cap]),
             iters=10),
     }
@@ -2040,8 +2293,8 @@ def main():
             ("best_engine (int32 sw_batch)", int32_fn, (qd, td),
              lambda: kb.rowscan_launch_t(qT, tT, DNA_10_30_15, 10, -30,
                                          False, False))):
-        sec = time_kernel(fn, args, iters=10)
-        bare_s = time_kernel(bare, (), iters=10)
+        sec = timed(fn, args, iters=10)
+        bare_s = timed(bare, (), iters=10)
         print(f"{label}: {sec * 1e3:.3f} ms per call ({cells / sec / 1e9:.1f} "
               f"GCUPS), launch alone {bare_s * 1e3:.3f} ms ({cells / bare_s / 1e9:.1f} "
               f"GCUPS) [{smi}]", flush=True)
@@ -2098,32 +2351,27 @@ def main():
     phase("16 kernel times at 32768 x (128x128)")
     print(smi, flush=True)
     B, n, m = 32768, 128, 128
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    int32_rate = n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
-    bf16_rate = n_sm * BF16_RESULTS_PER_SM * sm_clock_mhz * 1e6
-    lookup_rate = n_sm * SMEM_WORDS_PER_SM * sm_clock_mhz * 1e6
     inputs = {
         ROWSCAN: (random_codes(rng, (B, n)), random_codes(rng, (B, m))),
         PROFILE: (random_protein(rng, (B, n)), random_protein(rng, (B, m))),
     }
     inputs[BF16] = inputs[ROWSCAN]  # the same DNA codes
-    rows = []
     for source, (qh, th) in inputs.items():
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
         # the wrapper's [B, L] -> [L, B] layout transposes alone, and the
         # codes in the kernel's layout for timing the launch alone
-        layout_ms = time_kernel(
+        layout_ms = timed(
             lambda q, t: (q.t().contiguous(), t.t().contiguous()), (qd, td),
             iters=20) * 1e3
         print(f"{source} inputs: layout transposes {layout_ms:.4f} ms per call",
               flush=True)
         qT, tT = qd.t().contiguous(), td.t().contiguous()
         for name, (src, _, replaces, ops, lookups, bf16_ops) in KERNELS.items():
-            if src != source:
+            if src != source or name.endswith("_warp"):  # the warp form: phase 8
                 continue
             kern, plain, p = kernel_fns[name]
             ends = name.endswith("_ends")
-            ms = time_kernel(kern, (qd, td, p), iters=20) * 1e3
+            ms = timed(kern, (qd, td, p), iters=20) * 1e3
             if source == ROWSCAN:
                 def bare(p=p, ends=ends):
                     return kb.rowscan_launch_t(
@@ -2140,8 +2388,8 @@ def main():
 
             for g, w in zip(tup(bare()), tup(kern(qd, td, p))):
                 check(torch.equal(g, w), f"{name}: bare launch vs wrapper")
-            kernel_ms = time_kernel(bare, (), iters=20) * 1e3
-            plain_ms = time_kernel(plain, (qd, td, p), iters=1, warmup=1, reps=1) * 1e3
+            kernel_ms = timed(bare, (), iters=20) * 1e3
+            plain_ms = timed(plain, (qd, td, p), iters=1, warmup=1, reps=1) * 1e3
             n_out = 3 if ends else 1
             table_bytes = 4 * kp.profile_table(p, dev).numel() if source == PROFILE else 0
             bytes_ = B * (n + m) + table_bytes + 4 * B * n_out
@@ -2197,9 +2445,9 @@ def main():
 
         for g, w in zip(bare(), wrapped(qd, td)):
             check(torch.equal(g, w), f"{name}: bare launch vs wrapper")
-        ms = time_kernel(wrapped, (qd, td), iters=20) * 1e3
-        kernel_ms = time_kernel(bare, (), iters=20) * 1e3
-        plain_ms = time_kernel(plain, (qd, td), iters=1, warmup=1, reps=1) * 1e3
+        ms = timed(wrapped, (qd, td), iters=20) * 1e3
+        kernel_ms = timed(bare, (), iters=20) * 1e3
+        plain_ms = timed(plain, (qd, td), iters=1, warmup=1, reps=1) * 1e3
         table_bytes = 0 if table is None else 4 * table.numel()
         bytes_ = B * (n + m) + table_bytes + 4 * B * 3
         times = {
@@ -2247,10 +2495,10 @@ def main():
             return ksb.banded_launch_t(qT, tT, p, Wf, table)
 
         check(torch.equal(bare(), kern(qd, td, p, Wf)), f"{name}: bare launch vs wrapper")
-        ms = time_kernel(kern, (qd, td, p, Wf), iters=20) * 1e3
-        kernel_ms = time_kernel(bare, (), iters=20) * 1e3
-        plain_ms = time_kernel(ksb.sw_banded_plain, (qd, td, p, Wf), iters=1, warmup=1,
-                               reps=1) * 1e3
+        ms = timed(kern, (qd, td, p, Wf), iters=20) * 1e3
+        kernel_ms = timed(bare, (), iters=20) * 1e3
+        plain_ms = timed(ksb.sw_banded_plain, (qd, td, p, Wf), iters=1, warmup=1,
+                         reps=1) * 1e3
         bytes_ = B * (n + m) + (0 if table is None else 4 * table.numel()) + 4 * B
         times = {
             "int32 ops": band_cells * ops / int32_rate * 1e3,
@@ -2282,6 +2530,7 @@ def main():
     ops_cell, ops_round = xdrop_ops(False, False)
     for name, W in (("banded_batch", 96), ("banded_batch_w32_w64", 32)):
         replaces = KERNELS[name][2]
+        staged = kbb.stage(adq_d, adt_d, None, None, dev)
         qp, tp, lq, lt = _prep_padded(adq_d, adt_d, None, None, W, dev, torch.int16)
         lq, lt = lq.int(), lt.int()
 
@@ -2293,19 +2542,24 @@ def main():
                                                     with_history=False, device=dev)
             return xdrop_plain[W]
 
-        def bare(W=W, qp=qp, tp=tp, lq=lq, lt=lt):
-            return kbb.xdrop_launch_t(qp, tp, lq, lt, W, 70, 1, 1, 1,
-                                      with_history=False)
+        def bare(W=W, staged=staged):
+            return kbb.xdrop_launch_t(*staged, W, 70, 1, 1, 1, with_history=False)
+
+        def earlier(W=W, qp=qp, tp=tp, lq=lq, lt=lt):
+            return kbb._earlier_launch_t(qp, tp, lq, lt, W, 70, 1, 1, 1,
+                                         with_history=False)
 
         res = wrapped(adq_d, adt_d)
-        check(all(torch.equal(g, w) for g, w in zip(bare()[:3], xdrop_fields(res))),
-              f"{name}: bare launch vs wrapper")
+        for fn, what in ((bare, "bare launch"), (earlier, "the earlier kernel")):
+            check(all(torch.equal(g, w) for g, w in zip(fn()[:3], xdrop_fields(res))),
+                  f"{name}: {what} vs wrapper")
         rounds = int(res.n_rounds.sum())
         cells = rounds * W
-        ms = time_kernel(wrapped, (adq_d, adt_d), iters=10) * 1e3
-        kernel_ms = time_kernel(bare, (), iters=10) * 1e3
+        ms = timed(wrapped, (adq_d, adt_d), iters=10) * 1e3
+        kernel_ms = timed(bare, (), iters=10) * 1e3
+        earlier_ms = timed(earlier, (), iters=10) * 1e3
         # one plain call: ~4100 Python rounds take seconds
-        plain_ms = time_kernel(plain, (adq_d, adt_d), iters=1, warmup=0, reps=1) * 1e3
+        plain_ms = timed(plain, (adq_d, adt_d), iters=1, warmup=0, reps=1) * 1e3
         err = max_abs_err(xdrop_fields(res), xdrop_fields(xdrop_plain[W]))
         max_err[name] = max(max_err[name], err)
         check(err == 0, f"{name} differs from its plain version at W={W}")
@@ -2318,21 +2572,63 @@ def main():
         }
         binds = max(times, key=times.get)
         bound = times[binds]
+        ns_round = kernel_ms * 1e6 / int(res.n_rounds.max())
         rows.append(dict(
             name=name, route="cuda", source=f"swtpu_torch/csrc/{XDROP}",
             replaces=replaces, launches=None, max_abs_err=max_err[name], ms=ms,
             plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if binds == "bytes" else "operations",
-            library_ms=None, kernel_ms=kernel_ms,
+            library_ms=None, kernel_ms=kernel_ms, earlier_kernel_ms=earlier_ms,
+            ns_a_round=ns_round,
         ))
         print(f"{name} W={W}, {Ba} related 2048-mers, scores only: wrapper {ms:.4f} "
               f"ms ({bound / ms:.1%} of the bound), launch alone {kernel_ms:.4f} ms "
-              f"({bound / kernel_ms:.1%}), plain {plain_ms:.2f} ms (equal), bound "
+              f"({bound / kernel_ms:.1%}; {ns_round:.1f} ns a round of the longest "
+              f"pair), the earlier kernel {earlier_ms:.4f} ms (equal), plain "
+              f"{plain_ms:.2f} ms (equal), bound "
               f"{bound:.4f} ms by {binds} ({ops_cell} int32 ops per band cell over "
               f"{cells} band cells = rounds written x W, {ops_round} per pair and "
               f"round over {rounds} rounds; at {sm_clock_mhz:.0f} MHz), wrapper "
               f"{cells / ms / 1e6:.2f} band GCUPS", flush=True)
-        del qp, tp
+        del qp, tp, staged
+    # the profile kernel's two forms, launch alone, at n = 120 on B pairs of
+    # random protein against m-long targets (linear 11, Gotoh 11/1): the
+    # sweep that sets profile_form's thresholds; the warp form held against
+    # the thread form on every pair and, at 512 pairs, the plain version
+    print(f"profile form sweep, launch alone (ms) [{smi}]: B x 120 x m, warp form / "
+          "thread form, the faster, and the form profile_form picks", flush=True)
+    srng = np.random.default_rng(SEED + 13)
+    picks = []
+    for m_ in (128, 320, 800):
+        for B_ in (512, 2731, 8192, 32768, 131072):
+            q_ = torch.from_numpy(random_protein(srng, (B_, 120))).to(dev)
+            t_ = torch.from_numpy(random_protein(srng, (B_, m_))).to(dev)
+            qT_, tT_ = q_.t().contiguous(), t_.t().contiguous()
+            line = []
+            for p in (P_LIN, P_GOTOH):
+                table = kp.profile_table(p, dev)
+                got = kp.profile_warp_launch_t(q_, t_, table, p, False)
+                name = profile_name(False, p, warp=True)
+                err = max_abs_err(got, kp.profile_launch_t(qT_, tT_, table, p, False))
+                if B_ == 512:  # and the plain version, once a width
+                    err = max(err, max_abs_err(got, kp.sw_profile_plain(q_, t_, p)))
+                max_err[name] = max(max_err[name], err)
+                check(err == 0, f"{name} differs on the sweep's {B_} x 120 x {m_}")
+                it = 3 if B_ * m_ > 10**7 else 10
+                w = timed(kp.profile_warp_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
+                th = timed(kp.profile_launch_t, (qT_, tT_, table, p, False), iters=it) * 1e3
+                pick = kp.profile_form(B_, 120, m_, n_sm)
+                picks.append((pick, "warp" if w < th else "thread", min(w, th) / max(w, th)))
+                line.append(f"gap=({p.gap_open},{p.gap_extend}) {w:.4f} / {th:.4f}, "
+                            f"{picks[-1][1]}, picks {pick}")
+            print(f"  {B_} x 120 x {m_}: " + "; ".join(line), flush=True)
+            del q_, t_, qT_, tT_
+            torch.cuda.empty_cache()
+    right_pick = sum(p == f for p, f, _ in picks)
+    near = sum(p == f or r > 0.9 for p, f, r in picks)
+    print(f"profile_form (warp up to {kp.WARP_PAIRS_PER_SM} pairs an SM or past m = "
+          f"{kp.THREAD_MAX_M}) picks the faster form on {right_pick} of {len(picks)} "
+          f"sweep points, one within 10% of it on {near}", flush=True)
     from swtpu_torch import bench
 
     buf = io.StringIO()
@@ -2389,8 +2685,8 @@ def main():
             s0, path = walker(qh[k], th[k])
             check((s0, path[-1]) == (s_host[b], (ei[b], ej[b])),
                   f"{name} vs the oracle copy at pair {b}")
-        sec = time_kernel(lambda q, t: sg_run(sc, q, t, pin_end=pin), (qd, td),
-                          iters=10)
+        sec = timed(lambda q, t: sg_run(sc, q, t, pin_end=pin), (qd, td),
+                    iters=10)
         print(f"{label} {name}: {sec * 1e3:.3f} ms per call, "
               f"{B * n * m / sec / 1e9:.1f} GCUPS; the first {CHECK_PAIRS} outputs "
               f"equal the plain version ({plain_s:.1f} s), 16 the oracle copy; mean score "
@@ -2429,7 +2725,7 @@ def main():
         if pin:
             check(np.array_equal(got[1].cpu().numpy(), lq)
                   and np.array_equal(got[2].cpu().numpy(), lt), "varlen pinned ends")
-        sec = time_kernel(lambda q, t, pin=pin: sg_run(
+        sec = timed(lambda q, t, pin=pin: sg_run(
             SG_111, q, t, pin_end=pin, lens_q=lq, lens_t=lt), (qd, td), iters=10)
         print(f"varlen {name}: {sec * 1e3:.4f} ms per call (lengths uploaded), "
               f"{cells / sec / 1e9:.1f} GCUPS over the {cells} real cells; equal "
@@ -2567,7 +2863,7 @@ def main():
         qh, th = big[A]
         check(np.array_equal(s_host[idx], sw_banded_static_score_batch(
             qh[idx], th[idx], p, Wf)), f"{name} vs the oracle copy on 64 pairs")
-        sec = time_kernel(fn, (qd, td), iters=10)
+        sec = timed(fn, (qd, td), iters=10)
         print(f"{label} {name}: {sec * 1e3:.3f} ms per call ({sec * 1e3:.3f} ms per "
               f"1M alignments), {cells / sec / 1e9:.1f} band GCUPS over {cells} "
               f"in-band cells; the first {CHECK_PAIRS} scores equal the plain version "
@@ -2586,8 +2882,8 @@ def main():
         max_err[banded_name(p)] = max(max_err[banded_name(p)], err)
         check(err == 0 and torch.equal(scores.view(8, 256), scores[:256].expand(8, 256)),
               f"{banded_name(p)} on 2048-mers")
-        sec = time_kernel(lambda q, t, p=p: banded_static_scores(q, t, p, Wf), (fq, ft),
-                          iters=5)
+        sec = timed(lambda q, t, p=p: banded_static_scores(q, t, p, Wf), (fq, ft),
+                    iters=5)
         c2 = 2048 * in_band_cells(La, La, Wf)
         print(f"2048 related 2048-mers {label}: {sec * 1e3:.3f} ms per call, "
               f"{c2 / sec / 1e9:.1f} band GCUPS (2048 threads: 16 blocks on "
@@ -2642,7 +2938,7 @@ def main():
             check(err == 0, f"{xdrop_name(W)} differs from its plain version on {label}")
             how = "equal to the plain version" + (
                 " (phase 16's call)" if ref == "phase 16" else "")
-        sec = time_kernel(lambda q, t, kw=kw: kbb.banded_batch(
+        sec = timed(lambda q, t, kw=kw: kbb.banded_batch(
             q, t, with_history=False, **kw), (qd, td), iters=5)
         rounds = int(res.n_rounds.sum())
         print(f"{label}: {sec * 1e3:.3f} ms per call, {rounds * W / sec / 1e9:.2f} "
@@ -2672,7 +2968,7 @@ def main():
             check(all(torch.equal(a, b) for a, b in zip(xdrop_fields(host),
                                                         xdrop_fields(res))),
                   "banded_forward_batch vs the device result")
-        sec = time_kernel(lambda q, t, comp=comp: kbb.banded_batch(
+        sec = timed(lambda q, t, comp=comp: kbb.banded_batch(
             q, t, compress_history=comp), (adq_d, adt_d), iters=5)
         hist_mb = res.band_history.numel() * res.band_history.element_size() / 2**20
         rounds = int(res.n_rounds.sum())
@@ -2686,20 +2982,53 @@ def main():
     # 16,384 pairs, scores only: the DNA set 64 times over
     q16 = adq_d.repeat(64, 1)
     t16 = adt_d.repeat(64, 1)
-    base = kbb.banded_batch(adq_d, adt_d, with_history=False)
+    with off_path():
+        base = kbb.banded_batch(adq_d, adt_d, with_history=False)
     res = kbb.banded_batch(q16, t16, with_history=False)
     check(all(torch.equal(x.view(64, Ba), y.expand(64, Ba))
               for x, y in zip(xdrop_fields(res), xdrop_fields(base))),
           "16,384 pairs: every copy equals the 256-pair run")
-    sec = time_kernel(lambda q, t: kbb.banded_batch(q, t, with_history=False),
-                      (q16, t16), iters=3)
+    sec = timed(lambda q, t: kbb.banded_batch(q, t, with_history=False),
+                (q16, t16), iters=3)
+    staged = kbb.stage(q16, t16, None, None, dev)
+    alone = timed(lambda: kbb.xdrop_launch_t(*staged, 32, 70, 1, 1, 1,
+                                             with_history=False), (), iters=3) * 1e3
+    qp, tp, lq16, lt16 = _prep_padded(q16, t16, None, None, 32, dev, torch.int16)
+    lq16, lt16 = lq16.int(), lt16.int()
+    check(all(torch.equal(x, y) for x, y in zip(kbb._earlier_launch_t(
+        qp, tp, lq16, lt16, 32, 70, 1, 1, 1, with_history=False)[:3], xdrop_fields(res))),
+        "16,384 pairs: the earlier kernel equals the kernel")
+    earlier16 = timed(lambda: kbb._earlier_launch_t(qp, tp, lq16, lt16, 32, 70, 1, 1, 1,
+                                                    with_history=False), (), iters=3) * 1e3
     rounds = int(res.n_rounds.sum())
+    longest = int(res.n_rounds.max())
     bound = (rounds * 32 * ops_cell + rounds * ops_round) / int32_rate * 1e3
+    xdrop_shapes = {"16,384 pairs": (sec * 1e3, alone, earlier16, bound, longest)}
     print(f"16,384 pairs (the DNA set x 64), W=32, scores only: {sec * 1e3:.3f} ms "
-          f"per call, {rounds * 32 / sec / 1e9:.2f} band GCUPS, "
-          f"{16384 / sec:.0f} alignments/s, {bound / (sec * 1e3):.1%} of its int32 "
-          f"bound {bound:.4f} ms; every copy equals the 256-pair run", flush=True)
-    del q16, t16, res, base
+          f"per call, launch alone {alone:.3f} ms ({alone * 1e6 / longest:.1f} ns a "
+          f"round of the longest pair), the earlier kernel {earlier16:.3f} ms (equal), "
+          f"{rounds * 32 / sec / 1e9:.2f} band GCUPS, {16384 / sec:.0f} alignments/s, "
+          f"{bound / alone:.1%} of its int32 bound {bound:.4f} ms ({alone - bound:.3f} ms "
+          f"lost a launch); every copy equals the 256-pair run", flush=True)
+    del q16, t16, res, base, staged, qp, tp
+    # one pair: the round chain's own latency (the first 2048-mer pair)
+    one = kbb.stage(adq_d[:1], adt_d[:1], None, None, dev)
+    check(all(torch.equal(x, y[:1]) for x, y in zip(kbb.xdrop_launch_t(
+        *one, 32, 70, 1, 1, 1, with_history=False)[:3], xdrop_fields(xdrop_plain[32]))),
+        "one pair equals the plain version's first")
+    alone1 = timed(lambda: kbb.xdrop_launch_t(*one, 32, 70, 1, 1, 1, with_history=False),
+                   (), iters=10) * 1e3
+    qp, tp, lq1, lt1 = _prep_padded(adq_d[:1], adt_d[:1], None, None, 32, dev, torch.int16)
+    earlier1 = timed(lambda: kbb._earlier_launch_t(qp, tp, lq1.int(), lt1.int(), 32, 70,
+                                                   1, 1, 1, with_history=False),
+                     (), iters=10) * 1e3
+    n1 = int(xdrop_plain[32].n_rounds[0])
+    xdrop_shapes["1 pair"] = (None, alone1, earlier1, None, n1)
+    print(f"1 pair, W=32: launch alone {alone1:.4f} ms over {n1} rounds, "
+          f"{alone1 * 1e6 / n1:.1f} ns a round (the earlier kernel "
+          f"{earlier1 * 1e6 / n1:.1f}); 256 pairs: {rows_by_name('banded_batch_w32_w64')['ns_a_round']:.1f} "
+          f"ns a round of the longest pair", flush=True)
+    del one, qp, tp
     torch.cuda.empty_cache()
 
     # 24. banded traceback ---------------------------------------------------
@@ -2836,12 +3165,12 @@ def main():
             qd, td = block_sets[key]
             K, Bb = kw["block"], qd.shape[0]
             res = kbk.banded_block_batch(qd, td, width=64, **kw)
-            sec = time_kernel(lambda q, t, kw=kw: kbk.banded_block_batch(q, t, width=64, **kw),
-                              (qd, td), iters=5)
+            sec = timed(lambda q, t, kw=kw: kbk.banded_block_batch(q, t, width=64, **kw),
+                        (qd, td), iters=5)
             nrows = int(res.n_rows.sum())
             # the alive band (X = 2^20: no pair dies) through every block
             fn, args = kbk.bench_forward_fn(qd, td, width=64, **dict(kw, x_threshold=1 << 20))
-            alive = time_kernel(fn, args, iters=3)
+            alive = timed(fn, args, iters=3)
             fields = (res.score, res.end_y, res.end_j, res.n_rows)
             if key == "dna1024":  # four copies of the 256 pairs, checked below
                 check(all(torch.equal(a[:256], b) for a, b in zip(fields, first256)),
@@ -2908,14 +3237,14 @@ def main():
 
             # every time below runs reset() before each forward and has
             # reset's own time taken off
-            reset_ms = time_kernel(reset, (), iters=5) * 1e3
+            reset_ms = timed(reset, (), iters=5) * 1e3
             saved = snapshot()  # the row's own timings are not the path's
             kbk.block_forward(rr)
             final = [x.clone() for x in state_of(rr)]
-            ms = time_kernel(lambda rr=rr, reset=reset: (reset(), kbk.block_forward(rr)),
-                             (), iters=5) * 1e3 - reset_ms
+            ms = timed(lambda rr=rr, reset=reset: (reset(), kbk.block_forward(rr)),
+                       (), iters=5) * 1e3 - reset_ms
             restore(saved)
-            kernel_ms = time_kernel(
+            kernel_ms = timed(
                 lambda rr=rr, reset=reset: (reset(), kbk.forward_launch_t(rr)), (),
                 iters=5) * 1e3 - reset_ms
             check(all(torch.equal(a, b) for a, b in zip(state_of(rr), final)),
@@ -2937,17 +3266,15 @@ def main():
                 for b in range(NB):
                     step(rr, b, K, wins[b])
 
-            saved = snapshot()  # the earlier kernel's timings are not the path's own
-            earlier_ms = time_kernel(replay, (kbk.block_rows,), iters=5) * 1e3 - reset_ms
-            restore(saved)
-            earlier_kernel_ms = time_kernel(replay, (kbk.rows_launch_t,),
-                                            iters=5) * 1e3 - reset_ms
-            earlier_fwd_ms = time_kernel(
+            earlier_ms = timed(replay, (kbk.block_rows,), iters=5) * 1e3 - reset_ms
+            earlier_kernel_ms = timed(replay, (kbk.rows_launch_t,),
+                                      iters=5) * 1e3 - reset_ms
+            earlier_fwd_ms = timed(
                 lambda rr=rr, reset=reset: (reset(), kbk.block_loop(
                     rr, True, kbk.gather_launch_t, kbk.rows_launch_t)), (),
                 iters=5) * 1e3 - reset_ms
-            plain_ms = time_kernel(replay, (kbk.block_rows_plain,), iters=1, warmup=0,
-                                   reps=1) * 1e3 - reset_ms
+            plain_ms = timed(replay, (kbk.block_rows_plain,), iters=1, warmup=0,
+                             reps=1) * 1e3 - reset_ms
             err = max_abs_err(state_of(rr), tuple(final))
             max_err[b9name] = max(max_err[b9name], err)
             check(err == 0, f"{b9name}: the plain version differs from the kernel")
@@ -2993,11 +3320,11 @@ def main():
                            zip(gathers(kbk.block_gather_plain), wins)))
         max_err["block_gather"] = max(max_err["block_gather"], err)
         check(err == 0, "block_gather differs from its plain version on the 2048-mers")
-        ms = time_kernel(gathers, (kbk.block_gather,), iters=5) * 1e3
+        ms = timed(gathers, (kbk.block_gather,), iters=5) * 1e3
         restore(saved)
-        kernel_ms = time_kernel(gathers, (kbk.gather_launch_t,), iters=5) * 1e3
-        plain_ms = time_kernel(gathers, (kbk.block_gather_plain,), iters=1, warmup=1,
-                               reps=1) * 1e3
+        kernel_ms = timed(gathers, (kbk.gather_launch_t,), iters=5) * 1e3
+        plain_ms = timed(gathers, (kbk.block_gather_plain,), iters=1, warmup=1,
+                         reps=1) * 1e3
         elems = (K + W - 1) * NB * qd.shape[0]  # B10 writes every pair's window
         times = {"int32 ops": 6 * elems / int32_rate * 1e3,
                  "bytes": (4 * elems + 4 * NB * qd.shape[0]) / HBM_BYTES_PER_S * 1e3}
@@ -3028,7 +3355,8 @@ def main():
     for Bb in (8, 128):
         with b9_shape(Bb, 64, False):
             q, t = q16[:Bb], t16h[:Bb]
-            kbk.banded_block_align_device(q, t, width=64, block=64)  # warm-up
+            with off_path():  # a warm-up, not the path's own call
+                kbk.banded_block_align_device(q, t, width=64, block=64)
             t0 = time.perf_counter()
             out = kbk.banded_block_align_device(q, t, width=64, block=64)
             wall = time.perf_counter() - t0
@@ -3045,9 +3373,9 @@ def main():
                 return kbk._new_run(run.qT, run.t16, None, None, None, None, 64, 64, 70,
                                     1, 1, 1, None, None, 32, True)
 
-            fwd_ms = time_kernel(lambda: kbk._forward(fresh()), (), iters=2) * 1e3
+            fwd_ms = timed(lambda: kbk._forward(fresh()), (), iters=2) * 1e3
             # beside it, the earlier forward: B10 and the per-block B9 a block
-            earlier_fwd_ms = time_kernel(lambda: kbk.block_loop(
+            earlier_fwd_ms = timed(lambda: kbk.block_loop(
                 fresh(), True, kbk.gather_launch_t, kbk.rows_launch_t), (), iters=2) * 1e3
             kbk._forward(run)
             wire = kdw.block_walk(run).cpu()
@@ -3064,11 +3392,11 @@ def main():
             # the map kernel through its wrapper and alone (its default, and
             # a pair / GROUP pairs a producer CTA), the earlier serial kernel
             # alone, and a step's share of each
-            walk_ms = time_kernel(kdw.block_walk, (run,), iters=5) * 1e3
-            kernel_ms = time_kernel(kdw.block_walk_launch_t, (run,), iters=5) * 1e3
-            group_ms = {G: time_kernel(lambda G=G: kdw.block_walk_launch_t(run, _group=G), (),
-                                       iters=5) * 1e3 for G in groups}
-            serial_ms = time_kernel(kdw._block_serial_launch_t, (run,), iters=2) * 1e3
+            walk_ms = timed(kdw.block_walk, (run,), iters=5) * 1e3
+            kernel_ms = timed(kdw.block_walk_launch_t, (run,), iters=5) * 1e3
+            group_ms = {G: timed(lambda G=G: kdw.block_walk_launch_t(run, _group=G), (),
+                                 iters=5) * 1e3 for G in groups}
+            serial_ms = timed(kdw._block_serial_launch_t, (run,), iters=2) * 1e3
             restore(saved)
             nsteps = np.ascontiguousarray(wire[:, 12:16].numpy()).view("<i4").ravel()
             walk_times[Bb] = dict(ms=walk_ms, kernel_ms=kernel_ms, earlier_kernel_ms=serial_ms,
@@ -3102,7 +3430,7 @@ def main():
           "16K block traceback vs the oracle copy, pair 0")
     # the block walker's row on the 8 pairs, with the 128 pairs' times beside
     run, wire = walk_run, walk_wire
-    plain_ms = time_kernel(kdw.block_walk_plain, (run,), iters=1, warmup=0, reps=1) * 1e3
+    plain_ms = timed(kdw.block_walk_plain, (run,), iters=1, warmup=0, reps=1) * 1e3
 
     def walk_bound(steps, wire_bytes):
         times = {"int32 ops": steps * WALK_OPS / int32_rate * 1e3,
@@ -3149,7 +3477,8 @@ def main():
     phase("28 per-round band at reference scale: banded_align_batch on 8 related "
           "16384-mers, W = 32, X = 70 (linear: the walk runs on the card)")
     q, t = q16[:8], t16h[:8]
-    banded_align_batch(q, t)  # warm-up
+    with off_path():  # a warm-up, not the path's own call
+        banded_align_batch(q, t)
     before = kdw.xdrop_walk.launches
     t0 = time.perf_counter()
     out = banded_align_batch(q, t)
@@ -3175,23 +3504,23 @@ def main():
     pad = _prep_padded(q_d, t_d, None, None, 32, dev, torch.int16)
     pad32 = (*pad[:2], pad[2].int(), pad[3].int())
     wire = kdw.xdrop_walk(res, pad)
-    fwd_ms = time_kernel(lambda: kbb.banded_batch(q_d, t_d, bandwidth=32,
+    fwd_ms = timed(lambda: kbb.banded_batch(q_d, t_d, bandwidth=32,
                                                   compress_history=False),
-                         (), iters=2) * 1e3
+                   (), iters=2) * 1e3
     arr_ms, list_ms = decode_times(decode_device_walk, wire.cpu())
     check(decode_device_walk(wire.cpu()) == out, "16K per-round: decode")
-    plain_ms = time_kernel(kdw.xdrop_walk_plain, (res, pad), iters=1, warmup=0,
-                           reps=1) * 1e3
+    plain_ms = timed(kdw.xdrop_walk_plain, (res, pad), iters=1, warmup=0,
+                     reps=1) * 1e3
     err = max_abs_err(wire.cpu(), kdw.xdrop_walk_plain(res, pad))
     max_err["xdrop_walk"] = max(max_err["xdrop_walk"], err)
     check(err == 0, "xdrop_walk differs from its plain version at 16K")
     check(torch.equal(kdw._xdrop_serial_launch_t(res, pad32, 32, 70, 1, 1, 1), wire),
           "16K per-round walk: the earlier serial kernel")
-    ms = time_kernel(kdw.xdrop_walk, (res, pad), iters=5) * 1e3
-    kernel_ms = time_kernel(kdw.xdrop_walk_launch_t, (res, pad32, 32, 70, 1, 1, 1),
-                            iters=5) * 1e3
-    serial_ms = time_kernel(kdw._xdrop_serial_launch_t, (res, pad32, 32, 70, 1, 1, 1),
-                            iters=2) * 1e3
+    ms = timed(kdw.xdrop_walk, (res, pad), iters=5) * 1e3
+    kernel_ms = timed(kdw.xdrop_walk_launch_t, (res, pad32, 32, 70, 1, 1, 1),
+                      iters=5) * 1e3
+    serial_ms = timed(kdw._xdrop_serial_launch_t, (res, pad32, 32, 70, 1, 1, 1),
+                      iters=2) * 1e3
     restore(saved)
     nsteps = np.ascontiguousarray(wire[:, 12:16].cpu().numpy()).view("<i4").ravel()
     print(f"on staged tensors: the per-round forward with its int32 history "
@@ -3316,8 +3645,8 @@ def main():
                   f"B13 at {br} rows a lane differs on {label}")
         for _ in range(rounds):
             for br in (1, 2, 4, 8, 16):
-                ms_ = time_kernel(lambda br=br: kls._pipe_launch(*sargs, br=br), (),
-                                  iters=2, warmup=1, reps=1) * 1e3
+                ms_ = timed(lambda br=br: kls._pipe_launch(*sargs, br=br), (),
+                            iters=2, warmup=1, reps=1) * 1e3
                 by_br[br] = min(by_br.get(br, float("inf")), ms_)
         pick = kls.strip_plan(R, C)[0]
         fastest = min(by_br, key=by_br.get)
@@ -3344,10 +3673,11 @@ def main():
         check(lp.longpair_sw_score(lq, lt, p) == ends[0] > 0,
               f"longpair_sw_score vs _ends on {label}")
         walls = []
-        for _ in range(3):
+        for _ in range(3):  # the wall's repeats are not the path's own calls
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            again = lp.longpair_sw_ends(lq, lt, p)
+            with off_path():
+                again = lp.longpair_sw_ends(lq, lt, p)
             walls.append(time.perf_counter() - t0)
             check(again == ends, f"longpair_sw_ends on {label} is repeatable")
         wall_ms = min(walls) * 1e3
@@ -3366,8 +3696,8 @@ def main():
         check(tuple(int(x) for x in out[-3:]) == ends, f"B13 alone vs the sweep, {label}")
         check(all(torch.equal(a, b) for a, b in zip(out, bare(kls._one_block_launch_t))),
               f"B13's pipelined and one-block kernels on the 16K tile, {label}")
-        kernel_ms = time_kernel(bare, (), iters=3, warmup=1) * 1e3
-        earlier_ms = time_kernel(bare, (kls._one_block_launch_t,), iters=3, warmup=1) * 1e3
+        kernel_ms = timed(bare, (), iters=3, warmup=1) * 1e3
+        earlier_ms = timed(bare, (kls._one_block_launch_t,), iters=3, warmup=1) * 1e3
         strip_timed[label] = (kernel_ms, earlier_ms)
         br_sweep(f"16384 x 16384 {label}", sargs, out)
         print(f"{label}: (score, end_i, end_j) = {ends}; block {L} (the default), "
@@ -3392,12 +3722,10 @@ def main():
     def bare(launch=kls.strip_launch_t, sargs=sargs):
         return launch(*sargs)
 
-    saved = snapshot()  # the row's wrapper timing is not the path's own
-    ms = time_kernel(lambda: kls.tile_strip_linear(q8, t8, z, z1, p, table=table), (),
-                     iters=5) * 1e3
-    restore(saved)
-    kernel_ms = time_kernel(bare, (), iters=5) * 1e3
-    earlier_ms = time_kernel(bare, (kls._one_block_launch_t,), iters=5) * 1e3
+    ms = timed(lambda: kls.tile_strip_linear(q8, t8, z, z1, p, table=table), (),
+               iters=5) * 1e3
+    kernel_ms = timed(bare, (), iters=5) * 1e3
+    earlier_ms = timed(bare, (kls._one_block_launch_t,), iters=5) * 1e3
     t0 = time.perf_counter()
     want = strip_plain(q4, t4, (z, None, z, None, 0), p)
     torch.cuda.synchronize()
@@ -3525,7 +3853,7 @@ def main():
         td = torch.from_numpy(wrng.integers(0, letters, (B, 128)).astype(np.uint8)).to(dev)
         fn = variant_engine("wavefront", p, 128)
         got = fn(qd, td)
-        ms = time_kernel(fn, (qd, td), iters=20) * 1e3
+        ms = timed(fn, (qd, td), iters=20) * 1e3
         saved = snapshot()  # the check runs another path's kernel
         check(torch.equal(got, best_engine(p)(qd, td)),
               f"wavefront vs best_engine, {label}, {B} pairs")
@@ -3534,14 +3862,12 @@ def main():
               f"{B * 128 * 128 / ms / 1e6:.1f} GCUPS; equal to best_engine's kernel",
               flush=True)
         if B == 8192 and p is DNA_10_30_15:  # B14's row
-            saved = snapshot()  # the row's wrapper timing is not the path's own
-            wms = time_kernel(kwf.sw_wavefront, (qd, td, p), iters=20) * 1e3
-            restore(saved)
+            wms = timed(kwf.sw_wavefront, (qd, td, p), iters=20) * 1e3
             wtable = kwf.wavefront_table(p, dev)
-            kernel_ms = time_kernel(kwf.wavefront_launch_t, (qd, td, wtable, p),
-                                    iters=20) * 1e3
-            plain_ms = time_kernel(kwf.sw_wavefront_plain, (qd, td, p), iters=1,
-                                   warmup=1, reps=1) * 1e3
+            kernel_ms = timed(kwf.wavefront_launch_t, (qd, td, wtable, p),
+                              iters=20) * 1e3
+            plain_ms = timed(kwf.sw_wavefront_plain, (qd, td, p), iters=1,
+                             warmup=1, reps=1) * 1e3
             cells = B * 128 * 128
             times = {"int32 ops": cells * WAVE_OPS / int32_rate * 1e3,
                      "shared-memory lookups": cells / lookup_rate * 1e3,
@@ -3568,7 +3894,7 @@ def main():
         before = launches("strip_tile")
         got = fn(qd, td)
         per = launches("strip_tile") - before
-        ms = time_kernel(fn, (qd, td), iters=3) * 1e3
+        ms = timed(fn, (qd, td), iters=3) * 1e3
         saved = snapshot()
         check(torch.equal(got, best_engine(DNA_111)(qd, td)) and per == B,
               f"wavefront on {B} x ({n} x {m}): the strip tile, a launch a pair")
@@ -3613,8 +3939,15 @@ def main():
           f"a kernel was not launched on the long-pair path: {longpair_counts}")
     for row in rows:
         if row["launches"] is None:
-            row["launches"] = {**sg_counts, **banded_counts, **block_counts,
-                               **longpair_counts}[row["name"]]
+            row["launches"] = {**launch_counts, **sg_counts, **banded_counts,
+                               **block_counts, **longpair_counts}[row["name"]]
+        # the time the path loses in the kernel: its launches (each entry-
+        # point call once) x (launch alone - bound) at the row's timed shape
+        row["lost_ms"] = row["launches"] * max(row["kernel_ms"] - row["bound_ms"], 0.0)
+    print("lost ms = launches x (launch alone - bound), at each row's timed shape: "
+          + "; ".join(f"{r['name']} {r['launches']} x ({r['kernel_ms']:.4f} - "
+                      f"{r['bound_ms']:.4f}) = {r['lost_ms']:.3f}"
+                      for r in sorted(rows, key=lambda r: -r["lost_ms"])), flush=True)
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
 
     print(json.dumps({"kernels": rows}))

@@ -11,64 +11,446 @@
 // lanes idle at W = 32 (banded_packed.py:3-9); a warp per pair leaves no
 // lane idle at W = 32 or 64, so here both contracts are one kernel, and
 // the W = 32 and W = 64 instantiations serve the packed kernel's calls.
-// Its CPL = 4 instantiation takes W up to 128, past the TPU kernels' 96.
+// Its CPL = 4 instantiations take W up to 128, past the TPU kernels' 96.
 //
-// Design. One warp per pair; the band's W cells sit on the 32 lanes, CPL
-// = ceil(W / 32) consecutive cells per lane (cell k on lane k / CPL, a
-// template parameter; cells k >= W are kept dead). Each round:
-// - the direction comes from cells 0 and W-1 by __shfl_sync (right iff
-//   band[0] < band[W-1], ties move down);
-// - the band shifts (horizontal / vertical, and the Gotoh E / F bands)
-//   move one cell with __shfl_up_sync / __shfl_down_sync across lanes and
-//   plain register moves inside a lane;
-// - each lane reads its cells' characters from the padded int16 rows at
-//   the pair's cursor (qp[y + W-1-k], tp[x - W+1+k]; -1 pads);
-// - the round max is a __reduce_max_sync;
-// - then the X-drop against the updated max, the termination test, and
-//   a history row of W cells (coalesced) plus pos_y and the offset.
-// Every state variable but the band is warp-uniform, so a warp never
-// diverges, and it retires when its pair ends (boundary overrun before
-// the round is written, the per-pair round cap (max(lq, lt) + 1) * 2 - 1,
-// or a dead round after it is written). History rounds at and past a
-// pair's n_rounds are not written: every reader stops below n_rounds.
-// early_exit is therefore a no-op here. The TPU kernels' 128-char
-// slabs, lane gathers, refill blocks and VMEM history buffers are TPU
-// layout, not contract, and are not carried over.
+// Design (xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, EXACT>). One warp
+// per pair; CPL = ceil(W / 32) consecutive band cells a lane (cell k on
+// lane k / CPL, slot k % CPL). EXACT is W == 32 CPL; otherwise the cells
+// k >= W are phantom, capped at 0 every round. The rounds of a pair are a
+// chain (direction, the band's move, the max-plus update, the round max),
+// and the design keeps everything else off it:
+// - No global load on the chain. Each lane holds its cells' query and
+//   target codes in registers (matrix mode: the table row offset and the
+//   column). A down move shifts the query codes one cell along the band,
+//   a right move the target codes; the code that enters at the band's end
+//   comes by one shuffle from per-lane windows of that sequence's next 64
+//   codes (two registers, a third loading the 32 after them). The rounds
+//   run in blocks of 32, which move at most 32 times either way, and a
+//   window is refilled by one coalesced load between blocks once a block
+//   has used it up, so a round's only branches are its exit and the loop.
+//   Positions outside a pair's length or the row read as pads: the kernel
+//   takes the raw [B, n] / [B, m] codes and the lengths, no padded rows.
+//   The phantom cells hold the target codes ahead of the band, so the
+//   entering target code always lands on the last lane.
+// - Both moves ahead of the direction. During round r each lane forms
+//   round r+1's shifted codes, scores and diagonal terms for both moves;
+//   when the direction is known it selects.
+// - The cut applied late. The cells' uncut values (minus the gap) shift
+//   across lanes while the round max reduces (__reduce_max_sync), and the
+//   next round applies the cut to the candidate it selects, so no shuffle
+//   waits on the reduction. The direction is right iff band[W-1] >
+//   max(band[0], max_score - X - 1) on the uncut end values: the plain rule
+//   band[0] < band[W-1] on the cut band (dead = 0, live >= max(cut, 1)).
+// - Dead cells fold into the max-plus. A cut or dead H reads as -2^29, so a
+//   linear cell is one __vimax3_s32_relu(diag + s, h - g, v - g); Gotoh
+//   E = __viaddmax_s32_relu(E, -ge, h - go), F likewise, H =
+//   __vimax3_s32_relu(diag + s, E, F). Scores carry + g (the table in shared
+//   memory, or match + g / g - mismatch) and H is kept minus g. E and F
+//   floor at 0 (a negative E or F never reaches H: H floors at 0 and E - ge
+//   < 0) and are cleared with the cell that holds them, through the same
+//   cut test as its H. A dead cell's external value stays 0 (history).
+// - The per-round bookkeeping (max, cut, direction, cursor, termination) is
+//   warp-uniform, so a warp never diverges. A round runs ahead of its
+//   overrun test and keeps nothing (selects, not a branch) when it fails;
+//   the warp retires when its pair ends (boundary overrun before the round
+//   is written, the per-pair round cap (max(lq, lt) + 1) * 2 - 1, or a dead
+//   round after it is written). History rounds at and past a
+//   pair's n_rounds are not written: every reader stops below n_rounds.
+//   early_exit is therefore a no-op here.
+// - Grid: one warp a block up to 32 pairs an SM (256 pairs land on all 132
+//   SMs), four from there.
+// The TPU kernels' 128-char slabs, lane gathers, refill blocks and VMEM
+// history buffers are TPU layout, not contract, and are not carried over.
 //
 // Contract (oracle/semiglobal.py:325-371, oracle/banded_affine.py, and the
 // XLA tier kernels/xla/banded_scan.py, which the plain version copies):
 // 0 is dead and never propagates; max_round moves only on a strictly
 // greater round max; the X-drop zeroing uses the updated max; uniform
-// scoring scores a pad (-1) at -mismatch, even against a pad; the general
+// scoring scores a pad at -mismatch, even against a pad; the general
 // matrix reads the banded extended table (pads matrix.min(); codes clamp
-// to stride - 1) from shared memory; Gotoh E/F are dead at -2^28, the
-// no-contribution floor is -2^30, and E/F are cleared where H is 0. The
+// to stride - 1); Gotoh E/F are dead at -2^28 and cleared where H is 0
+// (the plain version); here their positive parts, all that reaches H. The
 // history is H only (batch.traceback.reconstruct_affine_bands rebuilds
 // E/F); the 8-bit form stores v - offset + 1 in [1, X + 1] (X <= 254).
 //
-// Bound: the rounds are serial within a pair, so a pair is a chain of
-// dependent shuffles, loads and max-plus ops; across pairs the card's
-// int32 issue rate (132 SMs x 64 lanes x SM clock) over rounds x W cells
-// bounds it, the history bytes (4 or 1 per cell) only when written. With
-// few pairs (256 warps on 132 SMs) the chain's latency binds instead.
-// Later work: characters kept in a sliding register window refilled once
-// per 32 rounds instead of two loads per cell per round, and more than
-// one pair per warp at W < 32.
+// Bound: the rounds are serial within a pair, so with few pairs (256 warps
+// on 132 SMs) the round's chain binds: after the reduction a max, the
+// direction (a 3-input max and a compare), the selects, the cut (compare,
+// select) and one or three DPX max-plus ops, then the lane max and the
+// reduction. With many pairs the card's int32 issue rate (132 SMs x 64
+// lanes x SM clock) over rounds x W cells binds, the shuffles (a dozen a
+// round a warp) next; the history bytes (4 or 1 per cell) only when
+// written. Later work: more than one pair per warp at W < 32.
+//
+// Beside it the earlier kernel (sw_xdrop_kernel<CPL, AFFINE>, a warp per
+// pair over padded int16 rows, two global code loads a cell a round, the
+// cut before the shuffles), off every entry point: chip_smoke.py and the
+// card tests time it and hold it beside the kernel above.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 4;  // pairs per block
-constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_STRIDE = 32;
 constexpr int MAX_CPL = 4;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int DEAD = -(1 << 29);  // a cut or dead H (kept minus the gap)
+
+struct RoundArgs {
+  const uint8_t* q;        // [B, n] raw query codes
+  const uint8_t* t;        // [B, m] raw target codes
+  const int32_t* lens_q;   // [B] or null (every query n long)
+  const int32_t* lens_t;   // [B] or null (every target m long)
+  const int32_t* table;    // [stride, stride] or null (uniform scoring)
+  int32_t* score;          // [B]
+  int32_t* max_round;      // [B]
+  int32_t* n_rounds;       // [B]
+  int32_t* hist32;         // [R_cap, B, W] or null
+  uint8_t* hist8;          // [R_cap, B, W] or null (compressed)
+  int32_t* posy;           // [R_cap, B] or null (with history)
+  int32_t* offs;           // [R_cap, B] or null (compressed)
+  int B, n, m, W, X;
+  int match, mismatch, gap, go, ge, stride;
+};
+
+// a row's code at idx, `pad` outside [0, len); a predicated load, so a
+// window refill's value is not waited for until it is read
+__device__ __forceinline__ int raw_at(const uint8_t* row, int idx, int len, int pad) {
+  int c = pad;
+  if (idx >= 0 && idx < len) c = row[idx];
+  return c;
+}
+
+// the pads the windows hold: uniform scoring -1 for the query and -2 for
+// the target (never equal), the matrix its pad row and column
+template <bool MATRIX>
+__device__ __forceinline__ int q_pad(int stride) { return MATRIX ? stride - 2 : -1; }
+template <bool MATRIX>
+__device__ __forceinline__ int t_pad(int stride) { return MATRIX ? stride - 1 : -2; }
+
+// a window's query code as the cells hold it: uniform scoring the code (or
+// -1), the matrix the table row offset (codes clamp to stride - 1)
+template <bool MATRIX>
+__device__ __forceinline__ int q_code(int raw, int stride) {
+  return MATRIX ? min(raw, stride - 1) * stride : raw;
+}
+
+// a window's target code: the code (or -2), the matrix the table column
+template <bool MATRIX>
+__device__ __forceinline__ int t_code(int raw, int stride) {
+  return MATRIX ? min(raw, stride - 1) : raw;
+}
+
+// the score plus the gap folded into the stored H
+template <bool MATRIX>
+__device__ __forceinline__ int score_g(int qc, int tc, const int32_t* tab, int sm, int smm) {
+  if (MATRIX) return tab[qc + tc];
+  return qc == tc ? sm : smm;
+}
+
+// out[k] = a[k - 1]; out[0] = fill on lane 0
+template <int CPL>
+__device__ __forceinline__ void shift_dn(const int (&a)[CPL], int (&out)[CPL], int lane,
+                                         int fill) {
+  const int in = __shfl_up_sync(FULL, a[CPL - 1], 1);
+#pragma unroll
+  for (int c = CPL - 1; c > 0; --c) out[c] = a[c - 1];
+  out[0] = lane == 0 ? fill : in;
+}
+
+// out[k] = a[k + 1]; out[last] = fill on lane 31
+template <int CPL>
+__device__ __forceinline__ void shift_up(const int (&a)[CPL], int (&out)[CPL], int lane,
+                                         int fill) {
+  const int in = __shfl_down_sync(FULL, a[0], 1);
+#pragma unroll
+  for (int c = 0; c < CPL - 1; ++c) out[c] = a[c + 1];
+  out[CPL - 1] = lane == 31 ? fill : in;
+}
+
+// the same without a fill: the band's end cells read them only behind a
+// failed cut test
+template <int CPL>
+__device__ __forceinline__ void shift_dn_any(const int (&a)[CPL], int (&out)[CPL]) {
+  const int in = __shfl_up_sync(FULL, a[CPL - 1], 1);
+#pragma unroll
+  for (int c = CPL - 1; c > 0; --c) out[c] = a[c - 1];
+  out[0] = in;
+}
+
+template <int CPL>
+__device__ __forceinline__ void shift_up_any(const int (&a)[CPL], int (&out)[CPL]) {
+  const int in = __shfl_down_sync(FULL, a[0], 1);
+#pragma unroll
+  for (int c = 0; c < CPL - 1; ++c) out[c] = a[c + 1];
+  out[CPL - 1] = in;
+}
+
+// history row r: the cut band (dead 0), int32 or 8-bit v - cut + 1
+template <int CPL, bool EXACT>
+__device__ __forceinline__ void write_row(const RoundArgs& a, int r, int b, int lane,
+                                          const int (&v)[CPL], int cut, int y) {
+  const int cutp = max(cut, 1);
+  const size_t row = static_cast<size_t>(r) * a.B + b;
+  const size_t base = row * a.W;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int k = lane * CPL + c;
+    if (EXACT || k < a.W) {
+      const int res = v[c] >= cutp ? v[c] : 0;
+      if (a.hist8) {
+        a.hist8[base + k] = static_cast<uint8_t>(res ? res - cut + 1 : 0);
+      } else {
+        a.hist32[base + k] = res;
+      }
+    }
+  }
+  if (lane == 0) {
+    a.posy[row] = y;
+    if (a.offs) a.offs[row] = cut;
+  }
+}
+
+template <int CPL, bool AFFINE, bool MATRIX, bool HIST, bool EXACT>
+__global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
+  __shared__ int32_t tab[MATRIX ? MAX_STRIDE * MAX_STRIDE : 1];
+  const int G = AFFINE ? a.go : a.gap;  // the gap kept off every stored H
+  if (MATRIX) {
+    for (int k = threadIdx.x; k < a.stride * a.stride; k += blockDim.x)
+      tab[k] = a.table[k] + G;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= a.B) return;  // the whole warp
+  const int W = a.W, X = a.X, stride = a.stride, ge = a.ge;
+  const int lq = a.lens_q ? a.lens_q[b] : a.n;
+  const int lt = a.lens_t ? a.lens_t[b] : a.m;
+  const int rcap = (max(lq, lt) + 1) * 2 - 1;
+  const uint8_t* qrow = a.q + static_cast<size_t>(b) * a.n;
+  const uint8_t* trow = a.t + static_cast<size_t>(b) * a.m;
+  const int sm = a.match + G, smm = G - a.mismatch;
+  const int end_lane = (W - 1) / CPL, end_c = (W - 1) % CPL;
+  // cell k holds query code d + W - 2 - k and target code u - W + k after d
+  // down and u right moves; the phantom cells' target codes run ahead
+  const int t_lead = 32 * CPL - W;
+
+  const int qp = q_pad<MATRIX>(stride), tp = t_pad<MATRIX>(stride);
+  int q[CPL], t[CPL], v[CPL], rng[CPL], hg[CPL], vg[CPL], cap[CPL];
+  int e[CPL], f[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int k = lane * CPL + c;
+    q[c] = q_code<MATRIX>(raw_at(qrow, W - 2 - k, lq, qp), stride);
+    t[c] = t_code<MATRIX>(raw_at(trow, k - W, lt, tp), stride);
+    v[c] = k == W - 1 ? X : 0;
+    rng[c] = v[c] - G;
+    hg[c] = DEAD;
+    vg[c] = DEAD;
+    e[c] = 0;
+    f[c] = 0;
+    cap[c] = k < W ? INT_MAX : 0;
+  }
+  // the entering codes' windows, three registers a sequence: lane l holds
+  // query codes W - 1 + qb + l (qa), + 32 (qn) and + 64 (ql, its load in
+  // flight, not read until it moves up); after d downs the next entering
+  // code is window lane d - qb, in [0, 64), and likewise the target's from
+  // t_lead + tb after u rights. A shuffle's source lane wraps mod 32.
+  int qb = 0, tb = 0;
+  int qa = raw_at(qrow, W - 1 + lane, lq, qp), qn = raw_at(qrow, W + 31 + lane, lq, qp);
+  int ql = raw_at(qrow, W + 63 + lane, lq, qp);
+  int ta = raw_at(trow, t_lead + lane, lt, tp), tn = raw_at(trow, t_lead + 32 + lane, lt, tp);
+  int tl = raw_at(trow, t_lead + 64 + lane, lt, tp);
+  int u = 0;  // right moves so far; every round moves once, so r - 1 - u downs
+  int ms = X, max_round = 0;
+  if (HIST) write_row<CPL, EXACT>(a, 0, b, lane, v, 0, 0);
+
+  // round 1's candidates
+  int sd[CPL], su[CPL], qsd[CPL], tsu[CPL], dr[CPL], dd[CPL], ed[CPL], fu[CPL];
+  shift_dn<CPL>(rng, sd, lane, DEAD);
+  shift_up<CPL>(rng, su, lane, DEAD);
+  shift_dn<CPL>(q, qsd, lane, q_code<MATRIX>(__shfl_sync(FULL, qa, 0), stride));
+  shift_up<CPL>(t, tsu, lane, t_code<MATRIX>(__shfl_sync(FULL, ta, 0), stride));
+  if (AFFINE) {
+    shift_dn_any<CPL>(e, ed);
+    shift_up_any<CPL>(f, fu);
+  }
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    dr[c] = vg[c] + score_g<MATRIX>(q[c], tsu[c], tab, sm, smm);
+    dd[c] = hg[c] + score_g<MATRIX>(qsd[c], t[c], tab, sm, smm);
+  }
+  int vend = v[CPL - 1];
+  if (!EXACT) {
+#pragma unroll
+    for (int c = 0; c < CPL - 1; ++c) vend = c == end_c ? v[c] : vend;
+  }
+  bool right = __shfl_sync(FULL, vend, end_lane) > max(__shfl_sync(FULL, v[0], 0), -1);
+  int thr = 1 - G;  // max(ms - X, 1) - G: a stored H below it is cut
+
+  // The rounds run in blocks of 32: a block moves at most 32 times either
+  // way, so the two readable windows cover its entering codes, and the
+  // refills run between blocks. A round's only branches are its exit and
+  // the back-edge; the compiler interleaves four rounds (unroll 4).
+  int r = 1;  // after the loop: the rounds written, n_rounds
+  bool stop = r >= rcap;
+  while (!stop) {
+#pragma unroll 4
+    for (int k = 0; k < 32; ++k) {
+      // a boundary overrun ends the pair before the round is written; the
+      // round runs ahead of the test, and is undone when it fails
+      const bool over = right ? u >= W + lt : r - 1 - u > lq;
+      int lmax = 0;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int hs = right ? rng[c] : sd[c];
+        const int vs = right ? su[c] : rng[c];
+        const int dg = right ? dr[c] : dd[c];
+        const bool hp = hs >= thr, vp = vs >= thr;
+        hg[c] = hp ? hs : DEAD;
+        vg[c] = vp ? vs : DEAD;
+        int x;
+        if (AFFINE) {
+          const int es = right ? e[c] : ed[c];
+          const int fs = right ? fu[c] : f[c];
+          e[c] = __viaddmax_s32_relu(hp ? es : 0, -ge, hg[c]);
+          f[c] = __viaddmax_s32_relu(vp ? fs : 0, -ge, vg[c]);
+          x = __vimax3_s32_relu(dg, e[c], f[c]);
+        } else {
+          x = __vimax3_s32_relu(dg, hg[c], vg[c]);
+        }
+        if (!EXACT) x = min(x, cap[c]);
+        v[c] = x;
+        rng[c] = x - G;
+        lmax = c == 0 ? x : max(lmax, x);
+        q[c] = right ? q[c] : qsd[c];
+        t[c] = right ? tsu[c] : t[c];
+      }
+      u += right;
+      const int d = r - u;  // down moves so far
+      // the round max; meanwhile the next round's operands, uncut
+      const int rmax = __reduce_max_sync(FULL, lmax);
+      vend = v[CPL - 1];
+      if (!EXACT) {
+#pragma unroll
+        for (int c = 0; c < CPL - 1; ++c) vend = c == end_c ? v[c] : vend;
+      }
+      const int b0 = __shfl_sync(FULL, v[0], 0);
+      const int bw = __shfl_sync(FULL, vend, end_lane);
+      shift_dn<CPL>(rng, sd, lane, DEAD);
+      shift_up<CPL>(rng, su, lane, DEAD);
+      if (AFFINE) {
+        shift_dn_any<CPL>(e, ed);
+        shift_up_any<CPL>(f, fu);
+      }
+      const int qin = __shfl_sync(FULL, d - qb < 32 ? qa : qn, d);
+      const int tin = __shfl_sync(FULL, u - tb < 32 ? ta : tn, u);
+      shift_dn<CPL>(q, qsd, lane, q_code<MATRIX>(qin, stride));
+      shift_up<CPL>(t, tsu, lane, t_code<MATRIX>(tin, stride));
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        dr[c] = vg[c] + score_g<MATRIX>(q[c], tsu[c], tab, sm, smm);
+        dd[c] = hg[c] + score_g<MATRIX>(qsd[c], t[c], tab, sm, smm);
+      }
+      // the next round's cut and direction; an overrun restores what the
+      // round changed on its way out, off the chain
+      const int ms_before = ms, max_round_before = max_round;
+      max_round = rmax > ms ? r : max_round;
+      ms = max(ms, rmax);
+      const int cut = ms - X;  // live cells lie in [max(cut, 1), ms]
+      thr = __viaddmax_s32(ms, -X - G, 1 - G);  // max(cut, 1) - G
+      right = bw > __viaddmax_s32(ms, -X - 1, b0);  // bw > max(b0, cut - 1)
+      if (HIST && !over) write_row<CPL, EXACT>(a, r, b, lane, v, cut, d);
+      // a dead round is written, then ends the pair; so does the round cap
+      if (over || rmax == 0 || r + 1 >= rcap) {
+        if (over) {
+          ms = ms_before;
+          max_round = max_round_before;
+        } else {
+          ++r;
+        }
+        stop = true;
+        break;
+      }
+      ++r;
+    }
+    const int d = r - 1 - u;
+    if (!stop && d - qb >= 32) {  // uniform: the block used up a query window
+      qb += 32;
+      qa = qn;
+      qn = ql;
+      ql = raw_at(qrow, W + 63 + qb + lane, lq, qp);
+    }
+    if (!stop && u - tb >= 32) {  // ... or a target window
+      tb += 32;
+      ta = tn;
+      tn = tl;
+      tl = raw_at(trow, t_lead + 64 + tb + lane, lt, tp);
+    }
+  }
+
+  if (lane == 0) {
+    a.score[b] = ms - X;
+    a.max_round[b] = max_round;
+    a.n_rounds[b] = r;
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+template <int CPL, bool AFFINE, bool MATRIX, bool HIST>
+void launch_round(const RoundArgs& a, cudaStream_t stream) {
+  // a warp a block while the pairs leave SMs free, four warps from 32 an SM
+  const int warps = a.B <= 32 * sm_count() ? 1 : 4;
+  const dim3 grid((a.B + warps - 1) / warps), block(32 * warps);
+  if (a.W == 32 * CPL)
+    xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, true><<<grid, block, 0, stream>>>(a);
+  else
+    xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, false><<<grid, block, 0, stream>>>(a);
+}
+
+template <int CPL>
+void launch_cpl(bool affine, bool matrix, bool hist, const RoundArgs& a, cudaStream_t s) {
+  if (affine) {
+    if (matrix) {
+      if (hist) launch_round<CPL, true, true, true>(a, s);
+      else launch_round<CPL, true, true, false>(a, s);
+    } else {
+      if (hist) launch_round<CPL, true, false, true>(a, s);
+      else launch_round<CPL, true, false, false>(a, s);
+    }
+  } else {
+    if (matrix) {
+      if (hist) launch_round<CPL, false, true, true>(a, s);
+      else launch_round<CPL, false, true, false>(a, s);
+    } else {
+      if (hist) launch_round<CPL, false, false, true>(a, s);
+      else launch_round<CPL, false, false, false>(a, s);
+    }
+  }
+}
+
+// -- the earlier kernel, timed beside the one above ------------------------
+
+namespace earlier {
+
+constexpr int WARPS = 4;  // pairs per block
+constexpr int THREADS = 32 * WARPS;
 constexpr int EF_DEAD = -(1 << 28);
 constexpr int EF_CUT = -(1 << 27);   // EF_DEAD // 2
 constexpr int MINF = -(1 << 30);
 constexpr int MINF_CUT = -(1 << 29);  // MINF // 2
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const int16_t* qp;       // [B, QL] padded query rows, -1 pads
@@ -262,43 +644,77 @@ void launch(bool affine, const Args& a, cudaStream_t stream) {
     sw_xdrop_kernel<CPL, false><<<grid, THREADS, 0, stream>>>(a);
 }
 
+}  // namespace earlier
+
 }  // namespace
 
 extern "C" {
 
-// Launches the instantiation for W (cells per lane ceil(W / 32)) on
-// `stream` and returns cudaGetLastError() (a refused launch never runs,
-// and a later synchronise would not report it); cudaErrorInvalidValue for
-// W outside 1..128 or a table stride outside 1..32. Pointers: qp [B, QL]
-// and tp [B, TL] int16 padded rows (QL = 1 + n + W, TL = 2W + m), lens_q /
-// lens_t [B] int32, table [stride, stride] int32 or null (uniform), score /
+// Launches the instantiation for (W, affine, table, history) on `stream`
+// and returns cudaGetLastError() (a refused launch never runs, and a later
+// synchronise would not report it); cudaErrorInvalidValue for W outside
+// 1..128 or a table stride outside 1..32. Pointers: q [B, n] and t [B, m]
+// uint8 raw codes, lens_q / lens_t [B] int32 (each may be null: every pair
+// n / m long), table [stride, stride] int32 or null (uniform), score /
 // max_round / n_rounds [B] int32; with history posy [R_cap, B] int32 and
 // either hist32 [R_cap, B, W] int32 or hist8 [R_cap, B, W] uint8 with offs
 // [R_cap, B] int32, R_cap = (max(n, m) + 1) * 2 - 1 (all null for scores
 // only); rounds at and past a pair's n_rounds are left as they were. All
-// on one device, all contiguous; the
-// wrapper checks that. Linear scoring uses `gap`.
-int swtpu_sw_xdrop(int affine, const void* qp, const void* tp, const void* lens_q,
+// on one device, all contiguous; the wrapper checks that. Linear scoring
+// uses `gap`.
+int swtpu_sw_xdrop(int affine, const void* q, const void* t, const void* lens_q,
                    const void* lens_t, const void* table, void* score, void* max_round,
                    void* n_rounds, void* hist32, void* hist8, void* posy, void* offs, int B,
-                   int QL, int TL, int W, int X, int match, int mismatch, int gap,
+                   int n, int m, int W, int X, int match, int mismatch, int gap,
                    int gap_open, int gap_extend, int stride, void* stream) {
   if (W < 1 || W > 32 * MAX_CPL || (table && (stride < 1 || stride > MAX_STRIDE)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  const Args a{static_cast<const int16_t*>(qp), static_cast<const int16_t*>(tp),
-               static_cast<const int32_t*>(lens_q), static_cast<const int32_t*>(lens_t),
-               static_cast<const int32_t*>(table), static_cast<int32_t*>(score),
-               static_cast<int32_t*>(max_round), static_cast<int32_t*>(n_rounds),
-               static_cast<int32_t*>(hist32), static_cast<uint8_t*>(hist8),
-               static_cast<int32_t*>(posy), static_cast<int32_t*>(offs), B, QL, TL, W, X,
-               match, mismatch, gap, gap_open, gap_extend, table ? stride : 1};
+  const RoundArgs a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+                    static_cast<const int32_t*>(lens_q), static_cast<const int32_t*>(lens_t),
+                    static_cast<const int32_t*>(table), static_cast<int32_t*>(score),
+                    static_cast<int32_t*>(max_round), static_cast<int32_t*>(n_rounds),
+                    static_cast<int32_t*>(hist32), static_cast<uint8_t*>(hist8),
+                    static_cast<int32_t*>(posy), static_cast<int32_t*>(offs), B, n, m, W, X,
+                    match, mismatch, gap, gap_open, gap_extend, table ? stride : 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool matrix = table != nullptr, hist = posy != nullptr;
+  switch ((W + 31) / 32) {
+    case 1: launch_cpl<1>(affine != 0, matrix, hist, a, s); break;
+    case 2: launch_cpl<2>(affine != 0, matrix, hist, a, s); break;
+    case 3: launch_cpl<3>(affine != 0, matrix, hist, a, s); break;
+    default: launch_cpl<4>(affine != 0, matrix, hist, a, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The earlier kernel, off every entry point: the same outputs from padded
+// int16 rows qp [B, QL] and tp [B, TL] (QL = 1 + n + W, TL = 2W + m, -1
+// pads, as banded_scan._prep_padded makes them) and lens_q / lens_t [B]
+// int32 (not null).
+int swtpu_sw_xdrop_earlier(int affine, const void* qp, const void* tp, const void* lens_q,
+                           const void* lens_t, const void* table, void* score,
+                           void* max_round, void* n_rounds, void* hist32, void* hist8,
+                           void* posy, void* offs, int B, int QL, int TL, int W, int X,
+                           int match, int mismatch, int gap, int gap_open, int gap_extend,
+                           int stride, void* stream) {
+  if (W < 1 || W > 32 * MAX_CPL || (table && (stride < 1 || stride > MAX_STRIDE)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  const earlier::Args a{
+      static_cast<const int16_t*>(qp), static_cast<const int16_t*>(tp),
+      static_cast<const int32_t*>(lens_q), static_cast<const int32_t*>(lens_t),
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(score),
+      static_cast<int32_t*>(max_round), static_cast<int32_t*>(n_rounds),
+      static_cast<int32_t*>(hist32), static_cast<uint8_t*>(hist8),
+      static_cast<int32_t*>(posy), static_cast<int32_t*>(offs), B, QL, TL, W, X,
+      match, mismatch, gap, gap_open, gap_extend, table ? stride : 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((W + 31) / 32) {
-    case 1: launch<1>(affine != 0, a, s); break;
-    case 2: launch<2>(affine != 0, a, s); break;
-    case 3: launch<3>(affine != 0, a, s); break;
-    default: launch<4>(affine != 0, a, s); break;
+    case 1: earlier::launch<1>(affine != 0, a, s); break;
+    case 2: earlier::launch<2>(affine != 0, a, s); break;
+    case 3: earlier::launch<3>(affine != 0, a, s); break;
+    default: earlier::launch<4>(affine != 0, a, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@ each with its plain PyTorch version beside it.
 - ``sw_affine``   affine gap: ``sw_affine`` / ``sw_affine_ends`` (kernel),
                   ``sw_affine_plain`` / ``sw_affine_ends_plain``;
 - ``sw_profile``  general matrix (DNA 4x4, BLOSUM62), linear or affine:
-                  ``sw_profile`` / ``sw_profile_ends`` (kernel),
+                  ``sw_profile`` / ``sw_profile_ends`` (kernel: a thread or
+                  a warp per pair, ``profile_form`` picks by shape),
                   ``sw_profile_plain`` / ``sw_profile_ends_plain``;
 - ``sw_bf16``     the bf16 reduced-precision tier: ``sw_bf16`` (kernel),
                   ``sw_bf16_plain`` (the anti-diagonal tier in bf16);

@@ -8,8 +8,13 @@ type. The kernel is ``csrc/sw_xdrop.cu``, whose head note says what it
 replaces, what bounds it and how: one warp per pair, instantiated for 1-4
 band cells per lane, so it takes every bandwidth from 1 to
 :data:`MAX_WIDTH` = 128 (the TPU kernels took up to 96). The W = 32 and
-W = 64 instantiations serve what JAX sent to the packed kernel. The plain
-version is the XLA tier's copy, ``banded_scan.banded_xdrop_batch``.
+W = 64 instantiations serve what JAX sent to the packed kernel. It reads
+the raw [B, n] / [B, m] codes and the lengths (:func:`stage`), keeps each
+cell's codes in registers and pads in-kernel, so the wrapper pads nothing.
+The plain version is the XLA tier's copy, ``banded_scan.banded_xdrop_batch``;
+:func:`xdrop_round_mirror` replays the kernel's own round schedule on the
+CPU (tests only). The earlier kernel of the same source, over padded rows,
+stays off every entry point (:func:`_earlier_launch_t`, timed beside it).
 
 ``banded_batch`` runs where its device says: on the CPU the plain
 version, for any bandwidth; on a CUDA device the kernel, never the plain
@@ -29,17 +34,18 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from swtpu_torch.kernels import _build
 from swtpu_torch.kernels.banded_scan import (
     BandedBatchResult,
-    _prep_padded,
+    _banded_ext_table,
     banded_xdrop_batch,
 )
 from swtpu_torch.kernels.sw_banded import banded_table
 from swtpu_torch.kernels.sw_batch import ptr
-from swtpu_torch.utils.device import resolve_device
+from swtpu_torch.utils.device import as_codes, resolve_device
 
 SOURCE = "sw_xdrop.cu"
 MAX_WIDTH = 128  # 32 lanes x 4 cells per lane
@@ -65,9 +71,9 @@ def width_refusal(bandwidth: int):
     return None
 
 
-def _xdrop_fn():
+def _xdrop_fn(name="swtpu_sw_xdrop"):
     lib = _build.load(SOURCE)
-    fn = lib.swtpu_sw_xdrop
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i] + [p] * 12 + [i] * 11 + [p]
@@ -75,53 +81,44 @@ def _xdrop_fn():
     return lib, fn
 
 
-def xdrop_launch_t(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match, mismatch,
-                   gap, gap_open=None, gap_extend=None, table=None,
-                   with_history=True, compress_history=False):
-    """The launch alone, on rows already in the kernel's layout: qp
-    [B, 1 + n + W] and tp [B, 2W + m] contiguous int16 padded rows (-1
-    pads, as ``banded_scan._prep_padded`` makes them) and int32 [B]
-    lengths, all on one CUDA device; ``table`` (``sw_banded.banded_table``)
-    selects the general-matrix mode; affine when gap_open is given.
-    Allocates the outputs and launches on the device's current stream.
-    Returns (score, max_round, n_rounds, band_history, pos_y, offsets);
-    the last three None as the mode leaves them."""
-    device = qp.device
-    W, X = int(bandwidth), int(x_threshold)
-    reason = width_refusal(W)
-    if reason:
-        raise NotImplementedError(reason)
-    B = qp.shape[0]
-    n, m = qp.shape[1] - W - 1, tp.shape[1] - 2 * W
-    for x, dtype, what in ((qp, torch.int16, "rows"), (tp, torch.int16, "rows"),
-                           (lens_q, torch.int32, "lengths"),
-                           (lens_t, torch.int32, "lengths")):
-        if (x.dtype != dtype or x.device != device or device.type != "cuda"
-                or not x.is_contiguous() or x.shape[0] != B):
-            raise ValueError(
-                f"the per-round banded kernel takes contiguous {dtype} {what} with "
-                f"{B} rows on one CUDA device, got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
-    if n < 0 or m < 0:
-        raise ValueError(f"padded rows too short for bandwidth {W}")
-    stride = 0
-    if table is not None:
-        stride = table.shape[0]
-        if (table.dtype != torch.int32 or table.device != device
-                or table.shape != (stride, stride) or not table.is_contiguous()):
-            raise ValueError(
-                "the per-round banded kernel takes a square contiguous int32 table "
-                f"on the rows' device, got {table.dtype} {tuple(table.shape)} on "
-                f"{table.device}")
+def _lens(lens, B, L, device):
+    """Per-pair lengths as a contiguous int32 [B] tensor on ``device``, or
+    None for every pair L long; raises outside [0, L] (checked on the host
+    for host lengths)."""
+    if lens is None:
+        return None
+    out = torch.as_tensor(np.asarray(lens) if not isinstance(lens, torch.Tensor)
+                          else lens)
+    if tuple(out.shape) != (B,):
+        raise ValueError(f"lengths must be [{B}], got {tuple(out.shape)}")
+    if B and (int(out.min()) < 0 or int(out.max()) > L):
+        raise ValueError(f"lengths must lie in [0, {L}]")
+    return out.to(device=device, dtype=torch.int32).contiguous()
+
+
+def stage(qs, ts, lens_q, lens_t, device):
+    """What the kernel takes: raw codes as contiguous uint8 [B, n] / [B, m]
+    on ``device`` (``as_codes``: any integer type, codes above 255 clamp to
+    255) and int32 [B] lengths, or None for full rows. No padding: the
+    kernel reads a position outside a pair's length, or its row, as a pad.
+    Returns (q, t, lens_q, lens_t)."""
+    q = as_codes(qs, device).contiguous()
+    t = as_codes(ts, device).contiguous()
+    B = q.shape[0]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
+    return q, t, _lens(lens_q, B, q.shape[1], device), _lens(lens_t, B, t.shape[1],
+                                                            device)
+
+
+def _outputs(B, n, m, W, X, with_history, compress_history, device):
     if with_history and compress_history and X > 254:
         raise ValueError("8-bit history needs x_threshold <= 254")
     R_cap = (max(n, m) + 1) * 2 - 1
-    if max(B, qp.shape[1], tp.shape[1], R_cap) >= 2**31:
+    if max(B, n, m, R_cap) >= 2**31:
         raise ValueError(f"shape too large for one launch: {B}, {n}, {m}")
     i32 = dict(dtype=torch.int32, device=device)
-    score = torch.empty((B,), **i32)
-    max_round = torch.empty((B,), **i32)
-    n_rounds = torch.empty((B,), **i32)
+    out = torch.empty((3, B), **i32)
     hist = posy = offs = None
     if with_history:
         hist = torch.empty((R_cap, B, W), dtype=torch.uint8 if compress_history
@@ -129,20 +126,97 @@ def xdrop_launch_t(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match, mismat
         posy = torch.empty((R_cap, B), **i32)
         if compress_history:
             offs = torch.empty((R_cap, B), **i32)
-    affine = gap_open is not None
-    lib, fn = _xdrop_fn()
+    return out[0], out[1], out[2], hist, posy, offs
+
+
+def _check_table(table, device, what):
+    stride = 0
+    if table is not None:
+        stride = table.shape[0]
+        if (table.dtype != torch.int32 or table.device != device
+                or table.shape != (stride, stride) or not table.is_contiguous()):
+            raise ValueError(
+                f"the {what} takes a square contiguous int32 table on the rows' "
+                f"device, got {table.dtype} {tuple(table.shape)} on {table.device}")
+    return stride
+
+
+def _launch(name, rows, lens_q, lens_t, n, m, bandwidth, x_threshold, match,
+            mismatch, gap, gap_open, gap_extend, table, with_history,
+            compress_history, what):
+    device = rows[0].device
+    W, X = int(bandwidth), int(x_threshold)
+    reason = width_refusal(W)
+    if reason:
+        raise NotImplementedError(reason)
+    stride = _check_table(table, device, what)
+    B = rows[0].shape[0]
+    score, max_round, n_rounds, hist, posy, offs = _outputs(
+        B, n, m, W, X, with_history, compress_history, device)
+    lib, fn = _xdrop_fn(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            int(affine), ptr(qp), ptr(tp), ptr(lens_q), ptr(lens_t), ptr(table),
-            ptr(score), ptr(max_round), ptr(n_rounds),
+            int(gap_open is not None), ptr(rows[0]), ptr(rows[1]), ptr(lens_q),
+            ptr(lens_t), ptr(table), ptr(score), ptr(max_round), ptr(n_rounds),
             None if compress_history else ptr(hist),
             ptr(hist) if compress_history else None, ptr(posy), ptr(offs),
-            B, qp.shape[1], tp.shape[1], W, X, int(match), int(mismatch),
+            B, rows[0].shape[1], rows[1].shape[1], W, X, int(match), int(mismatch),
             int(gap), int(gap_open or 0), int(gap_extend or 0), stride, stream,
         )
-    _build.check(lib, err, "sw_xdrop")
+    _build.check(lib, err, name)
     return score, max_round, n_rounds, hist, posy, offs
+
+
+def xdrop_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match, mismatch,
+                   gap, gap_open=None, gap_extend=None, table=None,
+                   with_history=True, compress_history=False):
+    """The launch alone, on what :func:`stage` makes: q [B, n] and t [B, m]
+    contiguous uint8 raw codes and int32 [B] lengths (or None: full rows),
+    all on one CUDA device; ``table`` (``sw_banded.banded_table``) selects
+    the general-matrix mode; affine when gap_open is given. Allocates the
+    outputs and launches on the device's current stream. Returns (score,
+    max_round, n_rounds, band_history, pos_y, offsets); the last three None
+    as the mode leaves them."""
+    device = q.device
+    B = q.shape[0]
+    for x, dtype, what in ((q, torch.uint8, "codes"), (t, torch.uint8, "codes"),
+                           (lens_q, torch.int32, "lengths"),
+                           (lens_t, torch.int32, "lengths")):
+        if x is None and what == "lengths":
+            continue
+        if (x.dtype != dtype or x.device != device or device.type != "cuda"
+                or not x.is_contiguous() or x.shape[0] != B):
+            raise ValueError(
+                f"the per-round banded kernel takes contiguous {dtype} {what} with "
+                f"{B} rows on one CUDA device, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    return _launch("swtpu_sw_xdrop", (q, t), lens_q, lens_t, q.shape[1], t.shape[1],
+                   bandwidth, x_threshold, match, mismatch, gap, gap_open, gap_extend,
+                   table, with_history, compress_history, "per-round banded kernel")
+
+
+def _earlier_launch_t(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match,
+                      mismatch, gap, gap_open=None, gap_extend=None, table=None,
+                      with_history=True, compress_history=False):
+    """The earlier kernel (a warp per pair over padded rows, two code loads
+    a cell a round), off every entry point: timed and held beside
+    :func:`xdrop_launch_t`. Takes qp [B, 1 + n + W] / tp [B, 2W + m]
+    contiguous int16 rows as ``banded_scan._prep_padded`` makes them and
+    int32 [B] lengths on one CUDA device."""
+    W = int(bandwidth)
+    for x, dtype in ((qp, torch.int16), (tp, torch.int16), (lens_q, torch.int32),
+                     (lens_t, torch.int32)):
+        if (x.dtype != dtype or x.device != qp.device or qp.device.type != "cuda"
+                or not x.is_contiguous() or x.shape[0] != qp.shape[0]):
+            raise ValueError(f"the earlier per-round kernel takes contiguous {dtype} "
+                             f"rows on one CUDA device, got {x.dtype} on {x.device}")
+    n, m = qp.shape[1] - W - 1, tp.shape[1] - 2 * W
+    if n < 0 or m < 0:
+        raise ValueError(f"padded rows too short for bandwidth {W}")
+    return _launch("swtpu_sw_xdrop_earlier", (qp, tp), lens_q, lens_t, n, m, W,
+                   x_threshold, match, mismatch, gap, gap_open, gap_extend, table,
+                   with_history, compress_history, "earlier per-round kernel")
 
 
 def banded_batch_plain(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
@@ -187,11 +261,9 @@ def banded_batch(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1, gap=1,
     if reason:
         raise NotImplementedError(reason)
     gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
-    qp, tp, lq, lt = _prep_padded(qs, ts, lens_q, lens_t, W, dev, torch.int16)
     out = xdrop_launch_t(
-        qp, tp, lq.to(torch.int32), lt.to(torch.int32), W, x_threshold, match,
-        mismatch, gap, gap_open, gap_extend,
-        None if matrix is None else banded_table(matrix, dev),
+        *stage(qs, ts, lens_q, lens_t, dev), W, x_threshold, match, mismatch, gap,
+        gap_open, gap_extend, None if matrix is None else banded_table(matrix, dev),
         with_history, compress_history,
     )
     banded_batch.launches += 1
@@ -202,3 +274,167 @@ def banded_batch(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1, gap=1,
 
 banded_batch.launches = 0
 banded_batch.launches_w32_w64 = 0
+
+
+# -- a plain mirror of the kernel's round schedule (tests only) --------------
+
+DEAD = -(2**29)  # a cut or dead H, kept minus the gap (csrc/sw_xdrop.cu)
+_ANY = 1 << 20  # what a shuffle leaves at a band end no cut test lets through
+
+
+def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
+                       gap=1, bandwidth=32, x_threshold=70, compress_history=False,
+                       with_history=True, gap_open=None, gap_extend=None,
+                       matrix=None) -> BandedBatchResult:
+    """The kernel's arithmetic and schedule replayed in numpy, pair by
+    pair, on the 32 * CPL physical cells of a warp: H kept minus the gap
+    with cut cells at -2^29, E and F floored at 0 and cleared through the
+    cut test of the cell that holds them, the cut applied when a candidate
+    is selected, the direction from the uncut end values, the codes held
+    per cell and shifted, the entering codes from 64-code windows moved on
+    between blocks of 32 rounds, phantom cells capped at 0 (targets running
+    ahead in them). Band ends the kernel fills with no value (E at cell 0,
+    F at the last cell) hold a large positive one here, which the cut tests
+    must keep out. Same contract as :func:`banded_batch`; history, pos_y
+    and offsets are 0 at and past each pair's n_rounds. Nothing on the card
+    path calls it."""
+    gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
+    q = as_codes(qs, torch.device("cpu")).numpy().astype(np.int64)
+    t = as_codes(ts, torch.device("cpu")).numpy().astype(np.int64)
+    B, n = q.shape
+    m = t.shape[1]
+    W, X = int(bandwidth), int(x_threshold)
+    if width_refusal(W):
+        raise NotImplementedError(width_refusal(W))
+    if with_history and compress_history and X > 254:
+        raise ValueError("8-bit history needs x_threshold <= 254")
+    lq = np.full(B, n) if lens_q is None else np.asarray(lens_q, np.int64)
+    lt = np.full(B, m) if lens_t is None else np.asarray(lens_t, np.int64)
+    affine = gap_open is not None
+    G = gap_open if affine else gap
+    CPL = -(-W // 32)
+    P = 32 * CPL
+    exact = W == P
+    k = np.arange(P)
+    if matrix is not None:
+        tab = _banded_ext_table(matrix).astype(np.int64)
+        stride = tab.shape[0]
+        tab = tab.reshape(-1) + G
+    sm, smm = match + G, G - mismatch
+
+    def raw(row, idx, L):
+        idx = np.asarray(idx)
+        ok = (idx >= 0) & (idx < L)
+        return np.where(ok, row[np.clip(idx, 0, max(len(row) - 1, 0))] if len(row)
+                        else -1, -1)
+
+    def q_code(c):
+        if matrix is not None:
+            return np.where(c >= 0, np.minimum(c, stride - 1), stride - 2) * stride
+        return c
+
+    def t_code(c):
+        if matrix is not None:
+            return np.where(c >= 0, np.minimum(c, stride - 1), stride - 1)
+        return np.where(c >= 0, c, -2)
+
+    def score(qc, tc):
+        return tab[qc + tc] if matrix is not None else np.where(qc == tc, sm, smm)
+
+    def dn(a, fill):  # out[k] = a[k - 1]
+        return np.concatenate([[fill], a[:-1]])
+
+    def up(a, fill):  # out[k] = a[k + 1]
+        return np.concatenate([a[1:], [fill]])
+
+    R_cap = (max(n, m) + 1) * 2 - 1
+    score_o, max_round_o, n_rounds_o = (np.zeros(B, np.int32) for _ in range(3))
+    hist = np.zeros((R_cap, B, W), np.int32)
+    posy = np.zeros((R_cap, B), np.int32)
+    offs = np.zeros((R_cap, B), np.int32)
+    cap = np.where(k < W, 1 << 30, 0)
+    for b in range(B):
+        qb, tb, Lq, Lt = q[b], t[b], int(lq[b]), int(lt[b])
+        rcap = (max(Lq, Lt) + 1) * 2 - 1
+        t_lead = P - W
+        qc = q_code(raw(qb, W - 2 - k, Lq))
+        tc = t_code(raw(tb, k - W, Lt))
+        v = np.where(k == W - 1, X, 0)
+        rng = v - G
+        hg = np.full(P, DEAD)
+        vg = np.full(P, DEAD)
+        e = np.zeros(P, np.int64)
+        f = np.zeros(P, np.int64)
+        d = u = 0
+        ms, max_round, n_rounds = X, 0, 1
+        # the windows: 64 codes from W - 1 + qw and t_lead + tw, moved on by
+        # 32 between blocks of 32 rounds once a block has used 32 of them;
+        # the entering codes at window lanes d - qw and u - tw
+        qw = tw = 0
+
+        def qwin():
+            assert 0 <= d - qw < 64
+            return q_code(raw(qb, W - 1 + qw + np.arange(64), Lq))
+
+        def twin():
+            assert 0 <= u - tw < 64
+            return t_code(raw(tb, t_lead + tw + np.arange(64), Lt))
+
+        def write(r, cut, y):
+            res = np.where(v >= max(cut, 1), v, 0)[:W]
+            hist[r, b] = np.where(res > 0, res - cut + 1, 0) if compress_history else res
+            posy[r, b], offs[r, b] = y, cut
+
+        def candidates():
+            qsd, tsu = dn(qc, qwin()[d - qw]), up(tc, twin()[u - tw])
+            return (dn(rng, DEAD), up(rng, DEAD), qsd, tsu, vg + score(qc, tsu),
+                    hg + score(qsd, tc), dn(e, _ANY), up(f, _ANY))
+
+        write(0, 0, 0)
+        sd, su, qsd, tsu, dr, dd, ed, fu = candidates()
+        right = v[W - 1] > max(v[0], -1)
+        thr = 1 - G
+        for r in range(1, rcap):
+            if (u >= W + Lt) if right else (d > Lq):
+                break
+            hs = rng if right else sd
+            vs = su if right else rng
+            dg = dr if right else dd
+            hp, vp = hs >= thr, vs >= thr
+            hg = np.where(hp, hs, DEAD)
+            vg = np.where(vp, vs, DEAD)
+            if affine:
+                e = np.maximum(np.maximum(np.where(hp, e if right else ed, 0) - gap_extend,
+                                          hg), 0)
+                f = np.maximum(np.maximum(np.where(vp, fu if right else f, 0) - gap_extend,
+                                          vg), 0)
+                x = np.maximum(np.maximum(np.maximum(dg, e), f), 0)
+            else:
+                x = np.maximum(np.maximum(np.maximum(dg, hg), vg), 0)
+            if not exact:
+                x = np.minimum(x, cap)
+            v, rng = x, x - G
+            qc = qc if right else qsd
+            tc = tsu if right else tc
+            u, d = u + right, d + (not right)
+            rmax = int(v.max())
+            sd, su, qsd, tsu, dr, dd, ed, fu = candidates()
+            if rmax > ms:
+                ms, max_round = rmax, r
+            cut = ms - X
+            thr = max(cut, 1) - G
+            right = v[W - 1] > max(v[0], cut - 1)
+            n_rounds = r + 1
+            write(r, cut, d)
+            if rmax == 0:
+                break
+            if r % 32 == 0:  # between blocks
+                qw += 32 * (d - qw >= 32)
+                tw += 32 * (u - tw >= 32)
+        score_o[b], max_round_o[b], n_rounds_o[b] = ms - X, max_round, n_rounds
+    out = [torch.from_numpy(x) for x in (score_o, max_round_o, n_rounds_o)]
+    if not with_history:
+        return BandedBatchResult(*out, None, None)
+    hist = torch.from_numpy(hist.astype(np.uint8) if compress_history else hist)
+    return BandedBatchResult(*out, hist, torch.from_numpy(posy),
+                             torch.from_numpy(offs) if compress_history else None)

@@ -4,19 +4,25 @@ gaps: the CUDA profile kernel and its plain PyTorch version.
 
 Port of ``swtpu/kernels/pallas/sw_profile.py`` (``sw_batch_profile_pallas``
 and ``sw_batch_profile_pallas_ends``). The kernel is ``csrc/sw_profile.cu``,
-whose head note says what it replaces, what bounds it and how; it looks
-each cell's score up in the plain tier's extended table
-(``sw_scan._extended_table``), which the wrapper copies to the card once
-per scoring. The plain versions are the anti-diagonal tiers
-(``sw_scan.py`` linear, ``affine_scan.py`` affine).
+whose head note says what it replaces, what bounds it and how, in two
+hand-written forms: a thread per pair over the [L, B] transposes
+(``sw_batch.kernel_layout``), reading each cell's score from the plain
+tier's extended table (``sw_scan._extended_table``), which the wrapper
+copies to the card once per scoring; and a warp per pair over the [B, L]
+codes as given, lanes as row bands, for batches too small to fill the card.
+:func:`profile_form` picks the form from the shape; both give the same
+results. The plain versions are the anti-diagonal tiers (``sw_scan.py``
+linear, ``affine_scan.py`` affine); :func:`profile_warp_mirror` replays the
+warp form's lane schedule on the CPU (tests only).
 
 ``sw_profile`` and ``sw_profile_ends`` check the kernel's guards (at most
 30 letters, entries in [-127, 127], gaps > 0; a uniform matrix passes
 them too) and then run where their device says: on the CPU the plain
-version, on a CUDA device the kernel, which they never replace with the
-plain version; a failed build or launch raises. Each counts its launches
-in ``<wrapper>.launches``, and those of the affine instantiation also in
-``<wrapper>.launches_affine``.
+version, on a CUDA device a form of the kernel, which they never replace
+with the plain version; a failed build or launch raises. Each counts its
+launches in ``<wrapper>.launches``, those of the affine instantiations
+also in ``<wrapper>.launches_affine``, and those of the warp form in
+``launches_warp`` (affine: ``launches_warp_affine``).
 
 Unlike the TPU kernel there is no ``m > 2048`` transposition and no
 packed-comb overflow guard: the scratch lives in device memory and the
@@ -43,7 +49,7 @@ from swtpu_torch.kernels.sw_scan import (
     sw_batch_diag,
     sw_batch_diag_ends,
 )
-from swtpu_torch.utils.device import resolve_device
+from swtpu_torch.utils.device import as_codes, resolve_device
 
 SOURCE = "sw_profile.cu"
 MAX_LETTERS = 30  # the kernel's table is at most 32 x 32, two codes for pads
@@ -92,9 +98,9 @@ def profile_table(params: ScoringParams, device: torch.device) -> torch.Tensor:
     return table
 
 
-def _profile_fn():
+def _profile_fn(name="swtpu_sw_profile"):
     lib = _build.load(SOURCE)
-    fn = lib.swtpu_sw_profile
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, i] + [p] * 8 + [i] * 6 + [p]
@@ -102,18 +108,109 @@ def _profile_fn():
     return lib, fn
 
 
+#: the warp form's query rows a lane and rows a stripe (csrc/sw_profile.cu)
+WARP_ROWS = 4
+STRIPE = 32 * WARP_ROWS
+#: the thread form takes a batch only past this many pairs an SM (fewer
+#: leave it too few warps to hide its chain of cells) and ...
+WARP_PAIRS_PER_SM = 64
+#: ... targets of at most this many codes (longer ones push its [m, B]
+#: scratch rows out of L2); both from chip_smoke.py's form sweep
+THREAD_MAX_M = 256
+
+
+def profile_form(B: int, n: int, m: int, n_sm: int) -> str:
+    """Which hand-written form takes a batch of B pairs of n x m on a card
+    of n_sm SMs: ``"thread"`` (a thread per pair) for a batch that fills
+    the card with short targets, else ``"warp"`` (a warp per pair, lanes as
+    row bands). Empty shapes go to the thread form (nothing to run)."""
+    if B <= 0 or n <= 0 or m <= 0:
+        return "thread"
+    if B > WARP_PAIRS_PER_SM * n_sm and m <= THREAD_MAX_M:
+        return "thread"
+    return "warp"
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def profile_launch(qs, ts, params: ScoringParams, device: torch.device,
                    ends: bool):
-    """Launch the profile kernel on ``device``: the codes go to the
-    kernel's [L, B] layout (``sw_batch.kernel_layout``), then
-    :func:`profile_launch_t`. Returns int32 [B] score, or (score, end_i,
-    end_j)."""
-    qT, tT = kernel_layout(qs, ts, device, "profile")
-    return profile_launch_t(qT, tT, profile_table(params, device), params, ends)
+    """Launch the profile kernel on ``device`` in the form
+    :func:`profile_form` picks: the warp form on the codes as given
+    ([B, n] / [B, m] uint8, :func:`profile_warp_launch_t`), the thread form
+    on the kernel layout's [L, B] transposes (``sw_batch.kernel_layout``,
+    :func:`profile_launch_t`). Returns (int32 [B] score, or (score, end_i,
+    end_j); the form)."""
+    if device.type != "cuda":
+        raise ValueError(f"the profile kernel runs on CUDA, not {device}")
+    q, t = as_codes(qs, device), as_codes(ts, device)
+    if t.shape[0] != q.shape[0]:
+        raise ValueError(
+            f"batch mismatch: {q.shape[0]} queries vs {t.shape[0]} targets")
+    table = profile_table(params, device)
+    form = profile_form(q.shape[0], q.shape[1], t.shape[1], _sm_count(device))
+    if form == "warp":
+        return profile_warp_launch_t(q.contiguous(), t.contiguous(), table, params,
+                                     ends), form
+    qT, tT = kernel_layout(q, t, device, "profile")
+    return profile_launch_t(qT, tT, table, params, ends), form
+
+
+def _check_table(table, device):
+    stride = table.shape[0]
+    if (table.dtype != torch.int32 or table.device != device
+            or table.shape != (stride, stride) or not table.is_contiguous()):
+        raise ValueError(
+            "the profile kernel takes a square contiguous int32 table on the "
+            f"codes' device, got {table.dtype} {tuple(table.shape)} on "
+            f"{table.device}"
+        )
+    return stride
+
+
+def profile_warp_launch_t(q, t, table, params: ScoringParams, ends: bool):
+    """The warp form's launch alone: q [B, n] and t [B, m] contiguous uint8
+    codes on one CUDA device (no transposes) and the table of
+    :func:`profile_table` there. Allocates the [B, m] stripe scratch (only
+    past one stripe of 128 rows) and the outputs and launches on the
+    device's current stream."""
+    device = q.device
+    for x in (q, t):
+        if (x.dtype != torch.uint8 or x.device != device or device.type != "cuda"
+                or not x.is_contiguous()):
+            raise ValueError("the profile kernel's warp form takes contiguous uint8 "
+                             f"[B, L] codes on one CUDA device, got {x.dtype} on "
+                             f"{x.device}")
+    B, n = q.shape
+    m = t.shape[1]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
+    if max(B, n, m) >= 2**31:
+        raise ValueError(f"shape too large for one launch: {B}, {n}, {m}")
+    stride = _check_table(table, device)
+    affine = not params.is_linear
+    i32 = dict(dtype=torch.int32, device=device)
+    hrow = frow = None
+    if n > STRIPE:
+        hrow = torch.empty((B, m), **i32)
+        frow = torch.empty((B, m), **i32) if affine else None
+    out = torch.empty((3 if ends else 1, B), **i32)
+    lib, fn = _profile_fn("swtpu_sw_profile_warp")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            int(affine), int(ends), ptr(q), ptr(t), ptr(table), ptr(hrow), ptr(frow),
+            ptr(out[0]), ptr(out[1]) if ends else None, ptr(out[2]) if ends else None,
+            B, n, m, stride, params.gap_open, params.gap_extend, stream,
+        )
+    _build.check(lib, err, "sw_profile_warp")
+    return (out[0], out[1], out[2]) if ends else out[0]
 
 
 def profile_launch_t(qT, tT, table, params: ScoringParams, ends: bool):
-    """The launch alone, on codes already in the kernel's layout (qT
+    """The thread form's launch alone, on codes already in the kernel's layout (qT
     [n, B], tT [m, B] contiguous uint8 on one CUDA device) and the table
     of :func:`profile_table` there. The instantiation is affine unless
     gap_open == gap_extend. Allocates the scratch and the outputs and
@@ -122,14 +219,7 @@ def profile_launch_t(qT, tT, table, params: ScoringParams, ends: bool):
     B, n, m, hrow, frow, score, end_i, end_j = launch_buffers(
         qT, tT, affine, ends, "profile"
     )
-    stride = table.shape[0]
-    if (table.dtype != torch.int32 or table.device != qT.device
-            or table.shape != (stride, stride) or not table.is_contiguous()):
-        raise ValueError(
-            "the profile kernel takes a square contiguous int32 table on the "
-            f"codes' device, got {table.dtype} {tuple(table.shape)} on "
-            f"{table.device}"
-        )
+    stride = _check_table(table, qT.device)
     lib, fn = _profile_fn()
     with torch.cuda.device(qT.device):
         stream = torch.cuda.current_stream(qT.device).cuda_stream
@@ -157,10 +247,12 @@ def sw_profile_ends_plain(qs, ts, params: ScoringParams, device=None):
     return sw_affine_batch_diag_ends(qs, ts, params, device)
 
 
-def _count(wrapper, params: ScoringParams) -> None:
+def _count(wrapper, params: ScoringParams, form: str) -> None:
+    affine, warp = not params.is_linear, form == "warp"
     wrapper.launches += 1
-    if not params.is_linear:
-        wrapper.launches_affine += 1
+    wrapper.launches_affine += affine
+    wrapper.launches_warp += warp
+    wrapper.launches_warp_affine += warp and affine
 
 
 def sw_profile(qs, ts, params: ScoringParams, device=None) -> torch.Tensor:
@@ -177,8 +269,8 @@ def sw_profile(qs, ts, params: ScoringParams, device=None) -> torch.Tensor:
     dev = resolve_device(device, like=qs)
     if dev.type == "cpu":
         return sw_profile_plain(qs, ts, params, dev)
-    out = profile_launch(qs, ts, params, dev, ends=False)
-    _count(sw_profile, params)
+    out, form = profile_launch(qs, ts, params, dev, False)
+    _count(sw_profile, params, form)
     return out
 
 
@@ -190,12 +282,120 @@ def sw_profile_ends(qs, ts, params: ScoringParams, device=None):
     dev = resolve_device(device, like=qs)
     if dev.type == "cpu":
         return sw_profile_ends_plain(qs, ts, params, dev)
-    out = profile_launch(qs, ts, params, dev, ends=True)
-    _count(sw_profile_ends, params)
+    out, form = profile_launch(qs, ts, params, dev, True)
+    _count(sw_profile_ends, params, form)
     return out
 
 
 sw_profile.launches = 0
 sw_profile.launches_affine = 0
+sw_profile.launches_warp = 0
+sw_profile.launches_warp_affine = 0
 sw_profile_ends.launches = 0
 sw_profile_ends.launches_affine = 0
+sw_profile_ends.launches_warp = 0
+sw_profile_ends.launches_warp_affine = 0
+
+
+# -- a plain mirror of the warp form's lane schedule (tests only) ------------
+
+_NEG_EF = -(2**29)
+
+
+def profile_warp_mirror(qs, ts, params: ScoringParams, ends: bool = False):
+    """The warp form's schedule replayed in numpy over [B, 32 lanes]:
+    stripes of 32 x WARP_ROWS rows, lane l's rows i0 + WARP_ROWS l + r;
+    at step s lane l computes column s - l from its left state, the
+    profile's scores (+ the gap) for its rows, and the bottom H (and F)
+    lane l - 1 handed down a step earlier (lane 0: the stripe above's last
+    row, which lane 31 leaves); columns outside [0, m) score as pads, rows
+    past n are pad rows; H kept minus the gap; the endpoint per row on a
+    strict '>', folded in row order within a lane, then the stripe's
+    lowest lane at its maximum, strictly above the stripes before. Same
+    contract as :func:`sw_profile` / :func:`sw_profile_ends`. Nothing on
+    the card path calls it."""
+    cpu = torch.device("cpu")
+    table = _extended_table(params).astype(np.int64)
+    stride = table.shape[0]
+    pad = stride - 1
+    q = as_codes(qs, cpu).numpy().astype(np.int64)
+    t = np.minimum(as_codes(ts, cpu).numpy().astype(np.int64), pad)
+    B, n = q.shape
+    m = t.shape[1]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
+    G, ge, affine = int(params.gap_open), int(params.gap_extend), not params.is_linear
+    R = WARP_ROWS
+    lanes = np.arange(32)
+    best = np.zeros(B, np.int64)
+    bi = np.zeros(B, np.int64)
+    bj = np.zeros(B, np.int64)
+    lane_best = np.zeros((B, 32), np.int64)
+    hrow = np.full((B, m), -G, np.int64)
+    frow = np.full((B, m), _NEG_EF, np.int64)
+    for i0 in range(0, n if m else 0, STRIPE):
+        rows = i0 + lanes[:, None] * R + np.arange(R)  # [32, R]
+        qrow = np.where(rows < n, q[:, np.minimum(rows, n - 1)], pad)
+        prof = table.reshape(-1)[np.minimum(qrow, pad)[..., None] * stride
+                                 + np.arange(stride)] + G
+        hl = np.full((B, 32, R), -G, np.int64)
+        el = np.full((B, 32, R), _NEG_EF, np.int64)
+        rb = np.zeros((B, 32, R), np.int64)
+        rj = np.zeros((B, 32, R), np.int64)
+        hbot = np.full((B, 32), -G, np.int64)
+        fbot = np.full((B, 32), _NEG_EF, np.int64)
+        tc = np.full((B, 32), pad, np.int64)
+        diag = np.full((B, 32), -G, np.int64)
+        below_h, below_f = hrow.copy(), frow.copy()
+        for s in range(m + 31):
+            inside = s < m
+            tc = np.concatenate([t[:, s:s + 1] if inside else np.full((B, 1), pad),
+                                 tc[:, :-1]], axis=1)
+            up = np.concatenate([hrow[:, s:s + 1] if inside else np.full((B, 1), -G),
+                                 hbot[:, :-1]], axis=1)
+            f = np.concatenate([frow[:, s:s + 1] if inside else np.full((B, 1), _NEG_EF),
+                                fbot[:, :-1]], axis=1)
+            sc = np.take_along_axis(prof, tc[:, :, None, None], axis=3)[..., 0]
+            dg, diag = diag, up
+            j1 = s - lanes + 1
+            for r in range(R):
+                if affine:
+                    f = np.maximum(f - ge, up)
+                    el[:, :, r] = np.maximum(el[:, :, r] - ge, hl[:, :, r])
+                    h = np.maximum(np.maximum(dg + sc[:, :, r], el[:, :, r]),
+                                   np.maximum(f, 0))
+                else:
+                    h = np.maximum(np.maximum(dg + sc[:, :, r], up),
+                                   np.maximum(hl[:, :, r], 0))
+                dg = hl[:, :, r].copy()
+                hl[:, :, r] = h - G
+                up = hl[:, :, r]
+                if ends:
+                    upd = h > rb[:, :, r]
+                    rb[:, :, r] = np.where(upd, h, rb[:, :, r])
+                    rj[:, :, r] = np.where(upd, j1[None], rj[:, :, r])
+                else:
+                    lane_best = np.maximum(lane_best, h)
+            hbot, fbot = up.copy(), f
+            if s >= 31:  # lane 31 leaves the stripe below its top boundary
+                below_h[:, s - 31], below_f[:, s - 31] = hbot[:, 31], fbot[:, 31]
+        hrow, frow = below_h, below_f
+        if ends:
+            lb = np.zeros((B, 32), np.int64)
+            li = np.zeros((B, 32), np.int64)
+            lj = np.zeros((B, 32), np.int64)
+            for r in range(R):
+                upd = rb[:, :, r] > lb
+                lb = np.where(upd, rb[:, :, r], lb)
+                li = np.where(upd, (rows[:, r] + 1)[None], li)
+                lj = np.where(upd, rj[:, :, r], lj)
+            smax = lb.max(axis=1)
+            w = np.argmax(lb == smax[:, None], axis=1)
+            upd = smax > best
+            best = np.where(upd, smax, best)
+            bi = np.where(upd, li[np.arange(B), w], bi)
+            bj = np.where(upd, lj[np.arange(B), w], bj)
+    out = [torch.from_numpy(x.astype(np.int32)) for x in (best, bi, bj)]
+    if ends:
+        return tuple(out)
+    return torch.from_numpy(lane_best.max(axis=1).astype(np.int32))

@@ -11,8 +11,11 @@ on a machine without it (the repo's conftest imports JAX, hence
 Integer outputs must be exactly equal (tolerance 0). The row-scan
 kernels (``sw_batch``, ``sw_affine``) run uniform DNA scoring; the
 profile kernels (``sw_profile``) run BLOSUM62 and general 4x4 matrices,
-internal pads included; the bf16 kernel (``sw_bf16``) equals its plain
-version everywhere, drift above the exact range included, and the
+internal pads included, in both forms (a thread per pair, a warp per
+pair: stripes of 128 rows crossed, ragged n, config-3-like buckets with
+padded targets, the ends against the oracle copy), and the wrapper picks
+the form ``profile_form`` names on both sides of its pair threshold; the
+bf16 kernel (``sw_bf16``) equals its plain version everywhere, drift above the exact range included, and the
 int32 kernel inside it. The varlen and promotion entry points on the card
 equal themselves on the CPU. The semi-global kernels
 (``semiglobal_batch``, ``semiglobal_profile``) equal their plain version,
@@ -21,8 +24,10 @@ alignment entry points on the card equal themselves on the CPU. The
 fixed-band kernel (``sw_banded_static``, ``sw_banded_profile``) equals
 its plain version on ragged shapes, W from 0 past max(n, m), pads and
 lengths; the per-round banded kernel (``banded_batch``) equals its plain
-version in every field at W from 8 to 128, and the banded alignment entry
-points on the card equal themselves on the CPU. The block tier's
+version in every field at W from 8 to 128, on raw uint8 and int16 codes
+with per-pair lengths, one pair, and each history form, and the earlier
+per-round kernel equals it; the banded alignment entry points on the card
+equal themselves on the CPU. The block tier's
 one-launch forward (``block_forward``) equals the plain loop in every
 field, whole (histories, bases and deltas past each pair's end too), at
 W from 16 to 128 with K up to 129 - W, linear, Gotoh, BLOSUM62 and
@@ -272,11 +277,93 @@ def test_profile_bare_launch_equals_wrapper_on_card(card, name, scoring):
                                       table, p, ends)
     for g, w in zip(tup(got), tup(PROFILE_PAIRS[name][0](qs, ts, p))):
         assert torch.equal(g, w)
+    for g, w in zip(tup(got), tup(sw_profile.profile_warp_launch_t(qs, ts, table, p,
+                                                                   ends))):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="contiguous uint8"):
+        sw_profile.profile_warp_launch_t(qs.t(), ts, table, p, ends)
     with pytest.raises(ValueError, match="contiguous uint8"):
         sw_profile.profile_launch_t(qs.t(), ts.t(), table, p, ends)
     with pytest.raises(ValueError, match="int32 table"):
         sw_profile.profile_launch_t(qs.t().contiguous(), ts.t().contiguous(),
                                     table.to(torch.int64), p, ends)
+
+
+WARP_SHAPES = {
+    # stripes of 128 rows crossed, ragged n, one row, one column, long
+    # targets; a config-3 bucket (120 x 800, targets padded past lengths)
+    "64x300x320": (64, 300, 320), "40x129x33": (40, 129, 33), "33x127x1": (33, 127, 1),
+    "16x1x500": (16, 1, 500), "8x257x64": (8, 257, 64), "4x40x2560": (4, 40, 2560),
+    "2731x120x800_config3": (2731, 120, 800),
+}
+
+
+@pytest.mark.parametrize("shape", list(WARP_SHAPES))
+@pytest.mark.parametrize("scoring", ["blosum62_linear11", "blosum62_gotoh11_1",
+                                     "dna_general_gotoh3_1"])
+def test_profile_warp_form_equals_plain_on_card(card, scoring, shape):
+    """The warp form's four instantiations (launch alone) against the plain
+    version, with tail and internal pads and a code past the table."""
+    p = PROFILE_SCORINGS[scoring]
+    A = p.alphabet_size
+    B, n, m = WARP_SHAPES[shape]
+    rng = np.random.default_rng(10000)
+    qs, ts = profile_codes(rng, B, n, A, card), profile_codes(rng, B, m, A, card)
+    if shape.endswith("config3"):
+        ts[torch.arange(m, device=card)[None, :] >= torch.from_numpy(
+            rng.integers(80, m + 1, B)).to(card)[:, None]] = A + 1
+    else:
+        qs[:, n - n // 4:] = A
+        ts[torch.from_numpy(rng.random(tuple(ts.shape)) < 0.05).to(card)] = A + 1
+        ts[:, 0] = 255
+    k = min(n, m)
+    qs[: B // 4, :k] = ts[: B // 4, :k]  # related pairs: endpoints inside
+    table = sw_profile.profile_table(p, card)
+    for ends, plain in ((False, sw_profile.sw_profile_plain),
+                        (True, sw_profile.sw_profile_ends_plain)):
+        got = tup(sw_profile.profile_warp_launch_t(qs, ts, table, p, ends))
+        torch.cuda.synchronize()
+        for g, w in zip(got, tup(plain(qs, ts, p)), strict=True):
+            assert g.device.type == "cuda" and g.dtype == torch.int32
+            assert torch.equal(g, w), (shape, ends)
+
+
+@pytest.mark.parametrize("side", ["at", "past"])
+@pytest.mark.parametrize("scoring", ["blosum62_linear11", "blosum62_gotoh11_1"])
+def test_profile_wrapper_picks_the_form_by_shape_on_card(card, scoring, side):
+    """Batches on both sides of profile_form's pair threshold: the wrapper
+    launches the form the rule picks, counts it, and equals the plain
+    version."""
+    p = PROFILE_SCORINGS[scoring]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    B = sw_profile.WARP_PAIRS_PER_SM * sms + (side == "past")
+    rng = np.random.default_rng(10000)
+    qs, ts = profile_codes(rng, B, 24, 24, card), profile_codes(rng, B, 40, 24, card)
+    form = sw_profile.profile_form(B, 24, 40, sms)
+    assert form == ("warp" if side == "at" else "thread")
+    for kern, plain in PROFILE_PAIRS.values():
+        before = (kern.launches, kern.launches_warp)
+        got = tup(kern(qs, ts, p))
+        assert (kern.launches, kern.launches_warp) == (before[0] + 1,
+                                                       before[1] + (form == "warp"))
+        for g, w in zip(got, tup(plain(qs, ts, p)), strict=True):
+            assert torch.equal(g, w)
+
+
+def test_profile_warp_ends_equal_oracle_on_card(card):
+    rng = np.random.default_rng(10000)
+    qh = rng.integers(0, 20, size=(32, 150)).astype(np.uint8)
+    th = rng.integers(0, 20, size=(32, 90)).astype(np.uint8)
+    qh[:12, 20:110] = th[:12, :90]
+    qd, td = torch.from_numpy(qh).to(card), torch.from_numpy(th).to(card)
+    for p, walker in ((PROFILE_SCORINGS["blosum62_linear11"], sw_traceback),
+                      (PROFILE_SCORINGS["blosum62_gotoh11_1"], sw_affine_traceback)):
+        table = sw_profile.profile_table(p, card)
+        sc, ei, ej = (x.cpu().numpy() for x in sw_profile.profile_warp_launch_t(
+            qd, td, table, p, True))
+        for b in range(32):
+            s0, path = walker(qh[b], th[b], p)
+            assert s0 == sc[b] and (ei[b], ej[b]) == (path[-1] if s0 else (0, 0))
 
 
 P7 = ScoringParams.linear(dna_matrix(7, -1), 1)
@@ -699,16 +786,58 @@ def test_xdrop_guards_and_bare_launch_on_card(card):
     with pytest.raises(ValueError, match="254"):
         banded_batch.banded_batch(qs, ts, compress_history=True, x_threshold=300)
     assert banded_batch.banded_batch.launches == before
-    qp, tp, lq, lt = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], 32, card,
-                                  torch.int16)
-    out = banded_batch.xdrop_launch_t(qp, tp, lq.int(), lt.int(), 32, 70, 1, 1, 1)
+    staged = banded_batch.stage(qs, ts, lens["lens_q"], lens["lens_t"], card)
+    out = banded_batch.xdrop_launch_t(*staged, 32, 70, 1, 1, 1)
     want = banded_batch.banded_batch(qs, ts, bandwidth=32, **lens)
     assert out[5] is None
     got_f = xdrop_fields(BandedBatchResult(*out[:5]))
     for g, w in zip(got_f, xdrop_fields(want), strict=True):
         assert torch.equal(g, w)
-    with pytest.raises(ValueError, match="int16"):
-        banded_batch.xdrop_launch_t(qp.int(), tp, lq.int(), lt.int(), 32, 70, 1, 1, 1)
+    with pytest.raises(ValueError, match="uint8"):
+        banded_batch.xdrop_launch_t(staged[0].int(), *staged[1:], 32, 70, 1, 1, 1)
+    with pytest.raises(ValueError, match="int32"):
+        banded_batch.xdrop_launch_t(*staged[:2], staged[2].long(), staged[3], 32, 70, 1,
+                                    1, 1)
+
+
+@pytest.mark.parametrize("hist", ["off", "int32", "8-bit"])
+@pytest.mark.parametrize("W", [8, 32, 40, 64, 96, 128])
+def test_xdrop_raw_codes_one_pair_and_history_forms_on_card(card, W, hist):
+    """Raw codes as given (uint8 and int16, per-pair lengths, no padded
+    rows) on 64 pairs and on one pair, each history form, Gotoh and linear:
+    every field equals the plain version."""
+    rng = np.random.default_rng(10001)
+    qs, ts, lens = xdrop_set(rng, 4, 64, 200, card)
+    kw = dict(with_history=hist != "off", compress_history=hist == "8-bit")
+    for extra in (dict(), dict(gap_open=3, gap_extend=1)):
+        for q, t, lq, lt in ((qs, ts.to(torch.int16), lens["lens_q"], lens["lens_t"]),
+                             (qs[:1], ts[:1], lens["lens_q"][:1], lens["lens_t"][:1]),
+                             (qs[5:6].to(torch.int16), ts[5:6], None, None)):
+            got = banded_batch.banded_batch(q, t, lq, lt, bandwidth=W, x_threshold=50,
+                                            **kw, **extra)
+            want = banded_batch.banded_batch_plain(q, t, lq, lt, bandwidth=W,
+                                                   x_threshold=50, device=card, **kw,
+                                                   **extra)
+            for g, w in zip(xdrop_fields(got), xdrop_fields(want), strict=True):
+                assert torch.equal(g, w), (W, hist, extra, q.shape[0])
+
+
+@pytest.mark.parametrize("W", [32, 96, 128])
+def test_earlier_xdrop_kernel_equals_the_kernel_on_card(card, W):
+    """The earlier per-round kernel (padded rows), off every entry point,
+    writes what the kernel writes below n_rounds."""
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20, 64, 260, card)
+    kw = dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120)
+    want = banded_batch.banded_batch(qs, ts, bandwidth=W, **lens, **kw)
+    qp, tp, lq, lt = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], W, card,
+                                  torch.int16)
+    out = banded_batch._earlier_launch_t(
+        qp, tp, lq.int(), lt.int(), W, 120, 1, 1, 1, 11, 1,
+        sw_banded.banded_table(BLOSUM62, card))
+    for g, w in zip(xdrop_fields(BandedBatchResult(*out[:5])), xdrop_fields(want),
+                    strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("scoring", ["affine_1_1_3_1", "blosum62_gotoh11_1"])

@@ -497,7 +497,7 @@ def fake_banded_card(monkeypatch):
     cpu = torch.device("cpu")
     fixed_plain = sw_banded.sw_banded_plain
     apply_lens = sw_banded._apply_lens
-    prep_padded = banded_scan._prep_padded
+    stage = banded_batch.stage
     xdrop_plain = banded_scan.banded_xdrop_batch
 
     def layout(qs, ts, device, what):
@@ -518,10 +518,10 @@ def fake_banded_card(monkeypatch):
                       not params.is_linear))
         return fixed_plain(qT.t(), tT.t(), params, bandwidth, device="cpu")
 
-    def prep(qs, ts, lens_q, lens_t, bandwidth, device, dtype):
-        assert device.type == "cuda" and dtype == torch.int16
+    def prep(qs, ts, lens_q, lens_t, device):
+        assert device.type == "cuda"
         seen["args"] = (qs, ts, lens_q, lens_t)
-        return prep_padded(qs, ts, lens_q, lens_t, bandwidth, cpu, dtype)
+        return stage(qs, ts, lens_q, lens_t, cpu)
 
     def xdrop_launch(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match, mismatch,
                      gap, gap_open=None, gap_extend=None, table=None,
@@ -539,7 +539,7 @@ def fake_banded_card(monkeypatch):
     monkeypatch.setattr(sw_banded, "banded_table", table)
     monkeypatch.setattr(sw_banded, "banded_launch_t", fixed_launch)
     monkeypatch.setattr(banded_batch, "banded_table", table)
-    monkeypatch.setattr(banded_batch, "_prep_padded", prep)
+    monkeypatch.setattr(banded_batch, "stage", prep)
     monkeypatch.setattr(banded_batch, "xdrop_launch_t", xdrop_launch)
     for mod, name in ((sw_banded, "sw_banded_plain"),
                       (port_traceback, "sw_banded_plain"),
