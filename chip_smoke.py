@@ -247,6 +247,7 @@ Without a card it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import re
@@ -266,6 +267,7 @@ T_START = time.perf_counter()  # phase headers and the total count from here
 CHECK_PAIRS = 1 << 16
 ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
 SEMIGLOBAL = "sw_semiglobal.cu"
+SG_KERNEL = "sw_semiglobal_kernelI"  # + <AFFINE, PROFILE, END> as nvcc mangles them
 BANDED, XDROP = "sw_banded.cu", "sw_xdrop.cu"
 BLOCK, WALK = "sw_block.cu", "sw_walk.cu"
 STRIP, WAVEFRONT = "sw_strip.cu", "sw_wavefront.cu"
@@ -278,9 +280,13 @@ SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like
 # min/max and logical operations; 256 for 16-bit floating-point add,
 # multiply and multiply-add (a packed bf16x2 instruction gives two; the
 # packed max is counted at the same rate). Shared memory: 32 banks, one
-# 32-bit word each per clock.
+# 32-bit word each per clock. 32-bit integer multiply-add (IMAD, which
+# ptxas also uses for adds and moves) issues on the FMA pipe, 64 a clock
+# per SM beside the ALU's 64; four schedulers issue one warp instruction
+# a clock each, 128 lanes per SM in all.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
 BF16_RESULTS_PER_SM = 256
 SMEM_WORDS_PER_SM = 32
 
@@ -294,10 +300,16 @@ SMEM_WORDS_PER_SM = 32
 # bf16: one thread step covers two cells, one per half of a bf16x2; its 4
 # integer ops make both scores (xor, add, prmt, lop3) and its 5 packed
 # bf16 ops the DP (fma.relu, max, sub, max, running max): 2 int32 ops and
-# 5 bf16 results per cell. Semi-global (no max 0): score select 2
-# (compare, select; profile: the add and a lookup, 1), linear H 4, affine
-# F 3 + E 3 + H 3, argmax tracking 3 (compare, two selects; the column
-# mask is one compare per column, not per cell), pinned 1 (a select).
+# 5 bf16 results per cell. Semi-global (no max 0; H kept minus the gap
+# open, which the score carries): the score 2 (compare, select; profile:
+# the lane-table offset add and a lookup, 1), linear H 3 (the diagonal's
+# DPX add-max, the max of up and left, the subtract), Gotoh 5 (E and F a
+# DPX add-max each, the diagonal's add-max, the max, the subtract), the
+# argmax 2 (the key's multiply-add and a max; the pinned forms track
+# nothing: the corner is a row's last cell): lowered from the unskewed
+# kernel's 9 / 7 / 14 / 12 (uniform) and 8 / 6 / 13 / 11 (profile) to what
+# the DPX form needs; phase 2 prints the instructions a cell as compiled.
+# Their bound is by pipe: see SG_ALU_OPS.
 KERNELS = {
     "sw_batch": (ROWSCAN, "sw_rowscan_kernelILb0ELb0E",
                  "swtpu/kernels/pallas/sw_batch.py:317", 9, 0, 0),
@@ -327,31 +339,30 @@ KERNELS = {
                                     "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
     "sw_bf16": (BF16, "sw_bf16_kernel",
                 "swtpu/kernels/pallas/sw_bf16.py:134", 2, 0, 5),
-    # <AFFINE, PROFILE, PIN>; the pinned (global) forms extend the TPU
-    # kernel, which JAX ran only for the argmax
-    "semiglobal_batch": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb0ELb0E",
-                         "swtpu/kernels/pallas/semiglobal_batch.py:194", 9, 0, 0),
-    "semiglobal_batch_pinned": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb0ELb1E",
-                                "swtpu/kernels/pallas/semiglobal_batch.py:194",
-                                7, 0, 0),
-    "semiglobal_batch_affine": (SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb0ELb0E",
-                                "swtpu/kernels/pallas/semiglobal_batch.py:194",
-                                14, 0, 0),
-    "semiglobal_batch_affine_pinned": (
-        SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb0ELb1E",
-        "swtpu/kernels/pallas/semiglobal_batch.py:194", 12, 0, 0),
-    "semiglobal_profile": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb1ELb0E",
-                           "swtpu/kernels/pallas/semiglobal_profile.py:201",
-                           8, 1, 0),
-    "semiglobal_profile_pinned": (SEMIGLOBAL, "sw_semiglobal_kernelILb0ELb1ELb1E",
-                                  "swtpu/kernels/pallas/semiglobal_profile.py:201",
-                                  6, 1, 0),
-    "semiglobal_profile_affine": (SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb1ELb0E",
-                                  "swtpu/kernels/pallas/semiglobal_profile.py:201",
-                                  13, 1, 0),
-    "semiglobal_profile_affine_pinned": (
-        SEMIGLOBAL, "sw_semiglobal_kernelILb1ELb1ELb1E",
-        "swtpu/kernels/pallas/semiglobal_profile.py:201", 11, 1, 0),
+    # <AFFINE, PROFILE, END>: END 0 / 1 the argmax with its packed key /
+    # with (best, step) apart (scores too wide for the key), 2 the pinned
+    # (global) forms, which extend the TPU kernel (JAX ran it for the
+    # argmax only)
+    "semiglobal_batch": (SEMIGLOBAL, (SG_KERNEL + "Lb0ELb0ELi0E", SG_KERNEL + "Lb0ELb0ELi1E"),
+                         "swtpu/kernels/pallas/semiglobal_batch.py:194", 7, 0, 0),
+    "semiglobal_batch_pinned": (SEMIGLOBAL, SG_KERNEL + "Lb0ELb0ELi2E",
+                                "swtpu/kernels/pallas/semiglobal_batch.py:194", 5, 0, 0),
+    "semiglobal_batch_affine": (SEMIGLOBAL, (SG_KERNEL + "Lb1ELb0ELi0E",
+                                             SG_KERNEL + "Lb1ELb0ELi1E"),
+                                "swtpu/kernels/pallas/semiglobal_batch.py:194", 9, 0, 0),
+    "semiglobal_batch_affine_pinned": (SEMIGLOBAL, SG_KERNEL + "Lb1ELb0ELi2E",
+                                       "swtpu/kernels/pallas/semiglobal_batch.py:194",
+                                       7, 0, 0),
+    "semiglobal_profile": (SEMIGLOBAL, (SG_KERNEL + "Lb0ELb1ELi0E", SG_KERNEL + "Lb0ELb1ELi1E"),
+                           "swtpu/kernels/pallas/semiglobal_profile.py:201", 6, 1, 0),
+    "semiglobal_profile_pinned": (SEMIGLOBAL, SG_KERNEL + "Lb0ELb1ELi2E",
+                                  "swtpu/kernels/pallas/semiglobal_profile.py:201", 4, 1, 0),
+    "semiglobal_profile_affine": (SEMIGLOBAL, (SG_KERNEL + "Lb1ELb1ELi0E",
+                                               SG_KERNEL + "Lb1ELb1ELi1E"),
+                                  "swtpu/kernels/pallas/semiglobal_profile.py:201", 8, 1, 0),
+    "semiglobal_profile_affine_pinned": (SEMIGLOBAL, SG_KERNEL + "Lb1ELb1ELi2E",
+                                         "swtpu/kernels/pallas/semiglobal_profile.py:201",
+                                         6, 1, 0),
     # fixed band <AFFINE, PROFILE>: the row-scan's counts per in-band cell
     # (the ramps' 4-op mask is left out)
     "sw_banded_static": (BANDED, "sw_banded_kernelILb0ELb0E",
@@ -399,6 +410,18 @@ KERNELS = {
     "sw_wavefront": (WAVEFRONT, "sw_wavefront_kernel",
                      "swtpu/kernels/pallas/sw_wavefront.py:110", None, 0, 0),
 }
+# the semi-global forms' int32 ops a cell that only the ALU pipe issues:
+# the compare and select of the uniform score, every max and DPX add-max
+# (linear H 2, Gotoh 4) and the argmax key's max. The rest of KERNELS'
+# count (the subtract of D, the key's multiply-add, the profile's table
+# offset) can issue as IMADs on the FMA pipe, so a cell takes at least
+# max(ALU ops / 64, all ops / 128) clocks of an SM: sg_slots
+SG_ALU_OPS = {
+    "semiglobal_batch": 5, "semiglobal_batch_pinned": 4,
+    "semiglobal_batch_affine": 7, "semiglobal_batch_affine_pinned": 6,
+    "semiglobal_profile": 3, "semiglobal_profile_pinned": 2,
+    "semiglobal_profile_affine": 5, "semiglobal_profile_affine_pinned": 4,
+}
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
                 "sw_profile_affine_ends", "sw_profile_warp", "sw_profile_ends_warp",
@@ -408,6 +431,14 @@ SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
 BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
 BLOCK_PATH = [k for k, v in KERNELS.items() if v[0] in (BLOCK, WALK)]
 LONGPAIR_PATH = ["strip_tile", "sw_wavefront"]
+
+
+def sg_slots(name):
+    """A semi-global form's int32 work a cell in ALU-lane slots (the
+    int32 rate's unit): its ALU-only ops, or all its ops at the issue
+    rate, whichever takes longer."""
+    return max(SG_ALU_OPS[name],
+               KERNELS[name][3] * INT32_LANES_PER_SM / DISPATCH_LANES_PER_SM)
 
 
 def xdrop_ops(affine, matrix):
@@ -486,12 +517,17 @@ NOT_ALU = ("SHFL", "REDUX", "VOTE", "LDG", "STG", "LDS", "STS", "LDC", "ULDC", "
 BRANCH = re.compile(r"BRA(?:\.U)?\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(lib, cuobjdump):
+    """``cuobjdump -sass`` of a built library (once a library)."""
+    return subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def sass_of(lib, fragment, cuobjdump):
     """[(address, instruction)] of the kernel whose mangled name holds
     ``fragment`` in a built library (``cuobjdump -sass``)."""
-    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                         check=True).stdout
-    for f in re.split(r"\n\s*Function : ", out)[1:]:
+    for f in re.split(r"\n\s*Function : ", sass_text(lib, cuobjdump))[1:]:
         if fragment in f.split("\n")[0]:
             return [(int(m.group(1), 16), m.group(2).strip()) for m in (
                 re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", x) for x in f.split("\n"))
@@ -532,6 +568,36 @@ def loop_ops(ins, marker="REDUX"):
     moves = sum(x.startswith(("MOV", "IMAD.MOV")) for x in ops)
     alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves
     return alu, moves, sum(marker in x for x in ops)
+
+
+def sg_group_ops(ins, per_cell, cells):
+    """int32 instructions a cell of the semi-global kernel's unmasked group
+    of steps as compiled (``cells`` = GROUP steps of ROWS cells, their
+    code, scratch and ring work included), by pipe: the loop of whole
+    groups (the shortest loop whose DPX add-maxes, ``per_cell`` a cell,
+    are one group's and which has no unsigned compare: the masked form
+    tests each row's column). Returns (ALU instructions, IMADs, moves,
+    cells); IMADs issue on the FMA pipe, moves (MOV, IMAD.MOV) are counted
+    apart from both."""
+    addr = {a: i for i, (a, _) in enumerate(ins)}
+
+    def opc(o):
+        return o.split()[1] if o.startswith("@") else o.split()[0]
+
+    loops = []
+    for i, (a, o) in enumerate(ins):
+        m = BRANCH.search(o)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+            loops.append([opc(x) for _, x in ins[addr[int(m.group(1), 16)]:i + 1]])
+    for ops in sorted(loops, key=len):
+        if (sum(x.startswith("VIADDMNMX") for x in ops) == cells * per_cell
+                and not any(x.startswith("ISETP") and ".U32" in x for x in ops)):
+            moves = sum(x.startswith(("MOV", "IMAD.MOV")) for x in ops)
+            imad = sum(x.startswith("IMAD") for x in ops) - sum(
+                x.startswith("IMAD.MOV") for x in ops)
+            alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves - imad
+            return alu, imad, moves, cells
+    raise RuntimeError("check failed: no unmasked group loop in the semi-global SASS")
 
 
 def tup(x):
@@ -778,6 +844,23 @@ def main():
             return fn(q, t, **sc, **kw)
         fn = ksp.semiglobal_profile_plain if plain else ksp.semiglobal_profile
         return fn(q, t, sc, **kw)
+
+    def sg_mirror(sc, q, t, **kw):
+        """The CPU mirror of the kernel's schedule on one scoring."""
+        if isinstance(sc, dict):
+            return ksg.semiglobal_skew_mirror(q, t, **sc, **kw)
+        return ksg.semiglobal_skew_mirror(q, t, **kw, params=sc)
+
+    def sg_bare(sc, pin, q, t, select=False):
+        """A semi-global form's launch alone on [B, L] codes on the card
+        (``select``: the argmax's select tracker where the key would run)."""
+        if isinstance(sc, dict):
+            go, ge, affine = sg_gaps(sc)
+            return ksg.semiglobal_launch_t(q, t, sc["match"], -sc["mismatch"], go, ge,
+                                           affine, pin, select=select)
+        return ksg.semiglobal_launch_t(
+            q, t, 0, 0, sc.gap_open, sc.gap_extend, not sc.is_linear, pin,
+            table=kp.profile_table(sc, dev), n_codes=sc.alphabet_size + 1, select=select)
 
     def sg_letters(sc):
         """The codes a scoring's inputs are drawn from: 20 for protein."""
@@ -1032,6 +1115,22 @@ def main():
               f"instructions and {moves} moves for {passes} round(s) of {cpl} cell(s) "
               f"a lane: {alu / passes / cpl:.1f} int32 ops a cell as compiled",
               flush=True)
+
+    # the semi-global kernel's unmasked group as compiled: int32 ALU
+    # instructions a cell, beside the cell's own count in KERNELS (which
+    # leaves out the steps' code, scratch and ring work)
+    sg_lib = _build.library_path(SEMIGLOBAL)
+    for name in SEMIGLOBAL_PATH:
+        for frag in tup(KERNELS[name][1]):
+            affine = frag[len(SG_KERNEL):].startswith("Lb1E")  # <AFFINE, ...>
+            alu, imad, moves, cells = sg_group_ops(sass_of(sg_lib, frag, cuobjdump),
+                                                   3 if affine else 1,
+                                                   ksg.GROUP * ksg.ROWS)
+            print(f"{name} ({frag}): unmasked group {alu} int32 ALU instructions, "
+                  f"{imad} IMADs and {moves} moves for {cells} cells: "
+                  f"{(alu + imad) / cells:.2f} int32 instructions a cell as compiled, "
+                  f"{alu / cells:.2f} of them on the ALU (the cell's own: "
+                  f"{KERNELS[name][3]}, {SG_ALU_OPS[name]} on the ALU)", flush=True)
 
     # 3. kernels vs plain versions -----------------------------------------
     phase("3 kernels vs plain versions (exact)")
@@ -1295,6 +1394,38 @@ def main():
                   f"max |kernel - plain| = 0; {inside[0]} of {B} argmax endpoints "
                   f"inside the matrix", flush=True)
     del dev_codes, qd, td
+    # the skewed tile's odd shapes (rows below, at and past a sweep of ROWS,
+    # ragged; columns 0, 1, below ROWS, 3 mod GROUP; lengths down to 0) and
+    # scores too wide for the argmax's packed key: each form against its
+    # plain version and against the CPU mirror of its schedule
+    R = ksg.ROWS
+    wide = [("wide (10^6,1,1)", dict(match=10**6, mismatch=1, gap=1)),
+            ("wide (10^6,3,5,1)", dict(match=10**6, mismatch=3, gap_open=5,
+                                        gap_extend=1))]
+    for B, n, m in ((64, R // 2 - 1, 2 * R + 3), (64, 2 * R + 3, R + 5), (16, R + 1, 0),
+                    (16, R + 1, 1), (64, 2 * R, R - 3), (64, R + 1, R + 7), (8, 1, 1)):
+        codes = {A: semiglobal_pairs(sgrng, B, n, m, A) if n >= 4 else (  # related: n >= 4
+            sgrng.integers(0, A, (B, n), dtype=np.uint8),
+            sgrng.integers(0, A, (B, m), dtype=np.uint8)) for A in (4, 20)}
+        lq, lt = sgrng.integers(0, n + 1, B), sgrng.integers(0, m + 1, B)
+        lq[:3], lt[:3] = (0, n, 0), (m, 0, 0)
+        for slabel, sc in [sg_scorings[i] for i in (1, 2, 4, 5)] + wide:
+            qh, th = codes[sg_letters(sc)]
+            qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+            for pin in (False, True):
+                name = sg_name(sc, pin)
+                for lens in (dict(lens_q=lq, lens_t=lt), {}):
+                    got = sg_run(sc, qd, td, pin_end=pin, **lens)
+                    err = max(max_abs_err(got, sg_run(sc, qd, td, plain=True, pin_end=pin,
+                                                      **lens)),
+                              max_abs_err(tuple(x.cpu() for x in got), sg_mirror(
+                                  sc, qh, th, pin_end=pin, **lens)))
+                    max_err[name] = max(max_err[name], err)
+                    check(err == 0, f"{name} differs from its plain version or the "
+                          f"mirror on {B}x{n}x{m} {slabel}")
+        print(f"{B}x{n}x{m}, with and without lengths: every semi-global form on "
+              "(2,1,1), (2,3,5,1), BLOSUM62 11 and 11/1 and two wide scorings equals its "
+              "plain version and the CPU mirror", flush=True)
     # 8-pair spot checks against the oracle copy (the first 8 of the 8192
     # set: related pairs)
     for slabel, sc in (("(1,1,1)", SG_111), ("(2,3,5,1)", SG_AFF),
@@ -2426,16 +2557,10 @@ def main():
         _, sc, pin = sg_fns[name]
         qh, th = inputs[ROWSCAN if isinstance(sc, dict) else PROFILE]
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
-        qT, tT = qd.t().contiguous(), td.t().contiguous()
-        if isinstance(sc, dict):
-            go, ge, affine = sg_gaps(sc)
-            args, table = (sc["match"], -sc["mismatch"], go, ge, affine), None
-        else:
-            args = (0, 0, sc.gap_open, sc.gap_extend, not sc.is_linear)
-            table = kp.profile_table(sc, dev)
+        table = None if isinstance(sc, dict) else kp.profile_table(sc, dev)
 
-        def bare(args=args, pin=pin, table=table):
-            return ksg.semiglobal_launch_t(qT, tT, *args, pin, table=table)
+        def bare(sc=sc, pin=pin):  # the launch alone, on the [B, L] codes as given
+            return sg_bare(sc, pin, qd, td)
 
         def wrapped(a, b, sc=sc, pin=pin):
             return sg_run(sc, a, b, pin_end=pin)
@@ -2448,10 +2573,16 @@ def main():
         ms = timed(wrapped, (qd, td), iters=20) * 1e3
         kernel_ms = timed(bare, (), iters=20) * 1e3
         plain_ms = timed(plain, (qd, td), iters=1, warmup=1, reps=1) * 1e3
+        extra = {}
+        if not pin:  # the argmax's select tracker on the same inputs
+            for g, w in zip(sg_bare(sc, pin, qd, td, select=True), bare()):
+                check(torch.equal(g, w), f"{name}: select tracker vs the key")
+            extra["select_kernel_ms"] = timed(
+                lambda: sg_bare(sc, pin, qd, td, select=True), (), iters=20) * 1e3
         table_bytes = 0 if table is None else 4 * table.numel()
         bytes_ = B * (n + m) + table_bytes + 4 * B * 3
         times = {
-            "int32 ops": B * n * m * ops / int32_rate * 1e3,
+            "int32 ops": B * n * m * sg_slots(name) / int32_rate * 1e3,
             "shared-memory lookups": B * n * m * lookups / lookup_rate * 1e3,
             "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
         }
@@ -2462,16 +2593,19 @@ def main():
             replaces=replaces, launches=None, max_abs_err=max_err[name], ms=ms,
             plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if binds == "bytes" else "operations",
-            library_ms=None, kernel_ms=kernel_ms,
+            library_ms=None, kernel_ms=kernel_ms, **extra,
         ))
+        sel = (f" (the select tracker {extra['select_kernel_ms']:.4f} ms)" if extra
+               else "")
         print(f"{name}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
-              f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), "
+              f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}){sel}, "
               f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} ({ops} "
-              f"int32 ops/cell: {times['int32 ops']:.4f} ms; {lookups} "
+              f"int32 ops/cell, {SG_ALU_OPS[name]} on the ALU only: "
+              f"{times['int32 ops']:.4f} ms; {lookups} "
               f"lookups/cell: {times['shared-memory lookups']:.4f} ms; at "
               f"{sm_clock_mhz:.0f} MHz), wrapper {B * n * m / ms / 1e6:.1f} GCUPS",
               flush=True)
-        del qd, td, qT, tT
+        del qd, td
     # the fixed-band kernel at W = 32 on the same codes (DNA for the
     # uniform form, protein for the profile form), bound over the in-band
     # cells; the per-round kernel on 256 related DNA 2048-mers (the JAX
@@ -2692,6 +2826,24 @@ def main():
               f"equal the plain version ({plain_s:.1f} s), 16 the oracle copy; mean score "
               f"{s_host.mean():.3f}, {int((ei > 0).sum())} ends off the origin "
               f"[{smi}]", flush=True)
+        launch_alone_1m(sc, pin, sec * 1e3)
+
+    def launch_alone_1m(sc, pin, wrapper_ms=None):
+        """A form's launch alone at 1M pairs beside its bound (the shape
+        where the path's headline launches run), off the path."""
+        qd, td = big[sg_letters(sc)]
+        name = sg_name(sc, pin)
+        alone = timed(lambda q, t: sg_bare(sc, pin, q, t), (qd, td), iters=5) * 1e3
+        bound = max(B * n * m * sg_slots(name) / int32_rate,
+                    B * n * m * KERNELS[name][4] / lookup_rate) * 1e3
+        over = "" if wrapper_ms is None else f"; the wrapper {wrapper_ms - alone:+.3f} ms"
+        if not pin:
+            sel = timed(lambda q, t: sg_bare(sc, pin, q, t, select=True), (qd, td),
+                        iters=5) * 1e3
+            over += f"; the select tracker {sel:.3f} ms ({sel / alone:.3f}x)"
+        print(f"  {name} launch alone at 1M pairs {alone:.3f} ms, bound {bound:.3f} ms "
+              f"({bound / alone:.1%}), {alone - bound:.3f} ms lost a launch{over}",
+              flush=True)
 
     for label, sc in (("DNA (1,1,1)", SG_111), ("DNA (2,3,5,1)", SG_AFF),
                       ("protein BLOSUM62 11", P_LIN),
@@ -2702,6 +2854,8 @@ def main():
     phase("18 global path at 1,048,576 x (128x128)")
     for label, sc in (("DNA (1,1,1)", SG_111), ("protein BLOSUM62 11/1", P_GOTOH)):
         headline(sc, True, label)
+    for sc in (SG_AFF, P_LIN):  # the pinned forms no global headline drives
+        launch_alone_1m(sc, True)
     del big
     torch.cuda.empty_cache()
 

@@ -6,7 +6,8 @@ Port of ``swtpu/kernels/pallas/semiglobal_profile.py``
 (``semiglobal_batch_profile_pallas``). The kernel is the profile form of
 ``csrc/sw_semiglobal.cu``: it looks each cell up in the plain tier's
 extended table (``sw_profile.profile_table``), pads at -2^20 where the
-TPU kernel scored them at -128. The plain version is the table tier of
+TPU kernel scored them at -128, on the [B, L] codes as given (no
+transposes). The plain version is the table tier of
 ``semiglobal_scan.py``.
 
 ``semiglobal_profile`` runs where its device says: on the CPU the plain
@@ -21,12 +22,12 @@ from __future__ import annotations
 
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels.semiglobal_batch import (
+    codes,
     count,
     lens_tensor,
     semiglobal_launch_t,
 )
 from swtpu_torch.kernels.semiglobal_scan import semiglobal_batch_general
-from swtpu_torch.kernels.sw_batch import kernel_layout
 from swtpu_torch.kernels.sw_profile import _guard_profile, profile_table
 from swtpu_torch.utils.device import resolve_device
 
@@ -56,13 +57,13 @@ def semiglobal_profile(qs, ts, params: ScoringParams, lens_q=None, lens_t=None,
         return semiglobal_profile_plain(qs, ts, params, lens_q, lens_t, pin_end,
                                         dev)
     _guard_profile(params)
-    qT, tT = kernel_layout(qs, ts, dev, "semi-global profile")
-    B = qT.shape[1]
+    q, t = codes(qs, ts, dev, "semi-global profile")
+    B = q.shape[0]
     affine = not params.is_linear
     out = semiglobal_launch_t(
-        qT, tT, 0, 0, params.gap_open, params.gap_extend, affine, pin_end,
+        q, t, 0, 0, params.gap_open, params.gap_extend, affine, pin_end,
         lens_tensor(lens_q, B, dev), lens_tensor(lens_t, B, dev),
-        table=profile_table(params, dev),
+        table=profile_table(params, dev), n_codes=params.alphabet_size + 1,
     )
     count(semiglobal_profile, affine, pin_end)
     return out

@@ -18,9 +18,12 @@ the form ``profile_form`` names on both sides of its pair threshold; the
 bf16 kernel (``sw_bf16``) equals its plain version everywhere, drift above the exact range included, and the
 int32 kernel inside it. The varlen and promotion entry points on the card
 equal themselves on the CPU. The semi-global kernels
-(``semiglobal_batch``, ``semiglobal_profile``) equal their plain version,
-argmax and pinned (global), with per-pair lengths down to 0, and the
-alignment entry points on the card equal themselves on the CPU. The
+(``semiglobal_batch``, ``semiglobal_profile``) equal their plain version
+and the CPU mirror of their skewed tile, argmax and pinned (global),
+with per-pair lengths down to 0, on the tile's odd shapes and on scores
+too wide for the packed argmax key; the launch takes the [B, L] codes as
+they are; and the alignment entry points on the card equal themselves on
+the CPU. The
 fixed-band kernel (``sw_banded_static``, ``sw_banded_profile``) equals
 its plain version on ragged shapes, W from 0 past max(n, m), pads and
 lengths; the per-round banded kernel (``banded_batch``) equals its plain
@@ -597,19 +600,93 @@ def test_semiglobal_bare_launch_equals_wrapper_on_card(card, scoring):
     else:
         args = (0, 0, s.gap_open, s.gap_extend, not s.is_linear)
         table = sw_profile.profile_table(s, card)
-    qT, tT = qs.t().contiguous(), ts.t().contiguous()
-    for pin in (False, True):
-        got = semiglobal_batch.semiglobal_launch_t(qT, tT, *args, pin, lq, lt,
-                                                   table=table)
+    for pin in (False, True):  # the launch takes the [B, L] codes as they are
         want = sg_call(scoring, False, qs, ts, pin_end=pin, lens_q=lq, lens_t=lt)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-    with pytest.raises(ValueError, match="contiguous uint8"):
-        semiglobal_batch.semiglobal_launch_t(qs.t(), ts.t(), *args, False,
-                                             table=table)
+        for select in (False, True):  # the argmax's two trackers agree
+            got = semiglobal_batch.semiglobal_launch_t(qs, ts, *args, pin, lq, lt,
+                                                       table=table, select=select)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (pin, select)
+    for q, t in ((qs.t(), ts.t()), (qs[:, ::2], ts), (qs, ts[:, 1:])):
+        with pytest.raises(ValueError, match="contiguous uint8"):
+            semiglobal_batch.semiglobal_launch_t(q, t, *args, False, table=table)
     with pytest.raises(ValueError, match="int32"):
-        semiglobal_batch.semiglobal_launch_t(qT, tT, *args, False, lq.long(), lt,
+        semiglobal_batch.semiglobal_launch_t(qs, ts, *args, False, lq.long(), lt,
                                              table=table)
+
+
+# the skewed tile's odd shapes (tests/test_torch_semiglobal_skew.py): n
+# below, at and past ROWS, ragged; m 0, 1, below ROWS, 3 mod GROUP
+_R = semiglobal_batch.ROWS
+SKEW_SHAPES = {
+    "n_below_rows": (12, _R // 2 - 1, 2 * _R + 3),
+    "n_ragged": (12, 2 * _R + 3, _R + 5),
+    "m_zero": (6, _R + 1, 0),
+    "m_one": (6, _R + 1, 1),
+    "m_below_rows": (10, 2 * _R, _R - 3),
+    "one_row_past_rows": (8, _R + 1, _R + 7),
+    "one_row_one_col": (4, 1, 1),
+    "ragged_wide": (300, 3 * _R + 5, 203),
+}
+# scores too wide for the argmax's packed key: the select tracker runs
+WIDE_SCORINGS = {
+    "wide_linear": dict(match=10**6, mismatch=1, gap=1),
+    "wide_affine": dict(match=10**6, mismatch=3, gap_open=5, gap_extend=1),
+}
+
+
+def mirror_call(scoring, qs, ts, **kw):
+    s = {**SG_SCORINGS, **WIDE_SCORINGS}[scoring]
+    if isinstance(s, dict):
+        return semiglobal_batch.semiglobal_skew_mirror(qs, ts, **s, **kw)
+    return semiglobal_batch.semiglobal_skew_mirror(qs, ts, **kw, params=s)
+
+
+@pytest.mark.parametrize("shape", list(SKEW_SHAPES))
+@pytest.mark.parametrize("scoring", ["tie_rich_211", "affine_2351", "blosum62_linear11",
+                                     "blosum62_gotoh11_1", "wide_linear", "wide_affine"])
+def test_semiglobal_kernel_equals_mirror_and_plain_on_card(card, scoring, shape):
+    """The kernel against the CPU mirror of its schedule and the plain tier
+    on the card, argmax and pinned, with per-pair lengths down to 0 and
+    without lengths."""
+    B, n, m = SKEW_SHAPES[shape]
+    rng = np.random.default_rng(10000)
+    s = {**SG_SCORINGS, **WIDE_SCORINGS}[scoring]
+    qs, ts = sg_codes(rng, "111" if scoring.startswith("wide") else scoring, B, n, m, card)
+    lq, lt = rng.integers(0, n + 1, B), rng.integers(0, m + 1, B)
+    lq[:3], lt[:3] = (0, n, 0), (m, 0, 0)
+    plain = (semiglobal_batch.semiglobal_batch_plain, semiglobal_batch.semiglobal_batch)
+    for pin in (False, True):
+        for lens in (dict(lens_q=lq, lens_t=lt), {}):
+            if isinstance(s, dict):
+                got = plain[1](qs, ts, **s, **lens, pin_end=pin)
+                want = plain[0](qs, ts, **s, **lens, pin_end=pin)
+            else:
+                got = semiglobal_profile.semiglobal_profile(qs, ts, s, **lens, pin_end=pin)
+                want = semiglobal_profile.semiglobal_profile_plain(qs, ts, s, **lens,
+                                                                   pin_end=pin)
+            mirror = mirror_call(scoring, qs.cpu(), ts.cpu(), **lens, pin_end=pin)
+            for g, w, x in zip(got, want, mirror):
+                assert torch.equal(g, w), (scoring, shape, pin, bool(lens))
+                assert torch.equal(g.cpu(), x), (scoring, shape, pin, bool(lens))
+
+
+def test_semiglobal_library_agrees_with_the_mirror_on_card(card):
+    """The library's ROWS and its packed-key choice are the mirror's."""
+    import ctypes
+
+    lib, _ = semiglobal_batch._semiglobal_fn()
+    assert lib.swtpu_sw_semiglobal_rows() == semiglobal_batch.ROWS
+    fn = lib.swtpu_sw_semiglobal_key_bits
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
+    for profile in (0, 1):
+        for n, m in ((0, 0), (1, 1), (128, 128), (300, 2000), (16384, 16384)):
+            for match, mismatch, go, ge in ((1, -1, 1, 1), (10, -30, 40, 15),
+                                            (10**6, -1, 1, 1), (2, -3, 5, 1)):
+                want = semiglobal_batch.key_bits(bool(profile), n, m, match, mismatch,
+                                                 go, ge)
+                got = fn(profile, n, m, match, mismatch, go, ge)
+                assert got == (-1 if want is None else want), (profile, n, m, match)
 
 
 def test_semiglobal_guards_raise_on_card(card):

@@ -370,10 +370,9 @@ def fake_sg_card(monkeypatch):
     cpu = torch.device("cpu")
     lens_tensor = semiglobal_batch.lens_tensor
 
-    def layout(qs, ts, device, what):
+    def as_codes(x, device):
         assert device.type == "cuda"
-        return (port_device.as_codes(qs, cpu).t().contiguous(),
-                port_device.as_codes(ts, cpu).t().contiguous())
+        return port_device.as_codes(x, cpu)
 
     def lens(x, B, device):
         assert device.type == "cuda"
@@ -384,19 +383,19 @@ def fake_sg_card(monkeypatch):
         seen["params"] = params
         return torch.as_tensor(sw_scan._extended_table(params))
 
-    def launch(qT, tT, match, mismatch, go, ge, affine, pin_end, lens_q=None,
-               lens_t=None, table=None):
+    def launch(q, t, match, mismatch, go, ge, affine, pin_end, lens_q=None,
+               lens_t=None, table=None, n_codes=None):
         calls.append(("profile" if table is not None else "uniform", affine,
                       pin_end, lens_q is not None))
         kw = dict(lens_q=lens_q, lens_t=lens_t, pin_end=pin_end, device="cpu")
         if table is not None:
             return semiglobal_scan.semiglobal_batch_general(
-                qT.t(), tT.t(), seen["params"], **kw)
+                q, t, seen["params"], **kw)
         return semiglobal_scan.semiglobal_batch_diag(
-            qT.t(), tT.t(), match, -mismatch, gap_open=go, gap_extend=ge, **kw)
+            q, t, match, -mismatch, gap_open=go, gap_extend=ge, **kw)
 
+    monkeypatch.setattr(semiglobal_batch, "as_codes", as_codes)
     for mod in (semiglobal_batch, semiglobal_profile):
-        monkeypatch.setattr(mod, "kernel_layout", layout)
         monkeypatch.setattr(mod, "lens_tensor", lens)
         monkeypatch.setattr(mod, "semiglobal_launch_t", launch)
     monkeypatch.setattr(semiglobal_profile, "profile_table", table)
