@@ -30,15 +30,20 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
 
    1. environment: card name and power limit, device count;
    2. build: nvcc on the ten CUDA sources at once; registers, spills and
-      shared memory of each kernel; the per-round kernels' round loops as
-      compiled (``cuobjdump -sass``: int32 ALU instructions a cell);
+      shared memory of each kernel; the per-round kernels' round loops,
+      and the semi-global, bf16 and fixed-band kernels' unmasked groups,
+      as compiled (``cuobjdump -sass``: int32 ALU instructions a cell, by
+      pipe); the pipe-rate probe (``tools/pipe_probe.cu``: IMNMX, the DPX
+      add-max and three-way max, HMNMX2, HFMA2.RELU, HADD2, IMAD, PRMT,
+      LOP3 and IADD3, each alone on a full card, lanes an SM a clock);
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
       profile kernel on a uniform scoring against the row-scan kernel;
       the bf16 kernel inside its exact range against the row-scan kernel
       too, above it (config 4's promotion workload, ``allow_overflow``)
       against its plain version bit for bit, drift included, and on the
-      pad cases where the bf16 tier matches pads; both forms of the profile
+      pad cases where the bf16 tier matches pads, and against its CPU
+      mirror (``bf16_skew_mirror``) on the first pairs; both forms of the profile
       kernel (a thread per pair, a warp per pair) and the wrapper on every
       profile case, stripes of 128 rows crossed (n = 129, 300), a config-3
       bucket's 120 x 800 with padded targets, n = 1; 64-pair spot checks
@@ -48,12 +53,14 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       33 x 7 x 1 and 4 x 40 x 1024, under (1,1,1), (2,1,1), (2,3,5,1),
       (2,3,2,2), BLOSUM62 linear 11 and Gotoh 11/1 and a 4x4 DNA matrix
       linear 2 and Gotoh 3/1, and on 8 pairs against the oracle copy;
-      the fixed-band kernel, both forms, at W = 8, 32, 64, 96 and 160 on
-      8192 x 128 x 128 (half related) and W = 8, 32 and 160 on 1000 x 90 x
+      the fixed-band kernel, both forms, at W = 8, 15, 16, 32, 64, 96 and 160 on
+      8192 x 128 x 128 (half related; W = 15 / 16 straddle the skewed
+      tile's two schedules) and W = 8, 32 and 160 on 1000 x 90 x
       200 with internal pads and lengths, 64 x 40 x 300, 64 x 300 x 40 and
       33 x 7 x 1 under (1,-1,1),
       (10,-30,15), Gotoh (1,-1,3,1), BLOSUM62 11 and 11/1 and a 4x4 DNA
-      matrix 3/1, 64 pairs against the oracle copy; the per-round kernel
+      matrix 3/1, 64 pairs against the oracle copy, 32 against the CPU
+      mirror (``banded_skew_mirror``) at W = 8 and 32; the per-round kernel
       at W = 8, 32, 64, 96 and 128 in every field (history, pos_y and
       offsets below each pair's n_rounds) on 512 x 256 related DNA pairs
       with lengths (64 short queries whose bands run off the target),
@@ -128,7 +135,8 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       pairs, with the checks of phase 5;
   14. the bf16 tier at the headline size, 1,048,576 x (128 x 128) under
       (10, -30, 15), timed beside ``best_engine``'s int32 kernel on the
-      same codes; all scores equal;
+      same codes (call and launch alone; bf16's bound by pipe); all scores
+      equal;
   15. config-4 CLI: ``pack`` and ``pack --unpack``, ``align`` on ``.npz``
       inputs against the FASTA run, ``align --engine rowscan_bf16``
       against the oracle;
@@ -160,8 +168,9 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
   22. fixed-band path, BASELINE config 2: 1,048,576 random 128 x 128
       pairs at W = 32, DNA (1,-1,1) and Gotoh (1,-1,3,1), protein
       BLOSUM62 11 and 11/1, through ``banded_static_scores``, timed in
-      band GCUPS over the in-band cells; the first 65,536 scores against
-      the plain version, 64 against the oracle copy; 2048 related 2048-mers;
+      band GCUPS over the in-band cells, and the launch alone beside its
+      bound by pipe; the first 65,536 scores against the plain version, 64
+      against the oracle copy; 2048 related 2048-mers;
   23. per-round adaptive band on the JAX ``bench_suite``'s sets: 256
       related DNA 2048-mers at W = 32, X = 70 (scores only, and with the
       int32 and 8-bit history, and through ``banded_forward_batch``),
@@ -246,6 +255,7 @@ Without a card it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import io
@@ -277,9 +287,8 @@ SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like
 # DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
 # at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
 # Native Arithmetic Instructions"): 64 for 32-bit integer add, compare,
-# min/max and logical operations; 256 for 16-bit floating-point add,
-# multiply and multiply-add (a packed bf16x2 instruction gives two; the
-# packed max is counted at the same rate). Shared memory: 32 banks, one
+# min/max and logical operations (the packed 16-bit float ops' rate is
+# the one phase 2's probe measures, two results a lane). Shared memory: 32 banks, one
 # 32-bit word each per clock. 32-bit integer multiply-add (IMAD, which
 # ptxas also uses for adds and moves) issues on the FMA pipe, 64 a clock
 # per SM beside the ALU's 64; four schedulers issue one warp instruction
@@ -287,7 +296,6 @@ SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 DISPATCH_LANES_PER_SM = 128
-BF16_RESULTS_PER_SM = 256
 SMEM_WORDS_PER_SM = 32
 
 # kernel -> (source, mangled-name fragment in nvcc's report, the TPU
@@ -297,10 +305,11 @@ SMEM_WORDS_PER_SM = 32
 # subtract gap, max), affine F 3 + E 3 + H 4, running best 1 for scores
 # or 3 for ends (compare, two selects). Profile: the score is one add
 # (table offset) and one shared-memory lookup instead of the select 3.
-# bf16: one thread step covers two cells, one per half of a bf16x2; its 4
-# integer ops make both scores (xor, add, prmt, lop3) and its 5 packed
-# bf16 ops the DP (fma.relu, max, sub, max, running max): 2 int32 ops and
-# 5 bf16 results per cell. Semi-global (no max 0; H kept minus the gap
+# bf16: one word covers two cells, one per half; per word the xor, the
+# match indicator (one DPX op), the score's IMAD, the three-way max of the
+# cell (DPX on the 16-bit patterns) and half of a three-way max for the
+# best, and two packed bf16 ops (fma.relu, the subtract of G): 2.25 int32
+# ops and 2 bf16 results a cell (the earlier kernel: 2 and 5). Semi-global (no max 0; H kept minus the gap
 # open, which the score carries): the score 2 (compare, select; profile:
 # the lane-table offset add and a lookup, 1), linear H 3 (the diagonal's
 # DPX add-max, the max of up and left, the subtract), Gotoh 5 (E and F a
@@ -309,7 +318,13 @@ SMEM_WORDS_PER_SM = 32
 # nothing: the corner is a row's last cell): lowered from the unskewed
 # kernel's 9 / 7 / 14 / 12 (uniform) and 8 / 6 / 13 / 11 (profile) to what
 # the DPX form needs; phase 2 prints the instructions a cell as compiled.
-# Their bound is by pipe: see SG_ALU_OPS.
+# Their bound is by pipe: see ALU_OPS. The fixed band (H kept minus the
+# gap open): the score 2 (compare, select; profile: the table offset add
+# and a lookup, 1), linear H 2 (the diagonal's add, a DPX three-way max
+# with the floor), Gotoh 4 (E and F a DPX add-max each, the add, the
+# three-way max), G's subtract 1, half of a three-way max for the best:
+# 5.5 / 7.5 uniform, 4.5 / 6.5 profile per in-band cell (the earlier
+# kernel's row-scan counts: 9 / 14, 7 / 12).
 KERNELS = {
     "sw_batch": (ROWSCAN, "sw_rowscan_kernelILb0ELb0E",
                  "swtpu/kernels/pallas/sw_batch.py:317", 9, 0, 0),
@@ -338,7 +353,7 @@ KERNELS = {
     "sw_profile_affine_ends_warp": (PROFILE, "sw_profile_warp_kernelILb1ELb1E",
                                     "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
     "sw_bf16": (BF16, "sw_bf16_kernel",
-                "swtpu/kernels/pallas/sw_bf16.py:134", 2, 0, 5),
+                "swtpu/kernels/pallas/sw_bf16.py:134", 2.25, 0, 2),
     # <AFFINE, PROFILE, END>: END 0 / 1 the argmax with its packed key /
     # with (best, step) apart (scores too wide for the key), 2 the pinned
     # (global) forms, which extend the TPU kernel (JAX ran it for the
@@ -363,16 +378,15 @@ KERNELS = {
     "semiglobal_profile_affine_pinned": (SEMIGLOBAL, SG_KERNEL + "Lb1ELb1ELi2E",
                                          "swtpu/kernels/pallas/semiglobal_profile.py:201",
                                          6, 1, 0),
-    # fixed band <AFFINE, PROFILE>: the row-scan's counts per in-band cell
-    # (the ramps' 4-op mask is left out)
+    # fixed band <AFFINE, PROFILE>: the DPX cell's counts per in-band cell
     "sw_banded_static": (BANDED, "sw_banded_kernelILb0ELb0E",
-                         "swtpu/kernels/pallas/sw_banded.py:239", 9, 0, 0),
+                         "swtpu/kernels/pallas/sw_banded.py:239", 5.5, 0, 0),
     "sw_banded_static_affine": (BANDED, "sw_banded_kernelILb1ELb0E",
-                                "swtpu/kernels/pallas/sw_banded.py:239", 14, 0, 0),
+                                "swtpu/kernels/pallas/sw_banded.py:239", 7.5, 0, 0),
     "sw_banded_profile": (BANDED, "sw_banded_kernelILb0ELb1E",
-                          "swtpu/kernels/pallas/sw_banded.py:239", 7, 1, 0),
+                          "swtpu/kernels/pallas/sw_banded.py:239", 4.5, 1, 0),
     "sw_banded_profile_affine": (BANDED, "sw_banded_kernelILb1ELb1E",
-                                 "swtpu/kernels/pallas/sw_banded.py:239", 12, 1, 0),
+                                 "swtpu/kernels/pallas/sw_banded.py:239", 6.5, 1, 0),
     # the per-round kernel <CPL, AFFINE, MATRIX, HIST, EXACT> and, timed
     # beside it, the earlier one <CPL, AFFINE>: one source, two TPU rows; the
     # W = 32 / 64 calls (CPL 1, 2) stand for the packed TPU kernel. Its ops
@@ -410,17 +424,26 @@ KERNELS = {
     "sw_wavefront": (WAVEFRONT, "sw_wavefront_kernel",
                      "swtpu/kernels/pallas/sw_wavefront.py:110", None, 0, 0),
 }
-# the semi-global forms' int32 ops a cell that only the ALU pipe issues:
-# the compare and select of the uniform score, every max and DPX add-max
-# (linear H 2, Gotoh 4) and the argmax key's max. The rest of KERNELS'
-# count (the subtract of D, the key's multiply-add, the profile's table
-# offset) can issue as IMADs on the FMA pipe, so a cell takes at least
-# max(ALU ops / 64, all ops / 128) clocks of an SM: sg_slots
-SG_ALU_OPS = {
+# the int32 ops a cell that only the ALU pipe issues, for the kernels
+# bounded by pipe (rows 7-10): the compare and select of the uniform
+# score, every max and DPX op (semi-global linear H 2, Gotoh 4, the
+# argmax key's max; fixed band the compare and select, the three-way max,
+# E and F, half a three-way max for the best; bf16 the xor, the
+# indicator, the cell's three-way max and half of the best's). The rest of
+# KERNELS' count (the subtract of D or G, the diagonal's add, the key's
+# multiply-add, the profile's table offset, bf16's score IMAD) can
+# issue as IMADs on the FMA pipe, and bf16's packed float ops on the FMA
+# pipe too, so a cell takes at least max(ALU ops / 64, all instructions /
+# 128) clocks of an SM (pipe_slots), and bf16 its bf16 results at the
+# rate phase 2's probe measures
+ALU_OPS = {
     "semiglobal_batch": 5, "semiglobal_batch_pinned": 4,
     "semiglobal_batch_affine": 7, "semiglobal_batch_affine_pinned": 6,
     "semiglobal_profile": 3, "semiglobal_profile_pinned": 2,
     "semiglobal_profile_affine": 5, "semiglobal_profile_affine_pinned": 4,
+    "sw_bf16": 1.75,
+    "sw_banded_static": 3.5, "sw_banded_static_affine": 5.5,
+    "sw_banded_profile": 1.5, "sw_banded_profile_affine": 3.5,
 }
 DNA_PATH = ["sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends"]
 PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
@@ -433,12 +456,13 @@ BLOCK_PATH = [k for k, v in KERNELS.items() if v[0] in (BLOCK, WALK)]
 LONGPAIR_PATH = ["strip_tile", "sw_wavefront"]
 
 
-def sg_slots(name):
-    """A semi-global form's int32 work a cell in ALU-lane slots (the
-    int32 rate's unit): its ALU-only ops, or all its ops at the issue
-    rate, whichever takes longer."""
-    return max(SG_ALU_OPS[name],
-               KERNELS[name][3] * INT32_LANES_PER_SM / DISPATCH_LANES_PER_SM)
+def pipe_slots(name):
+    """A kernel's work a cell in ALU-lane slots (the int32 rate's unit),
+    for the kernels bounded by pipe: its ALU-only ops, or all its
+    instructions (int32 ops, and a packed bf16 instruction per two bf16
+    results) at the issue rate, whichever takes longer."""
+    instr = KERNELS[name][3] + KERNELS[name][5] / 2
+    return max(ALU_OPS[name], instr * INT32_LANES_PER_SM / DISPATCH_LANES_PER_SM)
 
 
 def xdrop_ops(affine, matrix):
@@ -570,15 +594,15 @@ def loop_ops(ins, marker="REDUX"):
     return alu, moves, sum(marker in x for x in ops)
 
 
-def sg_group_ops(ins, per_cell, cells):
-    """int32 instructions a cell of the semi-global kernel's unmasked group
-    of steps as compiled (``cells`` = GROUP steps of ROWS cells, their
-    code, scratch and ring work included), by pipe: the loop of whole
-    groups (the shortest loop whose DPX add-maxes, ``per_cell`` a cell,
-    are one group's and which has no unsigned compare: the masked form
-    tests each row's column). Returns (ALU instructions, IMADs, moves,
-    cells); IMADs issue on the FMA pipe, moves (MOV, IMAD.MOV) are counted
-    apart from both."""
+def group_loop_ops(ins, marker, count, cells):
+    """int32 and bf16 instructions a cell of a kernel's unmasked group of
+    steps as compiled (``cells`` cells, their code, scratch and ring work
+    included): the shortest loop with ``count`` instructions whose opcode
+    starts with ``marker`` (one group's cells; a masked form of the group
+    adds its tests and selects, so it is longer). Returns (ALU
+    instructions, IMADs, moves, packed bf16 instructions, cells); IMADs and
+    the packed bf16 ops (H*) issue on the FMA pipe, moves (MOV, IMAD.MOV)
+    are counted apart."""
     addr = {a: i for i, (a, _) in enumerate(ins)}
 
     def opc(o):
@@ -590,14 +614,81 @@ def sg_group_ops(ins, per_cell, cells):
         if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
             loops.append([opc(x) for _, x in ins[addr[int(m.group(1), 16)]:i + 1]])
     for ops in sorted(loops, key=len):
-        if (sum(x.startswith("VIADDMNMX") for x in ops) == cells * per_cell
-                and not any(x.startswith("ISETP") and ".U32" in x for x in ops)):
+        if sum(x.startswith(marker) for x in ops) == count:
             moves = sum(x.startswith(("MOV", "IMAD.MOV")) for x in ops)
             imad = sum(x.startswith("IMAD") for x in ops) - sum(
                 x.startswith("IMAD.MOV") for x in ops)
-            alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves - imad
-            return alu, imad, moves, cells
-    raise RuntimeError("check failed: no unmasked group loop in the semi-global SASS")
+            half = sum(x.startswith(("HFMA2", "HADD2", "HMUL2", "HMNMX2")) for x in ops)
+            alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves - imad - half
+            return alu, imad, moves, half, cells
+    raise RuntimeError(f"check failed: no group loop with {count} {marker}")
+
+
+def probe_rates(cuobjdump, n_sm, clock_hz):
+    """Phase 2's pipe-rate probe (tools/pipe_probe.cu): each instruction
+    kind's results a lane-clock of an SM, {SASS opcode: lanes}, from its
+    kernel's loop as compiled (`cuobjdump`) and its time on a full card."""
+    import ctypes
+
+    from swtpu_torch.kernels import _build
+    from swtpu_torch.utils import time_kernel
+
+    src = Path(__file__).resolve().parent / "tools" / "pipe_probe.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = Path(tmp) / "pipe_probe.so"
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                        str(src)], check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(str(lib_path))
+        lib.swtpu_probe.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        lib.swtpu_probe_names.restype = ctypes.c_char_p
+        names = lib.swtpu_probe_names().decode().split()
+        threads, iters = 256, 1024
+        blocks = n_sm * 8  # 2048 threads an SM: full occupancy
+        out = torch.empty(threads * blocks, dtype=torch.int32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        rates = {}
+        singles = [x for x in names if "+" not in x]
+        for k, name in enumerate(names):
+            # the kernel's template pair: a kind alone runs <k, k>, a mix <A, B>
+            a, b = (singles.index(x) for x in (name.split("+") * 2)[:2])
+            ins = sass_of(lib_path, f"probe_kernelILi{a}ELi{b}E", cuobjdump)
+            body = loop_body(ins)
+            # the kind's instructions: the opcodes of its 128 a pass (ptxas
+            # may split a kind over two opcodes, e.g. HFMA2 and HFMA2.MMA),
+            # not the loop's few bookkeeping ones
+            kinds = {o: c for o, c in collections.Counter(body).items() if c >= 32}
+            per_iter = sum(kinds.values())
+            compiled = " + ".join(f"{c} {o}" for o, c in sorted(kinds.items()))
+            check(per_iter >= 128, f"probe {name}: {compiled} in its loop")
+
+            def run(k=k):
+                check(lib.swtpu_probe(k, blocks, threads, iters, out.data_ptr(), stream) == 0,
+                      f"probe {name} launch")
+
+            sec = time_kernel(run, (), iters=5)
+            rates[name] = per_iter * iters * threads * blocks / (sec * clock_hz * n_sm)
+            verdict = ""
+            if "+" in name:  # two kinds together: one pipe, or two
+                alone = max(rates[x] for x in name.split("+"))
+                verdict = (f" (alone {' / '.join(f'{rates[x]:.1f}' for x in name.split('+'))}:"
+                           f" {'one pipe' if rates[name] < 1.5 * alone else 'two pipes'})")
+            print(f"pipe probe {name}: {compiled} a loop pass of {len(body)} "
+                  f"instructions, {rates[name]:.1f} lanes an SM a clock{verdict}", flush=True)
+    return rates
+
+
+def loop_body(ins):
+    """Opcodes of the shortest backward-branch loop of a kernel's SASS."""
+    addr = {a: i for i, (a, _) in enumerate(ins)}
+    best = None
+    for i, (a, o) in enumerate(ins):
+        m = BRANCH.search(o)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+            body = ins[addr[int(m.group(1), 16)]:i + 1]
+            if best is None or len(body) < len(best):
+                best = body
+    check(best is not None, "no loop in the SASS")
+    return [o.split()[1] if o.startswith("@") else o.split()[0] for _, o in best]
 
 
 def tup(x):
@@ -1041,7 +1132,6 @@ def main():
     count = torch.cuda.device_count()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     int32_rate = n_sm * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
-    bf16_rate = n_sm * BF16_RESULTS_PER_SM * sm_clock_mhz * 1e6
     lookup_rate = n_sm * SMEM_WORDS_PER_SM * sm_clock_mhz * 1e6
     rows = []  # the kernels line
 
@@ -1123,14 +1213,37 @@ def main():
     for name in SEMIGLOBAL_PATH:
         for frag in tup(KERNELS[name][1]):
             affine = frag[len(SG_KERNEL):].startswith("Lb1E")  # <AFFINE, ...>
-            alu, imad, moves, cells = sg_group_ops(sass_of(sg_lib, frag, cuobjdump),
-                                                   3 if affine else 1,
-                                                   ksg.GROUP * ksg.ROWS)
+            alu, imad, moves, _, cells = group_loop_ops(
+                sass_of(sg_lib, frag, cuobjdump), "VIADDMNMX",
+                (3 if affine else 1) * ksg.GROUP * ksg.ROWS, ksg.GROUP * ksg.ROWS)
             print(f"{name} ({frag}): unmasked group {alu} int32 ALU instructions, "
                   f"{imad} IMADs and {moves} moves for {cells} cells: "
                   f"{(alu + imad) / cells:.2f} int32 instructions a cell as compiled, "
                   f"{alu / cells:.2f} of them on the ALU (the cell's own: "
-                  f"{KERNELS[name][3]}, {SG_ALU_OPS[name]} on the ALU)", flush=True)
+                  f"{KERNELS[name][3]}, {ALU_OPS[name]} on the ALU)", flush=True)
+
+    # the bf16 and fixed-band kernels' unmasked group as compiled, by pipe
+    for name, source, frag, marker, n_marker, cells in (
+            ("sw_bf16", BF16, "sw_bf16_kernelILb0E", "VIMNMX3", 96, 128),
+            ("sw_bf16 (match-indicator form)", BF16, "sw_bf16_kernelILb1E", "VIMNMX3", 96, 128),
+            ("sw_banded_static", BANDED, "sw_banded_kernelILb0ELb0E", "VIADDMNMX", 64, 64),
+            ("sw_banded_static_affine", BANDED, "sw_banded_kernelILb1ELb0E", "VIADDMNMX",
+             192, 64),
+            ("sw_banded_profile", BANDED, "sw_banded_kernelILb0ELb1E", "VIADDMNMX", 64, 64),
+            ("sw_banded_profile_affine", BANDED, "sw_banded_kernelILb1ELb1E", "VIADDMNMX",
+             192, 64)):
+        alu, imad, moves, half, cells = group_loop_ops(
+            sass_of(_build.library_path(source), frag, cuobjdump), marker, n_marker, cells)
+        kname = name.split(" ")[0]
+        print(f"{name} ({frag}): unmasked group {alu} int32 ALU instructions, {imad} "
+              f"IMADs, {half} packed bf16 and {moves} moves for {cells} cells: "
+              f"{(alu + imad) / cells:.2f} int32 and {half / cells:.2f} bf16 instructions "
+              f"a cell as compiled, {alu / cells:.2f} on the ALU (the cell's own: "
+              f"{KERNELS[kname][3]} int32, {ALU_OPS[kname]} on the ALU)", flush=True)
+    # the pipe-rate probe: which pipe each instruction kind issues on
+    rates = probe_rates(cuobjdump, n_sm, sm_clock_mhz * 1e6)
+    # the packed bf16 ops' results a clock an SM, as measured (2 a lane)
+    bf16_rate = n_sm * 2 * min(rates["HFMA2"], rates["HADD2"]) * sm_clock_mhz * 1e6
 
     # 3. kernels vs plain versions -----------------------------------------
     phase("3 kernels vs plain versions (exact)")
@@ -1268,6 +1381,8 @@ def main():
             err = max_abs_err(got, kbf.sw_bf16_plain(qd, td, p))
             max_err["sw_bf16"] = max(max_err["sw_bf16"], err)
             check(err == 0, f"sw_bf16 differs from its plain version on {label}")
+            check(torch.equal(got[:64].cpu(), kbf.bf16_skew_mirror(qh[:64], th[:64], p)),
+                  f"sw_bf16 differs from its CPU mirror on {label}")
             check(torch.equal(got, kb.sw_batch(qd, td, p)),
                   f"sw_bf16 differs from sw_batch inside the predicate on {label}")
             if label == "32768x128x128":
@@ -1276,7 +1391,7 @@ def main():
                       "sw_bf16 vs the oracle on 64 pairs")
             print(f"{label} ({int(p.matrix[0, 0])},{int(p.matrix[0, 1])},"
                   f"{p.gap}) sw_bf16: max |kernel - plain| = {err}; equal to "
-                  f"sw_batch", flush=True)
+                  f"sw_batch and, on the first 64 pairs, the CPU mirror", flush=True)
     # above the exact range: config 4's promotion workload (phase 12),
     # raw values with allow_overflow, under its scoring and under (7, -1, 1)
     prom_q, prom_t, prom_warm = promotion_workload(32768)
@@ -1287,6 +1402,9 @@ def main():
         err = max_abs_err(raw, kbf.sw_bf16_plain(qd, td, p, allow_overflow=True))
         max_err["sw_bf16"] = max(max_err["sw_bf16"], err)
         check(err == 0, "sw_bf16 differs from its plain version above the bound")
+        check(torch.equal(raw[:32].cpu(), kbf.bf16_skew_mirror(
+            prom_q[:32], prom_t[:32], p, allow_overflow=True)),
+            "sw_bf16 differs from its CPU mirror above the bound")
         exact = kb.sw_batch(qd, td, p)
         low = (raw < 255) | (exact < 255)
         check(torch.equal(raw[low], exact[low]),
@@ -1295,7 +1413,8 @@ def main():
               "sw_bf16 and the int32 kernel disagree on the pairs at 255 or more")
         print(f"32768x300x320 promotion workload ({int(p.matrix[0, 0])},"
               f"{int(p.matrix[0, 1])},{p.gap}), allow_overflow: max |kernel - "
-              f"plain| = {err}; {int((raw >= 255).sum())} pairs at 255 or more in "
+              f"plain| = {err} (the first 32 equal the CPU mirror); "
+              f"{int((raw >= 255).sum())} pairs at 255 or more in "
               f"both tiers, {int((raw != exact).sum())} of them drifted (raw "
               f"minus exact in [{int((raw - exact)[~low].min())}, "
               f"{int((raw - exact)[~low].max())}]); every pair below 255 "
@@ -1493,7 +1612,9 @@ def main():
             A = 4 if p.alphabet_size == 4 else 20
             qd, td = dev_codes[A]
             names = set()
-            widths = (8, 32, 64, 96, 160) if B == 8192 else (8, 32, 160)
+            # W = 15 / 16: the two sides of the skewed tile's schedules at
+            # n = m = 128 (K = 30 offsets a sweep)
+            widths = (8, 15, 16, 32, 64, 96, 160) if B == 8192 else (8, 32, 160)
             for W in widths:
                 want = ksb.sw_banded_plain(qd, td, p, W, **lens)
                 for kern in fixed_kernels(p):
@@ -1504,6 +1625,12 @@ def main():
                     max_err[name] = max(max_err[name], err)
                     check(err == 0, f"{name} differs from its plain version on "
                           f"{label} {slabel} W={W}")
+                    if W in (8, 32) and B in (8192, 1000):
+                        qh, th = codes[A]
+                        lens32 = {k: v[:32] for k, v in lens.items()}
+                        check(torch.equal(got[:32].cpu(), ksb.banded_skew_mirror(
+                            qh[:32], th[:32], p, W, profile=kern is ksb.sw_banded_profile,
+                            **lens32)), f"{name} differs from its CPU mirror on {label}")
                     names.add(name)
                 if B == 8192 and W == 32:
                     qh, th = codes[A]
@@ -1513,6 +1640,8 @@ def main():
                           f"fixed band vs the oracle copy, {slabel}")
             print(f"{label} {slabel}: {', '.join(sorted(names))} at W = "
                   f"{', '.join(map(str, widths))}: max |kernel - plain| = 0"
+                  + ("; 32 pairs equal the CPU mirror at W = 8, 32" if B in (8192, 1000)
+                     else "")
                   + ("; 64 pairs equal the oracle copy at W = 32" if B == 8192
                      else ""), flush=True)
     del dev_codes, qd, td
@@ -2418,17 +2547,24 @@ def main():
           "sw_bf16 vs best_engine at 1M pairs")
     cells = B * n * m
     qT, tT = qd.t().contiguous(), td.t().contiguous()
+    # the bf16 launch takes the [B, L] codes as they are; the row-scan's
+    # the transposes
+    bf16_bound = max(cells * pipe_slots("sw_bf16") / int32_rate,
+                     cells * KERNELS["sw_bf16"][5] / bf16_rate)
     for label, fn, args, bare in (
             ("sw_bf16", kbf.sw_bf16, (qd, td, DNA_10_30_15),
-             lambda: kbf.bf16_launch_t(qT, tT, DNA_10_30_15)),
+             lambda: kbf.bf16_launch_t(qd, td, DNA_10_30_15)),
             ("best_engine (int32 sw_batch)", int32_fn, (qd, td),
              lambda: kb.rowscan_launch_t(qT, tT, DNA_10_30_15, 10, -30,
                                          False, False))):
         sec = timed(fn, args, iters=10)
         bare_s = timed(bare, (), iters=10)
+        extra = (f", the call {(sec - bare_s) * 1e3:.3f} ms past it; bound by pipe "
+                 f"{bf16_bound * 1e3:.4f} ms ({bf16_bound / bare_s:.1%} of the launch)"
+                 if label == "sw_bf16" else "")
         print(f"{label}: {sec * 1e3:.3f} ms per call ({cells / sec / 1e9:.1f} "
               f"GCUPS), launch alone {bare_s * 1e3:.3f} ms ({cells / bare_s / 1e9:.1f} "
-              f"GCUPS) [{smi}]", flush=True)
+              f"GCUPS){extra} [{smi}]", flush=True)
     print(f"all {B} scores equal", flush=True)
     restore(saved)
     del qd, td, qT, tT
@@ -2508,9 +2644,9 @@ def main():
                     return kb.rowscan_launch_t(
                         qT, tT, p, *kb._uniform_match_mismatch(p),
                         not p.is_linear, ends)
-            elif source == BF16:  # B is even: the transposed codes as they are
+            elif source == BF16:  # the [B, L] codes as they are
                 def bare(p=p):
-                    return kbf.bf16_launch_t(qT, tT, p)
+                    return kbf.bf16_launch_t(qd, td, p)
             else:
                 table = kp.profile_table(p, dev)
 
@@ -2524,8 +2660,9 @@ def main():
             n_out = 3 if ends else 1
             table_bytes = 4 * kp.profile_table(p, dev).numel() if source == PROFILE else 0
             bytes_ = B * (n + m) + table_bytes + 4 * B * n_out
+            slots = pipe_slots(name) if name in ALU_OPS else ops
             times = {
-                "int32 ops": B * n * m * ops / int32_rate * 1e3,
+                "int32 ops": B * n * m * slots / int32_rate * 1e3,
                 "bf16 ops": B * n * m * bf16_ops / bf16_rate * 1e3,
                 "shared-memory lookups": B * n * m * lookups / lookup_rate * 1e3,
                 "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
@@ -2540,10 +2677,12 @@ def main():
                 bound_by="bytes" if binds == "bytes" else "operations",
                 library_ms=None, kernel_ms=kernel_ms,
             ))
+            by_pipe = (f", {ALU_OPS[name]} on the ALU only, {slots} slots by pipe"
+                       if name in ALU_OPS else "")
             print(f"{name}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
                   f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), "
                   f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} "
-                  f"({ops} int32 ops/cell: {times['int32 ops']:.4f} ms; "
+                  f"({ops} int32 ops/cell{by_pipe}: {times['int32 ops']:.4f} ms; "
                   f"{bf16_ops} bf16 results/cell: {times['bf16 ops']:.4f} ms; "
                   f"{lookups} lookups/cell: {times['shared-memory lookups']:.4f} "
                   f"ms; at {sm_clock_mhz:.0f} MHz), wrapper "
@@ -2582,7 +2721,7 @@ def main():
         table_bytes = 0 if table is None else 4 * table.numel()
         bytes_ = B * (n + m) + table_bytes + 4 * B * 3
         times = {
-            "int32 ops": B * n * m * sg_slots(name) / int32_rate * 1e3,
+            "int32 ops": B * n * m * pipe_slots(name) / int32_rate * 1e3,
             "shared-memory lookups": B * n * m * lookups / lookup_rate * 1e3,
             "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
         }
@@ -2600,7 +2739,7 @@ def main():
         print(f"{name}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
               f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}){sel}, "
               f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} ({ops} "
-              f"int32 ops/cell, {SG_ALU_OPS[name]} on the ALU only: "
+              f"int32 ops/cell, {ALU_OPS[name]} on the ALU only: "
               f"{times['int32 ops']:.4f} ms; {lookups} "
               f"lookups/cell: {times['shared-memory lookups']:.4f} ms; at "
               f"{sm_clock_mhz:.0f} MHz), wrapper {B * n * m / ms / 1e6:.1f} GCUPS",
@@ -2621,12 +2760,11 @@ def main():
         profile = name.startswith("sw_banded_profile")
         qh, th = inputs[PROFILE if profile else ROWSCAN]
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
-        qT, tT = qd.t().contiguous(), td.t().contiguous()
         kern = ksb.sw_banded_profile if profile else ksb.sw_banded_static
         table = ksb.banded_table(p.matrix, dev) if profile else None
 
-        def bare(p=p, table=table):
-            return ksb.banded_launch_t(qT, tT, p, Wf, table)
+        def bare(p=p, table=table):  # the launch alone, on the [B, L] codes as given
+            return ksb.banded_launch_t(qd, td, p, Wf, table)
 
         check(torch.equal(bare(), kern(qd, td, p, Wf)), f"{name}: bare launch vs wrapper")
         ms = timed(kern, (qd, td, p, Wf), iters=20) * 1e3
@@ -2635,7 +2773,7 @@ def main():
                          reps=1) * 1e3
         bytes_ = B * (n + m) + (0 if table is None else 4 * table.numel()) + 4 * B
         times = {
-            "int32 ops": band_cells * ops / int32_rate * 1e3,
+            "int32 ops": band_cells * pipe_slots(name) / int32_rate * 1e3,
             "shared-memory lookups": band_cells * lookups / lookup_rate * 1e3,
             "bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
         }
@@ -2651,10 +2789,11 @@ def main():
         print(f"{name} W={Wf}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
               f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), plain "
               f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} ({ops} int32 "
-              f"ops/in-band cell over {band_cells} cells: {times['int32 ops']:.4f} "
-              f"ms; {lookups} lookups/cell; at {sm_clock_mhz:.0f} MHz), wrapper "
-              f"{band_cells / ms / 1e6:.1f} band GCUPS", flush=True)
-        del qd, td, qT, tT
+              f"ops/in-band cell, {ALU_OPS[name]} on the ALU only, over {band_cells} "
+              f"cells: {times['int32 ops']:.4f} ms by pipe; {lookups} lookups/cell; at "
+              f"{sm_clock_mhz:.0f} MHz), wrapper {band_cells / ms / 1e6:.1f} band GCUPS",
+              flush=True)
+        del qd, td
     arng = np.random.default_rng(SEED + 9)
     Ba, La = 256, 2048
     adq = arng.integers(0, 4, size=(Ba, La)).astype(np.uint8)
@@ -2834,7 +2973,7 @@ def main():
         qd, td = big[sg_letters(sc)]
         name = sg_name(sc, pin)
         alone = timed(lambda q, t: sg_bare(sc, pin, q, t), (qd, td), iters=5) * 1e3
-        bound = max(B * n * m * sg_slots(name) / int32_rate,
+        bound = max(B * n * m * pipe_slots(name) / int32_rate,
                     B * n * m * KERNELS[name][4] / lookup_rate) * 1e3
         over = "" if wrapper_ms is None else f"; the wrapper {wrapper_ms - alone:+.3f} ms"
         if not pin:
@@ -3018,11 +3157,16 @@ def main():
         check(np.array_equal(s_host[idx], sw_banded_static_score_batch(
             qh[idx], th[idx], p, Wf)), f"{name} vs the oracle copy on 64 pairs")
         sec = timed(fn, (qd, td), iters=10)
+        table = ksb.banded_table(p.matrix, dev) if name.startswith("sw_banded_profile") else None
+        alone = timed(lambda p=p, table=table: ksb.banded_launch_t(qd, td, p, Wf, table), (),
+                      iters=10)
+        bound = cells * pipe_slots(name) / int32_rate
         print(f"{label} {name}: {sec * 1e3:.3f} ms per call ({sec * 1e3:.3f} ms per "
               f"1M alignments), {cells / sec / 1e9:.1f} band GCUPS over {cells} "
-              f"in-band cells; the first {CHECK_PAIRS} scores equal the plain version "
-              f"({plain_s:.1f} s), 64 the oracle copy; mean score {s_host.mean():.3f} "
-              f"[{smi}]",
+              f"in-band cells, launch alone {alone * 1e3:.3f} ms ({bound / alone:.1%} of "
+              f"its bound by pipe, {bound * 1e3:.4f} ms); the first {CHECK_PAIRS} scores "
+              f"equal the plain version ({plain_s:.1f} s), 64 the oracle copy; mean score "
+              f"{s_host.mean():.3f} [{smi}]",
               flush=True)
     del big, big_d, qd, td, scores
     torch.cuda.empty_cache()

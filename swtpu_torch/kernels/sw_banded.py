@@ -23,9 +23,13 @@ the unpadded pair.
 the Pallas entries' guards and raise NotImplementedError outside them;
 then they run where their device says: on the CPU the plain version, on a
 CUDA device the kernel, never the plain version there; a failed build or
-launch raises. ``sw_banded_plain`` takes any scoring. Each wrapper counts
-its launches in ``<wrapper>.launches``, those of the affine instantiation
-also in ``<wrapper>.launches_affine``.
+launch raises. On the card the kernel takes the [B, n] / [B, m] codes as
+the caller holds them (no transposes) and the lengths as [B] int32 (no
+code is overwritten with pads). ``sw_banded_plain`` takes any scoring.
+Each wrapper counts its launches in ``<wrapper>.launches``, those of the
+affine instantiation also in ``<wrapper>.launches_affine``.
+``banded_skew_mirror`` replays the kernel's schedule on the CPU (tests
+only).
 """
 
 from __future__ import annotations
@@ -39,12 +43,16 @@ import torch
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels import _build
 from swtpu_torch.kernels.banded_scan import _banded_ext_table
-from swtpu_torch.kernels.sw_batch import _uniform_match_mismatch, kernel_layout, ptr
+from swtpu_torch.kernels.semiglobal_batch import codes, lens_tensor
+from swtpu_torch.kernels.sw_batch import _uniform_match_mismatch, ptr
 from swtpu_torch.utils.device import as_codes, resolve_device
 
 SOURCE = "sw_banded.cu"
 NEG = -(2**29)  # the oracle's dead value
 MAX_LETTERS = 30  # the kernel's table is at most 32 x 32, two codes for pads
+ROWS = 16  # the kernel's query rows a sweep (its skewed tile)
+GROUP = 4  # steps a group: its prefetch distance
+OPEN = 2 * (ROWS - 1)  # steps before a sweep's last row starts
 
 _tables: Dict[Tuple[bytes, Tuple[int, ...], str], torch.Tensor] = {}
 
@@ -195,30 +203,31 @@ def _banded_fn():
     fn = lib.swtpu_sw_banded
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 6 + [i] * 11 + [p]
+        fn.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
         fn.restype = ctypes.c_int
-        lib.swtpu_sw_banded_ring.argtypes = [i]
-        lib.swtpu_sw_banded_ring.restype = ctypes.c_int
     return lib, fn
 
 
-def banded_launch_t(qT, tT, params: ScoringParams, bandwidth: int, table=None):
-    """The launch alone, on codes already in the kernel's layout (qT
-    [n, B], tT [m, B] contiguous uint8 on one CUDA device). With ``table``
-    (:func:`banded_table`) the profile instantiation runs, else the
-    uniform one. Allocates the [2W + 9, B] ring scratch and the [B]
-    int32 scores and launches on the device's current stream."""
-    device = qT.device
-    for x in (qT, tT):
+def banded_launch_t(q, t, params: ScoringParams, bandwidth: int, table=None,
+                    lens_q=None, lens_t=None):
+    """The launch alone, on the codes as the wrappers hand them (q [B, n],
+    t [B, m] contiguous uint8 on one CUDA device: ``codes``) and lengths
+    from ``lens_tensor``. With ``table`` (:func:`banded_table`) the
+    profile instantiation runs, else the uniform one. Allocates the
+    [2W + 1, B] int32 hand-off scratch ([2W + 1, B, 2] affine; none when
+    n <= ROWS) and the [B] int32 scores, and launches on the device's
+    current stream."""
+    device = q.device
+    for x in (q, t):
         if (x.dtype != torch.uint8 or x.device != device or device.type != "cuda"
-                or not x.is_contiguous()):
+                or not x.is_contiguous() or x.dim() != 2):
             raise ValueError(
-                "the fixed-band kernel takes contiguous uint8 codes on one CUDA "
-                f"device, got {x.dtype} on {x.device}")
-    n, B = qT.shape
-    m = tT.shape[0]
-    if tT.shape[1] != B:
-        raise ValueError(f"batch mismatch: {B} queries vs {tT.shape[1]} targets")
+                "the fixed-band kernel takes [B, L] contiguous uint8 codes on one "
+                f"CUDA device, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    B, n = q.shape
+    m = t.shape[1]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
     # a corridor wider than the matrix is the whole matrix
     W = min(_check_width(bandwidth), max(n, m))
     stride = 0
@@ -234,21 +243,20 @@ def banded_launch_t(qT, tT, params: ScoringParams, bandwidth: int, table=None):
     else:
         match, mismatch = _uniform_match_mismatch(params)
     affine = not params.is_linear
-    lib, fn = _banded_fn()
-    S = lib.swtpu_sw_banded_ring(W)
-    if max(B, n, m) >= 2**31:
+    if max(B, n, m) >= 2**30:
         raise ValueError(f"shape too large for one launch: {B}, {n}, {m}")
     i32 = dict(dtype=torch.int32, device=device)
-    hring = torch.empty((S, B), **i32)
-    fring = torch.empty((S, B), **i32) if affine else None
+    scratch = (torch.empty((2 * W + 1, B) + ((2,) if affine else ()), **i32)
+               if n > ROWS and m > 0 else None)
     score = torch.empty((B,), **i32)
+    lib, fn = _banded_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            int(affine), ptr(qT), ptr(tT), ptr(table), ptr(hring), ptr(fring),
-            ptr(score), B, n, m, W, params.alphabet_size, match, mismatch,
-            int(params.matrix.min()), stride, params.gap_open, params.gap_extend,
-            stream,
+            int(affine), ptr(q), ptr(t), ptr(table), ptr(lens_q), ptr(lens_t),
+            ptr(scratch), ptr(score), B, n, m, W, params.alphabet_size, match,
+            mismatch, int(params.matrix.min()), stride, params.gap_open,
+            params.gap_extend, stream,
         )
     _build.check(lib, err, "sw_banded")
     return score
@@ -258,11 +266,11 @@ def _run(wrapper, qs, ts, params, bandwidth, lens_q, lens_t, device, profile):
     dev = resolve_device(device, like=qs)
     if dev.type == "cpu":
         return sw_banded_plain(qs, ts, params, bandwidth, lens_q, lens_t, dev)
-    A = params.alphabet_size
-    qs, ts = _apply_lens(qs, ts, lens_q, lens_t, A, A + 1, dev)
-    qT, tT = kernel_layout(qs, ts, dev, "fixed-band")
-    out = banded_launch_t(qT, tT, params, bandwidth,
-                          banded_table(params.matrix, dev) if profile else None)
+    q, t = codes(qs, ts, dev, "fixed-band")
+    B = q.shape[0]
+    out = banded_launch_t(q, t, params, bandwidth,
+                          banded_table(params.matrix, dev) if profile else None,
+                          lens_tensor(lens_q, B, dev), lens_tensor(lens_t, B, dev))
     wrapper.launches += 1
     wrapper.launches_affine += not params.is_linear
     return out
@@ -298,3 +306,159 @@ sw_banded_static.launches = 0
 sw_banded_static.launches_affine = 0
 sw_banded_profile.launches = 0
 sw_banded_profile.launches_affine = 0
+
+
+# -- a plain mirror of the kernel's skewed tile (tests only) -----------------
+
+_OUT = 0xFF  # the uniform target code of a column outside the matrix
+_NEG_OUT = -(2**20)  # the profile's score of a cell outside the matrix
+
+
+def banded_skew_mirror(qs, ts, params: ScoringParams, bandwidth=32, lens_q=None,
+                       lens_t=None, profile=False):
+    """The kernel's schedule replayed in PyTorch on the CPU over [B, ROWS]
+    rows: each pair runs its own rows and columns where a pad scores <= 0
+    (else the full n x m with pads past its lengths) and a band no wider
+    than its matrix; sweeps of ROWS rows in band coordinates, row r at
+    offset k_lo + s - 2r, over the offsets k_lo..k_hi at which some row of
+    the sweep is inside the matrix (K a row); with K >= OPEN the rows of a
+    step are exactly those inside their K steps, a row about to start
+    takes its diagonal, the rows that are done still hand the codes down,
+    and at odd closing steps the row at its band's last offset takes a
+    dead up; narrower sweeps compute every row, the rows
+    outside their K steps taking the dead values. Cells outside the matrix
+    score OUT (<= 0). H kept minus the gap open (G), cells as the DPX
+    maxes compute them, the best over G two rows at a time; row 0
+    takes the row above from the previous sweep's hand-off (per pair
+    [2W + 1] slots; dead past the band, left of column 1 and in the first
+    sweep), row ROWS - 1 writes it. ``profile`` runs the profile form (the
+    extended table), else the uniform one (match and mismatch from a
+    uniform matrix). Same contract as :func:`sw_banded_static` /
+    :func:`sw_banded_profile`. Nothing on the card path calls it."""
+    cpu = torch.device("cpu")
+    q = as_codes(qs, cpu).long()
+    t = as_codes(ts, cpu).long()
+    B, n = q.shape
+    m = t.shape[1]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
+    W = min(_check_width(bandwidth), max(n, m))
+    A = params.alphabet_size
+    go, ge, affine = int(params.gap_open), int(params.gap_extend), not params.is_linear
+    pad_score = int(params.matrix.min())
+    if profile:
+        ext = torch.from_numpy(_banded_ext_table(params.matrix)).long()
+        stride = ext.shape[0]
+        s1 = stride + 1
+        tab = torch.full((s1, s1), _NEG_OUT, dtype=torch.long)
+        tab[:stride, :stride] = ext
+        tab = tab.reshape(-1) + go
+        q_pad, q_out, t_pad, t_out = (stride - 1) * s1, stride * s1, stride - 1, stride
+    else:
+        match, mismatch = _uniform_match_mismatch(params)
+        hit, miss = match + go, mismatch + go
+        q_pad = q_out = -1
+        t_pad, t_out = A + 1, _OUT
+    lq = torch.as_tensor(n if lens_q is None else lens_q).long().expand(B).clamp(0, n)
+    lt = torch.as_tensor(m if lens_t is None else lens_t).long().expand(B).clamp(0, m)
+    trim = pad_score <= 0
+    n_b = lq if trim else torch.full((B,), n)
+    m_b = lt if trim else torch.full((B,), m)
+    Wb = torch.minimum(torch.full((B,), W), torch.maximum(n_b, m_b))
+    n_eff = torch.where(m_b > 0, torch.minimum(n_b, m_b + Wb), 0)
+    R = ROWS
+    ar = torch.arange(R)
+    NEG = -(2**29)
+    buf_g = torch.zeros((B, 2 * W + 2), dtype=torch.long)  # the hand-off, per pair
+    buf_f = torch.zeros((B, 2 * W + 2), dtype=torch.long)
+    rb = torch.full((B, R // 2), -go, dtype=torch.long)
+    rows_b = torch.arange(B)
+
+    def code_t(j):
+        """Row 0's target code at column j ([B])."""
+        inside = (j >= 1) & (j <= m_b)
+        c = t[rows_b, (j - 1).clamp(0, max(m - 1, 0))] if m else torch.zeros_like(j)
+        c = torch.where(j <= lt, c.clamp(max=stride - 1) if profile else c, t_pad)
+        return torch.where(inside, c, t_out)
+
+    def shift(first, x):
+        return torch.cat([first[:, None], x[:, :-1]], dim=1)
+
+    for i0 in range(0, int(n_eff.max()) if B else 0, R):
+        act = i0 < n_eff
+        later = torch.tensor(i0 > 0)  # the first sweep reads no hand-off
+        last = i0 + R >= n_eff
+        k_lo = (Wb - i0 - (R - 1)).clamp(min=0)
+        k_hi = torch.minimum(2 * Wb, m_b + Wb - i0 - 1)
+        K = k_hi - k_lo + 1
+        j0 = k_lo + i0 + 1 - Wb
+        exact = K >= OPEN
+        steps = torch.where(exact, K + OPEN, (K + OPEN + GROUP - 1) // GROUP * GROUP)
+        i = i0 + ar + 1
+        c = q[:, (i - 1).clamp(max=max(n - 1, 0))] if n else torch.zeros((B, R), dtype=torch.long)
+        if profile:
+            c = c.clamp(max=stride - 1) * s1
+        else:
+            c = torch.where(c < A, c, -1)
+        qc = torch.where(i[None] <= lq[:, None], c,
+                         torch.where(i[None] <= n_b[:, None], q_pad, q_out))
+        tc = torch.full((B, R), t_out, dtype=torch.long)
+        g = torch.full((B, R), -go, dtype=torch.long)
+        dg = g.clone()
+        e = torch.full((B, R), NEG, dtype=torch.long)
+        f = e.clone()
+        prev_g, prev_f = buf_g.clone(), buf_f.clone()
+        take = later & (j0 > 1)
+        dg[:, 0] = torch.where(take, prev_g[rows_b, k_lo.clamp(max=2 * W)], -go)
+        for s in range(int(steps[act].max()) if act.any() else 0):
+            run = act & (s < steps)
+            if not run.any():
+                continue
+            # closing: at odd E the row at its band's last offset reads past
+            # the band of the row above, which ended two steps ago: dead up
+            E = s - K
+            dead = (run & exact & (E >= 0) & (E % 2 == 1))[:, None] & (
+                ar[None] == (E // 2 + 1)[:, None])
+            # row 0's inputs: the ring's slot, read from the previous sweep
+            kp = k_lo + s + 1
+            rd = later & (j0 + s >= 1) & (kp <= 2 * Wb)
+            g_in = torch.where(rd, prev_g[rows_b, kp.clamp(max=2 * W + 1)], -go)
+            f_in = torch.where(rd, prev_f[rows_b, kp.clamp(max=2 * W + 1)], NEG)
+            tr = shift(code_t(j0 + s), tc)
+            gu = torch.where(dead, -go, shift(g_in, g))
+            sg = tab[qc + tr] if profile else torch.where(qc == tr, hit, miss)
+            if affine:
+                fn = torch.maximum(torch.where(dead, NEG, shift(f_in, f)) - ge, gu)
+                en = torch.maximum(e - ge, g)
+                h = torch.maximum(torch.maximum(dg + sg, torch.maximum(en, fn)),
+                                  torch.zeros(()))
+            else:
+                fn, en = f, e
+                h = torch.maximum(torch.maximum(dg + sg, torch.maximum(gu, g)),
+                                  torch.zeros(()))
+            gn = (h - go).long()
+            valid = run[:, None] & (s - 2 * ar >= 0)[None] & (s - 2 * ar < K[:, None])
+            ex = (run & exact)[:, None]
+            ms = (run & ~exact)[:, None]
+            # exact: rows inside their steps compute; a row about to start
+            # takes its diagonal (before the row above moves)
+            hi = s // 2 + 1
+            if s < OPEN and hi < R:
+                opening = run & exact
+                dg[opening, hi] = g[opening, hi - 1]
+            g = torch.where(ex & valid, gn, torch.where(ms, torch.where(valid, gn, -go), g))
+            e = torch.where(ex & valid, en, torch.where(ms, torch.where(valid, en, NEG), e))
+            f = torch.where(ex & valid, fn, torch.where(ms, torch.where(valid, fn, NEG), f))
+            dg = torch.where((ex & valid) | ms, gu, dg)
+            # every started row hands the codes down, done or not
+            tc = torch.where((ex & (s - 2 * ar >= 0)[None]) | ms, tr, tc)
+            pair_on = (valid[:, 0::2] | valid[:, 1::2]) | ms
+            rb = torch.where(pair_on, torch.maximum(rb, torch.maximum(g[:, 0::2], g[:, 1::2])),
+                             rb)
+            # row ROWS - 1's hand-off
+            x = s - OPEN
+            wr = run & ~last & (x >= 0) & (x < K)
+            kw = (k_lo + x).clamp(0, 2 * W)
+            buf_g[rows_b[wr], kw[wr]] = g[wr, R - 1]
+            buf_f[rows_b[wr], kw[wr]] = f[wr, R - 1]
+    return (rb.amax(dim=1) + go).to(torch.int32)

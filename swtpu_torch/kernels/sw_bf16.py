@@ -32,8 +32,12 @@ its results:
 
 ``sw_bf16`` runs the guard first, then where its device says: on the CPU
 the plain version, on a CUDA device the kernel, which it never replaces
-with the plain version; a failed build or launch raises. It counts its
-launches in ``sw_bf16.launches``.
+with the plain version; a failed build or launch raises. On the card the
+kernel reads the [B, n] / [B, m] codes as the caller holds them and makes
+the TPU wrapper's pad rows and columns itself: no transposes, and no copy
+of an odd batch (the last thread's high half runs a pad pair of its own).
+It counts its launches in ``sw_bf16.launches``. ``bf16_skew_mirror``
+replays the kernel's schedule on the CPU (tests only).
 """
 
 from __future__ import annotations
@@ -46,11 +50,8 @@ import torch
 
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels import _build
-from swtpu_torch.kernels.sw_batch import (
-    _uniform_match_mismatch,
-    kernel_layout,
-    ptr,
-)
+from swtpu_torch.kernels.semiglobal_batch import codes
+from swtpu_torch.kernels.sw_batch import _uniform_match_mismatch, ptr
 from swtpu_torch.kernels.sw_scan import _shift1
 from swtpu_torch.utils.device import as_codes, resolve_device
 
@@ -58,6 +59,7 @@ SOURCE = "sw_bf16.cu"
 MAX_EXACT = 256  # bf16 represents |int| <= 256 exactly
 ROWS = 8  # the TPU kernel's row group: n pads to a multiple of this
 CHUNK = 16  # its column chunk: m pads to a multiple of this
+SWEEP = 16  # the kernel's query rows a sweep (its skewed tile)
 Q_PAD = 4
 T_PAD = 5
 
@@ -188,51 +190,37 @@ def _bf16_fn():
     return lib, fn
 
 
-def bf16_layout(qs, ts, device: torch.device):
-    """[B, n] / [B, m] codes as the kernel takes them: [n, Be] / [m, Be]
-    contiguous uint8 on ``device``, Be = B rounded up to even; an odd
-    batch gets one pad pair (query 4, target 5), dropped afterwards."""
-    qs = as_codes(qs, device)
-    ts = as_codes(ts, device)
-    if qs.shape[0] % 2:
-        qs = torch.cat([qs, torch.full_like(qs[:1], Q_PAD)])
-        ts = torch.cat([ts, torch.full_like(ts[:1], T_PAD)])
-    return kernel_layout(qs, ts, device, "bf16")
-
-
-def bf16_launch_t(qT, tT, params: ScoringParams, allow_overflow=False):
-    """The launch alone, on codes already in the kernel's layout: qT
-    [n, Be] and tT [m, Be] contiguous uint8 on one CUDA device, Be even.
-    Runs the guard, allocates the [mp, Be / 2] previous-row scratch and
-    the [Be] int32 scores there, and launches on that device's current
-    stream."""
-    for x in (qT, tT):
-        if (x.dtype != torch.uint8 or x.device != qT.device
-                or x.device.type != "cuda" or not x.is_contiguous()):
+def bf16_launch_t(q, t, params: ScoringParams, allow_overflow=False):
+    """The launch alone, on the codes as the wrapper hands them: q [B, n]
+    and t [B, m] contiguous uint8 on one CUDA device (``codes``), any B.
+    Runs the guard, allocates the [mp, ceil(B / 2)] row buffer (when the
+    padded query spans more than one sweep of ROWS rows) and the [B]
+    int32 scores there, and launches on that device's current stream."""
+    for x in (q, t):
+        if (x.dtype != torch.uint8 or x.device != q.device
+                or x.device.type != "cuda" or not x.is_contiguous() or x.dim() != 2):
             raise ValueError(
-                "the bf16 kernel takes contiguous uint8 codes on one CUDA "
-                f"device, got {x.dtype} on {x.device}"
+                "the bf16 kernel takes [B, L] contiguous uint8 codes on one "
+                f"CUDA device, got {x.dtype} {tuple(x.shape)} on {x.device}"
             )
-    n, Be = qT.shape
-    m = tT.shape[0]
-    if tT.shape[1] != Be or Be % 2 or (qT.data_ptr() | tT.data_ptr()) % 2:
-        raise ValueError(
-            "the bf16 kernel takes an even batch on both sides, 2-byte "
-            f"aligned, got {Be} and {tT.shape[1]}"
-        )
-    if max(Be, n, m) >= 2**31 - CHUNK:  # the C interface takes int sizes
-        raise ValueError(f"shape too large for one launch: {Be}, {n}, {m}")
+    B, n = q.shape
+    m = t.shape[1]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
+    if max(B, n, m) >= 2**31 - CHUNK:  # the C interface takes int sizes
+        raise ValueError(f"shape too large for one launch: {B}, {n}, {m}")
     match, mismatch, gap, g = _guard_bf16(params, n, allow_overflow)
     s_eq, s_ne, gapb = _constant_bits(match, mismatch, gap)
-    dev = qT.device
+    dev = q.device
     mp = m + (-m) % CHUNK
-    hrow = torch.empty((mp, Be // 2), dtype=torch.int32, device=dev)
-    score = torch.empty((Be,), dtype=torch.int32, device=dev)
+    hrow = (torch.empty((mp, (B + 1) // 2), dtype=torch.int32, device=dev)
+            if padded_rows(n) > SWEEP else None)
+    score = torch.empty((B,), dtype=torch.int32, device=dev)
     lib, fn = _bf16_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            ptr(qT), ptr(tT), ptr(hrow), ptr(score), Be // 2, n, m,
+            ptr(q), ptr(t), ptr(hrow), ptr(score), B, n, m,
             s_eq, s_ne, gapb, g, stream,
         )
     _build.check(lib, err, "sw_bf16")
@@ -252,15 +240,104 @@ def sw_bf16(qs, ts, params: ScoringParams, allow_overflow=False,
     still exact, and a larger one marks a pair to re-run at int32.
     Raises NotImplementedError outside these guards.
     """
-    B, n = qs.shape[0], qs.shape[-1]
+    n = qs.shape[-1]
     _guard_bf16(params, n, allow_overflow)
     dev = resolve_device(device, like=qs)
     if dev.type == "cpu":
         return sw_bf16_plain(qs, ts, params, allow_overflow, dev)
-    qT, tT = bf16_layout(qs, ts, dev)
-    out = bf16_launch_t(qT, tT, params, allow_overflow)
+    q, t = codes(qs, ts, dev, "bf16")
+    out = bf16_launch_t(q, t, params, allow_overflow)
     sw_bf16.launches += 1
-    return out[:B]
+    return out
 
 
 sw_bf16.launches = 0
+
+
+# -- a plain mirror of the kernel's skewed tile (tests only) -----------------
+
+_NEVER = 0x100  # the code of the rows past n_pad: no target byte equals it
+
+
+def _s16(x: torch.Tensor) -> torch.Tensor:
+    """16-bit patterns (any int tensor) as signed 16-bit values in int64."""
+    return ((x.long() + 2**15) & 0xFFFF) - 2**15
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int16).view(torch.bfloat16)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16).long()
+
+
+def bf16_skew_mirror(qs, ts, params: ScoringParams, allow_overflow=False):
+    """The kernel's schedule replayed in PyTorch on the CPU, on bf16 bit
+    patterns: an odd batch gets the last thread's pad pair (query 4,
+    target 5), rows past n are pad rows of code 4 up to n_pad and rows
+    past n_pad hold a code no target byte equals; sweeps of SWEEP rows as
+    a skewed tile (row r at column s - r, from row r - 1's state of the
+    step before), each row keeping H and G = round(H - gap), the cell
+    H = max(pre, G_left, G_up) as a signed 16-bit max, the score as the
+    indicator times the step plus the base; the last row's H handed to
+    the next sweep through a per-pair [mp] buffer; the best the largest H.
+    Same contract as :func:`sw_bf16`. Nothing on the card path calls it."""
+    n0 = qs.shape[-1]
+    match, mismatch, gap, g = _guard_bf16(params, n0, allow_overflow)
+    cpu = torch.device("cpu")
+    q = as_codes(qs, cpu).long()
+    t = as_codes(ts, cpu).long()
+    B, n = q.shape
+    m = t.shape[1]
+    if t.shape[0] != B:
+        raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
+    if B % 2:
+        q = torch.cat([q, torch.full((1, n), Q_PAD, dtype=torch.long)])
+        t = torch.cat([t, torch.full((1, m), T_PAD, dtype=torch.long)])
+    Be = q.shape[0]
+    np_, mp = padded_rows(n), m + (-m) % CHUNK
+    s_eq, s_ne, gap_bits = _constant_bits(match, mismatch, gap)
+    eq_ind = s_ne < s_eq
+    base, step = (s_ne, s_eq - s_ne) if eq_ind else (s_eq, s_ne - s_eq)
+    gapb = _bf(_s16(torch.tensor(gap_bits)))
+    t = torch.cat([t, torch.full((Be, mp - m), T_PAD, dtype=torch.long)], dim=1)
+    R = SWEEP
+    ar = torch.arange(R)
+    neg_gap = _bits(_bf(torch.zeros((), dtype=torch.long)) - gapb)
+    hbuf = torch.zeros((Be, mp), dtype=torch.long)  # the [mp, Bh] buffer, per pair
+    best = torch.zeros((Be,), dtype=torch.long)
+
+    def shift(first, x):
+        """Row r takes row r - 1's value, row 0 ``first``."""
+        return torch.cat([first[:, None], x[:, :-1]], dim=1)
+
+    for i0 in range(0, np_ if mp else 0, R):
+        first, last = i0 == 0, i0 + R >= np_
+        i = i0 + ar
+        qr = torch.where(i < n, q[:, i.clamp(max=max(n - 1, 0))] if n else 0,
+                         torch.where(i < np_, Q_PAD, _NEVER).expand(Be, R))
+        tc = torch.zeros((Be, R), dtype=torch.long)
+        h = torch.zeros((Be, R), dtype=torch.long)
+        gg = torch.full((Be, R), int(neg_gap))
+        dg = torch.zeros((Be, R), dtype=torch.long)
+        for s in range(mp + R - 1):
+            tn = t[:, min(s, mp - 1)]
+            up_h = hbuf[:, s] if (not first and s < mp) else torch.zeros(Be, dtype=torch.long)
+            up_g = _bits(_bf(_s16(up_h)) - gapb)
+            tr, uh, ug = shift(tn, tc), shift(up_h, h), shift(up_g, gg)
+            x = qr ^ tr
+            ind = (1 - x).clamp(min=0) if eq_ind else x.clamp(max=1)
+            sc = _bf(_s16(ind * step + base))
+            pre = _bits(torch.clamp(_bf(_s16(dg)) + sc, min=0))
+            hn = torch.maximum(torch.maximum(pre, _s16(gg)), _s16(ug))
+            act = ((s - ar >= 0) & (s - ar < mp))[None]
+            gg = torch.where(act, _bits(_bf(hn) - gapb), gg)
+            h = torch.where(act, hn, h)
+            dg = torch.where(act, uh, dg)
+            tc = torch.where(act, tr, tc)
+            best = torch.maximum(best, h.amax(dim=1))
+            if not last and 0 <= s - (R - 1) < mp:
+                hbuf[:, s - (R - 1)] = h[:, R - 1]
+    scores = _bf(best).float().to(torch.int32) * g
+    return scores[:B]

@@ -12,9 +12,10 @@ port, tolerance 0:
   equal to full Smith-Waterman, the left band edge crossing every row
   group, profile scoring, n % 8 != 0, per-pair lengths), and on scorings
   the kernel refuses (mismatch >= 0, gap 0);
-- the kernel wrappers at ``device="cpu"`` against one Pallas interpret
-  call each of ``sw_banded_static_pallas`` and ``sw_banded_profile_pallas``
-  on pad-free codes;
+- the kernel wrappers at ``device="cpu"`` and the kernel's CPU mirror
+  (``banded_skew_mirror``) against one Pallas interpret call each of
+  ``sw_banded_static_pallas`` and ``sw_banded_profile_pallas`` on
+  pad-free codes;
 - ``banded_static_align_batch(device="cpu")`` and ``banded --fixed``
   against JAX's.
 
@@ -217,6 +218,9 @@ def test_static_wrapper_equals_pallas():
     got = sw_banded.sw_banded_static(qs, ts, port(p), 8, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), oracle_scores(qs, ts, p, 8))
+    # the kernel's skewed tile, replayed on the CPU
+    np.testing.assert_array_equal(
+        sw_banded.banded_skew_mirror(qs, ts, port(p), 8).numpy(), want)
 
 
 def test_profile_wrapper_equals_pallas():
@@ -227,6 +231,8 @@ def test_profile_wrapper_equals_pallas():
         want = np.asarray(sw_banded_profile_pallas(qs, ts, p, bandwidth=8))
     got = sw_banded.sw_banded_profile(qs, ts, port(p), 8, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        sw_banded.banded_skew_mirror(qs, ts, port(p), 8, profile=True).numpy(), want)
 
 
 # -- alignment and CLI ---------------------------------------------------

@@ -15,8 +15,10 @@ internal pads included, in both forms (a thread per pair, a warp per
 pair: stripes of 128 rows crossed, ragged n, config-3-like buckets with
 padded targets, the ends against the oracle copy), and the wrapper picks
 the form ``profile_form`` names on both sides of its pair threshold; the
-bf16 kernel (``sw_bf16``) equals its plain version everywhere, drift above the exact range included, and the
-int32 kernel inside it. The varlen and promotion entry points on the card
+bf16 kernel (``sw_bf16``) equals its plain version everywhere, drift above
+the exact range included, odd batches included, and the int32 kernel
+inside it and below the promotion split 255 * g; its launch takes the
+[B, L] codes as they are. The varlen and promotion entry points on the card
 equal themselves on the CPU. The semi-global kernels
 (``semiglobal_batch``, ``semiglobal_profile``) equal their plain version
 and the CPU mirror of their skewed tile, argmax and pinned (global),
@@ -25,8 +27,9 @@ too wide for the packed argmax key; the launch takes the [B, L] codes as
 they are; and the alignment entry points on the card equal themselves on
 the CPU. The
 fixed-band kernel (``sw_banded_static``, ``sw_banded_profile``) equals
-its plain version on ragged shapes, W from 0 past max(n, m), pads and
-lengths; the per-round banded kernel (``banded_batch``) equals its plain
+its plain version on ragged shapes, W from 0 past max(n, m) and around
+its skewed tile's two schedules, pads (above 0 too) and lengths, and its
+launch takes the [B, L] codes as they are; the per-round banded kernel (``banded_batch``) equals its plain
 version in every field at W from 8 to 128, on raw uint8 and int16 codes
 with per-pair lengths, one pair, and each history form, and the earlier
 per-round kernel equals it; the banded alignment entry points on the card
@@ -379,6 +382,11 @@ BF16_CASES = {
     "33x7x1_111": (33, 7, 1, DNA_111, False, 0),
     "2048x300x320_111_overflow": (2048, 300, 320, DNA_111, True, 8),
     "2048x64x64_7_1_1_overflow": (2048, 64, 64, P7, True, 2),
+    # g = 5: the promotion split sits at 255 * 5; an odd batch (the last
+    # thread's pad pair), n below a sweep and not a multiple of 8
+    "2047x300x320_10_30_15_overflow": (2047, 300, 320, DNA_10_30_15, True, 2),
+    "1001x61x70_7_1_1_overflow": (1001, 61, 70, P7, True, 2),
+    "5x7x40_10_30_15": (5, 7, 40, DNA_10_30_15, False, 0),
 }
 
 
@@ -406,7 +414,7 @@ def test_bf16_kernel_equals_plain_on_card(card, case):
     if not ov:
         assert torch.equal(got, exact)
     else:  # below 255 * g exact, and the same pairs at or above it
-        g = 1
+        g = sw_bf16._guard_bf16(p, n, True)[3]
         low = (got < 255 * g) | (exact < 255 * g)
         assert torch.equal(got[low], exact[low])
         assert torch.equal(got >= 255 * g, exact >= 255 * g)
@@ -431,18 +439,19 @@ def test_bf16_pad_cases_on_card(card):
 
 
 def test_bf16_bare_launch_equals_wrapper_on_card(card):
+    """The launch takes the [B, n] / [B, m] codes as the caller holds
+    them, an odd batch included, and refuses transposed or mismatched ones."""
     rng = np.random.default_rng(10000)
     qs, ts = codes(rng, 300, 50, card), codes(rng, 300, 70, card)
-    qT, tT = sw_bf16.bf16_layout(qs, ts, card)
-    got = sw_bf16.bf16_launch_t(qT, tT, DNA_10_30_15)
+    got = sw_bf16.bf16_launch_t(qs, ts, DNA_10_30_15)
     assert torch.equal(got, sw_bf16.sw_bf16(qs, ts, DNA_10_30_15))
+    assert torch.equal(got, sw_bf16.sw_bf16_plain(qs, ts, DNA_10_30_15))
     with pytest.raises(ValueError, match="contiguous uint8"):
-        sw_bf16.bf16_launch_t(qT.t(), tT.t(), DNA_10_30_15)
-    with pytest.raises(ValueError, match="even batch"):
-        sw_bf16.bf16_launch_t(qT[:, :299].contiguous(), tT[:, :299].contiguous(),
-                              DNA_10_30_15)
+        sw_bf16.bf16_launch_t(qs.t(), ts.t(), DNA_10_30_15)
+    with pytest.raises(ValueError, match="batch mismatch"):
+        sw_bf16.bf16_launch_t(qs[:299], ts, DNA_10_30_15)
     odd_q, odd_t = codes(rng, 33, 7, card), codes(rng, 33, 9, card)
-    assert sw_bf16.bf16_layout(odd_q, odd_t, card)[0].shape == (7, 34)
+    assert sw_bf16.bf16_launch_t(odd_q, odd_t, DNA_111).shape == (33,)
     assert torch.equal(sw_bf16.sw_bf16(odd_q, odd_t, DNA_111),
                        sw_batch.sw_batch(odd_q, odd_t, DNA_111))
 
@@ -770,6 +779,43 @@ def test_fixed_band_kernel_equals_plain_on_card(card, scoring, shape):
             assert torch.equal(got, want), (kern.__name__, W)
 
 
+@pytest.mark.parametrize("scoring", list(FIXED_SCORINGS))
+def test_fixed_band_skewed_tile_edges_on_card(card, scoring):
+    """Around the skewed tile's schedules (W = 14 / 15 / 16: masked groups
+    below K = 30 offsets a sweep, the compile-time schedule from it), odd
+    batches, n below a sweep and per-pair lengths; 2048-mers at W = 32."""
+    p = FIXED_SCORINGS[scoring]
+    A = 4 if p.alphabet_size == 4 else 20
+    rng = np.random.default_rng(10000)
+    uniform = sw_batch._uniform_match_mismatch(p) is not None
+    kerns = [sw_banded.sw_banded_profile] + ([sw_banded.sw_banded_static] if uniform
+                                             else [])
+    for B, n, m, widths in ((257, 100, 90, (14, 15, 16)), (33, 13, 70, (14, 15, 16)),
+                            (64, 2048, 2048, (32,))):
+        qs, ts = banded_codes(rng, A, B, n, m, card)
+        qs[:, 7], ts[:, 11] = A, A + 1  # pads at matrix.min()
+        for W in widths:
+            for lens in ({}, dict(lens_q=rng.integers(0, n + 1, B),
+                                  lens_t=rng.integers(0, m + 1, B))):
+                want = sw_banded.sw_banded_plain(qs, ts, p, W, **lens)
+                for kern in kerns:
+                    assert torch.equal(kern(qs, ts, p, W, **lens), want), (
+                        kern.__name__, B, n, m, W, bool(lens))
+
+
+def test_fixed_band_pads_above_zero_on_card(card):
+    """A matrix whose smallest entry is positive: pads past a pair's length
+    can win, so the kernel runs the full width with pads past the lengths."""
+    p = ScoringParams(np.arange(16).reshape(4, 4) % 5 + 1, 2, 1)
+    rng = np.random.default_rng(10000)
+    qs, ts = banded_codes(rng, 4, 300, 70, 60, card)
+    lens = dict(lens_q=rng.integers(0, 71, 300), lens_t=rng.integers(0, 61, 300))
+    for W in (5, 32):
+        for kw in ({}, lens):
+            assert torch.equal(sw_banded.sw_banded_profile(qs, ts, p, W, **kw),
+                               sw_banded.sw_banded_plain(qs, ts, p, W, **kw))
+
+
 def test_fixed_band_pads_and_bare_launch_on_card(card):
     rng = np.random.default_rng(10000)
     p = FIXED_SCORINGS["affine_1_1_3_1"]
@@ -777,12 +823,11 @@ def test_fixed_band_pads_and_bare_launch_on_card(card):
     qs[:, 13], ts[:, 29] = 4, 5  # in-length pads score matrix.min()
     want = sw_banded.sw_banded_plain(qs, ts, p, 12)
     assert torch.equal(sw_banded.sw_banded_static(qs, ts, p, 12), want)
-    qT, tT = qs.t().contiguous(), ts.t().contiguous()
-    assert torch.equal(sw_banded.banded_launch_t(qT, tT, p, 12), want)
+    assert torch.equal(sw_banded.banded_launch_t(qs, ts, p, 12), want)
     table = sw_banded.banded_table(p.matrix, card)
-    assert torch.equal(sw_banded.banded_launch_t(qT, tT, p, 12, table), want)
+    assert torch.equal(sw_banded.banded_launch_t(qs, ts, p, 12, table), want)
     with pytest.raises(ValueError, match="contiguous uint8"):
-        sw_banded.banded_launch_t(qs.t(), tT, p, 12)
+        sw_banded.banded_launch_t(qs.t(), ts, p, 12)
 
 
 def test_fixed_band_guards_raise_on_card(card):

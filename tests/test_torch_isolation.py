@@ -495,27 +495,27 @@ def fake_banded_card(monkeypatch):
     calls, seen = [], {}
     cpu = torch.device("cpu")
     fixed_plain = sw_banded.sw_banded_plain
-    apply_lens = sw_banded._apply_lens
+    lens_tensor = semiglobal_batch.lens_tensor
     stage = banded_batch.stage
     xdrop_plain = banded_scan.banded_xdrop_batch
 
-    def layout(qs, ts, device, what):
+    def as_codes(x, device):
         assert device.type == "cuda"
-        return (port_device.as_codes(qs, cpu).t().contiguous(),
-                port_device.as_codes(ts, cpu).t().contiguous())
+        return port_device.as_codes(x, cpu)
 
-    def lens(qs, ts, lens_q, lens_t, q_pad, t_pad, device):
-        return apply_lens(qs, ts, lens_q, lens_t, q_pad, t_pad, cpu)
+    def lens(x, B, device):
+        assert device.type == "cuda"
+        return lens_tensor(x, B, cpu)
 
     def table(matrix, device):
         assert device.type == "cuda"
         seen["matrix"] = matrix
         return torch.as_tensor(banded_scan._banded_ext_table(matrix))
 
-    def fixed_launch(qT, tT, params, bandwidth, table=None):
+    def fixed_launch(q, t, params, bandwidth, table=None, lens_q=None, lens_t=None):
         calls.append(("fixed", "profile" if table is not None else "uniform",
                       not params.is_linear))
-        return fixed_plain(qT.t(), tT.t(), params, bandwidth, device="cpu")
+        return fixed_plain(q, t, params, bandwidth, lens_q, lens_t, device="cpu")
 
     def prep(qs, ts, lens_q, lens_t, device):
         assert device.type == "cuda"
@@ -533,8 +533,8 @@ def fake_banded_card(monkeypatch):
         return (res.score, res.max_round, res.n_rounds, res.band_history, res.pos_y,
                 res.offsets)
 
-    monkeypatch.setattr(sw_banded, "kernel_layout", layout)
-    monkeypatch.setattr(sw_banded, "_apply_lens", lens)
+    monkeypatch.setattr(semiglobal_batch, "as_codes", as_codes)
+    monkeypatch.setattr(sw_banded, "lens_tensor", lens)
     monkeypatch.setattr(sw_banded, "banded_table", table)
     monkeypatch.setattr(sw_banded, "banded_launch_t", fixed_launch)
     monkeypatch.setattr(banded_batch, "banded_table", table)

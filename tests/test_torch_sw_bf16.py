@@ -171,6 +171,11 @@ def test_overflow_equals_pallas_interpret_below_the_bound():
     low = (got < 255) | (want < 255)
     np.testing.assert_array_equal(got[low], want[low])
     np.testing.assert_array_equal(got >= 255, want >= 255)
+    # the kernel's skewed tile, replayed on the CPU: the plain tier bit for
+    # bit, above the bound too (an even batch of 24: no pad pair)
+    mirror = port_bf16.bf16_skew_mirror(qs, ts, port(P7), allow_overflow=True).numpy()
+    np.testing.assert_array_equal(mirror, got)
+    np.testing.assert_array_equal(mirror[low], want[low])
     assert (got[:8] >= 255).all() and (got[8:16] < 255).any()
     for entry in (sw_scores_promoted, promote.sw_scores_promoted_device):
         _, promoted = entry(qs, ts, port(P7), device="cpu")
