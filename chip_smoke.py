@@ -31,14 +31,19 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
    1. environment: card name and power limit, device count;
    2. build: nvcc on the ten CUDA sources at once; registers, spills and
       shared memory of each kernel; the per-round kernels' round loops,
-      and the semi-global, bf16 and fixed-band kernels' unmasked groups,
-      as compiled (``cuobjdump -sass``: int32 ALU instructions a cell, by
+      and the local row-scan, profile thread-form, semi-global, bf16 and
+      fixed-band kernels' unmasked groups, as compiled (``cuobjdump -sass``: int32 ALU instructions a cell, by
       pipe); the pipe-rate probe (``tools/pipe_probe.cu``: IMNMX, the DPX
       add-max and three-way max, HMNMX2, HFMA2.RELU, HADD2, IMAD, PRMT,
       LOP3 and IADD3, each alone on a full card, lanes an SM a clock);
    3. kernels vs plain versions on the card, exactly equal (integers,
       tolerance 0), on DNA and protein shapes, pads and scorings; the
-      profile kernel on a uniform scoring against the row-scan kernel;
+      row-scan and the profile thread form (their skewed tile) also on n =
+      15, 16, 17, 129 and m = 37, 16, 9, 130, 1 with internal pads, scores
+      too wide for the packed key and (uniform) for the min-cap pad rule,
+      the forced select tracker, against their CPU mirrors
+      (``local_skew_mirror``) on 16 pairs and the library's choice of form;
+      the profile kernel on a uniform scoring against the row-scan kernel;
       the bf16 kernel inside its exact range against the row-scan kernel
       too, above it (config 4's promotion workload, ``allow_overflow``)
       against its plain version bit for bit, drift included, and on the
@@ -92,6 +97,9 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
       (10, -30, open 40, extend 15), timed with CUDA events; the first
       65,536 scores held against the plain version on the card;
+      ``best_ends_engine`` on the same pairs, the first 16,384 held; each
+      form's launch alone beside its bound by pipe, the endpoint's select
+      tracker beside the key;
    5. DNA main path, traceback: ``sw_align_batch`` on 64 related pairs,
       linear and affine, with endpoint, rescoring, CIGAR and SAM checks;
       the device endpoints held against the plain version;
@@ -144,7 +152,8 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       and uniform semi-global kernels, protein for the profile kernels;
       the fixed band at W = 32) and for the per-round kernel on 256
       related 2048-mers, scores only, at W = 96 and 32: the wrapper
-      (layout transposes or code staging included) and the launch alone,
+      (code staging included) and the launch alone (the endpoint forms of
+      the row-scan and the profile thread form: the select tracker too),
       beside the earlier per-round kernel's launch, the plain version's
       time (one call, whose result phase 23 reuses) and the bound; the
       profile kernel's form sweep (both forms alone at B = 512 to 131,072
@@ -257,6 +266,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import functools
 import io
 import json
@@ -278,6 +288,8 @@ CHECK_PAIRS = 1 << 16
 ROWSCAN, PROFILE, BF16 = "sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu"
 SEMIGLOBAL = "sw_semiglobal.cu"
 SG_KERNEL = "sw_semiglobal_kernelI"  # + <AFFINE, PROFILE, END> as nvcc mangles them
+RS_KERNEL = "sw_rowscan_kernelI"  # + <AFFINE, END, WIDE>
+PT_KERNEL = "sw_profile_kernelI"  # the profile thread form, + <AFFINE, END>
 BANDED, XDROP = "sw_banded.cu", "sw_xdrop.cu"
 BLOCK, WALK = "sw_block.cu", "sw_walk.cu"
 STRIP, WAVEFRONT = "sw_strip.cu", "sw_wavefront.cu"
@@ -299,12 +311,20 @@ DISPATCH_LANES_PER_SM = 128
 SMEM_WORDS_PER_SM = 32
 
 # kernel -> (source, mangled-name fragment in nvcc's report, the TPU
-# kernel it replaces, int32 ops per DP cell as written, shared-memory
-# lookups per cell, bf16 results per cell). Row-scan: score select 3
-# (compare, select, pad select), linear H 5 (add, max 0, max(up, left),
-# subtract gap, max), affine F 3 + E 3 + H 4, running best 1 for scores
-# or 3 for ends (compare, two selects). Profile: the score is one add
-# (table offset) and one shared-memory lookup instead of the select 3.
+# kernel it replaces, int32 ops per DP cell the function needs, shared-memory
+# lookups per cell, bf16 results per cell). Local row-scan (since PR 13 the
+# skewed tile of csrc/sw_local_tile.cuh; H kept minus the gap open): the
+# uniform score 3 (compare, select, the pad's min), linear H 2 (the
+# diagonal's add, a DPX three-way max with the 0 floor), Gotoh 4 (E and F
+# a DPX add-max each, the add, the three-way max), D's subtract 1, and the
+# score's best half a three-way max (ends: the key's multiply-add and a
+# max, 2): 6.5 / 8 / 8.5 / 10 (linear scores / ends, Gotoh scores / ends);
+# the profile forms score by the lane table's offset add and a lookup, 1:
+# 4.5 / 6 / 6.5 / 8. PR 1 and PR 2 counted the kernels as written, every op
+# on the ALU: 9 / 11 / 14 / 16 (score select 3: compare, select, pad
+# select; linear H 5: add, max 0, max(up, left), subtract gap, max; affine
+# F 3 + E 3 + H 4; best 1 or, for ends, 3: compare, two selects) and 7 / 9
+# / 12 / 14 (profile: the table offset add and a lookup for the select).
 # bf16: one word covers two cells, one per half; per word the xor, the
 # match indicator (one DPX op), the score's IMAD, the three-way max of the
 # cell (DPX on the 16-bit patterns) and half of a three-way max for the
@@ -318,7 +338,7 @@ SMEM_WORDS_PER_SM = 32
 # nothing: the corner is a row's last cell): lowered from the unskewed
 # kernel's 9 / 7 / 14 / 12 (uniform) and 8 / 6 / 13 / 11 (profile) to what
 # the DPX form needs; phase 2 prints the instructions a cell as compiled.
-# Their bound is by pipe: see ALU_OPS. The fixed band (H kept minus the
+# Rows 1-10 and 17 are bounded by pipe: see ALU_OPS. The fixed band (H kept minus the
 # gap open): the score 2 (compare, select; profile: the table offset add
 # and a lookup, 1), linear H 2 (the diagonal's add, a DPX three-way max
 # with the floor), Gotoh 4 (E and F a DPX add-max each, the add, the
@@ -326,32 +346,38 @@ SMEM_WORDS_PER_SM = 32
 # 5.5 / 7.5 uniform, 4.5 / 6.5 profile per in-band cell (the earlier
 # kernel's row-scan counts: 9 / 14, 7 / 12).
 KERNELS = {
-    "sw_batch": (ROWSCAN, "sw_rowscan_kernelILb0ELb0E",
-                 "swtpu/kernels/pallas/sw_batch.py:317", 9, 0, 0),
-    "sw_batch_ends": (ROWSCAN, "sw_rowscan_kernelILb0ELb1E",
-                      "swtpu/kernels/pallas/sw_batch.py:215", 11, 0, 0),
-    "sw_affine": (ROWSCAN, "sw_rowscan_kernelILb1ELb0E",
-                  "swtpu/kernels/pallas/sw_affine.py:145", 14, 0, 0),
-    "sw_affine_ends": (ROWSCAN, "sw_rowscan_kernelILb1ELb1E",
-                       "swtpu/kernels/pallas/sw_affine.py:175", 16, 0, 0),
-    "sw_profile": (PROFILE, "sw_profile_kernelILb0ELb0E",
-                   "swtpu/kernels/pallas/sw_profile.py:287", 7, 1, 0),
-    "sw_profile_ends": (PROFILE, "sw_profile_kernelILb0ELb1E",
-                        "swtpu/kernels/pallas/sw_profile.py:353", 9, 1, 0),
-    "sw_profile_affine": (PROFILE, "sw_profile_kernelILb1ELb0E",
-                          "swtpu/kernels/pallas/sw_profile.py:287", 12, 1, 0),
-    "sw_profile_affine_ends": (PROFILE, "sw_profile_kernelILb1ELb1E",
-                               "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
+    # <AFFINE, END, WIDE>: END 0 the score, 1 / 2 the endpoint with its
+    # packed key / with (best, step) apart; WIDE the pad select for scores
+    # past the min cap's range
+    "sw_batch": (ROWSCAN, (RS_KERNEL + "Lb0ELi0ELb0E", RS_KERNEL + "Lb0ELi0ELb1E"),
+                 "swtpu/kernels/pallas/sw_batch.py:317", 6.5, 0, 0),
+    "sw_batch_ends": (ROWSCAN, (RS_KERNEL + "Lb0ELi1E", RS_KERNEL + "Lb0ELi2ELb0E",
+                                RS_KERNEL + "Lb0ELi2ELb1E"),
+                      "swtpu/kernels/pallas/sw_batch.py:215", 8, 0, 0),
+    "sw_affine": (ROWSCAN, (RS_KERNEL + "Lb1ELi0ELb0E", RS_KERNEL + "Lb1ELi0ELb1E"),
+                  "swtpu/kernels/pallas/sw_affine.py:145", 8.5, 0, 0),
+    "sw_affine_ends": (ROWSCAN, (RS_KERNEL + "Lb1ELi1E", RS_KERNEL + "Lb1ELi2ELb0E",
+                                 RS_KERNEL + "Lb1ELi2ELb1E"),
+                       "swtpu/kernels/pallas/sw_affine.py:175", 10, 0, 0),
+    # the profile kernel's thread form <AFFINE, END>
+    "sw_profile": (PROFILE, PT_KERNEL + "Lb0ELi0E",
+                   "swtpu/kernels/pallas/sw_profile.py:287", 4.5, 1, 0),
+    "sw_profile_ends": (PROFILE, (PT_KERNEL + "Lb0ELi1E", PT_KERNEL + "Lb0ELi2E"),
+                        "swtpu/kernels/pallas/sw_profile.py:353", 6, 1, 0),
+    "sw_profile_affine": (PROFILE, PT_KERNEL + "Lb1ELi0E",
+                          "swtpu/kernels/pallas/sw_profile.py:287", 6.5, 1, 0),
+    "sw_profile_affine_ends": (PROFILE, (PT_KERNEL + "Lb1ELi1E", PT_KERNEL + "Lb1ELi2E"),
+                               "swtpu/kernels/pallas/sw_profile.py:353", 8, 1, 0),
     # the profile kernel's warp form (a warp per pair, for batches too small
     # to fill the card): the same function, so the same counts
     "sw_profile_warp": (PROFILE, "sw_profile_warp_kernelILb0ELb0E",
-                        "swtpu/kernels/pallas/sw_profile.py:287", 7, 1, 0),
+                        "swtpu/kernels/pallas/sw_profile.py:287", 4.5, 1, 0),
     "sw_profile_ends_warp": (PROFILE, "sw_profile_warp_kernelILb0ELb1E",
-                             "swtpu/kernels/pallas/sw_profile.py:353", 9, 1, 0),
+                             "swtpu/kernels/pallas/sw_profile.py:353", 6, 1, 0),
     "sw_profile_affine_warp": (PROFILE, "sw_profile_warp_kernelILb1ELb0E",
-                               "swtpu/kernels/pallas/sw_profile.py:287", 12, 1, 0),
+                               "swtpu/kernels/pallas/sw_profile.py:287", 6.5, 1, 0),
     "sw_profile_affine_ends_warp": (PROFILE, "sw_profile_warp_kernelILb1ELb1E",
-                                    "swtpu/kernels/pallas/sw_profile.py:353", 14, 1, 0),
+                                    "swtpu/kernels/pallas/sw_profile.py:353", 8, 1, 0),
     "sw_bf16": (BF16, "sw_bf16_kernel",
                 "swtpu/kernels/pallas/sw_bf16.py:134", 2.25, 0, 2),
     # <AFFINE, PROFILE, END>: END 0 / 1 the argmax with its packed key /
@@ -418,15 +444,17 @@ KERNELS = {
                    "swtpu/kernels/xla/banded_scan.py:334", None, 0, 0),
     # the long-pair strip tile <BR, AFFINE> (B13: the pipelined warp bands,
     # and the one-block kernel timed beside it) and the wavefront (B14);
-    # ops per cell: see strip_ops and WAVE_OPS
+    # ops per cell: see strip_ops, and ALU_OPS for B14
     "strip_tile": (STRIP, ("strip_pipe_kernel", "strip_tile_kernel"),
                    "swtpu/kernels/pallas/longpair_strip.py:263", None, 0, 0),
     "sw_wavefront": (WAVEFRONT, "sw_wavefront_kernel",
-                     "swtpu/kernels/pallas/sw_wavefront.py:110", None, 0, 0),
+                     "swtpu/kernels/pallas/sw_wavefront.py:110", 4.5, 1, 0),
 }
 # the int32 ops a cell that only the ALU pipe issues, for the kernels
-# bounded by pipe (rows 7-10): the compare and select of the uniform
-# score, every max and DPX op (semi-global linear H 2, Gotoh 4, the
+# bounded by pipe (rows 1-10 and 17): the compare and select of the uniform
+# score (local: and the pad's min), every max and DPX op (local linear H
+# 1, Gotoh 3, half a three-way max for the score's best or the key's max;
+# semi-global linear H 2, Gotoh 4, the
 # argmax key's max; fixed band the compare and select, the three-way max,
 # E and F, half a three-way max for the best; bf16 the xor, the
 # indicator, the cell's three-way max and half of the best's). The rest of
@@ -435,8 +463,15 @@ KERNELS = {
 # issue as IMADs on the FMA pipe, and bf16's packed float ops on the FMA
 # pipe too, so a cell takes at least max(ALU ops / 64, all instructions /
 # 128) clocks of an SM (pipe_slots), and bf16 its bf16 results at the
-# rate phase 2's probe measures
+# rate phase 2's probe measures. The wavefront (row 17) computes the local
+# linear profile cell too (4.5 / 1.5; PR 7 counted 8 as written)
 ALU_OPS = {
+    "sw_batch": 4.5, "sw_batch_ends": 5, "sw_affine": 6.5, "sw_affine_ends": 7,
+    "sw_profile": 1.5, "sw_profile_ends": 2, "sw_profile_affine": 3.5,
+    "sw_profile_affine_ends": 4,
+    "sw_profile_warp": 1.5, "sw_profile_ends_warp": 2, "sw_profile_affine_warp": 3.5,
+    "sw_profile_affine_ends_warp": 4,
+    "sw_wavefront": 1.5,
     "semiglobal_batch": 5, "semiglobal_batch_pinned": 4,
     "semiglobal_batch_affine": 7, "semiglobal_batch_affine_pinned": 6,
     "semiglobal_profile": 3, "semiglobal_profile_pinned": 2,
@@ -513,11 +548,6 @@ def strip_ops(affine):
     9 linear, 14 Gotoh."""
     return 14 if affine else 9
 
-
-#: int32 ops the wavefront function needs per real cell: the score (the
-#: table offset add; its lookup counted apart), H 6 (the diagonal add, two
-#: gap subtracts, three maxes with the floor), the running best 1
-WAVE_OPS = 8
 
 #: int32 ops a device-walk step needs: the three neighbours' reads (row
 #: base or pos_y, slot, band test, dead test: 8 each), the score 4, the
@@ -628,8 +658,6 @@ def probe_rates(cuobjdump, n_sm, clock_hz):
     """Phase 2's pipe-rate probe (tools/pipe_probe.cu): each instruction
     kind's results a lane-clock of an SM, {SASS opcode: lanes}, from its
     kernel's loop as compiled (`cuobjdump`) and its time on a full card."""
-    import ctypes
-
     from swtpu_torch.kernels import _build
     from swtpu_torch.utils import time_kernel
 
@@ -739,6 +767,21 @@ def related_pairs(rng, B, L, letters=4):
         ts[b, : len(t)] = t
         ts[b, len(t):] = rng.integers(0, letters, size=L - len(t), dtype=np.uint8)
     return qs, ts
+
+
+def local_pairs(rng, B, n, m, letters, pads=0.03):
+    """B random pairs of n x m codes below ``letters``, the first half
+    related (the query's codes copied into the target's first columns),
+    and a ``pads`` share of codes set to the pads (letters / letters + 1,
+    protein's 24 / 25) inside both sides."""
+    q = rng.integers(0, letters, (B, n)).astype(np.uint8)
+    t = rng.integers(0, letters, (B, m)).astype(np.uint8)
+    k = min(n, m)
+    t[: B // 2, :k] = q[: B // 2, :k]
+    pq, pt = (4, 5) if letters == 4 else (24, 25)
+    q[rng.random(q.shape) < pads] = pq
+    t[rng.random(t.shape) < pads] = pt
+    return q, t
 
 
 def semiglobal_pairs(rng, B, n, m, letters=4):
@@ -1222,6 +1265,23 @@ def main():
                   f"{alu / cells:.2f} of them on the ALU (the cell's own: "
                   f"{KERNELS[name][3]}, {ALU_OPS[name]} on the ALU)", flush=True)
 
+    # the local row-scan and the profile thread form (the skewed tile of
+    # csrc/sw_local_tile.cuh): the unmasked group as compiled, by pipe,
+    # every instantiation (the score's narrow and WIDE forms, the key, the
+    # select tracker)
+    for name in DNA_PATH + PROTEIN_PATH[:4]:
+        source = KERNELS[name][0]
+        for frag in tup(KERNELS[name][1]):
+            affine = "ILb1E" in frag  # <AFFINE, ...>
+            alu, imad, moves, _, cells = group_loop_ops(
+                sass_of(_build.library_path(source), frag, cuobjdump), "VIADDMNMX",
+                (3 if affine else 1) * kb.GROUP * kb.ROWS, kb.GROUP * kb.ROWS)
+            print(f"{name} ({frag}): unmasked group {alu} int32 ALU instructions, "
+                  f"{imad} IMADs and {moves} moves for {cells} cells: "
+                  f"{(alu + imad) / cells:.2f} int32 instructions a cell as compiled, "
+                  f"{alu / cells:.2f} of them on the ALU (the cell's own: "
+                  f"{KERNELS[name][3]}, {ALU_OPS[name]} on the ALU)", flush=True)
+
     # the bf16 and fixed-band kernels' unmasked group as compiled, by pipe
     for name, source, frag, marker, n_marker, cells in (
             ("sw_bf16", BF16, "sw_bf16_kernelILb0E", "VIMNMX3", 96, 128),
@@ -1283,6 +1343,56 @@ def main():
                       f"{p.gap_open},{p.gap_extend}) {name}: max |kernel - "
                       f"plain| = {err}", flush=True)
                 check(err == 0, f"{name} differs from its plain version on {label}")
+    # the skewed tile's odd shapes (n below, at and past a sweep of 16 rows,
+    # 129, m not a multiple of 4, below 16, 1), internal pads on both
+    # sides, half the pairs related, scores too wide for the packed key and
+    # for the min-cap pad rule: each instantiation against its plain
+    # version and, on the first 16 pairs, its CPU mirror; the library's
+    # choice of form against the mirror's; the forced select tracker
+    # against the key (their own generator, so later phases keep their
+    # inputs)
+    lrng = np.random.default_rng(SEED + 21)
+    wide_scorings = [ScoringParams.linear(dna_matrix(10**6, -1), 1),
+                     ScoringParams(dna_matrix(3, -(2**21)), gap_open=5, gap_extend=1)]
+    rs_lib = _build.load(ROWSCAN)
+    rs_lib.swtpu_sw_rowscan_form.restype = ctypes.c_int
+    for B_, n_, m_ in ((512, 15, 37), (512, 16, 16), (512, 17, 9), (256, 129, 130),
+                       (300, 33, 1)):
+        qh, th = local_pairs(lrng, B_, n_, m_, 4)
+        qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
+        for p in [DNA_10_30_15, AFF, ScoringParams.linear(dna_matrix(2, -1), 1),
+                  ScoringParams(dna_matrix(2, -1), gap_open=3, gap_extend=1)] + wide_scorings:
+            mm = kb._uniform_match_mismatch(p)
+            names = ["sw_affine", "sw_affine_ends"]
+            if p.is_linear:
+                names = ["sw_batch", "sw_batch_ends"] + names
+            forms = []
+            for name in names:
+                kern, plain, _ = kernel_fns[name]
+                affine, ends = "affine" in name, name.endswith("_ends")
+                got = tup(kern(qd, td, p))
+                err = max_abs_err(got, tup(plain(qd, td, p)))
+                max_err[name] = max(max_err[name], err)
+                check(err == 0, f"{name} differs from its plain version on {B_}x{n_}x{m_}")
+                mirror = tup(kb.local_skew_mirror(qh[:16], th[:16], p, ends, profile=False,
+                                                  affine=affine))
+                check(all(torch.equal(g[:16].cpu(), w) for g, w in zip(got, mirror)),
+                      f"{name} differs from its CPU mirror on {B_}x{n_}x{m_}")
+                end, wide, _ = kb.local_tracker(False, ends, n_, m_, *mm, p.gap_open,
+                                                p.gap_extend)
+                lib_form = rs_lib.swtpu_sw_rowscan_form(int(ends), 0, n_, m_, *mm, p.gap_open,
+                                                        p.gap_extend)
+                check(lib_form == 2 * end + wide, f"{name}: the library's form {lib_form}, "
+                      f"the mirror's {(end, wide)}")
+                if end == kb.END_KEY:  # the select tracker gives the same
+                    sel = kb.rowscan_launch_t(qd, td, p, *mm, affine, True, select=True)
+                    check(all(torch.equal(g, w) for g, w in zip(sel, got)),
+                          f"{name}: the select tracker differs from the key")
+                forms.append(f"{name} {('score', 'key', 'select')[end]}"
+                             f"{' wide' if wide else ''}")
+            print(f"{B_}x{n_}x{m_} ({mm[0]},{mm[1]},{p.gap_open},{p.gap_extend}): "
+                  f"{', '.join(forms)} equal to the plain version and, on 16 pairs, the "
+                  "CPU mirror", flush=True)
     mark("profile kernels")
     # the profile kernels: protein and general DNA matrices (their own
     # generator, so the DNA phases keep their inputs)
@@ -1328,9 +1438,22 @@ def main():
         ("40x1x50 protein", random_protein(prng, (40, 1)),
          random_protein(prng, (40, 50)), [P_LIN, P_GOTOH]),
     ]
+    # the thread form's skewed tile: n = 15, 16, 17, 129, m not a multiple
+    # of 4 or below 16, internal pads, half related; a target long enough
+    # that the packed key cannot hold the scores (its own generator)
+    lrng = np.random.default_rng(SEED + 22)
+    tile_labels = set()
+    for B_, n_, m_ in ((512, 15, 37), (512, 16, 16), (512, 17, 9), (256, 129, 130),
+                       (4, 1200, 3000)):
+        tile_labels.add(f"{B_}x{n_}x{m_} protein, internal pads")
+        profile_cases.append((f"{B_}x{n_}x{m_} protein, internal pads",
+                              *local_pairs(lrng, B_, n_, m_, 20),
+                              [P_GOTOH] if n_ * m_ > 40000 else [P_LIN, P_GOTOH]))
+    pt_lib = _build.load(PROFILE)
+    pt_lib.swtpu_sw_profile_form.restype = ctypes.c_int
     for label, qh, th, plist in profile_cases:
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
-        qT, tT = qd.t().contiguous(), td.t().contiguous()
+        n_, m_ = qh.shape[1], th.shape[1]
         for p in plist:
             table = kp.profile_table(p, dev)
             for ends, kern, plain in ((False, kp.sw_profile, kp.sw_profile_plain),
@@ -1341,14 +1464,32 @@ def main():
                 for warp in (False, True):
                     name = profile_name(ends, p, warp)
                     got = (kp.profile_warp_launch_t(qd, td, table, p, ends) if warp
-                           else kp.profile_launch_t(qT, tT, table, p, ends))
+                           else kp.profile_launch_t(qd, td, table, p, ends))
                     torch.cuda.synchronize()
                     err = max_abs_err(got, want)
                     max_err[name] = max(max_err[name], err)
                     check(err == 0, f"{name} differs from its plain version on {label}")
                 check(max_abs_err(kern(qd, td, p), want) == 0, f"{kern.__name__} on {label}")
+                # the thread form: its tracker as the library and the mirror
+                # choose it, the select tracker, the CPU mirror on 16 pairs
+                end, _, _ = kb.local_tracker(True, ends, n_, m_, 0, 0, p.gap_open,
+                                             p.gap_extend)
+                check(pt_lib.swtpu_sw_profile_form(int(ends), 0, n_, m_, p.gap_open,
+                                                   p.gap_extend) == end,
+                      f"{profile_name(ends, p)}: the library's tracker on {label}")
+                if end == kb.END_KEY:
+                    check(max_abs_err(kp.profile_launch_t(qd, td, table, p, True,
+                                                          select=True), want) == 0,
+                          f"{profile_name(ends, p)}: the select tracker on {label}")
+                mirrored = label in tile_labels and n_ * m_ <= 40000
+                if mirrored:
+                    mirror = tup(kp.profile_skew_mirror(qh[:16], th[:16], p, ends))
+                    check(all(torch.equal(g[:16].cpu(), w) for g, w in zip(tup(want), mirror)),
+                          f"{profile_name(ends, p)} differs from its CPU mirror on {label}")
                 print(f"{label} gap=({p.gap_open},{p.gap_extend}) {profile_name(ends, p)}"
-                      f" and {profile_name(ends, p, True)}: max |kernel - plain| = 0; the "
+                      f" ({('score', 'key', 'select')[end]}) and "
+                      f"{profile_name(ends, p, True)}: max |kernel - plain| = 0"
+                      f"{'; the mirror equal on 16 pairs' if mirrored else ''}; the "
                       f"wrapper ran the {kp.profile_form(*qh.shape, th.shape[1], n_sm)} "
                       "form", flush=True)
     # the profile kernel on a uniform scoring equals the row-scan kernel
@@ -2039,12 +2180,38 @@ def main():
               f"{sec * 1e3:.3f} ms per call, {cells / sec / 1e9:.1f} GCUPS, "
               f"{1e6 / B * sec * 1e3:.3f} ms per 1M alignments, mean score "
               f"{s_host.mean():.3f} [{smi}]", flush=True)
-    # the wrapper's share of that call: the [B, L] -> [L, B] transposes
-    layout_s = timed(
-        lambda q, t: (q.t().contiguous(), t.t().contiguous()), (qd, td), iters=10
-    )
-    print(f"of which layout transposes: {layout_s * 1e3:.3f} ms per call",
-          flush=True)
+        # the endpoints of the same pairs (the traceback's first half at
+        # this scale), the first 16,384 held
+        ends = best_ends_engine(p)(qd, td)
+        name = name + "_ends"
+        err = max_abs_err(tuple(x[:CHECK_PAIRS // 4] for x in ends), kernel_fns[name][1](
+            qd[:CHECK_PAIRS // 4], td[:CHECK_PAIRS // 4], p))
+        max_err[name] = max(max_err[name], err)
+        check(err == 0 and torch.equal(ends[0], scores),
+              f"{name} differs from its plain version at 1M pairs")
+        ends_s = timed(best_ends_engine(p), (qd, td), iters=10)
+        print(f"best_ends_engine gap=({p.gap_open},{p.gap_extend}): {ends_s * 1e3:.3f} ms "
+              f"per call; scores equal best_engine's, the first {CHECK_PAIRS // 4} ends the "
+              "plain version", flush=True)
+        del ends
+        # the launch alone on the [B, L] codes as given (the wrappers
+        # transpose nothing), beside its bound by pipe; the endpoint's
+        # select tracker on the same inputs
+        mm = kb._uniform_match_mismatch(p)
+        for ends_ in (False, True):
+            name = ("sw_batch" if p.is_linear else "sw_affine") + ("_ends" if ends_ else "")
+            alone = timed(kb.rowscan_launch_t, (qd, td, p, *mm, not p.is_linear, ends_),
+                          iters=5) * 1e3
+            bound = cells * pipe_slots(name) / int32_rate * 1e3
+            sel = ""
+            if ends_:
+                sel_ms = timed(lambda: kb.rowscan_launch_t(qd, td, p, *mm, not p.is_linear,
+                                                           True, select=True), (), iters=5)
+                sel = f"; the select tracker {sel_ms * 1e3:.3f} ms"
+            print(f"  {name} launch alone at 1M pairs {alone:.3f} ms, bound by pipe "
+                  f"{bound:.3f} ms ({bound / alone:.1%}; {KERNELS[name][3]} ops a cell, "
+                  f"{ALU_OPS[name]} on the ALU), {alone - bound:.3f} ms lost a launch{sel}",
+                  flush=True)
     del qd, td, qh, th, scores
     torch.cuda.empty_cache()
 
@@ -2186,17 +2353,23 @@ def main():
               f"{ends_s * 1e3:.3f} ms per call; scores equal best_engine's, the first "
               f"{chunk} ends the plain version", flush=True)
         del ends
-        # the thread form's launch alone at this shape, beside its bound
-        qT, tT = qd.t().contiguous(), td.t().contiguous()
+        # the thread form's launch alone at this shape, beside its bound by
+        # pipe (and by its lookups); the endpoint's select tracker
         table = kp.profile_table(p, dev)
         for ends_ in (False, True):
             name = profile_name(ends_, p)
-            alone = timed(kp.profile_launch_t, (qT, tT, table, p, ends_), iters=5) * 1e3
-            bound = cells * KERNELS[name][3] / int32_rate * 1e3
-            print(f"  {name} launch alone at 1M pairs {alone:.3f} ms, bound {bound:.3f} "
-                  f"ms ({bound / alone:.1%}), {alone - bound:.3f} ms lost a launch",
-                  flush=True)
-        del qT, tT
+            alone = timed(kp.profile_launch_t, (qd, td, table, p, ends_), iters=5) * 1e3
+            bound = max(cells * pipe_slots(name) / int32_rate,
+                        cells * KERNELS[name][4] / lookup_rate) * 1e3
+            sel = ""
+            if ends_:
+                sel_ms = timed(lambda: kp.profile_launch_t(qd, td, table, p, True,
+                                                           select=True), (), iters=5)
+                sel = f"; the select tracker {sel_ms * 1e3:.3f} ms"
+            print(f"  {name} launch alone at 1M pairs {alone:.3f} ms, bound by pipe "
+                  f"{bound:.3f} ms ({bound / alone:.1%}; {KERNELS[name][3]} ops a cell, "
+                  f"{ALU_OPS[name]} on the ALU, one lookup), {alone - bound:.3f} ms lost a "
+                  f"launch{sel}", flush=True)
     del qd, td, qh, th, scores
     torch.cuda.empty_cache()
 
@@ -2271,16 +2444,15 @@ def main():
         for k, (dq, dt) in enumerate(buckets):
             alone = timed(kp.profile_warp_launch_t, (dq, dt, table, p, False),
                           iters=10) * 1e3
-            qT, tT = dq.t().contiguous(), dt.t().contiguous()
-            thread = timed(kp.profile_launch_t, (qT, tT, table, p, False), iters=5) * 1e3
-            bound = max(bucket_cells[k] * ops / int32_rate,
+            thread = timed(kp.profile_launch_t, (dq, dt, table, p, False), iters=5) * 1e3
+            bound = max(bucket_cells[k] * pipe_slots(name) / int32_rate,
                         bucket_cells[k] * lookups / lookup_rate) * 1e3
             tot = [tot[0] + alone, tot[1] + thread, tot[2] + bound]
             print(f"  bucket {k}: {dq.shape[0]} pairs of {Lq} x {dt.shape[1]} "
                   f"({bucket_cells[k]} real cells): warp form alone {alone:.4f} ms, "
                   f"thread form {thread:.4f} ms, bound {bound:.4f} ms ({ops} int32 ops "
-                  f"a cell), {bound / alone:.1%} of it", flush=True)
-            del qT, tT
+                  f"a cell, {ALU_OPS[name]} on the ALU, by pipe), {bound / alone:.1%} of it",
+                  flush=True)
         print(f"  the 6 buckets: warp form alone {tot[0]:.4f} ms, thread form "
               f"{tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({tot[2] / tot[0]:.1%})", flush=True)
     # the warp form's four instantiations on the widest bucket: wrapper,
@@ -2293,7 +2465,7 @@ def main():
         for ends, kern, plain in ((False, kp.sw_profile, kp.sw_profile_plain),
                                   (True, kp.sw_profile_ends, kp.sw_profile_ends_plain)):
             name = profile_name(ends, p, warp=True)
-            ops, lookups = KERNELS[name][3:5]
+            lookups = KERNELS[name][4]
             with off_path():
                 t0 = time.perf_counter()
                 want = plain(dq, dt, p)
@@ -2304,7 +2476,8 @@ def main():
             check(err == 0, f"{name} differs from its plain version on the widest bucket")
             ms = timed(kern, (dq, dt, p), iters=10) * 1e3
             alone = timed(kp.profile_warp_launch_t, (dq, dt, table, p, ends), iters=10) * 1e3
-            bound = max(wide_cells * ops / int32_rate, wide_cells * lookups / lookup_rate,
+            bound = max(wide_cells * pipe_slots(name) / int32_rate,
+                        wide_cells * lookups / lookup_rate,
                         (dq.numel() + dt.numel() + 4 * table.numel()
                          + 4 * dq.shape[0] * (3 if ends else 1)) / HBM_BYTES_PER_S) * 1e3
             rows.append(dict(
@@ -2424,34 +2597,31 @@ def main():
     print(f"fused decode + pads + kernel on device tensors: {per * 1e3:.4f} ms, "
           f"{cells / per / 1e9:.1f} GCUPS, {B4 / per:.0f} alignments/s", flush=True)
     # where that time goes: the decode and pads alone (the same unit with
-    # an engine that returns its inputs), the layout transposes, the launch
+    # an engine that returns its inputs) and the launch on the decoded
+    # [B, L] codes (the wrapper transposes nothing)
     decode = _fused_masked_engine(lambda q, t: (q, t), "decode and pads only",
                                   N4, M4, 4, 5, packed=True)
     qm_d, tm_d = decode(dq, dt, lq_d, lt_d)
-    qT, tT = qm_d.t().contiguous(), tm_d.t().contiguous()
     parts = {
         "decode + pads": timed(lambda a, b: decode(a, b, lq_d, lt_d),
                                (dq, dt), iters=10),
-        "layout transposes": timed(
-            lambda a, b: (a.t().contiguous(), b.t().contiguous()), (qm_d, tm_d),
-            iters=10),
         "sw_batch launch alone": timed(
-            lambda: kb.rowscan_launch_t(qT, tT, DNA_111, 1, -1, False, False), (),
+            lambda: kb.rowscan_launch_t(qm_d, tm_d, DNA_111, 1, -1, False, False), (),
             iters=10),
     }
     # the same launch on a quarter of the pairs, whose scratch fits in L2
-    qT4, tT4 = qT[:, :B4 // 4].contiguous(), tT[:, :B4 // 4].contiguous()
+    qm4, tm4 = qm_d[:B4 // 4].contiguous(), tm_d[:B4 // 4].contiguous()
     quarter = timed(
-        lambda: kb.rowscan_launch_t(qT4, tT4, DNA_111, 1, -1, False, False), (),
+        lambda: kb.rowscan_launch_t(qm4, tm4, DNA_111, 1, -1, False, False), (),
         iters=10)
     print("of which " + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items())
           + f"; the launch runs {B4 * N4 * M4 / parts['sw_batch launch alone'] / 1e9:.1f} "
           f"GCUPS over the {B4 * N4 * M4} padded cells, with a "
-          f"{4 * M4 * B4 / 1e6:.1f} MB previous-row scratch (L2: 50 MB); on "
+          f"{4 * M4 * B4 / 1e6:.1f} MB hand-off scratch (L2: 50 MB); on "
           f"the first {B4 // 4} pairs ({M4 * B4 / 1e6:.1f} MB scratch) "
           f"{quarter * 1e3:.4f} ms, {B4 * N4 * M4 / 4 / quarter / 1e9:.1f} GCUPS",
           flush=True)
-    del qm_d, tm_d, qT, tT, qT4, tT4
+    del qm_d, tm_d, qm4, tm4
     # every score against the plain version on the unpacked, masked codes
     for (qs_p, ts_p, lens), got in zip(sets[1:], results):
         qm = np.where(np.arange(N4)[None, :] < lens[:, None],
@@ -2546,16 +2716,14 @@ def main():
     check(torch.equal(kbf.sw_bf16(qd, td, DNA_10_30_15), int32_fn(qd, td)),
           "sw_bf16 vs best_engine at 1M pairs")
     cells = B * n * m
-    qT, tT = qd.t().contiguous(), td.t().contiguous()
-    # the bf16 launch takes the [B, L] codes as they are; the row-scan's
-    # the transposes
+    # both launches take the [B, L] codes as they are
     bf16_bound = max(cells * pipe_slots("sw_bf16") / int32_rate,
                      cells * KERNELS["sw_bf16"][5] / bf16_rate)
     for label, fn, args, bare in (
             ("sw_bf16", kbf.sw_bf16, (qd, td, DNA_10_30_15),
              lambda: kbf.bf16_launch_t(qd, td, DNA_10_30_15)),
             ("best_engine (int32 sw_batch)", int32_fn, (qd, td),
-             lambda: kb.rowscan_launch_t(qT, tT, DNA_10_30_15, 10, -30,
+             lambda: kb.rowscan_launch_t(qd, td, DNA_10_30_15, 10, -30,
                                          False, False))):
         sec = timed(fn, args, iters=10)
         bare_s = timed(bare, (), iters=10)
@@ -2567,7 +2735,7 @@ def main():
               f"GCUPS){extra} [{smi}]", flush=True)
     print(f"all {B} scores equal", flush=True)
     restore(saved)
-    del qd, td, qT, tT
+    del qd, td
     torch.cuda.empty_cache()
 
     # 15. config-4 CLI -----------------------------------------------------
@@ -2625,14 +2793,7 @@ def main():
     inputs[BF16] = inputs[ROWSCAN]  # the same DNA codes
     for source, (qh, th) in inputs.items():
         qd, td = torch.from_numpy(qh).to(dev), torch.from_numpy(th).to(dev)
-        # the wrapper's [B, L] -> [L, B] layout transposes alone, and the
-        # codes in the kernel's layout for timing the launch alone
-        layout_ms = timed(
-            lambda q, t: (q.t().contiguous(), t.t().contiguous()), (qd, td),
-            iters=20) * 1e3
-        print(f"{source} inputs: layout transposes {layout_ms:.4f} ms per call",
-              flush=True)
-        qT, tT = qd.t().contiguous(), td.t().contiguous()
+        # every launch takes the [B, L] codes as they are (no transposes)
         for name, (src, _, replaces, ops, lookups, bf16_ops) in KERNELS.items():
             if src != source or name.endswith("_warp"):  # the warp form: phase 8
                 continue
@@ -2640,22 +2801,28 @@ def main():
             ends = name.endswith("_ends")
             ms = timed(kern, (qd, td, p), iters=20) * 1e3
             if source == ROWSCAN:
-                def bare(p=p, ends=ends):
+                def bare(p=p, ends=ends, select=False):
                     return kb.rowscan_launch_t(
-                        qT, tT, p, *kb._uniform_match_mismatch(p),
-                        not p.is_linear, ends)
-            elif source == BF16:  # the [B, L] codes as they are
+                        qd, td, p, *kb._uniform_match_mismatch(p),
+                        not p.is_linear, ends, select=select)
+            elif source == BF16:
                 def bare(p=p):
                     return kbf.bf16_launch_t(qd, td, p)
             else:
                 table = kp.profile_table(p, dev)
 
-                def bare(p=p, ends=ends, table=table):
-                    return kp.profile_launch_t(qT, tT, table, p, ends)
+                def bare(p=p, ends=ends, table=table, select=False):
+                    return kp.profile_launch_t(qd, td, table, p, ends, select=select)
 
             for g, w in zip(tup(bare()), tup(kern(qd, td, p))):
                 check(torch.equal(g, w), f"{name}: bare launch vs wrapper")
             kernel_ms = timed(bare, (), iters=20) * 1e3
+            extra = {}
+            if ends:  # the endpoint's select tracker on the same inputs
+                for g, w in zip(bare(select=True), bare()):
+                    check(torch.equal(g, w), f"{name}: select tracker vs the key")
+                extra["select_kernel_ms"] = timed(lambda: bare(select=True), (),
+                                                  iters=20) * 1e3
             plain_ms = timed(plain, (qd, td, p), iters=1, warmup=1, reps=1) * 1e3
             n_out = 3 if ends else 1
             table_bytes = 4 * kp.profile_table(p, dev).numel() if source == PROFILE else 0
@@ -2675,19 +2842,21 @@ def main():
                 max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound,
                 bound_by="bytes" if binds == "bytes" else "operations",
-                library_ms=None, kernel_ms=kernel_ms,
+                library_ms=None, kernel_ms=kernel_ms, **extra,
             ))
             by_pipe = (f", {ALU_OPS[name]} on the ALU only, {slots} slots by pipe"
                        if name in ALU_OPS else "")
+            sel = (f" (the select tracker {extra['select_kernel_ms']:.4f} ms)" if extra
+                   else "")
             print(f"{name}: wrapper {ms:.4f} ms ({bound / ms:.1%} of the bound), "
-                  f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}), "
+                  f"launch alone {kernel_ms:.4f} ms ({bound / kernel_ms:.1%}){sel}, "
                   f"plain {plain_ms:.2f} ms, bound {bound:.4f} ms by {binds} "
                   f"({ops} int32 ops/cell{by_pipe}: {times['int32 ops']:.4f} ms; "
                   f"{bf16_ops} bf16 results/cell: {times['bf16 ops']:.4f} ms; "
                   f"{lookups} lookups/cell: {times['shared-memory lookups']:.4f} "
                   f"ms; at {sm_clock_mhz:.0f} MHz), wrapper "
                   f"{B * n * m / ms / 1e6:.1f} GCUPS", flush=True)
-        del qd, td, qT, tT
+        del qd, td
     # the semi-global kernels: uniform on the DNA codes, profile on the
     # protein codes; their launches are counted on their path (phases
     # 17-21), after these timings
@@ -2876,26 +3045,25 @@ def main():
         for B_ in (512, 2731, 8192, 32768, 131072):
             q_ = torch.from_numpy(random_protein(srng, (B_, 120))).to(dev)
             t_ = torch.from_numpy(random_protein(srng, (B_, m_))).to(dev)
-            qT_, tT_ = q_.t().contiguous(), t_.t().contiguous()
             line = []
             for p in (P_LIN, P_GOTOH):
                 table = kp.profile_table(p, dev)
                 got = kp.profile_warp_launch_t(q_, t_, table, p, False)
                 name = profile_name(False, p, warp=True)
-                err = max_abs_err(got, kp.profile_launch_t(qT_, tT_, table, p, False))
+                err = max_abs_err(got, kp.profile_launch_t(q_, t_, table, p, False))
                 if B_ == 512:  # and the plain version, once a width
                     err = max(err, max_abs_err(got, kp.sw_profile_plain(q_, t_, p)))
                 max_err[name] = max(max_err[name], err)
                 check(err == 0, f"{name} differs on the sweep's {B_} x 120 x {m_}")
                 it = 3 if B_ * m_ > 10**7 else 10
                 w = timed(kp.profile_warp_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
-                th = timed(kp.profile_launch_t, (qT_, tT_, table, p, False), iters=it) * 1e3
+                th = timed(kp.profile_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
                 pick = kp.profile_form(B_, 120, m_, n_sm)
                 picks.append((pick, "warp" if w < th else "thread", min(w, th) / max(w, th)))
                 line.append(f"gap=({p.gap_open},{p.gap_extend}) {w:.4f} / {th:.4f}, "
                             f"{picks[-1][1]}, picks {pick}")
             print(f"  {B_} x 120 x {m_}: " + "; ".join(line), flush=True)
-            del q_, t_, qT_, tT_
+            del q_, t_
             torch.cuda.empty_cache()
     right_pick = sum(p == f for p, f, _ in picks)
     near = sum(p == f or r > 0.9 for p, f, r in picks)
@@ -4167,7 +4335,7 @@ def main():
             plain_ms = timed(kwf.sw_wavefront_plain, (qd, td, p), iters=1,
                              warmup=1, reps=1) * 1e3
             cells = B * 128 * 128
-            times = {"int32 ops": cells * WAVE_OPS / int32_rate * 1e3,
+            times = {"int32 ops": cells * pipe_slots("sw_wavefront") / int32_rate * 1e3,
                      "shared-memory lookups": cells / lookup_rate * 1e3,
                      "bytes": (B * 256 + 4 * B) / HBM_BYTES_PER_S * 1e3}
             binds = max(times, key=times.get)
@@ -4182,7 +4350,8 @@ def main():
                   f"ms ({times[binds] / wms:.1%} of the bound), launch alone "
                   f"{kernel_ms:.4f} ms ({times[binds] / kernel_ms:.1%}), plain "
                   f"{plain_ms:.1f} ms, bound {times[binds]:.4f} ms by {binds} "
-                  f"({WAVE_OPS} int32 ops a real cell: {times['int32 ops']:.4f} ms; one "
+                  f"({KERNELS['sw_wavefront'][3]} int32 ops a real cell, "
+                  f"{ALU_OPS['sw_wavefront']} on the ALU, by pipe: {times['int32 ops']:.4f} ms; one "
                   f"lookup: {times['shared-memory lookups']:.4f} ms)", flush=True)
     strip_count("4096 x 4096")
     for B, n, m in ((2, 512, 384), (2, 1024, 256)):

@@ -4,43 +4,43 @@
 // protein with BLOSUM62).
 //
 // Replaces the packed-profile TPU kernel, in its four forms, each in two
-// forms here (a thread per pair below, a warp per pair further down):
-//   <false,false>  swtpu/kernels/pallas/sw_profile.py  _kernel, linear  (pallas_call :287)
-//   <false,true >  same, linear, with rowbits (ends)                   (pallas_call :353)
-//   <true, false>  same, affine                                        (pallas_call :287)
-//   <true, true >  same, affine, with rowbits (ends)                   (pallas_call :353)
+// forms here (a thread per pair, sw_profile_kernel<AFFINE, END>, and a
+// warp per pair, sw_profile_warp_kernel<AFFINE, ENDS>, further down):
+//   <false, END_SCORE> / <false,false>  swtpu/kernels/pallas/sw_profile.py  _kernel, linear  (pallas_call :287)
+//   <false, END_KEY | SELECT> / <false,true >  same, linear, with rowbits (ends)     (pallas_call :353)
+//   <true,  END_SCORE> / <true, false>  same, affine                                (pallas_call :287)
+//   <true,  END_KEY | SELECT> / <true, true >  same, affine, with rowbits (ends)     (pallas_call :353)
 //
-// Design. The skeleton of csrc/sw_rowscan.cu: one thread per pair over
-// [n, B] / [m, B] uint8 codes, rows outer, ROWS query rows per sweep with
-// the left H and E in registers, an [m, B] int32 previous-row scratch (H,
-// and F for affine) read and written once per sweep, per-row strict-'>'
-// endpoints folded in row order (the oracle's row-major-first argmax).
-// Only the score differs: s = tab[q_i * stride + t_j], from the plain
-// tier's extended table (kernels/sw_scan.py::_extended_table, stride 8
-// for DNA-sized alphabets, 32 for protein) that each block copies into
-// shared memory. Each row's offset q_i * stride is hoisted once per
-// sweep, so a cell pays one add and one shared load for its score. The
-// TPU kernel's query profile, int8 planes and select tree are TPU layout
-// and are not carried over.
+// Design of the thread form (sw_profile_kernel<AFFINE, END>, for batches
+// that fill the card: kernels/sw_profile.py::profile_form picks it by
+// shape): the skewed register tile of csrc/sw_local_tile.cuh (its head
+// note has the schedule, the cell and the trackers), a thread per pair on
+// the caller's [B, n] / [B, m] codes (the wrapper transposes nothing),
+// ROWS = 16 query rows a sweep, an [m, B] int32 hand-off scratch ([m, B,
+// 2] affine) read and written once a sweep, DPX cells on D = H - go.
+// Each cell's score is one lookup in the plain tier's extended table
+// (kernels/sw_scan.py::_extended_table: pads -2^20, internal ones
+// included), which each CTA copies into shared memory as a lane table
+// (the alphabet + 1 codes, the last a pad; each entry 32 times, word 32 x
+// entry + lane, with go folded in), so a warp's 32 lookups hit 32 banks
+// whatever the codes: 80 KB for BLOSUM62, two CTAs an SM. Codes clamp to
+// the pad, so every code past the alphabet, up to 255, scores -2^20.
+// Endpoints: END_KEY where local_tile::key_bits holds the pair's scores
+// (an entry counts as 127), else END_SELECT. The earlier thread form (8
+// rows a column over [L, B] transposes, a table of stride^2 words whose
+// protein lookups took about 4 passes a warp) is replaced. The TPU
+// kernel's query profile, int8 planes and select tree are TPU layout and
+// are not carried over; it scores pads at -128, which differs on internal
+// pads: the port follows its plain tier.
 //
-// Pads: every table entry past the alphabet is -2^20 (the plain tier's
-// rule), so a pad on either side, internal ones included, can only lose.
-// The TPU kernel scores pads at -128 instead, which differs on internal
-// pads; the port follows its plain tier. Codes are clamped to stride - 1,
-// a pad, on load (they arrive as uint8 up to 255). Phantom rows past n
-// are pad rows and can neither feed nor beat a real row.
-//
-// Bound: int32 issue (132 SMs x 64 lanes x SM clock), as in the row-scan:
-// as written a cell costs 7 int32 ops (linear scores), 9 (linear ends),
-// 12 (affine scores) and 14 (affine ends), plus one shared-memory lookup.
-// The lookup is not free of bank conflicts: with the protein table's row
-// stride of 32 the bank is t mod 32, so lanes reading one t under
-// different q collide (about 4 passes per warp-wide load on random
-// protein, a numpy estimate); the DNA table (stride 8) puts the 16 real
-// (q, t) pairs on 16 distinct banks. A thread per pair also needs the
-// batch to fill the card: 128-thread blocks of 2,731 pairs (BASELINE
-// config 3's buckets) run on 22 of 132 SMs, each thread a chain of n x m
-// cells.
+// Bound of the thread form, by pipe: a cell needs the table offset add 1
+// (+ one shared-memory lookup), linear H 2 (the diagonal's add, a
+// three-way max with the floor), Gotoh 4 (E, F, the add, the three-way
+// max), D's subtract 1, and the score's best half a three-way max or the
+// endpoint's key 2 (its IMAD and a max): 4.5 / 6 / 6.5 / 8 ops, 1.5 / 2 /
+// 3.5 / 4 on the ALU pipe (linear scores / ends, Gotoh scores / ends);
+// chip_smoke.py bounds each form by the larger of its ALU ops / 64 lanes,
+// all its ops / 128 and its lookups / 32 banks an SM a clock.
 //
 // The warp form (sw_profile_warp_kernel<AFFINE, ENDS>), for batches too
 // small to fill the card (kernels/sw_profile.py::profile_form picks it by
@@ -68,124 +68,66 @@
 // WR dependent cells and a shuffle; with few pairs the warps on an SM
 // (occupancy capped by the profile's 16 KB a warp for protein) hide it.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sw_local_tile.cuh"
 
 namespace {
 
-constexpr int ROWS = 8;
 constexpr int THREADS = 128;
 constexpr int MAX_STRIDE = 32;
 constexpr int NEG_EF = -(1 << 29);
 
-template <bool AFFINE, bool ENDS>
-__global__ void __launch_bounds__(THREADS)
-sw_profile_kernel(const uint8_t* __restrict__ qT, const uint8_t* __restrict__ tT,
-                  const int32_t* __restrict__ table, int32_t* __restrict__ hrow,
-                  int32_t* __restrict__ frow, int32_t* __restrict__ score,
-                  int32_t* __restrict__ end_i, int32_t* __restrict__ end_j,
-                  int B, int n, int m, int stride, int go, int ge) {
-  __shared__ int32_t tab[MAX_STRIDE * MAX_STRIDE];
-  for (int k = threadIdx.x; k < stride * stride; k += THREADS) tab[k] = table[k];
-  __syncthreads();
+using local_tile::END_KEY;
+using local_tile::END_SCORE;
+using local_tile::END_SELECT;
 
+template <bool AFFINE, int END>
+__global__ void __launch_bounds__(THREADS)
+sw_profile_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
+                  const int32_t* __restrict__ table, int32_t* __restrict__ scratch,
+                  int32_t* __restrict__ score, int32_t* __restrict__ end_i,
+                  int32_t* __restrict__ end_j, int B, int n, int m, int stride,
+                  local_tile::Scoring sc, bool vec) {
+  // the lane table: entry (q, t) of the scores (go folded in: H is kept
+  // minus it) 32 times, word 32 (q x codes + t) + lane
+  extern __shared__ int32_t lane_tab[];
+  const int nc = sc.pad + 1;
+  for (int w = threadIdx.x; w < nc * nc * 32; w += THREADS) {
+    const int qi = (w >> 5) / nc, ti = (w >> 5) - qi * nc;
+    lane_tab[w] = __ldg(table + qi * stride + ti) + sc.go;
+  }
+  __syncthreads();
   const int b = blockIdx.x * THREADS + threadIdx.x;
   if (b >= B) return;
-  const size_t sB = static_cast<size_t>(B);
-  const int pad = stride - 1;  // a code past the alphabet: scores -2^20
-
-  // row 0: H = 0, F = -inf
-  for (int j = 0; j < m; ++j) {
-    hrow[j * sB + b] = 0;
-    if (AFFINE) frow[j * sB + b] = NEG_EF;
-  }
-
-  int best = 0, bi = 0, bj = 0;
-  for (int i0 = 0; i0 < n && m > 0; i0 += ROWS) {
-    int qo[ROWS];                       // row offset into the table
-    int hl[ROWS], dg[ROWS], el[ROWS];   // left H, diagonal H, left E
-    int rb[ROWS], rj[ROWS];             // per-row best and its column
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int c = (i0 + r < n) ? qT[(i0 + r) * sB + b] : pad;
-      qo[r] = min(c, pad) * stride;
-      hl[r] = 0;
-      dg[r] = 0;
-      el[r] = NEG_EF;
-      rb[r] = 0;
-      rj[r] = 0;
-    }
-
-    int t_next = tT[b];
-    int up_next = hrow[b];
-    int f_next = AFFINE ? frow[b] : 0;
-    for (int j = 0; j < m; ++j) {
-      const int tc = min(t_next, pad);
-      int up = up_next;  // H[i0 - 1][j + 1], then each row's fresh H
-      int f = f_next;    // F[i0 - 1][j + 1], then each row's F
-      if (j + 1 < m) {
-        const size_t o = (j + 1) * sB + b;
-        t_next = tT[o];
-        up_next = hrow[o];
-        if (AFFINE) f_next = frow[o];
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int s = tab[qo[r] + tc];
-        int h;
-        if (AFFINE) {
-          f = max(f - ge, up - go);
-          el[r] = max(el[r] - ge, hl[r] - go);
-          h = max(max(dg[r] + s, 0), max(el[r], f));
-        } else {
-          h = max(max(dg[r] + s, 0), max(up, hl[r]) - go);
-        }
-        dg[r] = up;  // H[i - 1][j] is the diagonal of cell (i, j + 1)
-        hl[r] = h;
-        up = h;      // and H[i][j] is the cell above (i + 1, j)
-        if (ENDS) {
-          if (h > rb[r]) {
-            rb[r] = h;
-            rj[r] = j + 1;
-          }
-        } else {
-          best = max(best, h);
-        }
-      }
-      hrow[j * sB + b] = up;
-      if (AFFINE) frow[j * sB + b] = f;
-    }
-
-    if (ENDS) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (rb[r] > best) {
-          best = rb[r];
-          bi = i0 + r + 1;
-          bj = rj[r];
-        }
-      }
-    }
-  }
-
+  // this lane's word of entry 0 of the lane table
+  const unsigned lane0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(lane_tab)) + 4 * (threadIdx.x & 31);
+  int best, bi, bj;
+  local_tile::local_pair<AFFINE, true, false, END>(
+      q + b * static_cast<size_t>(n), t + b * static_cast<size_t>(m), scratch, b, n, m,
+      static_cast<ptrdiff_t>(B) * (AFFINE ? 2 : 1), sc, vec, lane0, best, bi, bj);
   score[b] = best;
-  if (ENDS) {
+  if (END != END_SCORE) {
     end_i[b] = bi;
     end_j[b] = bj;
   }
 }
 
-template <bool AFFINE, bool ENDS>
-void launch(const void* qT, const void* tT, const void* table, void* hrow,
-            void* frow, void* score, void* end_i, void* end_j, int B, int n,
-            int m, int stride, int go, int ge, cudaStream_t stream) {
+template <bool AFFINE>
+void launch(int end, const void* q, const void* t, const void* table, void* scratch,
+            void* score, void* end_i, void* end_j, int B, int n, int m, int stride,
+            const local_tile::Scoring& sc, bool vec, cudaStream_t stream) {
   const dim3 grid((B + THREADS - 1) / THREADS);
-  sw_profile_kernel<AFFINE, ENDS><<<grid, THREADS, 0, stream>>>(
-      static_cast<const uint8_t*>(qT), static_cast<const uint8_t*>(tT),
-      static_cast<const int32_t*>(table), static_cast<int32_t*>(hrow),
-      static_cast<int32_t*>(frow), static_cast<int32_t*>(score),
-      static_cast<int32_t*>(end_i), static_cast<int32_t*>(end_j), B, n, m,
-      stride, go, ge);
+  auto* kernel = end == END_KEY      ? sw_profile_kernel<AFFINE, END_KEY>
+                 : end == END_SELECT ? sw_profile_kernel<AFFINE, END_SELECT>
+                                     : sw_profile_kernel<AFFINE, END_SCORE>;
+  const int smem = (sc.pad + 1) * (sc.pad + 1) * 32 * 4;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(scratch),
+      static_cast<int32_t*>(score), static_cast<int32_t*>(end_i),
+      static_cast<int32_t*>(end_j), B, n, m, stride, sc, vec);
 }
 
 constexpr int WR = 4;              // the warp form's query rows a lane
@@ -363,36 +305,54 @@ void launch_warp(const void* q, const void* t, const void* table, void* hrow, vo
 
 extern "C" {
 
-// Launches one of the four instantiations on `stream` and returns
+// The thread form's query rows a sweep (the wrapper needs the scratch
+// past one sweep).
+int swtpu_sw_profile_rows() { return local_tile::ROWS; }
+
+// The thread form's tracker for a launch of these sizes and gaps: 0 the
+// score, 1 the endpoint with its packed key, 2 the endpoint with (best,
+// step) apart (`select` forces it where the key would hold).
+int swtpu_sw_profile_form(int ends, int select, int n, int m, int gap_open,
+                          int gap_extend) {
+  if (!ends) return END_SCORE;
+  return !select && local_tile::key_bits(true, n, m, 0, 0, gap_open, gap_extend) >= 0
+             ? END_KEY
+             : END_SELECT;
+}
+
+// Launches one of the thread form's instantiations on `stream` and returns
 // cudaGetLastError() (a refused launch never runs, and a later synchronise
 // would not report it); cudaErrorInvalidValue for a table stride outside
-// 1..32. Pointers: qT [n, B] uint8, tT [m, B] uint8, table [stride,
-// stride] int32, hrow [m, B] int32, frow [m, B] int32 (affine only),
-// score / end_i / end_j [B] int32 (end_* for ends only). All on one
-// device, all contiguous; the wrapper checks that. Linear kernels use
-// gap_open as the gap.
-int swtpu_sw_profile(int affine, int ends, const void* qT, const void* tT,
-                     const void* table, void* hrow, void* frow, void* score,
-                     void* end_i, void* end_j, int B, int n, int m, int stride,
+// 1..32, codes outside 1..stride (the codes the lane table holds, the
+// last a pad: the alphabet + 1; codes past it score as that pad) or a
+// missing scratch past one sweep. Pointers: q [B, n] uint8, t [B, m]
+// uint8, table [stride, stride] int32, scratch [m, B] int32 (linear: H -
+// gap) or [m, B, 2] int32 (affine: H - gap_open, F), unused (null) when
+// n <= ROWS or m == 0, score [B] int32, end_i / end_j [B] int32 (ends
+// only). All on one device, all contiguous; the wrapper checks that.
+// Linear kernels use gap_open as the gap. `select`: the endpoint with
+// (best, step) apart even where the key would hold.
+int swtpu_sw_profile(int affine, int ends, int select, const void* q, const void* t,
+                     const void* table, void* scratch, void* score, void* end_i,
+                     void* end_j, int B, int n, int m, int stride, int codes,
                      int gap_open, int gap_extend, void* stream) {
-  if (stride < 1 || stride > MAX_STRIDE) return static_cast<int>(cudaErrorInvalidValue);
+  if (stride < 1 || stride > MAX_STRIDE || codes < 1 || codes > stride)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > local_tile::ROWS && m > 0 && !scratch)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
+  const int end = swtpu_sw_profile_form(ends, select, n, m, gap_open, gap_extend);
+  const int kb =
+      end == END_KEY ? local_tile::key_bits(true, n, m, 0, 0, gap_open, gap_extend) : 0;
+  const local_tile::Scoring sc{0, 0, 0, 0, codes - 1, gap_open, gap_extend, kb, 1 << kb};
+  // whole 32-bit code words: every target row 4-byte aligned
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (affine) {
-    if (ends)
-      launch<true, true>(qT, tT, table, hrow, frow, score, end_i, end_j, B, n, m,
-                         stride, gap_open, gap_extend, s);
-    else
-      launch<true, false>(qT, tT, table, hrow, frow, score, end_i, end_j, B, n, m,
-                          stride, gap_open, gap_extend, s);
-  } else {
-    if (ends)
-      launch<false, true>(qT, tT, table, hrow, frow, score, end_i, end_j, B, n, m,
-                          stride, gap_open, gap_extend, s);
-    else
-      launch<false, false>(qT, tT, table, hrow, frow, score, end_i, end_j, B, n, m,
-                           stride, gap_open, gap_extend, s);
-  }
+  if (affine)
+    launch<true>(end, q, t, table, scratch, score, end_i, end_j, B, n, m, stride, sc, vec, s);
+  else
+    launch<false>(end, q, t, table, scratch, score, end_i, end_j, B, n, m, stride, sc, vec,
+                  s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,9 @@
 Each source under ``swtpu_torch/csrc/`` has a plain ``extern "C"``
 interface and includes no PyTorch header, so nvcc compiles it in seconds
 into a shared library under ``swtpu_torch/_build/`` (listed in
-.gitignore), named by the hash of the source and the flags: an edited
-source builds anew, an unchanged one loads from disk. ``-Xptxas -v``
+.gitignore), named by the hash of the source, the ``csrc/`` headers it
+includes (``#include "..."``) and the flags: an edited source or header
+builds anew, an unchanged one loads from disk. ``-Xptxas -v``
 makes nvcc report each kernel's registers, spills and shared memory; the
 report is kept beside the library (``build_log``).
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -62,8 +64,11 @@ def nvcc_path() -> str:
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC / source
+    text = src.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        text + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

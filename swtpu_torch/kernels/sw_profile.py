@@ -5,15 +5,16 @@ gaps: the CUDA profile kernel and its plain PyTorch version.
 Port of ``swtpu/kernels/pallas/sw_profile.py`` (``sw_batch_profile_pallas``
 and ``sw_batch_profile_pallas_ends``). The kernel is ``csrc/sw_profile.cu``,
 whose head note says what it replaces, what bounds it and how, in two
-hand-written forms: a thread per pair over the [L, B] transposes
-(``sw_batch.kernel_layout``), reading each cell's score from the plain
-tier's extended table (``sw_scan._extended_table``), which the wrapper
-copies to the card once per scoring; and a warp per pair over the [B, L]
-codes as given, lanes as row bands, for batches too small to fill the card.
-:func:`profile_form` picks the form from the shape; both give the same
-results. The plain versions are the anti-diagonal tiers (``sw_scan.py``
-linear, ``affine_scan.py`` affine); :func:`profile_warp_mirror` replays the
-warp form's lane schedule on the CPU (tests only).
+hand-written forms, both on the [B, L] codes as given (no transposes) and
+the plain tier's extended table (``sw_scan._extended_table``), which the
+wrapper copies to the card once per scoring: a thread per pair, the
+skewed register tile of ``csrc/sw_local_tile.cuh`` shared with the
+row-scan kernel; and a warp per pair, lanes as row bands, for batches too
+small to fill the card. :func:`profile_form` picks the form from the
+shape; both give the same results. The plain versions are the
+anti-diagonal tiers (``sw_scan.py`` linear, ``affine_scan.py`` affine);
+:func:`profile_skew_mirror` and :func:`profile_warp_mirror` replay the two
+forms' schedules on the CPU (tests only).
 
 ``sw_profile`` and ``sw_profile_ends`` check the kernel's guards (at most
 30 letters, entries in [-127, 127], gaps > 0; a uniform matrix passes
@@ -25,8 +26,9 @@ also in ``<wrapper>.launches_affine``, and those of the warp form in
 ``launches_warp`` (affine: ``launches_warp_affine``).
 
 Unlike the TPU kernel there is no ``m > 2048`` transposition and no
-packed-comb overflow guard: the scratch lives in device memory and the
-endpoint keeps values and rows apart.
+packed-comb overflow guard: the scratch lives in device memory, and the
+thread form packs (best, step) into one key only where
+``sw_batch.key_bits`` says it holds the scores (else it keeps them apart).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from swtpu_torch.kernels.affine_scan import (
     sw_affine_batch_diag,
     sw_affine_batch_diag_ends,
 )
-from swtpu_torch.kernels.sw_batch import kernel_layout, launch_buffers, ptr
+from swtpu_torch.kernels.sw_batch import launch_buffers, local_skew_mirror, ptr
 from swtpu_torch.kernels.sw_scan import (
     _extended_table,
     sw_batch_diag,
@@ -103,8 +105,10 @@ def _profile_fn(name="swtpu_sw_profile"):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i] + [p] * 8 + [i] * 6 + [p]
+        fn.argtypes = ([i, i, i] + [p] * 7 + [i] * 7 + [p] if name == "swtpu_sw_profile"
+                       else [i, i] + [p] * 8 + [i] * 6 + [p])
         fn.restype = ctypes.c_int
+        lib.swtpu_sw_profile_rows.restype = ctypes.c_int
     return lib, fn
 
 
@@ -114,9 +118,10 @@ STRIPE = 32 * WARP_ROWS
 #: the thread form takes a batch only past this many pairs an SM (fewer
 #: leave it too few warps to hide its chain of cells) and ...
 WARP_PAIRS_PER_SM = 64
-#: ... targets of at most this many codes (longer ones push its [m, B]
-#: scratch rows out of L2); both from chip_smoke.py's form sweep
-THREAD_MAX_M = 256
+#: ... targets of at most this many codes (the widest the sweep measures:
+#: the thread form won there from 32,768 pairs on); both from
+#: chip_smoke.py's form sweep
+THREAD_MAX_M = 800
 
 
 def profile_form(B: int, n: int, m: int, n_sm: int) -> str:
@@ -138,9 +143,8 @@ def _sm_count(device: torch.device) -> int:
 def profile_launch(qs, ts, params: ScoringParams, device: torch.device,
                    ends: bool):
     """Launch the profile kernel on ``device`` in the form
-    :func:`profile_form` picks: the warp form on the codes as given
-    ([B, n] / [B, m] uint8, :func:`profile_warp_launch_t`), the thread form
-    on the kernel layout's [L, B] transposes (``sw_batch.kernel_layout``,
+    :func:`profile_form` picks, on the codes as given ([B, n] / [B, m]
+    contiguous uint8: :func:`profile_warp_launch_t`,
     :func:`profile_launch_t`). Returns (int32 [B] score, or (score, end_i,
     end_j); the form)."""
     if device.type != "cuda":
@@ -151,11 +155,8 @@ def profile_launch(qs, ts, params: ScoringParams, device: torch.device,
             f"batch mismatch: {q.shape[0]} queries vs {t.shape[0]} targets")
     table = profile_table(params, device)
     form = profile_form(q.shape[0], q.shape[1], t.shape[1], _sm_count(device))
-    if form == "warp":
-        return profile_warp_launch_t(q.contiguous(), t.contiguous(), table, params,
-                                     ends), form
-    qT, tT = kernel_layout(q, t, device, "profile")
-    return profile_launch_t(qT, tT, table, params, ends), form
+    launch = profile_warp_launch_t if form == "warp" else profile_launch_t
+    return launch(q.contiguous(), t.contiguous(), table, params, ends), form
 
 
 def _check_table(table, device):
@@ -209,27 +210,33 @@ def profile_warp_launch_t(q, t, table, params: ScoringParams, ends: bool):
     return (out[0], out[1], out[2]) if ends else out[0]
 
 
-def profile_launch_t(qT, tT, table, params: ScoringParams, ends: bool):
-    """The thread form's launch alone, on codes already in the kernel's layout (qT
-    [n, B], tT [m, B] contiguous uint8 on one CUDA device) and the table
-    of :func:`profile_table` there. The instantiation is affine unless
-    gap_open == gap_extend. Allocates the scratch and the outputs and
-    launches on the device's current stream."""
+def profile_launch_t(q, t, table, params: ScoringParams, ends: bool,
+                     select: bool = False):
+    """The thread form's launch alone: q [B, n] and t [B, m] contiguous
+    uint8 codes on one CUDA device (no transposes) and the table of
+    :func:`profile_table` there; the lane table holds the alphabet + 1
+    codes (a code past them scores as the pad). The instantiation is
+    affine unless gap_open == gap_extend; ``select`` makes an endpoint
+    launch keep (best, step) apart even where the packed key holds the
+    scores. Allocates the hand-off scratch and the outputs
+    (``sw_batch.launch_buffers``) and launches on the device's current
+    stream."""
     affine = not params.is_linear
-    B, n, m, hrow, frow, score, end_i, end_j = launch_buffers(
-        qT, tT, affine, ends, "profile"
-    )
-    stride = _check_table(table, qT.device)
     lib, fn = _profile_fn()
-    with torch.cuda.device(qT.device):
-        stream = torch.cuda.current_stream(qT.device).cuda_stream
+    B, n, m, scratch, out = launch_buffers(
+        q, t, affine, ends, "profile", lib.swtpu_sw_profile_rows()
+    )
+    stride = _check_table(table, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            int(affine), int(ends), ptr(qT), ptr(tT), ptr(table), ptr(hrow),
-            ptr(frow), ptr(score), ptr(end_i), ptr(end_j), B, n, m, stride,
-            params.gap_open, params.gap_extend, stream,
+            int(affine), int(ends), int(select), ptr(q), ptr(t), ptr(table), ptr(scratch),
+            ptr(out[0]), ptr(out[1]) if ends else None, ptr(out[2]) if ends else None,
+            B, n, m, stride, params.alphabet_size + 1, params.gap_open,
+            params.gap_extend, stream,
         )
     _build.check(lib, err, "sw_profile")
-    return (score, end_i, end_j) if ends else score
+    return (out[0], out[1], out[2]) if ends else out[0]
 
 
 def sw_profile_plain(qs, ts, params: ScoringParams, device=None):
@@ -297,7 +304,17 @@ sw_profile_ends.launches_warp = 0
 sw_profile_ends.launches_warp_affine = 0
 
 
-# -- a plain mirror of the warp form's lane schedule (tests only) ------------
+# -- plain mirrors of the two forms' schedules (tests only) ------------------
+
+
+def profile_skew_mirror(qs, ts, params: ScoringParams, ends: bool = False,
+                        select: bool = False):
+    """The thread form (csrc/sw_profile.cu ``sw_profile_kernel`` on
+    csrc/sw_local_tile.cuh) replayed on the CPU
+    (``sw_batch.local_skew_mirror``, the lane table's lookups): the
+    contract of :func:`sw_profile` / :func:`sw_profile_ends`."""
+    _guard_profile(params)
+    return local_skew_mirror(qs, ts, params, ends, profile=True, select=select)
 
 _NEG_EF = -(2**29)
 

@@ -9,7 +9,11 @@ on a machine without it (the repo's conftest imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Integer outputs must be exactly equal (tolerance 0). The row-scan
-kernels (``sw_batch``, ``sw_affine``) run uniform DNA scoring; the
+kernels (``sw_batch``, ``sw_affine``) run uniform DNA scoring; they and
+the profile kernel's thread form take the [B, L] codes as they are and
+equal the CPU mirror of their skewed tile (``local_skew_mirror``) and the
+plain version on the tile's odd shapes, in every instantiation (the
+score, the packed key, the select tracker, the WIDE pad select); the
 profile kernels (``sw_profile``) run BLOSUM62 and general 4x4 matrices,
 internal pads included, in both forms (a thread per pair, a warp per
 pair: stripes of 128 rows crossed, ragged n, config-3-like buckets with
@@ -165,13 +169,14 @@ def test_bare_launch_equals_wrapper_on_card(card, name):
     affine, ends = "affine" in name, name.endswith("_ends")
     p = AFF if affine else DNA_10_30_15
     got = sw_batch.rowscan_launch_t(
-        qs.t().contiguous(), ts.t().contiguous(), p,
-        *sw_batch._uniform_match_mismatch(p), affine, ends,
+        qs, ts, p, *sw_batch._uniform_match_mismatch(p), affine, ends,
     )
     for g, w in zip(tup(got), tup(PAIRS[name][0](qs, ts, p))):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="contiguous uint8"):
         sw_batch.rowscan_launch_t(qs.t(), ts.t(), p, 10, -30, affine, ends)
+    with pytest.raises(ValueError, match="batch mismatch"):
+        sw_batch.rowscan_launch_t(qs, ts[:-1], p, 10, -30, affine, ends)
 
 
 def test_guards_raise_on_card(card):
@@ -279,8 +284,7 @@ def test_profile_bare_launch_equals_wrapper_on_card(card, name, scoring):
     qs, ts = profile_codes(rng, 300, 50, 24, card), profile_codes(rng, 300, 70, 24, card)
     table = sw_profile.profile_table(p, card)
     ends = name.endswith("_ends")
-    got = sw_profile.profile_launch_t(qs.t().contiguous(), ts.t().contiguous(),
-                                      table, p, ends)
+    got = sw_profile.profile_launch_t(qs, ts, table, p, ends)
     for g, w in zip(tup(got), tup(PROFILE_PAIRS[name][0](qs, ts, p))):
         assert torch.equal(g, w)
     for g, w in zip(tup(got), tup(sw_profile.profile_warp_launch_t(qs, ts, table, p,
@@ -291,8 +295,97 @@ def test_profile_bare_launch_equals_wrapper_on_card(card, name, scoring):
     with pytest.raises(ValueError, match="contiguous uint8"):
         sw_profile.profile_launch_t(qs.t(), ts.t(), table, p, ends)
     with pytest.raises(ValueError, match="int32 table"):
-        sw_profile.profile_launch_t(qs.t().contiguous(), ts.t().contiguous(),
-                                    table.to(torch.int64), p, ends)
+        sw_profile.profile_launch_t(qs, ts, table.to(torch.int64), p, ends)
+
+
+# the local tile's odd shapes: n below, at and past a sweep of 16 rows, 129;
+# m not a multiple of 4, below 16, 1
+TILE_SHAPES = {"512x15x37": (512, 15, 37), "512x16x16": (512, 16, 16),
+               "512x17x9": (512, 17, 9), "64x129x130": (64, 129, 130),
+               "300x33x1": (300, 33, 1)}
+ROWSCAN_WIDE = {
+    "key_too_narrow": ScoringParams.linear(dna_matrix(10**7, -1), 1),
+    "pad_cap_inexact": ScoringParams(dna_matrix(3, -(2**21)), gap_open=5, gap_extend=1),
+}
+
+
+def tile_pairs(rng, B, n, m, A, device):
+    """Half related pairs with internal pads on both sides (A + 1 / A + 2
+    for the alphabet of A letters, protein's 24 / 25) and a code of 255."""
+    hi = 20 if A == 24 else A
+    q = rng.integers(0, hi, (B, n)).astype(np.uint8)
+    t = rng.integers(0, hi, (B, m)).astype(np.uint8)
+    k = min(n, m)
+    t[: B // 2, :k] = q[: B // 2, :k]
+    q[rng.random(q.shape) < 0.03] = A
+    t[rng.random(t.shape) < 0.03] = A + 1
+    if m > 5:
+        t[:, 5] = 255
+    return q, t, torch.from_numpy(q).to(device), torch.from_numpy(t).to(device)
+
+
+@pytest.mark.parametrize("shape", list(TILE_SHAPES))
+@pytest.mark.parametrize("scoring", ["10_30_15", "tie_rich", "affine_10_30_40_15",
+                                     "affine_tie_rich"] + list(ROWSCAN_WIDE))
+def test_rowscan_kernel_equals_mirror_and_plain_on_card(card, scoring, shape):
+    """Every instantiation the launch picks (score, key, select, WIDE) and
+    the forced select tracker: equal to the plain version and, on the first
+    16 pairs, to the CPU mirror of the skewed tile; the library's choice of
+    form and its ROWS equal the mirror's."""
+    p = SCORINGS.get(scoring) or ROWSCAN_WIDE[scoring]
+    B, n, m = TILE_SHAPES[shape]
+    qh, th, qs, ts = tile_pairs(np.random.default_rng(10000), B, n, m, 4, card)
+    mm = sw_batch._uniform_match_mismatch(p)
+    lib = sw_batch._rowscan_fn()[0]
+    assert lib.swtpu_sw_rowscan_rows() == sw_batch.ROWS
+    for affine in ((False, True) if p.is_linear else (True,)):
+        for ends in (False, True):
+            want = (sw_affine.sw_affine_ends_plain if ends else sw_affine.sw_affine_plain)(
+                qs, ts, p)
+            end, wide, _ = sw_batch.local_tracker(False, ends, n, m, *mm, p.gap_open,
+                                                  p.gap_extend)
+            assert lib.swtpu_sw_rowscan_form(int(ends), 0, n, m, *mm, p.gap_open,
+                                             p.gap_extend) == 2 * end + wide
+            mirror = tup(sw_batch.local_skew_mirror(qh[:16], th[:16], p, ends,
+                                                    profile=False, affine=affine))
+            for select in ((False, True) if ends else (False,)):
+                got = tup(sw_batch.rowscan_launch_t(qs, ts, p, *mm, affine, ends,
+                                                    select=select))
+                torch.cuda.synchronize()
+                for g, w, x in zip(got, tup(want), mirror):
+                    assert torch.equal(g, w)
+                    assert torch.equal(g[:16].cpu(), x)
+
+
+@pytest.mark.parametrize("shape", list(TILE_SHAPES) + ["4x1200x3000"])
+@pytest.mark.parametrize("scoring", ["blosum62_linear11", "blosum62_gotoh11_1",
+                                     "dna_general_gotoh3_1"])
+def test_profile_thread_form_equals_mirror_and_plain_on_card(card, scoring, shape):
+    """The thread form's instantiations (score, key, select: the forced one,
+    and at 1200 x 3000 the one the launch picks for scores too wide for the
+    key) against the plain version and, on 16 pairs, the CPU mirror."""
+    p = PROFILE_SCORINGS[scoring]
+    B, n, m = TILE_SHAPES.get(shape) or (4, 1200, 3000)
+    qh, th, qs, ts = tile_pairs(np.random.default_rng(10000), B, n, m, p.alphabet_size,
+                                card)
+    lib = sw_profile._profile_fn()[0]
+    assert lib.swtpu_sw_profile_rows() == sw_batch.ROWS
+    table = sw_profile.profile_table(p, card)
+    for ends in (False, True):
+        want = (sw_profile.sw_profile_ends_plain if ends else sw_profile.sw_profile_plain)(
+            qs, ts, p)
+        end, _, _ = sw_batch.local_tracker(True, ends, n, m, 0, 0, p.gap_open, p.gap_extend)
+        assert lib.swtpu_sw_profile_form(int(ends), 0, n, m, p.gap_open,
+                                         p.gap_extend) == end
+        mirror = (tup(sw_profile.profile_skew_mirror(qh[:16], th[:16], p, ends))
+                  if n * m <= 20000 else None)
+        for select in ((False, True) if ends else (False,)):
+            got = tup(sw_profile.profile_launch_t(qs, ts, table, p, ends, select=select))
+            torch.cuda.synchronize()
+            for k, (g, w) in enumerate(zip(got, tup(want))):
+                assert torch.equal(g, w)
+                if mirror is not None:
+                    assert torch.equal(g[:16].cpu(), mirror[k])
 
 
 WARP_SHAPES = {

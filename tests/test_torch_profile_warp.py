@@ -67,7 +67,7 @@ def inputs(n, m, B=6, seed=10000):
     (1 << 20, 128, 128, 132, "thread"),
     (1 << 20, 128, sw_profile.THREAD_MAX_M, 132, "thread"),
     (1 << 20, 128, sw_profile.THREAD_MAX_M + 1, 132, "warp"),
-    (32768, 120, 800, 132, "warp"),
+    (32768, 120, 800, 132, "thread"),
     (sw_profile.WARP_PAIRS_PER_SM * 16 + 1, 120, 128, 16, "thread"),
     (0, 120, 128, 132, "thread"),
     (64, 0, 128, 132, "thread"),
@@ -123,8 +123,7 @@ def fake_profile_card(monkeypatch):
     def launch(form):
         def fn(q, t, table, params, ends):
             calls.append((form, tuple(q.shape), not params.is_linear, ends))
-            z = torch.zeros((q.shape[0] if form == "warp" else q.shape[1],),
-                            dtype=torch.int32)
+            z = torch.zeros((q.shape[0],), dtype=torch.int32)
             return (z, z, z) if ends else z
         return fn
 
@@ -132,8 +131,6 @@ def fake_profile_card(monkeypatch):
     monkeypatch.setattr(sw_profile, "profile_table",
                         lambda params, device: torch.zeros((32, 32), dtype=torch.int32))
     monkeypatch.setattr(sw_profile, "_sm_count", lambda device: 132)
-    monkeypatch.setattr(sw_profile, "kernel_layout",
-                        lambda q, t, device, what: (q.t().contiguous(), t.t().contiguous()))
     monkeypatch.setattr(sw_profile, "profile_warp_launch_t", launch("warp"))
     monkeypatch.setattr(sw_profile, "profile_launch_t", launch("thread"))
     for name in ("sw_profile_plain", "sw_profile_ends_plain", "sw_batch_diag",
@@ -157,6 +154,6 @@ def test_wrappers_launch_the_form_the_rule_picks(fake_profile_card, ends, scorin
     before = [getattr(wrapper, k) for k in names]
     wrapper(q, t, p, device="cuda")
     affine, warp = not p.is_linear, form == "warp"
-    assert fake_profile_card == [(form, (B, 5) if warp else (5, B), affine, ends)]
+    assert fake_profile_card == [(form, (B, 5), affine, ends)]  # both forms: [B, n]
     assert [getattr(wrapper, k) for k in names] == [
         before[0] + 1, before[1] + affine, before[2] + warp, before[3] + (warp and affine)]
