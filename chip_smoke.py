@@ -32,8 +32,9 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
    2. build: nvcc on the ten CUDA sources at once; registers, spills and
       shared memory of each kernel; the per-round kernels' round loops,
       and the local row-scan, profile thread-form, semi-global, bf16 and
-      fixed-band kernels' unmasked groups, as compiled (``cuobjdump -sass``: int32 ALU instructions a cell, by
-      pipe); the pipe-rate probe (``tools/pipe_probe.cu``: IMNMX, the DPX
+      fixed-band kernels' unmasked groups and the wavefront kernel's
+      iteration (both tables), as compiled (``cuobjdump -sass``: int32 ALU
+      instructions a cell, by pipe); the pipe-rate probe (``tools/pipe_probe.cu``: IMNMX, the DPX
       add-max and three-way max, HMNMX2, HFMA2.RELU, HADD2, IMAD, PRMT,
       LOP3 and IADD3, each alone on a full card, lanes an SM a clock);
    3. kernels vs plain versions on the card, exactly equal (integers,
@@ -91,8 +92,11 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       (1,-1,1), Gotoh (2,-3,5,1), BLOSUM62 11/1 and a 4x4 matrix, with
       non-zero and -2^20 boundaries, pads and an all-negative tile; the
       wavefront kernel (B14) against its plain
-      version on 8192 x 128 x 128 (10,-30,15), 300 x 100 x 150 (1,-1,1) and
-      1024 x 128 x 128 protein BLOSUM62 11, pads included;
+      version and its schedule's CPU mirror (``wavefront_stream_mirror``,
+      run on the card) on 8192 x 128 x 128 (10,-30,15), 300 x 100 x 150
+      (1,-1,1), 1024 and 2500 x 128 x 128 protein BLOSUM62 11 with the pairs
+      a stream the wrapper picks, and with 1 to 16 forced (ragged last
+      streams, targets of 1 to 3 codes, both tables), pads included;
    4. DNA main path, scores: ``best_engine`` at the SpeedTest size,
       1,048,576 x (128 x 128), linear (10, -30, 15) and affine
       (10, -30, open 40, extend 15), timed with CUDA events; the first
@@ -447,8 +451,12 @@ KERNELS = {
     # ops per cell: see strip_ops, and ALU_OPS for B14
     "strip_tile": (STRIP, ("strip_pipe_kernel", "strip_tile_kernel"),
                    "swtpu/kernels/pallas/longpair_strip.py:263", None, 0, 0),
-    "sw_wavefront": (WAVEFRONT, "sw_wavefront_kernel",
-                     "swtpu/kernels/pallas/sw_wavefront.py:110", 4.5, 1, 0),
+    # <PAIRS>: the lane table by pairs of columns (alphabets of up to 4
+    # letters) or by columns. Ops and lookups a cell at the row's shape
+    # (DNA): 4.0 and half a lookup, since an 8-byte lookup and its add
+    # serve two cells; by columns (protein) 4.5 and one (see ALU_OPS)
+    "sw_wavefront": (WAVEFRONT, ("sw_wavefront_kernelILb0E", "sw_wavefront_kernelILb1E"),
+                     "swtpu/kernels/pallas/sw_wavefront.py:110", 4.0, 0.5, 0),
 }
 # the int32 ops a cell that only the ALU pipe issues, for the kernels
 # bounded by pipe (rows 1-10 and 17): the compare and select of the uniform
@@ -464,7 +472,8 @@ KERNELS = {
 # pipe too, so a cell takes at least max(ALU ops / 64, all instructions /
 # 128) clocks of an SM (pipe_slots), and bf16 its bf16 results at the
 # rate phase 2's probe measures. The wavefront (row 17) computes the local
-# linear profile cell too (4.5 / 1.5; PR 7 counted 8 as written)
+# linear profile cell too (4.5 / 1.5; PR 7 counted 8 as written), its DNA
+# form with half a lookup's add a cell (4.0 / 1.5)
 ALU_OPS = {
     "sw_batch": 4.5, "sw_batch_ends": 5, "sw_affine": 6.5, "sw_affine_ends": 7,
     "sw_profile": 1.5, "sw_profile_ends": 2, "sw_profile_affine": 3.5,
@@ -652,6 +661,43 @@ def group_loop_ops(ins, marker, count, cells):
             alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves - imad - half
             return alu, imad, moves, half, cells
     raise RuntimeError(f"check failed: no group loop with {count} {marker}")
+
+
+def wavefront_loop_ops(ins, cells):
+    """The wavefront kernel's iteration loop as compiled: the shortest loop
+    holding ``cells`` VIADDMNMX.RELU (one a cell, 8 x 8 an iteration; the
+    table by column pairs runs two iterations a pass).
+    Blocks a forward branch in the loop skips (the ring's refill, one
+    iteration in 8; the forcing step, once a pair a lane, which the warp
+    runs in nearly every iteration) are counted apart. Returns (ALU
+    instructions, IMADs, moves, lookups (LDS), other instructions of the
+    path every iteration runs; instructions of the skipped blocks)."""
+    addr = {a: i for i, (a, _) in enumerate(ins)}
+
+    def opc(o):
+        return o.split()[1] if o.startswith("@") else o.split()[0]
+
+    body = None
+    for i, (a, o) in enumerate(ins):
+        m = BRANCH.search(o)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+            loop = ins[addr[int(m.group(1), 16)]:i + 1]
+            if (sum(opc(x).startswith("VIADDMNMX.RELU") for _, x in loop) == cells
+                    and (body is None or len(loop) < len(body))):
+                body = loop
+    check(body is not None, f"no wavefront loop with {cells} VIADDMNMX.RELU")
+    end = body[-1][0]
+    skipped = set()
+    for a, o in body[:-1]:
+        m = BRANCH.search(o)
+        if m and a < int(m.group(1), 16) <= end:
+            skipped.update(x for x, _ in body if a < x < int(m.group(1), 16))
+    ops = [opc(o) for a, o in body if a not in skipped]
+    moves = sum(x.startswith(("MOV", "IMAD.MOV")) for x in ops)
+    imad = sum(x.startswith("IMAD") for x in ops) - sum(x.startswith("IMAD.MOV") for x in ops)
+    lds = sum(x.startswith("LDS") for x in ops)
+    alu = sum(not x.startswith(NOT_ALU) for x in ops) - moves - imad
+    return alu, imad, moves, lds, len(ops) - alu - imad - moves - lds, len(skipped)
 
 
 def probe_rates(cuobjdump, n_sm, clock_hz):
@@ -1300,6 +1346,23 @@ def main():
               f"{(alu + imad) / cells:.2f} int32 and {half / cells:.2f} bf16 instructions "
               f"a cell as compiled, {alu / cells:.2f} on the ALU (the cell's own: "
               f"{KERNELS[kname][3]} int32, {ALU_OPS[kname]} on the ALU)", flush=True)
+    # the wavefront kernel's iteration loop as compiled, each form <PAIRS>:
+    # a pass of the loop runs an iteration (PAIRS: two) of 8 steps of 8
+    # cells a lane
+    for frag in KERNELS["sw_wavefront"][1]:
+        cells = (2 if frag.endswith("Lb1E") else 1) * kwf.ROWS * kwf.ROWS
+        alu, imad, moves, lds, other, skipped = wavefront_loop_ops(
+            sass_of(_build.library_path(WAVEFRONT), frag, cuobjdump), cells)
+        print(f"sw_wavefront ({frag}): a loop pass ({cells} cells a lane) runs {alu} int32 "
+              f"ALU instructions, {imad} IMADs, {moves} moves, {lds} shared-memory loads "
+              f"(the lookups and the codes) and {other} others: "
+              f"{(alu + imad) / cells:.2f} int32 instructions a cell as compiled, "
+              f"{alu / cells:.2f} on the ALU, "
+              f"{(alu + imad + moves + lds + other) / cells:.2f} issued; beside them "
+              f"{skipped} in the refill (one iteration in 8) and forcing blocks (the "
+              f"cell's own: {4.0 if frag.endswith('Lb1E') else 4.5} int32, "
+              f"{ALU_OPS['sw_wavefront']} on the ALU, "
+              f"{0.5 if frag.endswith('Lb1E') else 1} lookup)", flush=True)
     # the pipe-rate probe: which pipe each instruction kind issues on
     rates = probe_rates(cuobjdump, n_sm, sm_clock_mhz * 1e6)
     # the packed bf16 ops' results a clock an SM, as measured (2 a lane)
@@ -2126,21 +2189,42 @@ def main():
           "48, 16384 x 64 and 16383 x 33, a prime R, four scorings, non-zero and -2^20 "
           "boundaries, pads, an all-negative tile) equal the plain tile on every return, "
           "the pipelined and the one-block kernel alike", flush=True)
-    mark("wavefront kernel (B14) vs its plain version")
-    for label, p, B, n, m, letters in (
-            ("8192 x 128 x 128, (10,-30,15)", DNA_10_30_15, 8192, 128, 128, 4),
-            ("300 x 100 x 150, (1,-1,1)", DNA_111, 300, 100, 150, 4),
-            ("1024 x 128 x 128, protein BLOSUM62 11", P_LIN, 1024, 128, 128, 20)):
+    mark("wavefront kernel (B14) vs its plain version and its schedule's mirror")
+    G4W = ScoringParams.linear(np.arange(16).reshape(4, 4) % 5 - 2, 2)
+    for label, p, B, n, m, letters, pairs, paired in (
+            ("8192 x 128 x 128, (10,-30,15)", DNA_10_30_15, 8192, 128, 128, 4, None, None),
+            ("300 x 100 x 150, (1,-1,1)", DNA_111, 300, 100, 150, 4, None, None),
+            ("1024 x 128 x 128, protein BLOSUM62 11", P_LIN, 1024, 128, 128, 20, None, None),
+            ("2500 x 128 x 128, protein BLOSUM62 11", P_LIN, 2500, 128, 128, 20, None, None),
+            # pairs a stream forced: ragged last streams, one and many pairs
+            # a stream, targets shorter than 4, both tables, and DNA on the
+            # table by columns (the form protein takes)
+            ("1001 x 128 x 128, (10,-30,15), P 4", DNA_10_30_15, 1001, 128, 128, 4, 4, None),
+            ("1001 x 128 x 128, (10,-30,15), P 4, by columns", DNA_10_30_15, 1001, 128, 128,
+             4, 4, False),
+            ("999 x 128 x 3, (1,-1,1), P 16", DNA_111, 999, 128, 3, 4, 16, None),
+            ("301 x 128 x 2, BLOSUM62 11, P 3", P_LIN, 301, 128, 2, 20, 3, None),
+            ("130 x 60 x 130, 4 x 4 matrix, P 3", G4W, 130, 60, 130, 4, 3, None),
+            ("77 x 128 x 1, BLOSUM62 11, P 1", P_LIN, 77, 128, 1, 20, 1, None),
+            ("515 x 100 x 33, (1,-1,1), P 1", DNA_111, 515, 100, 33, 4, 1, None),
+            ("64 x 128 x 300, BLOSUM62 11, P 7", P_LIN, 64, 128, 300, 20, 7, None)):
         qs = srng.integers(0, letters, (B, n)).astype(np.uint8)
         ts = srng.integers(0, letters, (B, m)).astype(np.uint8)
         qs[:, n - 5:] = p.alphabet_size  # tail pads
         ts[srng.random(ts.shape) < 0.02] = p.alphabet_size + 1  # internal pads
         qd, td = torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev)
-        err = max_abs_err(kwf.sw_wavefront(qd, td, p), kwf.sw_wavefront_plain(qd, td, p))
+        if pairs is None:
+            got = kwf.sw_wavefront(qd, td, p)
+            pairs = kwf.wavefront_stream(B, n, m, n_sm, p.alphabet_size)
+        else:
+            got = kwf.wavefront_launch_t(qd, td, kwf.wavefront_table(p, dev), p, pairs,
+                                         paired)
+        err = max(max_abs_err(got, kwf.sw_wavefront_plain(qd, td, p)),
+                  max_abs_err(got, kwf.wavefront_stream_mirror(qd, td, p, pairs)))
         max_err["sw_wavefront"] = max(max_err["sw_wavefront"], err)
-        check(err == 0, f"sw_wavefront differs from its plain version on {label}")
-        print(f"sw_wavefront on {label} (tail and internal pads): equal to its plain "
-              "version", flush=True)
+        check(err == 0, f"sw_wavefront differs from its plain version or mirror on {label}")
+        print(f"sw_wavefront on {label} ({pairs} pairs a stream; tail and internal pads): "
+              "equal to its plain version and its mirror", flush=True)
     del qd, td, zq
 
     # DNA main path: counts from here to the end of phase 6 ----------------
@@ -4324,9 +4408,10 @@ def main():
         check(torch.equal(got, best_engine(p)(qd, td)),
               f"wavefront vs best_engine, {label}, {B} pairs")
         restore(saved)
-        print(f"wavefront {label}, {B} pairs of 128 x 128: {ms:.4f} ms a call, "
-              f"{B * 128 * 128 / ms / 1e6:.1f} GCUPS; equal to best_engine's kernel",
-              flush=True)
+        pairs = kwf.wavefront_stream(B, 128, 128, n_sm, p.alphabet_size)
+        print(f"wavefront {label}, {B} pairs of 128 x 128 ({pairs} pairs a stream): "
+              f"{ms:.4f} ms a call, {B * 128 * 128 / ms / 1e6:.1f} GCUPS; equal to "
+              "best_engine's kernel", flush=True)
         if B == 8192 and p is DNA_10_30_15:  # B14's row
             wms = timed(kwf.sw_wavefront, (qd, td, p), iters=20) * 1e3
             wtable = kwf.wavefront_table(p, dev)
@@ -4336,7 +4421,8 @@ def main():
                              warmup=1, reps=1) * 1e3
             cells = B * 128 * 128
             times = {"int32 ops": cells * pipe_slots("sw_wavefront") / int32_rate * 1e3,
-                     "shared-memory lookups": cells / lookup_rate * 1e3,
+                     "shared-memory lookups":
+                         cells * KERNELS["sw_wavefront"][4] / lookup_rate * 1e3,
                      "bytes": (B * 256 + 4 * B) / HBM_BYTES_PER_S * 1e3}
             binds = max(times, key=times.get)
             rows.append(dict(
@@ -4351,8 +4437,9 @@ def main():
                   f"{kernel_ms:.4f} ms ({times[binds] / kernel_ms:.1%}), plain "
                   f"{plain_ms:.1f} ms, bound {times[binds]:.4f} ms by {binds} "
                   f"({KERNELS['sw_wavefront'][3]} int32 ops a real cell, "
-                  f"{ALU_OPS['sw_wavefront']} on the ALU, by pipe: {times['int32 ops']:.4f} ms; one "
-                  f"lookup: {times['shared-memory lookups']:.4f} ms)", flush=True)
+                  f"{ALU_OPS['sw_wavefront']} on the ALU, by pipe: {times['int32 ops']:.4f} ms; "
+                  f"{KERNELS['sw_wavefront'][4]} lookups: "
+                  f"{times['shared-memory lookups']:.4f} ms)", flush=True)
     strip_count("4096 x 4096")
     for B, n, m in ((2, 512, 384), (2, 1024, 256)):
         qd = torch.from_numpy(wrng.integers(0, 4, (B, n)).astype(np.uint8)).to(dev)

@@ -56,7 +56,7 @@ from swtpu_torch.kernels.sw_profile import (
     sw_profile_ends,
 )
 from swtpu_torch.kernels.sw_scan import sw_batch_diag, sw_batch_diag_ends
-from swtpu_torch.kernels.sw_wavefront import sw_wavefront
+from swtpu_torch.kernels.sw_wavefront import sw_wavefront, wavefront_refusal
 from swtpu_torch.utils.device import resolve_device
 
 
@@ -187,11 +187,15 @@ def get_variant(name: str) -> Callable:
     return VARIANTS[name]
 
 
-def variant_supported(name: str, params: ScoringParams, n: int) -> bool:
+def variant_supported(name: str, params: ScoringParams, n: int,
+                      on_card: bool = False) -> bool:
     """Whether variant ``name`` takes this scoring at query length ``n``:
     the guard of its wrapper, as a predicate (KeyError for an unknown
-    name)."""
+    name); ``on_card``: the guard it runs on a CUDA device (the wavefront
+    kernel refuses a negative gap, which its plain version takes)."""
     get_variant(name)
+    if name == "wavefront" and on_card:
+        return wavefront_refusal(params) is None
     if name == "rowscan":
         return linear_refusal(params) is None
     if name == "rowscan_prof":
@@ -218,7 +222,7 @@ def variant_engine(name: str, params: ScoringParams, n: int,
     anything runs."""
     dev = resolve_device(device)
     if (name in VARIANTS and not (dev.type != "cpu" and name in PLAIN_TIERS)
-            and variant_supported(name, params, n)):
+            and variant_supported(name, params, n, on_card=dev.type != "cpu")):
         fn = VARIANTS[name]
         return lambda q, t: fn(q, t, params, dev)
     return best_engine(params, dev)

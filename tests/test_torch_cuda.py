@@ -58,7 +58,11 @@ boundaries, pads and an all-negative tile, and the one-block kernel
 equals it; a tile of 1024 rows or more runs on more than one warp (CTA);
 the long-pair entries, the wavefront kernel
 (``sw_wavefront``) and the ``longpair`` / ``align --engine wavefront``
-CLI on the card equal themselves on the CPU.
+CLI on the card equal themselves on the CPU; the wavefront kernel equals
+its plain version and its schedule's mirror
+(``wavefront_stream_mirror``) with one and many pairs a stream, ragged
+last streams, targets shorter than 4 and both tables (by column pairs for
+DNA, by columns for protein).
 """
 
 import numpy as np
@@ -1446,24 +1450,75 @@ def test_longpair_on_card_equals_cpu(card, scoring, n, m, block):
         assert longpair.longpair_sw_align(q, t, p, block=block, device=card)[0] == got[0]
 
 
-@pytest.mark.parametrize("B,n,m,scoring", [
-    (300, 100, 150, "dna_111"), (257, 128, 128, "dna_10_30_15"),
-    (64, 128, 128, "blosum62_11"), (33, 7, 1, "dna_111"), (40, 128, 700, "g4_2"),
-    (5, 1, 64, "dna_111"),
+@pytest.mark.parametrize("B,n,m,scoring,pairs", [
+    (300, 100, 150, "dna_111", None), (257, 128, 128, "dna_10_30_15", None),
+    (64, 128, 128, "blosum62_11", None), (33, 7, 1, "dna_111", None),
+    (40, 128, 700, "g4_2", None), (5, 1, 64, "dna_111", None),
+    (2500, 128, 128, "dna_10_30_15", None), (2500, 128, 128, "blosum62_11", None),
+    # pairs a stream forced: ragged last streams, one and many pairs a
+    # stream, m < 4, protein on the lane table, DNA on the table by pairs of
+    # columns
+    (1001, 128, 128, "dna_10_30_15", 4), (999, 128, 3, "dna_111", 16),
+    (301, 128, 2, "blosum62_11", 3), (130, 60, 130, "g4_2", 3),
+    (77, 128, 1, "blosum62_11", 1), (515, 100, 33, "dna_111", 1),
+    (64, 128, 300, "blosum62_11", 7),
 ])
-def test_wavefront_equals_plain_on_card(card, B, n, m, scoring):
+def test_wavefront_equals_plain_on_card(card, B, n, m, scoring, pairs):
     p = DNA_10_30_15 if scoring == "dna_10_30_15" else STRIP_SCORINGS[scoring]
-    rng = np.random.default_rng(10000 + n + m)
+    rng = np.random.default_rng(10000 + n + m + B)
     letters = 20 if p.alphabet_size > 4 else 4
     qs = rng.integers(0, letters, (B, n)).astype(np.uint8)
     ts = rng.integers(0, letters, (B, m)).astype(np.uint8)
     qs[:, n - n // 5:] = p.alphabet_size
     ts[rng.random(ts.shape) < 0.03] = p.alphabet_size + 1
-    before = sw_wavefront.sw_wavefront.launches
-    got = sw_wavefront.sw_wavefront(qs, ts, p, device=card)
-    assert sw_wavefront.sw_wavefront.launches == before + 1
-    assert torch.equal(got, sw_wavefront.sw_wavefront_plain(qs, ts, p, device=card))
+    plain = sw_wavefront.sw_wavefront_plain(qs, ts, p, device=card)
+    if pairs is None:
+        before = sw_wavefront.sw_wavefront.launches
+        got = sw_wavefront.sw_wavefront(qs, ts, p, device=card)
+        assert sw_wavefront.sw_wavefront.launches == before + 1
+        n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+        pairs = sw_wavefront.wavefront_stream(B, n, m, n_sm, p.alphabet_size)
+    else:
+        qd = torch.from_numpy(qs).to(card)
+        td = torch.from_numpy(ts).to(card)
+        got = sw_wavefront.wavefront_launch_t(qd, td, sw_wavefront.wavefront_table(p, card),
+                                              p, pairs)
+    assert torch.equal(got, plain)
     assert torch.equal(got.cpu(), sw_wavefront.sw_wavefront(qs, ts, p, device="cpu"))
+    if B * m <= 200_000:
+        assert torch.equal(got, sw_wavefront.wavefront_stream_mirror(qs, ts, p, pairs,
+                                                                     device=card))
+
+
+@pytest.mark.parametrize("B,m,pairs", [(1001, 128, 4), (8192, 128, None), (99, 3, 16)])
+def test_wavefront_table_forms_agree_on_card(card, B, m, pairs):
+    """DNA on the lane table by pairs of columns (its default) and by
+    columns (the form protein takes) give the same scores."""
+    p = DNA_10_30_15
+    rng = np.random.default_rng(10000 + B + m)
+    qd = torch.from_numpy(rng.integers(0, 5, (B, 128)).astype(np.uint8)).to(card)
+    td = torch.from_numpy(rng.integers(0, 6, (B, m)).astype(np.uint8)).to(card)
+    table = sw_wavefront.wavefront_table(p, card)
+    by_pairs = sw_wavefront.wavefront_launch_t(qd, td, table, p, pairs, True)
+    by_columns = sw_wavefront.wavefront_launch_t(qd, td, table, p, pairs, False)
+    assert torch.equal(by_pairs, by_columns)
+    assert torch.equal(by_pairs, sw_wavefront.sw_wavefront_plain(qd, td, p))
+
+
+def test_wavefront_refuses_negative_gap_on_card(card):
+    p = ScoringParams.linear(dna_matrix(2, -3), -1)
+    q = np.zeros((4, 16), np.uint8)
+    before = sw_wavefront.sw_wavefront.launches
+    with pytest.raises(NotImplementedError, match="gap >= 0"):
+        sw_wavefront.sw_wavefront(q, q, p, device=card)
+    qd = torch.from_numpy(q).to(card)
+    with pytest.raises(NotImplementedError, match="gap >= 0"):
+        sw_wavefront.wavefront_launch_t(qd, qd, sw_wavefront.wavefront_table(p, card), p)
+    assert sw_wavefront.sw_wavefront.launches == before
+    from swtpu_torch.ops.variants import variant_engine
+
+    with pytest.raises(NotImplementedError, match="gap > 0"):
+        variant_engine("wavefront", p, 16, device=card)
 
 
 def test_wavefront_long_queries_on_card(card):
