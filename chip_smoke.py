@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's seven main paths on the card, through the entry points
+Drives the port's eight main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
@@ -26,10 +26,16 @@ through the strip tile of ``csrc/sw_strip.cu``, B13: row bands of a warp
 each on many SMs, beside the earlier one-block kernel; the anti-diagonal
 ``wavefront``
 schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
---engine wavefront`` CLI).
+--engine wavefront`` CLI) and database search (BASELINE config 5:
+``all_vs_all_topk`` in its four modes on the row-scan and profile kernels,
+Karlin-Altschul statistics, the ``search`` CLI with its hits walked in C++).
+Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
+built with g++ in phase 2); the traceback phases print the walker and its
+wall.
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on the ten CUDA sources at once; registers, spills and
+   2. build: nvcc on the ten CUDA sources at once, g++ on the C++ host
+      walkers beside them; registers, spills and
       shared memory of each kernel; the per-round kernels' round loops,
       and the local row-scan, profile thread-form, semi-global, bf16 and
       fixed-band kernels' unmasked groups and the wavefront kernel's
@@ -250,10 +256,39 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
       queries past 128 (2 x (512 x 384), 2 x (1024 x 256)) through the strip
       tile;
   33. the ``longpair`` CLI (DNA with ``--cigar``, protein Gotoh) and ``align
-      --engine wavefront`` against the oracle copy.
+      --engine wavefront`` against the oracle copy;
+  34. search at BASELINE config 5's single-card scale (the JAX package's
+      ``bench_search``): 16 queries x 131,072 random 128-mers (seed 10000),
+      k = 10, chunks of 8192, DNA (1,-1,1) and protein BLOSUM62 11/1 (the
+      database from the background model); streaming raw (the default,
+      ``"auto"``), streaming packed (DNA), resident and the fused sweep
+      (resident with no host sync), each equal to the others and to
+      a brute-force top-k (``np.lexsort((ids, -scores))`` over
+      ``best_engine``'s scores of all 2,097,152 pairs), and on a
+      sub-database with a tail chunk to the oracle copy; resume from a
+      checkpoint written mid-sweep and a flaky engine that raises once;
+      the chunk step at 16 x 2048 alone (CUDA events) and each mode's wall
+      (min of reps 2-3, fresh queries a rep) beside ``best_engine``'s
+      device time on the 2,097,152 pairs (the floor); at 131,072 x 128
+      the C++ pack and the upload of the database beside a SHA-256 of it
+      (what a cache keyed on content would pay a call); the launch alone
+      of each kernel the chunks ran, at the chunk's 131,072 pairs;
+  35. statistics and the ``search`` CLI: ``calibrate_stats`` at 8192 pairs
+      of 128 x 128 on the card and on the CPU (equal lambda and K); ``search
+      --tsv --stats calibrate`` (DNA (1,-1,1), 16 x 2048 in one chunk),
+      ``--tsv --stats preset``
+      (protein 11/1, config 3's 64 queries against
+      ``swissprot_like_256.fasta``) and ``--tsv`` under Gotoh (10,-30,40,15),
+      16 x 2048:
+      every hit's path (``--traceback``) rescored to its score, the TSV's
+      coordinates, scores and bit scores equal to those the hits give,
+      E-values and bit scores in opposite orders per query.
 
 Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
-26 and 30) and read just after it (phases 6, 10, 15, 21, 25, 29 and 33); every
+26, 30, 34 and 35) and read just after it (phases 6, 10, 15, 21, 25, 29,
+33, 34 and 35; rows 1-6 add phase 35's launches to their own and keep
+phase 34's, every one a chunk of 131,072 pairs, in ``search_launches``,
+charged at that shape's own time in ``search_lost_ms``); every
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
@@ -269,9 +304,11 @@ Without a card it exits 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import functools
+import hashlib
 import io
 import json
 import re
@@ -498,6 +535,14 @@ SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
 BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
 BLOCK_PATH = [k for k, v in KERNELS.items() if v[0] in (BLOCK, WALK)]
 LONGPAIR_PATH = ["strip_tile", "sw_wavefront"]
+# search scores on rows 1, 3 and 5 and walks its hits on rows 2, 4 and 6:
+# DNA uniform (1,-1,1) and Gotoh, protein BLOSUM62 11/1 (the profile form
+# the rule picks: the thread form for the 131,072-pair chunks, the warp
+# form for the few hits)
+SEARCH_PATH = DNA_PATH + PROTEIN_PATH
+SEARCH_NEEDS = [("sw_batch",), ("sw_batch_ends",), ("sw_affine",), ("sw_affine_ends",),
+                ("sw_profile_affine", "sw_profile_affine_warp"),
+                ("sw_profile_affine_ends", "sw_profile_affine_ends_warp")]
 
 
 def pipe_slots(name):
@@ -875,6 +920,22 @@ def promotion_workload(B, n=300, m=320):
     return qs, ts, qs_warm
 
 
+def config3_queries(db, lens, nq=64, Lq=120):
+    """BASELINE config 3's queries as the JAX package's
+    ``bench_protein_swissprot`` draws them: mutated 120-mer fragments of the
+    SwissProt-like targets (10% substitutions, pads replaced)."""
+    crng = np.random.default_rng(SEED)
+    cq = np.empty((nq, Lq), np.uint8)
+    for i in range(nq):
+        src = int(crng.integers(0, len(db)))
+        start = int(crng.integers(0, max(1, lens[src] - Lq)))
+        frag = db[src, start: start + Lq].copy()
+        sub = crng.random(Lq) < 0.1
+        frag[sub] = crng.integers(0, 20, int(sub.sum()))
+        cq[i] = np.where(frag >= 24, crng.integers(0, 20, Lq), frag)
+    return cq
+
+
 def rescore(path, q, t, params):
     """Score of a local alignment path, from its steps alone."""
     mat = params.matrix
@@ -965,6 +1026,7 @@ def main():
     from swtpu_torch.batch.lowmem import sw_traceback_lowmem
     from swtpu_torch.parallel import longpair as lp
     from swtpu_torch.utils import time_kernel
+    from swtpu_torch import native
 
     dev = torch.device("cuda")
     AFF = ScoringParams(dna_matrix(10, -30), gap_open=40, gap_extend=15)
@@ -1206,6 +1268,17 @@ def main():
         finally:
             restore(saved)
 
+    @contextlib.contextmanager
+    def numpy_walkers():
+        """The walk sites walk with the numpy oracles inside (what every
+        host walk ran before the C++ walkers)."""
+        saved = native.available
+        native.available = lambda: False
+        try:
+            yield
+        finally:
+            native.available = saved
+
     def timed(fn, args, **kw):
         """``time_kernel`` off the path: a window counts each entry-point
         call once, never a timing loop's repeats."""
@@ -1235,9 +1308,15 @@ def main():
     t0 = time.perf_counter()
     sources = SOURCES
     check(set(sources) == set(_build.SOURCES), f"sources {_build.SOURCES}")
-    _build.build_all(sources)  # one nvcc per source, in parallel
-    print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
-          f"(0.0 s means they were already built)", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(native.build)  # the C++ host walkers, beside nvcc
+        _build.build_all(sources)  # one nvcc per source, in parallel
+        print(f"nvcc {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
+              f"(0.0 s means they were already built)", flush=True)
+        gxx.result()
+    check(native.available(), "the C++ host walkers")
+    print(f"g++ {native.SRC.name} -> {native.library_path().name} (beside nvcc): "
+          f"native.available() is True, every host walk below runs in C++", flush=True)
     seen = set()
     many = {}  # B9's and the per-round kernel's instantiations: a line a kernel
     for source in sources:
@@ -2302,7 +2381,7 @@ def main():
     # 5. DNA main path, traceback ------------------------------------------
     phase("5 DNA main path, traceback: sw_align_batch on 64 related pairs")
 
-    def traceback_phase(qs, ts, plist, names_of, alphabet, seq_of):
+    def traceback_phase(qs, ts, plist, names_of, alphabet, seq_of, numpy_too=False):
         qs_d, ts_d = torch.from_numpy(qs).to(dev), torch.from_numpy(ts).to(dev)
         L = qs.shape[1]
         for p in plist:
@@ -2317,6 +2396,13 @@ def main():
             t0 = time.perf_counter()
             res = sw_align_batch(qs, ts, p)
             walk_s = time.perf_counter() - t0
+            np_note = ""
+            if numpy_too:  # the same call with the numpy walkers, off the path
+                with off_path(), numpy_walkers():
+                    t0 = time.perf_counter()
+                    check(sw_align_batch(qs, ts, p) == res, "C++ vs numpy walks")
+                    np_note = (f"; with the numpy walkers {time.perf_counter() - t0:.2f} s, "
+                               "the same paths")
             n_mapped = 0
             for b, (score, path) in enumerate(res):
                 check(score == sc[b], f"score of pair {b}")
@@ -2338,15 +2424,15 @@ def main():
                   f"only {n_mapped} of {len(qs)} related pairs aligned")
             print(f"gap=({p.gap_open},{p.gap_extend}): device ends "
                   f"{ends_s * 1e3:.4f} ms, equal to {name}'s plain version; "
-                  f"sw_align_batch {walk_s:.2f} s wall (host walk), {n_mapped} "
-                  f"aligned, mean score {float(np.mean([r[0] for r in res])):.2f}; "
+                  f"sw_align_batch {walk_s:.2f} s wall (C++ host walk{np_note}), "
+                  f"{n_mapped} aligned, mean score {float(np.mean([r[0] for r in res])):.2f}; "
                   f"endpoints, rescoring, CIGAR and SAM checked", flush=True)
 
     qs, ts = related_pairs(rng, 64, 128)
     traceback_phase(
         qs, ts, (DNA_10_30_15, AFF),
         lambda p: "sw_batch_ends" if p.is_linear else "sw_affine_ends", "dna",
-        lambda q: "".join("ACGT"[c] for c in q),
+        lambda q: "".join("ACGT"[c] for c in q), numpy_too=True,
     )
 
     # 6. DNA CLI -----------------------------------------------------------
@@ -2462,16 +2548,8 @@ def main():
           "SwissProt-like targets")
     _, db, lens = load_fasta_batch(str(SWISSPROT), "protein", pad_to=16,
                                    pad_code=25)
-    crng = np.random.default_rng(SEED)  # the JAX bench's own draws
     nq, Lq = 64, 120
-    cq = np.empty((nq, Lq), np.uint8)
-    for i in range(nq):
-        src = int(crng.integers(0, len(db)))
-        start = int(crng.integers(0, max(1, lens[src] - Lq)))
-        frag = db[src, start: start + Lq].copy()
-        sub = crng.random(Lq) < 0.1
-        frag[sub] = crng.integers(0, 20, int(sub.sum()))
-        cq[i] = np.where(frag >= 24, crng.integers(0, 20, Lq), frag)
+    cq = config3_queries(db, lens, nq, Lq)  # the JAX bench's own draws
     nt = len(db)
     qq = np.broadcast_to(cq[:, None, :], (nq, nt, Lq)).reshape(-1, Lq)
     tt = np.broadcast_to(db[None], (nq, nt, db.shape[1])).reshape(-1, db.shape[1])
@@ -2581,7 +2659,8 @@ def main():
           "protein pairs")
     qs, ts = related_pairs(rng, 64, 128, letters=20)
     traceback_phase(qs, ts, (P_GOTOH, P_LIN),
-                    lambda p: profile_name(True, p), "protein", decode_protein)
+                    lambda p: profile_name(True, p), "protein", decode_protein,
+                    numpy_too=True)
 
     # 10. protein CLI ------------------------------------------------------
     phase("10 protein CLI: swtpu_torch align --alphabet protein")
@@ -3313,8 +3392,10 @@ def main():
                 check(len(rec) == 13 and rec[3] == "1" and rec[11] == f"AS:i:{score}"
                       and rec[5] == path_to_cigar(path, qs[b], ts[b], query_len=L),
                       f"{name}: SAM record of pair {b}")
+            # JAX walks uniform Gotoh semi-global in numpy; the port too
+            walker = "numpy" if isinstance(sc, dict) and sg_gaps(sc)[2] else "C++"
             print(f"{name}: {len(res)} pairs, sg/nw_align_batch {walk_s:.2f} s wall "
-                  f"(host walk), {sum(len(r[1]) > 1 for r in res)} off the origin, "
+                  f"({walker} host walk), {sum(len(r[1]) > 1 for r in res)} off the origin, "
                   f"mean score {float(np.mean([r[0] for r in res])):.2f}; ends, "
                   f"rescoring, CIGAR and SAM checked", flush=True)
 
@@ -3603,7 +3684,7 @@ def main():
             check(all(abs(i - j) <= Wf for i, j in path), f"fixed band: corridor, {b}")
             check(rescore(path, q[b], t[b], p) == score, f"fixed band: rescore, {b}")
         print(f"banded_static_align_batch {label}: 64 pairs, {walk_s:.2f} s wall "
-              f"(host walk), mean score {float(np.mean([r[0] for r in res])):.2f}; "
+              f"(C++ host walk), mean score {float(np.mean([r[0] for r in res])):.2f}; "
               f"paths in the corridor and rescored", flush=True)
     for label, key, kw, p in (
             ("DNA (1,1,1)", "dna", dict(), ScoringParams.linear(dna_matrix(1, -1), 1)),
@@ -3629,7 +3710,7 @@ def main():
             ref = banded_xdrop(q[0], t[0])
         check(res[0] == ref, f"banded_align_batch {label} vs the oracle copy, pair 0")
         print(f"banded_align_batch {label}: 16 pairs, {walk_s:.2f} s wall (device "
-              f"forward and host walk), mean score "
+              f"forward and C++ host walk), mean score "
               f"{float(np.mean([r[0] for r in res])):.1f}, mean path "
               f"{float(np.mean([len(r[1]) for r in res])):.0f} cells; paths from the "
               f"origin rescored, 2 equal the oracle copy", flush=True)
@@ -3965,7 +4046,7 @@ def main():
                   f"wire fetch, decode to lists), {Bb / wall:.1f} alignments/s; on staged "
                   f"tensors the forward with history {fwd_ms:.1f} ms (the earlier "
                   f"per-block forward {earlier_fwd_ms:.1f} ms), the walk {walk_ms:.3f} ms "
-                  f"(the earlier serial kernel {serial_ms:.3f} ms), the host decode "
+                  f"(the earlier serial kernel {serial_ms:.3f} ms), the C++ host decode "
                   f"{list_ms:.1f} ms to tuple lists ({arr_ms:.1f} ms to arrays, "
                   f"bench_suite's): forward + walk + decode {fwd_ms + walk_ms + list_ms:.1f} "
                   f"ms of the wall; mean path {np.mean([len(p) for _, p in out]):.0f} "
@@ -4046,8 +4127,8 @@ def main():
               f"16K per-round traceback: path of pair {b}")
     check(out[0] == banded_xdrop(q[0], t[0]), "16K per-round vs the oracle copy")
     print(f"8 pairs: {wall * 1e3:.1f} ms wall (upload, per-round forward, device walk, "
-          f"wire, decode) against {host_s * 1e3:.1f} ms with the host walk over the "
-          f"8-bit history; equal paths, rescored, 1 equals the oracle copy; mean path "
+          f"wire, C++ decode) against {host_s * 1e3:.1f} ms with the C++ host walk over "
+          f"the 8-bit history; equal paths, rescored, 1 equals the oracle copy; mean path "
           f"{np.mean([len(p) for _, p in out]):.0f} cells [{smi}]", flush=True)
     saved = snapshot()  # the checks and the row's own timings are not the path's
     q_d, t_d = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
@@ -4075,7 +4156,7 @@ def main():
     nsteps = np.ascontiguousarray(wire[:, 12:16].cpu().numpy()).view("<i4").ravel()
     print(f"on staged tensors: the per-round forward with its int32 history "
           f"{fwd_ms:.1f} ms, the walk {ms:.3f} ms (the earlier serial kernel "
-          f"{serial_ms:.3f} ms), the host decode {list_ms:.1f} ms to tuple lists "
+          f"{serial_ms:.3f} ms), the C++ host decode {list_ms:.1f} ms to tuple lists "
           f"({arr_ms:.1f} ms to arrays): forward + walk + decode "
           f"{fwd_ms + ms + list_ms:.1f} ms of the {wall * 1e3:.1f} ms wall", flush=True)
     walk_row("xdrop_walk", dict(ms=ms, kernel_ms=kernel_ms, earlier_kernel_ms=serial_ms,
@@ -4354,7 +4435,8 @@ def main():
               f"longpair_sw_align on {label}: path vs the device forward")
         print(f"{label}: score {score}, end {path[-1]}, start {path[0]}, {len(path)} "
               f"path cells rescored; longpair_sw_align {wall:.2f} s wall (device "
-              f"forward {fwd * 1e3:.1f} ms, host walk {wall - fwd:.2f} s)", flush=True)
+              f"forward {fwd * 1e3:.1f} ms, C++ low-memory host walk {wall - fwd:.2f} s)",
+              flush=True)
         return score, path
 
     strip_mark[0] = launches("strip_tile")  # the row's timing above is restored
@@ -4372,7 +4454,7 @@ def main():
             check((sc, path) == lin, "longpair_sw_align's 16K path vs the host's "
                   "full forward and walk")
         print(f"16384 x 16384 {label}: the host's full forward and walk "
-              f"(sw_traceback_lowmem, no ends, {host_s:.2f} s) give "
+              f"(sw_traceback_lowmem in C++, no ends, {host_s:.2f} s) give "
               f"{(sc, *path[-1])}, the sweep's (score, end_i, end_j)", flush=True)
     pq = lrng.integers(0, 20, 4096).astype(np.uint8)
     pt = pq.copy()
@@ -4491,16 +4573,313 @@ def main():
     print(f"long-pair path launches: {longpair_counts}", flush=True)
     check(all(v > 0 for v in longpair_counts.values()),
           f"a kernel was not launched on the long-pair path: {longpair_counts}")
+    # 34. search -------------------------------------------------------------
+    zero_launches(SEARCH_PATH)
+    phase("34 search at BASELINE config 5's one-card scale: all_vs_all_topk, 16 queries "
+          "x 131,072 targets of 128, k = 10, chunks of 8192; DNA (1,-1,1), protein "
+          "BLOSUM62 11/1")
+    from swtpu_torch.core.stats import background_freqs
+    from swtpu_torch.parallel import search as psearch
+
+    Nq, Ns, L, K, CH = 16, 131072, 128, 10, 8192
+    srng = np.random.default_rng(SEED)  # bench_search's draws: queries, a chunk, the DB
+    pfreq = background_freqs("protein")
+    search_sets = {
+        "DNA (1,-1,1)": (DNA_111, srng.integers(0, 4, size=(Nq, L)).astype(np.uint8),
+                         srng.integers(0, 4, size=(2048, L)).astype(np.uint8),
+                         srng.integers(0, 4, size=(Ns, L)).astype(np.uint8)),
+    }
+    search_sets["protein BLOSUM62 11/1"] = (
+        P_GOTOH, srng.choice(20, size=(Nq, L), p=pfreq).astype(np.uint8),
+        srng.choice(20, size=(2048, L), p=pfreq).astype(np.uint8),
+        srng.choice(20, size=(Ns, L), p=pfreq).astype(np.uint8))
+    def sha256_4(a):
+        """A SHA-256 of the array in four slices on threads, then of their
+        digests: the one pass a cache keyed on content would pay a call."""
+        mv = memoryview(np.ascontiguousarray(a)).cast("B")
+        step = -(-mv.nbytes // 4)
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            parts = pool.map(lambda i: hashlib.sha256(mv[i: i + step]).digest(),
+                             range(0, mv.nbytes, step))
+            return hashlib.sha256(b"".join(parts)).digest()
+
+    def best_of_3(fn, *args):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return min(out) * 1e3
+
+    dna_db = search_sets["DNA (1,-1,1)"][3]
+    host_ms = {"SHA-256 (4 threads)": best_of_3(sha256_4, dna_db),
+               "C++ pack": best_of_3(psearch._packed_db, dna_db),
+               "raw upload (resident)": best_of_3(psearch._resident_db, dna_db, CH, 5, dev)}
+    print("the 131,072 x 128 DNA database, best of 3, ms: " + ", ".join(
+        f"{k_} {v:.2f}" for k_, v in host_ms.items()), flush=True)
+    MODES = (("streaming raw (auto)", dict()),
+             ("streaming packed", dict(packed=True)),
+             ("resident", dict(resident=True)),
+             ("fused sweep", dict(resident=True, max_retries=0)))
+
+    def query_set(seed, p):
+        r = np.random.default_rng(seed)
+        if p.alphabet_size == 4:
+            return r.integers(0, 4, size=(Nq, L)).astype(np.uint8)
+        return r.choice(20, size=(Nq, L), p=pfreq).astype(np.uint8)
+
+    def same_hits(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    def brute_topk(scores, k):
+        ids = np.arange(scores.shape[1])[None].repeat(scores.shape[0], 0)
+        order = np.lexsort((ids, -scores), axis=1)[:, :k]
+        return (np.take_along_axis(scores, order, axis=1).astype(np.int32),
+                order.astype(np.int32))
+
+    def chunk_launch(name, p, qd, td):
+        """The launch alone of a chunk's kernel (the thread forms)."""
+        ends = name.endswith("_ends")
+        if KERNELS[name][0] == ROWSCAN:
+            return lambda: kb.rowscan_launch_t(qd, td, p, *kb._uniform_match_mismatch(p),
+                                               not p.is_linear, ends)
+        check(KERNELS[name][0] == PROFILE and not name.endswith("_warp"),
+              f"{name} ran a search chunk: no bare launch for it here")
+        table = kp.profile_table(p, dev)
+        return lambda: kp.profile_launch_t(qd, td, table, p, ends)
+
+    search_times, chunk_times = {}, {}
+    for label, (p, sq, chunk, sdb) in search_sets.items():
+        before = {name: launches(name) for name in SEARCH_PATH}
+        oracle = sw_score_batch if p.is_linear else sw_affine_score_batch
+        fn = best_engine(p)
+        # the floor: best_engine on all 2,097,152 pairs, which the brute force sorts
+        qq = torch.from_numpy(sq).to(dev).repeat_interleave(Ns, dim=0)
+        tt = torch.from_numpy(sdb).to(dev).repeat(Nq, 1)
+        with off_path():
+            brute = brute_topk(fn(qq, tt).view(Nq, Ns).cpu().numpy(), K)
+        floor_ms = timed(fn, (qq, tt), iters=3) * 1e3
+        del qq, tt
+        torch.cuda.empty_cache()
+        # the chunk step alone at 16 x 2048 (CUDA events), beside its engine call
+        step = psearch._Step(fn, Nq, L, 2048, L, K, K, 2048, False, False, dev)
+        q_d, c_d = torch.from_numpy(sq).to(dev), torch.from_numpy(chunk).to(dev)
+        state0 = psearch.to_keys(torch.full((Nq, K), -1), torch.full(
+            (Nq, K), np.iinfo(np.int32).max)).to(dev)
+        step_ms = timed(step, (q_d, c_d, state0, 0), iters=20) * 1e3
+        eng_ms = timed(fn, (q_d.repeat_interleave(2048, 0), c_d.repeat(Nq, 1)),
+                       iters=20) * 1e3
+        print(f"{label}: best_engine on the 2,097,152 pairs {floor_ms:.3f} ms (the "
+              f"floor); the chunk step at 16 x 2048 alone {step_ms:.4f} ms, its engine "
+              f"call {eng_ms:.4f} ms [{smi}]", flush=True)
+        for mlabel, kw in MODES:
+            if kw.get("packed") and p.alphabet_size != 4:
+                continue
+            got = psearch.all_vs_all_topk(sq, sdb, p, k=K, chunk_size=CH, **kw)
+            check(same_hits(got, brute), f"search {label} {mlabel} vs the brute force")
+            walls = []
+            with off_path():
+                for rep in range(3):  # rep 0 warms up; a fresh query set a rep
+                    qr = query_set(777 + rep, p)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    psearch.all_vs_all_topk(qr, sdb, p, k=K, chunk_size=CH, **kw)
+                    if rep:
+                        walls.append(time.perf_counter() - t0)
+            search_times[(label, mlabel)] = min(walls) * 1e3
+            pairs = Nq * Ns
+            print(f"  {mlabel}: equal to the brute force; wall {min(walls) * 1e3:.2f} ms "
+                  f"(reps 2-3: {', '.join(f'{w * 1e3:.2f}' for w in walls)}), "
+                  f"{pairs / min(walls) / 1e6:.2f} M alignments/s, "
+                  f"{pairs * L * L / min(walls) / 1e9:.1f} GCUPS; "
+                  f"{min(walls) * 1e3 / floor_ms:.2f}x the floor", flush=True)
+        # each kernel the chunks ran, alone at the chunk's shape (16 x 8192)
+        qd = torch.from_numpy(sq).to(dev).repeat_interleave(CH, dim=0)
+        td = torch.from_numpy(sdb[:CH]).to(dev).repeat(Nq, 1)
+        for name in SEARCH_PATH:
+            if launches(name) == before[name]:
+                continue
+            bare = chunk_launch(name, p, qd, td)
+            with off_path():
+                check(torch.equal(tup(bare())[0], fn(qd, td)),
+                      f"{name}: the chunk's bare launch vs best_engine")
+            B = Nq * CH
+            table_bytes = (4 * kp.profile_table(p, dev).numel()
+                           if KERNELS[name][0] == PROFILE else 0)
+            slots = pipe_slots(name) if name in ALU_OPS else KERNELS[name][3]
+            times = {"operations": B * L * L * slots / int32_rate * 1e3,
+                     "lookups": B * L * L * KERNELS[name][4] / lookup_rate * 1e3,
+                     "bytes": (B * 2 * L + table_bytes + 4 * B) / HBM_BYTES_PER_S * 1e3}
+            binds = max(times, key=times.get)
+            chunk_times[name] = (timed(bare, (), iters=20) * 1e3, times[binds])
+            print(f"  {name}, the chunk's kernel, launch alone at {B} pairs: "
+                  f"{chunk_times[name][0]:.4f} ms, bound {times[binds]:.4f} ms by {binds} "
+                  f"({times[binds] / chunk_times[name][0]:.1%})", flush=True)
+        del qd, td
+        with off_path():
+            # a sub-database with a tail chunk against the oracle copy (4 queries)
+            sub = chunk[: 2048 - 512 + 3] if p.is_linear else chunk[:515]
+            sc = 512 if p.is_linear else 128
+            ref = brute_topk(np.stack([oracle(np.repeat(sq[i: i + 1], len(sub), 0), sub, p)
+                                       for i in range(4)]), K)
+            for mlabel, kw in MODES:
+                if kw.get("packed") and p.alphabet_size != 4:
+                    continue
+                check(same_hits(psearch.all_vs_all_topk(sq[:4], sub, p, k=K, chunk_size=sc,
+                                                        **kw), ref),
+                      f"search {label} {mlabel} on {len(sub)} targets vs the oracle copy")
+            # recovery: resume from a checkpoint written mid-sweep; a flaky engine
+            with tempfile.TemporaryDirectory() as d:
+                ck = psearch.SearchCheckpoint(str(Path(d) / "cursor.npz"))
+                psearch.all_vs_all_topk(sq, sdb[: Ns // 2], p, k=K, chunk_size=CH,
+                                        checkpoint=ck, resident=False)
+                check(ck.load()["cursor"] == Ns // 2, "checkpoint cursor mid-sweep")
+                check(same_hits(psearch.all_vs_all_topk(sq, sdb, p, k=K, chunk_size=CH,
+                                                        checkpoint=ck, resident=False),
+                                brute), f"search {label}: resumed from the checkpoint")
+            calls = [0]
+
+            def flaky(q, t, fn=fn):
+                calls[0] += 1
+                if calls[0] == 5:
+                    raise RuntimeError("injected fault")
+                return fn(q, t)
+
+            check(same_hits(psearch.all_vs_all_topk(sq, sdb, p, k=K, chunk_size=CH,
+                                                    engine=flaky), brute)
+                  and calls[0] == Ns // CH + 5,
+                  f"search {label}: a flaky engine's replay ({calls[0]} calls)")
+        print(f"  on {len(sub)} targets (chunks of {sc}, a tail of {len(sub) % sc}) every "
+              f"mode equals the oracle copy (4 queries); resume from a checkpoint at "
+              f"{Ns // 2} and a flaky engine (one fault, {calls[0]} engine calls) give "
+              f"the uninterrupted hits", flush=True)
+        del sdb
+    search_sets.clear()
+    search_counts = {name: launches(name) for name in SEARCH_PATH}
+    print(f"search path launches (chunks of {Nq * CH} pairs): {search_counts}", flush=True)
+    check(search_counts["sw_batch"] > 0 and search_counts["sw_profile_affine"]
+          + search_counts["sw_profile_affine_warp"] > 0,
+          f"a chunk kernel was not launched on the search path: {search_counts}")
+
+    # 35. statistics and the search CLI ---------------------------------------
+    zero_launches(SEARCH_PATH)
+    phase("35 statistics and the search CLI: calibrate_stats on the card and the CPU; "
+          "search --tsv --stats calibrate / preset, Gotoh --tsv")
+    from swtpu_torch.core.stats import bit_score, calibrate_stats, e_value, resolve_stats
+
+    t0 = time.perf_counter()
+    st_card = calibrate_stats(DNA_111, "dna", m=128, pairs=8192)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st_cpu = calibrate_stats(DNA_111, "dna", m=128, pairs=8192, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check((st_card.lam, st_card.K) == (st_cpu.lam, st_cpu.K),
+          f"calibrate_stats on the card {st_card} vs the CPU {st_cpu}")
+    print(f"calibrate_stats (1,-1,1) at 8192 pairs of 128 x 128: lambda {st_card.lam!r}, "
+          f"K {st_card.K!r} on the card ({card_s:.2f} s) and on the CPU ({cpu_s:.2f} s)",
+          flush=True)
+
+    def run_cli_err(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli_main(argv)
+        return out.getvalue().splitlines(), err.getvalue()
+
+    tmp35 = tempfile.TemporaryDirectory()
+    sp_names, sp_db, sp_lens = load_fasta_batch(str(SWISSPROT), "protein", pad_code=25)
+    c3q = config3_queries(sp_db, sp_lens)
+    c3fa = str(Path(tmp35.name) / "config3_queries.fa")
+    write_fasta(c3fa, [(f"cq{i}", decode_protein(x)) for i, x in enumerate(c3q)])
+    dna_rand = "16x2048x128"  # one chunk of 32,768 pairs, phase 16's shape
+    rs = np.random.default_rng(SEED)  # the CLI's --random inputs
+    rq = rs.integers(0, 4, size=(16, 128)).astype(np.uint8)
+    rt = rs.integers(0, 4, size=(2048, 128)).astype(np.uint8)
+    cli_sets = [
+        ("DNA (1,-1,1), --stats calibrate", DNA_111,
+         ["--random", dna_rand, "--chunk", "2048"], ["--stats", "calibrate"],
+         {f"q{i}": x for i, x in enumerate(rq)}, {f"t{i}": x for i, x in enumerate(rt)}),
+        ("protein 11/1, config 3, --stats preset", P_GOTOH,
+         ["--alphabet", "protein", "--queries", c3fa, "--targets", str(SWISSPROT),
+          "--gap-open", "11", "--gap-extend", "1", "--chunk", "256"],
+         ["--stats", "preset"], {f"cq{i}": x for i, x in enumerate(c3q)},
+         {n: sp_db[j, : sp_lens[j]] for j, n in enumerate(sp_names)}),
+        ("DNA Gotoh (10,-30,40,15)", AFF,
+         ["--random", dna_rand, "--scoring", "10,-30", "--gap-open", "40",
+          "--gap-extend", "15", "--chunk", "2048"], [],
+         {f"q{i}": x for i, x in enumerate(rq)}, {f"t{i}": x for i, x in enumerate(rt)}),
+    ]
+    for label, p, argv, stats_argv, qmap, tmap in cli_sets:
+        t0 = time.perf_counter()
+        tsv, err = run_cli_err(["search"] + argv + ["--tsv"] + stats_argv)
+        tsv_s = time.perf_counter() - t0
+        recs = [json.loads(x) for x in run_cli(cli_main, ["search"] + argv + ["--traceback"])]
+        hits = [(r["query"], h) for r in recs for h in r["hits"]]
+        for qn_, h in hits:
+            check(rescore([tuple(x) for x in h["path"]], qmap[qn_], tmap[h["target"]], p)
+                  == h["score"], f"search CLI {label}: rescore of {qn_} / {h['target']}")
+        rows_ = [r.split("\t") for r in tsv]
+        kept = [(q_, h) for q_, h in hits if len(h["path"]) >= 2]
+        check(len(rows_) == len(kept) and len(rows_) >= len(qmap),
+              f"search CLI {label}: {len(rows_)} TSV rows for {len(kept)} hits")
+        ka = None
+        t_lens = [len(x) for x in tmap.values()]
+        if stats_argv:  # the statistics the CLI resolves, at its geometry
+            med_q = np.median([len(x) for x in qmap.values()])
+            with off_path():
+                ka = resolve_stats(p, "dna" if p.alphabet_size == 4 else "protein",
+                                   mode=stats_argv[1], seed=SEED,
+                                   m=max(8, int(round(med_q / 8)) * 8),
+                                   n=max(16, int(round(np.median(t_lens) / 16)) * 16))
+            check(f"lambda={ka.lam:.4f}" in err, f"search CLI {label}: the KA line {err}")
+        for row, (q_, h) in zip(rows_, kept):
+            path = h["path"]
+            coords = [str(path[0][0] + 1), str(path[-1][0]), str(path[0][1] + 1),
+                      str(path[-1][1])]
+            tail = ([f"{float(e_value(h['score'], len(qmap[q_]), float(np.mean(t_lens)), ka, db_seqs=len(tmap))):.2g}",
+                     f"{float(bit_score(h['score'], ka)):.1f}"] if ka is not None
+                    else [str(h["score"])])
+            check(row[:2] == [q_, h["target"]] and row[6:10] == coords
+                  and row[-len(tail):] == tail, f"search CLI {label}: TSV row {row}")
+        if ka is not None:  # E-values fall as bit scores rise, per query
+            for q_ in qmap:
+                pairs = sorted((float(r[11]), float(r[10])) for r in rows_ if r[0] == q_)
+                check(all(a[1] >= b[1] for a, b in zip(pairs, pairs[1:])),
+                      f"search CLI {label}: E-value order of {q_}")
+        print(f"search {' '.join(argv[:2])} ... {label}: {len(rows_)} TSV rows "
+              f"({tsv_s:.2f} s wall with the C++ walk of every hit); every hit's path "
+              f"rescored to its score, coordinates and "
+              f"{'E-values and bit scores' if ka is not None else 'scores'} equal the TSV's"
+              + (f", E-values ordered; {err.strip()}" if ka is not None else ""),
+              flush=True)
+    tmp35.cleanup()
+    cli_counts = {name: launches(name) for name in SEARCH_PATH}
+    print(f"statistics and search CLI launches: {cli_counts}", flush=True)
+    check(all(any(cli_counts[k] > 0 for k in need) for need in SEARCH_NEEDS),
+          f"a kernel was not launched on the search CLI's path: {cli_counts}")
+
     for row in rows:
         if row["launches"] is None:
             row["launches"] = {**launch_counts, **sg_counts, **banded_counts,
                                **block_counts, **longpair_counts}[row["name"]]
-        # the time the path loses in the kernel: its launches (each entry-
-        # point call once) x (launch alone - bound) at the row's timed shape
-        row["lost_ms"] = row["launches"] * max(row["kernel_ms"] - row["bound_ms"], 0.0)
-    print("lost ms = launches x (launch alone - bound), at each row's timed shape: "
+        row["launches"] += cli_counts.get(row["name"], 0)  # rows 1-6
+        # the time a path loses in the kernel: its launches (each entry-
+        # point call once) x (launch alone - bound) at the row's timed
+        # shape; the search's chunks at theirs (16 x 8192 pairs)
+        row["search_launches"] = search_counts.get(row["name"], 0)
+        row["search_ms"], row["search_bound_ms"] = chunk_times.get(row["name"], (None, None))
+        row["search_lost_ms"] = (row["search_launches"] * max(
+            row["search_ms"] - row["search_bound_ms"], 0.0) if row["search_launches"] else 0.0)
+        row["lost_ms"] = (row["launches"] * max(row["kernel_ms"] - row["bound_ms"], 0.0)
+                          + row["search_lost_ms"])
+    print("lost ms = launches x (launch alone - bound) at each row's timed shape "
+          "[+ search launches x (alone - bound) at the chunk's 131,072 pairs]: "
           + "; ".join(f"{r['name']} {r['launches']} x ({r['kernel_ms']:.4f} - "
-                      f"{r['bound_ms']:.4f}) = {r['lost_ms']:.3f}"
+                      f"{r['bound_ms']:.4f})"
+                      + (f" + {r['search_launches']} x ({r['search_ms']:.4f} - "
+                         f"{r['search_bound_ms']:.4f})" if r["search_launches"] else "")
+                      + f" = {r['lost_ms']:.3f}"
                       for r in sorted(rows, key=lambda r: -r["lost_ms"])), flush=True)
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
 

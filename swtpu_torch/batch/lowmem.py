@@ -1,9 +1,13 @@
 """Checkpointed low-memory host traceback for giant pairs.
 
-Port of ``swtpu/batch/lowmem.py``: host numpy, no kernel. The JAX
-package prefers a C++ twin when it is built; the port has none yet
-(ROADMAP.md queue A item 15), so ``use_native`` is kept for the same
-signature and both values run the numpy walker below.
+Port of ``swtpu/batch/lowmem.py``: host code, no kernel. As in the JAX
+package, ``use_native=True`` (the default) walks with the C++ twin
+(``swtpu_torch.native.sw_traceback_lowmem``, the same checkpointing
+scheme) and ``use_native=False`` with the numpy walker below. Unlike the
+JAX package's C++ path, the port refuses Gotoh with gap_open <
+gap_extend on both paths (NotImplementedError), as the numpy walker
+does: the long-pair forward's decoupled F is not Gotoh's recurrence
+there (ROADMAP.md queue C).
 
 The naive walker materializes the full (n+1)x(m+1) DP matrix (~1 GB at
 16K x 16K) — fine for 128-mers, not for the longpair engine's targets.
@@ -42,6 +46,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from swtpu_torch import native
 from swtpu_torch.core.scoring import ScoringParams
 
 NEG = -(2**29)
@@ -131,15 +136,19 @@ def sw_traceback_lowmem(
     split of batch/traceback.py, at longpair scale).
 
     The affine mode needs gap_open >= gap_extend (the E-chain
-    decoupling) and raises NotImplementedError otherwise. ``use_native``
-    is accepted for the JAX signature; with no C++ twin in the port
-    (ROADMAP.md queue A item 15) both values run numpy.
+    decoupling) and raises NotImplementedError otherwise, on both paths.
+    ``use_native`` (default) walks with the C++ twin, else with numpy.
     """
-    del use_native  # no C++ twin yet: numpy either way
     affine = not params.is_linear
     if affine and params.gap_open < params.gap_extend:
         raise NotImplementedError(
             "lowmem affine walker needs gap_open >= gap_extend"
+        )
+    if use_native and native.available():
+        return native.sw_traceback_lowmem(
+            np.asarray(q, np.uint8), np.asarray(t, np.uint8), params.matrix,
+            int(params.gap_open), int(params.gap_extend), ends=ends,
+            row_block=row_block,
         )
     q = np.asarray(q, dtype=np.int64)
     t = np.asarray(t, dtype=np.int64)

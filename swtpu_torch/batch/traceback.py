@@ -8,10 +8,14 @@ X-drop family (``banded_forward_batch``, ``banded_walk_batch``,
 ``banded_align_batch``, ``banded_traceback``, ``reconstruct_affine_bands``,
 ``banded_affine_traceback``). The device computes every pair's score and
 endpoint (banded: its band history) in one batched call; the host then
-walks each path with the numpy oracles (diag → up → left tie-break,
-first maximum in row-major order), except linear per-round pairs at
-reference-scale geometry on the card, which walk on the card. A C++ host
-walker is later work (ROADMAP.md).
+walks each path (diag → up → left tie-break, first maximum in row-major
+order) with the C++ walkers of ``swtpu_torch.native`` wherever the JAX
+package uses its own, else with the numpy oracles (semi-global under
+uniform Gotoh scoring, as in JAX); linear per-round pairs at
+reference-scale geometry on the card walk on the card. With
+``native.available`` replaced by a function that says False (a test's
+monkeypatch) every site walks with the numpy oracles; the paths are the
+same.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from swtpu_torch import native
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels.banded_batch import banded_batch
 from swtpu_torch.kernels.banded_scan import (
@@ -56,9 +61,10 @@ def sw_align_batch(
     """Batched local alignment with traceback: [(score, path)] per pair.
 
     ``best_ends_engine(params, device)`` gives every pair's score and
-    endpoint (on the card by default); each walk then recomputes only the
-    [0..end_i, 0..end_j] prefix. The walker's score must equal the device
-    score, and its path must end at the device endpoint.
+    endpoint (on the card by default); each walk (the C++ walker) then
+    recomputes only the [0..end_i, 0..end_j] prefix. The walker's score
+    must equal the device score, and its path must end at the device
+    endpoint.
     """
     from swtpu_torch.ops.variants import best_ends_engine
 
@@ -66,10 +72,18 @@ def sw_align_batch(
     ts = np.asarray(ts)
     engine = best_ends_engine(params, device)
     scores, end_i, end_j = (x.cpu().numpy() for x in engine(qs, ts))
-    if params.is_linear:
-        walker = lambda q, t: sw_traceback(q, t, params)  # noqa: E731
+    use_native = native.available()
+    if not params.is_linear:
+        if use_native:
+            walker = lambda q, t: native.sw_affine_traceback(  # noqa: E731
+                q, t, params.matrix, params.gap_open, params.gap_extend)
+        else:
+            walker = lambda q, t: sw_affine_traceback(q, t, params)  # noqa: E731
+    elif use_native:
+        walker = lambda q, t: native.sw_traceback(  # noqa: E731
+            q, t, params.matrix, params.gap)
     else:
-        walker = lambda q, t: sw_affine_traceback(q, t, params)  # noqa: E731
+        walker = lambda q, t: sw_traceback(q, t, params)  # noqa: E731
     out = []
     for b in range(qs.shape[0]):
         # the device argmax (ei, ej) is the row-major-first max, so the DP
@@ -99,20 +113,39 @@ def _lengths(qs, ts, lens_q, lens_t):
     return varlen, lq, lt
 
 
-def _walk(qs, ts, fwd, lq, lt, pin_end, go, ge, affine, **scores):
-    """Walk every pair on its real lengths with the oracle copy
-    (``scores``: match/mismatch or matrix); the walk's score must equal
-    the device score and its path end at the device endpoint."""
-    score, ei, ej = (x.cpu().numpy() for x in fwd)
-    out = []
-    for b in range(qs.shape[0]):
-        q, t = qs[b, : lq[b]], ts[b, : lt[b]]
+def _walker(pin_end, go, ge, affine, **scores):
+    """(q, t) -> (score, path): the C++ walker where the JAX package uses
+    one (linear gaps, and Gotoh under a matrix), else the oracle copy
+    (``scores``: match/mismatch or matrix)."""
+    matrix = scores.get("matrix")
+    if native.available() and (matrix is not None or not affine):
+        if affine:
+            return lambda q, t: native.semiglobal_affine_traceback(
+                q, t, matrix, go, ge, pin_end=pin_end)
+        if matrix is not None:
+            return lambda q, t: native.semiglobal_traceback_matrix(
+                q, t, matrix, go, pin_end=pin_end)
+        return lambda q, t: native.semiglobal_traceback(
+            q, t, scores["match"], scores["mismatch"], go, pin_end=pin_end)
+
+    def walk(q, t):
         end = (len(q), len(t)) if pin_end else None
         if affine:
-            sc, path = semiglobal_affine_full(q, t, gap_open=go, gap_extend=ge,
-                                              endpoint=end, **scores)
-        else:
-            sc, path = semiglobal_full(q, t, gap=go, endpoint=end, **scores)
+            return semiglobal_affine_full(q, t, gap_open=go, gap_extend=ge,
+                                          endpoint=end, **scores)
+        return semiglobal_full(q, t, gap=go, endpoint=end, **scores)
+    return walk
+
+
+def _walk(qs, ts, fwd, lq, lt, pin_end, go, ge, affine, **scores):
+    """Walk every pair on its real lengths (:func:`_walker`); the walk's
+    score must equal the device score and its path end at the device
+    endpoint."""
+    score, ei, ej = (x.cpu().numpy() for x in fwd)
+    walker = _walker(pin_end, go, ge, affine, **scores)
+    out = []
+    for b in range(qs.shape[0]):
+        sc, path = walker(qs[b, : lq[b]], ts[b, : lt[b]])
         assert sc == score[b] and path[-1] == (ei[b], ej[b]), (
             f"device/host semiglobal mismatch at pair {b}: "
             f"{score[b]}@({ei[b]},{ej[b]}) vs {sc}@{path[-1]}"
@@ -311,16 +344,22 @@ def banded_static_align_batch(
 
     The device computes the scores (:func:`banded_static_scores`: the
     fixed-band kernel on the card, the plain tier with ``device="cpu"``);
-    the host recomputes the corridor per pair to walk the path with the
-    oracle copy, whose score must equal the device's. Output bit-equal to
+    the host recomputes the corridor per pair to walk the path (the C++
+    walker), whose score must equal the device's. Output bit-equal to
     ``oracle.banded_static.sw_banded_static_traceback``.
     """
     qs = np.asarray(qs)
     ts = np.asarray(ts)
     scores = banded_static_scores(qs, ts, params, bandwidth, device).cpu().numpy()
+    if native.available():
+        walker = lambda q, t: native.banded_static_traceback(  # noqa: E731
+            q, t, params.matrix, params.gap_open, params.gap_extend, bandwidth)
+    else:
+        walker = lambda q, t: sw_banded_static_traceback(  # noqa: E731
+            q, t, params, bandwidth)
     out = []
     for b in range(qs.shape[0]):
-        sc, path = sw_banded_static_traceback(qs[b], ts[b], params, bandwidth)
+        sc, path = walker(qs[b], ts[b])
         assert sc == scores[b], (
             f"device/host score mismatch at pair {b}: {scores[b]} vs {sc}"
         )
@@ -539,21 +578,24 @@ def banded_walk_batch(
     matrix: Optional[np.ndarray] = None,
 ) -> List[Tuple[int, List[Tuple[int, int]]]]:
     """Host half of banded_align_batch: walk every pair's path from a
-    BandedBatchResult (the device forward's history) with the numpy
-    walkers."""
+    BandedBatchResult (the device forward's history) with the C++
+    walkers (E/F rebuilt in C++ for Gotoh)."""
     if gap_open is not None and gap_open == gap_extend:
         gap, gap_open, gap_extend = gap_open, None, None
     res = res.numpy()
     B = qs.shape[0]
     lens_q = [qs.shape[1]] * B if lens_q is None else list(lens_q)
     lens_t = [ts.shape[1]] * B if lens_t is None else list(lens_t)
+    use_native = native.available()
     if gap_open is not None:
-        walker = lambda q, t, *a: banded_affine_traceback(  # noqa: E731
+        aff = native.banded_affine_traceback if use_native else banded_affine_traceback
+        walker = lambda q, t, *a: aff(  # noqa: E731
             q, t, *a, match, mismatch, gap_open, gap_extend, bandwidth,
             matrix=matrix,
         )
     else:
-        walker = lambda q, t, *a: banded_traceback(  # noqa: E731
+        lin = native.banded_traceback if use_native else banded_traceback
+        walker = lambda q, t, *a: lin(  # noqa: E731
             q, t, *a, match, mismatch, gap, bandwidth, matrix=matrix
         )
     out = []

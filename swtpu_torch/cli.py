@@ -1,13 +1,16 @@
 """swtpu_torch command-line interface: ``align``, ``semiglobal``,
-``global``, ``banded``, ``longpair`` and ``pack``.
+``global``, ``banded``, ``longpair``, ``search`` and ``pack``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
 query/target pairs), ``semiglobal`` and ``global`` (semi-global and
 Needleman-Wunsch alignment with traceback), ``banded`` (adaptive-banded
 X-drop semi-global alignment; ``--fixed``: local alignment in the fixed
 corridor |i - j| <= bandwidth), ``longpair`` (one long pair on one
-card, tile by tile) and ``pack`` (DNA FASTA <-> the 2-bit ``.npz``
-container). Output is the same JSON lines (or SAM) as
+card, tile by tile), ``search`` (all-vs-all top-k database search,
+BASELINE config 5: JSON hits, ``--tsv`` BLAST outfmt-6 rows with
+Karlin-Altschul E-values and bit scores under ``--stats``, or SAM) and
+``pack`` (DNA FASTA <-> the 2-bit ``.npz`` container). Output is the
+same JSON lines (TSV, SAM) as
 ``python -m swtpu`` prints for the same arguments. ``banded
 --block-adaptive`` runs the block tier (width 2 x bandwidth, block
 bandwidth) on the card, where JAX runs it only on the TPU.
@@ -32,6 +35,10 @@ Usage:
   python -m swtpu_torch align --random 128x128x128 --scoring 10,-30 --gap 15 --engine wavefront
   python -m swtpu_torch longpair --random 1x16384x16384 --traceback
   python -m swtpu_torch longpair --queries q.fa --targets t.fa --block 4096 --cigar
+  python -m swtpu_torch search --random 16x131072x128 --topk 10 --chunk 8192
+  python -m swtpu_torch search --queries q.fa --targets db.fa --tsv --stats calibrate
+  python -m swtpu_torch search --alphabet protein --queries q.fa --targets db.fa --gap-open 11 --gap-extend 1 --tsv --stats preset
+  python -m swtpu_torch search --random 4x64x100 --both-strands --sam --device cpu
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
 
@@ -407,6 +414,154 @@ def cmd_longpair(args):
         )
 
 
+def _gap_runs(path):
+    """Gap openings of a path: runs of equal non-diagonal steps."""
+    runs, prev = 0, None
+    for (a, b), (c, d) in zip(path, path[1:]):
+        step = (c - a, d - b)
+        if step != (1, 1) and step != prev:
+            runs += 1
+        prev = step
+    return runs
+
+
+def cmd_search(args):
+    """All-vs-all top-k search of every query against the database
+    (``parallel/search.py``), then with ``--tsv`` / ``--sam`` /
+    ``--cigar`` / ``--traceback`` a batched traceback of every hit
+    (``sw_align_batch``)."""
+    from swtpu_torch.parallel.search import SearchCheckpoint, all_vs_all_topk
+    from swtpu_torch.utils.obs import RunLog
+
+    params = _scoring(args)
+    if args.random:
+        nq, nt, L = (int(x) for x in args.random.split("x"))
+        rng = np.random.default_rng(args.seed)
+        hi = 4 if args.alphabet == "dna" else 20
+        Q = rng.integers(0, hi, size=(nq, L)).astype(np.uint8)
+        T = rng.integers(0, hi, size=(nt, L)).astype(np.uint8)
+        qn = [f"q{i}" for i in range(nq)]
+        tn = [f"t{i}" for i in range(nt)]
+        ql = np.full(nq, L)
+        tl = np.full(nt, L)
+    else:
+        pad_q, pad_t = _pad_codes(args.alphabet)
+        qn, Q, ql = _load_seq_batch(args.queries, args.alphabet, pad_code=pad_q)
+        tn, T, tl = _load_seq_batch(args.targets, args.alphabet, pad_code=pad_t)
+    log = RunLog()
+    ckpt = SearchCheckpoint(args.checkpoint) if args.checkpoint else None
+    Nq = len(Q)
+    Qrc = None
+    Qx = Q
+    if args.both_strands:
+        if args.alphabet != "dna":
+            raise SystemExit("--both-strands is DNA-only")
+        from swtpu_torch.core.encode import revcomp
+
+        # the reverse complements as extra query rows: one search over
+        # [2 Nq] queries, then a per-query merge of the two strands
+        Qrc = np.stack([revcomp(Q[i], ql[i]) for i in range(Nq)])
+        Qx = np.concatenate([Q, Qrc])
+    scores, ids = all_vs_all_topk(
+        Qx, T, params, k=args.topk, chunk_size=args.chunk, checkpoint=ckpt,
+        # the search loop emits serialized JSON lines; RunLog adds ts
+        log=(lambda line: log.emit(**json.loads(line))) if args.verbose else None,
+        device=args.device,
+    )
+    if args.both_strands:
+        # deterministic strand merge: score desc, target id asc, '+' first
+        s2 = np.concatenate([scores[:Nq], scores[Nq:]], axis=1)
+        i2 = np.concatenate([ids[:Nq], ids[Nq:]], axis=1)
+        st2 = np.concatenate([np.zeros_like(ids[:Nq]), np.ones_like(ids[Nq:])], axis=1)
+        order = np.lexsort((st2, i2, -s2), axis=1)[:, : args.topk]
+        scores = np.take_along_axis(s2, order, axis=1)
+        ids = np.take_along_axis(i2, order, axis=1)
+        strands = np.take_along_axis(st2, order, axis=1)
+    else:
+        strands = np.zeros_like(ids)
+    if not (args.sam or args.cigar or args.traceback or args.tsv):
+        for i, name in enumerate(qn):
+            hits = [
+                dict(target=tn[j] if j < len(tn) else int(j), score=int(s),
+                     **(dict(strand="-" if st else "+") if args.both_strands else {}))
+                for s, j, st in zip(scores[i], ids[i], strands[i]) if s >= 0
+            ]
+            print(json.dumps(dict(query=name, hits=hits)))
+        return
+    # every surviving (query, hit) pair walked in one batched call
+    from swtpu_torch.batch import sw_align_batch
+    from swtpu_torch.core.cigar import cigar_stats, path_to_cigar
+
+    hits = [(i, int(j), int(st)) for i in range(len(qn))
+            for s, j, st in zip(scores[i], ids[i], strands[i]) if s >= 0]
+    pj = [h[1] for h in hits]
+
+    def qrow(i, st):  # the aligned query row is the strand that hit
+        return Qrc[i] if st else Q[i]
+
+    Qsel = np.stack([qrow(i, st) for i, _, st in hits]) if hits else Q[:0]
+    aligned = sw_align_batch(Qsel, T[pj], params, device=args.device) if hits else []
+    if args.sam:
+        from swtpu_torch.core.sam import sam_header, sam_record
+
+        print(sam_header([(tn[j], int(tl[j])) for j in sorted(set(pj))]))
+        for (i, j, st), (score, path) in zip(hits, aligned):
+            print(sam_record(qn[i], tn[j], qrow(i, st), T[j], score, path,
+                             args.alphabet, query_len=int(ql[i]),
+                             flag=16 if st else 0))
+        return
+    if args.tsv:
+        # BLAST outfmt-6 style: qname tname pident alnlen mismatches
+        # gapopens qstart qend tstart tend, then the raw score (--stats
+        # none) or evalue and bitscore; 1-based inclusive coordinates
+        ka = None
+        if args.stats != "none":
+            from swtpu_torch.core.stats import bit_score, e_value, resolve_stats
+
+            # calibrate at the search's own geometry (median lengths
+            # rounded to 8 / 16), so the fit models this problem size
+            mean_tl = float(np.mean(tl)) if len(tl) else 1.0
+            m_cal = max(8, int(round(np.median(ql) / 8)) * 8)
+            n_cal = max(16, int(round(np.median(tl) / 16)) * 16)
+            ka = resolve_stats(params, args.alphabet, mode=args.stats,
+                               calibrate_pairs=args.calibrate_pairs, seed=args.seed,
+                               m=m_cal, n=n_cal, device=args.device)
+            print(f"# karlin-altschul: lambda={ka.lam:.4f} K={ka.K:.4g} "
+                  f"source={ka.source}", file=sys.stderr)
+        for (i, j, strand), (score, path) in zip(hits, aligned):
+            if len(path) < 2:
+                continue
+            st = cigar_stats(path_to_cigar(path, qrow(i, strand), T[j]))
+            cols = st["aligned_columns"] + st["insertions"] + st["deletions"]
+            pid = 100.0 * st["matches"] / cols if cols else 0.0
+            if ka is not None:
+                ev = float(e_value(score, int(ql[i]), mean_tl, ka, db_seqs=len(T)))
+                if args.evalue_max is not None and ev > args.evalue_max:
+                    continue
+                tail = (f"{ev:.2g}", f"{float(bit_score(score, ka)):.1f}")
+            else:
+                tail = (int(score),)
+            print("\t".join(str(x) for x in (
+                qn[i], tn[j], f"{pid:.1f}", cols, st["mismatches"], _gap_runs(path),
+                path[0][0] + 1, path[-1][0], path[0][1] + 1, path[-1][1],
+            ) + tail + (("-" if strand else "+",) if args.both_strands else ())))
+        return
+    out = {i: [] for i in range(len(qn))}
+    for (i, j, strand), (score, path) in zip(hits, aligned):
+        hit = dict(target=tn[j], score=int(score))
+        if args.both_strands:
+            hit["strand"] = "-" if strand else "+"
+        if args.traceback:
+            hit["path"] = path
+        if args.cigar:
+            # the path was walked on the strand that hit
+            hit["cigar"] = path_to_cigar(path, qrow(i, strand), T[j],
+                                         query_len=int(ql[i]))
+        out[i].append(hit)
+    for i, name in enumerate(qn):
+        print(json.dumps(dict(query=name, hits=out[i])))
+
+
 def cmd_pack(args):
     """DNA FASTA <-> 2-bit packed .npz batch container."""
     import os
@@ -529,6 +684,39 @@ def build_parser():
         "queue A item 12b",
     )
     p.set_defaults(fn=cmd_longpair)
+
+    p = sub.add_parser("search", help="all-vs-all top-k database search")
+    common(p)
+    p.add_argument("--topk", type=int, default=10)
+    p.add_argument("--chunk", type=int, default=1024)
+    p.add_argument("--checkpoint", help="resume cursor .npz path")
+    p.add_argument("--verbose", action="store_true",
+                   help="a JSON record a chunk on stderr")
+    p.add_argument(
+        "--tsv", action="store_true",
+        help="BLAST outfmt-6-style tabular hits (qname tname pident alnlen "
+        "mismatches gapopens qstart qend tstart tend score), computed from a "
+        "batched traceback of every hit",
+    )
+    p.add_argument(
+        "--both-strands", action="store_true",
+        help="DNA only: also search the reverse complement of every query; "
+        "hits carry a strand (+/-; SAM FLAG 16), merged deterministically "
+        "(score desc, id asc, '+' first)",
+    )
+    p.add_argument(
+        "--stats", choices=["none", "auto", "preset", "calibrate"], default="none",
+        help="Karlin-Altschul significance: --tsv emits evalue and bitscore "
+        "(full outfmt 6). preset = NCBI's BLOSUM62 11/1 parameters; calibrate "
+        "= fit (lambda, K) for the scoring in use by aligning random "
+        "background pairs on the device's engine; auto = preset when "
+        "tabulated, else calibrate",
+    )
+    p.add_argument("--calibrate-pairs", type=int, default=8192,
+                   help="random pairs scored by --stats calibrate (default 8192)")
+    p.add_argument("--evalue-max", type=float, default=None,
+                   help="with --stats: drop hits whose E-value exceeds this")
+    p.set_defaults(fn=cmd_search)
 
     p = sub.add_parser(
         "pack",

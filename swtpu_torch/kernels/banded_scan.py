@@ -338,9 +338,21 @@ def decode_device_walk(wire, as_arrays=False):
     convention (origin -> start cell). ``as_arrays=True`` returns (scores
     int32 [B], path_len int32 [B], paths int32 [B, max_points, 2]) instead.
     A pair whose walk stalled (ok 0) raises AssertionError, as the host
-    walkers do.
+    walkers do. The C++ decoder (``swtpu_torch.native.decode_move_wire``)
+    does the bit unpacking, as in the JAX package; numpy where
+    ``native.available`` says False.
     """
+    from swtpu_torch import native
+
     wire = np.ascontiguousarray(_host(wire))
+    if native.available():
+        scores, plen, paths = native.decode_move_wire(wire)
+        if as_arrays:
+            return scores, plen, paths
+        # two columns zipped into tuples: a list a point would cost twice
+        return [(int(scores[b]), list(zip(paths[b, : plen[b], 0].tolist(),
+                                          paths[b, : plen[b], 1].tolist())))
+                for b in range(wire.shape[0])]
     meta = np.ascontiguousarray(wire[:, :20]).view("<i4").T  # [5, B]
     packed = wire[:, 20:]
     score, sy, sx, nsteps, ok = meta

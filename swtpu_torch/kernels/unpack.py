@@ -14,6 +14,7 @@ import torch
 from swtpu_torch.utils.device import resolve_device
 
 _SHIFTS = (0, 2, 4, 6)
+_shifts: dict = {}  # device -> the shifts as a uint8 tensor there
 
 
 def _as_u8(x, device) -> torch.Tensor:
@@ -27,7 +28,11 @@ def unpack_2bit_device(packed, device=None) -> torch.Tensor:
     ``device`` (default: the card, or the tensor's own CUDA device)."""
     dev = resolve_device(device, like=packed)
     p = _as_u8(packed, dev)
-    shifts = torch.tensor(_SHIFTS, dtype=torch.uint8, device=dev)
+    # built once a device: a host-to-device copy would stall the stream on
+    # every call
+    shifts = _shifts.get(str(dev))
+    if shifts is None:
+        shifts = _shifts[str(dev)] = torch.tensor(_SHIFTS, dtype=torch.uint8, device=dev)
     out = (p[..., :, None] >> shifts) & 3
     return out.reshape(*p.shape[:-1], p.shape[-1] * 4)
 

@@ -1545,3 +1545,73 @@ def test_longpair_and_wavefront_cli_on_card_equals_cpu(card, argv, capsys):
     on_card = capsys.readouterr().out
     main(argv + ["--device", "cpu"])
     assert capsys.readouterr().out == on_card and on_card
+
+
+SEARCH_SCORINGS = {"dna": DNA_10_30_15, "gotoh": AFF,
+                   "protein": ScoringParams(BLOSUM62, gap_open=11, gap_extend=1)}
+
+
+@pytest.mark.parametrize("scoring", list(SEARCH_SCORINGS))
+def test_search_modes_on_card_equal_cpu(card, scoring):
+    from swtpu_torch.parallel.search import all_vs_all_topk
+
+    p = SEARCH_SCORINGS[scoring]
+    letters = 20 if p.alphabet_size > 4 else 4
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, letters, (5, 48)).astype(np.uint8)
+    ts = rng.integers(0, letters, (1000, 52)).astype(np.uint8)
+    ts[::97, :48] = qs[0]  # tied top hits: the lower id first
+    want = all_vs_all_topk(qs, ts, p, k=7, chunk_size=128, resident=False, packed=False,
+                           device="cpu")
+    modes = [dict(resident=False, packed=False), dict(resident=True, packed=False),
+             dict(resident=True, packed=False, max_retries=0),
+             dict(resident=False, packed=False, sync_every=2)]
+    if letters == 4:
+        modes += [dict(resident=False, packed=True), dict(resident=True, packed=True),
+                  dict(resident=True, packed=True, max_retries=0)]
+    for kw in modes:
+        got = all_vs_all_topk(qs, ts, p, k=7, chunk_size=128, **kw)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]), kw
+    assert (want[1][0, :5] == np.arange(0, 97 * 5, 97)).all()
+
+
+def test_search_checkpoint_and_retry_on_card(card, tmp_path):
+    from swtpu_torch.parallel.search import SearchCheckpoint, all_vs_all_topk
+    from swtpu_torch.ops.variants import best_engine
+
+    rng = np.random.default_rng(10000)
+    qs = rng.integers(0, 4, (4, 64)).astype(np.uint8)
+    ts = rng.integers(0, 4, (700, 64)).astype(np.uint8)
+    full = all_vs_all_topk(qs, ts, DNA_10_30_15, k=5, chunk_size=64)
+    ck = SearchCheckpoint(str(tmp_path / "c.npz"))
+    all_vs_all_topk(qs, ts[:256], DNA_10_30_15, k=5, chunk_size=64, checkpoint=ck)
+    got = all_vs_all_topk(qs, ts, DNA_10_30_15, k=5, chunk_size=64, checkpoint=ck)
+    assert np.array_equal(got[0], full[0]) and np.array_equal(got[1], full[1])
+    engine, calls = best_engine(DNA_10_30_15), {"n": 0}
+
+    def flaky(q, t):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("injected fault")
+        return engine(q, t)
+
+    got = all_vs_all_topk(qs, ts, DNA_10_30_15, k=5, chunk_size=64, engine=flaky,
+                          sync_every=4)
+    assert np.array_equal(got[0], full[0]) and np.array_equal(got[1], full[1])
+    assert calls["n"] > 11
+
+
+@pytest.mark.parametrize("argv", [
+    ["search", "--random", "8x2000x40", "--topk", "5", "--chunk", "256", "--tsv"],
+    ["search", "--random", "4x500x40", "--topk", "3", "--chunk", "128", "--both-strands",
+     "--sam"],
+    ["search", "--alphabet", "protein", "--random", "4x300x32", "--topk", "3", "--chunk",
+     "128", "--gap-open", "11", "--gap-extend", "1", "--tsv", "--stats", "preset"],
+])
+def test_search_cli_on_card_equals_cpu(card, argv, capsys):
+    from swtpu_torch.cli import main
+
+    main(argv)
+    on_card = capsys.readouterr().out
+    main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out == on_card and on_card

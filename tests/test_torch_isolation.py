@@ -25,7 +25,10 @@
   ``_ends`` / ``_align`` and the ``longpair`` CLI sweep through the strip
   tile's kernel wrappers, never the plain tile, and ``sw_wavefront`` and
   ``align --engine wavefront`` launch the wavefront kernel; ``colscan``
-  (a plain tier) runs ``best_engine``'s kernel there.
+  (a plain tier) runs ``best_engine``'s kernel there;
+- likewise search and its statistics: ``all_vs_all_topk``,
+  ``calibrate_stats``, ``resolve_stats`` and the ``search`` CLI raise
+  without a card.
 """
 
 import json
@@ -46,6 +49,7 @@ from swtpu_torch import bench, cli
 from swtpu_torch.batch import bucketing, promote
 from swtpu_torch.batch import traceback as port_traceback
 from swtpu_torch.core import io as port_io
+from swtpu_torch.core import stats
 from swtpu_torch.core.scoring import DNA_10_30_15, ScoringParams, dna_matrix
 from swtpu_torch.kernels import (
     _build,
@@ -68,7 +72,7 @@ from swtpu_torch.kernels import (
     sw_wavefront,
 )
 from swtpu_torch.ops import variants
-from swtpu_torch.parallel import longpair
+from swtpu_torch.parallel import longpair, search
 from swtpu_torch.utils import device as port_device
 from swtpu_torch.utils import timing
 
@@ -202,6 +206,10 @@ NO_DEVICE_CALLS = {
     "sw_wavefront": lambda: sw_wavefront.sw_wavefront(Q, Q, DNA_10_30_15),
     "sw_wavefront_plain": lambda: sw_wavefront.sw_wavefront_plain(Q, Q, GENERAL),
     "sw_batch_colscan": lambda: colscan.sw_batch_colscan(Q, Q, DNA_10_30_15),
+    "all_vs_all_topk": lambda: search.all_vs_all_topk(Q, Q, DNA_10_30_15, k=1),
+    "calibrate_stats": lambda: stats.calibrate_stats(DNA_10_30_15, m=8, pairs=16),
+    "resolve_stats": lambda: stats.resolve_stats(DNA_10_30_15, "dna", m=8,
+                                                 calibrate_pairs=16),
 }
 
 
@@ -228,6 +236,8 @@ def test_no_card_entry_without_device_raises(entry):
     ["longpair", "--random", "1x40x40"],
     ["longpair", "--random", "1x40x40", "--cigar"],
     ["align", "--random", "2x8x8", "--engine", "wavefront"],
+    ["search", "--random", "2x4x8"],
+    ["search", "--random", "2x4x8", "--tsv", "--stats", "calibrate"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
