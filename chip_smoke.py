@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's eight main paths on the card, through the entry points
+Drives the port's nine main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
@@ -28,7 +28,10 @@ each on many SMs, beside the earlier one-block kernel; the anti-diagonal
 schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
 --engine wavefront`` CLI) and database search (BASELINE config 5:
 ``all_vs_all_topk`` in its four modes on the row-scan and profile kernels,
-Karlin-Altschul statistics, the ``search`` CLI with its hits walked in C++).
+Karlin-Altschul statistics, the ``search`` CLI with its hits walked in C++)
+and the models (the read mapper on the fixed band's 2-bit wire with its
+winners on the block tier, center-star MSA on the pinned semi-global
+kernel, greedy assembly on ``best_engine``; ``map``, ``msa``, ``assemble``).
 Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
 built with g++ in phase 2); the traceback phases print the walker and its
 wall.
@@ -282,13 +285,34 @@ wall.
       16 x 2048:
       every hit's path (``--traceback``) rescored to its score, the TSV's
       coordinates, scores and bit scores equal to those the hits give,
-      E-values and bit scores in opposite orders per query.
+      E-values and bit scores in opposite orders per query;
+  36. the read mapper at the JAX package's ``bench_map`` size: a
+      1,000,000-base genome (seed 10000), k = 9, 4096 mutation-model
+      152-mers, ``min_score`` 20, with paths (the card's route: the fixed
+      band on the 2-bit wire, winners on the block tier and its device
+      walk), both strands, Gotoh winners on the per-round band; index
+      seconds, the wall (min of 3 fresh read sets), reads/s, the
+      correct-locus fraction, candidates, host seeding beside the card's
+      screening; the first 256 reads' hits equal to the same route on the
+      CPU's plain tiers, ``map_reads_pipelined`` equal to ``map_reads``;
+  37. center-star MSA at ``bench_msa``'s sizes (48 x 256 and 256 x 256,
+      match 2, mismatch 3, gap 2) on the pinned semi-global kernel: walls;
+      at 48 x 256 rows, center and scores equal to the CPU's; at 256 x 256
+      the projection invariant on every row (the center pick scores 32,640
+      pairs in one launch);
+  38. greedy assembly of ``assemble --random 20000x150x50`` (398 reads,
+      158,006 ordered pairs in one ``best_engine`` call; the host loop that
+      fills the batch timed beside it): the contig reconstructs the
+      genome, the first 2048 screening scores equal the CPU's; the
+      ``msa`` and ``assemble`` CLI print the same bytes on the card as with
+      ``--device cpu``; ``map --random`` exits 0 with its true-locus count.
 
 Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
-26, 30, 34 and 35) and read just after it (phases 6, 10, 15, 21, 25, 29,
-33, 34 and 35; rows 1-6 add phase 35's launches to their own and keep
+26, 30, 34, 35 and 36) and read just after it (phases 6, 10, 15, 21, 25, 29,
+33, 34, 35 and 38; rows 1-6 add phase 35's launches to their own and keep
 phase 34's, every one a chunk of 131,072 pairs, in ``search_launches``,
-charged at that shape's own time in ``search_lost_ms``); every
+charged at that shape's own time in ``search_lost_ms``; phases 36-38's
+launches, the models' window, go in ``models_launches``); every
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
@@ -976,6 +1000,232 @@ def run_cli(cli_main, argv):
 def max_abs_err(got, want):
     return max(int((g.long() - w.long()).abs().max()) for g, w in
                zip(tup(got), tup(want)))
+
+
+MODEL_PATH = DNA_PATH + SEMIGLOBAL_PATH + BANDED_PATH + BLOCK_PATH
+
+
+def models_phases(cli_main, launches, zero_launches, off_path, b9_folded, kb, ksb, kbb,
+                  kbk, kdw, ksg, smi):
+    """Phases 36-38, the models' window: the mapper, the MSA and the
+    assembler with their CLI. Returns the window's launches by row."""
+    from swtpu_torch.core.encode import mutate, revcomp
+    from swtpu_torch.models import assembly as pas
+    from swtpu_torch.models import mapper as pm
+    from swtpu_torch.models import msa as pmsa
+    from swtpu_torch.ops.variants import best_engine
+    from swtpu_torch.core.scoring import DNA_111
+
+    zero_launches(MODEL_PATH)
+    b9_folded["launches"] = 0  # the models' B9 launches all count for row 11
+
+    def wall(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def hit_key(h):
+        return None if h is None else (h.read, h.contig, h.pos, h.score, h.strand,
+                                       h.n_seeds, h.path, h.window_start)
+
+    def model_launches():
+        return dict(row10=ksb.sw_banded_static.launches + ksb.sw_banded_profile.launches,
+                    row11_12=kbk.block_forward.launches + kbk.block_rows.launches,
+                    row14_15=kbb.banded_batch.launches,
+                    block_walk=kdw.block_walk.launches, row8=ksg.semiglobal_batch.launches,
+                    rows1_4=kb.sw_batch.launches)
+
+    # 36. the read mapper ----------------------------------------------------
+    phase("36 read mapper at bench_map's size: 1,000,000-base genome, k = 9, 4096 "
+          "mutation-model 152-mers, min_score 20, paths; both strands; Gotoh winners")
+    G, R, L, BW = 1_000_000, 4096, 152, 32
+    genome = np.random.default_rng(SEED).integers(0, 4, size=G).astype(np.uint8)
+    t0 = time.perf_counter()
+    idx = pm.build_index([genome], k=9)
+    t_index = time.perf_counter() - t0
+
+    def read_set(seed, flip=False):
+        r = np.random.default_rng(seed)
+        starts = r.integers(0, G - L, size=R)
+        reads = np.stack([mutate(r, genome[s: s + L], out_len=L) for s in starts])
+        strand = np.zeros(R, bool)
+        if flip:
+            strand = r.random(R) < 0.5
+            reads[strand] = np.stack([revcomp(x) for x in reads[strand]])
+        return reads, starts, strand
+
+    def correct(hits, starts, strand=None):
+        return sum(1 for i, h in enumerate(hits) if h is not None
+                   and abs(h.pos - int(starts[i])) <= BW
+                   and (strand is None or (h.strand == "-") == bool(strand[i])))
+
+    sets = [read_set(s) for s in (1, 2, 3, 4)]
+    kw = dict(index=idx, min_score=20, traceback=True)
+    # the path's run: the warm-up set, then both strands and Gotoh winners
+    hits0, warm_s = wall(pm.map_reads, sets[0][0], **kw)
+    flipped = read_set(5, flip=True)
+    hits_bs, bs_s = wall(pm.map_reads, flipped[0], both_strands=True, **kw)
+    gotoh = dict(gap_open=3, gap_extend=1)
+    hits_g, g_s = wall(pm.map_reads, sets[0][0][:512], **gotoh, **kw)
+    counts36 = model_launches()
+    walls = []
+    with off_path():
+        for reads, starts, _ in sets[1:]:
+            hits, w = wall(pm.map_reads, reads, **kw)
+            walls.append(w)
+        ok = correct(hits, sets[-1][1])
+        reads, starts, _ = sets[-1]
+        lens = np.full(R, L, np.int64)
+        t0 = time.perf_counter()
+        seeded = pm._seed_rows(reads, lens, idx, False, 2, 64, 8, BW)
+        seed_s = time.perf_counter() - t0
+        cands = seeded[0][3]
+        (scores, _), screen_s = wall(pm.extend_candidates, idx, reads, lens, cands)
+        hits_p, pipe_s = wall(pm.map_reads_pipelined, reads, **kw)
+        check([hit_key(h) for h in hits_p] == [hit_key(h) for h in hits],
+              "map_reads_pipelined vs map_reads")
+        # the same route on the CPU's plain tiers, first 256 reads
+        t0 = time.perf_counter()
+        for rows_, extra, label in ((reads, {}, "paths"),
+                                    (flipped[0], dict(both_strands=True), "both strands"),
+                                    (sets[0][0][:512], gotoh, "Gotoh")):
+            got = {"paths": hits, "both strands": hits_bs, "Gotoh": hits_g}[label]
+            want = pm.map_reads(rows_[:256], device="cpu", route="card", **extra, **kw)
+            check([hit_key(h) for h in got[:256]] == [hit_key(h) for h in want],
+                  f"map_reads ({label}): the card vs the card's route on the CPU")
+        cpu_s = time.perf_counter() - t0
+    best = min(walls)
+    ok_bs = correct(hits_bs, flipped[1], flipped[2])
+    print(f"index {t_index:.3f} s; map_reads with paths, 4096 x 152 vs 1 Mbp: wall "
+          f"{best * 1e3:.1f} ms (min of 3 fresh sets: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; warm-up {warm_s * 1e3:.1f}), "
+          f"{R / best:.0f} reads/s, correct locus {ok / R:.4f}; candidates {len(cands.read)}; "
+          f"host seeding {seed_s * 1e3:.1f} ms, the card's screen {screen_s * 1e3:.1f} ms "
+          f"(fixed band on the 2-bit wire), the rest (winners' block forward, device walk, "
+          f"decode, selection) {(best - seed_s - screen_s) * 1e3:.1f} ms; pipelined "
+          f"{pipe_s * 1e3:.1f} ms, equal hits; both strands (half the reads reverse "
+          f"complemented) {bs_s * 1e3:.1f} ms, correct locus and strand {ok_bs / R:.4f}; "
+          f"Gotoh 3/1 winners on the per-round band, 512 reads {g_s * 1e3:.1f} ms; the "
+          f"first 256 reads of each equal to the CPU's plain tiers ({cpu_s:.1f} s) [{smi}]",
+          flush=True)
+    print(f"mapper launches: {counts36}", flush=True)
+    # the JAX package's bench_map records 0.8643 on these inputs
+    check(ok >= 0.85 * R and ok_bs >= 0.85 * R, f"correct locus {ok}, {ok_bs} of {R}")
+    check(counts36["row10"] > 0 and counts36["row11_12"] > 0 and counts36["block_walk"] > 0
+          and counts36["row14_15"] > 0, f"a mapper kernel did not launch: {counts36}")
+
+    # 37. MSA --------------------------------------------------------------
+    phase("37 center-star MSA at bench_msa's sizes: 48 x 256 and 256 x 256, match 2, "
+          "mismatch 3, gap 2")
+
+    def family(seed, N, Lf=256):
+        r = np.random.default_rng(seed)
+        anc = r.integers(0, 4, size=Lf).astype(np.uint8)
+        return [mutate(r, anc) for _ in range(N)]
+
+    def projection_ok(res):
+        ok_ = True
+        for k in range(len(res.rows)):
+            if k == res.center:
+                continue
+            ra, rb = res.rows[res.center], res.rows[k]
+            keep = ~((ra == pmsa.GAP) & (rb == pmsa.GAP))
+            a, b = ra[keep], rb[keep]
+            both = (a != pmsa.GAP) & (b != pmsa.GAP)
+            proj = int(np.where(a[both] == b[both], 2, -3).sum()) - 2 * int(
+                ((a != pmsa.GAP) ^ (b != pmsa.GAP)).sum())
+            ok_ &= proj == res.scores[k]
+        return ok_
+
+    mkw = dict(match=2, mismatch=3, gap=2)
+    before = model_launches()
+    fams = [family(s, 48) for s in (1, 2, 3)]
+    res0, warm_s = wall(pmsa.msa_center_star, fams[0], **mkw)
+    big = family(7, 256)
+    res_big, big_s = wall(pmsa.msa_center_star, big, **mkw)
+    counts37 = {k: v - before[k] for k, v in model_launches().items()}
+    msa_walls = []
+    with off_path():
+        for seqs in fams[1:]:
+            res, w = wall(pmsa.msa_center_star, seqs, **mkw)
+            msa_walls.append(w)
+            check(projection_ok(res), "MSA 48 x 256 projection invariant")
+        t0 = time.perf_counter()
+        want = pmsa.msa_center_star(fams[0], device="cpu", **mkw)
+        cpu_s = time.perf_counter() - t0
+    check(res0.center == want.center and np.array_equal(res0.scores, want.scores)
+          and all(np.array_equal(a, b) for a, b in zip(res0.rows, want.rows))
+          and res0.sp == want.sp, "MSA 48 x 256: the card vs the CPU")
+    check(projection_ok(res_big), "MSA 256 x 256 projection invariant")
+    print(f"msa_center_star 48 x 256: wall {min(msa_walls) * 1e3:.1f} ms (min of 2 fresh "
+          f"families: {', '.join(f'{w * 1e3:.1f}' for w in msa_walls)}; warm-up "
+          f"{warm_s * 1e3:.1f}), equal to the CPU's ({cpu_s:.2f} s); 256 x 256: "
+          f"{big_s * 1e3:.1f} ms, 32,640 pairs scored in the center pick, projection "
+          f"invariant on every row; launches {counts37} [{smi}]", flush=True)
+    check(counts37["row8"] == 6, f"MSA: row 8 launches {counts37}")
+
+    # 38. assembly and the CLIs ---------------------------------------------
+    phase("38 assembly (assemble --random 20000x150x50: 398 reads, 158,006 pairs in one "
+          "best_engine call) and the map / msa / assemble CLI")
+    before = model_launches()
+    rng = np.random.default_rng(SEED)  # the CLI's draws for --random 20000x150x50
+    genome_a = rng.integers(0, 4, size=20000).astype(np.uint8)
+    reads_a = pas.make_reads(rng, genome_a, read_len=150, step=50)
+    contig, asm_s = wall(pas.assemble_greedy, reads_a)
+    check(np.array_equal(contig, genome_a), "assembly reconstructs the genome")
+    with off_path():
+        t0 = time.perf_counter()
+        bq, bt, pairs = pas._screen_batch(reads_a)
+        loop_s = time.perf_counter() - t0
+        fn = best_engine(DNA_111)
+        card_scores, eng_s = wall(fn, bq, bt)
+        cpu_scores = best_engine(DNA_111, "cpu")(bq[:2048], bt[:2048])
+        check(torch.equal(card_scores[:2048].cpu(), cpu_scores),
+              "assembly screen: the card vs the CPU on the first 2048 pairs")
+    counts38 = {k: v - before[k] for k, v in model_launches().items()}
+    print(f"assemble_greedy on {len(reads_a)} reads of 150: wall {asm_s:.3f} s, of it the "
+          f"host loop filling the {len(pairs)}-pair batch {loop_s:.3f} s and the "
+          f"best_engine call {eng_s * 1e3:.1f} ms; the contig reconstructs the 20,000-base "
+          f"genome; launches {counts38} [{smi}]", flush=True)
+    check(counts38["rows1_4"] == 1, f"assembly: rows 1-4 launches {counts38}")
+
+    def run_both(argv):
+        out = []
+        for extra in ([], ["--device", "cpu"]):
+            o, e = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+                cli_main(argv + extra)
+            out.append((o.getvalue(), e.getvalue(), time.perf_counter() - t0))
+        return out
+
+    for argv in (["msa", "--random", "48x256", "--scoring", "2,-3", "--gap", "2"],
+                 ["assemble", "--random", "4000x150x50"]):
+        (co, ce, cs), (po, pe, ps) = run_both(argv)
+        check((co, ce) == (po, pe) and co, f"{' '.join(argv)}: the card vs --device cpu")
+        print(f"{' '.join(argv)}: the same {len(co)} bytes of stdout and stderr on the "
+              f"card ({cs:.2f} s) and the CPU ({ps:.2f} s)", flush=True)
+    o = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(o):
+        cli_main(["map", "--random", "200000x1024x150", "--traceback"])
+    rec = json.loads(o.getvalue())
+    check(rec["reads"] == 1024 and rec["correct_locus"] >= 0.85 * 1024,
+          f"map --random: {rec}")
+    print(f"map --random 200000x1024x150 --traceback: {json.dumps(rec)}, true-locus "
+          f"fraction {rec['correct_locus'] / rec['reads']:.4f} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    models = {name: launches(name) for name in MODEL_PATH}
+    print(f"models window launches (phases 36-38): {models}", flush=True)
+    for need in (("sw_banded_static",), ("block_rows",), ("block_walk",),
+                 ("banded_batch", "banded_batch_w32_w64"), ("semiglobal_batch_pinned",),
+                 ("sw_batch",)):
+        check(any(models[k] > 0 for k in need),
+              f"a models kernel did not launch: {need} in {models}")
+    check(models["block_gather"] == 0, f"B10 launched in the models window: {models}")
+    return models
 
 
 def main():
@@ -4859,7 +5109,12 @@ def main():
     check(all(any(cli_counts[k] > 0 for k in need) for need in SEARCH_NEEDS),
           f"a kernel was not launched on the search CLI's path: {cli_counts}")
 
+    models_counts = models_phases(
+        cli_main, launches, zero_launches, off_path, b9_folded, kb, ksb, kbb, kbk, kdw,
+        ksg, smi)
+
     for row in rows:
+        row["models_launches"] = models_counts.get(row["name"], 0)
         if row["launches"] is None:
             row["launches"] = {**launch_counts, **sg_counts, **banded_counts,
                                **block_counts, **longpair_counts}[row["name"]]

@@ -13,7 +13,9 @@ function sits at the same path as the JAX function it is held against:
 - ``batch``     alignment with traceback (device endpoints, host walk),
                 variable-length batches and overflow promotion;
 - ``utils``     device resolution and CUDA-event timing;
-- ``cli``       ``python -m swtpu_torch align ...`` and ``pack``.
+- ``models``    the read mapper, center-star MSA and greedy assembly;
+- ``cli``       ``python -m swtpu_torch align ...``, ``map``, ``msa``,
+                ``assemble`` and ``pack``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``: with ``device=None`` and no card they raise. On the CPU
@@ -22,3 +24,12 @@ launches its kernel or raises.
 """
 
 __version__ = "0.1.0"
+
+from swtpu_torch.core.scoring import ScoringParams, DNA_111, dna_matrix  # noqa: F401
+from swtpu_torch.core.encode import (  # noqa: F401
+    pack_2bit,
+    unpack_2bit,
+    random_dna,
+    mutate,
+    revcomp,
+)

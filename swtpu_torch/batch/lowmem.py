@@ -3,11 +3,9 @@
 Port of ``swtpu/batch/lowmem.py``: host code, no kernel. As in the JAX
 package, ``use_native=True`` (the default) walks with the C++ twin
 (``swtpu_torch.native.sw_traceback_lowmem``, the same checkpointing
-scheme) and ``use_native=False`` with the numpy walker below. Unlike the
-JAX package's C++ path, the port refuses Gotoh with gap_open <
-gap_extend on both paths (NotImplementedError), as the numpy walker
-does: the long-pair forward's decoupled F is not Gotoh's recurrence
-there (ROADMAP.md queue C).
+scheme) and ``use_native=False`` with the numpy walker below. The C++
+path walks Gotoh with gap_open < gap_extend exactly, as JAX's does; the
+numpy walker refuses it (NotImplementedError), as JAX's does.
 
 The naive walker materializes the full (n+1)x(m+1) DP matrix (~1 GB at
 16K x 16K) — fine for 128-mers, not for the longpair engine's targets.
@@ -135,20 +133,21 @@ def sw_traceback_lowmem(
     pass to the [0..end_i, 0..end_j] prefix (the device-forward/host-walk
     split of batch/traceback.py, at longpair scale).
 
-    The affine mode needs gap_open >= gap_extend (the E-chain
-    decoupling) and raises NotImplementedError otherwise, on both paths.
-    ``use_native`` (default) walks with the C++ twin, else with numpy.
+    ``use_native`` (default) walks with the C++ twin, exact for any gap
+    model (its serial recurrences need no E-chain decoupling), else with
+    numpy, whose affine mode needs gap_open >= gap_extend and raises
+    NotImplementedError otherwise.
     """
-    affine = not params.is_linear
-    if affine and params.gap_open < params.gap_extend:
-        raise NotImplementedError(
-            "lowmem affine walker needs gap_open >= gap_extend"
-        )
     if use_native and native.available():
         return native.sw_traceback_lowmem(
             np.asarray(q, np.uint8), np.asarray(t, np.uint8), params.matrix,
             int(params.gap_open), int(params.gap_extend), ends=ends,
             row_block=row_block,
+        )
+    affine = not params.is_linear
+    if affine and params.gap_open < params.gap_extend:
+        raise NotImplementedError(
+            "lowmem affine walker needs gap_open >= gap_extend"
         )
     q = np.asarray(q, dtype=np.int64)
     t = np.asarray(t, dtype=np.int64)

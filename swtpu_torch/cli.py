@@ -1,5 +1,6 @@
 """swtpu_torch command-line interface: ``align``, ``semiglobal``,
-``global``, ``banded``, ``longpair``, ``search`` and ``pack``.
+``global``, ``banded``, ``longpair``, ``search``, ``map``, ``msa``,
+``assemble`` and ``pack``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
 query/target pairs), ``semiglobal`` and ``global`` (semi-global and
@@ -8,10 +9,14 @@ X-drop semi-global alignment; ``--fixed``: local alignment in the fixed
 corridor |i - j| <= bandwidth), ``longpair`` (one long pair on one
 card, tile by tile), ``search`` (all-vs-all top-k database search,
 BASELINE config 5: JSON hits, ``--tsv`` BLAST outfmt-6 rows with
-Karlin-Altschul E-values and bit scores under ``--stats``, or SAM) and
+Karlin-Altschul E-values and bit scores under ``--stats``, or SAM),
+``map`` (seed-and-extend read mapping), ``msa`` (center-star multiple
+alignment), ``assemble`` (greedy overlap-layout-consensus assembly) and
 ``pack`` (DNA FASTA <-> the 2-bit ``.npz`` container). Output is the
-same JSON lines (TSV, SAM) as
-``python -m swtpu`` prints for the same arguments. ``banded
+same JSON lines (TSV, SAM, FASTA) as
+``python -m swtpu`` prints for the same arguments; ``map`` on the card
+takes the card's route (``models/mapper.py``), so its hit scores follow
+the fixed corridor and the block tier there. ``banded
 --block-adaptive`` runs the block tier (width 2 x bandwidth, block
 bandwidth) on the card, where JAX runs it only on the TPU.
 
@@ -39,6 +44,12 @@ Usage:
   python -m swtpu_torch search --queries q.fa --targets db.fa --tsv --stats calibrate
   python -m swtpu_torch search --alphabet protein --queries q.fa --targets db.fa --gap-open 11 --gap-extend 1 --tsv --stats preset
   python -m swtpu_torch search --random 4x64x100 --both-strands --sam --device cpu
+  python -m swtpu_torch map --random 1000000x4096x152 --min-score 20 --traceback
+  python -m swtpu_torch map --reads reads.fa --ref ref.fa --both-strands --sam
+  python -m swtpu_torch msa --random 48x256 --scoring 2,-3 --gap 2
+  python -m swtpu_torch msa --alphabet protein --queries fam.fa --gap-open 11 --gap-extend 1
+  python -m swtpu_torch assemble --random 20000x150x50
+  python -m swtpu_torch assemble --reads reads.fa --slack 2 --sam --device cpu
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
 
@@ -590,9 +601,196 @@ def cmd_pack(args):
     )))
 
 
+def cmd_map(args):
+    """Seed-and-extend read mapping: k-mer seeding (host), one batched
+    extension of every candidate locus (device), the winners' paths with
+    --traceback / --cigar / --sam."""
+    from swtpu_torch.models.mapper import build_index, map_reads
+
+    rng = np.random.default_rng(args.seed)
+    if args.random:
+        # GxRxL: random G-mer genome, R reads of length L sampled at
+        # random loci and pushed through the mutation model
+        from swtpu_torch.core.encode import mutate, revcomp
+
+        G, R, L = (int(x) for x in args.random.split("x"))
+        genome = rng.integers(0, 4, size=G).astype(np.uint8)
+        starts = rng.integers(0, G - L, size=R)
+        reads = np.stack([mutate(rng, genome[s: s + L], out_len=L) for s in starts])
+        if args.both_strands:
+            flip = rng.random(R) < 0.5
+            for i in np.nonzero(flip)[0]:
+                reads[i] = revcomp(reads[i])
+        rnames = [f"read{i}" for i in range(R)]
+        rlens = np.full(R, L)
+        contigs, cnames, clens = [genome], ["genome"], [G]
+    else:
+        if not (args.reads and args.ref):
+            raise SystemExit("need --reads and --ref FASTAs or --random")
+        rnames, reads, rlens = _load_seq_batch(args.reads, "dna", pad_code=4)
+        cnames, carr, clens = _load_seq_batch(args.ref, "dna", pad_code=5)
+        contigs = [carr[i] for i in range(len(carr))]
+    k = args.k if args.k is not None else (9 if args.random else 13)
+    idx = build_index(contigs, cnames, k=k, lens=clens)
+    hits = map_reads(
+        reads, rlens, index=idx, min_seeds=args.min_seeds, max_occ=args.max_occ,
+        max_loci=args.max_loci, match=args.match, mismatch=args.mismatch,
+        gap=args.gap, gap_open=args.gap_open, gap_extend=args.gap_extend,
+        bandwidth=args.bandwidth, x_threshold=args.x_drop, min_score=args.min_score,
+        both_strands=args.both_strands,
+        traceback=args.traceback or args.cigar or args.sam, device=args.device,
+    )
+    n_mapped = sum(h is not None for h in hits)
+    if args.random:
+        # reconstruction report: how many reads land on their true locus
+        ok = sum(1 for i, h in enumerate(hits)
+                 if h is not None and abs(h.pos - int(starts[i])) <= args.bandwidth)
+        print(json.dumps(dict(reads=len(hits), mapped=n_mapped, correct_locus=ok)))
+        return
+    from swtpu_torch.core.encode import revcomp
+
+    def contig_seq(h):
+        cid = idx.contig_names.index(h.contig)
+        cstart = int(idx.contig_starts[cid])
+        return idx.ref[cstart: cstart + int(idx.contig_lens[cid])]
+
+    if args.sam:
+        from swtpu_torch.core.sam import sam_header, sam_record
+
+        print(sam_header(list(zip(cnames, [int(x) for x in clens]))))
+        for i, h in enumerate(hits):
+            if h is None or not h.path:
+                print(sam_record(rnames[i], "*", reads[i][: int(rlens[i])],
+                                 reads[i][:0], 0, [], "dna", query_len=int(rlens[i])))
+                continue
+            q = revcomp(reads[i], int(rlens[i])) if h.strand == "-" else reads[i]
+            print(sam_record(rnames[i], h.contig, q, contig_seq(h), h.score, h.path,
+                             "dna", query_len=int(rlens[i]),
+                             flag=16 if h.strand == "-" else 0))
+        return
+    for i, h in enumerate(hits):
+        rec = dict(read=rnames[i])
+        if h is None:
+            rec["mapped"] = False
+        else:
+            rec.update(mapped=True, contig=h.contig, pos=h.pos, score=h.score,
+                       strand=h.strand, n_seeds=h.n_seeds)
+            if args.traceback and h.path:
+                rec["path"] = [list(p) for p in h.path]
+            if args.cigar and h.path:
+                from swtpu_torch.core.cigar import path_to_cigar
+
+                q = revcomp(reads[i], int(rlens[i])) if h.strand == "-" else reads[i]
+                rec["cigar"] = path_to_cigar(h.path, q, contig_seq(h),
+                                             query_len=int(rlens[i]))
+        print(json.dumps(rec))
+
+
+def cmd_assemble(args):
+    """Greedy overlap-layout-consensus assembly: the contig as FASTA (or
+    --out), with --sam every read placed on it."""
+    from swtpu_torch.core.io import decode_dna, load_fasta_batch, write_fasta
+    from swtpu_torch.models.assembly import assemble_greedy, make_reads
+
+    rng = np.random.default_rng(args.seed)
+    if args.random:
+        # GxLxS: random G-mer genome tiled into L-mers every S bases
+        G, L, S = (int(x) for x in args.random.split("x"))
+        genome = rng.integers(0, 4, size=G).astype(np.uint8)
+        reads = make_reads(rng, genome, read_len=L, step=S)
+        names = [f"read{i}" for i in range(len(reads))]
+    else:
+        if not args.reads:
+            raise SystemExit("need --reads FASTA or --random GxLxS")
+        names, arr, lens = load_fasta_batch(args.reads, "dna", pad_code=4)
+        reads = [arr[i][: lens[i]] for i in range(len(arr))]
+    contig = assemble_greedy(reads, min_overlap=args.min_overlap, slack=args.slack,
+                             device=args.device)
+    summary = json.dumps(dict(contig_len=len(contig), reads=len(reads)))
+    if args.out:
+        write_fasta(args.out, [("contig", decode_dna(contig))])
+    elif not args.sam:
+        print(summary)
+        print(">contig")
+        print(decode_dna(contig))
+    else:
+        # --sam keeps stdout pure SAM; the summary goes to stderr
+        print(summary, file=sys.stderr)
+    if args.random:
+        # demo mode: whether the assembly reproduced the genome
+        ok = len(contig) == len(genome) and bool(np.array_equal(contig, genome))
+        print(json.dumps(dict(genome_len=len(genome), reconstructed=ok)),
+              file=sys.stderr)
+    if args.sam:
+        # read placements: local-align every read back to the contig
+        from swtpu_torch.batch import sw_align_batch
+        from swtpu_torch.core.sam import sam_header, sam_record
+
+        L = max(len(r) for r in reads)
+        qs = np.stack([np.concatenate([r, np.full(L - len(r), 4, np.uint8)])
+                       for r in reads])
+        ts = np.ascontiguousarray(np.broadcast_to(contig[None, :],
+                                                  (len(reads), len(contig))))
+        print(sam_header([("contig", len(contig))]))
+        for k, (score, path) in enumerate(
+                sw_align_batch(qs, ts, _scoring(args), device=args.device)):
+            print(sam_record(names[k], "contig", qs[k], contig, score, path, "dna",
+                             query_len=len(reads[k])))
+
+
+def cmd_msa(args):
+    """Center-star multiple sequence alignment (models/msa.py): gapped
+    FASTA on stdout, a JSON summary on stderr."""
+    from swtpu_torch.core.io import read_fasta
+    from swtpu_torch.models.msa import msa_center_star, msa_rows_to_strings
+
+    if args.random:
+        # NxL: N mutation-model descendants of one random L-mer ancestor
+        from swtpu_torch.core.encode import mutate
+
+        N, L = (int(x) for x in args.random.split("x"))
+        rng = np.random.default_rng(args.seed)
+        hi = 4 if args.alphabet == "dna" else 20
+        ancestor = rng.integers(0, hi, size=L).astype(np.uint8)
+        seqs = [mutate(rng, ancestor) for _ in range(N)]
+        names = [f"seq{i}" for i in range(N)]
+    else:
+        if not args.queries:
+            raise SystemExit("need --queries FASTA or --random NxL")
+        if args.alphabet == "protein":
+            from swtpu_torch.core.protein import encode_protein as enc
+        else:
+            from swtpu_torch.core.io import encode_dna as enc
+        names, seqs = [], []
+        for name, s in read_fasta(args.queries):
+            names.append(name)
+            seqs.append(enc(s))
+    if len(seqs) < 2:
+        raise SystemExit("msa needs >= 2 sequences")
+    center = None
+    if args.center is not None:
+        if args.center not in names:
+            raise SystemExit(f"--center {args.center!r} not in inputs")
+        center = names.index(args.center)
+    res = msa_center_star(seqs, params=_scoring(args), center=center,
+                          device=args.device)
+    print(json.dumps(dict(n=len(seqs), width=len(res.rows[0]),
+                          center=names[res.center], sp_score=res.sp)),
+          file=sys.stderr)
+    for name, row in zip(names, msa_rows_to_strings(res.rows, args.alphabet)):
+        print(f">{name}")
+        print(row)
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="swtpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def device_option(p):
+        p.add_argument(
+            "--device", choices=["cuda", "cpu"], default="cuda",
+            help="where the engines run (default cuda; no CPU fallback)",
+        )
 
     def common(p):
         p.add_argument("--queries", help="FASTA of query sequences")
@@ -622,10 +820,7 @@ def build_parser():
             help="emit full SAM 1.6 records (header + one line per pair, "
             "AS/NM tags) instead of JSON; implies traceback",
         )
-        p.add_argument(
-            "--device", choices=["cuda", "cpu"], default="cuda",
-            help="where the engines run (default cuda; no CPU fallback)",
-        )
+        device_option(p)
 
     p = sub.add_parser("align", help="local (Smith-Waterman) alignment")
     common(p)
@@ -717,6 +912,93 @@ def build_parser():
     p.add_argument("--evalue-max", type=float, default=None,
                    help="with --stats: drop hits whose E-value exceeds this")
     p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser(
+        "map",
+        help="seed-and-extend read mapping: k-mer seeds + one batched banded "
+        "extension of every candidate locus on the device",
+    )
+    p.add_argument("--reads", help="FASTA of reads (DNA)")
+    p.add_argument("--ref", help="FASTA of reference contigs")
+    p.add_argument(
+        "--random", metavar="GxRxL",
+        help="demo: random G-mer genome, R mutation-model reads of length L; "
+        "reports how many map back to their true locus",
+    )
+    p.add_argument("--seed", type=int, default=10000)
+    p.add_argument(
+        "--k", type=int, default=None,
+        help="seed k-mer size (default 13; 9 for the --random demo, whose "
+        "mutation-model reads are only ~70%% identity)",
+    )
+    p.add_argument("--min-seeds", type=int, default=2)
+    p.add_argument("--max-occ", type=int, default=64,
+                   help="ignore k-mers occurring more often than this (repeats)")
+    p.add_argument("--max-loci", type=int, default=8)
+    p.add_argument("--match", type=int, default=1)
+    p.add_argument("--mismatch", type=int, default=1, help="penalty (positive)")
+    p.add_argument("--gap", type=int, default=1, help="penalty (positive)")
+    p.add_argument("--gap-open", type=int, default=None)
+    p.add_argument("--gap-extend", type=int, default=1)
+    p.add_argument("--bandwidth", type=int, default=32)
+    p.add_argument("--x-drop", type=int, default=70)
+    p.add_argument("--min-score", type=int, default=20)
+    p.add_argument("--both-strands", action="store_true")
+    p.add_argument("--traceback", action="store_true")
+    p.add_argument("--cigar", action="store_true")
+    p.add_argument("--sam", action="store_true")
+    device_option(p)
+    p.set_defaults(fn=cmd_map)
+
+    p = sub.add_parser(
+        "assemble",
+        help="greedy overlap-layout-consensus assembly",
+    )
+    p.add_argument("--reads", help="FASTA of reads")
+    p.add_argument(
+        "--random", metavar="GxLxS",
+        help="demo: random G-mer genome tiled into L-mer reads every S bases "
+        "(reports whether the contig reconstructs the genome)",
+    )
+    p.add_argument("--seed", type=int, default=10000)
+    p.add_argument("--min-overlap", type=int, default=20)
+    p.add_argument(
+        "--slack", type=int, default=0,
+        help="error tolerance: overlap endpoints may miss the read ends by up "
+        "to this many bases and the consensus majority-votes substitution "
+        "errors out (0 = exact suffix-prefix splice)",
+    )
+    p.add_argument("--out", help="write the contig FASTA here")
+    p.add_argument("--sam", action="store_true",
+                   help="also emit SAM placements of every read on the contig")
+    p.add_argument("--scoring", default="1,-1", help="match,mismatch for --sam")
+    p.add_argument("--gap", type=int, default=1)
+    p.add_argument("--gap-open", type=int, default=None)
+    p.add_argument("--gap-extend", type=int, default=1)
+    p.add_argument("--alphabet", choices=["dna"], default="dna",
+                   help=argparse.SUPPRESS)
+    device_option(p)
+    p.set_defaults(fn=cmd_assemble)
+
+    p = sub.add_parser(
+        "msa",
+        help="center-star multiple sequence alignment on the batched NW "
+        "kernels (gapped FASTA to stdout)",
+    )
+    p.add_argument("--queries", help="FASTA of sequences to align")
+    p.add_argument("--random", metavar="NxL",
+                   help="demo: N mutation-model descendants of one random L-mer")
+    p.add_argument("--seed", type=int, default=10000)
+    p.add_argument("--alphabet", choices=["dna", "protein"], default="dna")
+    p.add_argument("--scoring", default="1,-1",
+                   help="match,mismatch (DNA; protein uses BLOSUM62)")
+    p.add_argument("--gap", type=int, default=1)
+    p.add_argument("--gap-open", type=int, default=None)
+    p.add_argument("--gap-extend", type=int, default=1)
+    p.add_argument("--center", help="star around this named sequence instead "
+                   "of the max-total-similarity pick")
+    device_option(p)
+    p.set_defaults(fn=cmd_msa)
 
     p = sub.add_parser(
         "pack",

@@ -11,3 +11,4 @@ from swtpu_torch.core.encode import (  # noqa: F401
     random_dna,
     unpack_2bit,
 )
+from swtpu_torch.core.cigar import path_to_cigar, cigar_stats  # noqa: F401

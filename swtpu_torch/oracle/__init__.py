@@ -5,6 +5,7 @@ from swtpu_torch.oracle.sw import (  # noqa: F401
 )
 from swtpu_torch.oracle.affine import (  # noqa: F401
     sw_affine_score,
+    sw_affine_score_batch,
     sw_affine_traceback,
 )
 from swtpu_torch.oracle.semiglobal import (  # noqa: F401

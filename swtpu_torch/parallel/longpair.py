@@ -193,11 +193,10 @@ def longpair_sw_align(q, t, params: ScoringParams, mesh=None, axis: str = "sp",
     """Local alignment of ONE long pair with traceback: the device
     forward gives (score, end_i, end_j), then the low-memory host walk
     (``batch/lowmem.py``) walks the [0..end_i, 0..end_j] prefix. The
-    device score checks the walk and the walk the device. Affine with
-    gap_open < gap_extend walks with the full-matrix oracle instead (the
-    low-memory E-chain decoupling needs gap_open >= gap_extend). Returns
-    (score, path) as ``oracle.sw.sw_traceback`` /
-    ``oracle.affine.sw_affine_traceback`` do."""
+    device score checks the walk and the walk the device. The walk is the
+    C++ low-memory walker, exact for any gap model. Returns (score, path)
+    as ``oracle.sw.sw_traceback`` / ``oracle.affine.sw_affine_traceback``
+    do."""
     from swtpu_torch.batch.lowmem import sw_traceback_lowmem
 
     score, ei, ej = longpair_sw_ends(q, t, params, mesh, axis=axis, block=block,
@@ -206,13 +205,8 @@ def longpair_sw_align(q, t, params: ScoringParams, mesh=None, axis: str = "sp",
         return 0, [(0, 0)]
     q = np.asarray(q.cpu() if isinstance(q, torch.Tensor) else q)
     t = np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
-    try:
-        sc, path = sw_traceback_lowmem(q, t, params, row_block=row_block,
-                                       ends=(ei, ej))
-    except NotImplementedError:  # affine go < ge
-        from swtpu_torch.oracle.affine import sw_affine_traceback
-
-        sc, path = sw_affine_traceback(q, t, params)
+    sc, path = sw_traceback_lowmem(q, t, params, row_block=row_block,
+                                   ends=(ei, ej))
     assert sc == score and path[-1] == (ei, ej), (
         f"device/host mismatch: {score}@({ei},{ej}) vs {sc}@{path[-1]}"
     )

@@ -1615,3 +1615,149 @@ def test_search_cli_on_card_equals_cpu(card, argv, capsys):
     on_card = capsys.readouterr().out
     main(argv + ["--device", "cpu"])
     assert capsys.readouterr().out == on_card and on_card
+
+
+# -- the models (mapper, MSA, assembly) on the card against the CPU -----------
+
+from swtpu_torch.models import assembly as models_assembly  # noqa: E402
+from swtpu_torch.models import mapper as models_mapper  # noqa: E402
+from swtpu_torch.models import msa as models_msa  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def map_case():
+    """A 20,000-base genome, 96 mutation-model reads of 120 (half reverse
+    complemented), the index at k = 9."""
+    rng = np.random.default_rng(10000)
+    genome = rng.integers(0, 4, 20000).astype(np.uint8)
+    starts = rng.integers(0, 20000 - 120, 96)
+    reads = np.stack([mutate(rng, genome[s: s + 120], out_len=120) for s in starts])
+    flip = rng.random(96) < 0.5
+    reads[flip] = np.stack([3 - r[::-1] for r in reads[flip]])
+    return reads, models_mapper.build_index([genome], k=9)
+
+
+def _hits(hits):
+    return [None if h is None else (h.read, h.contig, h.pos, h.score, h.strand,
+                                    h.n_seeds, h.path, h.window_start) for h in hits]
+
+
+def _model_counts():
+    return dict(fixed=sw_banded.sw_banded_static.launches,
+                fixed_profile=sw_banded.sw_banded_profile.launches,
+                xdrop=banded_batch.banded_batch.launches,
+                b9=banded_block.block_forward.launches + banded_block.block_rows.launches,
+                walk=device_walk.block_walk.launches)
+
+
+@pytest.mark.parametrize("kw,need", [
+    (dict(), ("fixed",)),
+    (dict(traceback=True, both_strands=True), ("fixed", "b9", "walk")),
+    (dict(traceback=True, gap_open=3, gap_extend=1), ("fixed", "xdrop")),
+    (dict(traceback=True, bandwidth=48), ("fixed", "xdrop")),
+    (dict(extend="adaptive", traceback=True, ambiguous=True), ("xdrop", "b9", "walk")),
+    (dict(extend="fixed", ambiguous=True), ("fixed",)),
+])
+def test_mapper_on_card_equals_card_route_on_cpu(card, map_case, kw, need):
+    """The mapper on the card (its route: the fixed corridor on the 2-bit
+    wire, the raw wire for reads with an in-length N, linear winners on
+    the block tier, Gotoh and wide-band winners on the per-round band)
+    equals the same route on the CPU's plain tiers, hit for hit."""
+    reads, idx = map_case
+    kw = dict(kw)
+    if kw.pop("ambiguous", False):
+        reads = reads.copy()
+        reads[::7, 60] = 4
+    before = _model_counts()
+    got = models_mapper.map_reads(reads, index=idx, min_score=20, **kw)
+    after = _model_counts()
+    want = models_mapper.map_reads(reads, index=idx, min_score=20, device="cpu",
+                                   route="card", **kw)
+    assert _hits(got) == _hits(want)
+    assert sum(h is not None for h in got) >= len(reads) // 3
+    ran = {k for k in after if after[k] > before[k]}
+    assert set(need) <= ran, (need, ran)
+    if "b9" not in need:
+        assert "b9" not in ran and "walk" not in ran
+
+
+def test_mapper_pipelined_on_card(card, map_case):
+    reads, idx = map_case
+    kw = dict(index=idx, min_score=20, traceback=True, both_strands=True)
+    assert _hits(models_mapper.map_reads_pipelined(reads, chunk_reads=32, **kw)) == _hits(
+        models_mapper.map_reads(reads, **kw))
+
+
+@pytest.mark.parametrize("scoring", ["linear", "gotoh", "protein"])
+def test_msa_on_card_equals_cpu(card, scoring, monkeypatch):
+    """The MSA on the card launches the pinned semi-global kernel (row 8
+    uniform, row 9 BLOSUM62), never the plain scan, and equals the CPU."""
+    rng = np.random.default_rng(10000)
+    letters = 20 if scoring == "protein" else 4
+    anc = rng.integers(0, letters, 90).astype(np.uint8)
+    seqs = [mutate(rng, anc) for _ in range(9)]
+    params = {"linear": ScoringParams.linear(dna_matrix(2, -3), 2),
+              "gotoh": ScoringParams(dna_matrix(2, -3), 4, 1),
+              "protein": ScoringParams(BLOSUM62, 11, 1)}[scoring]
+    want = models_msa.msa_center_star(seqs, params=params, device="cpu")
+    wrapper = (semiglobal_profile.semiglobal_profile if scoring == "protein"
+               else semiglobal_batch.semiglobal_batch)
+    before = wrapper.launches_pinned
+    for mod, name in ((semiglobal_batch, "semiglobal_batch_diag"),
+                      (semiglobal_profile, "semiglobal_batch_general")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: pytest.fail(
+            f"plain scan {_n} ran on the card"))
+    got = models_msa.msa_center_star(seqs, params=params)
+    assert wrapper.launches_pinned == before + 3  # center pick, star, self score
+    assert got.center == want.center and got.sp == want.sp
+    assert np.array_equal(got.scores, want.scores)
+    assert all(np.array_equal(a, b) for a, b in zip(got.rows, want.rows))
+
+
+def test_assembly_on_card_equals_cpu(card):
+    """The assembly screen launches the row-scan kernel (rows 1-4) on the
+    card; with N inside the reads its scores and the contig equal the
+    CPU's."""
+    rng = np.random.default_rng(10000)
+    genome = rng.integers(0, 4, 1500).astype(np.uint8)
+    reads = [r.copy() for r in models_assembly.make_reads(rng, genome, 150, 50)]
+    for r in reads:
+        r[rng.integers(0, 150, 2)] = 4
+    bq, bt, _ = models_assembly._screen_batch(reads)
+    before = sw_batch.sw_batch.launches
+    from swtpu_torch.ops.variants import best_engine
+
+    got = best_engine(DNA_111)(bq, bt).cpu().numpy()
+    assert sw_batch.sw_batch.launches == before + 1
+    assert np.array_equal(got, best_engine(DNA_111, "cpu")(bq, bt).numpy())
+    contig = models_assembly.assemble_greedy(reads, min_overlap=30, slack=4)
+    assert sw_batch.sw_batch.launches == before + 2
+    assert np.array_equal(contig, models_assembly.assemble_greedy(
+        reads, min_overlap=30, slack=4, device="cpu"))
+    assert len(contig) == len(genome)
+
+
+@pytest.mark.parametrize("argv", [
+    ["msa", "--random", "12x80", "--scoring", "2,-3", "--gap", "2"],
+    ["msa", "--random", "6x60", "--alphabet", "protein", "--gap-open", "11",
+     "--gap-extend", "1"],
+    ["assemble", "--random", "3000x150x50"],
+    ["assemble", "--random", "1200x150x50", "--sam"],
+])
+def test_models_cli_on_card_equals_cpu(card, argv, capsys):
+    from swtpu_torch.cli import main
+
+    main(argv)
+    on_card = capsys.readouterr()
+    main(argv + ["--device", "cpu"])
+    assert capsys.readouterr() == on_card and on_card.out
+
+
+def test_map_cli_on_card(card, capsys):
+    import json
+
+    from swtpu_torch.cli import main
+
+    main(["map", "--random", "100000x256x150", "--traceback"])
+    rec = json.loads(capsys.readouterr().out)
+    assert rec["reads"] == 256 and rec["correct_locus"] >= 0.9 * 256

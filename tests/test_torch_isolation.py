@@ -28,7 +28,15 @@
   (a plain tier) runs ``best_engine``'s kernel there;
 - likewise search and its statistics: ``all_vs_all_topk``,
   ``calibrate_stats``, ``resolve_stats`` and the ``search`` CLI raise
-  without a card.
+  without a card;
+- likewise the models: ``map_reads``, ``extend_candidates``,
+  ``msa_center_star``, ``assemble_greedy`` and the ``map`` / ``msa`` /
+  ``assemble`` CLI raise without a card; on a CUDA device the mapper's
+  raw-wire screening launches the fixed-band kernel and its adaptive
+  screening the per-round kernel, never the plain tiers;
+- the package-level names of the JAX package's ``__init__`` files are
+  exported by the port's, and importing them loads neither JAX nor the
+  JAX package.
 """
 
 import json
@@ -71,6 +79,9 @@ from swtpu_torch.kernels import (
     sw_scan,
     sw_wavefront,
 )
+from swtpu_torch.models import assembly as port_assembly
+from swtpu_torch.models import mapper as port_mapper
+from swtpu_torch.models import msa as port_msa
 from swtpu_torch.ops import variants
 from swtpu_torch.parallel import longpair, search
 from swtpu_torch.utils import device as port_device
@@ -210,6 +221,15 @@ NO_DEVICE_CALLS = {
     "calibrate_stats": lambda: stats.calibrate_stats(DNA_10_30_15, m=8, pairs=16),
     "resolve_stats": lambda: stats.resolve_stats(DNA_10_30_15, "dna", m=8,
                                                  calibrate_pairs=16),
+    "map_reads": lambda: port_mapper.map_reads(Q, contigs=[np.arange(40) % 4], k=4),
+    "map_reads_pipelined":
+        lambda: port_mapper.map_reads_pipelined(Q, contigs=[np.arange(40) % 4], k=4),
+    "extend_candidates": lambda: port_mapper.extend_candidates(
+        port_mapper.build_index([np.arange(40) % 4], k=4), Q, np.full(2, 8),
+        port_mapper.Candidates(np.zeros(1, np.int64), np.zeros(1, np.int64),
+                               np.ones(1, np.int64))),
+    "msa_center_star": lambda: port_msa.msa_center_star([Q[0], Q[1]]),
+    "assemble_greedy": lambda: port_assembly.assemble_greedy([Q[0], Q[1]]),
 }
 
 
@@ -238,6 +258,9 @@ def test_no_card_entry_without_device_raises(entry):
     ["align", "--random", "2x8x8", "--engine", "wavefront"],
     ["search", "--random", "2x4x8"],
     ["search", "--random", "2x4x8", "--tsv", "--stats", "calibrate"],
+    ["map", "--random", "2000x4x50"],
+    ["msa", "--random", "3x20"],
+    ["assemble", "--random", "300x60x30"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
@@ -245,6 +268,48 @@ def test_no_card_cli_raises_without_output(argv, capsys):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(argv)
     assert capsys.readouterr().out == ""
+
+
+#: the JAX package's package-level names (``swtpu/__init__.py``, the
+#: ``__init__`` files of core, ops, oracle and models) and the port's
+#: package that exports each
+EXPORTS = {
+    "swtpu_torch": ["ScoringParams", "DNA_111", "dna_matrix", "pack_2bit",
+                    "unpack_2bit", "random_dna", "mutate", "revcomp"],
+    "swtpu_torch.core": ["path_to_cigar", "cigar_stats"],
+    "swtpu_torch.ops": ["VARIANTS", "get_variant"],
+    "swtpu_torch.oracle": ["sw_affine_score_batch"],
+    "swtpu_torch.models": ["assemble_greedy", "make_reads", "msa_center_star",
+                           "msa_rows_to_strings", "sp_score", "build_index",
+                           "find_candidates", "extend_candidates", "map_reads",
+                           "map_reads_pipelined"],
+}
+
+
+@pytest.mark.parametrize("package", list(EXPORTS))
+def test_package_exports_load_no_jax_and_no_swtpu(package):
+    code = (
+        "import importlib, json, sys\n"
+        f"mod = importlib.import_module({package!r})\n"
+        f"missing = [n for n in {EXPORTS[package]!r} if not hasattr(mod, n)]\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'swtpu' or m.startswith('swtpu.')]\n"
+        "print(json.dumps([missing, bad]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300, check=True,
+    ).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == [[], []]
+    # and the JAX package exports the same names
+    import importlib
+
+    ref = importlib.import_module(package.replace("swtpu_torch", "swtpu"))
+    assert all(hasattr(ref, n) for n in EXPORTS[package]
+               if not (package.endswith("models") and n in (
+                   "build_index", "find_candidates", "extend_candidates",
+                   "map_reads", "map_reads_pipelined")))
 
 
 def test_no_card_bench_refuses(capsys):
@@ -619,6 +684,38 @@ def test_cuda_banded_raises_without_a_kernel(fake_banded_card, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
     assert fake_banded_card == []
+
+
+@pytest.mark.parametrize("extend,call", [
+    ("fixed", ("fixed", "uniform", False)),
+    ("adaptive", ("xdrop", 32, False, False, False)),
+])
+def test_cuda_mapper_screening_runs_the_kernel(fake_banded_card, extend, call):
+    """The mapper's screening on a CUDA device: reads with an in-length N
+    go on the raw wire to the fixed-band kernel (extend "fixed"), or to
+    the per-round kernel (extend "adaptive"), one launch for every
+    candidate; the scores equal the CPU's."""
+    rng = np.random.default_rng(10000)
+    genome = rng.integers(0, 4, 600).astype(np.uint8)
+    reads = np.stack([genome[s: s + 40].copy() for s in (10, 200, 430)])
+    reads[:, 20] = 4
+    lens = np.full(3, 40)
+    idx = port_mapper.build_index([genome], k=9)
+    cands = port_mapper.find_candidates(idx, reads, lens)
+    got = port_mapper.extend_candidates(idx, reads, lens, cands, extend=extend,
+                                        device="cuda")
+    assert fake_banded_card == [call]
+    from swtpu_torch.oracle.banded_static import sw_banded_static_score
+    from swtpu_torch.oracle.semiglobal import banded_xdrop
+
+    ext = ScoringParams.linear(np.pad(dna_matrix(1, -1), ((0, 2), (0, 2)),
+                                      constant_values=-1), 1)
+    for k, r in enumerate(cands.read):
+        w = idx.ref[got[1][k]: got[1][k] + 40 + 64]
+        want = (sw_banded_static_score(reads[r], w, ext, 32) if extend == "fixed"
+                else banded_xdrop(reads[r], w)[0])
+        assert got[0][k] == want
+    assert len(got[0]) >= 3 and got[0].min() > 0
 
 
 @pytest.mark.parametrize("argv,call", [

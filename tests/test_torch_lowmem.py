@@ -1,9 +1,9 @@
 """The port's low-memory host walk (``batch/lowmem.py``) against the JAX
-package's: the numpy path (``use_native=False``) and the default (JAX's
-C++ twin where it is built; the port has none and runs numpy either
-way), at ``row_block`` 16, with and without device endpoints, linear and
-affine; affine with gap_open < gap_extend raises in the port's numpy
-walker as in JAX's. Seed 10000, tolerance 0."""
+package's: the numpy path (``use_native=False``) and the default (the
+C++ walkers of both packages), at ``row_block`` 16, with and without
+device endpoints, linear and affine; affine with gap_open < gap_extend
+raises in the numpy walkers and walks exactly on the C++ ones. Seed
+10000, tolerance 0."""
 
 import numpy as np
 import pytest
@@ -69,9 +69,20 @@ def test_lowmem_zero_score():
 
 @pytest.mark.parametrize("use_native", [False, True])
 def test_lowmem_affine_go_lt_ge_raises(use_native):
-    p = ScoringParams(dna_matrix(2, -1), gap_open=1, gap_extend=2)
-    q = np.arange(20, dtype=np.uint8) % 4
-    with pytest.raises(NotImplementedError, match="gap_open >= gap_extend"):
-        jax_lowmem(q, q, _jp(p), use_native=False)
-    with pytest.raises(NotImplementedError, match="gap_open >= gap_extend"):
-        sw_traceback_lowmem(q, q, p, use_native=use_native)
+    """Gotoh with gap_open < gap_extend: the numpy walkers of both
+    packages raise; the C++ walkers of both walk it exactly (seed 10000,
+    two random 200-mers: 118 with a 228-step path ending at (165, 196))."""
+    p = ScoringParams(dna_matrix(2, -3), gap_open=1, gap_extend=2)
+    rng = np.random.default_rng(SEED)
+    q = rng.integers(0, 4, 200).astype(np.uint8)
+    t = rng.integers(0, 4, 200).astype(np.uint8)
+    if not use_native:
+        with pytest.raises(NotImplementedError, match="gap_open >= gap_extend"):
+            jax_lowmem(q, t, _jp(p), use_native=False)
+        with pytest.raises(NotImplementedError, match="gap_open >= gap_extend"):
+            sw_traceback_lowmem(q, t, p, use_native=False)
+        return
+    want = jax_lowmem(q, t, _jp(p))
+    assert want == sw_affine_traceback(q, t, p)
+    assert want[0] == 118 and len(want[1]) == 228 and want[1][-1] == (165, 196)
+    assert sw_traceback_lowmem(q, t, p) == want
