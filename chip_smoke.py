@@ -31,7 +31,11 @@ schedule of ``csrc/sw_wavefront.cu``, B14; the ``longpair`` and ``align
 Karlin-Altschul statistics, the ``search`` CLI with its hits walked in C++)
 and the models (the read mapper on the fixed band's 2-bit wire with its
 winners on the block tier, center-star MSA on the pinned semi-global
-kernel, greedy assembly on ``best_engine``; ``map``, ``msa``, ``assemble``).
+kernel, greedy assembly on ``best_engine``; ``map``, ``msa``, ``assemble``)
+and the mesh on ``torch.distributed`` (data-parallel scores, the sharded
+search and the sharded long-pair sweep at world 1 under NCCL and in a
+2-rank gloo world on the one card; ``longpair`` under ``torchrun``) and the
+harnesses (``fuzz``, ``selftest``, a ``torch.profiler`` trace).
 Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
 built with g++ in phase 2); the traceback phases print the walker and its
 wall.
@@ -220,7 +224,7 @@ wall.
       and the 256 (row 12), beside the earlier per-block kernel over the
       same blocks and the earlier forward (B10 and B9 a block), B10 alone
       (row 13), their plain times and bounds (``block_ops``);
-  27. ``banded_block_align_device`` on 8 and 128 related 16384-mers (W =
+  27. ``banded_block_align_device`` on 8 related 16384-mers (W =
       64, K = 64, X = 70, (1,1,1)): wall time, paths from the origin
       rescored, scores against the forward, 1 pair against the oracle
       copy; the forward beside the earlier per-block forward; ``block_walk``
@@ -271,7 +275,7 @@ wall.
       sub-database with a tail chunk to the oracle copy; resume from a
       checkpoint written mid-sweep and a flaky engine that raises once;
       the chunk step at 16 x 2048 alone (CUDA events) and each mode's wall
-      (min of reps 2-3, fresh queries a rep) beside ``best_engine``'s
+      (the second of 2 reps, fresh queries a rep) beside ``best_engine``'s
       device time on the 2,097,152 pairs (the floor); at 131,072 x 128
       the C++ pack and the upload of the database beside a SHA-256 of it
       (what a cache keyed on content would pay a call); the launch alone
@@ -305,14 +309,39 @@ wall.
       fills the batch timed beside it): the contig reconstructs the
       genome, the first 2048 screening scores equal the CPU's; the
       ``msa`` and ``assemble`` CLI print the same bytes on the card as with
-      ``--device cpu``; ``map --random`` exits 0 with its true-locus count.
+      ``--device cpu``; ``map --random`` exits 0 with its true-locus count;
+  39. the mesh at world 1 (NCCL, a world of one process on an in-memory
+      store), at full width: ``data_parallel_scores`` on 1,048,576 random
+      128 x 128 DNA pairs (10,-30,15) equal to ``best_engine``'s scores,
+      ``sharded_all_vs_all_topk`` on phase 34's DNA 16 x 131,072 x 128 (k
+      = 10) equal to ``all_vs_all_topk``'s hits, and ``longpair_sw_ends``
+      on phase 30's 16K pairs (linear, Gotoh) through the mesh equal to the
+      one-card sweep; each wall beside its one-card entry point's;
+  40. a world of 2 ranks sharing the card over gloo (this script again,
+      ``--mesh-rank``; NCCL refuses two ranks on one card): the three
+      calls at the same sizes (strips of 8192 rows, half the batch and of
+      the database a rank) equal to phase 39's on every rank; which gloo
+      collectives take CUDA tensors; the walls (one shared card: not
+      scaling); and, started beside the two ranks, ``torchrun
+      --nproc-per-node 2 -m swtpu_torch longpair`` over gloo prints what the
+      one-card CLI prints;
+  41. the harnesses: ``fuzz --rounds 22 --pairs 512`` (every family twice,
+      0 mismatches), ``selftest`` (JAX's 23 checks, every one ok on the
+      card's kernels) and ``profile_trace`` around one 1M SpeedTest
+      ``best_engine`` call: the kernels' busy share of the trace's window.
+
+Depth cut to keep the run near 600 s (PERF.md section 4): phase 16's
+profile form sweep, phase 27's 128-pair 16K set, phase 34's in-smoke reps
+(one timed rep a mode).
 
 Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
 26, 30, 34, 35 and 36) and read just after it (phases 6, 10, 15, 21, 25, 29,
 33, 34, 35 and 38; rows 1-6 add phase 35's launches to their own and keep
 phase 34's, every one a chunk of 131,072 pairs, in ``search_launches``,
 charged at that shape's own time in ``search_lost_ms``; phases 36-38's
-launches, the models' window, go in ``models_launches``); every
+launches, the models' window, go in ``models_launches``, phases 39-40's,
+the mesh's window with both ranks' of phase 40, in ``mesh_launches``, and
+phase 41's, the harnesses' window, in ``harness_launches``); every
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
@@ -1228,7 +1257,361 @@ def models_phases(cli_main, launches, zero_launches, off_path, b9_folded, kb, ks
     return models
 
 
+MESH_B = 1 << 20  # the SpeedTest's pairs for data_parallel_scores
+MESH_NEEDS = [("sw_batch",), ("strip_tile",)]
+HARNESS_NEEDS = [("sw_batch",), ("sw_batch_ends",), ("sw_affine",), ("sw_affine_ends",),
+                 ("sw_profile", "sw_profile_warp"), ("sw_profile_affine", "sw_profile_affine_warp"),
+                 ("sw_profile_ends", "sw_profile_ends_warp"),
+                 ("sw_profile_affine_ends", "sw_profile_affine_ends_warp"),
+                 ("semiglobal_batch",), ("semiglobal_batch_pinned",),
+                 ("semiglobal_profile_affine",),
+                 ("sw_banded_static", "sw_banded_static_affine"),
+                 ("banded_batch", "banded_batch_w32_w64"),
+                 ("block_rows", "block_rows_small"), ("block_walk",), ("xdrop_walk",),
+                 ("strip_tile",)]
+
+
+def speedtest_pairs():
+    """1,048,576 random 128 x 128 DNA pairs drawn on the card (seed 10000 +
+    39): the same codes in every process on this card."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 39)
+    return tuple(torch.randint(0, 4, (MESH_B, 128), generator=g, device="cuda",
+                               dtype=torch.uint8) for _ in range(2))
+
+
+def mesh_inputs():
+    """The mesh phases' inputs, drawn alike in the parent and in each rank
+    of phase 40: ``speedtest_pairs``, phase 34's DNA queries and database
+    (its draws replayed) and phase 30's related 16384 x 16384 pair."""
+    from swtpu_torch.core.encode import mutate
+
+    dq, dt = speedtest_pairs()
+    s_ = np.random.default_rng(SEED)
+    Q = s_.integers(0, 4, size=(16, 128)).astype(np.uint8)
+    s_.integers(0, 4, size=(2048, 128))  # phase 34's chunk draw
+    T = s_.integers(0, 4, size=(131072, 128)).astype(np.uint8)
+    lr = np.random.default_rng(SEED)
+    lq = lr.integers(0, 4, 16384).astype(np.uint8)
+    lt = mutate(lr, lq, p_mismatch=0.1, p_insert=0.025, p_delete=0.025, out_len=16384)
+    return dq, dt, Q, T, lq, lt
+
+
+def mesh_calls(mesh, sp, dq, dt, Q, T, lq, lt):
+    """The mesh phases' three calls through ``mesh`` / ``sp``, or with
+    ``mesh=None`` their one-card entry points: name -> fn() -> host result."""
+    from swtpu_torch.core.scoring import DNA_10_30_15, DNA_111, ScoringParams, dna_matrix
+    from swtpu_torch.ops import best_engine
+    from swtpu_torch.parallel import (
+        all_vs_all_topk, data_parallel_scores, longpair_sw_ends, sharded_all_vs_all_topk,
+    )
+
+    gotoh = ScoringParams(dna_matrix(2, -3), 5, 1)
+
+    def dp():
+        if mesh is None:
+            return best_engine(DNA_10_30_15)(dq, dt).cpu().numpy()
+        return data_parallel_scores(dq, dt, DNA_10_30_15, mesh).full_tensor().cpu().numpy()
+
+    def search():
+        if mesh is None:
+            return all_vs_all_topk(Q, T, DNA_111, k=10, chunk_size=8192)
+        return sharded_all_vs_all_topk(Q, T, DNA_111, mesh, k=10)
+
+    return {
+        "data_parallel_scores": dp,
+        "sharded_all_vs_all_topk": search,
+        "longpair_sw_ends (1,-1,1)": lambda: longpair_sw_ends(lq, lt, DNA_111, sp),
+        "longpair_sw_ends Gotoh (2,-3,5,1)": lambda: longpair_sw_ends(lq, lt, gotoh, sp),
+    }
+
+
+def digest(results):
+    """A SHA-256 of the calls' host results, to hold ranks and phases equal."""
+    h = hashlib.sha256()
+    for name in sorted(results):
+        for part in tup(results[name]):
+            h.update(np.ascontiguousarray(np.asarray(part)).tobytes())
+    return h.hexdigest()
+
+
+def mesh_worker(rank, world, store, out_path):
+    """One rank of phase 40: the three calls on the card over gloo, each
+    counted on its first call and then timed (min of 3 walls, barriers
+    around each); every rank's digest must be rank 0's. Rank 0 writes the
+    results, the walls, both ranks' launches and the gloo probe."""
+    import torch.distributed as dist
+
+    from swtpu_torch.kernels import longpair_strip as kls
+    from swtpu_torch.kernels import sw_batch as kb
+    from swtpu_torch.parallel import init_distributed, make_mesh
+    from swtpu_torch.parallel.mesh import host_staged
+
+    init_distributed("file://" + store, world, rank, backend="gloo")
+    dev = torch.device("cuda")
+    mesh, sp = make_mesh(world), make_mesh(world, axis="sp")
+    dq, dt, Q, T, lq, lt = mesh_inputs()
+    strips = (kls.tile_strip_linear, kls.tile_strip_affine)
+    results, walls, counts = {}, {}, {}
+    for name, fn in mesh_calls(mesh, sp, dq, dt, Q, T, lq, lt).items():
+        kb.sw_batch.launches = 0
+        for w in strips:
+            w.launches = 0
+        results[name] = fn()
+        counts[name] = dict(sw_batch=kb.sw_batch.launches,
+                            strip_tile=sum(w.launches for w in strips))
+        reps = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            reps.append(time.perf_counter() - t0)
+        walls[name] = min(reps) * 1e3
+    # what gloo does with CUDA tensors (the collectives that return)
+    x = torch.full((4,), rank + 1, dtype=torch.int32, device=dev)
+    probe = {}
+
+    def gather():
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x)
+        return [int(o[0]) for o in out] == list(range(1, world + 1))
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return int(y[0]) == 1
+
+    def reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return int(y[0]) == world * (world + 1) // 2
+
+    for cname, cfn in (("all_gather", gather), ("broadcast", broadcast),
+                       ("all_reduce", reduce)):
+        try:
+            probe[cname] = "returns the right values" if cfn() else "returns wrong values"
+        except Exception as e:  # noqa: BLE001  (the probe reports any failure)
+            probe[cname] = f"raises {type(e).__name__}"
+    mine = dict(digest=digest(results), counts=counts, walls=walls)
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    if rank == 0:
+        dp = results["data_parallel_scores"]
+        s_, i_ = results["sharded_all_vs_all_topk"]
+        ends = [list(results[k]) for k in results if k.startswith("longpair")]
+        np.savez(out_path, dp=dp, hits_s=s_, hits_i=i_, ends=np.array(ends),
+                 meta=np.array(json.dumps(dict(
+                     ranks=every, probe=probe, staged=host_staged(dev),
+                     backend=dist.get_backend(), mesh_type=mesh.device_type))))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phases(cli_main, launches, zero_launches, off_path, smi):
+    """Phases 39-40, the mesh's window. Returns its launches by row (both
+    ranks' of phase 40 added)."""
+    import os
+    import torch.distributed as dist
+
+    from swtpu_torch.parallel import make_mesh
+
+    zero_launches(list(KERNELS))
+
+    def wall(fn):
+        """min of 3 walls, off the path."""
+        reps = []
+        with off_path():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                reps.append(time.perf_counter() - t0)
+        return min(reps) * 1e3
+
+    # 39. the mesh at world 1 -------------------------------------------------
+    phase("39 the mesh at world 1 (NCCL): data_parallel_scores on 1,048,576 x (128x128) "
+          "DNA (10,-30,15), sharded_all_vs_all_topk on 16 x 131,072 x 128, the sharded "
+          "long-pair sweep on the 16K pairs")
+    print(smi, flush=True)
+    dq, dt, Q, T, lq, lt = mesh_inputs()
+    t0 = time.perf_counter()
+    mesh, sp = make_mesh(), make_mesh(axis="sp")
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+          and mesh.size() == sp.size() == 1, "the world-1 mesh is NCCL on the card")
+    calls = mesh_calls(mesh, sp, dq, dt, Q, T, lq, lt)
+    results = {name: fn() for name, fn in calls.items()}
+    first_s = time.perf_counter() - t0
+    one = mesh_calls(None, None, dq, dt, Q, T, lq, lt)
+    with off_path():
+        ref = {name: fn() for name, fn in one.items()}
+    for name in calls:
+        same = all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(tup(results[name]), tup(ref[name])))
+        check(same, f"{name} at world 1 differs from its one-card entry point")
+        print(f"{name} through the world-1 mesh equals its one-card entry point; wall "
+              f"{wall(calls[name]):.3f} ms, one-card {wall(one[name]):.3f} ms (min of 3)",
+              flush=True)
+    print(f"the world of one (NCCL on an in-memory store), its two meshes and the "
+          f"calls' first runs: {first_s:.2f} s; ends "
+          f"{[results[k] for k in results if k.startswith('long')]}", flush=True)
+    del dq, dt
+    torch.cuda.empty_cache()
+    want = digest(results)
+    world1 = {name: launches(name) for name in KERNELS}
+
+    # 40. two ranks on the one card ---------------------------------------------
+    phase("40 a 2-rank gloo world on the one card: the same three calls (strips of "
+          "8192 rows, half the batch and of the database a rank), then torchrun "
+          "--nproc-per-node 2 -m swtpu_torch longpair")
+    print(smi, flush=True)
+    tmp = tempfile.TemporaryDirectory()
+    store, out = str(Path(tmp.name) / "store"), str(Path(tmp.name) / "rank0.npz")
+    t0 = time.perf_counter()
+    # the longpair CLI in a torchrun world of 2 starts beside the two ranks:
+    # both wait mostly on process start-up (the ranks' walls below run
+    # beside it); its stdout is held against the one-card CLI's at the end
+    argv = ["longpair", "--random", "2x8192x6000", "--block", "1024", "--cigar"]
+    tr = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "2", "-m", "swtpu_torch", *argv, "--backend",
+                           "gloo"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                          cwd=str(Path(__file__).resolve().parent))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r), "2", store,
+         out], env=dict(os.environ, LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    logs = []
+    try:
+        for r, p_ in enumerate(procs):
+            so, se = p_.communicate(timeout=400)
+            logs.append((r, p_.returncode, so, se))
+        spawn_s = time.perf_counter() - t0
+        with off_path():
+            one_card = run_cli(cli_main, argv)
+        tr_out, tr_err = tr.communicate(timeout=400)
+        tr_s = time.perf_counter() - t0
+    finally:
+        for p_ in procs + [tr]:
+            if p_.poll() is None:
+                p_.kill()
+                p_.wait()
+    for r, rc, so, se in logs:
+        check(rc == 0, f"rank {r} of the 2-rank world exited {rc}:\n{so[-3000:]}\n{se[-3000:]}")
+    z = np.load(out)
+    meta = json.loads(str(z["meta"]))
+    got = {"data_parallel_scores": z["dp"], "sharded_all_vs_all_topk": (z["hits_s"], z["hits_i"])}
+    for k, e in zip([k for k in results if k.startswith("long")], z["ends"]):
+        got[k] = tuple(int(x) for x in e)
+    check(digest(got) == want and all(r_["digest"] == want for r_ in meta["ranks"]),
+          "the 2-rank world's results differ from phase 39's")
+    tmp.cleanup()
+    print(f"2 ranks (gloo, both on {torch.cuda.get_device_name(0)}): every call equals "
+          f"phase 39's on both ranks; the spawn, 3 calls x 4 and the gloo probe took "
+          f"{spawn_s:.1f} s (the torchrun world below starting beside them)", flush=True)
+    print(f"gloo with CUDA tensors on this card: {meta['probe']}; the port stages its own "
+          f"exchanges through the host under gloo (host_staged: {meta['staged']}): the "
+          f"sweep's rows (isend / irecv), the gathered endpoint rows and top-k candidates "
+          f"(all_gather), and the DTensor lives on a {meta['mesh_type']} mesh", flush=True)
+    for name in calls:
+        w_ = [r_["walls"][name] for r_ in meta["ranks"]]
+        print(f"  {name}: 2 ranks on one shared card (not scaling) {w_[0]:.3f} / "
+              f"{w_[1]:.3f} ms (rank 0 / 1, min of 3); launches a rank "
+              f"{[r_['counts'][name] for r_ in meta['ranks']]} [{smi}]", flush=True)
+    mesh_counts = dict(world1)
+    for r_ in meta["ranks"]:
+        for c in r_["counts"].values():
+            mesh_counts["sw_batch"] += c["sw_batch"]
+            mesh_counts["strip_tile"] += c["strip_tile"]
+    # the longpair CLI in the torchrun world of 2 against the one-card CLI
+    check(tr.returncode == 0, f"torchrun longpair exited {tr.returncode}:\n{tr_err[-3000:]}")
+    check(tr_out.splitlines() == one_card and len(one_card) == 2,
+          f"torchrun longpair's stdout differs from the one-card CLI's:\n{tr_out[:2000]}")
+    check(tr_err.count("target trimmed 6000 -> 5120") == 2,
+          f"torchrun longpair's trim warnings (rank 0's, once a pair):\n{tr_err[-2000:]}")
+    print(f"torchrun --nproc-per-node 2 -m swtpu_torch {' '.join(argv)} --backend gloo: "
+          f"stdout equal to the one-card CLI's ({len(tr_out)} bytes; {tr_s:.1f} s from "
+          f"the start of this phase)", flush=True)
+    print(f"mesh window launches (phases 39-40, both ranks): "
+          f"{ {k: v for k, v in mesh_counts.items() if v} }", flush=True)
+    for need in MESH_NEEDS:
+        check(any(mesh_counts[k] > 0 for k in need),
+              f"a mesh kernel did not launch: {need} in {mesh_counts}")
+    return mesh_counts
+
+
+def harness_phases(cli_main, launches, zero_launches, b9_folded, smi):
+    """Phase 41, the harnesses' window. Returns its launches by row, the
+    trace's busy share and the fuzz stats."""
+    from swtpu_torch.core.scoring import DNA_10_30_15
+    from swtpu_torch.ops import best_engine
+    from swtpu_torch.utils.obs import profile_trace, trace_busy
+
+    zero_launches(list(KERNELS))
+    b9_folded["launches"] = 0  # the harnesses' B9 launches all count for row 11
+    phase("41 the harnesses: fuzz --rounds 22 --pairs 512, selftest, profile_trace "
+          "around one 1M SpeedTest best_engine call")
+    print(smi, flush=True)
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    lines = run_cli(cli_main, ["fuzz", "--rounds", "22", "--pairs", "512", "--save-dir",
+                               tmp.name])
+    fuzz_s = time.perf_counter() - t0
+    stats = json.loads(next(x for x in lines if x.startswith("{")))
+    check(stats["rounds"] == 22 and stats["mismatches"] == 0 and not any(
+        Path(tmp.name).iterdir()), f"fuzz on the card: {lines}")
+    tmp.cleanup()
+    fuzz_counts = {k: v for k, v in ((n, launches(n)) for n in KERNELS) if v}
+    print(f"fuzz --rounds 22 --pairs 512 (every family twice): {stats} in {fuzz_s:.1f} s; "
+          f"launches {fuzz_counts}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        lines = run_cli(cli_main, ["selftest"])
+        rc = 0
+    except SystemExit as e:
+        rc, lines = e.code, []
+    self_s = time.perf_counter() - t0
+    recs = [json.loads(x) for x in lines]
+    check(rc == 0 and len(recs) == 23 and all(r_["ok"] for r_ in recs),
+          f"selftest on the card: rc {rc}, {recs}")
+    print(f"selftest: all {len(recs)} checks ok on the card ({self_s:.1f} s): "
+          + ", ".join(r_["selftest"] for r_ in recs), flush=True)
+    qd, td = speedtest_pairs()
+    fn = best_engine(DNA_10_30_15)
+    fn(qd, td)  # warm: the trace sees one steady call
+    torch.cuda.synchronize()
+    tmp = tempfile.TemporaryDirectory()
+    with profile_trace(tmp.name) as prof:
+        t0 = time.perf_counter()
+        fn(qd, td)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    busy, window = trace_busy(prof.trace_path)
+    n_kernels = sum(1 for e in json.load(open(prof.trace_path))["traceEvents"]
+                    if e.get("cat") == "kernel")
+    size_kb = Path(prof.trace_path).stat().st_size / 1024
+    tmp.cleanup()
+    check(busy > 0 and n_kernels >= 1, "the trace holds the call's kernels")
+    print(f"profile_trace around one best_engine call at 1,048,576 x (128x128) (10,-30,15): "
+          f"{n_kernels} kernel events, kernels busy {busy / 1e3:.3f} ms of the trace's "
+          f"{window / 1e3:.3f} ms window: busy share {busy / window:.1%}, idle "
+          f"{1 - busy / window:.1%}; the call's wall {call_ms:.3f} ms (busy / wall "
+          f"{busy / 1e3 / call_ms:.1%}); trace {size_kb:.0f} KB [{smi}]", flush=True)
+    del qd, td
+    torch.cuda.empty_cache()
+    harness = {name: launches(name) for name in KERNELS}
+    print(f"harness window launches (phase 41): { {k: v for k, v in harness.items() if v} }",
+          flush=True)
+    for need in HARNESS_NEEDS:
+        check(any(harness[k] > 0 for k in need),
+              f"a kernel did not launch in the harnesses' window: {need} in {harness}")
+    return harness
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":  # a rank of phase 40
+        rank, world, store, out = sys.argv[2:6]
+        return mesh_worker(int(rank), int(world), store, out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
@@ -1610,6 +1993,10 @@ def main():
     # a round over the cells a lane holds (scores only, linear, uniform
     # scoring, W = 32 and 96), the earlier kernel beside them
     cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
+    # the SASS of every library read below, dumped at once (seconds each)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda src: sass_text(_build.library_path(src), cuobjdump),
+                      (XDROP, SEMIGLOBAL, ROWSCAN, PROFILE, BF16, BANDED, WAVEFRONT)))
     xdrop_sass = {}
     for label, frag, cpl in (
             ("W=32", "xdrop_round_kernelILi1ELb0ELb0ELb0ELb1E", 1),
@@ -3447,37 +3834,38 @@ def main():
               f"{cells / ms / 1e6:.2f} band GCUPS", flush=True)
         del qp, tp, staged
     # the profile kernel's two forms, launch alone, at n = 120 on B pairs of
-    # random protein against m-long targets (linear 11, Gotoh 11/1): the
-    # sweep that sets profile_form's thresholds; the warp form held against
-    # the thread form on every pair and, at 512 pairs, the plain version
+    # random protein against m-long targets (linear 11, Gotoh 11/1): points
+    # on both sides of profile_form's thresholds (the full sweep that set
+    # them, B = 512 to 131,072 at each m, is PERF.md's, cut here for time);
+    # the warp form held against the thread form on every pair and, at 512
+    # pairs, the plain version
     print(f"profile form sweep, launch alone (ms) [{smi}]: B x 120 x m, warp form / "
           "thread form, the faster, and the form profile_form picks", flush=True)
     srng = np.random.default_rng(SEED + 13)
     picks = []
-    for m_ in (128, 320, 800):
-        for B_ in (512, 2731, 8192, 32768, 131072):
-            q_ = torch.from_numpy(random_protein(srng, (B_, 120))).to(dev)
-            t_ = torch.from_numpy(random_protein(srng, (B_, m_))).to(dev)
-            line = []
-            for p in (P_LIN, P_GOTOH):
-                table = kp.profile_table(p, dev)
-                got = kp.profile_warp_launch_t(q_, t_, table, p, False)
-                name = profile_name(False, p, warp=True)
-                err = max_abs_err(got, kp.profile_launch_t(q_, t_, table, p, False))
-                if B_ == 512:  # and the plain version, once a width
-                    err = max(err, max_abs_err(got, kp.sw_profile_plain(q_, t_, p)))
-                max_err[name] = max(max_err[name], err)
-                check(err == 0, f"{name} differs on the sweep's {B_} x 120 x {m_}")
-                it = 3 if B_ * m_ > 10**7 else 10
-                w = timed(kp.profile_warp_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
-                th = timed(kp.profile_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
-                pick = kp.profile_form(B_, 120, m_, n_sm)
-                picks.append((pick, "warp" if w < th else "thread", min(w, th) / max(w, th)))
-                line.append(f"gap=({p.gap_open},{p.gap_extend}) {w:.4f} / {th:.4f}, "
-                            f"{picks[-1][1]}, picks {pick}")
-            print(f"  {B_} x 120 x {m_}: " + "; ".join(line), flush=True)
-            del q_, t_
-            torch.cuda.empty_cache()
+    for m_, B_ in ((128, 512), (128, 32768), (320, 512), (320, 8192), (800, 512)):
+        q_ = torch.from_numpy(random_protein(srng, (B_, 120))).to(dev)
+        t_ = torch.from_numpy(random_protein(srng, (B_, m_))).to(dev)
+        line = []
+        for p in (P_LIN, P_GOTOH):
+            table = kp.profile_table(p, dev)
+            got = kp.profile_warp_launch_t(q_, t_, table, p, False)
+            name = profile_name(False, p, warp=True)
+            err = max_abs_err(got, kp.profile_launch_t(q_, t_, table, p, False))
+            if B_ == 512:  # and the plain version, once a width
+                err = max(err, max_abs_err(got, kp.sw_profile_plain(q_, t_, p)))
+            max_err[name] = max(max_err[name], err)
+            check(err == 0, f"{name} differs on the sweep's {B_} x 120 x {m_}")
+            it = 3 if B_ * m_ > 10**7 else 10
+            w = timed(kp.profile_warp_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
+            th = timed(kp.profile_launch_t, (q_, t_, table, p, False), iters=it) * 1e3
+            pick = kp.profile_form(B_, 120, m_, n_sm)
+            picks.append((pick, "warp" if w < th else "thread", min(w, th) / max(w, th)))
+            line.append(f"gap=({p.gap_open},{p.gap_extend}) {w:.4f} / {th:.4f}, "
+                        f"{picks[-1][1]}, picks {pick}")
+        print(f"  {B_} x 120 x {m_}: " + "; ".join(line), flush=True)
+        del q_, t_
+        torch.cuda.empty_cache()
     right_pick = sum(p == f for p, f, _ in picks)
     near = sum(p == f or r > 0.9 for p, f, r in picks)
     print(f"profile_form (warp up to {kp.WARP_PAIRS_PER_SM} pairs an SM or past m = "
@@ -4225,15 +4613,17 @@ def main():
     torch.cuda.empty_cache()
 
     # 27. block tier traceback at reference scale ------------------------------
-    phase("27 block tier traceback: banded_block_align_device on 8 and 128 related "
+    phase("27 block tier traceback: banded_block_align_device on 8 related "
           "16384-mers, W = 64, K = 64, X = 70, (1,1,1)")
     lrng = np.random.default_rng(SEED + 14)
     L16 = 16384
-    q16 = lrng.integers(0, 4, size=(128, L16)).astype(np.uint8)
+    # 8 pairs (the 128-pair set of PRs 6-16 is cut for time: PERF.md keeps
+    # its last numbers)
+    q16 = lrng.integers(0, 4, size=(8, L16)).astype(np.uint8)
     t16h = np.stack([mutate(lrng, q, out_len=L16) for q in q16])
     p111 = ScoringParams.linear(dna_matrix(1, -1), 1)
     walk_times = {}  # pairs: the walkers' times on them
-    for Bb in (8, 128):
+    for Bb in (8,):
         with b9_shape(Bb, 64, False):
             q, t = q16[:Bb], t16h[:Bb]
             with off_path():  # a warm-up, not the path's own call
@@ -4288,8 +4678,7 @@ def main():
             check(decode_device_walk(wire) == out, "16K block traceback: decode")
             check([s0 for s0, _ in out] == (run.state[1] - 70).cpu().tolist(),
                   "16K block traceback: scores vs the forward")
-            if Bb == 8:
-                out8, walk_run, walk_wire = out, run, wire
+            out8, walk_run, walk_wire = out, run, wire
             by_group = ", ".join(f"{G} a CTA {v:.4f} ms ({v * 1e6 / nsteps.max():.1f} ns a "
                                  f"step)" for G, v in group_ms.items())
             print(f"{Bb} pairs: {wall * 1e3:.1f} ms wall (upload, forward, device walk, "
@@ -4304,12 +4693,9 @@ def main():
                   f"origin rescored; the wire equals the plain version's and the serial "
                   f"kernel's; the map kernel alone by pairs a producer CTA: {by_group} "
                   f"(default {kdw.default_group(Bb)}) [{smi}]", flush=True)
-            if Bb == 128:
-                del run, wire, want
-                torch.cuda.empty_cache()
     check(out8[0] == banded_xdrop_block(q16[0], t16h[0], width=64, block=64),
           "16K block traceback vs the oracle copy, pair 0")
-    # the block walker's row on the 8 pairs, with the 128 pairs' times beside
+    # the block walker's row on the 8 pairs
     run, wire = walk_run, walk_wire
     plain_ms = timed(kdw.block_walk_plain, (run,), iters=1, warmup=0, reps=1) * 1e3
 
@@ -4339,18 +4725,7 @@ def main():
               f"({WALK_OPS} int32 ops and 24 bytes a step: the walk is a chain of "
               f"dependent steps, so latency binds it) [{smi}]", flush=True)
 
-    big = walk_times[128]
-    walk_row("block_walk", walk_times[8], plain_ms, wire.numel(),
-             pairs_128=dict(big, bound_ms=walk_bound(big["steps"], 128 * wire.shape[1])[0],
-                            ns_a_step=big["kernel_ms"] * 1e6 / big["longest"],
-                            earlier_ns_a_step=big["earlier_kernel_ms"] * 1e6 / big["longest"]))
-    print(f"block_walk, 128 pairs of 16384-mers ({big['steps']} steps, longest "
-          f"{big['longest']}): wrapper {big['ms']:.4f} ms, launch alone "
-          f"{big['kernel_ms']:.4f} ms ({big['kernel_ms'] * 1e6 / big['longest']:.1f} ns a "
-          f"step), the earlier serial kernel {big['earlier_kernel_ms']:.4f} ms "
-          f"({big['earlier_kernel_ms'] * 1e6 / big['longest']:.1f} ns a step); alone by "
-          f"pairs a producer CTA {big['kernel_ms_by_group']} ms (default "
-          f"{big['group']})", flush=True)
+    walk_row("block_walk", walk_times[8], plain_ms, wire.numel())
     del run, wire, walk_run, walk_wire
     torch.cuda.empty_cache()
 
@@ -4931,7 +5306,7 @@ def main():
             check(same_hits(got, brute), f"search {label} {mlabel} vs the brute force")
             walls = []
             with off_path():
-                for rep in range(3):  # rep 0 warms up; a fresh query set a rep
+                for rep in range(2):  # rep 0 warms up; a fresh query set a rep
                     qr = query_set(777 + rep, p)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -4941,7 +5316,7 @@ def main():
             search_times[(label, mlabel)] = min(walls) * 1e3
             pairs = Nq * Ns
             print(f"  {mlabel}: equal to the brute force; wall {min(walls) * 1e3:.2f} ms "
-                  f"(reps 2-3: {', '.join(f'{w * 1e3:.2f}' for w in walls)}), "
+                  f"(rep 2 of 2), "
                   f"{pairs / min(walls) / 1e6:.2f} M alignments/s, "
                   f"{pairs * L * L / min(walls) / 1e9:.1f} GCUPS; "
                   f"{min(walls) * 1e3 / floor_ms:.2f}x the floor", flush=True)
@@ -5112,9 +5487,16 @@ def main():
     models_counts = models_phases(
         cli_main, launches, zero_launches, off_path, b9_folded, kb, ksb, kbb, kbk, kdw,
         ksg, smi)
+    mesh_counts = mesh_phases(cli_main, launches, zero_launches, off_path, smi)
+    harness_counts = harness_phases(cli_main, launches, zero_launches, b9_folded, smi)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # phase 39's world of one
 
     for row in rows:
         row["models_launches"] = models_counts.get(row["name"], 0)
+        row["mesh_launches"] = mesh_counts.get(row["name"], 0)
+        row["harness_launches"] = harness_counts.get(row["name"], 0)
         if row["launches"] is None:
             row["launches"] = {**launch_counts, **sg_counts, **banded_counts,
                                **block_counts, **longpair_counts}[row["name"]]

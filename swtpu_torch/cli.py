@@ -1,6 +1,6 @@
 """swtpu_torch command-line interface: ``align``, ``semiglobal``,
 ``global``, ``banded``, ``longpair``, ``search``, ``map``, ``msa``,
-``assemble`` and ``pack``.
+``assemble``, ``pack``, ``selftest`` and ``fuzz``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
 query/target pairs), ``semiglobal`` and ``global`` (semi-global and
@@ -11,8 +11,10 @@ card, tile by tile), ``search`` (all-vs-all top-k database search,
 BASELINE config 5: JSON hits, ``--tsv`` BLAST outfmt-6 rows with
 Karlin-Altschul E-values and bit scores under ``--stats``, or SAM),
 ``map`` (seed-and-extend read mapping), ``msa`` (center-star multiple
-alignment), ``assemble`` (greedy overlap-layout-consensus assembly) and
-``pack`` (DNA FASTA <-> the 2-bit ``.npz`` container). Output is the
+alignment), ``assemble`` (greedy overlap-layout-consensus assembly),
+``pack`` (DNA FASTA <-> the 2-bit ``.npz`` container), ``selftest`` (the
+oracles against every tier that runs there: on the card the CUDA
+kernels) and ``fuzz`` (the randomized soak of ``swtpu_torch/fuzz.py``). Output is the
 same JSON lines (TSV, SAM, FASTA) as
 ``python -m swtpu`` prints for the same arguments; ``map`` on the card
 takes the card's route (``models/mapper.py``), so its hit scores follow
@@ -50,6 +52,9 @@ Usage:
   python -m swtpu_torch msa --alphabet protein --queries fam.fa --gap-open 11 --gap-extend 1
   python -m swtpu_torch assemble --random 20000x150x50
   python -m swtpu_torch assemble --reads reads.fa --slack 2 --sam --device cpu
+  torchrun --nproc-per-node 2 -m swtpu_torch longpair --random 1x16384x16384
+  python -m swtpu_torch selftest
+  python -m swtpu_torch fuzz --rounds 22 --pairs 512
   python -m swtpu_torch pack reads.fa reads.npz
   python -m swtpu_torch pack reads.npz reads.fa --unpack
 
@@ -60,8 +65,10 @@ the 2-bit container (DNA only). ``--engine`` names a score engine of
 ``ops.variants.VARIANTS`` for linear scores; a name whose guard does not
 pass and an unknown name run ``best_engine`` (a kernel on the card, the
 plain tier on the CPU), and so do the plain tiers' names (the default
-``xla_diag``, ``colscan``) on the card. ``longpair --devices`` takes 1
-only (the sharded sweep is ROADMAP.md queue A item 12b).
+``xla_diag``, ``colscan``) on the card. ``longpair --devices N`` runs in
+a world of N processes, one a device (``torchrun --nproc-per-node N -m
+swtpu_torch longpair ...``; ``--device cpu`` runs the world on gloo):
+rank 0 prints what ``python -m swtpu longpair --devices N`` prints.
 """
 
 from __future__ import annotations
@@ -359,44 +366,76 @@ def cmd_banded(args):
 
 
 def cmd_longpair(args):
-    """One long pair at a time on one card: the query in strips of at
-    most 16384 rows, the target in column blocks, tile by tile
-    (parallel/longpair.py). The sharded sweep over several devices is
-    ROADMAP.md queue A item 12b."""
-    from swtpu_torch.parallel import longpair_sw_align, longpair_sw_score
+    """One long pair at a time, its query strips over the mesh's sp axis:
+    one process a device (``torchrun --nproc-per-node N -m swtpu_torch
+    longpair ...``), strip boundaries point to point (parallel/longpair.py),
+    each strip in sub-strips of at most 16384 rows, the target in column
+    blocks. Rank 0 prints; the other ranks sweep their strips."""
+    import torch.distributed as dist
 
-    if args.devices not in (None, 1):
+    from swtpu_torch.parallel import (
+        init_distributed,
+        longpair_sw_align,
+        longpair_sw_ends,
+        longpair_sw_score,
+        make_mesh,
+    )
+    from swtpu_torch.parallel.longpair import _auto_block
+
+    init_distributed(backend=args.backend, device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_dev = args.devices or world
+    if n_dev != world:
         raise SystemExit(
-            f"longpair runs on one card (--devices 1); a mesh of {args.devices} "
-            "devices needs the sharded sweeps (ROADMAP.md queue A item 12b)"
+            f"longpair --devices {n_dev} runs one process a device, and this world "
+            f"has {world}: start it with torchrun --nproc-per-node {n_dev} -m "
+            "swtpu_torch longpair ..."
         )
+    mesh = make_mesh(n_dev, axis="sp", device=args.device) if world > 1 else None
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     names, qs, ts, ql, tl = _load_pair_inputs(args)
     params = _scoring(args)
     sam_rows = []  # (name, trimmed q, trimmed t, score, path)
     for name, q, t, lq, lt in zip(names, qs, ts, ql, tl):
         q, t = q[:lq], t[:lt]
-        # block divisibility: trim the target to the block grid
-        if len(q) < 1 or len(t) < (args.block or 1):
+        # strip/block divisibility: trim to the mesh/block grid
+        if len(q) < n_dev or len(t) < (args.block or 1):
             blk = args.block if args.block is not None else "auto"
             raise SystemExit(
-                f"longpair needs len(q) >= devices (1) and len(t) >="
+                f"longpair needs len(q) >= devices ({n_dev}) and len(t) >="
                 f" --block ({blk}); got {len(q)}x{len(t)} for"
                 f" {name} — lower --block/--devices or use `align`"
             )
-        # auto: one block of the whole target (JAX's step-count-optimal
-        # block at one device), so the target is never trimmed
-        block = len(t) if args.block is None else args.block
-        if len(t) % block:
+        if len(q) % n_dev:
+            new_lq = len(q) - len(q) % n_dev
+            if lead:
+                print(
+                    f"warning: {name}: query trimmed {len(q)} -> {new_lq} to a"
+                    f" multiple of --devices ({n_dev}); reported score is for"
+                    " the TRIMMED pair",
+                    file=sys.stderr,
+                )
+            q = q[:new_lq]
+        block = args.block
+        if block is None:
+            # auto: the step-count-optimal divisor of len(t) (the whole
+            # target on one device), so the target is never trimmed
+            block = _auto_block(len(q), len(t), n_dev)
+        elif len(t) % block:
             new_lt = len(t) - len(t) % block
-            print(
-                f"warning: {name}: target trimmed {len(t)} -> {new_lt} to a"
-                f" multiple of --block ({block}); reported score is for"
-                " the TRIMMED pair",
-                file=sys.stderr,
-            )
+            if lead:
+                print(
+                    f"warning: {name}: target trimmed {len(t)} -> {new_lt} to a"
+                    f" multiple of --block ({block}); reported score is for"
+                    " the TRIMMED pair",
+                    file=sys.stderr,
+                )
             t = t[:new_lt]
+        if not lead:  # the sweep is collective; the walk and the output are rank 0's
+            longpair_sw_ends(q, t, params, mesh, block=block, device=args.device)
+            continue
         if args.traceback or args.cigar or args.sam:
-            score, path = longpair_sw_align(q, t, params, block=block,
+            score, path = longpair_sw_align(q, t, params, mesh, block=block,
                                             device=args.device)
             if args.sam:
                 sam_rows.append((name, q, t, score, path))
@@ -410,7 +449,7 @@ def cmd_longpair(args):
                 rec["cigar"] = path_to_cigar(path, q, t, query_len=len(q))
             print(json.dumps(rec))
         else:
-            score = longpair_sw_score(q, t, params, block=block,
+            score = longpair_sw_score(q, t, params, mesh, block=block,
                                       device=args.device)
             print(json.dumps(dict(pair=name, score=score)))
     if sam_rows:
@@ -782,6 +821,34 @@ def cmd_msa(args):
         print(row)
 
 
+def cmd_selftest(args):
+    """End-to-end differential checks (oracle vs every engine tier that
+    runs on the device; swtpu_torch/selftest.py). One JSON line per
+    check; exits 1 if any fails."""
+    from swtpu_torch.selftest import run_selftest
+
+    ok_all = True
+    for name, ok in run_selftest(args.device):
+        ok_all &= ok
+        print(json.dumps(dict(selftest=name, ok=ok)))
+    if not ok_all:
+        raise SystemExit(1)
+
+
+def cmd_fuzz(args):
+    """Soak-scale randomized differential testing (swtpu_torch.fuzz): the
+    CUDA kernels beside the plain tiers on the card, the plain tiers
+    alone with --device cpu."""
+    from swtpu_torch.fuzz import run_fuzz
+
+    families = args.families.split(",") if args.families else None
+    run_fuzz(
+        minutes=args.minutes, seed=args.seed, pairs_per_round=args.pairs,
+        families=families, save_dir=args.save_dir, max_rounds=args.rounds,
+        device=args.device,
+    )
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="swtpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -875,8 +942,13 @@ def build_parser():
     )
     p.add_argument(
         "--devices", type=int, default=None,
-        help="devices of the sweep: 1 (the default); more are ROADMAP.md "
-        "queue A item 12b",
+        help="mesh size (default: the world's size; one process a device, "
+        "started by torchrun --nproc-per-node N)",
+    )
+    p.add_argument(
+        "--backend", choices=["nccl", "gloo"], default=None,
+        help="the world's backend (default: nccl on the card, gloo on the CPU; "
+        "ranks sharing one card need gloo)",
     )
     p.set_defaults(fn=cmd_longpair)
 
@@ -1011,6 +1083,29 @@ def build_parser():
         "--unpack", action="store_true", help=".npz -> FASTA instead"
     )
     p.set_defaults(fn=cmd_pack)
+
+    p = sub.add_parser("selftest", help="quick differential self-check")
+    device_option(p)
+    p.set_defaults(fn=cmd_selftest)
+
+    p = sub.add_parser(
+        "fuzz",
+        help="soak-scale randomized differential testing (the reference's "
+        "10M-iteration harness pattern, time-bounded)",
+    )
+    p.add_argument("--minutes", type=float, default=1.0)
+    p.add_argument("--rounds", type=int, default=None,
+                   help="stop after N rounds (default: time-bounded only)")
+    p.add_argument("--seed", type=int, default=10000)
+    p.add_argument("--pairs", type=int, default=512,
+                   help="pairs per round")
+    p.add_argument("--families", default=None,
+                   help="comma list: uniform,tie_rich,general4,affine,"
+                   "protein,semiglobal,banded,fixed_band,search,cigar,banded_block")
+    p.add_argument("--save-dir", default="fuzz_failures",
+                   help="where to write .npz repros on mismatch")
+    device_option(p)
+    p.set_defaults(fn=cmd_fuzz)
     return ap
 
 

@@ -232,6 +232,114 @@ def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
     return out + (bots_pre,) if with_pre else out
 
 
+def _diag_setup(q, t, top_row, left_col, corner, table):
+    """The anti-diagonal tiles' staging: per-slot profile, the reversed
+    target between ghost pads, and the extended boundaries (index i of
+    ``left_ext``: H[i0 - 1 + i, j0 - 1]; index j of ``top_pad``: H[i0 -
+    1, j0 - 1 + j], NEGB past the tile)."""
+    R, t, prof, left_ext = _tile_setup(q, t, left_col, corner, table)
+    C, dev = t.shape[0], prof.device
+    ghost_t = table.shape[0] - 1
+    pad = t.new_full((R + 1,), ghost_t)
+    t_rev_pad = torch.cat([pad, t.flip(0).clamp(max=ghost_t), pad])
+    top_pad = torch.cat([left_ext[:1], _vec(top_row, dev),
+                         torch.full((R + 2,), NEGB, dtype=torch.int32, device=dev)])
+    return R, C, prof, left_ext, t_rev_pad, top_pad
+
+
+def _diag_shift1(x):
+    """[NEGB, x[0], ..., x[-2]]: slot i reads slot i - 1."""
+    return _shift_fill(x, 1)
+
+
+def _tile_scan(q, t, top_row, left_col, corner, table, n_codes, gap):
+    """One R x C linear-gap tile on the anti-diagonal schedule: JAX's
+    older XLA tile (``_tile_scan``), which only its tests use; the same
+    contract and returns as ``_tile_colscan``, bit-equal. Slot i of a
+    diagonal d holds cell (i, d - i); slot 0 the top boundary row."""
+    R, C, prof, left_ext, t_rev_pad, top_pad = _diag_setup(q, t, top_row, left_col,
+                                                           corner, table)
+    dev = prof.device
+    iota = torch.arange(R + 1, device=dev)
+    neg = torch.full((R + 1,), NEGB, dtype=torch.int32, device=dev)
+    prev1, prev2 = neg, neg
+    best_vec, bestj_vec, right_vec = neg, torch.zeros_like(neg), neg
+    bots = torch.empty((R + C,), dtype=torch.int32, device=dev)
+    for d in range(1, R + C + 1):
+        t_diag = t_rev_pad[C - d + R + 1:C - d + 2 * R + 2]
+        s = _prof_select(prof, t_diag, n_codes)
+        diag_n, upper_n, left_n = _diag_shift1(prev2), _diag_shift1(prev1), prev1
+        # left-boundary ghosts where j - 1 == 0 (i == d - 1)
+        is_j1 = iota == d - 1
+        left_n = torch.where(is_j1, left_ext, left_n)
+        diag_n = torch.where(is_j1, _diag_shift1(left_ext), diag_n)
+        cur = torch.clamp(torch.maximum(torch.maximum(diag_n + s, upper_n - gap),
+                                        left_n - gap), min=0)
+        cur = torch.where(iota == 0, top_pad[min(d, C + R + 1)], cur)
+        j_of = d - iota
+        cur = torch.where((iota > 0) & ((j_of < 1) | (j_of > C)), neg, cur)
+        masked = torch.where(iota > 0, cur, neg)
+        upd = masked > best_vec
+        best_vec = torch.where(upd, masked, best_vec)
+        bestj_vec = torch.where(upd, j_of.to(torch.int32), bestj_vec)
+        right_vec = torch.where(iota == d - C, cur, right_vec)
+        bots[d - 1] = cur[R]
+        prev1, prev2 = cur, prev1
+    best, bi, bj = _tile_end(best_vec, bestj_vec, iota)
+    # bottom_row[j - 1] = H[R, j], emitted at diagonal d = R + j
+    return bots[R:R + C], right_vec[1:], best, bi, bj
+
+
+def _tile_scan_affine(q, t, top_row, top_row_f, left_col, left_col_e, corner,
+                      table, n_codes, go, ge):
+    """One R x C affine (Gotoh) tile on the anti-diagonal schedule: JAX's
+    ``_tile_scan_affine``, the same contract and returns as
+    ``_tile_colscan_affine``. Unlike the column scan it runs Gotoh's F
+    recurrence itself, F from F and from H."""
+    R, C, prof, left_ext, t_rev_pad, top_pad = _diag_setup(q, t, top_row, left_col,
+                                                           corner, table)
+    dev = prof.device
+    iota = torch.arange(R + 1, device=dev)
+    neg = torch.full((R + 1,), NEGB, dtype=torch.int32, device=dev)
+    left_ext_e = torch.cat([neg[:1], _vec(left_col_e, dev)])
+    top_f_pad = torch.cat([neg[:1], _vec(top_row_f, dev), neg[:1].expand(R + 2)])
+    prev1, prev2, f_prev1, e_prev1 = neg, neg, neg, neg
+    best_vec, bestj_vec, right_vec, right_vec_e = neg, torch.zeros_like(neg), neg, neg
+    bots = torch.empty((R + C,), dtype=torch.int32, device=dev)
+    bots_f = torch.empty((R + C,), dtype=torch.int32, device=dev)
+    for d in range(1, R + C + 1):
+        t_diag = t_rev_pad[C - d + R + 1:C - d + 2 * R + 2]
+        s = _prof_select(prof, t_diag, n_codes)
+        diag_n, upper_n, upper_f = _diag_shift1(prev2), _diag_shift1(prev1), _diag_shift1(f_prev1)
+        is_j1 = iota == d - 1
+        left_n = torch.where(is_j1, left_ext, prev1)
+        left_e = torch.where(is_j1, left_ext_e, e_prev1)
+        diag_n = torch.where(is_j1, _diag_shift1(left_ext), diag_n)
+        e_cur = torch.maximum(left_e - ge, left_n - go)
+        f_cur = torch.maximum(upper_f - ge, upper_n - go)
+        cur = torch.clamp(torch.maximum(diag_n + s, torch.maximum(e_cur, f_cur)), min=0)
+        at = min(d, C + R + 1)
+        cur = torch.where(iota == 0, top_pad[at], cur)
+        f_cur = torch.where(iota == 0, top_f_pad[at], f_cur)
+        j_of = d - iota
+        outside = (iota > 0) & ((j_of < 1) | (j_of > C))
+        cur = torch.where(outside, neg, cur)
+        f_cur = torch.where(outside, neg, f_cur)
+        e_cur = torch.where(outside, neg, e_cur)
+        masked = torch.where(iota > 0, cur, neg)
+        upd = masked > best_vec
+        best_vec = torch.where(upd, masked, best_vec)
+        bestj_vec = torch.where(upd, j_of.to(torch.int32), bestj_vec)
+        at_right = iota == d - C
+        right_vec = torch.where(at_right, cur, right_vec)
+        right_vec_e = torch.where(at_right, e_cur, right_vec_e)
+        bots[d - 1], bots_f[d - 1] = cur[R], f_cur[R]
+        prev1, prev2, f_prev1, e_prev1 = cur, prev1, f_cur, e_cur
+    best, bi, bj = _tile_end(best_vec, bestj_vec, iota)
+    return (bots[R:R + C], bots_f[R:R + C], right_vec[1:], right_vec_e[1:],
+            best, bi, bj)
+
+
 def tile_sw_reference(q, t, top_row, left_col, corner, matrix, gap):
     """numpy mirror of the linear tile for unit tests (matrix: [A, A]
     scores): (bottom_row, right_col, best)."""

@@ -1,38 +1,47 @@
-"""Long-pair alignment on one card: one huge DP matrix swept in tiles.
+"""Long-pair alignment: one huge DP matrix swept in tiles, its query
+strips over a mesh.
 
-Port of ``swtpu/parallel/longpair.py`` at one device. The JAX package
-splits a single Smith-Waterman matrix into query strips over a mesh
-(strip d on device d) and target column blocks, and passes each strip's
-bottom boundary row to the next device. Here the strips run in turn on
-one card, and inside a strip the column blocks run left to right: tile
-(strip d, block b) takes the bottom row of tile (d - 1, b) as its top
-row, the right column of tile (d, b - 1) as its left column, and the
-last element of tile (d - 1, b - 1)'s bottom row as its corner (all 0 on
-the matrix's own edges). Tiles compose exactly, so the score and the
-endpoint are those of the whole matrix whatever the block. The sharded
-sweeps (ROADMAP.md queue A item 12b) are not ported: a mesh of more than
-one device raises.
+Port of ``swtpu/parallel/longpair.py``. A single Smith-Waterman matrix
+is split into query strips, one a rank of the mesh (Lq / D rows, strip d
+on rank d), and target column blocks. Rank d sweeps its blocks left to
+right: tile (d, b) takes the bottom row of tile (d - 1, b) as its top
+row, received from rank d - 1, the right column of tile (d, b - 1) as
+its left column, and the last element of the top row received for block
+b - 1 as its corner (all 0 on the matrix's own edges); it sends its
+bottom row to rank d + 1 (Gotoh: the stacked (H, F) rows). A strip
+longer than ``STRIP_ROWS`` runs its sub-strips in turn on its rank, the
+sub-strip below taking the one above's bottom rows. Tiles compose
+exactly, so the score and the endpoint are those of the whole matrix
+whatever the mesh and the block.
+
+JAX runs the ranks in lockstep over n_blocks + D - 1 pipeline steps, a
+``ppermute`` each; here each block's row goes point to point (``isend``
+/ ``irecv``), so a rank waits only for the row it needs and skips the
+empty steps. A world of one rank sends nothing and syncs with the host
+once, at the end: the one-card sweep is this sweep's world-1 case. Each
+rank tracks its tiles' argmax row-major first; the [3] rows (best,
+end_i, end_j) are all-gathered and merged on every rank
+(``_merge_device_ends``), so every rank returns the same result.
 
 Each tile runs ``kernels/longpair_strip.py``: the CUDA strip tile
 (``csrc/sw_strip.cu``) or its plain column-scan tile (``_tile_colscan``,
 ``_tile_colscan_affine``, bit-equal to JAX's XLA tiles). ``block=None``
-sweeps the whole target as one block: at one device JAX's
-``_auto_block`` picks that block too (its step count (nb + D - 1) *
-(R + Lt / nb) is least at nb = 1 when D = 1); its divisor search and
-the merge of per-device endpoints come with the sharded sweeps.
+takes ``_auto_block(Lq, Lt, D)``, JAX's XLA route's step-count-optimal
+divisor of Lt (the whole target at one rank); the endpoints do not
+depend on the block.
 
-``engine``: ``"auto"`` runs the CUDA strip tile on the card and the
-plain tile on the CPU; ``"pallas"`` (the JAX name of the strip-tile
-engine) runs the CUDA tile and raises on the CPU; ``"xla"`` runs the
-plain tile and raises on the card. The sweep's state (boundary rows and
-columns, the running best) stays in device tensors; only the final
-(best, end_i, end_j) comes back to the host.
+``mesh``: None (one device, no process group) or a ``DeviceMesh`` from
+``swtpu_torch.parallel.make_mesh``. ``engine``: ``"auto"`` runs the CUDA
+strip tile on the card and the plain tile on the CPU; ``"pallas"`` (the
+JAX name of the strip-tile engine) runs the CUDA tile and raises on the
+CPU; ``"xla"`` runs the plain tile and raises on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels import longpair_strip as kls
@@ -46,27 +55,21 @@ from swtpu_torch.kernels.longpair_strip import (
     _tile_colscan_affine,
     _vec,
 )
+from swtpu_torch.parallel.mesh import all_gather_rows, host_staged, mesh_rank
 from swtpu_torch.utils.device import resolve_device
 
 
-def _mesh_devices(mesh) -> int:
-    """Devices of ``mesh``: None is one device; an int counts itself; an
-    object with ``devices`` (a JAX-style mesh) or a sequence its size."""
+def _mesh_of(mesh, axis):
+    """(this rank's strip, the mesh size) of ``mesh``: None is one device."""
     if mesh is None:
-        return 1
-    if isinstance(mesh, (int, np.integer)):
-        return int(mesh)
-    devices = getattr(mesh, "devices", mesh)
-    return int(np.asarray(devices, dtype=object).size)
+        return 0, 1
+    from torch.distributed.device_mesh import DeviceMesh
 
-
-def _check_one_device(mesh):
-    n_dev = _mesh_devices(mesh)
-    if n_dev != 1:
-        raise NotImplementedError(
-            f"long pairs run on one card; a mesh of {n_dev} devices needs the "
-            "sharded sweeps (ROADMAP.md queue A item 12b)"
-        )
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be None or a torch DeviceMesh (swtpu_torch.parallel.make_mesh), "
+            f"not {type(mesh).__module__}.{type(mesh).__name__}")
+    return mesh_rank(mesh, axis)
 
 
 def _resolve_engine(engine, dev):
@@ -87,22 +90,56 @@ def _resolve_engine(engine, dev):
     return engine
 
 
+class _Ring:
+    """The sweep's rows between neighbouring strips, point to point: from
+    rank r - 1, to rank r + 1, one message a block (tag = the block)."""
+
+    def __init__(self, mesh, r: int, D: int, dev: torch.device):
+        self.dev, self.host = dev, host_staged(dev)
+        self.group = group = mesh.get_group()
+        self.src = dist.get_global_rank(group, r - 1) if r > 0 else None
+        self.dst = dist.get_global_rank(group, r + 1) if r + 1 < D else None
+        self.sent = []
+
+    def recv(self, shape, tag: int) -> torch.Tensor:
+        buf = torch.empty(shape, dtype=torch.int32,
+                          device="cpu" if self.host else self.dev)
+        dist.irecv(buf, src=self.src, group=self.group, tag=tag).wait()
+        return buf.to(self.dev)
+
+    def send(self, x: torch.Tensor, tag: int):
+        wire = x.cpu() if self.host else x.contiguous()
+        self.sent.append((dist.isend(wire, dst=self.dst, group=self.group, tag=tag),
+                          wire))
+
+    def close(self):
+        for work, _ in self.sent:
+            work.wait()
+        self.sent = []
+
+
 def _run_longpair(q, t, params: ScoringParams, mesh=None, axis="sp", block=None,
                   engine="auto", device=None):
-    """The one-device sweep: a [3] int32 tensor (best, end_i, end_j) on
-    the device it ran on. ``block=None`` is one block of the whole
-    target; as in JAX, columns past the last whole block are not swept."""
-    _check_one_device(mesh)
+    """The sweep: a [D, 3] int32 tensor, each rank's (best, end_i, end_j)
+    row in rank order, on this rank's device (JAX's ``_run_longpair``).
+    Each rank passes the whole pair and sweeps its own strip. As in JAX,
+    columns past the last whole block are not swept."""
+    r, D = _mesh_of(mesh, axis)
     dev = resolve_device(device, like=q)
     engine = _resolve_engine(engine, dev)
     Lq, Lt = len(q), len(t)
     if Lq == 0 or Lt == 0:
         raise ValueError(f"long pair of {Lq} x {Lt}: both lengths must be > 0")
-    C = Lt if block is None else int(block)
+    if Lq % D:
+        raise ValueError(f"len(q) = {Lq} does not divide over a mesh of {D} devices")
+    C = _auto_block(Lq, Lt, D) if block is None else int(block)
     if not 1 <= C <= Lt:
         raise ValueError(f"block {C} outside 1..len(t) = {Lt}")
     n_blocks = Lt // C
     affine = not params.is_linear
+    R_rank = Lq // D
+    row0 = r * R_rank  # this rank's strip
+    q = q[row0:row0 + R_rank]
     if engine == "pallas":
         table = sw_profile.profile_table(params, dev)
         q, t = kls.stage_codes(q, params, dev), kls.stage_codes(t, params, dev)
@@ -131,16 +168,28 @@ def _run_longpair(q, t, params: ScoringParams, mesh=None, axis="sp", block=None,
     gbj = torch.full((), _BIG, **i32)
     zero_c = torch.zeros((C,), **i32)
     negb_c = torch.full((C,), NEGB, **i32)
-    prev, prev_f = None, None  # the previous strip's bottom rows (H, F)
-    for i0 in range(0, Lq, STRIP_ROWS):
-        R = min(STRIP_ROWS, Lq - i0)
+    ring = _Ring(mesh, r, D, q.device) if D > 1 else None
+    prev, prev_f = None, None  # the bottom rows (H, F) of the strip above
+    for i0 in range(0, R_rank, STRIP_ROWS):
+        R = min(STRIP_ROWS, R_rank - i0)
         q_strip = q[i0:i0 + R]
+        receive = ring is not None and r > 0 and i0 == 0
+        send = ring is not None and r + 1 < D and i0 + R == R_rank
+        if receive:
+            prev = torch.empty((n_blocks * C,), **i32)
+            prev_f = torch.empty((n_blocks * C,), **i32) if affine else None
         row = torch.empty((n_blocks * C,), **i32)
         row_f = torch.empty((n_blocks * C,), **i32) if affine else None
         lext = torch.zeros((R + 1,), **i32)
         lext_e = torch.full((R + 1,), NEGB, **i32)
         for b in range(n_blocks):
             cols = slice(b * C, (b + 1) * C)
+            if receive:
+                got = ring.recv((2, C) if affine else (C,), b)
+                if affine:
+                    prev[cols], prev_f[cols] = got[0], got[1]
+                else:
+                    prev[cols] = got
             top = zero_c if prev is None else prev[cols]
             topf = None if not affine else (negb_c if prev is None else prev_f[cols])
             if prev is not None and b > 0:
@@ -154,8 +203,10 @@ def _run_longpair(q, t, params: ScoringParams, mesh=None, axis="sp", block=None,
                 bot, right, tile_best, tbi, tbj = out
             row[cols] = bot
             lext = torch.cat([lext[:1], right])
+            if send:
+                ring.send(torch.stack([bot, bot_f]) if affine else bot, b)
             # global endpoint, row-major-first across the tiles
-            gi = i0 + tbi
+            gi = row0 + i0 + tbi
             gj = b * C + tbj
             upd = (tile_best > best) | (
                 (tile_best == best) & ((gi < gbi) | ((gi == gbi) & (gj < gbj))))
@@ -163,18 +214,73 @@ def _run_longpair(q, t, params: ScoringParams, mesh=None, axis="sp", block=None,
             gbi = torch.where(upd, gi, gbi)
             gbj = torch.where(upd, gj, gbj)
         prev, prev_f = row, row_f
+    if ring is not None:
+        ring.close()
     pos = best > 0
     nil = torch.zeros((), **i32)
-    return torch.stack([best, torch.where(pos, gbi, nil),
-                        torch.where(pos, gbj, nil)])
+    mine = torch.stack([best, torch.where(pos, gbi, nil), torch.where(pos, gbj, nil)])
+    return mine[None] if mesh is None else all_gather_rows(mine, mesh)
+
+
+def _auto_block(Lq: int, Lt: int, n_dev: int, rows=None, cap=None) -> int:
+    """Column-block width minimizing total anti-diagonal steps (JAX's).
+
+    The sharded sweep runs (n_blocks + n_dev - 1) pipeline steps of one
+    R x C tile each, and a tile costs R + C scan steps, so total scan
+    steps = (nb + n_dev - 1) * (R + Lt / nb). One device wants nb = 1
+    (one fat tile); n_dev devices trade per-step overhead against fill
+    and drain. Only divisors of Lt are candidates (the sweep needs Lt %
+    block == 0), and no block under 64 columns. ``rows`` / ``cap``: JAX's
+    strip-tile route (a tile costs rows + C column steps, C <= cap)."""
+    if n_dev == 1 and rows is None:
+        # one device: the cost nb * R + Lt is least at nb = 1 (the whole
+        # target), which the search below would return too
+        return Lt
+    R = rows if rows is not None else max(Lq // n_dev, 1)
+    # divisors in O(sqrt(Lt)): an O(Lt) scan costs seconds of host time on
+    # multi-megabase targets with sparse divisors
+    divisors = set()
+    d = 1
+    while d * d <= Lt:
+        if Lt % d == 0:
+            divisors.add(d)
+            divisors.add(Lt // d)
+        d += 1
+
+    def pick(use_cap):
+        best_nb, best_cost = None, None
+        for nb in sorted(divisors):
+            if Lt // nb < 64:  # thinner blocks only add step overhead
+                continue
+            if use_cap and cap is not None and Lt // nb > cap:
+                continue
+            cost = (nb + n_dev - 1) * (R + Lt // nb)
+            if best_cost is None or cost < best_cost:
+                best_nb, best_cost = nb, cost
+        return best_nb
+
+    # no divisor passes (tiny target, or the cap excludes every one and
+    # the capless retry fails too): one whole-target block
+    best_nb = pick(True) or pick(False) or 1
+    return Lt // best_nb
+
+
+def _merge_device_ends(out) -> tuple:
+    """Merge per-device (best, bi, bj) rows with the row-major-first rule
+    (max value, then min row, then min column)."""
+    rows = np.asarray(out).tolist()
+    best = max(r[0] for r in rows)
+    i, j = min((r[1], r[2]) for r in rows if r[0] == best)
+    return best, i, j
 
 
 def longpair_sw_score(q, t, params: ScoringParams, mesh=None, axis: str = "sp",
                       block: int = None, engine: str = "auto", device=None) -> int:
     """Local-alignment score of ONE long pair (any substitution matrix,
-    linear or affine gaps) on one device (default: the card). len(t)
-    should divide by ``block``; columns past the last whole block are not
-    swept, as in JAX. ``mesh``: None or one device."""
+    linear or affine gaps), its query strips over ``mesh`` (None: one
+    device; default device: the card). len(q) must divide by the mesh
+    size; len(t) should divide by ``block``: columns past the last whole
+    block are not swept, as in JAX. Every rank returns the same score."""
     return longpair_sw_ends(q, t, params, mesh, axis, block, engine, device)[0]
 
 
@@ -182,9 +288,10 @@ def longpair_sw_ends(q, t, params: ScoringParams, mesh=None, axis: str = "sp",
                      block: int = None, engine: str = "auto", device=None) -> tuple:
     """(score, end_i, end_j) of ONE long pair: the 1-based row-major-first
     argmax cell over the sweep's tiles (the batch ends engines'
-    tie-break). Score 0 maps to (0, 0). The sweep's one host fetch."""
-    return tuple(_run_longpair(q, t, params, mesh, axis, block, engine,
-                               device).tolist())
+    tie-break), merged over the ranks' rows. Score 0 maps to (0, 0). The
+    sweep's one host fetch."""
+    return _merge_device_ends(_run_longpair(q, t, params, mesh, axis, block, engine,
+                                            device).tolist())
 
 
 def longpair_sw_align(q, t, params: ScoringParams, mesh=None, axis: str = "sp",

@@ -47,8 +47,10 @@ deterministic error and raises at once. A CUDA fault that poisons the
 context cannot be helped by a replay; it fails again up to the retry
 limit and raises.
 
-``sharded_all_vs_all_topk`` and ``init_distributed`` (the mesh) are
-ROADMAP.md queue A item 12b.
+``sharded_all_vs_all_topk`` is the search over a mesh: the database
+split over the ranks, one engine call a rank on its shard, each shard's
+top-k by the same key, the candidates all-gathered and merged on every
+rank. ``init_distributed`` (from ``parallel/mesh.py``) joins the world.
 """
 
 from __future__ import annotations
@@ -64,6 +66,11 @@ import torch
 
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels.unpack import unpack_2bit_device
+from swtpu_torch.parallel.mesh import (  # noqa: F401  (init_distributed: JAX's home)
+    all_gather_rows,
+    init_distributed,
+    mesh_rank,
+)
 from swtpu_torch.utils.device import resolve_device
 
 _ID_SENTINEL = np.iinfo(np.int32).max
@@ -333,3 +340,54 @@ def all_vs_all_topk(
             state, i = snap
             staged_chunk = padded(c_list[i])
     return from_keys(state)
+
+
+def sharded_all_vs_all_topk(queries: np.ndarray, targets: np.ndarray,
+                            params: ScoringParams, mesh, k: int = 10,
+                            axis: str = "pairs", engine: Optional[Callable] = None,
+                            device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k hits per query with the database split over ``mesh``'s axis
+    (every rank passes the whole query set and database, as JAX's single
+    controller does).
+
+    The database is padded to the shard grid with the pad code
+    ``alphabet_size + 1``. Each rank scores its shard against every query
+    in one engine call (``best_engine(params)`` on ``device``, the card
+    by default, or ``engine``), keeps its top ``min(k, shard)`` by the int64 key (the
+    order of JAX's ``lax.top_k``: the lower id first among equal scores),
+    and the candidates of every shard are all-gathered. Pad hits become
+    (-1, INT32_MAX), the merge is JAX's ``lexsort((id, -score))``, and a
+    query with fewer than k candidates is padded with them. Every rank
+    returns the same (scores [Nq, k] int32, ids [Nq, k] int32)."""
+    from swtpu_torch.ops.variants import resolve_engine
+
+    dev = resolve_device(device)
+    r, D = mesh_rank(mesh, axis)
+    engine, _ = resolve_engine(params, engine, dev)
+    queries, targets = np.asarray(queries), np.asarray(targets)
+    (Nq, n), (Nt, m) = queries.shape, targets.shape
+    shard = -(-Nt // D)
+    kk = min(k, shard)
+    mine = np.full((shard, m), params.alphabet_size + 1, targets.dtype)
+    part = targets[r * shard:(r + 1) * shard]
+    mine[:len(part)] = part
+    qs = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+    ts = torch.from_numpy(mine).to(dev)
+    qq = qs[:, None, :].expand(Nq, shard, n).reshape(-1, n)
+    tt = ts[None, :, :].expand(Nq, shard, m).reshape(-1, m)
+    scores = torch.as_tensor(engine(qq, tt), device=dev).reshape(Nq, shard)
+    ids = r * shard + torch.arange(shard, dtype=torch.int64, device=dev)
+    cand = torch.topk(to_keys(scores, ids[None, :]), kk, dim=1).values
+    gs, gi = from_keys(all_gather_rows(cand, mesh).permute(1, 0, 2).reshape(Nq, -1))
+    gs, gi = gs.astype(np.int64), gi.astype(np.int64)
+    pad_hit = gi >= Nt
+    gs[pad_hit] = -1
+    gi[pad_hit] = _ID_SENTINEL
+    order = np.lexsort((gi, -gs), axis=1)[:, :k]
+    out_s = np.take_along_axis(gs, order, axis=1)
+    out_i = np.take_along_axis(gi, order, axis=1)
+    if out_s.shape[1] < k:  # fewer gathered candidates than k
+        padw = k - out_s.shape[1]
+        out_s = np.pad(out_s, ((0, 0), (0, padw)), constant_values=-1)
+        out_i = np.pad(out_i, ((0, 0), (0, padw)), constant_values=_ID_SENTINEL)
+    return out_s.astype(np.int32), out_i.astype(np.int32)

@@ -62,7 +62,12 @@ CLI on the card equal themselves on the CPU; the wavefront kernel equals
 its plain version and its schedule's mirror
 (``wavefront_stream_mirror``) with one and many pairs a stream, ragged
 last streams, targets shorter than 4 and both tables (by column pairs for
-DNA, by columns for protein).
+DNA, by columns for protein). The mesh: a world of one under NCCL and two
+gloo ranks sharing the card (``tests/_torch_mesh_worker.py``) give the
+one-card entry points' scores, hits, ends and paths. The harnesses on the
+card: ``run_fuzz`` with the kernels beside the plain tiers finds no
+mismatch, ``run_selftest`` passes JAX's 23 checks, and a
+``profile_trace`` sees the kernels.
 """
 
 import numpy as np
@@ -1761,3 +1766,127 @@ def test_map_cli_on_card(card, capsys):
     main(["map", "--random", "100000x256x150", "--traceback"])
     rec = json.loads(capsys.readouterr().out)
     assert rec["reads"] == 256 and rec["correct_locus"] >= 0.9 * 256
+
+
+@pytest.fixture
+def world_of_one_on_card(card):
+    import torch.distributed as dist
+
+    yield card
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_world_of_one_on_card(world_of_one_on_card):
+    """With no process group, make_mesh starts a world of one under NCCL on
+    the card; data-parallel scores, the sharded search and the sharded
+    long-pair sweep through it equal the one-card entry points."""
+    import torch.distributed as dist
+
+    from swtpu_torch.ops.variants import best_engine
+    from swtpu_torch.parallel import (
+        all_vs_all_topk, data_parallel_scores, longpair_sw_ends, make_mesh,
+        sharded_all_vs_all_topk,
+    )
+
+    card = world_of_one_on_card
+    mesh, sp = make_mesh(), make_mesh(axis="sp")
+    assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+    rng = np.random.default_rng(10000)
+    qs, ts = codes(rng, 4096, 128, card), codes(rng, 4096, 120, card)
+    for p in (DNA_10_30_15, ScoringParams(BLOSUM62, 11, 1)):
+        d = data_parallel_scores(qs, ts, p, mesh)
+        assert d.to_local().is_cuda
+        assert torch.equal(d.full_tensor(), best_engine(p)(qs, ts))
+    Q = rng.integers(0, 4, (8, 100)).astype(np.uint8)
+    T = rng.integers(0, 4, (3001, 100)).astype(np.uint8)
+    got = sharded_all_vs_all_topk(Q, T, DNA_111, mesh, k=7)
+    want = all_vs_all_topk(Q, T, DNA_111, k=7, chunk_size=1024)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    q = rng.integers(0, 4, 3000).astype(np.uint8)
+    t = mutate(rng, q, out_len=2000)
+    for p in (DNA_111, ScoringParams(dna_matrix(2, -3), 5, 1)):
+        assert longpair_sw_ends(q, t, p, sp) == longpair_sw_ends(q, t, p)
+
+
+def test_mesh_two_ranks_share_the_card(card, tmp_path, capsys):
+    """Two gloo ranks on the one card (tests/_torch_mesh_worker.py): their
+    kernels run on the card, their exchanges cross through the host, and
+    every sharded result equals the one-card entry point's."""
+    import importlib.util
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from swtpu_torch.cli import main
+    from swtpu_torch.ops.variants import best_engine
+    from swtpu_torch.parallel import all_vs_all_topk, longpair_sw_align, longpair_sw_ends
+
+    worker = os.path.join(os.path.dirname(__file__), "_torch_mesh_worker.py")
+    spec = importlib.util.spec_from_file_location("_torch_mesh_worker", worker)
+    W = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(W)
+    out = tmp_path / "out.json"
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(tmp_path / "store"), str(out), "cuda"],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+    for r, (so, se, rc) in enumerate(logs):
+        assert rc == 0 and f"MESH_OK {r}" in so, f"rank {r} rc={rc}\n{so}\n{se}"
+    res = json.loads(out.read_text())
+    z = W.inputs()
+    for key in W.DP:
+        want = best_engine(W.SCORINGS[key])(z["dp_q"], z["dp_t"]).cpu().tolist()
+        assert res["dp_" + key] == want
+    for case, (key, *_, k) in W.TOPK.items():
+        s, i = all_vs_all_topk(*z[case], W.SCORINGS[key], k=k, chunk_size=16)
+        assert res["topk_" + case] == [s.tolist(), i.tolist()]
+    q, t = z["lp"]
+    for key in W.LP:
+        p = W.SCORINGS[key]
+        for block in W.BLOCKS:
+            blk = None if block == "auto" else int(block)
+            rows, ends = res[f"lp_{key}_{block}"]
+            assert tuple(ends) == longpair_sw_ends(q, t, p, block=blk)
+            assert len(rows) == 2 and max(r_[0] for r_ in rows) == ends[0]
+        score, path = longpair_sw_align(q, t, p)
+        assert res[f"lp_{key}_align"] == [score, [list(x) for x in path]]
+    main(W.CLI[1])
+    assert res["cli_1"] == [capsys.readouterr().out, ""]
+
+
+def test_fuzz_on_card_adds_the_kernels(card):
+    """Every family once on the card: 0 mismatches, and more engine runs
+    than on the CPU (the kernels beside the plain tiers, and the fixed-band
+    and block-band rounds, which the CPU skips)."""
+    from swtpu_torch.fuzz import run_fuzz
+
+    kw = dict(max_rounds=11, pairs_per_round=64, save_dir=None, log=None, minutes=30)
+    on_card = run_fuzz(**kw)
+    on_cpu = run_fuzz(**kw, device="cpu")
+    assert on_card.mismatches == 0 and on_card.rounds == 11
+    assert on_card.pairs > on_cpu.pairs and on_card.cells > on_cpu.cells
+
+
+def test_selftest_on_card_runs_every_check(card):
+    from swtpu_torch.selftest import run_selftest
+
+    checks = run_selftest()
+    assert len(checks) == 23 and all(ok for _, ok in checks), checks
+
+
+def test_profile_trace_on_card_sees_the_kernels(card, tmp_path):
+    from swtpu_torch.ops.variants import best_engine
+    from swtpu_torch.utils.obs import profile_trace, trace_busy
+
+    rng = np.random.default_rng(10000)
+    qs, ts = codes(rng, 8192, 128, card), codes(rng, 8192, 128, card)
+    fn = best_engine(DNA_10_30_15)
+    fn(qs, ts)
+    with profile_trace(str(tmp_path)) as prof:
+        fn(qs, ts)
+        torch.cuda.synchronize()
+    busy, window = trace_busy(prof.trace_path)
+    assert 0 < busy <= window

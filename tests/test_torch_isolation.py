@@ -29,6 +29,12 @@
 - likewise search and its statistics: ``all_vs_all_topk``,
   ``calibrate_stats``, ``resolve_stats`` and the ``search`` CLI raise
   without a card;
+- likewise the mesh and the harnesses: ``make_mesh``,
+  ``init_distributed``, ``data_parallel_scores``,
+  ``sharded_all_vs_all_topk``, ``run_fuzz``, ``run_selftest``,
+  ``profile_trace`` and ``longpair --devices 1`` / ``selftest`` / ``fuzz``
+  raise without a card (the mesh worker script of the tests imports
+  neither jax nor swtpu either);
 - likewise the models: ``map_reads``, ``extend_candidates``,
   ``msa_center_star``, ``assemble_greedy`` and the ``map`` / ``msa`` /
   ``assemble`` CLI raise without a card; on a CUDA device the mapper's
@@ -53,7 +59,7 @@ import numpy as np
 import pytest
 import torch
 
-from swtpu_torch import bench, cli
+from swtpu_torch import bench, cli, fuzz, selftest
 from swtpu_torch.batch import bucketing, promote
 from swtpu_torch.batch import traceback as port_traceback
 from swtpu_torch.core import io as port_io
@@ -84,7 +90,9 @@ from swtpu_torch.models import mapper as port_mapper
 from swtpu_torch.models import msa as port_msa
 from swtpu_torch.ops import variants
 from swtpu_torch.parallel import longpair, search
+from swtpu_torch.parallel import mesh as port_mesh
 from swtpu_torch.utils import device as port_device
+from swtpu_torch.utils import obs
 from swtpu_torch.utils import timing
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -139,7 +147,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_sources_import_no_jax_and_no_swtpu():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "_torch_mesh_worker.py"]
     assert len(files) >= 20
     hits = []
     for f in files:
@@ -230,6 +239,14 @@ NO_DEVICE_CALLS = {
                                np.ones(1, np.int64))),
     "msa_center_star": lambda: port_msa.msa_center_star([Q[0], Q[1]]),
     "assemble_greedy": lambda: port_assembly.assemble_greedy([Q[0], Q[1]]),
+    "make_mesh": lambda: port_mesh.make_mesh(),
+    "init_distributed": lambda: port_mesh.init_distributed("localhost:1", 2, 0),
+    "data_parallel_scores": lambda: port_mesh.data_parallel_scores(Q, Q, DNA_10_30_15, None),
+    "sharded_all_vs_all_topk":
+        lambda: search.sharded_all_vs_all_topk(Q, Q, DNA_10_30_15, None, k=1),
+    "run_fuzz": lambda: fuzz.run_fuzz(max_rounds=1, log=None),
+    "run_selftest": lambda: selftest.run_selftest(),
+    "profile_trace": lambda: obs.profile_trace("unused").__enter__(),
 }
 
 
@@ -261,6 +278,9 @@ def test_no_card_entry_without_device_raises(entry):
     ["map", "--random", "2000x4x50"],
     ["msa", "--random", "3x20"],
     ["assemble", "--random", "300x60x30"],
+    ["longpair", "--random", "1x40x40", "--devices", "1"],
+    ["selftest"],
+    ["fuzz", "--rounds", "1"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():
@@ -279,6 +299,10 @@ EXPORTS = {
     "swtpu_torch.core": ["path_to_cigar", "cigar_stats"],
     "swtpu_torch.ops": ["VARIANTS", "get_variant"],
     "swtpu_torch.oracle": ["sw_affine_score_batch"],
+    "swtpu_torch.parallel": ["make_mesh", "shard_batch", "data_parallel_scores",
+                             "init_distributed", "sharded_all_vs_all_topk",
+                             "all_vs_all_topk", "SearchCheckpoint", "longpair_sw_align",
+                             "longpair_sw_score"],
     "swtpu_torch.models": ["assemble_greedy", "make_reads", "msa_center_star",
                            "msa_rows_to_strings", "sp_score", "build_index",
                            "find_candidates", "extend_candidates", "map_reads",

@@ -22,9 +22,10 @@ one-device sweep against the JAX package (seed 10000, tolerance 0).
   "xla") on meshes of 8 and 1 devices at 256 x 192 and 512 x 384:
   linear, Gotoh with gap_open >= and < gap_extend, protein; the score
   does not depend on the block, and the default block is JAX's at one
-  device; a mesh of more devices raises;
+  device; a JAX mesh is refused (the port's meshes are
+  tests/test_torch_mesh.py's);
 - the ``longpair`` CLI prints what ``python -m swtpu longpair --devices
-  1`` prints.
+  1`` prints, and ``--devices 4`` in one process names torchrun.
 """
 
 import jax
@@ -323,13 +324,16 @@ def test_default_block_matches_jax_at_one_device(n, m):
 
 
 def test_longpair_refusals():
+    """A JAX mesh (or a device count) is not a port mesh: the port's sweep
+    takes None or a DeviceMesh from swtpu_torch.parallel.make_mesh."""
     q = np.zeros(64, np.uint8)
-    with pytest.raises(NotImplementedError, match="12b"):
+    with pytest.raises(TypeError, match="swtpu_torch.parallel.make_mesh"):
         plp.longpair_sw_score(q, q, DNA_111, make_mesh(8, axis="sp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="12b"):
+    with pytest.raises(TypeError, match="swtpu_torch.parallel.make_mesh"):
         plp.longpair_sw_ends(q, q, DNA_111, 2, device="cpu")
-    assert plp.longpair_sw_ends(q, q, DNA_111, make_mesh(1, axis="sp"),
-                                device="cpu") == (64, 64, 64)
+    with pytest.raises(TypeError, match="swtpu_torch.parallel.make_mesh"):
+        plp.longpair_sw_align(q, q, DNA_111, make_mesh(1, axis="sp"), device="cpu")
+    assert plp.longpair_sw_ends(q, q, DNA_111, None, device="cpu") == (64, 64, 64)
     with pytest.raises(NotImplementedError, match="CUDA strip tile"):
         plp.longpair_sw_score(q, q, DNA_111, engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="engine"):
@@ -361,6 +365,8 @@ def test_cli_longpair_matches_jax(argv, capsys):
 
 
 def test_cli_longpair_refuses_a_mesh():
-    with pytest.raises(SystemExit, match="12b"):
+    """--devices N > 1 in one process names the launcher: a mesh of N runs
+    one process a device (tests/test_torch_mesh.py runs such worlds)."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
         cli.main(["longpair", "--random", "1x40x40", "--devices", "4",
                   "--device", "cpu"])
