@@ -35,8 +35,9 @@ kernel, greedy assembly on ``best_engine``; ``map``, ``msa``, ``assemble``)
 and the mesh on ``torch.distributed`` (data-parallel scores, the sharded
 search and the sharded long-pair sweep at world 1 under NCCL and in a
 2-rank gloo world on the one card; ``longpair`` under ``torchrun``) and the
-harnesses (``fuzz``, ``selftest``, a ``torch.profiler`` trace).
-Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
+harnesses (``fuzz``, ``selftest``, a ``torch.profiler`` trace), then
+runs the benchmark suite (``python -m swtpu_torch bench``) through all of
+them. Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
 built with g++ in phase 2); the traceback phases print the walker and its
 wall.
 
@@ -328,7 +329,15 @@ wall.
   41. the harnesses: ``fuzz --rounds 22 --pairs 512`` (every family twice,
       0 mismatches), ``selftest`` (JAX's 23 checks, every one ok on the
       card's kernels) and ``profile_trace`` around one 1M SpeedTest
-      ``best_engine`` call: the kernels' busy share of the trace's window.
+      ``best_engine`` call: the kernels' busy share of the trace's window;
+  42. the benchmark suite (``swtpu_torch/bench_suite.py``) in children on
+      the card, as a user runs it: ``python -m swtpu_torch bench`` (every
+      section at full size) and ``bench --suite dist --quick --cpu-mesh 2``
+      (the anchor in a world of one under NCCL, the gloo curve in
+      ``torchrun`` worlds of 1 and 2 CPU ranks): exit 0, JAX's kernel names
+      in JAX's order, every parity field true, each section's wall; the
+      suite's launches (its timing loops included) in the ``kernels``
+      line's ``bench_launches``.
 
 Depth cut to keep the run near 600 s (PERF.md section 4): phase 16's
 profile form sweep, phase 27's 128-pair 16K set, phase 34's in-smoke reps
@@ -340,8 +349,9 @@ Launch counts are zeroed just before each path (phases 4, 7, 11, 17, 22,
 phase 34's, every one a chunk of 131,072 pairs, in ``search_launches``,
 charged at that shape's own time in ``search_lost_ms``; phases 36-38's
 launches, the models' window, go in ``models_launches``, phases 39-40's,
-the mesh's window with both ranks' of phase 40, in ``mesh_launches``, and
-phase 41's, the harnesses' window, in ``harness_launches``); every
+the mesh's window with both ranks' of phase 40, in ``mesh_launches``,
+phase 41's, the harnesses' window, in ``harness_launches``, and phase
+42's, the suite's, in ``bench_launches``); every
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
@@ -1090,7 +1100,9 @@ def models_phases(cli_main, launches, zero_launches, off_path, b9_folded, kb, ks
                    and abs(h.pos - int(starts[i])) <= BW
                    and (strand is None or (h.strand == "-") == bool(strand[i])))
 
-    sets = [read_set(s) for s in (1, 2, 3, 4)]
+    # the warm-up set and one fresh timed set (phase 42's map_seed_extend
+    # record times the min of two more; PR 17 timed three here)
+    sets = [read_set(s) for s in (1, 2)]
     kw = dict(index=idx, min_score=20, traceback=True)
     # the path's run: the warm-up set, then both strands and Gotoh winners
     hits0, warm_s = wall(pm.map_reads, sets[0][0], **kw)
@@ -1128,8 +1140,7 @@ def models_phases(cli_main, launches, zero_launches, off_path, b9_folded, kb, ks
     best = min(walls)
     ok_bs = correct(hits_bs, flipped[1], flipped[2])
     print(f"index {t_index:.3f} s; map_reads with paths, 4096 x 152 vs 1 Mbp: wall "
-          f"{best * 1e3:.1f} ms (min of 3 fresh sets: "
-          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}; warm-up {warm_s * 1e3:.1f}), "
+          f"{best * 1e3:.1f} ms (a fresh set; warm-up {warm_s * 1e3:.1f}), "
           f"{R / best:.0f} reads/s, correct locus {ok / R:.4f}; candidates {len(cands.read)}; "
           f"host seeding {seed_s * 1e3:.1f} ms, the card's screen {screen_s * 1e3:.1f} ms "
           f"(fixed band on the 2-bit wire), the rest (winners' block forward, device walk, "
@@ -1608,6 +1619,118 @@ def harness_phases(cli_main, launches, zero_launches, b9_folded, smi):
     return harness
 
 
+#: what the suite drives on the card (phase 42): a row of each group
+SUITE_NEEDS = [("sw_batch",), ("sw_batch_ends",), ("sw_affine",),
+               ("sw_profile", "sw_profile_warp"), ("sw_profile_affine", "sw_profile_affine_warp"),
+               ("sw_bf16",), ("sw_wavefront",), ("semiglobal_batch",),
+               ("semiglobal_batch_pinned",), ("semiglobal_profile_affine",),
+               ("sw_banded_static",), ("sw_banded_static_affine",), ("banded_batch_w32_w64",),
+               ("block_rows", "block_rows_small"), ("block_walk",), ("xdrop_walk",),
+               ("strip_tile",)]
+#: the dist section in phase 42: the anchor at --quick sizes, the gloo
+#: curve in worlds of 1 and 2 CPU ranks (its full size, 4 worlds, takes
+#: over 7 minutes of host time; PERF.md section 4)
+SUITE_DIST = ["--suite", "dist", "--quick", "--cpu-mesh", "2"]
+#: the suite's children (python -m swtpu_torch bench ...): a section's limit
+SUITE_TIMEOUT = 300
+
+
+def jax_folds(B, W, affine):
+    """Whether JAX ran B9 at this shape on its folded kernel (``_fold_G``
+    > 1 in swtpu/kernels/pallas/banded_block.py): a linear batch under 8
+    x 128 pairs whose fold leaves segments of at least 2 slots."""
+    S = -(-B // 128)
+    if affine or S >= 8 or 8 % S:
+        return False
+    return W % (8 // S) == 0 and W // (8 // S) >= 2
+
+
+def run_bench(argv, out_dir):
+    """``python -m swtpu_torch bench ARGV`` in a child on the card: (its
+    records, its section walls from stderr, its launch counts by record,
+    its wall). Raises on a non-zero exit, with the child's output."""
+    counts = Path(out_dir) / f"launches-{len(list(Path(out_dir).iterdir()))}.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "swtpu_torch", "bench", *argv,
+                           "--launches", str(counts)],
+                          capture_output=True, text=True, timeout=SUITE_TIMEOUT,
+                          cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench {' '.join(argv)} exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    recs = [json.loads(x[len("JSON: "):]) for x in proc.stdout.splitlines()
+            if x.startswith("JSON: ")]
+    sections = re.findall(r"^# section (\w+): ([\d.]+) s wall$", proc.stderr, re.M)
+    return recs, sections, json.loads(counts.read_text())["by_record"], wall
+
+
+def suite_phase(launches, zero_launches, off_path, b9_folded, smi):
+    """Phase 42, the benchmark suite (``swtpu_torch/bench_suite.py``) in
+    children on the card. Returns the suite's launches by row."""
+    import importlib
+
+    from swtpu_torch import bench_suite
+
+    phase("42 the benchmark suite: python -m swtpu_torch bench (every section, full "
+          "size) and bench --suite dist --quick --cpu-mesh 2 (the NCCL anchor, the gloo "
+          "curve)")
+    print(smi, flush=True)
+    tmp = tempfile.TemporaryDirectory()
+    by_record, all_recs = {}, []
+    for argv, want in ((["--suite", "all"], bench_suite.expected_kernels("all")),
+                       (SUITE_DIST, bench_suite.expected_kernels("dist", cpu_mesh=2))):
+        recs, sections, counts, wall = run_bench(argv, tmp.name)
+        names = [r["kernel"] for r in recs]
+        check(names == want, f"bench {' '.join(argv)}: records {names}, JAX's names {want}")
+        bad = [r["kernel"] for r in recs
+               if any(r.get(f) is not True for f in bench_suite.PARITY_FIELDS if f in r)]
+        check(not bad, f"bench {' '.join(argv)}: a parity field is not true in {bad}")
+        kind = torch.cuda.get_device_name(0)
+        check(all(r.get("device", kind) in (kind, "cpu") for r in recs)
+              and any(r.get("device") == kind for r in recs),
+              f"bench {' '.join(argv)}: the records' device")
+        for sec, s_ in sections:
+            print(f"bench section {sec}: {s_} s wall", flush=True)
+        n_par = sum(1 for r in recs for f in bench_suite.PARITY_FIELDS if f in r)
+        print(f"bench {' '.join(argv)}: exit 0 in {wall:.1f} s, {len(recs)} records, "
+              f"{len(set(names))} distinct kernel names = JAX's, {n_par} parity fields "
+              f"all true [{smi}]", flush=True)
+        for name, c in counts.items():
+            mine = by_record.setdefault(name, {})
+            for k, v in c.items():
+                mine[k] = mine.get(k, 0) + v
+        all_recs += recs
+    tmp.cleanup()
+    for r in all_recs:
+        print("bench record: " + json.dumps(r), flush=True)
+    # the suite's launches by row: its counts set on the wrappers for a
+    # moment; B9's count for row 12 where JAX ran its folded kernel
+    batch = {r["kernel"]: r.get("batch") for r in all_recs}
+    totals, folded = {}, 0
+    for name, c in by_record.items():
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+        b9 = sum(v for k, v in c.items() if k in ("banded_block.block_forward.launches",
+                                                 "banded_block.block_rows.launches"))
+        if b9 and batch.get(name) and jax_folds(batch[name], 64, "affine" in name):
+            folded += b9
+    with off_path():
+        zero_launches(list(KERNELS))
+        for key, v in totals.items():
+            mod, fn, attr = key.split(".")
+            setattr(getattr(importlib.import_module(f"swtpu_torch.kernels.{mod}"), fn),
+                    attr, v)
+        saved, b9_folded["launches"] = b9_folded["launches"], folded
+        bench = {name: launches(name) for name in KERNELS}
+        b9_folded["launches"] = saved
+    print(f"suite launches (phase 42, every call of its timing loops): "
+          f"{ {k: v for k, v in bench.items() if v} }", flush=True)
+    for need in SUITE_NEEDS:
+        check(any(bench[k] > 0 for k in need),
+              f"a kernel did not launch in the suite: {need} in {bench}")
+    return bench
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":  # a rank of phase 40
         rank, world, store, out = sys.argv[2:6]
@@ -1839,15 +1962,6 @@ def main():
                 kern.launches - kern.launches_affine - kern.launches_warp + wa)
 
     b9_folded = {"launches": 0}
-
-    def jax_folds(B, W, affine):
-        """Whether JAX ran B9 at this shape on its folded kernel (``_fold_G``
-        > 1 in swtpu/kernels/pallas/banded_block.py): a linear batch under 8
-        x 128 pairs whose fold leaves segments of at least 2 slots."""
-        S = -(-B // 128)
-        if affine or S >= 8 or 8 % S:
-            return False
-        return W % (8 // S) == 0 and W // (8 // S) >= 2
 
     @contextlib.contextmanager
     def b9_shape(B, W, affine):
@@ -4437,9 +4551,8 @@ def main():
             sec = timed(lambda q, t, kw=kw: kbk.banded_block_batch(q, t, width=64, **kw),
                         (qd, td), iters=5)
             nrows = int(res.n_rows.sum())
-            # the alive band (X = 2^20: no pair dies) through every block
-            fn, args = kbk.bench_forward_fn(qd, td, width=64, **dict(kw, x_threshold=1 << 20))
-            alive = timed(fn, args, iters=3)
+            # the alive band (X = 2^20, every block) is phase 42's
+            # banded_block_* records, at these shapes
             fields = (res.score, res.end_y, res.end_j, res.n_rows)
             if key == "dna1024":  # four copies of the 256 pairs, checked below
                 check(all(torch.equal(a[:256], b) for a, b in zip(fields, first256)),
@@ -4477,8 +4590,7 @@ def main():
                            "the oracle copy")
             print(f"{label}: {sec * 1e3:.3f} ms per call, {nrows * 64 / sec / 1e9:.2f} band "
                   f"GCUPS over n_rows x W ({nrows} rows), {Bb / sec:.0f} alignments/s; "
-                  f"alive band (X = 2^20, every block) {alive * 1e3:.3f} ms, "
-                  f"{Bb * La * 64 / alive / 1e9:.2f} band GCUPS; mean score "
+                  f"mean score "
                   f"{res.score.float().mean().item():.1f}; {checked} [{smi}]", flush=True)
     del first256
     # rows 11-13: B9 on the 1024 pairs (row 11: JAX's straight kernel) and
@@ -5492,11 +5604,13 @@ def main():
     import torch.distributed as dist
 
     dist.destroy_process_group()  # phase 39's world of one
+    suite_counts = suite_phase(launches, zero_launches, off_path, b9_folded, smi)
 
     for row in rows:
         row["models_launches"] = models_counts.get(row["name"], 0)
         row["mesh_launches"] = mesh_counts.get(row["name"], 0)
         row["harness_launches"] = harness_counts.get(row["name"], 0)
+        row["bench_launches"] = suite_counts.get(row["name"], 0)
         if row["launches"] is None:
             row["launches"] = {**launch_counts, **sg_counts, **banded_counts,
                                **block_counts, **longpair_counts}[row["name"]]

@@ -1,6 +1,6 @@
 """swtpu_torch command-line interface: ``align``, ``semiglobal``,
 ``global``, ``banded``, ``longpair``, ``search``, ``map``, ``msa``,
-``assemble``, ``pack``, ``selftest`` and ``fuzz``.
+``assemble``, ``pack``, ``bench``, ``selftest`` and ``fuzz``.
 
 Port of ``swtpu/cli.py``'s ``align`` (local Smith-Waterman alignment of
 query/target pairs), ``semiglobal`` and ``global`` (semi-global and
@@ -12,7 +12,9 @@ BASELINE config 5: JSON hits, ``--tsv`` BLAST outfmt-6 rows with
 Karlin-Altschul E-values and bit scores under ``--stats``, or SAM),
 ``map`` (seed-and-extend read mapping), ``msa`` (center-star multiple
 alignment), ``assemble`` (greedy overlap-layout-consensus assembly),
-``pack`` (DNA FASTA <-> the 2-bit ``.npz`` container), ``selftest`` (the
+``pack`` (DNA FASTA <-> the 2-bit ``.npz`` container), ``bench`` (the
+benchmark suite, ``bench_suite.main`` with the arguments that follow),
+``selftest`` (the
 oracles against every tier that runs there: on the card the CUDA
 kernels) and ``fuzz`` (the randomized soak of ``swtpu_torch/fuzz.py``). Output is the
 same JSON lines (TSV, SAM, FASTA) as
@@ -79,6 +81,8 @@ import sys
 
 import numpy as np
 import torch
+
+from swtpu_torch import bench_suite
 
 
 def _pad_codes(alphabet):
@@ -849,6 +853,12 @@ def cmd_fuzz(args):
     )
 
 
+def cmd_bench(args):
+    """The benchmark suite (swtpu_torch/bench_suite.py): the arguments
+    after ``bench`` go to ``bench_suite.main`` as they are."""
+    bench_suite.main(args.bench_argv)
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="swtpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1084,6 +1094,10 @@ def build_parser():
     )
     p.set_defaults(fn=cmd_pack)
 
+    p = sub.add_parser("bench", help="benchmark suite")
+    bench_suite.add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
+
     p = sub.add_parser("selftest", help="quick differential self-check")
     device_option(p)
     p.set_defaults(fn=cmd_selftest)
@@ -1110,7 +1124,9 @@ def build_parser():
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.bench_argv = argv[1:]  # what follows ``bench`` (no option precedes it)
     args.fn(args)
 
 

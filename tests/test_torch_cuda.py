@@ -67,7 +67,8 @@ gloo ranks sharing the card (``tests/_torch_mesh_worker.py``) give the
 one-card entry points' scores, hits, ends and paths. The harnesses on the
 card: ``run_fuzz`` with the kernels beside the plain tiers finds no
 mismatch, ``run_selftest`` passes JAX's 23 checks, and a
-``profile_trace`` sees the kernels.
+``profile_trace`` sees the kernels. The benchmark suite at ``--quick``
+emits JAX's TPU records, every parity field true.
 """
 
 import numpy as np
@@ -1890,3 +1891,23 @@ def test_profile_trace_on_card_sees_the_kernels(card, tmp_path):
         torch.cuda.synchronize()
     busy, window = trace_busy(prof.trace_path)
     assert 0 < busy <= window
+
+
+def test_bench_suite_quick_on_card(card, tmp_path, capsys):
+    """The benchmark suite at --quick on the card (its 16K child too):
+    JAX's TPU names in order, every parity field true, the kernels'
+    launches by record."""
+    import json
+
+    from swtpu_torch import bench_suite
+
+    path = tmp_path / "launches.json"
+    bench_suite.main(["--quick", "--launches", str(path)])
+    recs = [json.loads(x[len("JSON: "):]) for x in capsys.readouterr().out.splitlines()
+            if x.startswith("JSON: ")]
+    assert [r["kernel"] for r in recs] == bench_suite.expected_kernels("all", quick=True)
+    assert all(r.get(f) is not False for r in recs for f in bench_suite.PARITY_FIELDS)
+    assert {r["device"] for r in recs if "device" in r} == {torch.cuda.get_device_name(0)}
+    counts = json.loads(path.read_text())["by_record"]
+    assert counts["sw_111_rowscan"]["sw_batch.sw_batch.launches"] > 0
+    assert counts["banded_16k_traceback_e2e"]["device_walk.xdrop_walk.launches"] > 0

@@ -32,8 +32,9 @@
 - likewise the mesh and the harnesses: ``make_mesh``,
   ``init_distributed``, ``data_parallel_scores``,
   ``sharded_all_vs_all_topk``, ``run_fuzz``, ``run_selftest``,
-  ``profile_trace`` and ``longpair --devices 1`` / ``selftest`` / ``fuzz``
-  raise without a card (the mesh worker script of the tests imports
+  ``profile_trace``, the benchmark suite (``bench_suite.main``,
+  ``bench_dist``) and ``longpair --devices 1`` / ``selftest`` / ``fuzz`` /
+  ``bench`` raise without a card (the mesh worker script of the tests imports
   neither jax nor swtpu either);
 - likewise the models: ``map_reads``, ``extend_candidates``,
   ``msa_center_star``, ``assemble_greedy`` and the ``map`` / ``msa`` /
@@ -59,7 +60,7 @@ import numpy as np
 import pytest
 import torch
 
-from swtpu_torch import bench, cli, fuzz, selftest
+from swtpu_torch import bench, bench_suite, cli, fuzz, selftest
 from swtpu_torch.batch import bucketing, promote
 from swtpu_torch.batch import traceback as port_traceback
 from swtpu_torch.core import io as port_io
@@ -247,6 +248,8 @@ NO_DEVICE_CALLS = {
     "run_fuzz": lambda: fuzz.run_fuzz(max_rounds=1, log=None),
     "run_selftest": lambda: selftest.run_selftest(),
     "profile_trace": lambda: obs.profile_trace("unused").__enter__(),
+    "bench_suite.main": lambda: bench_suite.main(["--suite", "affine"]),
+    "bench_suite.bench_dist": lambda: bench_suite.bench_dist(True),
 }
 
 
@@ -281,6 +284,8 @@ def test_no_card_entry_without_device_raises(entry):
     ["longpair", "--random", "1x40x40", "--devices", "1"],
     ["selftest"],
     ["fuzz", "--rounds", "1"],
+    ["bench", "--quick"],
+    ["bench", "--suite", "dist", "--cpu-mesh", "2"],
 ])
 def test_no_card_cli_raises_without_output(argv, capsys):
     if torch.cuda.is_available():

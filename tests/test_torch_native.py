@@ -6,6 +6,8 @@ default and give the same paths with them replaced by the numpy walkers
 (``native.available`` monkeypatched to say False). Seed 10000, small
 shapes, tolerance 0."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -32,6 +34,30 @@ GENERAL = ScoringParams.linear(np.array(
 BLOSUM_GOTOH = ScoringParams(BLOSUM62, gap_open=11, gap_extend=1)
 SCORINGS = {"linear": LIN, "gotoh": GOTOH, "general": GENERAL,
             "blosum_gotoh": BLOSUM_GOTOH}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_library_of_its_own(tmp_path_factory):
+    """Point ``swtpu.native`` at a copy of its library built for this module.
+
+    ``swtpu.native`` builds with g++ straight into its shared
+    ``_build/libswnative.so`` and loads whatever file stands there, so a
+    test process that looks while another process's g++ is still writing
+    it fails to load ("file too short") and keeps that failure for the
+    rest of the process. Here the JAX source is built atomically (the
+    port's ``native.build``: a temporary file, then ``os.replace``) into
+    this module's own directory and the JAX loader is sent there.
+    """
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "SRC", Path(jax_native._SRC))
+        mp.setattr(native, "BUILD_DIR", tmp_path_factory.mktemp("jax_native"))
+        path = str(native.build())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_build", lambda: path)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_load_error", None)
+        assert jax_native.available(), jax_native._load_error
+        yield
 
 
 def _pairs(p, count=6, seed=SEED):
