@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the swtpu_torch port on one CUDA card.
 
-Drives the port's nine main paths on the card, through the entry points
+Drives the port's main paths on the card, through the entry points
 a user calls, and holds every CUDA kernel against its plain PyTorch
 version: the DNA path (batched local alignment under uniform scoring:
 scores, endpoints, traceback, the ``align`` CLI; the row-scan kernels of
@@ -37,12 +37,15 @@ search and the sharded long-pair sweep at world 1 under NCCL and in a
 2-rank gloo world on the one card; ``longpair`` under ``torchrun``) and the
 harnesses (``fuzz``, ``selftest``, a ``torch.profiler`` trace), then
 runs the benchmark suite (``python -m swtpu_torch bench``) through all of
-them. Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
+them; last, the inputs JAX's TPU dispatch sends to its XLA tier: the
+per-round band past W = 128 (the wide kernel of ``csrc/sw_xdrop.cu``) and
+the local engines under the scorings the row-scan and profile kernels'
+guards refuse (``csrc/sw_general.cu``). Every host walk runs the port's C++ walkers (``swtpu_torch/native``,
 built with g++ in phase 2); the traceback phases print the walker and its
 wall.
 
    1. environment: card name and power limit, device count;
-   2. build: nvcc on the ten CUDA sources at once, g++ on the C++ host
+   2. build: nvcc on the eleven CUDA sources at once, g++ on the C++ host
       walkers beside them; registers, spills and
       shared memory of each kernel; the per-round kernels' round loops,
       and the local row-scan, profile thread-form, semi-global, bf16 and
@@ -337,7 +340,31 @@ wall.
       ``torchrun`` worlds of 1 and 2 CPU ranks): exit 0, JAX's kernel names
       in JAX's order, every parity field true, each section's wall; the
       suite's launches (its timing loops included) in the ``kernels``
-      line's ``bench_launches``.
+      line's ``bench_launches``;
+  43. the per-round band past W = 128 (``xdrop_wide_kernel`` of
+      ``csrc/sw_xdrop.cu``, a CTA a pair, where JAX's TPU dispatch runs its
+      XLA forward): every field below n_rounds equal to the plain version
+      at W = 129, 160, 256, 512 and 1024 on 24 related 300-mers (linear
+      with per-pair lengths, Gotoh 3/1 with the 8-bit history, BLOSUM62
+      11/1 at X = 120), the wide launch equal to the warp kernel at W = 32,
+      96 and 128; the main path: ``banded --random 8x16384x16384
+      --bandwidth 256 --traceback`` and ``banded_align_batch`` on 8 related
+      16384-mers at W = 256 through the device walk, equal to the host
+      walk, ``banded --bandwidth 160 --traceback --cigar`` equal to
+      ``--device cpu``, ``map_reads`` with paths and ``map --bandwidth
+      160`` equal to the card's route on the CPU; times at 256 related
+      2048-mers, W = 256 and 512, scores only, beside the bound of
+      ``xdrop_ops``;
+  44. the general local engine (``csrc/sw_general.cu``, where JAX's TPU
+      dispatch runs its XLA tier): scores and endpoints equal to the plain
+      tier under gap 0, gap -1, Gotoh 3/0 and ``dna_matrix(200, -150)``
+      linear 5 and Gotoh 30/5 on 4096 x 128 x 128, 1000 x 90 x 200, 33 x 7
+      x 1 and 64 x 300 x 40; the main path: ``best_engine`` and
+      ``best_ends_engine`` with gap 0 at 32768 x 128 x 128, ``align
+      --traceback --cigar --gap 0`` and ``align --traceback`` with Gotoh
+      3/0 equal to ``--device cpu``; times at 32768 x 128 x 128, gap 0 and
+      Gotoh 3/0, scores and endpoints, beside the bound of ``general_ops``
+      over the n x m cells a pair.
 
 Depth cut to keep the run near 600 s (PERF.md section 4): phase 16's
 profile form sweep, phase 27's 128-pair 16K set, phase 34's in-smoke reps
@@ -351,7 +378,8 @@ charged at that shape's own time in ``search_lost_ms``; phases 36-38's
 launches, the models' window, go in ``models_launches``, phases 39-40's,
 the mesh's window with both ranks' of phase 40, in ``mesh_launches``,
 phase 41's, the harnesses' window, in ``harness_launches``, and phase
-42's, the suite's, in ``bench_launches``); every
+42's, the suite's, in ``bench_launches``; phases 43 and 44 zero and read
+their own kernel's count around their main path); every
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
@@ -397,8 +425,9 @@ PT_KERNEL = "sw_profile_kernelI"  # the profile thread form, + <AFFINE, END>
 BANDED, XDROP = "sw_banded.cu", "sw_xdrop.cu"
 BLOCK, WALK = "sw_block.cu", "sw_walk.cu"
 STRIP, WAVEFRONT = "sw_strip.cu", "sw_wavefront.cu"
+GENERAL = "sw_general.cu"
 SOURCES = [ROWSCAN, PROFILE, BF16, SEMIGLOBAL, BANDED, XDROP, BLOCK, WALK, STRIP,
-           WAVEFRONT]
+           WAVEFRONT, GENERAL]
 SWISSPROT = Path(__file__).resolve().parent / "swtpu" / "data" / "swissprot_like_256.fasta"
 # DRAM rate of an H100 SXM (NVIDIA data sheet). Results per clock per SM
 # at compute capability 9.0 (CUDA C++ Programming Guide, "Throughput of
@@ -557,6 +586,15 @@ KERNELS = {
     # serve two cells; by columns (protein) 4.5 and one (see ALU_OPS)
     "sw_wavefront": (WAVEFRONT, ("sw_wavefront_kernelILb0E", "sw_wavefront_kernelILb1E"),
                      "swtpu/kernels/pallas/sw_wavefront.py:110", 4.0, 0.5, 0),
+    # the counterparts of JAX's XLA tier where its TPU dispatch runs it (no
+    # row of the TPU table): the per-round band past W = 128 <AFFINE,
+    # MATRIX, HIST> (ops: xdrop_ops) and the general local engine <AFFINE,
+    # ENDS> (ops: general_ops)
+    "banded_batch_wide": (XDROP, "xdrop_wide_kernel",
+                          "swtpu/kernels/xla/banded_scan.py:66", None, 0, 0),
+    "sw_general": (GENERAL, tuple(f"sw_general_kernelILb{a}ELb{e}E" for a in (0, 1)
+                                  for e in (0, 1)),
+                   "swtpu/kernels/xla/sw_scan.py:126", None, 1, 0),
 }
 # the int32 ops a cell that only the ALU pipe issues, for the kernels
 # bounded by pipe (rows 1-10 and 17): the compare and select of the uniform
@@ -595,7 +633,10 @@ PROTEIN_PATH = ["sw_profile", "sw_profile_ends", "sw_profile_affine",
                 "sw_profile_affine_warp", "sw_profile_affine_ends_warp"]
 CONFIG4_PATH = ["sw_bf16", "sw_batch"]
 SEMIGLOBAL_PATH = [k for k, v in KERNELS.items() if v[0] == SEMIGLOBAL]
-BANDED_PATH = [k for k, v in KERNELS.items() if v[0] in (BANDED, XDROP)]
+# phases 43 and 44 (the XLA tier's counterparts) count their own launches
+XLA_TIER_PATH = ["banded_batch_wide", "sw_general"]
+BANDED_PATH = [k for k, v in KERNELS.items()
+               if v[0] in (BANDED, XDROP) and k not in XLA_TIER_PATH]
 BLOCK_PATH = [k for k, v in KERNELS.items() if v[0] in (BLOCK, WALK)]
 LONGPAIR_PATH = ["strip_tile", "sw_wavefront"]
 # search scores on rows 1, 3 and 5 and walks its hits on rows 2, 4 and 6:
@@ -1731,6 +1772,384 @@ def suite_phase(launches, zero_launches, off_path, b9_folded, smi):
     return bench
 
 
+def xla_tier_fields(res, dev):
+    """A per-round result's tensors on the card, the per-round ones zeroed
+    at and past each pair's n_rounds (the kernels write only below it)."""
+    out = [torch.as_tensor(x, device=dev) for x in (res.score, res.max_round,
+                                                    res.n_rounds)]
+    if res.pos_y is not None:
+        live = torch.arange(res.pos_y.shape[0], device=dev)[:, None] < out[2][None, :]
+        out.append(torch.where(live[..., None], torch.as_tensor(
+            res.band_history, device=dev).int(), 0))
+        out += [torch.where(live, torch.as_tensor(x, device=dev), 0)
+                for x in (res.pos_y, res.offsets) if x is not None]
+    return tuple(out)
+
+
+def wide_band_phase(ctx):
+    """Phase 43, the per-round band past W = 128 (the wide kernel of
+    csrc/sw_xdrop.cu, where JAX's TPU dispatch runs its XLA forward):
+    the kernel against the plain version, its times and bound, and the
+    entry points through it. Returns (the main path's launches, the row)."""
+    from swtpu_torch.batch import (banded_align_batch, banded_forward_batch,
+                                   banded_walk_batch)
+    from swtpu_torch.core.encode import mutate
+    from swtpu_torch.core.protein import BLOSUM62
+    from swtpu_torch.core.scoring import DNA_111
+    from swtpu_torch.kernels import banded_batch as kbb
+    from swtpu_torch.models import mapper as pm
+
+    dev, smi, timed, off_path = ctx["dev"], ctx["smi"], ctx["timed"], ctx["off_path"]
+    name = "banded_batch_wide"
+    phase("43 the per-round band past W = 128 (the wide kernel, a CTA a pair): kernel "
+          "vs plain at W = 129-1024, times at 256 related 2048-mers, banded --bandwidth "
+          "256 --traceback at 16K, banded / map --bandwidth 160")
+    print(smi, flush=True)
+    rng = np.random.default_rng(SEED + 43)
+    err = 0
+    # the kernel vs its plain version on small related sets (the plain
+    # version is a Python loop of rounds): linear with per-pair lengths,
+    # Gotoh with the 8-bit history, BLOSUM62 11/1 at X = 120 with lengths
+    B, L = 24, 300
+    dq, dt = related_pairs(rng, B, L)
+    pq, pt = related_pairs(rng, B, L, letters=20)
+    lens = dict(lens_q=rng.integers(L // 2, L + 1, B), lens_t=rng.integers(L // 2, L + 1, B))
+    cases = (("linear, lengths", dq, dt, dict(lens)),
+             ("Gotoh 3/1, 8-bit history", dq, dt,
+              dict(gap_open=3, gap_extend=1, compress_history=True)),
+             ("BLOSUM62 11/1, X = 120, lengths", pq, pt,
+              dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120, **lens)))
+    with off_path():
+        for W in (129, 160, 256, 512, 1024):
+            for label, q, t, kw in cases:
+                qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+                got = kbb.banded_batch(qd, td, bandwidth=W, **kw)
+                want = kbb.banded_batch_plain(qd, td, bandwidth=W, device=dev, **kw)
+                e = max_abs_err(xla_tier_fields(got, dev), xla_tier_fields(want, dev))
+                err = max(err, e)
+                check(e == 0, f"{name} differs from its plain version at W={W} ({label})")
+        # below 129 the wide launch writes what the warp kernel writes
+        for W in (32, 96, 128):
+            staged = kbb.stage(torch.from_numpy(dq).to(dev), torch.from_numpy(dt).to(dev),
+                               None, None, dev)
+            got = kbb.xdrop_wide_launch_t(*staged, W, 70, 1, 1, 1)
+            want = kbb.xdrop_launch_t(*staged, W, 70, 1, 1, 1)
+            check(all(torch.equal(a, b) for a, b in zip(
+                xla_tier_fields(kbb.BandedBatchResult(*got), dev),
+                xla_tier_fields(kbb.BandedBatchResult(*want), dev))),
+                f"the wide launch vs the warp kernel at W={W}")
+    print(f"{name}: every field below n_rounds equals the plain version at W = 129, 160, "
+          f"256, 512 and 1024 on {B} related {L}-mers ({', '.join(c[0] for c in cases)}); "
+          f"the wide launch equals the warp kernel at W = 32, 96 and 128", flush=True)
+
+    # the main path: counts from here
+    ctx["zero_launches"]([name, "xdrop_walk"])
+    # banded --random 8x16384x16384 --bandwidth 256 --traceback: the walk on
+    # the card (linear, n + m + 1 > 6000); the CLI's random pairs die early
+    argv = ["banded", "--random", "8x16384x16384", "--bandwidth", "256", "--traceback"]
+    t0 = time.perf_counter()
+    lines = run_cli(ctx["cli_main"], argv)
+    cli_s = time.perf_counter() - t0
+    rs = np.random.default_rng(SEED)  # the CLI's --random inputs
+    cq = rs.integers(0, 4, size=(8, 16384)).astype(np.uint8)
+    ct = rs.integers(0, 4, size=(8, 16384)).astype(np.uint8)
+    with off_path():
+        host = banded_walk_batch(cq, ct, banded_forward_batch(cq, ct, bandwidth=256),
+                                 bandwidth=256)
+    got = [(r["score"], [tuple(x) for x in r["path"]]) for r in map(json.loads, lines)]
+    check(got == host, "banded --bandwidth 256 --traceback: the device walk vs the host walk")
+    # the same at 16K on related pairs, whose bands run the whole matrix
+    q16, t16 = related_pairs(rng, 8, 16384)
+    t0 = time.perf_counter()
+    out = banded_align_batch(q16, t16, bandwidth=256)
+    wall16 = time.perf_counter() - t0
+    with off_path():
+        t0 = time.perf_counter()
+        host16 = banded_walk_batch(q16, t16, banded_forward_batch(q16, t16, bandwidth=256),
+                                   bandwidth=256)
+        host_s = time.perf_counter() - t0
+    check(out == host16, "16K W = 256: the device walk vs the host walk")
+    for b, (score, path) in enumerate(out):
+        check(path[0] == (0, 0) and rescore(path, q16[b], t16[b], DNA_111) == score,
+              f"16K W = 256 traceback: path of pair {b}")
+    print(f"{' '.join(argv)}: {len(lines)} records ({cli_s:.1f} s wall), paths equal the "
+          f"host walk's; banded_align_batch on 8 related 16384-mers at W = 256: "
+          f"{wall16 * 1e3:.1f} ms wall (forward, device walk, decode) against "
+          f"{host_s * 1e3:.1f} ms with the C++ host walk, equal paths, rescored, mean path "
+          f"{np.mean([len(p) for _, p in out]):.0f} cells [{smi}]", flush=True)
+    # banded --bandwidth 160 --traceback --cigar and map --bandwidth 160
+    argv = ["banded", "--random", "32x300x300", "--bandwidth", "160", "--traceback",
+            "--cigar"]
+    card = run_cli(ctx["cli_main"], argv)
+    with off_path():
+        cpu = run_cli(ctx["cli_main"], argv + ["--device", "cpu"])
+    check(card == cpu and len(card) == 32, f"{' '.join(argv)}: the card vs --device cpu")
+    G, R, Lr = 200_000, 256, 150
+    mrng = np.random.default_rng(SEED + 44)
+    genome = mrng.integers(0, 4, size=G).astype(np.uint8)
+    starts = mrng.integers(0, G - Lr, size=R)
+    reads = np.stack([mutate(mrng, genome[s: s + Lr], out_len=Lr) for s in starts])
+    idx = pm.build_index([genome], k=9)
+    kw = dict(index=idx, bandwidth=160, traceback=True, min_score=20)
+    t0 = time.perf_counter()
+    hits = pm.map_reads(reads, **kw)
+    map_s = time.perf_counter() - t0
+    margv = ["map", "--random", f"{G}x{R}x{Lr}", "--bandwidth", "160", "--traceback"]
+    mcard = run_cli(ctx["cli_main"], margv)
+    with off_path():
+        t0 = time.perf_counter()
+        want = pm.map_reads(reads, device="cpu", route="card", **kw)
+        cpu_s = time.perf_counter() - t0
+        route = pm._route
+        pm._route = lambda device: "card"  # the CLI on the CPU, the card's route
+        try:
+            mcpu = run_cli(ctx["cli_main"], margv + ["--device", "cpu"])
+        finally:
+            pm._route = route
+    def key(h):
+        return None if h is None else (h.read, h.contig, h.pos, h.score, h.strand,
+                                       h.n_seeds, h.path, h.window_start)
+
+    check([key(h) for h in hits] == [key(h) for h in want],
+          "map_reads at W = 160: the card vs the card's route on the CPU")
+    check(mcard == mcpu, f"{' '.join(margv)}: the card vs --device cpu on the card's route")
+    counts = {k: ctx["launches"](k) for k in (name, "xdrop_walk")}
+    print(f"{' '.join(argv)}: {len(card)} records equal --device cpu; map_reads with "
+          f"paths at W = 160 ({R} reads of {Lr} against {G:,} bases, the fixed band's "
+          f"screen and the winners on the wide kernel): {map_s * 1e3:.1f} ms wall, "
+          f"{sum(h is not None for h in hits)} mapped, hits equal the card's route on the "
+          f"CPU ({cpu_s:.1f} s); {' '.join(margv)}: {mcard[0]} on the card and on the CPU "
+          f"(the card's route; --device cpu alone takes JAX's off-TPU route, which screens "
+          f"with the per-round band); main-path launches {counts}", flush=True)
+    check(counts[name] > 0 and counts["xdrop_walk"] > 0,
+          f"a kernel was not launched on the wide band's path: {counts}")
+
+    # times at bench_suite's per-round shape, 256 related 2048-mers, scores
+    # only, W = 256 and 512; the bound as phase 16 counts it (xdrop_ops)
+    arng = np.random.default_rng(SEED + 9)
+    Ba, La = 256, 2048
+    aq = arng.integers(0, 4, size=(Ba, La)).astype(np.uint8)
+    at = np.stack([mutate(arng, aq[b], out_len=La) for b in range(Ba)])
+    aq_d, at_d = torch.from_numpy(aq).to(dev), torch.from_numpy(at).to(dev)
+    ops_cell, ops_round = xdrop_ops(False, False)
+    timings = {}
+    with off_path():
+        staged = kbb.stage(aq_d, at_d, None, None, dev)
+        for W in (256, 512):
+            res = kbb.banded_batch(aq_d, at_d, bandwidth=W, with_history=False)
+            t0 = time.perf_counter()
+            plain = kbb.banded_batch_plain(aq_d, at_d, bandwidth=W, with_history=False,
+                                           device=dev)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            e = max_abs_err(xla_tier_fields(res, dev), xla_tier_fields(plain, dev))
+            err = max(err, e)
+            check(e == 0, f"{name} differs from its plain version on 256 x 2048 at W={W}")
+            ms = timed(lambda W=W: kbb.banded_batch(aq_d, at_d, bandwidth=W,
+                                                    with_history=False), (), iters=5) * 1e3
+            kernel_ms = timed(lambda W=W: kbb.xdrop_wide_launch_t(
+                *staged, W, 70, 1, 1, 1, with_history=False), (), iters=5) * 1e3
+            rounds = int(res.n_rounds.sum())
+            cells = rounds * W
+            times = {"int32 ops": (cells * ops_cell + rounds * ops_round)
+                     / ctx["int32_rate"] * 1e3,
+                     "bytes": (2 * Ba * La + 12 * Ba) / HBM_BYTES_PER_S * 1e3}
+            binds = max(times, key=times.get)
+            ns_round = kernel_ms * 1e6 / int(res.n_rounds.max())
+            timings[W] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                              bound_ms=times[binds], binds=binds, ns_round=ns_round)
+            print(f"{name} W={W}, {Ba} related 2048-mers, scores only: wrapper {ms:.4f} ms "
+                  f"({times[binds] / ms:.1%} of the bound), launch alone {kernel_ms:.4f} ms "
+                  f"({ns_round:.1f} ns a round of the longest pair), plain {plain_ms:.1f} "
+                  f"ms (equal), bound {times[binds]:.4f} ms by {binds} ({ops_cell} int32 "
+                  f"ops per band cell over {cells} band cells, {ops_round} per pair and "
+                  f"round over {rounds} rounds), wrapper {cells / ms / 1e6:.2f} band GCUPS "
+                  f"[{smi}]", flush=True)
+            del res, plain
+    t = timings[256]
+    row = dict(name=name, route="cuda", source=f"swtpu_torch/csrc/{XDROP}",
+               replaces=KERNELS[name][2], launches=counts[name], max_abs_err=err,
+               ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+               bound_by="bytes" if t["binds"] == "bytes" else "operations",
+               library_ms=None, kernel_ms=t["kernel_ms"], ns_a_round=t["ns_round"],
+               w512=timings[512] | {"bound_by": "bytes" if timings[512]["binds"] == "bytes"
+                                    else "operations"})
+    row["w512"].pop("binds")
+    del aq_d, at_d, staged
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def general_ops(affine, ends):
+    """int32 ops a cell that the local function needs, counted as
+    xdrop_ops counts: the score's table offset add (its lookup counted
+    apart) 1, linear H 5 (the diagonal's add, the max of the two
+    neighbours, the gap subtract, the maxes with the diagonal and 0),
+    Gotoh E 3 and F 3 (two subtracts and a max each) and H 4 (the add,
+    the maxes with E and F, the floor), and the tracker: scores 1 (the
+    max), endpoints 3 (the compare, the selects of the value and of the
+    cell); as strip_ops counts the same cell. The kernel's own masks (the
+    start values of diagonals 0 and 1, the range test of the cells
+    outside the matrix) are not the function's work and are not
+    counted."""
+    return 1 + (10 if affine else 5) + (3 if ends else 1)
+
+
+def charged_forms(row):
+    """What a row's lost ms charges: its launches at its timed shape, or,
+    for a row timed in several instantiations (``by_form``, sw_general),
+    each instantiation's main-path launches at its own time and bound."""
+    forms = [f for f in row.get("by_form", {}).values() if f["launches"]]
+    return forms or [row]
+
+
+def general_engine_phase(ctx):
+    """Phase 44, the local engines under the scorings the row-scan and
+    profile kernels' guards refuse (the general kernel of
+    csrc/sw_general.cu, where JAX's TPU dispatch runs its XLA tier): the
+    kernel against the plain version, its times and bound, and the entry
+    points through it. Returns (the main path's launches, the row)."""
+    from swtpu_torch.core.scoring import ScoringParams, dna_matrix
+    from swtpu_torch.kernels import sw_general as kg
+    from swtpu_torch.kernels.sw_profile import profile_table
+    from swtpu_torch.ops.variants import best_ends_engine, best_engine, local_form
+
+    dev, smi, timed, off_path = ctx["dev"], ctx["smi"], ctx["timed"], ctx["off_path"]
+    name = "sw_general"
+    phase("44 the general local engine: gap 0 and -1, Gotoh 3/0, dna_matrix(200, -150) "
+          "linear and Gotoh, vs plain; 32768 x 128 x 128 timed; align --traceback "
+          "--cigar --gap 0")
+    print(smi, flush=True)
+    scorings = {
+        "gap 0": ScoringParams.linear(dna_matrix(1, -1), 0),
+        "gap -1": ScoringParams.linear(dna_matrix(2, -3), -1),
+        "Gotoh 3/0": ScoringParams(dna_matrix(2, -3), 3, 0),
+        "dna_matrix(200, -150) linear 5": ScoringParams.linear(dna_matrix(200, -150), 5),
+        "dna_matrix(200, -150) Gotoh 30/5": ScoringParams(dna_matrix(200, -150), 30, 5),
+    }
+    rng = np.random.default_rng(SEED + 45)
+    err = 0
+    with off_path():
+        for (B, n, m) in ((4096, 128, 128), (1000, 90, 200), (33, 7, 1), (64, 300, 40)):
+            q, t = local_pairs(rng, B, n, m, 4)
+            qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+            for label, p in scorings.items():
+                for kern, plain in ((kg.sw_general, kg.sw_general_plain),
+                                    (kg.sw_general_ends, kg.sw_general_ends_plain)):
+                    e = max_abs_err(kern(qd, td, p), plain(qd, td, p, dev))
+                    err = max(err, e)
+                    check(e == 0, f"{kern.__name__} differs from its plain version on "
+                                  f"{B} x {n} x {m} ({label})")
+    print(f"{name}: scores and endpoints equal the plain tier on 4096 x 128 x 128, 1000 x "
+          f"90 x 200, 33 x 7 x 1 and 64 x 300 x 40 (half related, 3% pads inside) under "
+          f"{', '.join(scorings)}", flush=True)
+
+    # the main path: best_engine / best_ends_engine on gap 0 at 32768 x
+    # 128 x 128, and align --traceback --cigar --gap 0 (its ends on the
+    # general kernel, the C++ walk)
+    ctx["zero_launches"]([name])
+    B, n, m = 32768, 128, 128
+    q, t = local_pairs(rng, B, n, m, 4)
+    qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+    p0 = scorings["gap 0"]
+    check(local_form(p0) == "general" and local_form(scorings["Gotoh 3/0"]) == "general",
+          "local_form sends gap 0 and Gotoh 3/0 to the general kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = best_engine(p0)(qd, td)
+    ends = best_ends_engine(p0)(qd, td)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    with off_path():
+        check(torch.equal(scores[:8192], kg.sw_general_plain(qd[:8192], td[:8192], p0,
+                                                             dev)),
+              "best_engine gap 0: the first 8192 scores vs the plain version")
+        for g, w in zip(ends, kg.sw_general_ends_plain(qd[:8192], td[:8192], p0, dev)):
+            check(torch.equal(g[:8192], w), "best_ends_engine gap 0 vs the plain version")
+    argv = ["align", "--random", "64x128x128", "--gap", "0", "--traceback", "--cigar"]
+    card = run_cli(ctx["cli_main"], argv)
+    argv3 = ["align", "--random", "64x128x128", "--scoring", "2,-3", "--gap-open", "3",
+             "--gap-extend", "0", "--traceback"]
+    card3 = run_cli(ctx["cli_main"], argv3)
+    with off_path():
+        cpu = run_cli(ctx["cli_main"], argv + ["--device", "cpu"])
+        cpu3 = run_cli(ctx["cli_main"], argv3 + ["--device", "cpu"])
+    check(card == cpu and len(card) == 64, f"{' '.join(argv)}: the card vs --device cpu")
+    check(card3 == cpu3 and len(card3) == 64, f"{' '.join(argv3)}: the card vs --device cpu")
+    counts = {name: ctx["launches"](name)}
+    # the main path's launches by instantiation: its linear scoring is gap
+    # 0 and its Gotoh one 3/0, the two scorings timed below
+    def form_name(label, ends_):
+        return label + (" ends" if ends_ else "")
+
+    path_forms = {}
+    for ends_, w in ((False, kg.sw_general), (True, kg.sw_general_ends)):
+        path_forms[("gap 0", ends_)] = w.launches - w.launches_affine
+        path_forms[("Gotoh 3/0", ends_)] = w.launches_affine
+    print(f"best_engine + best_ends_engine, gap 0, {B} x {n} x {m}: {path_s * 1e3:.1f} ms "
+          f"wall, the first 8192 equal the plain version; {' '.join(argv)} and "
+          f"{' '.join(argv3)}: 64 records each equal --device cpu (the ends on the "
+          f"general kernel, the C++ walk); main-path launches {counts} (by scoring "
+          f"and form: {', '.join(f'{form_name(*k)} {c}' for k, c in path_forms.items())})",
+          flush=True)
+    check(kg.sw_general.launches > 0 and kg.sw_general_ends.launches > 0,
+          f"a kernel was not launched on the general engine's path: {counts}")
+
+    # times at phase 16's shape, 32768 x 128 x 128, each instantiation under
+    # its own scoring and table; the bound over the function's n x m cells
+    # a pair (at gap 0 and Gotoh 3/0 the kernel's cells outside the matrix
+    # hold what a zero or a standard boundary holds, so they add no work
+    # the function needs)
+    cells = B * n * m
+    timings = {}
+    with off_path():
+        for label, p in (("gap 0", p0), ("Gotoh 3/0", scorings["Gotoh 3/0"])):
+            table = profile_table(p, dev)
+            for ends_ in (False, True):
+                kern = kg.sw_general_ends if ends_ else kg.sw_general
+                plain = kg.sw_general_ends_plain if ends_ else kg.sw_general_plain
+                ms = timed(kern, (qd, td, p), iters=10) * 1e3
+                kernel_ms = timed(kg.general_launch_t, (qd, td, table, p, ends_),
+                                  iters=10) * 1e3
+                t0 = time.perf_counter()
+                want = plain(qd, td, p, dev)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                e = max(max_abs_err(kern(qd, td, p), want),
+                        max_abs_err(kg.general_launch_t(qd, td, table, p, ends_), want))
+                err = max(err, e)
+                check(e == 0, f"{kern.__name__} at {B} x {n} x {m} ({label})")
+                ops = general_ops(not p.is_linear, ends_)
+                times = {"int32 ops": cells * ops / ctx["int32_rate"] * 1e3,
+                         "shared-memory lookups": cells / ctx["lookup_rate"] * 1e3,
+                         "bytes": (B * (n + m) + 4 * table.numel()
+                                   + 4 * B * (3 if ends_ else 1)) / HBM_BYTES_PER_S * 1e3}
+                binds = max(times, key=times.get)
+                launches = path_forms[(label, ends_)]
+                lost = launches * max(kernel_ms - times[binds], 0.0)
+                timings[(label, ends_)] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                                               bound_ms=times[binds], binds=binds,
+                                               launches=launches, lost_ms=lost)
+                print(f"{kern.__name__} {label}, {B} x {n} x {m}: wrapper {ms:.4f} ms, "
+                      f"launch alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.1%} of "
+                      f"the bound), plain {plain_ms:.1f} ms (equal), bound "
+                      f"{times[binds]:.4f} ms by {binds} ({ops} int32 ops and a lookup a "
+                      f"cell over the {cells} cells, n x m a pair), "
+                      f"{cells / kernel_ms / 1e6:.1f} GCUPS; {launches} main-path "
+                      f"launches, {lost:.3f} ms lost [{smi}]", flush=True)
+    t = timings[("gap 0", False)]
+    row = dict(name=name, route="cuda", source=f"swtpu_torch/csrc/{GENERAL}",
+               replaces=KERNELS[name][2], launches=counts[name], max_abs_err=err,
+               ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+               bound_by="bytes" if t["binds"] == "bytes" else "operations",
+               library_ms=None, kernel_ms=t["kernel_ms"],
+               by_form={form_name(*key): {k: v for k, v in x.items() if k != "binds"}
+                        for key, x in timings.items()})
+    del qd, td
+    torch.cuda.empty_cache()
+    return counts, row
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":  # a rank of phase 40
         rank, world, store, out = sys.argv[2:6]
@@ -1759,7 +2178,7 @@ def main():
         _build, banded_batch as kbb, banded_block as kbk, device_walk as kdw,
         longpair_strip as kls, semiglobal_batch as ksg, semiglobal_profile as ksp,
         sw_affine as ka, sw_banded as ksb, sw_batch as kb, sw_bf16 as kbf,
-        sw_profile as kp, sw_wavefront as kwf,
+        sw_general as kg, sw_profile as kp, sw_wavefront as kwf,
     )
     from swtpu_torch.kernels.banded_scan import (
         BandedBatchResult, _prep_padded, decode_device_walk,
@@ -1917,6 +2336,10 @@ def main():
     }
 
     def launches(name):
+        if name == "banded_batch_wide":  # the per-round wrapper's wide launches
+            return kbb.banded_batch.launches_wide
+        if name == "sw_general":  # both wrappers, linear and Gotoh
+            return kg.sw_general.launches + kg.sw_general_ends.launches
         if name == "strip_tile":  # B13: its linear and affine calls
             return kls.tile_strip_linear.launches + kls.tile_strip_affine.launches
         if name == "sw_wavefront":
@@ -1976,7 +2399,8 @@ def main():
     wrappers += [ksg.semiglobal_batch, ksp.semiglobal_profile, ksb.sw_banded_static,
                  ksb.sw_banded_profile, kbb.banded_batch, kbk.block_gather,
                  kbk.block_rows, kbk.block_forward, kdw.block_walk, kdw.xdrop_walk,
-                 kls.tile_strip_linear, kls.tile_strip_affine, kwf.sw_wavefront]
+                 kls.tile_strip_linear, kls.tile_strip_affine, kwf.sw_wavefront,
+                 kg.sw_general, kg.sw_general_ends]
     longpair_wrappers = {"strip_tile": (kls.tile_strip_linear, kls.tile_strip_affine),
                          "sw_wavefront": (kwf.sw_wavefront,)}
 
@@ -1985,6 +2409,14 @@ def main():
 
     def zero_launches(names):
         for name in names:
+            if name == "banded_batch_wide":
+                kbb.banded_batch.launches_wide = 0
+                continue
+            if name == "sw_general":
+                for w in (kg.sw_general, kg.sw_general_ends):
+                    for k in counts_of(w):
+                        setattr(w, k, 0)
+                continue
             if name in LONGPAIR_PATH or name in BLOCK_PATH:
                 for w in (longpair_wrappers if name in LONGPAIR_PATH
                           else block_wrappers)[name]:
@@ -2081,9 +2513,11 @@ def main():
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
             smem = re.search(r"(\d+) bytes smem", e)
             check(regs and spill, f"no register report for {name}")
-            if "block_rows" in names or "xdrop_round_kernel" in mangled:
+            if ("block_rows" in names or "xdrop_round_kernel" in mangled
+                    or "xdrop_wide_kernel" in mangled):
                 kern = next(k for k in ("block_fwd_kernel", "block_rows_kernel",
-                                        "xdrop_round_kernel") if k in mangled)
+                                        "xdrop_round_kernel", "xdrop_wide_kernel")
+                            if k in mangled)
                 many.setdefault(kern, []).append(
                     (int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
                 seen.update(names)
@@ -2094,10 +2528,12 @@ def main():
             seen.update(names)
     templates = {"block_fwd_kernel": "S, AFFINE, MATRIX, VARLEN, HIST",
                  "block_rows_kernel": "WR, AFFINE, MATRIX, VARLEN, HIST",
-                 "xdrop_round_kernel": "CPL, AFFINE, MATRIX, HIST, EXACT"}
+                 "xdrop_round_kernel": "CPL, AFFINE, MATRIX, HIST, EXACT",
+                 "xdrop_wide_kernel": "AFFINE, MATRIX, HIST"}
     for kern, stats in sorted(many.items()):
         regs_, st_, ld_ = zip(*stats)
         label = ("block_rows/block_rows_small" if kern.startswith("block")
+                 else "banded_batch_wide" if kern == "xdrop_wide_kernel"
                  else "banded_batch/banded_batch_w32_w64")
         print(f"{label} {kern} <{templates[kern]}>: {len(stats)} "
               f"instantiations, registers {min(regs_)}-{max(regs_)}, spill stores "
@@ -5605,6 +6041,12 @@ def main():
 
     dist.destroy_process_group()  # phase 39's world of one
     suite_counts = suite_phase(launches, zero_launches, off_path, b9_folded, smi)
+    ctx = dict(dev=dev, smi=smi, timed=timed, off_path=off_path, cli_main=cli_main,
+               launches=launches, zero_launches=zero_launches, int32_rate=int32_rate,
+               lookup_rate=lookup_rate)
+    for phase_fn in (wide_band_phase, general_engine_phase):
+        counts, row = phase_fn(ctx)
+        rows.append(row)
 
     for row in rows:
         row["models_launches"] = models_counts.get(row["name"], 0)
@@ -5622,12 +6064,14 @@ def main():
         row["search_ms"], row["search_bound_ms"] = chunk_times.get(row["name"], (None, None))
         row["search_lost_ms"] = (row["search_launches"] * max(
             row["search_ms"] - row["search_bound_ms"], 0.0) if row["search_launches"] else 0.0)
-        row["lost_ms"] = (row["launches"] * max(row["kernel_ms"] - row["bound_ms"], 0.0)
-                          + row["search_lost_ms"])
+        row["lost_ms"] = sum(f["launches"] * max(f["kernel_ms"] - f["bound_ms"], 0.0)
+                             for f in charged_forms(row)) + row["search_lost_ms"]
     print("lost ms = launches x (launch alone - bound) at each row's timed shape "
-          "[+ search launches x (alone - bound) at the chunk's 131,072 pairs]: "
-          + "; ".join(f"{r['name']} {r['launches']} x ({r['kernel_ms']:.4f} - "
-                      f"{r['bound_ms']:.4f})"
+          "(and instantiation) [+ search launches x (alone - bound) at the chunk's "
+          "131,072 pairs]: "
+          + "; ".join(f"{r['name']} " + " + ".join(
+                          f"{f['launches']} x ({f['kernel_ms']:.4f} - {f['bound_ms']:.4f})"
+                          for f in charged_forms(r))
                       + (f" + {r['search_launches']} x ({r['search_ms']:.4f} - "
                          f"{r['search_bound_ms']:.4f})" if r["search_launches"] else "")
                       + f" = {r['lost_ms']:.3f}"

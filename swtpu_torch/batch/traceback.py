@@ -538,12 +538,14 @@ def banded_forward_batch(
     half of banded_align_batch). Returns a BandedBatchResult of host
     arrays.
 
-    On the card every bandwidth up to ``kernels.banded_batch.MAX_WIDTH``
-    (128) runs the per-round kernel (``banded_batch``), W = 32 and 64
-    included, where JAX ran its packed kernel; a wider band raises
-    NotImplementedError. The history streams to device memory at every
-    geometry, so JAX's switch to its XLA forward past 6000 characters
-    (a TPU VMEM limit) has no counterpart. On the CPU the plain tier runs.
+    On the card every bandwidth up to 128 runs the per-round warp kernel
+    (``banded_batch``), W = 32 and 64 included, where JAX ran its packed
+    kernel; from 129 to ``kernels.banded_batch.MAX_WIDTH`` (1024) the wide
+    kernel (a CTA a pair), where JAX runs its XLA forward; a wider band
+    raises NotImplementedError naming its ROADMAP.md item. The history
+    streams to device memory at every geometry, so JAX's switch to its XLA
+    forward past 6000 characters (a TPU VMEM limit) has no counterpart. On
+    the CPU the plain tier runs.
 
     ``compress_history=None`` (default) auto-selects the reference's
     8-bit offset-rebias wire format (source.cpp:2105-2119) whenever the

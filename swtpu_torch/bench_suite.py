@@ -185,7 +185,7 @@ def _wall(fn, env):
 
 _LAUNCH_MODULES = ("sw_batch", "sw_affine", "sw_profile", "sw_bf16", "semiglobal_batch",
                    "semiglobal_profile", "sw_banded", "banded_batch", "banded_block",
-                   "device_walk", "longpair_strip", "sw_wavefront")
+                   "device_walk", "longpair_strip", "sw_wavefront", "sw_general")
 #: record kernel name -> {wrapper count: launches while the record was made}
 LAUNCHES = {}
 _last_counts = {}

@@ -12,6 +12,11 @@
 // lane idle at W = 32 or 64, so here both contracts are one kernel, and
 // the W = 32 and W = 64 instantiations serve the packed kernel's calls.
 // Its CPL = 4 instantiations take W up to 128, past the TPU kernels' 96.
+// From W = 129 to 1024 the wrapper launches xdrop_wide_kernel (a CTA a
+// pair, a thread a band cell; its own note below), the counterpart of
+// what JAX's TPU dispatch runs there: its XLA forward
+//   swtpu/kernels/xla/banded_scan.py  banded_xdrop_batch (_banded_impl :66)
+// Past 1024 the card refuses the band (kernels/banded_batch.py).
 //
 // Design (xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, EXACT>). One warp
 // per pair; CPL = ceil(W / 32) consecutive band cells a lane (cell k on
@@ -441,6 +446,200 @@ void launch_cpl(bool affine, bool matrix, bool hist, const RoundArgs& a, cudaStr
   }
 }
 
+// -- the wide band: W up to 1024, a CTA a pair ------------------------------
+//
+// xdrop_wide_kernel<AFFINE, MATRIX, HIST> serves the bands the warp kernel
+// above cannot hold (W > 128; it takes any W from 1 to MAX_WIDE). One CTA
+// per pair, one thread per band cell (32 ceil(W / 32) threads, the cells k
+// >= W phantom), the band, E and F in shared memory, double-buffered: a
+// round reads buffer p and writes buffer p ^ 1. The recurrence is the plain
+// version's, term for term (dead 0, E/F dead at -2^28, MINF inside a round),
+// so there are no folded offsets to keep straight across warps. A round:
+// - every thread reads the cut band's ends band[0] and band[W-1] (the
+//   direction) from buffer p, moves its cursor, and tests the overrun and
+//   the round cap (all CTA-uniform, so every thread leaves together);
+// - each live thread forms its cell from its own diagonal term (kept in a
+//   register) and its neighbours in buffer p, and its codes, loaded a round
+//   ahead for both moves (the query code a down move brings, the target
+//   code a right move brings);
+// - the round max: a warp reduction, a slot a warp in shared memory, one
+//   barrier, then every warp reduces the slots again; max_round moves on a
+//   strictly greater max, the cut is the updated max - X;
+// - each live thread writes its cut cell (and E/F, cleared where the cell
+//   is dead) into buffer p ^ 1 and the history row; a second barrier
+//   publishes buffer p ^ 1 to the next round.
+// Two barriers a round: the direction needs both cut end cells, which two
+// different warps hold, after the CTA agrees on the round max.
+// Bound: a chain of rounds per pair, each two barriers and a shared-memory
+// round trip long; the card runs ceil(2048 / (32 ceil(W / 32))) pairs an SM
+// at a time. Later work: a warp per 128 cells (the warp kernel's registers
+// and shuffles) with only the edge cells and the max through shared memory.
+
+constexpr int MAX_WIDE = 1024;  // threads a CTA
+
+namespace wide {
+
+constexpr int EF_DEAD = -(1 << 28);  // dead E/F (oracle/banded_affine.py)
+constexpr int MINF = -(1 << 30);     // no contribution inside a round
+
+// the padded query row's code at index i (banded_scan._prep_padded: the
+// query at 1..lq, -1 elsewhere)
+__device__ __forceinline__ int q_at(const uint8_t* row, int i, int lq) {
+  return (i >= 1 && i <= lq) ? static_cast<int>(row[i - 1]) : -1;
+}
+
+// the padded target row's code at index j (the target at W..W + lt - 1)
+__device__ __forceinline__ int t_at(const uint8_t* row, int j, int W, int lt) {
+  const int x = j - W;
+  return (x >= 0 && x < lt) ? static_cast<int>(row[x]) : -1;
+}
+
+template <bool MATRIX>
+__device__ __forceinline__ int score(int yc, int xc, const int32_t* tab, int stride,
+                                     int match, int mismatch) {
+  if (MATRIX) {
+    const int qi = yc >= 0 ? min(yc, stride - 1) : stride - 2;
+    const int ti = xc >= 0 ? min(xc, stride - 1) : stride - 1;
+    return tab[qi * stride + ti];
+  }
+  return (yc >= 0 && xc >= 0 && yc == xc) ? match : -mismatch;
+}
+
+// HIST: 0 none, 1 int32, 2 8-bit (v - cut + 1, dead 0)
+template <int HIST>
+__device__ __forceinline__ void write_cell(const RoundArgs& a, int r, int b, int k, int v,
+                                           int cut) {
+  const size_t at = (static_cast<size_t>(r) * a.B + b) * a.W + k;
+  if (HIST == 1) a.hist32[at] = v;
+  if (HIST == 2) a.hist8[at] = static_cast<uint8_t>(v > 0 ? v - cut + 1 : 0);
+}
+
+template <bool AFFINE, bool MATRIX, int HIST>
+__global__ void __launch_bounds__(MAX_WIDE) xdrop_wide_kernel(RoundArgs a) {
+  __shared__ int32_t tab[MATRIX ? MAX_STRIDE * MAX_STRIDE : 1];
+  __shared__ int32_t band[2][MAX_WIDE];
+  __shared__ int32_t eb[AFFINE ? 2 : 1][AFFINE ? MAX_WIDE : 1];
+  __shared__ int32_t fb[AFFINE ? 2 : 1][AFFINE ? MAX_WIDE : 1];
+  __shared__ int32_t wmax[MAX_WIDE / 32];
+  const int k = threadIdx.x, lane = k & 31, warp = k >> 5, nwarps = blockDim.x >> 5;
+  const int b = blockIdx.x;
+  const int W = a.W, X = a.X, stride = a.stride;
+  if (MATRIX)
+    for (int e = k; e < stride * stride; e += blockDim.x) tab[e] = a.table[e];
+  const bool live = k < W;
+  const int lq = a.lens_q ? a.lens_q[b] : a.n;
+  const int lt = a.lens_t ? a.lens_t[b] : a.m;
+  const int rcap = (max(lq, lt) + 1) * 2 - 1;
+  const uint8_t* qrow = a.q + static_cast<size_t>(b) * a.n;
+  const uint8_t* trow = a.t + static_cast<size_t>(b) * a.m;
+  const int v0 = k == W - 1 ? X : 0;
+  if (live) {
+    band[0][k] = v0;
+    if (AFFINE) {
+      eb[0][k] = EF_DEAD;
+      fb[0][k] = EF_DEAD;
+    }
+    if (HIST) write_cell<HIST>(a, 0, b, k, v0, 0);
+  }
+  if (HIST && k == 0) {
+    a.posy[b] = 0;
+    if (a.offs) a.offs[b] = 0;
+  }
+  int hor = 0, ver = 0;  // the cell's horizontal and vertical terms
+  int now_y = 0, now_x = W - 1, ms = X, max_round = 0, n_rounds = 1;
+  // the codes at (now_y, now_x) and the ones a down (query) or right
+  // (target) move brings
+  int qa = q_at(qrow, W - 1 - k, lq), qb = q_at(qrow, W - k, lq);
+  int ta = t_at(trow, k, W, lt), tb = t_at(trow, k + 1, W, lt);
+  __syncthreads();
+
+  int p = 0;
+  for (int r = 1; r < rcap; ++r) {
+    const bool right = band[p][0] < band[p][W - 1];
+    const int nx = now_x + right, ny = now_y + !right;
+    // a boundary overrun ends the pair before the round is written
+    if (right ? nx > 2 * W + lt - 1 : ny > lq + 1) break;
+    const int yc = right ? qa : qb, xc = right ? tb : ta;
+    qa = yc;
+    ta = xc;
+    qb = q_at(qrow, ny + W - k, lq);  // used next round
+    tb = t_at(trow, nx - W + 2 + k, W, lt);
+    int rn = 0, hn = 0, vn = 0, en = 0, fn = 0;
+    if (live) {
+      const int32_t* rp = band[p];
+      const int diag = right ? ver : hor;
+      hn = right ? rp[k] : (k > 0 ? rp[k - 1] : 0);
+      vn = right ? (k < W - 1 ? rp[k + 1] : 0) : rp[k];
+      const int sc = score<MATRIX>(yc, xc, tab, stride, a.match, a.mismatch);
+      rn = diag != 0 ? max(diag + sc, 0) : 0;
+      if (AFFINE) {
+        const int he = right ? eb[p][k] : (k > 0 ? eb[p][k - 1] : EF_DEAD);
+        const int vf = right ? (k < W - 1 ? fb[p][k + 1] : EF_DEAD) : fb[p][k];
+        en = max(he > EF_DEAD / 2 ? he - a.ge : MINF, hn != 0 ? hn - a.go : MINF);
+        fn = max(vf > EF_DEAD / 2 ? vf - a.ge : MINF, vn != 0 ? vn - a.go : MINF);
+        rn = max(rn, en > MINF / 2 ? en : 0);
+        rn = max(rn, fn > MINF / 2 ? fn : 0);
+      } else {
+        if (hn != 0) rn = max(rn, hn - a.gap);
+        if (vn != 0) rn = max(rn, vn - a.gap);
+      }
+    }
+    // the round max across the warps (every cell is >= 0)
+    const int wm = __reduce_max_sync(FULL, rn);
+    if (lane == 0) wmax[warp] = wm;
+    __syncthreads();
+    const int round_max = __reduce_max_sync(FULL, lane < nwarps ? wmax[lane] : 0);
+    if (ms < round_max) {
+      ms = round_max;
+      max_round = r;
+    }
+    const int cut = ms - X;
+    if (live) {
+      const int rc = rn < cut ? 0 : rn;
+      band[p ^ 1][k] = rc;
+      if (AFFINE) {
+        eb[p ^ 1][k] = rc == 0 ? EF_DEAD : en;
+        fb[p ^ 1][k] = rc == 0 ? EF_DEAD : fn;
+      }
+      if (HIST) write_cell<HIST>(a, r, b, k, rc, cut);
+    }
+    if (HIST && k == 0) {
+      const size_t row = static_cast<size_t>(r) * a.B + b;
+      a.posy[row] = ny;
+      if (a.offs) a.offs[row] = cut;
+    }
+    hor = hn;
+    ver = vn;
+    now_x = nx;
+    now_y = ny;
+    n_rounds = r + 1;
+    __syncthreads();  // buffer p ^ 1 is whole; wmax is free again
+    p ^= 1;
+    if (round_max == 0) break;  // a dead round is written, then ends the pair
+  }
+
+  if (k == 0) {
+    a.score[b] = ms - X;
+    a.max_round[b] = max_round;
+    a.n_rounds[b] = n_rounds;
+  }
+}
+
+template <bool AFFINE, bool MATRIX, int HIST>
+void launch(const RoundArgs& a, cudaStream_t stream) {
+  const int threads = 32 * ((a.W + 31) / 32);
+  xdrop_wide_kernel<AFFINE, MATRIX, HIST><<<a.B, threads, 0, stream>>>(a);
+}
+
+template <bool AFFINE, bool MATRIX>
+void launch_hist(int hist, const RoundArgs& a, cudaStream_t s) {
+  if (hist == 1) launch<AFFINE, MATRIX, 1>(a, s);
+  else if (hist == 2) launch<AFFINE, MATRIX, 2>(a, s);
+  else launch<AFFINE, MATRIX, 0>(a, s);
+}
+
+}  // namespace wide
+
 // -- the earlier kernel, timed beside the one above ------------------------
 
 namespace earlier {
@@ -684,6 +883,36 @@ int swtpu_sw_xdrop(int affine, const void* q, const void* t, const void* lens_q,
     case 2: launch_cpl<2>(affine != 0, matrix, hist, a, s); break;
     case 3: launch_cpl<3>(affine != 0, matrix, hist, a, s); break;
     default: launch_cpl<4>(affine != 0, matrix, hist, a, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide band (xdrop_wide_kernel, a CTA a pair): the same arguments and
+// outputs as swtpu_sw_xdrop for any W from 1 to MAX_WIDE (1024);
+// cudaErrorInvalidValue outside it or for a table stride outside 1..32.
+int swtpu_sw_xdrop_wide(int affine, const void* q, const void* t, const void* lens_q,
+                        const void* lens_t, const void* table, void* score, void* max_round,
+                        void* n_rounds, void* hist32, void* hist8, void* posy, void* offs,
+                        int B, int n, int m, int W, int X, int match, int mismatch, int gap,
+                        int gap_open, int gap_extend, int stride, void* stream) {
+  if (W < 1 || W > MAX_WIDE || (table && (stride < 1 || stride > MAX_STRIDE)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  const RoundArgs a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+                    static_cast<const int32_t*>(lens_q), static_cast<const int32_t*>(lens_t),
+                    static_cast<const int32_t*>(table), static_cast<int32_t*>(score),
+                    static_cast<int32_t*>(max_round), static_cast<int32_t*>(n_rounds),
+                    static_cast<int32_t*>(hist32), static_cast<uint8_t*>(hist8),
+                    static_cast<int32_t*>(posy), static_cast<int32_t*>(offs), B, n, m, W, X,
+                    match, mismatch, gap, gap_open, gap_extend, table ? stride : 1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hist = posy == nullptr ? 0 : (hist8 != nullptr ? 2 : 1);
+  if (affine) {
+    if (table) wide::launch_hist<true, true>(hist, a, s);
+    else wide::launch_hist<true, false>(hist, a, s);
+  } else {
+    if (table) wide::launch_hist<false, true>(hist, a, s);
+    else wide::launch_hist<false, false>(hist, a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,10 @@ each with its plain PyTorch version beside it.
                   ``sw_profile`` / ``sw_profile_ends`` (kernel: a thread or
                   a warp per pair, ``profile_form`` picks by shape),
                   ``sw_profile_plain`` / ``sw_profile_ends_plain``;
+- ``sw_general``  any scoring the plain tier takes (gaps <= 0, Gotoh
+                  extension <= 0, entries past [-127, 127]), linear or
+                  Gotoh: ``sw_general`` / ``sw_general_ends`` (kernel),
+                  ``sw_general_plain`` / ``sw_general_ends_plain``;
 - ``sw_bf16``     the bf16 reduced-precision tier: ``sw_bf16`` (kernel),
                   ``sw_bf16_plain`` (the anti-diagonal tier in bf16);
 - ``semiglobal_batch``, ``semiglobal_profile``  semi-global / global
@@ -17,7 +21,8 @@ each with its plain PyTorch version beside it.
                   / ``sw_banded_profile`` (general matrix) (kernel),
                   ``sw_banded_plain``;
 - ``banded_batch``  per-round adaptive-band X-drop: ``banded_batch``
-                  (kernel), ``banded_batch_plain``; ``banded_scan`` its
+                  (kernels: a warp per pair up to W = 128, a CTA per pair
+                  up to 1024), ``banded_batch_plain``; ``banded_scan`` its
                   plain tier (the XLA tier's copy) and result type;
 - ``banded_block``  the block-adaptive band: ``block_forward`` (B9, one
                   launch a forward) and, for negative gaps,

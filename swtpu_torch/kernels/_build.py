@@ -29,12 +29,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: every CUDA source of the port: the row-scan (uniform scoring), the
 #: profile (general matrix), the bf16 tier, semi-global / global, the
-#: fixed band, the per-round adaptive band, the block tier (gather and
-#: rows), the banded device walkers, the long-pair strip tile and the
-#: wavefront schedule
+#: fixed band, the per-round adaptive band (warp and wide forms), the block
+#: tier (gather and rows), the banded device walkers, the long-pair strip
+#: tile, the wavefront schedule and the general local engine (any scoring
+#: the plain tier takes)
 SOURCES = ("sw_rowscan.cu", "sw_profile.cu", "sw_bf16.cu", "sw_semiglobal.cu",
            "sw_banded.cu", "sw_xdrop.cu", "sw_block.cu", "sw_walk.cu",
-           "sw_strip.cu", "sw_wavefront.cu")
+           "sw_strip.cu", "sw_wavefront.cu", "sw_general.cu")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,33 +1,47 @@
-"""Batched adaptive-banded X-drop forward pass: the CUDA kernel and its
+"""Batched adaptive-banded X-drop forward pass: the CUDA kernels and their
 plain PyTorch version.
 
 Port of ``swtpu/kernels/pallas/banded_batch.py``
-(``banded_xdrop_batch_pallas``) and ``swtpu/kernels/pallas/banded_packed.py``
-(``banded_xdrop_batch_packed``), which share one contract and one result
-type. The kernel is ``csrc/sw_xdrop.cu``, whose head note says what it
-replaces, what bounds it and how: one warp per pair, instantiated for 1-4
-band cells per lane, so it takes every bandwidth from 1 to
-:data:`MAX_WIDTH` = 128 (the TPU kernels took up to 96). The W = 32 and
-W = 64 instantiations serve what JAX sent to the packed kernel. It reads
-the raw [B, n] / [B, m] codes and the lengths (:func:`stage`), keeps each
-cell's codes in registers and pads in-kernel, so the wrapper pads nothing.
-The plain version is the XLA tier's copy, ``banded_scan.banded_xdrop_batch``;
-:func:`xdrop_round_mirror` replays the kernel's own round schedule on the
-CPU (tests only). The earlier kernel of the same source, over padded rows,
-stays off every entry point (:func:`_earlier_launch_t`, timed beside it).
+(``banded_xdrop_batch_pallas``), ``swtpu/kernels/pallas/banded_packed.py``
+(``banded_xdrop_batch_packed``) and, past their widths, the XLA forward
+``swtpu/kernels/xla/banded_scan.py::banded_xdrop_batch``, which JAX's TPU
+dispatch runs for any band wider than its Pallas kernel's 96 (one
+contract and one result type for all three). Both kernels are in
+``csrc/sw_xdrop.cu``, whose head note says what they replace, what bounds
+them and how:
+
+- ``xdrop_round_kernel``: one warp per pair, instantiated for 1-4 band
+  cells per lane, so it takes every bandwidth from 1 to
+  :data:`ROUND_MAX_WIDTH` = 128 (the TPU kernels took up to 96); its W =
+  32 and W = 64 instantiations serve what JAX sent to the packed kernel;
+- ``xdrop_wide_kernel``: one CTA per pair, one thread per band cell, the
+  band in shared memory, for the bands from 129 to :data:`MAX_WIDTH` =
+  1024 (the XLA forward's counterpart on the card).
+
+:func:`banded_form` names the kernel a bandwidth takes. Both read the raw
+[B, n] / [B, m] codes and the lengths (:func:`stage`) and pad in-kernel,
+so the wrapper pads nothing. The plain version is the XLA tier's copy,
+``banded_scan.banded_xdrop_batch``; :func:`xdrop_round_mirror` and
+:func:`xdrop_wide_mirror` replay the kernels' own round schedules on the
+CPU (tests only). The earlier kernel of the same source, over padded
+rows, stays off every entry point (:func:`_earlier_launch_t`, timed
+beside it).
 
 ``banded_batch`` runs where its device says: on the CPU the plain
-version, for any bandwidth; on a CUDA device the kernel, never the plain
+version, for any bandwidth; on a CUDA device a kernel, never the plain
 version there: a bandwidth past :data:`MAX_WIDTH` raises
-NotImplementedError, a failed build or launch raises. Its result holds
-tensors on the device (``BandedBatchResult.numpy()`` copies them to the
-host). It counts its launches in ``banded_batch.launches``, and those at
-W = 32 or 64 (the packed kernel's calls in JAX) also in
-``banded_batch.launches_w32_w64``. ``early_exit`` is accepted and changes
-nothing: each warp retires when its pair ends. The kernel writes a pair's
-history, ``pos_y`` and ``offsets`` only below its ``n_rounds``, where every
-reader stops; past it they hold whatever the allocation held (the plain
-version fills them as the XLA tier's masked rounds leave them).
+NotImplementedError naming its ROADMAP.md item, a failed build or launch
+raises. Its result holds tensors on the device
+(``BandedBatchResult.numpy()`` copies them to the host). It counts the
+warp kernel's launches in ``banded_batch.launches`` (those at W = 32 or
+64, the packed kernel's calls in JAX, also in
+``banded_batch.launches_w32_w64``) and the wide kernel's in
+``banded_batch.launches_wide``. ``early_exit`` is accepted and changes
+nothing: each warp or CTA retires when its pair ends. The kernels write a
+pair's history, ``pos_y`` and ``offsets`` only below its ``n_rounds``,
+where every reader stops; past it they hold whatever the allocation held
+(the plain version fills them as the XLA tier's masked rounds leave
+them).
 """
 
 from __future__ import annotations
@@ -48,7 +62,8 @@ from swtpu_torch.kernels.sw_batch import ptr
 from swtpu_torch.utils.device import as_codes, resolve_device
 
 SOURCE = "sw_xdrop.cu"
-MAX_WIDTH = 128  # 32 lanes x 4 cells per lane
+ROUND_MAX_WIDTH = 128  # the warp kernel: 32 lanes x 4 cells per lane
+MAX_WIDTH = 1024  # the wide kernel: a thread a cell, 1024 a CTA
 PACKED_WIDTHS = (32, 64)
 
 
@@ -62,12 +77,25 @@ def _gaps(gap, gap_open, gap_extend):
     return int(gap), None, None
 
 
+def banded_form(bandwidth: int):
+    """The kernel that takes a band of this width on the card: ``"round"``
+    (the warp kernel, W <= 128), ``"wide"`` (the CTA kernel, 129 <= W <=
+    1024), or None (no kernel: :func:`width_refusal` says why)."""
+    W = int(bandwidth)
+    if 1 <= W <= ROUND_MAX_WIDTH:
+        return "round"
+    if ROUND_MAX_WIDTH < W <= MAX_WIDTH:
+        return "wide"
+    return None
+
+
 def width_refusal(bandwidth: int):
-    """Why the kernel does not take this bandwidth, or None."""
-    if not 1 <= bandwidth <= MAX_WIDTH:
-        return (f"the per-round banded kernel is built for bandwidths 1..{MAX_WIDTH} "
-                f"(got {bandwidth}); no kernel in ROADMAP.md queue B takes a wider "
-                "band: run it on the CPU")
+    """Why no per-round kernel takes this bandwidth (:func:`banded_form`
+    names none), or None."""
+    if banded_form(bandwidth) is None:
+        return (f"the per-round banded kernels take bandwidths 1..{MAX_WIDTH} (got "
+                f"{bandwidth}); ROADMAP.md queue A item 18 lists the bands past "
+                f"{MAX_WIDTH}: run it on the CPU")
     return None
 
 
@@ -141,14 +169,23 @@ def _check_table(table, device, what):
     return stride
 
 
+def _check_width(W, wide):
+    """The widths a launch takes, by :func:`banded_form`: the wide kernel
+    any that has a kernel, the warp kernels the "round" ones."""
+    form = banded_form(W)
+    if form is None:
+        raise NotImplementedError(width_refusal(W))
+    if form == "wide" and not wide:
+        raise NotImplementedError(f"bandwidth {W} is for the wide kernel "
+                                  f"(banded_form: {form!r})")
+
+
 def _launch(name, rows, lens_q, lens_t, n, m, bandwidth, x_threshold, match,
             mismatch, gap, gap_open, gap_extend, table, with_history,
-            compress_history, what):
+            compress_history, what, wide=False):
     device = rows[0].device
     W, X = int(bandwidth), int(x_threshold)
-    reason = width_refusal(W)
-    if reason:
-        raise NotImplementedError(reason)
+    _check_width(W, wide)
     stride = _check_table(table, device, what)
     B = rows[0].shape[0]
     score, max_round, n_rounds, hist, posy, offs = _outputs(
@@ -168,32 +205,49 @@ def _launch(name, rows, lens_q, lens_t, n, m, bandwidth, x_threshold, match,
     return score, max_round, n_rounds, hist, posy, offs
 
 
-def xdrop_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match, mismatch,
-                   gap, gap_open=None, gap_extend=None, table=None,
-                   with_history=True, compress_history=False):
-    """The launch alone, on what :func:`stage` makes: q [B, n] and t [B, m]
-    contiguous uint8 raw codes and int32 [B] lengths (or None: full rows),
-    all on one CUDA device; ``table`` (``sw_banded.banded_table``) selects
-    the general-matrix mode; affine when gap_open is given. Allocates the
-    outputs and launches on the device's current stream. Returns (score,
-    max_round, n_rounds, band_history, pos_y, offsets); the last three None
-    as the mode leaves them."""
+def _check_staged(q, t, lens_q, lens_t, what):
     device = q.device
     B = q.shape[0]
-    for x, dtype, what in ((q, torch.uint8, "codes"), (t, torch.uint8, "codes"),
+    for x, dtype, kind in ((q, torch.uint8, "codes"), (t, torch.uint8, "codes"),
                            (lens_q, torch.int32, "lengths"),
                            (lens_t, torch.int32, "lengths")):
-        if x is None and what == "lengths":
+        if x is None and kind == "lengths":
             continue
         if (x.dtype != dtype or x.device != device or device.type != "cuda"
                 or not x.is_contiguous() or x.shape[0] != B):
             raise ValueError(
-                f"the per-round banded kernel takes contiguous {dtype} {what} with "
-                f"{B} rows on one CUDA device, got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
+                f"the {what} takes contiguous {dtype} {kind} with {B} rows on one "
+                f"CUDA device, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def xdrop_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match, mismatch,
+                   gap, gap_open=None, gap_extend=None, table=None,
+                   with_history=True, compress_history=False):
+    """The warp kernel's launch alone (W <= 128), on what :func:`stage`
+    makes: q [B, n] and t [B, m] contiguous uint8 raw codes and int32 [B]
+    lengths (or None: full rows), all on one CUDA device; ``table``
+    (``sw_banded.banded_table``) selects the general-matrix mode; affine
+    when gap_open is given. Allocates the outputs and launches on the
+    device's current stream. Returns (score, max_round, n_rounds,
+    band_history, pos_y, offsets); the last three None as the mode leaves
+    them."""
+    _check_staged(q, t, lens_q, lens_t, "per-round banded kernel")
     return _launch("swtpu_sw_xdrop", (q, t), lens_q, lens_t, q.shape[1], t.shape[1],
                    bandwidth, x_threshold, match, mismatch, gap, gap_open, gap_extend,
                    table, with_history, compress_history, "per-round banded kernel")
+
+
+def xdrop_wide_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match,
+                        mismatch, gap, gap_open=None, gap_extend=None, table=None,
+                        with_history=True, compress_history=False):
+    """The wide kernel's launch alone (a CTA a pair, any W from 1 to
+    :data:`MAX_WIDTH`; the wrapper sends it W > 128): the same inputs and
+    outputs as :func:`xdrop_launch_t`."""
+    _check_staged(q, t, lens_q, lens_t, "wide per-round banded kernel")
+    return _launch("swtpu_sw_xdrop_wide", (q, t), lens_q, lens_t, q.shape[1],
+                   t.shape[1], bandwidth, x_threshold, match, mismatch, gap, gap_open,
+                   gap_extend, table, with_history, compress_history,
+                   "wide per-round banded kernel", wide=True)
 
 
 def _earlier_launch_t(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match,
@@ -257,23 +311,28 @@ def banded_batch(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1, gap=1,
             matrix, dev,
         )
     W = int(bandwidth)
-    reason = width_refusal(W)
-    if reason:
-        raise NotImplementedError(reason)
+    form = banded_form(W)
+    if form is None:
+        raise NotImplementedError(width_refusal(W))
     gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
-    out = xdrop_launch_t(
+    launch = xdrop_launch_t if form == "round" else xdrop_wide_launch_t
+    out = launch(
         *stage(qs, ts, lens_q, lens_t, dev), W, x_threshold, match, mismatch, gap,
         gap_open, gap_extend, None if matrix is None else banded_table(matrix, dev),
         with_history, compress_history,
     )
-    banded_batch.launches += 1
-    banded_batch.launches_w32_w64 += W in PACKED_WIDTHS
+    if form == "round":
+        banded_batch.launches += 1
+        banded_batch.launches_w32_w64 += W in PACKED_WIDTHS
+    else:
+        banded_batch.launches_wide += 1
     score, max_round, n_rounds, hist, posy, offs = out
     return BandedBatchResult(score, max_round, n_rounds, hist, posy, offs)
 
 
 banded_batch.launches = 0
 banded_batch.launches_w32_w64 = 0
+banded_batch.launches_wide = 0
 
 
 # -- a plain mirror of the kernel's round schedule (tests only) --------------
@@ -304,8 +363,7 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
     B, n = q.shape
     m = t.shape[1]
     W, X = int(bandwidth), int(x_threshold)
-    if width_refusal(W):
-        raise NotImplementedError(width_refusal(W))
+    _check_width(W, wide=False)
     if with_history and compress_history and X > 254:
         raise ValueError("8-bit history needs x_threshold <= 254")
     lq = np.full(B, n) if lens_q is None else np.asarray(lens_q, np.int64)
@@ -431,6 +489,141 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
             if r % 32 == 0:  # between blocks
                 qw += 32 * (d - qw >= 32)
                 tw += 32 * (u - tw >= 32)
+        score_o[b], max_round_o[b], n_rounds_o[b] = ms - X, max_round, n_rounds
+    out = [torch.from_numpy(x) for x in (score_o, max_round_o, n_rounds_o)]
+    if not with_history:
+        return BandedBatchResult(*out, None, None)
+    hist = torch.from_numpy(hist.astype(np.uint8) if compress_history else hist)
+    return BandedBatchResult(*out, hist, torch.from_numpy(posy),
+                             torch.from_numpy(offs) if compress_history else None)
+
+
+# -- a plain mirror of the wide kernel's CTA schedule (tests only) -----------
+
+_EF_DEAD = -(2**28)  # dead E/F (csrc/sw_xdrop.cu, wide::EF_DEAD)
+_MINF = -(2**30)
+
+
+def xdrop_wide_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
+                      gap=1, bandwidth=160, x_threshold=70, compress_history=False,
+                      with_history=True, gap_open=None, gap_extend=None,
+                      matrix=None) -> BandedBatchResult:
+    """The wide kernel's schedule replayed in numpy, pair by pair, on the
+    32 * ceil(W / 32) threads of its CTA (cells k >= W phantom, 0 in every
+    reduction): the band, E and F in two buffers (a round reads one and
+    writes the other), each cell's diagonal term held by its thread, the
+    codes loaded a round ahead for both moves (the query code a down move
+    brings, the target code a right move brings), the round max as a max a
+    warp and then a max over the warps' slots, the cut applied as each
+    thread writes its cell, the direction read from the written buffer's
+    end cells at the next round's start. Same contract as
+    :func:`banded_batch`, for any W from 1 to :data:`MAX_WIDTH`; history,
+    pos_y and offsets are 0 at and past each pair's n_rounds. Nothing on
+    the card path calls it."""
+    gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
+    q = as_codes(qs, torch.device("cpu")).numpy().astype(np.int64)
+    t = as_codes(ts, torch.device("cpu")).numpy().astype(np.int64)
+    B, n = q.shape
+    m = t.shape[1]
+    W, X = int(bandwidth), int(x_threshold)
+    _check_width(W, wide=True)
+    if with_history and compress_history and X > 254:
+        raise ValueError("8-bit history needs x_threshold <= 254")
+    lq = np.full(B, n) if lens_q is None else np.asarray(lens_q, np.int64)
+    lt = np.full(B, m) if lens_t is None else np.asarray(lens_t, np.int64)
+    affine = gap_open is not None
+    P = 32 * -(-W // 32)
+    k = np.arange(P)
+    live = k < W
+    if matrix is not None:
+        tab = _banded_ext_table(matrix).astype(np.int64)
+        stride = tab.shape[0]
+
+    def score(yc, xc):
+        if matrix is None:
+            return np.where((yc >= 0) & (xc >= 0) & (yc == xc), match, -mismatch)
+        qi = np.where(yc >= 0, np.minimum(yc, stride - 1), stride - 2)
+        ti = np.where(xc >= 0, np.minimum(xc, stride - 1), stride - 1)
+        return tab[qi, ti]
+
+    R_cap = (max(n, m) + 1) * 2 - 1
+    score_o, max_round_o, n_rounds_o = (np.zeros(B, np.int32) for _ in range(3))
+    hist = np.zeros((R_cap, B, W), np.int32)
+    posy = np.zeros((R_cap, B), np.int32)
+    offs = np.zeros((R_cap, B), np.int32)
+    for b in range(B):
+        Lq, Lt = int(lq[b]), int(lt[b])
+        qrow, trow = q[b], t[b]
+
+        def q_at(i):  # the padded query row: the query at 1..Lq
+            i = np.asarray(i)
+            ok = (i >= 1) & (i <= Lq)
+            return np.where(ok, qrow[np.clip(i - 1, 0, max(n - 1, 0))] if n else -1, -1)
+
+        def t_at(j):  # the padded target row: the target at W..W + Lt - 1
+            x = np.asarray(j) - W
+            ok = (x >= 0) & (x < Lt)
+            return np.where(ok, trow[np.clip(x, 0, max(m - 1, 0))] if m else -1, -1)
+
+        rcap = (max(Lq, Lt) + 1) * 2 - 1
+        band = np.zeros((2, P), np.int64)
+        eb = np.full((2, P), _EF_DEAD, np.int64)
+        fb = np.full((2, P), _EF_DEAD, np.int64)
+        band[0] = np.where(k == W - 1, X, 0)
+        hist[0, b] = np.where(band[0, :W] > 0, band[0, :W] + 1, 0) if compress_history \
+            else band[0, :W]
+        hor = np.zeros(P, np.int64)
+        ver = np.zeros(P, np.int64)
+        now_y, now_x, ms, max_round, n_rounds = 0, W - 1, X, 0, 1
+        qa, qb = q_at(W - 1 - k), q_at(W - k)
+        ta, tb = t_at(k), t_at(k + 1)
+        p = 0
+        for r in range(1, rcap):
+            right = bool(band[p, 0] < band[p, W - 1])
+            nx, ny = now_x + right, now_y + (not right)
+            if (nx > 2 * W + Lt - 1) if right else (ny > Lq + 1):
+                break
+            yc, xc = (qa, tb) if right else (qb, ta)
+            qa, ta = yc, xc
+            qb, tb = q_at(ny + W - k), t_at(nx - W + 2 + k)
+            rp = band[p]
+            left = np.concatenate([[0], rp[:-1]])  # thread k - 1's cell
+            upn = np.where(k < W - 1, np.concatenate([rp[1:], [0]]), 0)
+            diag = ver if right else hor
+            hn = rp if right else left
+            vn = upn if right else rp
+            rn = np.where(diag != 0, np.maximum(diag + score(yc, xc), 0), 0)
+            if affine:
+                he = eb[p] if right else np.concatenate([[_EF_DEAD], eb[p, :-1]])
+                vf = (np.where(k < W - 1, np.concatenate([fb[p, 1:], [_EF_DEAD]]),
+                               _EF_DEAD) if right else fb[p])
+                en = np.maximum(np.where(he > _EF_DEAD // 2, he - gap_extend, _MINF),
+                                np.where(hn != 0, hn - gap_open, _MINF))
+                fn = np.maximum(np.where(vf > _EF_DEAD // 2, vf - gap_extend, _MINF),
+                                np.where(vn != 0, vn - gap_open, _MINF))
+                rn = np.maximum(rn, np.where(en > _MINF // 2, en, 0))
+                rn = np.maximum(rn, np.where(fn > _MINF // 2, fn, 0))
+            else:
+                rn = np.where(hn != 0, np.maximum(rn, hn - gap), rn)
+                rn = np.where(vn != 0, np.maximum(rn, vn - gap), rn)
+            rn = np.where(live, rn, 0)
+            round_max = int(rn.reshape(-1, 32).max(axis=1).max())  # a slot a warp
+            if ms < round_max:
+                ms, max_round = round_max, r
+            cut = ms - X
+            rc = np.where(rn < cut, 0, rn)
+            band[p ^ 1] = np.where(live, rc, band[p ^ 1])
+            if affine:
+                eb[p ^ 1] = np.where(live, np.where(rc == 0, _EF_DEAD, en), eb[p ^ 1])
+                fb[p ^ 1] = np.where(live, np.where(rc == 0, _EF_DEAD, fn), fb[p ^ 1])
+            hist[r, b] = (np.where(rc[:W] > 0, rc[:W] - cut + 1, 0) if compress_history
+                          else rc[:W])
+            posy[r, b], offs[r, b] = ny, cut
+            hor, ver = hn, vn
+            now_x, now_y, n_rounds = nx, ny, r + 1
+            p ^= 1
+            if round_max == 0:
+                break
         score_o[b], max_round_o[b], n_rounds_o[b] = ms - X, max_round, n_rounds
     out = [torch.from_numpy(x) for x in (score_o, max_round_o, n_rounds_o)]
     if not with_history:

@@ -313,9 +313,11 @@ def banded_xdrop_align_device(
     """Batched adaptive-banded X-drop alignment, forward AND traceback on
     the device (linear gaps). Output bit-equal to ``banded_align_batch``'s
     host walk; only scores and move strings cross to the host. On the card
-    the forward is the per-round kernel (``banded_batch.banded_batch``,
-    int32 history) and the walk ``device_walk.xdrop_walk``; on the CPU their
-    plain versions. Returns [(score, path)] per pair."""
+    the forward is a per-round kernel (``banded_batch.banded_batch``, int32
+    history: the warp kernel up to W = 128, the wide kernel up to 1024) and
+    the walk ``device_walk.xdrop_walk`` (its ring of chunks sized by W,
+    ``device_walk.default_chunk``); on the CPU their plain versions.
+    Returns [(score, path)] per pair."""
     from swtpu_torch.kernels.banded_batch import banded_batch
     from swtpu_torch.kernels.device_walk import xdrop_walk
 

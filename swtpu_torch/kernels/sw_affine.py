@@ -23,21 +23,26 @@ from swtpu_torch.kernels.sw_batch import _uniform_match_mismatch, rowscan_launch
 from swtpu_torch.utils.device import resolve_device
 
 
+def affine_refusal(params: ScoringParams):
+    """Why the affine row-scan kernel does not take ``params``, or None
+    when it does."""
+    if _uniform_match_mismatch(params) is None:
+        return ("general matrices go to the profile kernel (kernels.sw_profile), "
+                "not the row-scan kernel")
+    if params.gap_open <= 0 or params.gap_extend <= 0:
+        return ("the affine row-scan kernel needs gap_open, gap_extend > 0 (got "
+                f"{params.gap_open}, {params.gap_extend}); best_engine runs such "
+                "scorings on the general kernel (kernels.sw_general), and ROADMAP.md "
+                "queue A lists what the card still refuses")
+    return None
+
+
 def _guard_affine(params: ScoringParams):
     """(match, mismatch) for the affine kernel, or NotImplementedError."""
-    mm = _uniform_match_mismatch(params)
-    if mm is None:
-        raise NotImplementedError(
-            "general matrices go to the profile kernel (kernels.sw_profile), "
-            "not the row-scan kernel"
-        )
-    if params.gap_open <= 0 or params.gap_extend <= 0:
-        raise NotImplementedError(
-            "the affine row-scan kernel needs gap_open, gap_extend > 0 (got "
-            f"{params.gap_open}, {params.gap_extend}); no kernel in ROADMAP.md "
-            "queue B takes a non-positive gap: run it on the CPU"
-        )
-    return mm
+    reason = affine_refusal(params)
+    if reason:
+        raise NotImplementedError(reason)
+    return _uniform_match_mismatch(params)
 
 
 def sw_affine_plain(qs, ts, params: ScoringParams, device=None):

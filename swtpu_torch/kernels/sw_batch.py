@@ -52,8 +52,9 @@ def linear_refusal(params: ScoringParams):
         return ("general matrices go to the profile kernel (kernels.sw_profile), "
                 "not the row-scan kernel")
     if params.gap <= 0:
-        return (f"the row-scan kernel needs gap > 0 (got {params.gap}); no kernel "
-                "in ROADMAP.md queue B takes a non-positive gap: run it on the CPU")
+        return (f"the row-scan kernel needs gap > 0 (got {params.gap}); best_engine "
+                "runs such scorings on the general kernel (kernels.sw_general), and "
+                "ROADMAP.md queue A lists what the card still refuses")
     return None
 
 

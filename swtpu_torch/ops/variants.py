@@ -1,21 +1,24 @@
 """Engine dispatch: the fastest engine for a scoring system on a device.
 
 Port of ``swtpu/ops/variants.py`` (``best_engine``, ``best_ends_engine``,
-``resolve_engine``, ``cached_build``). The rule:
+``resolve_engine``, ``cached_build``). The rule (:func:`local_form`):
 
-- on a CUDA device, uniform linear scoring (gap > 0) goes to the
-  ``sw_batch`` kernels and uniform affine scoring (gap_open,
-  gap_extend > 0) to the ``sw_affine`` kernels; any other matrix (4x4
-  DNA, BLOSUM62, up to 30 letters with entries in [-127, 127], gaps > 0)
-  goes to the ``sw_profile`` kernels. Any other scoring raises
-  NotImplementedError pointing to ROADMAP.md: the card never runs the
-  plain tier in a kernel's place;
+- on a CUDA device, uniform linear scoring with gap > 0 goes to the
+  ``sw_batch`` kernels, uniform Gotoh with gap_open, gap_extend > 0 to the
+  ``sw_affine`` kernels, any other matrix (4x4 DNA, BLOSUM62, up to 30
+  letters) with entries in [-127, 127] and gaps > 0 to the ``sw_profile``
+  kernels, and every scoring those guards refuse (a gap of 0 or below,
+  Gotoh with gap_extend <= 0, entries past [-127, 127]) to the
+  ``sw_general`` kernel, where JAX's TPU dispatch falls through to its XLA
+  tier. The card never runs the plain tier in a kernel's place; only an
+  alphabet past 30 letters, which the plain tier refuses too, raises
+  NotImplementedError, when the engine is built;
 - on the CPU the plain anti-diagonal tier serves every scoring system.
 
 Unlike the JAX dispatch there is no ``try/except NotImplementedError``
-around a kernel: the wrappers' own guards (``sw_batch._guard_linear``,
-``sw_affine._guard_affine``, ``sw_profile._guard_profile``) run where the
-engine is chosen, and one that fails, fails there.
+around a kernel: the wrappers' own guards (``sw_batch.linear_refusal``,
+``sw_affine.affine_refusal``, ``sw_profile.profile_refusal``) decide the
+form before anything launches, and a failed launch raises.
 
 ``VARIANTS`` is the registry of named score engines (``align
 --engine``), JAX's names in JAX's order: ``oracle`` (the numpy oracle),
@@ -40,17 +43,16 @@ from swtpu_torch.kernels.affine_scan import (
     sw_affine_batch_diag_ends,
 )
 from swtpu_torch.kernels.colscan import sw_batch_colscan
-from swtpu_torch.kernels.sw_affine import _guard_affine, sw_affine, sw_affine_ends
+from swtpu_torch.kernels.sw_affine import affine_refusal, sw_affine, sw_affine_ends
 from swtpu_torch.kernels.sw_batch import (
-    _guard_linear,
     _uniform_match_mismatch,
     linear_refusal,
     sw_batch,
     sw_batch_ends,
 )
 from swtpu_torch.kernels.sw_bf16 import bf16_tier_supported, padded_rows, sw_bf16
+from swtpu_torch.kernels.sw_general import general_refusal, sw_general, sw_general_ends
 from swtpu_torch.kernels.sw_profile import (
-    _guard_profile,
     profile_refusal,
     sw_profile,
     sw_profile_ends,
@@ -60,17 +62,35 @@ from swtpu_torch.kernels.sw_wavefront import sw_wavefront, wavefront_refusal
 from swtpu_torch.utils.device import resolve_device
 
 
-def _cuda_kernel(params: ScoringParams, ends: bool) -> Callable:
-    """The kernel wrapper that takes ``params`` on the card, once its
-    guard has passed (a failed guard raises NotImplementedError)."""
+def local_form(params: ScoringParams):
+    """The kernel family that takes ``params`` on the card: ``"rowscan"``
+    (uniform, linear gap > 0), ``"affine"`` (uniform Gotoh, gaps > 0),
+    ``"profile"`` (any other matrix with entries in [-127, 127], gaps > 0),
+    ``"general"`` (every other scoring up to 30 letters), or None (no
+    kernel, nor the plain tier: ``sw_general.general_refusal`` says why).
+    A pure function of the scoring: nothing is launched."""
+    if general_refusal(params):
+        return None
     if _uniform_match_mismatch(params) is None:
-        _guard_profile(params)
-        return sw_profile_ends if ends else sw_profile
+        return "profile" if profile_refusal(params) is None else "general"
     if params.is_linear:
-        _guard_linear(params)
+        return "rowscan" if linear_refusal(params) is None else "general"
+    return "affine" if affine_refusal(params) is None else "general"
+
+
+def _cuda_kernel(params: ScoringParams, ends: bool) -> Callable:
+    """The kernel wrapper that takes ``params`` on the card
+    (:func:`local_form`)."""
+    form = local_form(params)
+    if form is None:
+        raise NotImplementedError(general_refusal(params))
+    if form == "rowscan":
         return sw_batch_ends if ends else sw_batch
-    _guard_affine(params)
-    return sw_affine_ends if ends else sw_affine
+    if form == "affine":
+        return sw_affine_ends if ends else sw_affine
+    if form == "profile":
+        return sw_profile_ends if ends else sw_profile
+    return sw_general_ends if ends else sw_general
 
 
 def best_ends_engine(params: ScoringParams, device=None) -> Callable:
@@ -90,8 +110,8 @@ def best_ends_engine(params: ScoringParams, device=None) -> Callable:
 
 def best_engine(params: ScoringParams, device=None) -> Callable:
     """fn(qs, ts) -> [B] int32 scores on ``device`` (default: the card):
-    the CUDA row-scan or profile kernels on the card, the plain tier on
-    the CPU."""
+    the CUDA row-scan, profile or general kernel on the card
+    (:func:`local_form`), the plain tier on the CPU."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         if params.is_linear:

@@ -87,8 +87,9 @@ from swtpu_torch.core.scoring import (
 from swtpu_torch.kernels import (
     banded_batch, banded_block, banded_scan, device_walk, longpair_strip,
     semiglobal_batch, semiglobal_profile, sw_affine, sw_banded, sw_batch, sw_bf16,
-    sw_profile, sw_wavefront,
+    sw_general, sw_profile, sw_wavefront,
 )
+from swtpu_torch.ops import best_ends_engine, best_engine
 from swtpu_torch.kernels.banded_scan import BandedBatchResult, _prep_padded
 from swtpu_torch.oracle import (
     nw_affine_full, nw_full, semiglobal_affine_full, semiglobal_full,
@@ -200,10 +201,24 @@ def test_guards_raise_on_card(card):
     assert sw_profile.sw_profile(q, q, general).tolist() == [0, 0]
     assert [x.tolist() for x in sw_profile.sw_profile_ends(q, q, general)] == [
         [0, 0], [0, 0], [0, 0]]
-    wide = ScoringParams.linear(np.where(np.eye(4, dtype=bool), 200, -1), 2)
+    # entries past [-127, 127]: the profile wrappers keep their guard, and
+    # the engines take the scoring on the general kernel, equal to the plain
+    # tier (a 200 on the diagonal: every all-A pair scores 8 x 200)
+    wide = ScoringParams.linear(np.where(np.eye(4, dtype=bool), 200, -1) - np.eye(
+        4, k=1, dtype=np.int64), 2)
     for kern in (sw_profile.sw_profile, sw_profile.sw_profile_ends):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             kern(q, q, wide)
+    before = (sw_general.sw_general.launches, sw_general.sw_general_ends.launches)
+    got = best_engine(wide, card)(q, q)
+    got_ends = best_ends_engine(wide, card)(q, q)
+    assert (sw_general.sw_general.launches, sw_general.sw_general_ends.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, sw_general.sw_general_plain(q, q, wide, card))
+    assert got.tolist() == [1600, 1600]
+    for g, w in zip(got_ends, sw_general.sw_general_ends_plain(q, q, wide, card),
+                    strict=True):
+        assert torch.equal(g, w)
 
 
 DNA_GENERAL = np.array(
@@ -1005,12 +1020,14 @@ def test_xdrop_kernel_equals_plain_on_card(card, mode, W):
 def test_xdrop_guards_and_bare_launch_on_card(card):
     rng = np.random.default_rng(10000)
     qs, ts, lens = xdrop_set(rng, 4, 40, 100, card)
-    before = banded_batch.banded_batch.launches
+    kern = banded_batch.banded_batch
+    before = (kern.launches, kern.launches_wide)
+    # past the wide kernel's cap the wrapper raises, naming the ROADMAP item
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        banded_batch.banded_batch(qs, ts, bandwidth=129)
+        banded_batch.banded_batch(qs, ts, bandwidth=banded_batch.MAX_WIDTH + 1)
     with pytest.raises(ValueError, match="254"):
         banded_batch.banded_batch(qs, ts, compress_history=True, x_threshold=300)
-    assert banded_batch.banded_batch.launches == before
+    assert (kern.launches, kern.launches_wide) == before
     staged = banded_batch.stage(qs, ts, lens["lens_q"], lens["lens_t"], card)
     out = banded_batch.xdrop_launch_t(*staged, 32, 70, 1, 1, 1)
     want = banded_batch.banded_batch(qs, ts, bandwidth=32, **lens)
@@ -1082,6 +1099,189 @@ def test_banded_align_on_card_equals_cpu(card, scoring):
     for W in (32, 96):
         assert banded_align_batch(qh, th, bandwidth=W, **kw) == banded_align_batch(
             qh, th, bandwidth=W, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("W", [129, 160, 256, 512, 1024])
+@pytest.mark.parametrize("mode", list(XDROP_MODES))
+def test_xdrop_wide_kernel_equals_plain_on_card(card, mode, W):
+    """Bands past 128 take the wide kernel (a CTA a pair): every field
+    equals the plain version, one launch counted apart."""
+    kw = dict(XDROP_MODES[mode])
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 32, 300, card)
+    if kw.pop("lens", False):
+        kw.update(lens)
+    kern = banded_batch.banded_batch
+    before = (kern.launches, kern.launches_w32_w64, kern.launches_wide)
+    got = kern(qs, ts, bandwidth=W, **kw)
+    torch.cuda.synchronize()
+    assert (kern.launches, kern.launches_w32_w64, kern.launches_wide) == (
+        before[0], before[1], before[2] + 1)
+    want = banded_batch.banded_batch_plain(qs, ts, bandwidth=W, device=card, **kw)
+    for g, w in zip(xdrop_fields(got), xdrop_fields(want), strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g, w), (mode, W)
+
+
+@pytest.mark.parametrize("W", [1, 8, 32, 40, 96, 128])
+def test_xdrop_wide_launch_equals_warp_kernel_on_card(card, W):
+    """The wide kernel's launch takes every W from 1, and writes what the
+    warp kernel writes below n_rounds (linear, Gotoh 8-bit, BLOSUM62)."""
+    rng = np.random.default_rng(10001)
+    for A, kw in ((4, dict()), (4, dict(gap_open=3, gap_extend=1, compress_history=True)),
+                  (20, dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120))):
+        qs, ts, lens = xdrop_set(rng, A, 32, 200, card)
+        want = banded_batch.banded_batch(qs, ts, bandwidth=W, **lens, **kw)
+        table = sw_banded.banded_table(BLOSUM62, card) if "matrix" in kw else None
+        out = banded_batch.xdrop_wide_launch_t(
+            *banded_batch.stage(qs, ts, lens["lens_q"], lens["lens_t"], card), W,
+            kw.get("x_threshold", 70), 1, 1, 1, kw.get("gap_open"), kw.get("gap_extend"),
+            table, True, kw.get("compress_history", False))
+        for g, w in zip(xdrop_fields(BandedBatchResult(*out)), xdrop_fields(want),
+                        strict=True):
+            assert torch.equal(g, w), (W, kw)
+
+
+@pytest.mark.parametrize("W", [160, 256, 1024])
+def test_xdrop_walk_wide_bands_on_card(card, W):
+    """The per-round device walk over the wide kernel's history: its ring of
+    chunks sized by W (default_chunk), and chunks of 2 rounds, write the
+    plain version's wire."""
+    rng = np.random.default_rng(10000)
+    qs, ts, lens = xdrop_set(rng, 4, 8, 400, card)
+    lens["lens_q"][0] = 0
+    res = banded_batch.banded_batch(qs, ts, bandwidth=W, compress_history=False, **lens)
+    pad = _prep_padded(qs, ts, lens["lens_q"], lens["lens_t"], W, card, torch.int16)
+    want = device_walk.xdrop_walk_plain(res, pad, W)
+    assert torch.equal(device_walk.xdrop_walk(res, pad, W).cpu(), want)
+    pad32 = (*pad[:2], pad[2].int(), pad[3].int())
+    small = device_walk.xdrop_walk_launch_t(res, pad32, W, 70, 1, 1, 1, _chunk=2)
+    assert torch.equal(small.cpu(), want)
+
+
+def test_banded_align_wide_on_card_equals_cpu(card):
+    """W = 160 through the entry points: Gotoh and BLOSUM62 on the host walk,
+    linear at reference scale (n + m + 1 > 6000) on the device walk, and the
+    banded CLI with --traceback --cigar."""
+    import contextlib
+    import io
+
+    from swtpu_torch.cli import main
+
+    rng = np.random.default_rng(10000)
+    for A, kw in ((4, dict(gap_open=3, gap_extend=1)),
+                  (20, dict(matrix=BLOSUM62, gap_open=11, gap_extend=1, x_threshold=120))):
+        qd, td, lens = xdrop_set(rng, A, 16, 300, card)
+        qh, th = qd.cpu().numpy(), td.cpu().numpy()
+        assert banded_align_batch(qh, th, bandwidth=160, **lens, **kw) == \
+            banded_align_batch(qh, th, bandwidth=160, device="cpu", **lens, **kw)
+    qs = rng.integers(0, 4, size=(2, 3200)).astype(np.uint8)
+    ts = np.stack([mutate(rng, q, out_len=3200) for q in qs])
+    before = (device_walk.xdrop_walk.launches, banded_batch.banded_batch.launches_wide)
+    got = banded_align_batch(qs, ts, bandwidth=256)
+    assert (device_walk.xdrop_walk.launches,
+            banded_batch.banded_batch.launches_wide) == (before[0] + 1, before[1] + 1)
+    assert got == banded_align_batch(qs, ts, bandwidth=256, device="cpu")
+
+    def run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["banded", "--random", "8x300x300", "--bandwidth", "160", "--traceback",
+                  "--cigar", "--device", device])
+        return buf.getvalue()
+
+    on_card = run("cuda")
+    assert on_card == run("cpu") and len(on_card.splitlines()) == 8
+
+
+GENERAL_SCORINGS = {
+    "gap0": ScoringParams.linear(dna_matrix(1, -1), 0),
+    "gap_minus1": ScoringParams.linear(dna_matrix(2, -3), -1),
+    "gotoh3_0": ScoringParams(dna_matrix(2, -3), 3, 0),
+    "gotoh2_minus1": ScoringParams(dna_matrix(2, -3), 2, -1),
+    "dna200_linear": ScoringParams.linear(dna_matrix(200, -150), 5),
+    "dna200_gotoh": ScoringParams(dna_matrix(200, -150), 30, 5),
+    "g4x60_gotoh": ScoringParams(np.array([[3, -2, -1, -2], [-2, 3, -2, -1],
+                                           [-1, -2, 3, -2], [-2, -1, -2, 3]]) * 60, 100, 20),
+    "blosum62_gap0": ScoringParams(BLOSUM62, 0, 0),
+}
+
+
+@pytest.mark.parametrize("shape", ["4096x128x128", "1000x90x200_pads", "33x7x1",
+                                   "64x300x40", "8x0x5", "16x16x0"])
+@pytest.mark.parametrize("scoring", list(GENERAL_SCORINGS))
+def test_general_kernel_equals_plain_on_card(card, scoring, shape):
+    """The general local kernel, scores and endpoints, every instantiation:
+    equal to the plain tier on strips crossed (n = 90, 128, 300), n below a
+    strip, empty queries and targets, pads inside."""
+    p = GENERAL_SCORINGS[scoring]
+    B, n, m = (int(x) for x in shape.split("_")[0].split("x"))
+    rng = np.random.default_rng(10000)
+    A = p.alphabet_size
+    qs = torch.from_numpy(rng.integers(0, A, (B, n)).astype(np.uint8)).to(card)
+    ts = torch.from_numpy(rng.integers(0, A, (B, m)).astype(np.uint8)).to(card)
+    if shape.endswith("_pads"):
+        qs[:, 70:] = A
+        ts[:, ::17] = A + 1
+    for ends, kern, plain in ((False, sw_general.sw_general, sw_general.sw_general_plain),
+                              (True, sw_general.sw_general_ends,
+                               sw_general.sw_general_ends_plain)):
+        before = (kern.launches, kern.launches_affine)
+        got = kern(qs, ts, p)
+        assert (kern.launches, kern.launches_affine) == (
+            before[0] + 1, before[1] + (not p.is_linear))
+        for g, w in zip(tup(got), tup(plain(qs, ts, p, card)), strict=True):
+            assert g.device.type == "cuda" and torch.equal(g, w), (scoring, shape, ends)
+
+
+def test_engines_take_every_local_scoring_on_card(card):
+    """best_engine / best_ends_engine on the card no longer refuse: a gap of 0
+    or below, Gotoh with gap_extend <= 0 and entries past [-127, 127] run the
+    general kernel, equal to the plain tier; the scorings the row-scan and
+    profile kernels take stay on them."""
+    from swtpu_torch.ops.variants import local_form
+
+    rng = np.random.default_rng(10002)
+    qs = codes(rng, 512, 64, card)
+    ts = codes(rng, 512, 80, card)
+    for p in list(GENERAL_SCORINGS.values())[:-1]:
+        before = (sw_general.sw_general.launches, sw_general.sw_general_ends.launches)
+        got, got_ends = best_engine(p, card)(qs, ts), best_ends_engine(p, card)(qs, ts)
+        assert (sw_general.sw_general.launches, sw_general.sw_general_ends.launches) == (
+            before[0] + 1, before[1] + 1) or local_form(p) != "general"
+        assert torch.equal(got, sw_general.sw_general_plain(qs, ts, p, card))
+        for g, w in zip(got_ends, sw_general.sw_general_ends_plain(qs, ts, p, card),
+                        strict=True):
+            assert torch.equal(g, w)
+    for p, kern in ((DNA_10_30_15, sw_batch.sw_batch), (AFF, sw_affine.sw_affine),
+                    (ScoringParams(BLOSUM62, 11, 1), sw_profile.sw_profile)):
+        before = (kern.launches, sw_general.sw_general.launches)
+        best_engine(p, card)(qs, ts)
+        assert (kern.launches, sw_general.sw_general.launches) == (before[0] + 1,
+                                                                    before[1])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--random", "32x128x128", "--gap", "0", "--traceback", "--cigar"],
+    ["--random", "16x100x120", "--scoring", "2,-3", "--gap-open", "3", "--gap-extend", "0",
+     "--traceback"],
+])
+def test_align_traceback_general_scoring_on_card_equals_cpu(card, argv):
+    import contextlib
+    import io
+
+    from swtpu_torch.cli import main
+
+    def run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["align"] + argv + ["--device", device])
+        return buf.getvalue()
+
+    before = sw_general.sw_general_ends.launches
+    on_card = run("cuda")
+    assert sw_general.sw_general_ends.launches > before
+    assert on_card == run("cpu") and len(on_card.splitlines()) == int(argv[1].split("x")[0])
 
 
 BLOCK_MODES = {
@@ -1523,8 +1723,11 @@ def test_wavefront_refuses_negative_gap_on_card(card):
     assert sw_wavefront.sw_wavefront.launches == before
     from swtpu_torch.ops.variants import variant_engine
 
-    with pytest.raises(NotImplementedError, match="gap > 0"):
-        variant_engine("wavefront", p, 16, device=card)
+    # align --engine wavefront falls back to best_engine: the general kernel
+    before = sw_general.sw_general.launches
+    got = variant_engine("wavefront", p, 16, device=card)(qd, qd)
+    assert sw_general.sw_general.launches == before + 1
+    assert torch.equal(got, sw_general.sw_general_plain(qd, qd, p, card))
 
 
 def test_wavefront_long_queries_on_card(card):

@@ -372,7 +372,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     calls = []
     for name in ("sw_batch", "sw_batch_ends", "sw_affine", "sw_affine_ends",
-                 "sw_profile", "sw_profile_ends"):
+                 "sw_profile", "sw_profile_ends", "sw_general", "sw_general_ends"):
         monkeypatch.setattr(
             variants, name,
             lambda q, t, p, d, _n=name: calls.append((_n, d.type)) or _n,
@@ -419,10 +419,19 @@ def test_cuda_dispatch_picks_the_kernel(fake_card, engine, params, kernel):
     ScoringParams(np.arange(16).reshape(4, 4) - 8, gap_open=0, gap_extend=1),
 ])
 def test_cuda_dispatch_raises_without_a_kernel(fake_card, params):
+    """Scorings the row-scan and profile guards refuse run the general
+    kernel on the card (JAX's TPU dispatch: its XLA tier); only an
+    alphabet past 30 letters, which no kernel and no plain tier takes,
+    raises, when the engine is built."""
+    for engine, kernel in ((variants.best_engine, "sw_general"),
+                           (variants.best_ends_engine, "sw_general_ends")):
+        assert engine(params)(Q, Q) == kernel
+    assert fake_card == [("sw_general", "cuda"), ("sw_general_ends", "cuda")]
+    wide = ScoringParams.linear(np.eye(31, dtype=np.int32), 2)
     for engine in (variants.best_engine, variants.best_ends_engine):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine(params)
-    assert fake_card == []
+        with pytest.raises(NotImplementedError, match="30 letters"):
+            engine(wide)
+    assert len(fake_card) == 2
 
 
 @pytest.mark.parametrize("engine,params,n,kernel", [
@@ -644,6 +653,8 @@ def fake_banded_card(monkeypatch):
     monkeypatch.setattr(banded_batch, "banded_table", table)
     monkeypatch.setattr(banded_batch, "stage", prep)
     monkeypatch.setattr(banded_batch, "xdrop_launch_t", xdrop_launch)
+    monkeypatch.setattr(banded_batch, "xdrop_wide_launch_t",
+                        lambda *a, **k: ("wide", xdrop_launch(*a, **k))[1])
     for mod, name in ((sw_banded, "sw_banded_plain"),
                       (port_traceback, "sw_banded_plain"),
                       (banded_batch, "banded_xdrop_batch"),
@@ -701,9 +712,21 @@ def test_cuda_banded_forward_runs_the_kernel(fake_banded_card, W, kw, call):
     assert len(got) == len(qs) and all(path[0] == (0, 0) for _, path in got)
 
 
+@pytest.mark.parametrize("W", [129, 1024])
+def test_cuda_banded_forward_runs_the_wide_kernel(fake_banded_card, W):
+    """Past 128 the card's forward is the wide kernel, counted apart."""
+    qs, ts, lq, lt = _banded_pairs()
+    kern = banded_batch.banded_batch
+    before = (kern.launches, kern.launches_wide)
+    got = port_traceback.banded_align_batch(qs, ts, lq, lt, bandwidth=W, x_threshold=20)
+    assert fake_banded_card == [("xdrop", W, False, False, False)]
+    assert (kern.launches, kern.launches_wide) == (before[0], before[1] + 1)
+    assert len(got) == len(qs) and all(path[0] == (0, 0) for _, path in got)
+
+
 @pytest.mark.parametrize("call", [
-    lambda: banded_batch.banded_batch(Q, Q, bandwidth=129),
-    lambda: port_traceback.banded_forward_batch(Q, Q, bandwidth=200),
+    lambda: banded_batch.banded_batch(Q, Q, bandwidth=banded_batch.MAX_WIDTH + 1),
+    lambda: port_traceback.banded_forward_batch(Q, Q, bandwidth=2000),
     lambda: sw_banded.sw_banded_static(Q, Q, ScoringParams.linear(dna_matrix(1, 1), 1)),
     lambda: sw_banded.sw_banded_static(Q, Q, GENERAL),
     lambda: port_traceback.banded_static_align_batch(

@@ -211,8 +211,8 @@ def test_negative_gaps_are_refused_on_the_card(monkeypatch):
     kernel (and its mirror) refuse it; the plain version keeps the TPU
     schedule's score, which counts its phantom rows and padded columns.
     ``align --engine wavefront`` on the card then takes best_engine's
-    kernel, which refuses such a gap too: the call raises before anything
-    runs."""
+    kernel for such a gap, the general kernel (JAX falls back to its XLA
+    tier), chosen before anything runs."""
     from swtpu_torch.ops import variants
 
     p = ScoringParams.linear(dna_matrix(2, -3), -1)
@@ -231,8 +231,11 @@ def test_negative_gaps_are_refused_on_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(NotImplementedError, match="gap >= 0"):
         kwf.sw_wavefront(q, q, p, device="cuda")
-    with pytest.raises(NotImplementedError, match="gap > 0"):
-        variants.variant_engine("wavefront", p, 8, device="cuda")
+    calls = []
+    monkeypatch.setattr(variants, "sw_general",
+                        lambda q, t, p, d: calls.append(("sw_general", d.type)) or "general")
+    assert variants.variant_engine("wavefront", p, 8, device="cuda")(q, q) == "general"
+    assert calls == [("sw_general", "cuda")]
 
 
 def test_mirror_refusals():
