@@ -51,7 +51,9 @@ wall.
       and the local row-scan, profile thread-form, semi-global, bf16 and
       fixed-band kernels' unmasked groups and the wavefront kernel's
       iteration (both tables), as compiled (``cuobjdump -sass``: int32 ALU
-      instructions a cell, by pipe); the pipe-rate probe (``tools/pipe_probe.cu``: IMNMX, the DPX
+      instructions a cell, by pipe), and the per-round round body's own
+      instructions a cell (two instantiations' difference) against the
+      ALU slots of ``xdrop_ops``, which must not exceed them; the pipe-rate probe (``tools/pipe_probe.cu``: IMNMX, the DPX
       add-max and three-way max, HMNMX2, HFMA2.RELU, HADD2, IMAD, PRMT,
       LOP3 and IADD3, each alone on a full card, lanes an SM a clock);
    3. kernels vs plain versions on the card, exactly equal (integers,
@@ -341,30 +343,35 @@ wall.
       in JAX's order, every parity field true, each section's wall; the
       suite's launches (its timing loops included) in the ``kernels``
       line's ``bench_launches``;
-  43. the per-round band past W = 128 (``xdrop_wide_kernel`` of
-      ``csrc/sw_xdrop.cu``, a CTA a pair, where JAX's TPU dispatch runs its
-      XLA forward): every field below n_rounds equal to the plain version
-      at W = 129, 160, 256, 512 and 1024 on 24 related 300-mers (linear
+  43. the per-round band past W = 128 (``csrc/sw_xdrop.cu``, where JAX's
+      TPU dispatch runs its XLA forward: to W = 256 one warp a pair,
+      ``xdrop_wide_warp_kernel``; past it ``xdrop_wide_kernel``, a CTA a
+      pair of warps of 128 register cells, one barrier a round):
+      every field below n_rounds equal to the plain version at W = 129,
+      160, 256, 512 and 1024 on 24 related 300-mers (linear
       with per-pair lengths, Gotoh 3/1 with the 8-bit history, BLOSUM62
       11/1 at X = 120), the wide launch equal to the warp kernel at W = 32,
       96 and 128; the main path: ``banded --random 8x16384x16384
       --bandwidth 256 --traceback`` and ``banded_align_batch`` on 8 related
       16384-mers at W = 256 through the device walk, equal to the host
-      walk, ``banded --bandwidth 160 --traceback --cigar`` equal to
-      ``--device cpu``, ``map_reads`` with paths and ``map --bandwidth
-      160`` equal to the card's route on the CPU; times at 256 related
-      2048-mers, W = 256 and 512, scores only, beside the bound of
-      ``xdrop_ops``;
+      walk, ``banded --bandwidth 160`` and ``--bandwidth 384 --traceback
+      --cigar`` equal to ``--device cpu``, ``map_reads`` with paths and
+      ``map --bandwidth 160`` equal to the card's route on the CPU; times
+      at 256 related 2048-mers, scores only, W = 256 (the one-warp form)
+      and 512 (the CTA), beside the bound of ``xdrop_ops``;
   44. the general local engine (``csrc/sw_general.cu``, where JAX's TPU
-      dispatch runs its XLA tier): scores and endpoints equal to the plain
-      tier under gap 0, gap -1, Gotoh 3/0 and ``dna_matrix(200, -150)``
+      dispatch runs its XLA tier; its tile form where no gap penalty is
+      negative, its sweep form else): scores and endpoints equal to the
+      plain tier under gap 0, gap -1, Gotoh 3/0 and ``dna_matrix(200, -150)``
       linear 5 and Gotoh 30/5 on 4096 x 128 x 128, 1000 x 90 x 200, 33 x 7
       x 1 and 64 x 300 x 40; the main path: ``best_engine`` and
       ``best_ends_engine`` with gap 0 at 32768 x 128 x 128, ``align
       --traceback --cigar --gap 0`` and ``align --traceback`` with Gotoh
       3/0 equal to ``--device cpu``; times at 32768 x 128 x 128, gap 0 and
-      Gotoh 3/0, scores and endpoints, beside the bound of ``general_ops``
-      over the n x m cells a pair.
+      Gotoh 3/0, scores and endpoints, the tile form (the main path's) and,
+      at gap 0 scores, the sweep form beside it, beside the bound of the
+      profile thread form's cell (``general_pipe``) over the n x m cells
+      a pair.
 
 Depth cut to keep the run near 600 s (PERF.md section 4): phase 16's
 profile form sweep, phase 27's 128-pair 16K set, phase 34's in-smoke reps
@@ -587,13 +594,17 @@ KERNELS = {
     "sw_wavefront": (WAVEFRONT, ("sw_wavefront_kernelILb0E", "sw_wavefront_kernelILb1E"),
                      "swtpu/kernels/pallas/sw_wavefront.py:110", 4.0, 0.5, 0),
     # the counterparts of JAX's XLA tier where its TPU dispatch runs it (no
-    # row of the TPU table): the per-round band past W = 128 <AFFINE,
-    # MATRIX, HIST> (ops: xdrop_ops) and the general local engine <AFFINE,
-    # ENDS> (ops: general_ops)
-    "banded_batch_wide": (XDROP, "xdrop_wide_kernel",
+    # row of the TPU table): the per-round band past W = 128, its one-warp
+    # form <CPL, AFFINE, MATRIX, HIST, EXACT> to W = 256 and its CTA <AFFINE,
+    # MATRIX, HIST, EXACT> (ops: xdrop_ops) and the general local engine,
+    # its tile form <AFFINE, END> and its sweep form <AFFINE, ENDS> (ops:
+    # the profile thread form's cell, general_pipe)
+    "banded_batch_wide": (XDROP, ("xdrop_wide_warp_kernel", "xdrop_wide_kernel"),
                           "swtpu/kernels/xla/banded_scan.py:66", None, 0, 0),
-    "sw_general": (GENERAL, tuple(f"sw_general_kernelILb{a}ELb{e}E" for a in (0, 1)
-                                  for e in (0, 1)),
+    "sw_general": (GENERAL, tuple(f"sw_general_tile_kernelILb{a}ELi{e}E" for a in (0, 1)
+                                  for e in (0, 1, 2))
+                   + tuple(f"sw_general_kernelILb{a}ELb{e}E" for a in (0, 1)
+                           for e in (0, 1)),
                    "swtpu/kernels/xla/sw_scan.py:126", None, 1, 0),
 }
 # the int32 ops a cell that only the ALU pipe issues, for the kernels
@@ -659,20 +670,31 @@ def pipe_slots(name):
 
 
 def xdrop_ops(affine, matrix):
-    """int32 ops the per-round X-drop function needs: (per band cell, per
-    pair and round). Per cell: the uniform score 3 (compare, pad test,
-    select; the matrix: the table offset add 1, its lookup counted apart),
-    the diagonal 3 (dead test, add, floor at 0), each gap term 3 (dead
-    test, subtract, max), the X-drop 2 (compare, select) and the round max
-    1: 15. Gotoh's E and F (two dead tests, two subtracts and a max each),
-    their floored maxes into H 4 and the dead clears 2 replace the linear
-    gap terms: +10. Once per pair and round: the direction compare, the
-    cursor add and its overrun test, the max update 3 (compare, two
-    selects), the cut max - X, the dead-round test and the loop 2: 10. Not
-    counted, as the kernel's own cost: character addresses, the padding
-    test of cells past W, the band shifts' selects, and the per-round work
-    that every lane repeats."""
-    return 15 + 10 * affine - 2 * matrix, 10
+    """ALU slots (the int32 rate's unit) the per-round X-drop function
+    needs in its DPX form, by pipe as ALU_OPS counts: (per band cell, per
+    pair and round), each the larger of its ALU-only ops and all its ops /
+    2 (adds and subtracts can issue as IMADs on the FMA pipe). Per cell,
+    linear: the uniform score 2 (compare, select; the matrix: the table
+    offset add, its lookup counted apart), the diagonal's add 1, H one
+    three-way max with the 0 floor (__vimax3_s32_relu; a dead neighbour
+    reads as -2^29, so no dead test), the gap's subtract 1 (H kept minus
+    it), the X-drop 2 (compare, select) and the round max 1: 8 ops, 6 only
+    on the ALU. Gotoh: E and F one add-max with the floor each
+    (__viaddmax_s32_relu) and their clears with the cell's cut 2 (selects):
+    12 ops, 10 on the ALU. Once per pair and round: the direction compare,
+    the cursor add and its overrun test, the max update 3 (compare, two
+    selects), the cut max - X, the dead-round test and the loop 2 (add,
+    compare): 10 ops, 7 on the ALU. Not counted, as the kernel's own cost:
+    the moves' selects, the other move's score and diagonal (both are
+    formed ahead of the direction), character addresses and shuffles, the
+    padding cap of cells past W, and the per-round work that every lane
+    repeats (phase 2 prints the round body's instructions a cell as
+    compiled beside this count). The plain tier's op count, 15 a linear
+    cell (+10 Gotoh, -2 matrix), exceeds what the DPX body issues."""
+    cell_alu, cell_ops = 6 + 4 * affine - 2 * matrix, 8 + 4 * affine - matrix
+    round_alu, round_ops = 7, 10
+    half = INT32_LANES_PER_SM / DISPATCH_LANES_PER_SM
+    return max(cell_alu, cell_ops * half), max(round_alu, round_ops * half)
 
 
 def block_ops(affine, matrix, W):
@@ -1787,10 +1809,11 @@ def xla_tier_fields(res, dev):
 
 
 def wide_band_phase(ctx):
-    """Phase 43, the per-round band past W = 128 (the wide kernel of
-    csrc/sw_xdrop.cu, where JAX's TPU dispatch runs its XLA forward):
-    the kernel against the plain version, its times and bound, and the
-    entry points through it. Returns (the main path's launches, the row)."""
+    """Phase 43, the per-round band past W = 128 (csrc/sw_xdrop.cu's
+    one-warp form to 256 and its CTA past it, where JAX's TPU dispatch
+    runs its XLA forward): the kernels against the plain version, their
+    times and bound, and the entry points through them. Returns (the main
+    path's launches, the row)."""
     from swtpu_torch.batch import (banded_align_batch, banded_forward_batch,
                                    banded_walk_batch)
     from swtpu_torch.core.encode import mutate
@@ -1801,8 +1824,8 @@ def wide_band_phase(ctx):
 
     dev, smi, timed, off_path = ctx["dev"], ctx["smi"], ctx["timed"], ctx["off_path"]
     name = "banded_batch_wide"
-    phase("43 the per-round band past W = 128 (the wide kernel, a CTA a pair): kernel "
-          "vs plain at W = 129-1024, times at 256 related 2048-mers, banded --bandwidth "
+    phase("43 the per-round band past W = 128 (a warp a pair to 256, a CTA of warps "
+          "past it): kernel vs plain at W = 129-1024, times at 256 related 2048-mers, banded --bandwidth "
           "256 --traceback at 16K, banded / map --bandwidth 160")
     print(smi, flush=True)
     rng = np.random.default_rng(SEED + 43)
@@ -1884,6 +1907,14 @@ def wide_band_phase(ctx):
     with off_path():
         cpu = run_cli(ctx["cli_main"], argv + ["--device", "cpu"])
     check(card == cpu and len(card) == 32, f"{' '.join(argv)}: the card vs --device cpu")
+    # past 256 the CTA: banded --bandwidth 384 --traceback --cigar
+    argv384 = ["banded", "--random", "8x300x300", "--bandwidth", "384", "--traceback",
+               "--cigar"]
+    card384 = run_cli(ctx["cli_main"], argv384)
+    with off_path():
+        cpu384 = run_cli(ctx["cli_main"], argv384 + ["--device", "cpu"])
+    check(card384 == cpu384 and len(card384) == 8,
+          f"{' '.join(argv384)}: the card vs --device cpu")
     G, R, Lr = 200_000, 256, 150
     mrng = np.random.default_rng(SEED + 44)
     genome = mrng.integers(0, 4, size=G).astype(np.uint8)
@@ -1914,18 +1945,26 @@ def wide_band_phase(ctx):
           "map_reads at W = 160: the card vs the card's route on the CPU")
     check(mcard == mcpu, f"{' '.join(margv)}: the card vs --device cpu on the card's route")
     counts = {k: ctx["launches"](k) for k in (name, "xdrop_walk")}
-    print(f"{' '.join(argv)}: {len(card)} records equal --device cpu; map_reads with "
+    warp_launches = kbb.banded_batch.launches_wide_warp
+    cta_launches = counts[name] - warp_launches
+    print(f"{' '.join(argv)} and {' '.join(argv384)}: {len(card)} and {len(card384)} "
+          f"records equal --device cpu; map_reads with "
           f"paths at W = 160 ({R} reads of {Lr} against {G:,} bases, the fixed band's "
           f"screen and the winners on the wide kernel): {map_s * 1e3:.1f} ms wall, "
           f"{sum(h is not None for h in hits)} mapped, hits equal the card's route on the "
           f"CPU ({cpu_s:.1f} s); {' '.join(margv)}: {mcard[0]} on the card and on the CPU "
           f"(the card's route; --device cpu alone takes JAX's off-TPU route, which screens "
-          f"with the per-round band); main-path launches {counts}", flush=True)
-    check(counts[name] > 0 and counts["xdrop_walk"] > 0,
-          f"a kernel was not launched on the wide band's path: {counts}")
+          f"with the per-round band); main-path launches {counts}: the one-warp form "
+          f"{warp_launches} (W = 160, 256), the CTA {cta_launches} (W = 384)", flush=True)
+    check(warp_launches > 0 and cta_launches > 0 and counts["xdrop_walk"] > 0,
+          f"a kernel was not launched on the wide band's path: {counts}, one warp "
+          f"{warp_launches}, CTA {cta_launches}")
 
     # times at bench_suite's per-round shape, 256 related 2048-mers, scores
-    # only, W = 256 and 512; the bound as phase 16 counts it (xdrop_ops)
+    # only, W = 256 (the one-warp form) and 512 (the CTA), each the form
+    # the main path launches there (the CTA at W = 256, the design the
+    # one-warp form beat, is checked here and timed by
+    # tools/xla_tier_times.py); the bound as phase 16 counts it (xdrop_ops)
     arng = np.random.default_rng(SEED + 9)
     Ba, La = 256, 2048
     aq = arng.integers(0, 4, size=(Ba, La)).astype(np.uint8)
@@ -1942,12 +1981,17 @@ def wide_band_phase(ctx):
                                            device=dev)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            e = max_abs_err(xla_tier_fields(res, dev), xla_tier_fields(plain, dev))
+            launch = {"wide_warp": kbb.xdrop_wide_warp_launch_t,
+                      "wide": kbb.xdrop_wide_launch_t}[kbb.banded_form(W)]
+            cta = kbb.xdrop_wide_launch_t(*staged, W, 70, 1, 1, 1, with_history=False)
+            e = max(max_abs_err(xla_tier_fields(res, dev), xla_tier_fields(plain, dev)),
+                    max_abs_err(xla_tier_fields(kbb.BandedBatchResult(*cta), dev),
+                                xla_tier_fields(plain, dev)))
             err = max(err, e)
             check(e == 0, f"{name} differs from its plain version on 256 x 2048 at W={W}")
             ms = timed(lambda W=W: kbb.banded_batch(aq_d, at_d, bandwidth=W,
                                                     with_history=False), (), iters=5) * 1e3
-            kernel_ms = timed(lambda W=W: kbb.xdrop_wide_launch_t(
+            kernel_ms = timed(lambda W=W, launch=launch: launch(
                 *staged, W, 70, 1, 1, 1, with_history=False), (), iters=5) * 1e3
             rounds = int(res.n_rounds.sum())
             cells = rounds * W
@@ -1955,50 +1999,55 @@ def wide_band_phase(ctx):
                      / ctx["int32_rate"] * 1e3,
                      "bytes": (2 * Ba * La + 12 * Ba) / HBM_BYTES_PER_S * 1e3}
             binds = max(times, key=times.get)
-            ns_round = kernel_ms * 1e6 / int(res.n_rounds.max())
+            longest = int(res.n_rounds.max())
+            ns_round = kernel_ms * 1e6 / longest
             timings[W] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                               bound_ms=times[binds], binds=binds, ns_round=ns_round)
+            form = "the one-warp form" if kbb.banded_form(W) == "wide_warp" else "the CTA"
             print(f"{name} W={W}, {Ba} related 2048-mers, scores only: wrapper {ms:.4f} ms "
-                  f"({times[binds] / ms:.1%} of the bound), launch alone {kernel_ms:.4f} ms "
+                  f"({times[binds] / ms:.1%} of the bound), {form} alone {kernel_ms:.4f} ms "
                   f"({ns_round:.1f} ns a round of the longest pair), plain {plain_ms:.1f} "
-                  f"ms (equal), bound {times[binds]:.4f} ms by {binds} ({ops_cell} int32 "
-                  f"ops per band cell over {cells} band cells, {ops_round} per pair and "
-                  f"round over {rounds} rounds), wrapper {cells / ms / 1e6:.2f} band GCUPS "
-                  f"[{smi}]", flush=True)
-            del res, plain
+                  f"ms (both forms equal), bound {times[binds]:.4f} ms by "
+                  f"{binds} ({ops_cell} ALU slots per band cell over {cells} band cells, "
+                  f"{ops_round} per pair and round over {rounds} rounds: xdrop_ops), "
+                  f"wrapper "
+                  f"{cells / ms / 1e6:.2f} band GCUPS [{smi}]", flush=True)
+            del res, plain, cta
     t = timings[256]
+
+    def form_row(x, launches):
+        return {k: v for k, v in x.items() if k != "binds"} | {
+            "launches": launches,
+            "bound_by": "bytes" if x["binds"] == "bytes" else "operations"}
+
+    # lost ms charges each form's main-path launches at its own table shape
     row = dict(name=name, route="cuda", source=f"swtpu_torch/csrc/{XDROP}",
                replaces=KERNELS[name][2], launches=counts[name], max_abs_err=err,
                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                bound_by="bytes" if t["binds"] == "bytes" else "operations",
-               library_ms=None, kernel_ms=t["kernel_ms"], ns_a_round=t["ns_round"],
-               w512=timings[512] | {"bound_by": "bytes" if timings[512]["binds"] == "bytes"
-                                    else "operations"})
-    row["w512"].pop("binds")
+               library_ms=None, kernel_ms=t["kernel_ms"],
+               ns_a_round=t["ns_round"], launches_warp=warp_launches,
+               launches_cta=cta_launches,
+               by_form={"one warp, W = 256": form_row(timings[256], warp_launches),
+                        "CTA, W = 512": form_row(timings[512], cta_launches)})
     del aq_d, at_d, staged
     torch.cuda.empty_cache()
     return counts, row
 
 
-def general_ops(affine, ends):
-    """int32 ops a cell that the local function needs, counted as
-    xdrop_ops counts: the score's table offset add (its lookup counted
-    apart) 1, linear H 5 (the diagonal's add, the max of the two
-    neighbours, the gap subtract, the maxes with the diagonal and 0),
-    Gotoh E 3 and F 3 (two subtracts and a max each) and H 4 (the add,
-    the maxes with E and F, the floor), and the tracker: scores 1 (the
-    max), endpoints 3 (the compare, the selects of the value and of the
-    cell); as strip_ops counts the same cell. The kernel's own masks (the
-    start values of diagonals 0 and 1, the range test of the cells
-    outside the matrix) are not the function's work and are not
-    counted."""
-    return 1 + (10 if affine else 5) + (3 if ends else 1)
+def general_pipe(affine, ends):
+    """The profile thread form's row of ALU_OPS / KERNELS whose cell the
+    general kernel's tile form runs (the same instantiation of
+    csrc/sw_local_tile.cuh): the function's least work a cell by pipe,
+    the bound of every form of the general kernel."""
+    return "sw_profile" + ("_affine" if affine else "") + ("_ends" if ends else "")
 
 
 def charged_forms(row):
     """What a row's lost ms charges: its launches at its timed shape, or,
-    for a row timed in several instantiations (``by_form``, sw_general),
-    each instantiation's main-path launches at its own time and bound."""
+    for a row timed in several forms or instantiations (``by_form``:
+    sw_general, banded_batch_wide), each one's main-path launches at its
+    own time and bound."""
     forms = [f for f in row.get("by_form", {}).values() if f["launches"]]
     return forms or [row]
 
@@ -2006,9 +2055,11 @@ def charged_forms(row):
 def general_engine_phase(ctx):
     """Phase 44, the local engines under the scorings the row-scan and
     profile kernels' guards refuse (the general kernel of
-    csrc/sw_general.cu, where JAX's TPU dispatch runs its XLA tier): the
-    kernel against the plain version, its times and bound, and the entry
-    points through it. Returns (the main path's launches, the row)."""
+    csrc/sw_general.cu, where JAX's TPU dispatch runs its XLA tier): both
+    forms against the plain version (the tile form where no gap penalty is
+    negative, the sweep form for gap -1), their times beside the bound,
+    and the entry points through them. Returns (the main path's launches,
+    the row)."""
     from swtpu_torch.core.scoring import ScoringParams, dna_matrix
     from swtpu_torch.kernels import sw_general as kg
     from swtpu_torch.kernels.sw_profile import profile_table
@@ -2016,8 +2067,9 @@ def general_engine_phase(ctx):
 
     dev, smi, timed, off_path = ctx["dev"], ctx["smi"], ctx["timed"], ctx["off_path"]
     name = "sw_general"
-    phase("44 the general local engine: gap 0 and -1, Gotoh 3/0, dna_matrix(200, -150) "
-          "linear and Gotoh, vs plain; 32768 x 128 x 128 timed; align --traceback "
+    phase("44 the general local engine: the tile form under gap 0, Gotoh 3/0, "
+          "dna_matrix(200, -150) linear and Gotoh, the sweep form under gap -1, vs plain; "
+          "32768 x 128 x 128 timed, the sweep form beside the tile at gap 0; align --traceback "
           "--cigar --gap 0")
     print(smi, flush=True)
     scorings = {
@@ -2036,13 +2088,19 @@ def general_engine_phase(ctx):
             for label, p in scorings.items():
                 for kern, plain in ((kg.sw_general, kg.sw_general_plain),
                                     (kg.sw_general_ends, kg.sw_general_ends_plain)):
+                    tiles = kern.launches_tile
                     e = max_abs_err(kern(qd, td, p), plain(qd, td, p, dev))
                     err = max(err, e)
-                    check(e == 0, f"{kern.__name__} differs from its plain version on "
-                                  f"{B} x {n} x {m} ({label})")
+                    form = kg.general_form(p)
+                    check(kern.launches_tile - tiles == (form == "tile"),
+                          f"{kern.__name__} ({label}) did not launch the {form} form")
+                    check(e == 0, f"{kern.__name__} ({form} form) differs from its plain "
+                                  f"version on {B} x {n} x {m} ({label})")
     print(f"{name}: scores and endpoints equal the plain tier on 4096 x 128 x 128, 1000 x "
-          f"90 x 200, 33 x 7 x 1 and 64 x 300 x 40 (half related, 3% pads inside) under "
-          f"{', '.join(scorings)}", flush=True)
+          f"90 x 200, 33 x 7 x 1 and 64 x 300 x 40 (half related, 3% pads inside): the "
+          f"tile form under {', '.join(k for k, p in scorings.items() if kg.general_form(p) == 'tile')}; "
+          f"the sweep form under {', '.join(k for k, p in scorings.items() if kg.general_form(p) == 'sweep')}",
+          flush=True)
 
     # the main path: best_engine / best_ends_engine on gap 0 at 32768 x
     # 128 x 128, and align --traceback --cigar --gap 0 (its ends on the
@@ -2054,6 +2112,9 @@ def general_engine_phase(ctx):
     p0 = scorings["gap 0"]
     check(local_form(p0) == "general" and local_form(scorings["Gotoh 3/0"]) == "general",
           "local_form sends gap 0 and Gotoh 3/0 to the general kernel")
+    check(kg.general_form(p0) == "tile" and kg.general_form(scorings["Gotoh 3/0"]) == "tile"
+          and kg.general_form(scorings["gap -1"]) == "sweep",
+          "general_form: the tile form for gap 0 and Gotoh 3/0, the sweep for gap -1")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scores = best_engine(p0)(qd, td)
@@ -2078,28 +2139,37 @@ def general_engine_phase(ctx):
     check(card3 == cpu3 and len(card3) == 64, f"{' '.join(argv3)}: the card vs --device cpu")
     counts = {name: ctx["launches"](name)}
     # the main path's launches by instantiation: its linear scoring is gap
-    # 0 and its Gotoh one 3/0, the two scorings timed below
+    # 0 and its Gotoh one 3/0, the two scorings timed below, both on the
+    # tile form
     def form_name(label, ends_):
         return label + (" ends" if ends_ else "")
 
     path_forms = {}
+    tile_launches = sweep_launches = 0
     for ends_, w in ((False, kg.sw_general), (True, kg.sw_general_ends)):
         path_forms[("gap 0", ends_)] = w.launches - w.launches_affine
         path_forms[("Gotoh 3/0", ends_)] = w.launches_affine
+        tile_launches += w.launches_tile
+        sweep_launches += w.launches - w.launches_tile
     print(f"best_engine + best_ends_engine, gap 0, {B} x {n} x {m}: {path_s * 1e3:.1f} ms "
           f"wall, the first 8192 equal the plain version; {' '.join(argv)} and "
           f"{' '.join(argv3)}: 64 records each equal --device cpu (the ends on the "
-          f"general kernel, the C++ walk); main-path launches {counts} (by scoring "
-          f"and form: {', '.join(f'{form_name(*k)} {c}' for k, c in path_forms.items())})",
+          f"general kernel, the C++ walk); main-path launches {counts}: tile form "
+          f"{tile_launches}, sweep form {sweep_launches} (by scoring and form: "
+          f"{', '.join(f'{form_name(*k)} {c}' for k, c in path_forms.items())})",
           flush=True)
-    check(kg.sw_general.launches > 0 and kg.sw_general_ends.launches > 0,
-          f"a kernel was not launched on the general engine's path: {counts}")
+    check(kg.sw_general.launches_tile > 0 and kg.sw_general_ends.launches_tile > 0,
+          f"the tile form was not launched on the general engine's path: {counts}")
+    check(sweep_launches == 0, "the main path's scorings went to the sweep form")
 
     # times at phase 16's shape, 32768 x 128 x 128, each instantiation under
-    # its own scoring and table; the bound over the function's n x m cells
-    # a pair (at gap 0 and Gotoh 3/0 the kernel's cells outside the matrix
-    # hold what a zero or a standard boundary holds, so they add no work
-    # the function needs)
+    # its own scoring and table: the tile form (the main path's) and, at
+    # gap 0 scores, the sweep form beside it (the earlier kernel of these
+    # scorings; tools/xla_tier_times.py times it at all four and the
+    # tile's select tracker); every form checked equal to the plain
+    # version; the bound over the function's n x m cells a pair by pipe
+    # and lookups, as the profile thread form's (the tile form's cell is
+    # its cell)
     cells = B * n * m
     timings = {}
     with off_path():
@@ -2109,40 +2179,53 @@ def general_engine_phase(ctx):
                 kern = kg.sw_general_ends if ends_ else kg.sw_general
                 plain = kg.sw_general_ends_plain if ends_ else kg.sw_general_plain
                 ms = timed(kern, (qd, td, p), iters=10) * 1e3
-                kernel_ms = timed(kg.general_launch_t, (qd, td, table, p, ends_),
+                kernel_ms = timed(kg.general_tile_launch_t, (qd, td, table, p, ends_),
                                   iters=10) * 1e3
+                sweep_ms = (timed(kg.general_sweep_launch_t, (qd, td, table, p, ends_),
+                                  iters=5) * 1e3 if p is p0 and not ends_ else None)
                 t0 = time.perf_counter()
                 want = plain(qd, td, p, dev)
                 torch.cuda.synchronize()
                 plain_ms = (time.perf_counter() - t0) * 1e3
                 e = max(max_abs_err(kern(qd, td, p), want),
-                        max_abs_err(kg.general_launch_t(qd, td, table, p, ends_), want))
+                        max_abs_err(kg.general_tile_launch_t(qd, td, table, p, ends_), want),
+                        max_abs_err(kg.general_sweep_launch_t(qd, td, table, p, ends_), want))
+                if ends_:
+                    e = max(e, max_abs_err(kg.general_tile_launch_t(
+                        qd, td, table, p, ends_, True), want))
                 err = max(err, e)
-                check(e == 0, f"{kern.__name__} at {B} x {n} x {m} ({label})")
-                ops = general_ops(not p.is_linear, ends_)
-                times = {"int32 ops": cells * ops / ctx["int32_rate"] * 1e3,
+                check(e == 0, f"{kern.__name__} at {B} x {n} x {m} ({label}): a form "
+                              "differs from the plain version")
+                pipe = general_pipe(not p.is_linear, ends_)
+                times = {"int32 ops": cells * pipe_slots(pipe) / ctx["int32_rate"] * 1e3,
                          "shared-memory lookups": cells / ctx["lookup_rate"] * 1e3,
                          "bytes": (B * (n + m) + 4 * table.numel()
                                    + 4 * B * (3 if ends_ else 1)) / HBM_BYTES_PER_S * 1e3}
                 binds = max(times, key=times.get)
                 launches = path_forms[(label, ends_)]
                 lost = launches * max(kernel_ms - times[binds], 0.0)
-                timings[(label, ends_)] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                                               bound_ms=times[binds], binds=binds,
-                                               launches=launches, lost_ms=lost)
-                print(f"{kern.__name__} {label}, {B} x {n} x {m}: wrapper {ms:.4f} ms, "
-                      f"launch alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.1%} of "
-                      f"the bound), plain {plain_ms:.1f} ms (equal), bound "
-                      f"{times[binds]:.4f} ms by {binds} ({ops} int32 ops and a lookup a "
-                      f"cell over the {cells} cells, n x m a pair), "
-                      f"{cells / kernel_ms / 1e6:.1f} GCUPS; {launches} main-path "
-                      f"launches, {lost:.3f} ms lost [{smi}]", flush=True)
+                timings[(label, ends_)] = dict(
+                    ms=ms, kernel_ms=kernel_ms, sweep_ms=sweep_ms,
+                    plain_ms=plain_ms, bound_ms=times[binds], binds=binds,
+                    launches=launches, lost_ms=lost)
+                print(f"{kern.__name__} {label}, {B} x {n} x {m}: wrapper {ms:.4f} ms, tile "
+                      f"form alone {kernel_ms:.4f} ms ({times[binds] / kernel_ms:.1%} of "
+                      f"the bound)"
+                      + ("" if sweep_ms is None else
+                         f"; the sweep form alone {sweep_ms:.4f} ms "
+                         f"({times[binds] / sweep_ms:.1%})")
+                      + f"; plain {plain_ms:.1f} ms (every form equal), bound "
+                      f"{times[binds]:.4f} ms by {binds} ({pipe}'s cell: "
+                      f"{pipe_slots(pipe)} ALU slots and a lookup over the {cells} cells, "
+                      f"n x m a pair), {cells / kernel_ms / 1e6:.1f} GCUPS; {launches} "
+                      f"main-path launches, {lost:.3f} ms lost [{smi}]", flush=True)
     t = timings[("gap 0", False)]
     row = dict(name=name, route="cuda", source=f"swtpu_torch/csrc/{GENERAL}",
                replaces=KERNELS[name][2], launches=counts[name], max_abs_err=err,
                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                bound_by="bytes" if t["binds"] == "bytes" else "operations",
-               library_ms=None, kernel_ms=t["kernel_ms"],
+               library_ms=None, kernel_ms=t["kernel_ms"], sweep_ms=t["sweep_ms"],
+               launches_tile=tile_launches, launches_sweep=sweep_launches,
                by_form={form_name(*key): {k: v for k, v in x.items() if k != "binds"}
                         for key, x in timings.items()})
     del qd, td
@@ -2409,8 +2492,10 @@ def main():
 
     def zero_launches(names):
         for name in names:
-            if name == "banded_batch_wide":
-                kbb.banded_batch.launches_wide = 0
+            if name == "banded_batch_wide":  # its launches and its forms'
+                for k in counts_of(kbb.banded_batch):
+                    if k.startswith("launches_wide"):
+                        setattr(kbb.banded_batch, k, 0)
                 continue
             if name == "sw_general":
                 for w in (kg.sw_general, kg.sw_general_ends):
@@ -2514,9 +2599,10 @@ def main():
             smem = re.search(r"(\d+) bytes smem", e)
             check(regs and spill, f"no register report for {name}")
             if ("block_rows" in names or "xdrop_round_kernel" in mangled
-                    or "xdrop_wide_kernel" in mangled):
+                    or "xdrop_wide_kernel" in mangled or "xdrop_wide_warp_kernel" in mangled):
                 kern = next(k for k in ("block_fwd_kernel", "block_rows_kernel",
-                                        "xdrop_round_kernel", "xdrop_wide_kernel")
+                                        "xdrop_round_kernel", "xdrop_wide_kernel",
+                                        "xdrop_wide_warp_kernel")
                             if k in mangled)
                 many.setdefault(kern, []).append(
                     (int(regs.group(1)), int(spill.group(1)), int(spill.group(2))))
@@ -2529,11 +2615,12 @@ def main():
     templates = {"block_fwd_kernel": "S, AFFINE, MATRIX, VARLEN, HIST",
                  "block_rows_kernel": "WR, AFFINE, MATRIX, VARLEN, HIST",
                  "xdrop_round_kernel": "CPL, AFFINE, MATRIX, HIST, EXACT",
-                 "xdrop_wide_kernel": "AFFINE, MATRIX, HIST"}
+                 "xdrop_wide_kernel": "AFFINE, MATRIX, HIST, EXACT",
+                 "xdrop_wide_warp_kernel": "CPL, AFFINE, MATRIX, HIST, EXACT"}
     for kern, stats in sorted(many.items()):
         regs_, st_, ld_ = zip(*stats)
         label = ("block_rows/block_rows_small" if kern.startswith("block")
-                 else "banded_batch_wide" if kern == "xdrop_wide_kernel"
+                 else "banded_batch_wide" if kern.startswith("xdrop_wide")
                  else "banded_batch/banded_batch_w32_w64")
         print(f"{label} {kern} <{templates[kern]}>: {len(stats)} "
               f"instantiations, registers {min(regs_)}-{max(regs_)}, spill stores "
@@ -2541,7 +2628,8 @@ def main():
     check(seen == set(KERNELS), f"nvcc built {sorted(seen)}")
     # the per-round kernels' round loops as compiled: int32 ALU instructions
     # a round over the cells a lane holds (scores only, linear, uniform
-    # scoring, W = 32 and 96), the earlier kernel beside them
+    # scoring, W = 32, 96 and 128, the wide band's one-warp form at 256),
+    # the earlier kernel beside them
     cuobjdump = str(Path(_build.nvcc_path()).with_name("cuobjdump"))
     # the SASS of every library read below, dumped at once (seconds each)
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
@@ -2552,6 +2640,8 @@ def main():
             ("W=32", "xdrop_round_kernelILi1ELb0ELb0ELb0ELb1E", 1),
             ("W=96", "xdrop_round_kernelILi3ELb0ELb0ELb0ELb1E", 3),
             ("W=32 Gotoh", "xdrop_round_kernelILi1ELb1ELb0ELb0ELb1E", 1),
+            ("W=128", "xdrop_round_kernelILi4ELb0ELb0ELb0ELb1E", 4),
+            ("W=256 one warp", "xdrop_wide_warp_kernelILi8ELb0ELb0ELb0ELb1E", 8),
             ("earlier W=32", "sw_xdrop_kernelILi1ELb0E", 1),
             ("earlier W=96", "sw_xdrop_kernelILi3ELb0E", 3)):
         alu, moves, passes = loop_ops(sass_of(_build.library_path(XDROP), frag, cuobjdump))
@@ -2560,6 +2650,19 @@ def main():
               f"instructions and {moves} moves for {passes} round(s) of {cpl} cell(s) "
               f"a lane: {alu / passes / cpl:.1f} int32 ops a cell as compiled",
               flush=True)
+    # a cell's own instructions as compiled, the round's work that every
+    # lane repeats taken out: the difference between two instantiations of
+    # the round body (xdrop_pair) over the cells it adds, against the ALU
+    # slots that bound the band (xdrop_ops), which must not exceed it
+    slots = xdrop_ops(False, False)[0]
+    for lo, hi in (("W=32", "W=96"), ("W=128", "W=256 one warp")):
+        c_lo, c_hi = (int(x.split("=")[1].split()[0]) // 32 for x in (lo, hi))
+        cell = (xdrop_sass[hi] * c_hi - xdrop_sass[lo] * c_lo) / (c_hi - c_lo)
+        print(f"per-round round body, {lo} to {hi}: {cell:.2f} int32 ALU instructions "
+              f"a cell as compiled beyond the round's own, against the bound's {slots} "
+              f"ALU slots a linear cell (xdrop_ops)", flush=True)
+        check(cell >= slots, f"xdrop_ops counts {slots} ALU slots a cell, above the "
+                             f"{cell:.2f} the round body issues ({lo} to {hi})")
 
     # the semi-global kernel's unmasked group as compiled: int32 ALU
     # instructions a cell, beside the cell's own count in KERNELS (which
@@ -4378,9 +4481,10 @@ def main():
               f"({bound / kernel_ms:.1%}; {ns_round:.1f} ns a round of the longest "
               f"pair), the earlier kernel {earlier_ms:.4f} ms (equal), plain "
               f"{plain_ms:.2f} ms (equal), bound "
-              f"{bound:.4f} ms by {binds} ({ops_cell} int32 ops per band cell over "
+              f"{bound:.4f} ms by {binds} ({ops_cell} ALU slots per band cell over "
               f"{cells} band cells = rounds written x W, {ops_round} per pair and "
-              f"round over {rounds} rounds; at {sm_clock_mhz:.0f} MHz), wrapper "
+              f"round over {rounds} rounds: xdrop_ops; at {sm_clock_mhz:.0f} MHz), "
+              f"wrapper "
               f"{cells / ms / 1e6:.2f} band GCUPS", flush=True)
         del qp, tp, staged
     # the profile kernel's two forms, launch alone, at n = 120 on B pairs of

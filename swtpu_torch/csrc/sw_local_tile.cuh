@@ -1,9 +1,10 @@
 // The skewed register tile of the local (Smith-Waterman) row-scan, shared
-// by csrc/sw_rowscan.cu (uniform scoring) and the thread form of
-// csrc/sw_profile.cu (a general matrix through a lane table). Each source
-// defines its own __global__ kernel and calls local_pair() for the pair
-// its thread owns; kernels/_build.py hashes this header with each source
-// that includes it.
+// by csrc/sw_rowscan.cu (uniform scoring), the thread form of
+// csrc/sw_profile.cu and the tile form of csrc/sw_general.cu (a general
+// matrix through a lane table). Each source defines its own __global__
+// kernel and calls local_pair() for the pair its thread owns (the lane
+// table's users through profile_pairs(), at the end); kernels/_build.py
+// hashes this header with each source that includes it.
 //
 // One thread per pair, reading the codes as the caller holds them, [B, n]
 // / [B, m] uint8 (no transposes): a thread loads its own target row four
@@ -422,6 +423,60 @@ __device__ __forceinline__ void local_pair(const uint8_t* __restrict__ qrow,
 #pragma unroll
     for (int p = 0; p < ROWS / 2; ++p) best = max(best, T.rb[p] + go);
   }
+}
+
+// The thread form of a PROFILE kernel (csrc/sw_profile.cu's thread form,
+// csrc/sw_general.cu's tile form), a block of THREADS pairs: the block
+// copies `table` (stride^2 int32, codes 0..sc.pad read) into dynamic
+// shared memory as the lane table (entry (q, t) + go, 32 times, word 32 x
+// (q x (pad + 1) + t) + lane), then each thread runs local_pair for its
+// pair and writes its score and, for the endpoint forms, its endpoint.
+template <bool AFFINE, int END, int THREADS>
+__device__ __forceinline__ void profile_pairs(
+    const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
+    const int32_t* __restrict__ table, int32_t* __restrict__ scratch,
+    int32_t* __restrict__ score, int32_t* __restrict__ end_i, int32_t* __restrict__ end_j,
+    int B, int n, int m, int stride, const Scoring& sc, bool vec) {
+  extern __shared__ int32_t lane_tab[];
+  const int nc = sc.pad + 1;
+  for (int w = threadIdx.x; w < nc * nc * 32; w += THREADS) {
+    const int qi = (w >> 5) / nc, ti = (w >> 5) - qi * nc;
+    lane_tab[w] = __ldg(table + qi * stride + ti) + sc.go;
+  }
+  __syncthreads();
+  const int b = blockIdx.x * THREADS + threadIdx.x;
+  if (b >= B) return;
+  // this lane's word of entry 0 of the lane table
+  const unsigned lane0 =
+      static_cast<unsigned>(__cvta_generic_to_shared(lane_tab)) + 4 * (threadIdx.x & 31);
+  int best, bi, bj;
+  local_pair<AFFINE, true, false, END>(
+      q + b * static_cast<size_t>(n), t + b * static_cast<size_t>(m), scratch, b, n, m,
+      static_cast<ptrdiff_t>(B) * (AFFINE ? 2 : 1), sc, vec, lane0, best, bi, bj);
+  score[b] = best;
+  if (END != END_SCORE) {
+    end_i[b] = bi;
+    end_j[b] = bj;
+  }
+}
+
+// Launches `kernel`, a profile_pairs kernel of THREADS threads, on
+// `stream` with the lane table's dynamic shared memory (past 48 KB by the
+// kernel's attribute).
+template <int THREADS, typename Kernel>
+void launch_profile_pairs(Kernel kernel, const void* q, const void* t, const void* table,
+                          void* scratch, void* score, void* end_i, void* end_j, int B, int n,
+                          int m, int stride, const Scoring& sc, bool vec,
+                          cudaStream_t stream) {
+  const dim3 grid((B + THREADS - 1) / THREADS);
+  const int smem = (sc.pad + 1) * (sc.pad + 1) * 32 * 4;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(scratch),
+      static_cast<int32_t*>(score), static_cast<int32_t*>(end_i),
+      static_cast<int32_t*>(end_j), B, n, m, stride, sc, vec);
 }
 
 }  // namespace local_tile

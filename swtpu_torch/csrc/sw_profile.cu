@@ -87,47 +87,19 @@ sw_profile_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                   int32_t* __restrict__ score, int32_t* __restrict__ end_i,
                   int32_t* __restrict__ end_j, int B, int n, int m, int stride,
                   local_tile::Scoring sc, bool vec) {
-  // the lane table: entry (q, t) of the scores (go folded in: H is kept
-  // minus it) 32 times, word 32 (q x codes + t) + lane
-  extern __shared__ int32_t lane_tab[];
-  const int nc = sc.pad + 1;
-  for (int w = threadIdx.x; w < nc * nc * 32; w += THREADS) {
-    const int qi = (w >> 5) / nc, ti = (w >> 5) - qi * nc;
-    lane_tab[w] = __ldg(table + qi * stride + ti) + sc.go;
-  }
-  __syncthreads();
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= B) return;
-  // this lane's word of entry 0 of the lane table
-  const unsigned lane0 =
-      static_cast<unsigned>(__cvta_generic_to_shared(lane_tab)) + 4 * (threadIdx.x & 31);
-  int best, bi, bj;
-  local_tile::local_pair<AFFINE, true, false, END>(
-      q + b * static_cast<size_t>(n), t + b * static_cast<size_t>(m), scratch, b, n, m,
-      static_cast<ptrdiff_t>(B) * (AFFINE ? 2 : 1), sc, vec, lane0, best, bi, bj);
-  score[b] = best;
-  if (END != END_SCORE) {
-    end_i[b] = bi;
-    end_j[b] = bj;
-  }
+  local_tile::profile_pairs<AFFINE, END, THREADS>(q, t, table, scratch, score, end_i, end_j,
+                                                  B, n, m, stride, sc, vec);
 }
 
 template <bool AFFINE>
 void launch(int end, const void* q, const void* t, const void* table, void* scratch,
             void* score, void* end_i, void* end_j, int B, int n, int m, int stride,
             const local_tile::Scoring& sc, bool vec, cudaStream_t stream) {
-  const dim3 grid((B + THREADS - 1) / THREADS);
-  auto* kernel = end == END_KEY      ? sw_profile_kernel<AFFINE, END_KEY>
-                 : end == END_SELECT ? sw_profile_kernel<AFFINE, END_SELECT>
-                                     : sw_profile_kernel<AFFINE, END_SCORE>;
-  const int smem = (sc.pad + 1) * (sc.pad + 1) * 32 * 4;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
-      static_cast<const int32_t*>(table), static_cast<int32_t*>(scratch),
-      static_cast<int32_t*>(score), static_cast<int32_t*>(end_i),
-      static_cast<int32_t*>(end_j), B, n, m, stride, sc, vec);
+  local_tile::launch_profile_pairs<THREADS>(
+      end == END_KEY      ? sw_profile_kernel<AFFINE, END_KEY>
+      : end == END_SELECT ? sw_profile_kernel<AFFINE, END_SELECT>
+                          : sw_profile_kernel<AFFINE, END_SCORE>,
+      q, t, table, scratch, score, end_i, end_j, B, n, m, stride, sc, vec, stream);
 }
 
 constexpr int WR = 4;              // the warp form's query rows a lane

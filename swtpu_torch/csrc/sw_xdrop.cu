@@ -12,9 +12,11 @@
 // lane idle at W = 32 or 64, so here both contracts are one kernel, and
 // the W = 32 and W = 64 instantiations serve the packed kernel's calls.
 // Its CPL = 4 instantiations take W up to 128, past the TPU kernels' 96.
-// From W = 129 to 1024 the wrapper launches xdrop_wide_kernel (a CTA a
-// pair, a thread a band cell; its own note below), the counterpart of
-// what JAX's TPU dispatch runs there: its XLA forward
+// From W = 129 to 1024 the wrapper launches the same round body
+// (xdrop_pair) as xdrop_wide_warp_kernel (one warp a pair, W <= 256) or
+// xdrop_wide_kernel (a CTA a pair, a warp each 128 cells; their note
+// below), the counterpart of what JAX's TPU dispatch runs there: its
+// XLA forward
 //   swtpu/kernels/xla/banded_scan.py  banded_xdrop_batch (_banded_impl :66)
 // Past 1024 the card refuses the band (kernels/banded_batch.py).
 //
@@ -99,7 +101,8 @@
 namespace {
 
 constexpr int MAX_STRIDE = 32;
-constexpr int MAX_CPL = 4;
+constexpr int MAX_CPL = 4;       // the warp kernel: W <= 128
+constexpr int WIDE_WARP_CPL = 8;  // the wide band's one-warp form: W <= 256
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int DEAD = -(1 << 29);  // a cut or dead H (kept minus the gap)
 
@@ -193,43 +196,97 @@ __device__ __forceinline__ void shift_up_any(const int (&a)[CPL], int (&out)[CPL
   out[CPL - 1] = in;
 }
 
-// history row r: the cut band (dead 0), int32 or 8-bit v - cut + 1
+// history row r: the cut band (dead 0), int32 or 8-bit v - cut + 1; this
+// warp's cells from `base`, the row's position and offset by `lead`
 template <int CPL, bool EXACT>
 __device__ __forceinline__ void write_row(const RoundArgs& a, int r, int b, int lane,
-                                          const int (&v)[CPL], int cut, int y) {
+                                          int base, bool lead, const int (&v)[CPL], int cut,
+                                          int y) {
   const int cutp = max(cut, 1);
   const size_t row = static_cast<size_t>(r) * a.B + b;
-  const size_t base = row * a.W;
+  const size_t at = row * a.W + base;
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     const int k = lane * CPL + c;
-    if (EXACT || k < a.W) {
+    if (EXACT || base + k < a.W) {
       const int res = v[c] >= cutp ? v[c] : 0;
       if (a.hist8) {
-        a.hist8[base + k] = static_cast<uint8_t>(res ? res - cut + 1 : 0);
+        a.hist8[at + k] = static_cast<uint8_t>(res ? res - cut + 1 : 0);
       } else {
-        a.hist32[base + k] = res;
+        a.hist32[at + k] = res;
       }
     }
   }
-  if (lane == 0) {
+  if (lead) {
     a.posy[row] = y;
     if (a.offs) a.offs[row] = cut;
   }
 }
 
-template <int CPL, bool AFFINE, bool MATRIX, bool HIST, bool EXACT>
-__global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
-  __shared__ int32_t tab[MATRIX ? MAX_STRIDE * MAX_STRIDE : 1];
-  const int G = AFFINE ? a.go : a.gap;  // the gap kept off every stored H
-  if (MATRIX) {
-    for (int k = threadIdx.x; k < a.stride * a.stride; k += blockDim.x)
-      tab[k] = a.table[k] + G;
-    __syncthreads();
+// a[c] for the lane's slot c (a runtime slot, selected: no local memory)
+template <int CPL>
+__device__ __forceinline__ int slot_of(const int (&a)[CPL], int c) {
+  int x = a[CPL - 1];
+#pragma unroll
+  for (int i = 0; i < CPL - 1; ++i) x = i == c ? a[i] : x;
+  return x;
+}
+
+// What crosses warps in the CTA form (xdrop_wide_kernel), a slot a warp,
+// one set a round parity: the warp's round max and its edge cells, uncut
+// (H - G; F of its first cell, E of its last real one).
+constexpr int MAX_WIDE = 1024;        // cells a CTA
+constexpr int WIDE_WARPS = MAX_WIDE / 128;
+struct Slots {
+  int max[WIDE_WARPS];
+  int first_h[WIDE_WARPS];
+  int first_f[WIDE_WARPS];
+  int last_h[WIDE_WARPS];
+  int last_e[WIDE_WARPS];
+};
+
+// The CTA form's one barrier a round: each warp publishes its round max
+// and edge cells into `s`, and after the barrier reads the CTA's round max,
+// the band's end cells band[0] and band[W - 1] (uncut, H - G) and its
+// neighbours' edge cells, the fills its own shifts left open (a down move's
+// cell k - 1 at its first cell, a right move's cell k + 1 at its last).
+template <int CPL, bool AFFINE>
+__device__ __forceinline__ void cross(Slots& s, int lane, int warp, int nw, int wmax,
+                                      const int (&rng)[CPL], const int (&e)[CPL],
+                                      const int (&f)[CPL], int end_lane, int end_c,
+                                      int (&sd)[CPL], int (&su)[CPL], int (&ed)[CPL],
+                                      int (&fu)[CPL], int& rmax, int& b0, int& bw) {
+  if (lane == 0) {
+    s.max[warp] = wmax;
+    s.first_h[warp] = rng[0];
+    if (AFFINE) s.first_f[warp] = f[0];
   }
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= a.B) return;  // the whole warp
+  if (lane == end_lane) {
+    s.last_h[warp] = slot_of<CPL>(rng, end_c);
+    if (AFFINE) s.last_e[warp] = slot_of<CPL>(e, end_c);
+  }
+  __syncthreads();
+  rmax = __reduce_max_sync(FULL, lane < nw ? s.max[lane] : 0);
+  b0 = s.first_h[0];
+  bw = s.last_h[nw - 1];
+  if (lane == 0 && warp > 0) {
+    sd[0] = s.last_h[warp - 1];
+    if (AFFINE) ed[0] = s.last_e[warp - 1];
+  }
+  if (lane == 31 && warp + 1 < nw) {
+    su[CPL - 1] = s.first_h[warp + 1];
+    if (AFFINE) fu[CPL - 1] = s.first_f[warp + 1];
+  }
+}
+
+// One pair's rounds on one warp (CTA false: the band is the warp's 32 CPL
+// cells) or on warp `warp` of `nw` (CTA: the band's cells 32 CPL warp ..
+// 32 CPL (warp + 1) - 1, the other warps' edge cells and maxima through
+// `slots`). `tab` is the table (+ G) in shared memory (MATRIX).
+template <int CPL, bool AFFINE, bool MATRIX, bool HIST, bool EXACT, bool CTA>
+__device__ __forceinline__ void xdrop_pair(const RoundArgs& a, const int32_t* tab, int b,
+                                           int lane, int warp, int nw, Slots* slots) {
+  const int G = AFFINE ? a.go : a.gap;  // the gap kept off every stored H
   const int W = a.W, X = a.X, stride = a.stride, ge = a.ge;
   const int lq = a.lens_q ? a.lens_q[b] : a.n;
   const int lt = a.lens_t ? a.lens_t[b] : a.m;
@@ -237,17 +294,25 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
   const uint8_t* qrow = a.q + static_cast<size_t>(b) * a.n;
   const uint8_t* trow = a.t + static_cast<size_t>(b) * a.m;
   const int sm = a.match + G, smm = G - a.mismatch;
-  const int end_lane = (W - 1) / CPL, end_c = (W - 1) % CPL;
+  // this warp's first cell and its last real one (the band's end cell on
+  // the band's last warp)
+  const int base = CTA ? warp * 32 * CPL : 0;
+  const int end_k = min(32 * CPL, W - base) - 1;
+  const int end_lane = end_k / CPL, end_c = end_k % CPL;
+  const bool lead = lane == 0 && (!CTA || warp == 0);  // the pair's per-round fields
   // cell k holds query code d + W - 2 - k and target code u - W + k after d
-  // down and u right moves; the phantom cells' target codes run ahead
-  const int t_lead = 32 * CPL - W;
+  // down and u right moves; the phantom cells' target codes run ahead, so
+  // the code a right move brings enters at the warp's last cell, and the
+  // one a down move brings at its first
+  const int q_lead = W - 1 - base;
+  const int t_lead = base + 32 * CPL - W;
 
   const int qp = q_pad<MATRIX>(stride), tp = t_pad<MATRIX>(stride);
   int q[CPL], t[CPL], v[CPL], rng[CPL], hg[CPL], vg[CPL], cap[CPL];
   int e[CPL], f[CPL];
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
-    const int k = lane * CPL + c;
+    const int k = base + lane * CPL + c;
     q[c] = q_code<MATRIX>(raw_at(qrow, W - 2 - k, lq, qp), stride);
     t[c] = t_code<MATRIX>(raw_at(trow, k - W, lt, tp), stride);
     v[c] = k == W - 1 ? X : 0;
@@ -259,18 +324,18 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
     cap[c] = k < W ? INT_MAX : 0;
   }
   // the entering codes' windows, three registers a sequence: lane l holds
-  // query codes W - 1 + qb + l (qa), + 32 (qn) and + 64 (ql, its load in
+  // query codes q_lead + qb + l (qa), + 32 (qn) and + 64 (ql, its load in
   // flight, not read until it moves up); after d downs the next entering
   // code is window lane d - qb, in [0, 64), and likewise the target's from
   // t_lead + tb after u rights. A shuffle's source lane wraps mod 32.
   int qb = 0, tb = 0;
-  int qa = raw_at(qrow, W - 1 + lane, lq, qp), qn = raw_at(qrow, W + 31 + lane, lq, qp);
-  int ql = raw_at(qrow, W + 63 + lane, lq, qp);
+  int qa = raw_at(qrow, q_lead + lane, lq, qp), qn = raw_at(qrow, q_lead + 32 + lane, lq, qp);
+  int ql = raw_at(qrow, q_lead + 64 + lane, lq, qp);
   int ta = raw_at(trow, t_lead + lane, lt, tp), tn = raw_at(trow, t_lead + 32 + lane, lt, tp);
   int tl = raw_at(trow, t_lead + 64 + lane, lt, tp);
   int u = 0;  // right moves so far; every round moves once, so r - 1 - u downs
   int ms = X, max_round = 0;
-  if (HIST) write_row<CPL, EXACT>(a, 0, b, lane, v, 0, 0);
+  if (HIST) write_row<CPL, EXACT>(a, 0, b, lane, base, lead, v, 0, 0);
 
   // round 1's candidates
   int sd[CPL], su[CPL], qsd[CPL], tsu[CPL], dr[CPL], dd[CPL], ed[CPL], fu[CPL];
@@ -287,12 +352,17 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
     dr[c] = vg[c] + score_g<MATRIX>(q[c], tsu[c], tab, sm, smm);
     dd[c] = hg[c] + score_g<MATRIX>(qsd[c], t[c], tab, sm, smm);
   }
-  int vend = v[CPL - 1];
-  if (!EXACT) {
-#pragma unroll
-    for (int c = 0; c < CPL - 1; ++c) vend = c == end_c ? v[c] : vend;
+  bool right;
+  if constexpr (CTA) {
+    int rmax, b0, bw;
+    cross<CPL, AFFINE>(slots[0], lane, warp, nw, 0, rng, e, f, end_lane, end_c, sd, su, ed,
+                       fu, rmax, b0, bw);
+    right = bw > max(b0, -1 - G);
+  } else {
+    int vend = v[CPL - 1];
+    if (!EXACT) vend = slot_of<CPL>(v, end_c);
+    right = __shfl_sync(FULL, vend, end_lane) > max(__shfl_sync(FULL, v[0], 0), -1);
   }
-  bool right = __shfl_sync(FULL, vend, end_lane) > max(__shfl_sync(FULL, v[0], 0), -1);
   int thr = 1 - G;  // max(ms - X, 1) - G: a stored H below it is cut
 
   // The rounds run in blocks of 32: a block moves at most 32 times either
@@ -335,15 +405,15 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
       }
       u += right;
       const int d = r - u;  // down moves so far
-      // the round max; meanwhile the next round's operands, uncut
-      const int rmax = __reduce_max_sync(FULL, lmax);
-      vend = v[CPL - 1];
-      if (!EXACT) {
-#pragma unroll
-        for (int c = 0; c < CPL - 1; ++c) vend = c == end_c ? v[c] : vend;
+      // the round max; meanwhile the next round's operands, uncut (the
+      // CTA form's end cells and warp edges come through the slots below)
+      int rmax = __reduce_max_sync(FULL, lmax), b0 = 0, bw = 0;
+      if constexpr (!CTA) {
+        int vend = v[CPL - 1];
+        if (!EXACT) vend = slot_of<CPL>(v, end_c);
+        b0 = __shfl_sync(FULL, v[0], 0);
+        bw = __shfl_sync(FULL, vend, end_lane);
       }
-      const int b0 = __shfl_sync(FULL, v[0], 0);
-      const int bw = __shfl_sync(FULL, vend, end_lane);
       shift_dn<CPL>(rng, sd, lane, DEAD);
       shift_up<CPL>(rng, su, lane, DEAD);
       if (AFFINE) {
@@ -359,6 +429,9 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
         dr[c] = vg[c] + score_g<MATRIX>(q[c], tsu[c], tab, sm, smm);
         dd[c] = hg[c] + score_g<MATRIX>(qsd[c], t[c], tab, sm, smm);
       }
+      if constexpr (CTA)
+        cross<CPL, AFFINE>(slots[r & 1], lane, warp, nw, rmax, rng, e, f, end_lane, end_c,
+                           sd, su, ed, fu, rmax, b0, bw);
       // the next round's cut and direction; an overrun restores what the
       // round changed on its way out, off the chain
       const int ms_before = ms, max_round_before = max_round;
@@ -366,8 +439,9 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
       ms = max(ms, rmax);
       const int cut = ms - X;  // live cells lie in [max(cut, 1), ms]
       thr = __viaddmax_s32(ms, -X - G, 1 - G);  // max(cut, 1) - G
-      right = bw > __viaddmax_s32(ms, -X - 1, b0);  // bw > max(b0, cut - 1)
-      if (HIST && !over) write_row<CPL, EXACT>(a, r, b, lane, v, cut, d);
+      // right iff bw > max(b0, cut - 1) (the CTA's ends are H - G)
+      right = bw > __viaddmax_s32(ms, CTA ? -X - 1 - G : -X - 1, b0);
+      if (HIST && !over) write_row<CPL, EXACT>(a, r, b, lane, base, lead, v, cut, d);
       // a dead round is written, then ends the pair; so does the round cap
       if (over || rmax == 0 || r + 1 >= rcap) {
         if (over) {
@@ -386,7 +460,7 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
       qb += 32;
       qa = qn;
       qn = ql;
-      ql = raw_at(qrow, W + 63 + qb + lane, lq, qp);
+      ql = raw_at(qrow, q_lead + 64 + qb + lane, lq, qp);
     }
     if (!stop && u - tb >= 32) {  // ... or a target window
       tb += 32;
@@ -396,11 +470,39 @@ __global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
     }
   }
 
-  if (lane == 0) {
+  if (lead) {
     a.score[b] = ms - X;
     a.max_round[b] = max_round;
     a.n_rounds[b] = r;
   }
+}
+
+// A warp per pair, pairs blockDim / 32 a CTA: both one-warp kernels' body.
+template <int CPL, bool AFFINE, bool MATRIX, bool HIST, bool EXACT>
+__device__ __forceinline__ void warp_pairs(const RoundArgs& a) {
+  __shared__ int32_t tab[MATRIX ? MAX_STRIDE * MAX_STRIDE : 1];
+  if (MATRIX) {
+    const int G = AFFINE ? a.go : a.gap;
+    for (int k = threadIdx.x; k < a.stride * a.stride; k += blockDim.x)
+      tab[k] = a.table[k] + G;
+    __syncthreads();
+  }
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= a.B) return;  // the whole warp
+  xdrop_pair<CPL, AFFINE, MATRIX, HIST, EXACT, false>(a, tab, b, threadIdx.x & 31, 0, 1,
+                                                      nullptr);
+}
+
+// W <= 128: CPL = 1..4 (the TPU kernels' counterpart)
+template <int CPL, bool AFFINE, bool MATRIX, bool HIST, bool EXACT>
+__global__ void __launch_bounds__(128) xdrop_round_kernel(RoundArgs a) {
+  warp_pairs<CPL, AFFINE, MATRIX, HIST, EXACT>(a);
+}
+
+// W = 129..256: CPL = 5..8, the wide band's one-warp form (its note below)
+template <int CPL, bool AFFINE, bool MATRIX, bool HIST, bool EXACT>
+__global__ void __launch_bounds__(128) xdrop_wide_warp_kernel(RoundArgs a) {
+  warp_pairs<CPL, AFFINE, MATRIX, HIST, EXACT>(a);
 }
 
 int sm_count() {
@@ -419,10 +521,17 @@ void launch_round(const RoundArgs& a, cudaStream_t stream) {
   // a warp a block while the pairs leave SMs free, four warps from 32 an SM
   const int warps = a.B <= 32 * sm_count() ? 1 : 4;
   const dim3 grid((a.B + warps - 1) / warps), block(32 * warps);
-  if (a.W == 32 * CPL)
-    xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, true><<<grid, block, 0, stream>>>(a);
-  else
-    xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, false><<<grid, block, 0, stream>>>(a);
+  if constexpr (CPL <= MAX_CPL) {
+    if (a.W == 32 * CPL)
+      xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, true><<<grid, block, 0, stream>>>(a);
+    else
+      xdrop_round_kernel<CPL, AFFINE, MATRIX, HIST, false><<<grid, block, 0, stream>>>(a);
+  } else {
+    if (a.W == 32 * CPL)
+      xdrop_wide_warp_kernel<CPL, AFFINE, MATRIX, HIST, true><<<grid, block, 0, stream>>>(a);
+    else
+      xdrop_wide_warp_kernel<CPL, AFFINE, MATRIX, HIST, false><<<grid, block, 0, stream>>>(a);
+  }
 }
 
 template <int CPL>
@@ -446,199 +555,91 @@ void launch_cpl(bool affine, bool matrix, bool hist, const RoundArgs& a, cudaStr
   }
 }
 
-// -- the wide band: W up to 1024, a CTA a pair ------------------------------
+// -- the wide band: W = 129 to 1024 ------------------------------------------
 //
-// xdrop_wide_kernel<AFFINE, MATRIX, HIST> serves the bands the warp kernel
-// above cannot hold (W > 128; it takes any W from 1 to MAX_WIDE). One CTA
-// per pair, one thread per band cell (32 ceil(W / 32) threads, the cells k
-// >= W phantom), the band, E and F in shared memory, double-buffered: a
-// round reads buffer p and writes buffer p ^ 1. The recurrence is the plain
-// version's, term for term (dead 0, E/F dead at -2^28, MINF inside a round),
-// so there are no folded offsets to keep straight across warps. A round:
-// - every thread reads the cut band's ends band[0] and band[W-1] (the
-//   direction) from buffer p, moves its cursor, and tests the overrun and
-//   the round cap (all CTA-uniform, so every thread leaves together);
-// - each live thread forms its cell from its own diagonal term (kept in a
-//   register) and its neighbours in buffer p, and its codes, loaded a round
-//   ahead for both moves (the query code a down move brings, the target
-//   code a right move brings);
-// - the round max: a warp reduction, a slot a warp in shared memory, one
-//   barrier, then every warp reduces the slots again; max_round moves on a
-//   strictly greater max, the cut is the updated max - X;
-// - each live thread writes its cut cell (and E/F, cleared where the cell
-//   is dead) into buffer p ^ 1 and the history row; a second barrier
-//   publishes buffer p ^ 1 to the next round.
-// Two barriers a round: the direction needs both cut end cells, which two
-// different warps hold, after the CTA agrees on the round max.
-// Bound: a chain of rounds per pair, each two barriers and a shared-memory
-// round trip long; the card runs ceil(2048 / (32 ceil(W / 32))) pairs an SM
-// at a time. Later work: a warp per 128 cells (the warp kernel's registers
-// and shuffles) with only the edge cells and the max through shared memory.
+// The counterpart of JAX's XLA forward past the warp kernel's 128 cells,
+// in two designs on the same round body (xdrop_pair), which
+// kernels/banded_batch.py::banded_form picks by W, each the faster where
+// it runs (chip_smoke.py phase 43, tools/xla_tier_times.py):
+// - W = 129..256: xdrop_wide_warp_kernel<CPL, ...> above, the warp
+//   kernel's one warp a pair with CPL = ceil(W / 32) = 5..8 cells a lane
+//   (no barrier; the round's chain grows by the extra cells' ops only);
+// - W = 257..1024: xdrop_wide_kernel<AFFINE, MATRIX, HIST, EXACT> below
+//   (it takes any W from 1 to MAX_WIDE), a CTA a pair.
+//
+// xdrop_wide_kernel: one CTA per pair of
+// ceil(W / 128) warps; warp w holds band cells 128 w .. 128 w + 127 in
+// registers exactly as the warp kernel's CPL = 4 instantiation holds its
+// 128 (xdrop_pair above is both kernels' round body): 4 cells a lane, the
+// query and target codes in registers with per-warp windows refilled
+// between blocks of 32 rounds (each warp's entering codes are its own: a
+// down move brings code d + W - 2 - 128 w to its first cell, a right move
+// code u - W + 128 w + 127 to its last), both moves formed ahead of the
+// direction, the cut applied late on the uncut values, dead cells folded
+// into the DPX max-plus, phantom cells past W capped at 0 (EXACT: W a
+// multiple of 128, none). What crosses warps goes through a shared-memory
+// slot array double-buffered by round parity (Slots, cross()): each
+// warp's round max (__reduce_max_sync) and its first and last uncut cell
+// (H - G, with F of the first and E of the last under Gotoh). So a round
+// has one barrier; after it every warp reads the CTA's round max (max
+// score, max round and the cut), band[0] and band[W - 1] for the
+// direction, by the warp kernel's rule on uncut end values, and its
+// neighbours' edge cells, for a down move's cell k - 1 and a right move's
+// cell k + 1. Every warp derives the same max, cut, direction and
+// termination, so the CTA stays uniform. A warp writes round r + 2's slots
+// (the set round r used) only after round r + 1's barrier, which every
+// warp reaches after reading round r's slots, so two sets suffice.
+// Bound: a pair's ~2 (n + m) rounds are a chain, and with few pairs (256
+// on 132 SMs) the round's latency binds: the warp kernel's chain plus, in
+// the CTA, the slot stores, the barrier and the slot loads (which is why
+// one warp with up to 8 cells a lane is faster up to W = 256). The
+// earlier design (a thread a cell, the band, E and F through shared
+// memory, two barriers a round) is replaced; tools/xla_tier_times.py
+// times it from a checkout of the parent.
 
-constexpr int MAX_WIDE = 1024;  // threads a CTA
-
-namespace wide {
-
-constexpr int EF_DEAD = -(1 << 28);  // dead E/F (oracle/banded_affine.py)
-constexpr int MINF = -(1 << 30);     // no contribution inside a round
-
-// the padded query row's code at index i (banded_scan._prep_padded: the
-// query at 1..lq, -1 elsewhere)
-__device__ __forceinline__ int q_at(const uint8_t* row, int i, int lq) {
-  return (i >= 1 && i <= lq) ? static_cast<int>(row[i - 1]) : -1;
-}
-
-// the padded target row's code at index j (the target at W..W + lt - 1)
-__device__ __forceinline__ int t_at(const uint8_t* row, int j, int W, int lt) {
-  const int x = j - W;
-  return (x >= 0 && x < lt) ? static_cast<int>(row[x]) : -1;
-}
-
-template <bool MATRIX>
-__device__ __forceinline__ int score(int yc, int xc, const int32_t* tab, int stride,
-                                     int match, int mismatch) {
-  if (MATRIX) {
-    const int qi = yc >= 0 ? min(yc, stride - 1) : stride - 2;
-    const int ti = xc >= 0 ? min(xc, stride - 1) : stride - 1;
-    return tab[qi * stride + ti];
-  }
-  return (yc >= 0 && xc >= 0 && yc == xc) ? match : -mismatch;
-}
-
-// HIST: 0 none, 1 int32, 2 8-bit (v - cut + 1, dead 0)
-template <int HIST>
-__device__ __forceinline__ void write_cell(const RoundArgs& a, int r, int b, int k, int v,
-                                           int cut) {
-  const size_t at = (static_cast<size_t>(r) * a.B + b) * a.W + k;
-  if (HIST == 1) a.hist32[at] = v;
-  if (HIST == 2) a.hist8[at] = static_cast<uint8_t>(v > 0 ? v - cut + 1 : 0);
-}
-
-template <bool AFFINE, bool MATRIX, int HIST>
-__global__ void __launch_bounds__(MAX_WIDE) xdrop_wide_kernel(RoundArgs a) {
+template <bool AFFINE, bool MATRIX, bool HIST, bool EXACT>
+__global__ void __launch_bounds__(MAX_WIDE / 4) xdrop_wide_kernel(RoundArgs a) {
   __shared__ int32_t tab[MATRIX ? MAX_STRIDE * MAX_STRIDE : 1];
-  __shared__ int32_t band[2][MAX_WIDE];
-  __shared__ int32_t eb[AFFINE ? 2 : 1][AFFINE ? MAX_WIDE : 1];
-  __shared__ int32_t fb[AFFINE ? 2 : 1][AFFINE ? MAX_WIDE : 1];
-  __shared__ int32_t wmax[MAX_WIDE / 32];
-  const int k = threadIdx.x, lane = k & 31, warp = k >> 5, nwarps = blockDim.x >> 5;
-  const int b = blockIdx.x;
-  const int W = a.W, X = a.X, stride = a.stride;
-  if (MATRIX)
-    for (int e = k; e < stride * stride; e += blockDim.x) tab[e] = a.table[e];
-  const bool live = k < W;
-  const int lq = a.lens_q ? a.lens_q[b] : a.n;
-  const int lt = a.lens_t ? a.lens_t[b] : a.m;
-  const int rcap = (max(lq, lt) + 1) * 2 - 1;
-  const uint8_t* qrow = a.q + static_cast<size_t>(b) * a.n;
-  const uint8_t* trow = a.t + static_cast<size_t>(b) * a.m;
-  const int v0 = k == W - 1 ? X : 0;
-  if (live) {
-    band[0][k] = v0;
-    if (AFFINE) {
-      eb[0][k] = EF_DEAD;
-      fb[0][k] = EF_DEAD;
-    }
-    if (HIST) write_cell<HIST>(a, 0, b, k, v0, 0);
+  __shared__ Slots slots[2];
+  if (MATRIX) {
+    const int G = AFFINE ? a.go : a.gap;
+    for (int k = threadIdx.x; k < a.stride * a.stride; k += blockDim.x)
+      tab[k] = a.table[k] + G;
   }
-  if (HIST && k == 0) {
-    a.posy[b] = 0;
-    if (a.offs) a.offs[b] = 0;
-  }
-  int hor = 0, ver = 0;  // the cell's horizontal and vertical terms
-  int now_y = 0, now_x = W - 1, ms = X, max_round = 0, n_rounds = 1;
-  // the codes at (now_y, now_x) and the ones a down (query) or right
-  // (target) move brings
-  int qa = q_at(qrow, W - 1 - k, lq), qb = q_at(qrow, W - k, lq);
-  int ta = t_at(trow, k, W, lt), tb = t_at(trow, k + 1, W, lt);
   __syncthreads();
+  xdrop_pair<4, AFFINE, MATRIX, HIST, EXACT, true>(a, tab, blockIdx.x, threadIdx.x & 31,
+                                                   threadIdx.x >> 5, blockDim.x >> 5, slots);
+}
 
-  int p = 0;
-  for (int r = 1; r < rcap; ++r) {
-    const bool right = band[p][0] < band[p][W - 1];
-    const int nx = now_x + right, ny = now_y + !right;
-    // a boundary overrun ends the pair before the round is written
-    if (right ? nx > 2 * W + lt - 1 : ny > lq + 1) break;
-    const int yc = right ? qa : qb, xc = right ? tb : ta;
-    qa = yc;
-    ta = xc;
-    qb = q_at(qrow, ny + W - k, lq);  // used next round
-    tb = t_at(trow, nx - W + 2 + k, W, lt);
-    int rn = 0, hn = 0, vn = 0, en = 0, fn = 0;
-    if (live) {
-      const int32_t* rp = band[p];
-      const int diag = right ? ver : hor;
-      hn = right ? rp[k] : (k > 0 ? rp[k - 1] : 0);
-      vn = right ? (k < W - 1 ? rp[k + 1] : 0) : rp[k];
-      const int sc = score<MATRIX>(yc, xc, tab, stride, a.match, a.mismatch);
-      rn = diag != 0 ? max(diag + sc, 0) : 0;
-      if (AFFINE) {
-        const int he = right ? eb[p][k] : (k > 0 ? eb[p][k - 1] : EF_DEAD);
-        const int vf = right ? (k < W - 1 ? fb[p][k + 1] : EF_DEAD) : fb[p][k];
-        en = max(he > EF_DEAD / 2 ? he - a.ge : MINF, hn != 0 ? hn - a.go : MINF);
-        fn = max(vf > EF_DEAD / 2 ? vf - a.ge : MINF, vn != 0 ? vn - a.go : MINF);
-        rn = max(rn, en > MINF / 2 ? en : 0);
-        rn = max(rn, fn > MINF / 2 ? fn : 0);
-      } else {
-        if (hn != 0) rn = max(rn, hn - a.gap);
-        if (vn != 0) rn = max(rn, vn - a.gap);
-      }
-    }
-    // the round max across the warps (every cell is >= 0)
-    const int wm = __reduce_max_sync(FULL, rn);
-    if (lane == 0) wmax[warp] = wm;
-    __syncthreads();
-    const int round_max = __reduce_max_sync(FULL, lane < nwarps ? wmax[lane] : 0);
-    if (ms < round_max) {
-      ms = round_max;
-      max_round = r;
-    }
-    const int cut = ms - X;
-    if (live) {
-      const int rc = rn < cut ? 0 : rn;
-      band[p ^ 1][k] = rc;
-      if (AFFINE) {
-        eb[p ^ 1][k] = rc == 0 ? EF_DEAD : en;
-        fb[p ^ 1][k] = rc == 0 ? EF_DEAD : fn;
-      }
-      if (HIST) write_cell<HIST>(a, r, b, k, rc, cut);
-    }
-    if (HIST && k == 0) {
-      const size_t row = static_cast<size_t>(r) * a.B + b;
-      a.posy[row] = ny;
-      if (a.offs) a.offs[row] = cut;
-    }
-    hor = hn;
-    ver = vn;
-    now_x = nx;
-    now_y = ny;
-    n_rounds = r + 1;
-    __syncthreads();  // buffer p ^ 1 is whole; wmax is free again
-    p ^= 1;
-    if (round_max == 0) break;  // a dead round is written, then ends the pair
-  }
+template <bool AFFINE, bool MATRIX, bool HIST>
+void launch_wide(const RoundArgs& a, cudaStream_t stream) {
+  const int threads = 32 * ((a.W + 127) / 128);
+  if (a.W % 128 == 0)
+    xdrop_wide_kernel<AFFINE, MATRIX, HIST, true><<<a.B, threads, 0, stream>>>(a);
+  else
+    xdrop_wide_kernel<AFFINE, MATRIX, HIST, false><<<a.B, threads, 0, stream>>>(a);
+}
 
-  if (k == 0) {
-    a.score[b] = ms - X;
-    a.max_round[b] = max_round;
-    a.n_rounds[b] = n_rounds;
+void launch_wide_any(bool affine, bool matrix, bool hist, const RoundArgs& a,
+                     cudaStream_t s) {
+  if (affine) {
+    if (matrix) {
+      if (hist) launch_wide<true, true, true>(a, s);
+      else launch_wide<true, true, false>(a, s);
+    } else {
+      if (hist) launch_wide<true, false, true>(a, s);
+      else launch_wide<true, false, false>(a, s);
+    }
+  } else {
+    if (matrix) {
+      if (hist) launch_wide<false, true, true>(a, s);
+      else launch_wide<false, true, false>(a, s);
+    } else {
+      if (hist) launch_wide<false, false, true>(a, s);
+      else launch_wide<false, false, false>(a, s);
+    }
   }
 }
-
-template <bool AFFINE, bool MATRIX, int HIST>
-void launch(const RoundArgs& a, cudaStream_t stream) {
-  const int threads = 32 * ((a.W + 31) / 32);
-  xdrop_wide_kernel<AFFINE, MATRIX, HIST><<<a.B, threads, 0, stream>>>(a);
-}
-
-template <bool AFFINE, bool MATRIX>
-void launch_hist(int hist, const RoundArgs& a, cudaStream_t s) {
-  if (hist == 1) launch<AFFINE, MATRIX, 1>(a, s);
-  else if (hist == 2) launch<AFFINE, MATRIX, 2>(a, s);
-  else launch<AFFINE, MATRIX, 0>(a, s);
-}
-
-}  // namespace wide
 
 // -- the earlier kernel, timed beside the one above ------------------------
 
@@ -887,9 +888,10 @@ int swtpu_sw_xdrop(int affine, const void* q, const void* t, const void* lens_q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide band (xdrop_wide_kernel, a CTA a pair): the same arguments and
-// outputs as swtpu_sw_xdrop for any W from 1 to MAX_WIDE (1024);
-// cudaErrorInvalidValue outside it or for a table stride outside 1..32.
+// The wide band (xdrop_wide_kernel, a CTA of ceil(W / 128) warps a pair):
+// the same arguments and outputs as swtpu_sw_xdrop for any W from 1 to
+// MAX_WIDE (1024); cudaErrorInvalidValue outside it or for a table stride
+// outside 1..32.
 int swtpu_sw_xdrop_wide(int affine, const void* q, const void* t, const void* lens_q,
                         const void* lens_t, const void* table, void* score, void* max_round,
                         void* n_rounds, void* hist32, void* hist8, void* posy, void* offs,
@@ -905,14 +907,39 @@ int swtpu_sw_xdrop_wide(int affine, const void* q, const void* t, const void* le
                     static_cast<int32_t*>(hist32), static_cast<uint8_t*>(hist8),
                     static_cast<int32_t*>(posy), static_cast<int32_t*>(offs), B, n, m, W, X,
                     match, mismatch, gap, gap_open, gap_extend, table ? stride : 1};
+  launch_wide_any(affine != 0, table != nullptr, posy != nullptr, a,
+                  static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide band's one-warp form (xdrop_wide_warp_kernel, a warp a pair,
+// ceil(W / 32) cells a lane): the same arguments and outputs as
+// swtpu_sw_xdrop for W from 129 to 256; cudaErrorInvalidValue outside it
+// or for a table stride outside 1..32.
+int swtpu_sw_xdrop_wide_warp(int affine, const void* q, const void* t, const void* lens_q,
+                             const void* lens_t, const void* table, void* score,
+                             void* max_round, void* n_rounds, void* hist32, void* hist8,
+                             void* posy, void* offs, int B, int n, int m, int W, int X,
+                             int match, int mismatch, int gap, int gap_open, int gap_extend,
+                             int stride, void* stream) {
+  if (W <= 32 * MAX_CPL || W > 32 * WIDE_WARP_CPL ||
+      (table && (stride < 1 || stride > MAX_STRIDE)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  const RoundArgs a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+                    static_cast<const int32_t*>(lens_q), static_cast<const int32_t*>(lens_t),
+                    static_cast<const int32_t*>(table), static_cast<int32_t*>(score),
+                    static_cast<int32_t*>(max_round), static_cast<int32_t*>(n_rounds),
+                    static_cast<int32_t*>(hist32), static_cast<uint8_t*>(hist8),
+                    static_cast<int32_t*>(posy), static_cast<int32_t*>(offs), B, n, m, W, X,
+                    match, mismatch, gap, gap_open, gap_extend, table ? stride : 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hist = posy == nullptr ? 0 : (hist8 != nullptr ? 2 : 1);
-  if (affine) {
-    if (table) wide::launch_hist<true, true>(hist, a, s);
-    else wide::launch_hist<true, false>(hist, a, s);
-  } else {
-    if (table) wide::launch_hist<false, true>(hist, a, s);
-    else wide::launch_hist<false, false>(hist, a, s);
+  const bool matrix = table != nullptr, hist = posy != nullptr;
+  switch ((W + 31) / 32) {
+    case 5: launch_cpl<5>(affine != 0, matrix, hist, a, s); break;
+    case 6: launch_cpl<6>(affine != 0, matrix, hist, a, s); break;
+    case 7: launch_cpl<7>(affine != 0, matrix, hist, a, s); break;
+    default: launch_cpl<8>(affine != 0, matrix, hist, a, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

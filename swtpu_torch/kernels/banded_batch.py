@@ -14,18 +14,24 @@ them and how:
   cells per lane, so it takes every bandwidth from 1 to
   :data:`ROUND_MAX_WIDTH` = 128 (the TPU kernels took up to 96); its W =
   32 and W = 64 instantiations serve what JAX sent to the packed kernel;
-- ``xdrop_wide_kernel``: one CTA per pair, one thread per band cell, the
-  band in shared memory, for the bands from 129 to :data:`MAX_WIDTH` =
-  1024 (the XLA forward's counterpart on the card).
+- past it, the XLA forward's counterpart on the card, on the same round
+  body in two designs: ``xdrop_wide_warp_kernel``, one warp per pair with
+  5-8 cells a lane, for the bands from 129 to :data:`WIDE_WARP_MAX_WIDTH`
+  = 256; ``xdrop_wide_kernel``, one CTA per pair of ceil(W / 128) warps of
+  128 register cells that exchange their round maxima and edge cells
+  through shared-memory slots, one barrier a round, up to
+  :data:`MAX_WIDTH` = 1024. Each is the faster at the widths it takes.
 
-:func:`banded_form` names the kernel a bandwidth takes. Both read the raw
+:func:`banded_form` names the kernel a bandwidth takes. All read the raw
 [B, n] / [B, m] codes and the lengths (:func:`stage`) and pad in-kernel,
-so the wrapper pads nothing. The plain version is the XLA tier's copy,
-``banded_scan.banded_xdrop_batch``; :func:`xdrop_round_mirror` and
-:func:`xdrop_wide_mirror` replay the kernels' own round schedules on the
-CPU (tests only). The earlier kernel of the same source, over padded
-rows, stays off every entry point (:func:`_earlier_launch_t`, timed
-beside it).
+so the wrapper pads nothing. What bounds them (a pair's rounds are a
+chain: the round's latency) and how they are built is in the head note of
+``csrc/sw_xdrop.cu``. The plain version is the XLA tier's copy,
+``banded_scan.banded_xdrop_batch``; :func:`xdrop_round_mirror` (one warp:
+the warp kernel and the one-warp wide form) and :func:`xdrop_wide_mirror`
+(the CTA) replay the kernels' own round schedules on the CPU (tests
+only). The earlier kernel of the same source, over padded rows, stays off
+every entry point (:func:`_earlier_launch_t`, timed beside it).
 
 ``banded_batch`` runs where its device says: on the CPU the plain
 version, for any bandwidth; on a CUDA device a kernel, never the plain
@@ -35,8 +41,9 @@ raises. Its result holds tensors on the device
 (``BandedBatchResult.numpy()`` copies them to the host). It counts the
 warp kernel's launches in ``banded_batch.launches`` (those at W = 32 or
 64, the packed kernel's calls in JAX, also in
-``banded_batch.launches_w32_w64``) and the wide kernel's in
-``banded_batch.launches_wide``. ``early_exit`` is accepted and changes
+``banded_batch.launches_w32_w64``) and the wide band's (W > 128) in
+``banded_batch.launches_wide``, those of its one-warp form also in
+``banded_batch.launches_wide_warp``. ``early_exit`` is accepted and changes
 nothing: each warp or CTA retires when its pair ends. The kernels write a
 pair's history, ``pos_y`` and ``offsets`` only below its ``n_rounds``,
 where every reader stops; past it they hold whatever the allocation held
@@ -63,7 +70,8 @@ from swtpu_torch.utils.device import as_codes, resolve_device
 
 SOURCE = "sw_xdrop.cu"
 ROUND_MAX_WIDTH = 128  # the warp kernel: 32 lanes x 4 cells per lane
-MAX_WIDTH = 1024  # the wide kernel: a thread a cell, 1024 a CTA
+WIDE_WARP_MAX_WIDTH = 256  # the wide band's one-warp form: 8 cells per lane
+MAX_WIDTH = 1024  # the wide band's CTA: 8 warps of 128 cells
 PACKED_WIDTHS = (32, 64)
 
 
@@ -79,12 +87,15 @@ def _gaps(gap, gap_open, gap_extend):
 
 def banded_form(bandwidth: int):
     """The kernel that takes a band of this width on the card: ``"round"``
-    (the warp kernel, W <= 128), ``"wide"`` (the CTA kernel, 129 <= W <=
+    (the warp kernel, W <= 128), ``"wide_warp"`` (the wide band's one-warp
+    form, 129 <= W <= 256), ``"wide"`` (the wide band's CTA, 257 <= W <=
     1024), or None (no kernel: :func:`width_refusal` says why)."""
     W = int(bandwidth)
     if 1 <= W <= ROUND_MAX_WIDTH:
         return "round"
-    if ROUND_MAX_WIDTH < W <= MAX_WIDTH:
+    if ROUND_MAX_WIDTH < W <= WIDE_WARP_MAX_WIDTH:
+        return "wide_warp"
+    if WIDE_WARP_MAX_WIDTH < W <= MAX_WIDTH:
         return "wide"
     return None
 
@@ -169,23 +180,23 @@ def _check_table(table, device, what):
     return stride
 
 
-def _check_width(W, wide):
-    """The widths a launch takes, by :func:`banded_form`: the wide kernel
-    any that has a kernel, the warp kernels the "round" ones."""
+def _check_width(W, *forms):
+    """The widths a launch takes, by :func:`banded_form`: those of
+    ``forms`` (the CTA launch: every form's)."""
     form = banded_form(W)
     if form is None:
         raise NotImplementedError(width_refusal(W))
-    if form == "wide" and not wide:
-        raise NotImplementedError(f"bandwidth {W} is for the wide kernel "
+    if form not in forms:
+        raise NotImplementedError(f"bandwidth {W} is for the {form} kernel "
                                   f"(banded_form: {form!r})")
 
 
 def _launch(name, rows, lens_q, lens_t, n, m, bandwidth, x_threshold, match,
             mismatch, gap, gap_open, gap_extend, table, with_history,
-            compress_history, what, wide=False):
+            compress_history, what, forms=("round",)):
     device = rows[0].device
     W, X = int(bandwidth), int(x_threshold)
-    _check_width(W, wide)
+    _check_width(W, *forms)
     stride = _check_table(table, device, what)
     B = rows[0].shape[0]
     score, max_round, n_rounds, hist, posy, offs = _outputs(
@@ -240,14 +251,27 @@ def xdrop_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match, mismatch
 def xdrop_wide_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match,
                         mismatch, gap, gap_open=None, gap_extend=None, table=None,
                         with_history=True, compress_history=False):
-    """The wide kernel's launch alone (a CTA a pair, any W from 1 to
-    :data:`MAX_WIDTH`; the wrapper sends it W > 128): the same inputs and
+    """The wide band's CTA launch alone (a CTA a pair, any W from 1 to
+    :data:`MAX_WIDTH`; the wrapper sends it W > 256): the same inputs and
     outputs as :func:`xdrop_launch_t`."""
     _check_staged(q, t, lens_q, lens_t, "wide per-round banded kernel")
     return _launch("swtpu_sw_xdrop_wide", (q, t), lens_q, lens_t, q.shape[1],
                    t.shape[1], bandwidth, x_threshold, match, mismatch, gap, gap_open,
                    gap_extend, table, with_history, compress_history,
-                   "wide per-round banded kernel", wide=True)
+                   "wide per-round banded kernel", forms=("round", "wide_warp", "wide"))
+
+
+def xdrop_wide_warp_launch_t(q, t, lens_q, lens_t, bandwidth, x_threshold, match,
+                             mismatch, gap, gap_open=None, gap_extend=None, table=None,
+                             with_history=True, compress_history=False):
+    """The wide band's one-warp launch alone (a warp a pair, W from 129 to
+    :data:`WIDE_WARP_MAX_WIDTH`): the same inputs and outputs as
+    :func:`xdrop_launch_t`."""
+    _check_staged(q, t, lens_q, lens_t, "wide per-round banded kernel")
+    return _launch("swtpu_sw_xdrop_wide_warp", (q, t), lens_q, lens_t, q.shape[1],
+                   t.shape[1], bandwidth, x_threshold, match, mismatch, gap, gap_open,
+                   gap_extend, table, with_history, compress_history,
+                   "wide per-round banded kernel", forms=("wide_warp",))
 
 
 def _earlier_launch_t(qp, tp, lens_q, lens_t, bandwidth, x_threshold, match,
@@ -315,7 +339,8 @@ def banded_batch(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1, gap=1,
     if form is None:
         raise NotImplementedError(width_refusal(W))
     gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
-    launch = xdrop_launch_t if form == "round" else xdrop_wide_launch_t
+    launch = {"round": xdrop_launch_t, "wide_warp": xdrop_wide_warp_launch_t,
+              "wide": xdrop_wide_launch_t}[form]
     out = launch(
         *stage(qs, ts, lens_q, lens_t, dev), W, x_threshold, match, mismatch, gap,
         gap_open, gap_extend, None if matrix is None else banded_table(matrix, dev),
@@ -326,6 +351,7 @@ def banded_batch(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1, gap=1,
         banded_batch.launches_w32_w64 += W in PACKED_WIDTHS
     else:
         banded_batch.launches_wide += 1
+        banded_batch.launches_wide_warp += form == "wide_warp"
     score, max_round, n_rounds, hist, posy, offs = out
     return BandedBatchResult(score, max_round, n_rounds, hist, posy, offs)
 
@@ -333,9 +359,10 @@ def banded_batch(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1, gap=1,
 banded_batch.launches = 0
 banded_batch.launches_w32_w64 = 0
 banded_batch.launches_wide = 0
+banded_batch.launches_wide_warp = 0
 
 
-# -- a plain mirror of the kernel's round schedule (tests only) --------------
+# -- plain mirrors of the kernels' round schedule (tests only) -------------
 
 DEAD = -(2**29)  # a cut or dead H, kept minus the gap (csrc/sw_xdrop.cu)
 _ANY = 1 << 20  # what a shuffle leaves at a band end no cut test lets through
@@ -345,8 +372,9 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
                        gap=1, bandwidth=32, x_threshold=70, compress_history=False,
                        with_history=True, gap_open=None, gap_extend=None,
                        matrix=None) -> BandedBatchResult:
-    """The kernel's arithmetic and schedule replayed in numpy, pair by
-    pair, on the 32 * CPL physical cells of a warp: H kept minus the gap
+    """The warp kernel's arithmetic and schedule replayed in numpy, pair by
+    pair, on the 32 * CPL physical cells of a warp (W <= 256: the warp
+    kernel, and past 128 the wide band's one-warp form): H kept minus the gap
     with cut cells at -2^29, E and F floored at 0 and cleared through the
     cut test of the cell that holds them, the cut applied when a candidate
     is selected, the direction from the uncut end values, the codes held
@@ -357,23 +385,62 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
     must keep out. Same contract as :func:`banded_batch`; history, pos_y
     and offsets are 0 at and past each pair's n_rounds. Nothing on the card
     path calls it."""
+    _check_width(int(bandwidth), "round", "wide_warp")
+    return _round_mirror(qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth,
+                         x_threshold, compress_history, with_history, gap_open,
+                         gap_extend, matrix, cta=False)
+
+
+def xdrop_wide_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
+                      gap=1, bandwidth=160, x_threshold=70, compress_history=False,
+                      with_history=True, gap_open=None, gap_extend=None,
+                      matrix=None) -> BandedBatchResult:
+    """The wide band's CTA schedule replayed in numpy, pair by pair: the
+    warp kernel's round (:func:`xdrop_round_mirror`) on ceil(W / 128) warps
+    of 128 cells (4 a lane), each warp shifting its own cells and taking
+    its entering codes from its own windows; what crosses warps goes
+    through slot sets indexed by round parity, written before the round's
+    one barrier and read after it: each warp's round max and its first and
+    last real cell, uncut (H - G, F of the first, E of the last). From the
+    slots every warp takes the round max, band[0] and band[W - 1] for the
+    direction, and its neighbours' edge cells as the fills of its shifts
+    (warp w's first cell from warp w - 1's last, its last from warp w +
+    1's first), so the cut lands late across warp edges too. Same contract
+    as :func:`banded_batch`, for any W from 1 to :data:`MAX_WIDTH`;
+    history, pos_y and offsets are 0 at and past each pair's n_rounds.
+    Nothing on the card path calls it."""
+    _check_width(int(bandwidth), "round", "wide_warp", "wide")
+    return _round_mirror(qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth,
+                         x_threshold, compress_history, with_history, gap_open,
+                         gap_extend, matrix, cta=True)
+
+
+def _round_mirror(qs, ts, lens_q, lens_t, match, mismatch, gap, bandwidth, x_threshold,
+                  compress_history, with_history, gap_open, gap_extend, matrix, cta):
+    """Both kernels' round body (csrc/sw_xdrop.cu ``xdrop_pair``): one warp
+    of 32 ceil(W / 32) cells, or (``cta``) ceil(W / 128) warps of 128
+    exchanging through the parity slots. The cells are [warps, C]."""
     gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
     q = as_codes(qs, torch.device("cpu")).numpy().astype(np.int64)
     t = as_codes(ts, torch.device("cpu")).numpy().astype(np.int64)
     B, n = q.shape
     m = t.shape[1]
     W, X = int(bandwidth), int(x_threshold)
-    _check_width(W, wide=False)
     if with_history and compress_history and X > 254:
         raise ValueError("8-bit history needs x_threshold <= 254")
     lq = np.full(B, n) if lens_q is None else np.asarray(lens_q, np.int64)
     lt = np.full(B, m) if lens_t is None else np.asarray(lens_t, np.int64)
     affine = gap_open is not None
     G = gap_open if affine else gap
-    CPL = -(-W // 32)
-    P = 32 * CPL
+    CPL = 4 if cta else -(-W // 32)
+    C = 32 * CPL  # cells a warp
+    nw = -(-W // C)
+    P = C * nw
     exact = W == P
-    k = np.arange(P)
+    k = np.arange(P).reshape(nw, C)  # warp w's cells C w .. C w + C - 1
+    base = np.arange(nw) * C
+    end_k = np.minimum(C, W - base) - 1  # each warp's last real cell
+    rows = np.arange(nw)
     if matrix is not None:
         tab = _banded_ext_table(matrix).astype(np.int64)
         stride = tab.shape[0]
@@ -399,11 +466,11 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
     def score(qc, tc):
         return tab[qc + tc] if matrix is not None else np.where(qc == tc, sm, smm)
 
-    def dn(a, fill):  # out[k] = a[k - 1]
-        return np.concatenate([[fill], a[:-1]])
+    def dn(a, fill):  # out[k] = a[k - 1] within each warp, fill at its first cell
+        return np.concatenate([np.broadcast_to(fill, (nw,))[:, None], a[:, :-1]], axis=1)
 
-    def up(a, fill):  # out[k] = a[k + 1]
-        return np.concatenate([a[1:], [fill]])
+    def up(a, fill):  # out[k] = a[k + 1] within each warp, fill at its last cell
+        return np.concatenate([a[:, 1:], np.broadcast_to(fill, (nw,))[:, None]], axis=1)
 
     R_cap = (max(n, m) + 1) * 2 - 1
     score_o, max_round_o, n_rounds_o = (np.zeros(B, np.int32) for _ in range(3))
@@ -414,43 +481,58 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
     for b in range(B):
         qb, tb, Lq, Lt = q[b], t[b], int(lq[b]), int(lt[b])
         rcap = (max(Lq, Lt) + 1) * 2 - 1
-        t_lead = P - W
+        # each warp's windows start at its own entering codes: a down move
+        # brings query code d + W - 2 - C w to its first cell, a right move
+        # target code u - W + C w + C - 1 to its last
+        q_lead, t_lead = W - 1 - base, base + C - W
         qc = q_code(raw(qb, W - 2 - k, Lq))
         tc = t_code(raw(tb, k - W, Lt))
         v = np.where(k == W - 1, X, 0)
         rng = v - G
-        hg = np.full(P, DEAD)
-        vg = np.full(P, DEAD)
-        e = np.zeros(P, np.int64)
-        f = np.zeros(P, np.int64)
+        hg = np.full((nw, C), DEAD)
+        vg = np.full((nw, C), DEAD)
+        e = np.zeros((nw, C), np.int64)
+        f = np.zeros((nw, C), np.int64)
         d = u = 0
         ms, max_round, n_rounds = X, 0, 1
-        # the windows: 64 codes from W - 1 + qw and t_lead + tw, moved on by
+        # the windows: 64 codes from q_lead + qw and t_lead + tw, moved on by
         # 32 between blocks of 32 rounds once a block has used 32 of them;
         # the entering codes at window lanes d - qw and u - tw
         qw = tw = 0
+        slots = [None, None]  # the CTA's slot sets, by round parity
 
         def qwin():
             assert 0 <= d - qw < 64
-            return q_code(raw(qb, W - 1 + qw + np.arange(64), Lq))
+            return q_code(raw(qb, q_lead[:, None] + qw + np.arange(64), Lq))
 
         def twin():
             assert 0 <= u - tw < 64
-            return t_code(raw(tb, t_lead + tw + np.arange(64), Lt))
+            return t_code(raw(tb, t_lead[:, None] + tw + np.arange(64), Lt))
 
         def write(r, cut, y):
-            res = np.where(v >= max(cut, 1), v, 0)[:W]
+            res = np.where(v >= max(cut, 1), v, 0).reshape(-1)[:W]
             hist[r, b] = np.where(res > 0, res - cut + 1, 0) if compress_history else res
             posy[r, b], offs[r, b] = y, cut
 
-        def candidates():
-            qsd, tsu = dn(qc, qwin()[d - qw]), up(tc, twin()[u - tw])
-            return (dn(rng, DEAD), up(rng, DEAD), qsd, tsu, vg + score(qc, tsu),
-                    hg + score(qsd, tc), dn(e, _ANY), up(f, _ANY))
+        def candidates(r):
+            """The next round's operands for both moves, uncut, and what the
+            direction needs: (candidates, round max, band[0], band[W - 1])."""
+            qsd, tsu = dn(qc, qwin()[:, d - qw]), up(tc, twin()[:, u - tw])
+            sd, su, ed, fu = dn(rng, DEAD), up(rng, DEAD), dn(e, _ANY), up(f, _ANY)
+            if cta:  # before the barrier: publish; after it: read
+                slots[r % 2] = dict(max=v.max(axis=1), first_h=rng[:, 0], first_f=f[:, 0],
+                                    last_h=rng[rows, end_k], last_e=e[rows, end_k])
+                s = slots[r % 2]
+                sd[1:, 0], ed[1:, 0] = s["last_h"][:-1], s["last_e"][:-1]
+                su[:-1, -1], fu[:-1, -1] = s["first_h"][1:], s["first_f"][1:]
+                ends = int(s["max"].max()), s["first_h"][0] + G, s["last_h"][-1] + G
+            else:
+                ends = int(v.max()), v[0, 0], v[0, W - 1]
+            return (sd, su, qsd, tsu, vg + score(qc, tsu), hg + score(qsd, tc), ed, fu), ends
 
         write(0, 0, 0)
-        sd, su, qsd, tsu, dr, dd, ed, fu = candidates()
-        right = v[W - 1] > max(v[0], -1)
+        (sd, su, qsd, tsu, dr, dd, ed, fu), (_, b0, bw) = candidates(0)
+        right = bw > max(b0, -1)
         thr = 1 - G
         for r in range(1, rcap):
             if (u >= W + Lt) if right else (d > Lq):
@@ -475,13 +557,12 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
             qc = qc if right else qsd
             tc = tsu if right else tc
             u, d = u + right, d + (not right)
-            rmax = int(v.max())
-            sd, su, qsd, tsu, dr, dd, ed, fu = candidates()
+            (sd, su, qsd, tsu, dr, dd, ed, fu), (rmax, b0, bw) = candidates(r)
             if rmax > ms:
                 ms, max_round = rmax, r
             cut = ms - X
             thr = max(cut, 1) - G
-            right = v[W - 1] > max(v[0], cut - 1)
+            right = bw > max(b0, cut - 1)
             n_rounds = r + 1
             write(r, cut, d)
             if rmax == 0:
@@ -489,141 +570,6 @@ def xdrop_round_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
             if r % 32 == 0:  # between blocks
                 qw += 32 * (d - qw >= 32)
                 tw += 32 * (u - tw >= 32)
-        score_o[b], max_round_o[b], n_rounds_o[b] = ms - X, max_round, n_rounds
-    out = [torch.from_numpy(x) for x in (score_o, max_round_o, n_rounds_o)]
-    if not with_history:
-        return BandedBatchResult(*out, None, None)
-    hist = torch.from_numpy(hist.astype(np.uint8) if compress_history else hist)
-    return BandedBatchResult(*out, hist, torch.from_numpy(posy),
-                             torch.from_numpy(offs) if compress_history else None)
-
-
-# -- a plain mirror of the wide kernel's CTA schedule (tests only) -----------
-
-_EF_DEAD = -(2**28)  # dead E/F (csrc/sw_xdrop.cu, wide::EF_DEAD)
-_MINF = -(2**30)
-
-
-def xdrop_wide_mirror(qs, ts, lens_q=None, lens_t=None, match=1, mismatch=1,
-                      gap=1, bandwidth=160, x_threshold=70, compress_history=False,
-                      with_history=True, gap_open=None, gap_extend=None,
-                      matrix=None) -> BandedBatchResult:
-    """The wide kernel's schedule replayed in numpy, pair by pair, on the
-    32 * ceil(W / 32) threads of its CTA (cells k >= W phantom, 0 in every
-    reduction): the band, E and F in two buffers (a round reads one and
-    writes the other), each cell's diagonal term held by its thread, the
-    codes loaded a round ahead for both moves (the query code a down move
-    brings, the target code a right move brings), the round max as a max a
-    warp and then a max over the warps' slots, the cut applied as each
-    thread writes its cell, the direction read from the written buffer's
-    end cells at the next round's start. Same contract as
-    :func:`banded_batch`, for any W from 1 to :data:`MAX_WIDTH`; history,
-    pos_y and offsets are 0 at and past each pair's n_rounds. Nothing on
-    the card path calls it."""
-    gap, gap_open, gap_extend = _gaps(gap, gap_open, gap_extend)
-    q = as_codes(qs, torch.device("cpu")).numpy().astype(np.int64)
-    t = as_codes(ts, torch.device("cpu")).numpy().astype(np.int64)
-    B, n = q.shape
-    m = t.shape[1]
-    W, X = int(bandwidth), int(x_threshold)
-    _check_width(W, wide=True)
-    if with_history and compress_history and X > 254:
-        raise ValueError("8-bit history needs x_threshold <= 254")
-    lq = np.full(B, n) if lens_q is None else np.asarray(lens_q, np.int64)
-    lt = np.full(B, m) if lens_t is None else np.asarray(lens_t, np.int64)
-    affine = gap_open is not None
-    P = 32 * -(-W // 32)
-    k = np.arange(P)
-    live = k < W
-    if matrix is not None:
-        tab = _banded_ext_table(matrix).astype(np.int64)
-        stride = tab.shape[0]
-
-    def score(yc, xc):
-        if matrix is None:
-            return np.where((yc >= 0) & (xc >= 0) & (yc == xc), match, -mismatch)
-        qi = np.where(yc >= 0, np.minimum(yc, stride - 1), stride - 2)
-        ti = np.where(xc >= 0, np.minimum(xc, stride - 1), stride - 1)
-        return tab[qi, ti]
-
-    R_cap = (max(n, m) + 1) * 2 - 1
-    score_o, max_round_o, n_rounds_o = (np.zeros(B, np.int32) for _ in range(3))
-    hist = np.zeros((R_cap, B, W), np.int32)
-    posy = np.zeros((R_cap, B), np.int32)
-    offs = np.zeros((R_cap, B), np.int32)
-    for b in range(B):
-        Lq, Lt = int(lq[b]), int(lt[b])
-        qrow, trow = q[b], t[b]
-
-        def q_at(i):  # the padded query row: the query at 1..Lq
-            i = np.asarray(i)
-            ok = (i >= 1) & (i <= Lq)
-            return np.where(ok, qrow[np.clip(i - 1, 0, max(n - 1, 0))] if n else -1, -1)
-
-        def t_at(j):  # the padded target row: the target at W..W + Lt - 1
-            x = np.asarray(j) - W
-            ok = (x >= 0) & (x < Lt)
-            return np.where(ok, trow[np.clip(x, 0, max(m - 1, 0))] if m else -1, -1)
-
-        rcap = (max(Lq, Lt) + 1) * 2 - 1
-        band = np.zeros((2, P), np.int64)
-        eb = np.full((2, P), _EF_DEAD, np.int64)
-        fb = np.full((2, P), _EF_DEAD, np.int64)
-        band[0] = np.where(k == W - 1, X, 0)
-        hist[0, b] = np.where(band[0, :W] > 0, band[0, :W] + 1, 0) if compress_history \
-            else band[0, :W]
-        hor = np.zeros(P, np.int64)
-        ver = np.zeros(P, np.int64)
-        now_y, now_x, ms, max_round, n_rounds = 0, W - 1, X, 0, 1
-        qa, qb = q_at(W - 1 - k), q_at(W - k)
-        ta, tb = t_at(k), t_at(k + 1)
-        p = 0
-        for r in range(1, rcap):
-            right = bool(band[p, 0] < band[p, W - 1])
-            nx, ny = now_x + right, now_y + (not right)
-            if (nx > 2 * W + Lt - 1) if right else (ny > Lq + 1):
-                break
-            yc, xc = (qa, tb) if right else (qb, ta)
-            qa, ta = yc, xc
-            qb, tb = q_at(ny + W - k), t_at(nx - W + 2 + k)
-            rp = band[p]
-            left = np.concatenate([[0], rp[:-1]])  # thread k - 1's cell
-            upn = np.where(k < W - 1, np.concatenate([rp[1:], [0]]), 0)
-            diag = ver if right else hor
-            hn = rp if right else left
-            vn = upn if right else rp
-            rn = np.where(diag != 0, np.maximum(diag + score(yc, xc), 0), 0)
-            if affine:
-                he = eb[p] if right else np.concatenate([[_EF_DEAD], eb[p, :-1]])
-                vf = (np.where(k < W - 1, np.concatenate([fb[p, 1:], [_EF_DEAD]]),
-                               _EF_DEAD) if right else fb[p])
-                en = np.maximum(np.where(he > _EF_DEAD // 2, he - gap_extend, _MINF),
-                                np.where(hn != 0, hn - gap_open, _MINF))
-                fn = np.maximum(np.where(vf > _EF_DEAD // 2, vf - gap_extend, _MINF),
-                                np.where(vn != 0, vn - gap_open, _MINF))
-                rn = np.maximum(rn, np.where(en > _MINF // 2, en, 0))
-                rn = np.maximum(rn, np.where(fn > _MINF // 2, fn, 0))
-            else:
-                rn = np.where(hn != 0, np.maximum(rn, hn - gap), rn)
-                rn = np.where(vn != 0, np.maximum(rn, vn - gap), rn)
-            rn = np.where(live, rn, 0)
-            round_max = int(rn.reshape(-1, 32).max(axis=1).max())  # a slot a warp
-            if ms < round_max:
-                ms, max_round = round_max, r
-            cut = ms - X
-            rc = np.where(rn < cut, 0, rn)
-            band[p ^ 1] = np.where(live, rc, band[p ^ 1])
-            if affine:
-                eb[p ^ 1] = np.where(live, np.where(rc == 0, _EF_DEAD, en), eb[p ^ 1])
-                fb[p ^ 1] = np.where(live, np.where(rc == 0, _EF_DEAD, fn), fb[p ^ 1])
-            hist[r, b] = (np.where(rc[:W] > 0, rc[:W] - cut + 1, 0) if compress_history
-                          else rc[:W])
-            posy[r, b], offs[r, b] = ny, cut
-            hor, ver = hn, vn
-            now_x, now_y, n_rounds = nx, ny, r + 1
-            p ^= 1
-            if round_max == 0:
-                break
         score_o[b], max_round_o[b], n_rounds_o[b] = ms - X, max_round, n_rounds
     out = [torch.from_numpy(x) for x in (score_o, max_round_o, n_rounds_o)]
     if not with_history:

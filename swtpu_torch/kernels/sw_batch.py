@@ -220,13 +220,15 @@ _INT_MIN, _INT_MAX = -(2**31), 2**31 - 1
 
 
 def key_bits(profile: bool, n: int, m: int, match: int, mismatch: int, go: int,
-             ge: int):
+             ge: int, entry: int = MAX_ENTRY):
     """The mirrors' copy of csrc/sw_local_tile.cuh's ``key_bits``: the
     step bits k of the endpoint forms' packed tracker (key = (H - go) x
     2^k + 2^k - 1 - step), or None when the key cannot hold these sizes and
-    scores (a profile entry counts as MAX_ENTRY)."""
+    scores (a profile entry counts as ``entry``: MAX_ENTRY for the profile
+    kernel, the matrix's own largest for the general kernel's tile form,
+    whose library passes it as match and mismatch)."""
     k = max(m + ROWS + GROUP - 1, 0).bit_length()
-    mag = max(MAX_ENTRY if profile else max(abs(match), abs(mismatch)), abs(go), abs(ge))
+    mag = max(entry if profile else max(abs(match), abs(mismatch)), abs(go), abs(ge))
     span = (n + m + ROWS + GROUP) * mag + go + 1
     return k if k < 31 and span < 2 ** (31 - k) else None
 
@@ -239,21 +241,23 @@ def narrow(match: int, mismatch: int, go: int) -> bool:
 
 
 def local_tracker(profile: bool, ends: bool, n: int, m: int, match: int, mismatch: int,
-                  go: int, ge: int, select: bool = False):
+                  go: int, ge: int, select: bool = False, entry: int = MAX_ENTRY):
     """(END_*, wide, key bits or None): the form a launch of the row-scan
-    (``profile`` False) or the profile thread form runs, as the libraries'
-    ``swtpu_sw_rowscan_form`` / ``swtpu_sw_profile_form`` choose it."""
+    (``profile`` False), the profile thread form or the general kernel's
+    tile form (``profile`` with ``entry`` its matrix's largest |entry|)
+    runs, as the libraries' ``swtpu_sw_rowscan_form`` /
+    ``swtpu_sw_profile_form`` / ``swtpu_sw_general_tile_form`` choose it."""
     wide = not profile and not narrow(match, mismatch, go)
     if not ends:
         return END_SCORE, wide, None
-    k = key_bits(profile, n, m, match, mismatch, go, ge)
+    k = key_bits(profile, n, m, match, mismatch, go, ge, entry)
     if select or wide or k is None:
         return END_SELECT, wide, None
     return END_KEY, wide, k
 
 
 def local_skew_mirror(qs, ts, params: ScoringParams, ends: bool, profile: bool,
-                      select: bool = False, affine: bool = None):
+                      select: bool = False, affine: bool = None, entry: int = MAX_ENTRY):
     """The local kernels' schedule (csrc/sw_local_tile.cuh) replayed in
     PyTorch on the CPU over [B, ROWS]: sweeps of ROWS rows, phantom pad
     rows past n; at step s row r computes column s - r from row r - 1's
@@ -271,8 +275,10 @@ def local_skew_mirror(qs, ts, params: ScoringParams, ends: bool, profile: bool,
     of rows, or per-row (best, step) on a strict '>' in one key where
     :func:`key_bits` allows (the launch's choice), folded in row order
     after each sweep. ``affine`` (default: gap_open != gap_extend) picks the
-    Gotoh instantiation, as the affine wrappers do on a linear scoring.
-    Nothing on the card path calls it."""
+    Gotoh instantiation, as the affine wrappers do on a linear scoring;
+    ``entry`` is the |profile entry| the packed key must hold (the general
+    kernel's tile form: its matrix's largest). Nothing on the card path
+    calls it."""
     cpu = torch.device("cpu")
     q = as_codes(qs, cpu).long()
     t = as_codes(ts, cpu).long()
@@ -291,7 +297,8 @@ def local_skew_mirror(qs, ts, params: ScoringParams, ends: bool, profile: bool,
     else:
         match, mismatch = _uniform_match_mismatch(params)
         alpha, hit, miss = params.alphabet_size, match + go, mismatch + go
-    end, wide, kbits = local_tracker(profile, ends, n, m, match, mismatch, go, ge, select)
+    end, wide, kbits = local_tracker(profile, ends, n, m, match, mismatch, go, ge, select,
+                                     entry)
     kmul = 2 ** (kbits or 0)
     origin = -go * kmul + kmul - 1 if end == END_KEY else -go
     R, ar = ROWS, torch.arange(ROWS)

@@ -1,5 +1,5 @@
 """Batched local-alignment scores and endpoints under any scoring the plain
-anti-diagonal tier takes: the CUDA kernel and its plain PyTorch version.
+anti-diagonal tier takes: the CUDA kernels and their plain PyTorch version.
 
 Port of the scorings JAX's TPU dispatch sends to its XLA tier
 (``swtpu/ops/variants.py``: ``best_engine`` falls through to
@@ -11,22 +11,35 @@ gap_extend <= 0 (a constant or falling gap cost), matrix entries outside
 [-127, 127]. On the card the row-scan and profile kernels keep every
 scoring they take; ``ops.variants.local_form`` sends the rest here.
 
-The kernel is ``csrc/sw_general.cu``, whose head note says what it
-computes, what bounds it and how: a thread per pair, strips of 16 rows
-in registers swept over the tier's whole diagonal range (the boundary
-row and the cells outside the target's columns included: with gap <= 0
-they grow and reach the real cells, and the tier never masks them), the
-tier's extended table (``sw_scan._extended_table``, pads at -2^20) in
-shared memory, the endpoint tracked on H. The plain versions are the
-tier itself (``sw_scan.sw_batch_diag(_ends)`` linear,
-``affine_scan.sw_affine_batch_diag(_ends)`` Gotoh, by
+Both kernels are in ``csrc/sw_general.cu``, whose head note says what they
+compute, what bounds them and how; :func:`general_form` picks one by the
+gaps' signs:
+
+- ``"tile"`` where no gap penalty is negative (linear gap >= 0, Gotoh
+  gap_open, gap_extend >= 0: gap 0, Gotoh 3/0, the matrices past +-127
+  under positive gaps). There the tier's cells outside the matrix change
+  neither the score nor the endpoint, so the kernel computes the n x m
+  real cells alone on the skewed register tile of
+  ``csrc/sw_local_tile.cuh`` that the profile thread form runs: a thread
+  per pair, 16 query rows a sweep, masks only in a sweep's opening and
+  closing steps, the tier's extended table as a lane table in shared
+  memory, the endpoint in one packed key where ``key_bits`` holds the
+  matrix's own range (else the select tracker);
+- ``"sweep"`` for a negative penalty, where the tier's boundary row and
+  the cells outside the target's columns grow and reach the real cells:
+  strips of 16 rows in registers swept over the tier's whole diagonal
+  range, the endpoint tracked on H.
+
+The plain versions are the tier itself (``sw_scan.sw_batch_diag(_ends)``
+linear, ``affine_scan.sw_affine_batch_diag(_ends)`` Gotoh, by
 ``ScoringParams.is_linear`` as ``best_engine`` picks on the CPU).
 
 ``sw_general`` and ``sw_general_ends`` run where their device says: on
-the CPU the plain version, on a CUDA device the kernel, never the plain
+the CPU the plain version, on a CUDA device a kernel, never the plain
 version there; a failed build or launch raises. Each counts its launches
-in ``<wrapper>.launches``, those of the Gotoh instantiation also in
-``<wrapper>.launches_affine``.
+in ``<wrapper>.launches``, those of the Gotoh instantiations also in
+``<wrapper>.launches_affine`` and those of the tile form in
+``<wrapper>.launches_tile``.
 """
 
 from __future__ import annotations
@@ -38,13 +51,13 @@ import torch
 from swtpu_torch.core.scoring import ScoringParams
 from swtpu_torch.kernels import _build
 from swtpu_torch.kernels.affine_scan import sw_affine_batch_diag, sw_affine_batch_diag_ends
-from swtpu_torch.kernels.sw_batch import launch_codes, ptr
+from swtpu_torch.kernels.sw_batch import launch_buffers, launch_codes, ptr
 from swtpu_torch.kernels.sw_profile import profile_table
 from swtpu_torch.kernels.sw_scan import sw_batch_diag, sw_batch_diag_ends
 from swtpu_torch.utils.device import resolve_device
 
 SOURCE = "sw_general.cu"
-ROWS = 16  # rows a strip (csrc/sw_general.cu)
+ROWS = 16  # rows a strip of the sweep form, a sweep of the tile form (csrc/sw_general.cu)
 MAX_LETTERS = 30  # the extended table is at most 32 x 32, two codes for pads
 
 
@@ -57,23 +70,84 @@ def general_refusal(params: ScoringParams):
     return None
 
 
-def _general_fn():
+def general_form(params: ScoringParams) -> str:
+    """The kernel that takes ``params`` on the card: ``"tile"`` where no gap
+    penalty is negative (linear gap >= 0; Gotoh gap_open >= 0 and
+    gap_extend >= 0), else ``"sweep"``."""
+    if params.is_linear:
+        return "tile" if params.gap_open >= 0 else "sweep"
+    return "tile" if params.gap_open >= 0 and params.gap_extend >= 0 else "sweep"
+
+
+def max_entry(params: ScoringParams) -> int:
+    """The matrix's largest |entry|: the range the tile form's packed
+    endpoint key has to hold."""
+    return int(abs(params.matrix).max()) if params.matrix.size else 0
+
+
+def _general_fn(name="swtpu_sw_general"):
     lib = _build.load(SOURCE)
-    fn = lib.swtpu_sw_general
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i] + [p] * 7 + [i] * 7 + [p]
+        fn.argtypes = ([i, i] + [p] * 7 + [i] * 7 + [p] if name == "swtpu_sw_general"
+                       else [i, i, i] + [p] * 7 + [i] * 8 + [p])
         fn.restype = ctypes.c_int
+        lib.swtpu_sw_general_tile_rows.restype = ctypes.c_int
+        lib.swtpu_sw_general_tile_form.restype = ctypes.c_int
     return lib, fn
 
 
-def general_launch_t(q, t, table, params: ScoringParams, ends: bool):
-    """The launch alone: q [B, n] and t [B, m] contiguous uint8 codes on one
-    CUDA device (no transposes) and the extended table
+def _check_table(table, device) -> int:
+    """The extended table's stride; raises unless it is a square contiguous
+    int32 tensor on ``device``."""
+    stride = table.shape[0]
+    if (table.dtype != torch.int32 or table.device != device
+            or table.shape != (stride, stride) or not table.is_contiguous()):
+        raise ValueError("the general local kernel takes a square contiguous int32 "
+                         f"table on the codes' device, got {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}")
+    return stride
+
+
+def general_tile_launch_t(q, t, table, params: ScoringParams, ends: bool,
+                          select: bool = False):
+    """The tile form's launch alone: q [B, n] and t [B, m] contiguous uint8
+    codes on one CUDA device (no transposes) and the extended table
+    (``sw_profile.profile_table``) there; the lane table holds the alphabet
+    + 1 codes (a code past them scores as the pad). Gotoh unless gap_open ==
+    gap_extend; no gap penalty may be negative (:func:`general_form`).
+    ``select`` makes an endpoint launch keep (best, step) apart even where
+    the packed key holds the scores. Allocates the hand-off scratch and the
+    outputs (``sw_batch.launch_buffers``) and launches on the device's
+    current stream. Returns int32 [B] score, or (score, end_i, end_j)."""
+    if general_form(params) != "tile":
+        raise ValueError("the tile form takes no negative gap penalty (got "
+                         f"{params.gap_open}, {params.gap_extend})")
+    affine = not params.is_linear
+    lib, fn = _general_fn("swtpu_sw_general_tile")
+    B, n, m, scratch, out = launch_buffers(q, t, affine, ends, "general local",
+                                           lib.swtpu_sw_general_tile_rows())
+    stride = _check_table(table, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            int(affine), int(ends), int(select), ptr(q), ptr(t), ptr(table), ptr(scratch),
+            ptr(out[0]), ptr(out[1]) if ends else None, ptr(out[2]) if ends else None,
+            B, n, m, stride, params.alphabet_size + 1, max_entry(params),
+            params.gap_open, params.gap_extend, stream,
+        )
+    _build.check(lib, err, "sw_general_tile")
+    return (out[0], out[1], out[2]) if ends else out[0]
+
+
+def general_sweep_launch_t(q, t, table, params: ScoringParams, ends: bool):
+    """The sweep form's launch alone: q [B, n] and t [B, m] contiguous uint8
+    codes on one CUDA device (no transposes) and the extended table
     (``sw_profile.profile_table``) there; Gotoh unless gap_open ==
-    gap_extend. Allocates the strip scratch (past one strip of 16 rows) and
-    the outputs and launches on the device's current stream. Returns int32
-    [B] score, or (score, end_i, end_j)."""
+    gap_extend; any gap signs. Allocates the strip scratch (past one strip
+    of 16 rows) and the outputs and launches on the device's current
+    stream. Returns int32 [B] score, or (score, end_i, end_j)."""
     device = q.device
     for x in (q, t):
         if (x.dtype != torch.uint8 or x.device != device or device.type != "cuda"
@@ -87,12 +161,7 @@ def general_launch_t(q, t, table, params: ScoringParams, ends: bool):
         raise ValueError(f"batch mismatch: {B} queries vs {t.shape[0]} targets")
     if max(B, n, m) >= 2**31:  # the C interface takes int sizes
         raise ValueError(f"shape too large for one launch: {B}, {n}, {m}")
-    stride = table.shape[0]
-    if (table.dtype != torch.int32 or table.device != device
-            or table.shape != (stride, stride) or not table.is_contiguous()):
-        raise ValueError("the general local kernel takes a square contiguous int32 "
-                         f"table on the codes' device, got {table.dtype} "
-                         f"{tuple(table.shape)} on {table.device}")
+    stride = _check_table(table, device)
     affine = not params.is_linear
     i32 = dict(dtype=torch.int32, device=device)
     scratch = torch.empty((2 * n + m + 1, B, 2), **i32) if n + 1 > ROWS and B else None
@@ -130,9 +199,12 @@ def _run(wrapper, plain, qs, ts, params: ScoringParams, device, ends: bool):
     if dev.type == "cpu":
         return plain(qs, ts, params, dev)
     q, t = launch_codes(qs, ts, dev, "general local")
-    out = general_launch_t(q, t, profile_table(params, dev), params, ends)
+    tile = general_form(params) == "tile"
+    launch = general_tile_launch_t if tile else general_sweep_launch_t
+    out = launch(q, t, profile_table(params, dev), params, ends)
     wrapper.launches += 1
     wrapper.launches_affine += not params.is_linear
+    wrapper.launches_tile += tile
     return out
 
 
@@ -156,4 +228,5 @@ def sw_general_ends(qs, ts, params: ScoringParams, device=None):
 for _w in (sw_general, sw_general_ends):
     _w.launches = 0
     _w.launches_affine = 0
+    _w.launches_tile = 0
 

@@ -1101,26 +1101,44 @@ def test_banded_align_on_card_equals_cpu(card, scoring):
             qh, th, bandwidth=W, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("W", [129, 160, 256, 512, 1024])
+@pytest.mark.parametrize("W", [129, 160, 255, 256, 257, 384, 512, 1000, 1024])
 @pytest.mark.parametrize("mode", list(XDROP_MODES))
 def test_xdrop_wide_kernel_equals_plain_on_card(card, mode, W):
-    """Bands past 128 take the wide kernel (a CTA a pair): every field
-    equals the plain version, one launch counted apart."""
+    """Bands past 128 take the wide kernel (a CTA a pair, a warp each 128
+    cells): every field equals the plain version, one launch counted
+    apart, at one to eight warps, W a multiple of 128 and not."""
     kw = dict(XDROP_MODES[mode])
     rng = np.random.default_rng(10000)
     qs, ts, lens = xdrop_set(rng, 20 if "matrix" in kw else 4, 32, 300, card)
     if kw.pop("lens", False):
         kw.update(lens)
     kern = banded_batch.banded_batch
-    before = (kern.launches, kern.launches_w32_w64, kern.launches_wide)
+    warp = banded_batch.banded_form(W) == "wide_warp"
+    before = (kern.launches, kern.launches_w32_w64, kern.launches_wide,
+              kern.launches_wide_warp)
     got = kern(qs, ts, bandwidth=W, **kw)
     torch.cuda.synchronize()
-    assert (kern.launches, kern.launches_w32_w64, kern.launches_wide) == (
-        before[0], before[1], before[2] + 1)
+    assert (kern.launches, kern.launches_w32_w64, kern.launches_wide,
+            kern.launches_wide_warp) == (before[0], before[1], before[2] + 1,
+                                         before[3] + warp)
     want = banded_batch.banded_batch_plain(qs, ts, bandwidth=W, device=card, **kw)
     for g, w in zip(xdrop_fields(got), xdrop_fields(want), strict=True):
         assert g.device.type == "cuda" and g.dtype == w.dtype
         assert torch.equal(g, w), (mode, W)
+    # the CTA launch alone at every W, and the one-warp form alone to 256
+    matrix = kw.get("matrix")
+    args = (*banded_batch.stage(qs, ts, kw.get("lens_q"), kw.get("lens_t"), card), W,
+            kw.get("x_threshold", 70), kw.get("match", 1), kw.get("mismatch", 1),
+            kw.get("gap", 1), kw.get("gap_open"), kw.get("gap_extend"),
+            None if matrix is None else sw_banded.banded_table(matrix, card),
+            kw.get("with_history", True), kw.get("compress_history", False))
+    launches = [banded_batch.xdrop_wide_launch_t]
+    if warp:
+        launches.append(banded_batch.xdrop_wide_warp_launch_t)
+    for launch in launches:
+        out = BandedBatchResult(*launch(*args))
+        for g, w in zip(xdrop_fields(out), xdrop_fields(want), strict=True):
+            assert torch.equal(g, w), (mode, W, launch.__name__)
 
 
 @pytest.mark.parametrize("W", [1, 8, 32, 40, 96, 128])
@@ -1204,6 +1222,8 @@ GENERAL_SCORINGS = {
     "g4x60_gotoh": ScoringParams(np.array([[3, -2, -1, -2], [-2, 3, -2, -1],
                                            [-1, -2, 3, -2], [-2, -1, -2, 3]]) * 60, 100, 20),
     "blosum62_gap0": ScoringParams(BLOSUM62, 0, 0),
+    "gotoh0_2": ScoringParams(dna_matrix(2, -3), 0, 2),
+    "blosum62x12_gotoh": ScoringParams(np.asarray(BLOSUM62) * 12, 132, 12),
 }
 
 
@@ -1223,15 +1243,68 @@ def test_general_kernel_equals_plain_on_card(card, scoring, shape):
     if shape.endswith("_pads"):
         qs[:, 70:] = A
         ts[:, ::17] = A + 1
+    tile = sw_general.general_form(p) == "tile"
+    table = sw_profile.profile_table(p, card)
     for ends, kern, plain in ((False, sw_general.sw_general, sw_general.sw_general_plain),
                               (True, sw_general.sw_general_ends,
                                sw_general.sw_general_ends_plain)):
-        before = (kern.launches, kern.launches_affine)
+        before = (kern.launches, kern.launches_affine, kern.launches_tile)
         got = kern(qs, ts, p)
-        assert (kern.launches, kern.launches_affine) == (
-            before[0] + 1, before[1] + (not p.is_linear))
-        for g, w in zip(tup(got), tup(plain(qs, ts, p, card)), strict=True):
+        assert (kern.launches, kern.launches_affine, kern.launches_tile) == (
+            before[0] + 1, before[1] + (not p.is_linear), before[2] + tile)
+        want = tup(plain(qs, ts, p, card))
+        for g, w in zip(tup(got), want, strict=True):
             assert g.device.type == "cuda" and torch.equal(g, w), (scoring, shape, ends)
+        # each form launched alone: the sweep under every scoring, the tile
+        # where no gap penalty is negative, with the packed key and the
+        # select tracker
+        launches = [sw_general.general_sweep_launch_t(qs, ts, table, p, ends)]
+        if tile:
+            launches += [sw_general.general_tile_launch_t(qs, ts, table, p, ends, select)
+                         for select in (False, True)]
+        for out in launches:
+            for g, w in zip(tup(out), want, strict=True):
+                assert torch.equal(g, w), (scoring, shape, ends)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (40, 17), (300, 1200), (17, 3)])
+def test_general_tile_tracker_equals_mirror_copy(card, shape):
+    """The tile form's library picks the tracker its mirrors' copy picks
+    (the packed key where key_bits holds the matrix's own range)."""
+    lib, _ = sw_general._general_fn("swtpu_sw_general_tile")
+    n, m = shape
+    for p in GENERAL_SCORINGS.values():
+        if sw_general.general_form(p) != "tile":
+            continue
+        mag = sw_general.max_entry(p)
+        for ends, select in ((False, False), (True, False), (True, True)):
+            end, _, _ = sw_batch.local_tracker(True, ends, n, m, 0, 0, p.gap_open,
+                                               p.gap_extend, select, entry=mag)
+            assert lib.swtpu_sw_general_tile_form(int(ends), int(select), n, m, mag,
+                                                  p.gap_open, p.gap_extend) == end
+
+
+def test_general_calls_leave_rows_1_to_6_alone_on_card(card):
+    """A call that local_form sends to the general kernel launches it
+    alone, in either form: the row-scan and profile kernels' counts (rows
+    1-6) do not move."""
+    from swtpu_torch.ops.variants import local_form
+
+    rng = np.random.default_rng(10003)
+    qs, ts = codes(rng, 256, 64, card), codes(rng, 256, 80, card)
+    rows = (sw_batch.sw_batch, sw_batch.sw_batch_ends, sw_affine.sw_affine,
+            sw_affine.sw_affine_ends, sw_profile.sw_profile, sw_profile.sw_profile_ends)
+    before = [w.launches for w in rows]
+    general = (sw_general.sw_general.launches, sw_general.sw_general_ends.launches)
+    scorings = [p for p in GENERAL_SCORINGS.values() if local_form(p) == "general"]
+    assert {sw_general.general_form(p) for p in scorings} == {"tile", "sweep"}
+    for p in scorings:
+        best_engine(p, card)(qs, ts)
+        best_ends_engine(p, card)(qs, ts)
+    torch.cuda.synchronize()
+    assert [w.launches for w in rows] == before
+    assert (sw_general.sw_general.launches, sw_general.sw_general_ends.launches) == (
+        general[0] + len(scorings), general[1] + len(scorings))
 
 
 def test_engines_take_every_local_scoring_on_card(card):
@@ -1244,7 +1317,7 @@ def test_engines_take_every_local_scoring_on_card(card):
     rng = np.random.default_rng(10002)
     qs = codes(rng, 512, 64, card)
     ts = codes(rng, 512, 80, card)
-    for p in list(GENERAL_SCORINGS.values())[:-1]:
+    for p in [p for p in GENERAL_SCORINGS.values() if p.alphabet_size == 4]:
         before = (sw_general.sw_general.launches, sw_general.sw_general_ends.launches)
         got, got_ends = best_engine(p, card)(qs, ts), best_ends_engine(p, card)(qs, ts)
         assert (sw_general.sw_general.launches, sw_general.sw_general_ends.launches) == (

@@ -12,13 +12,23 @@ chip_smoke.py hold it against the plain version there). Here, tolerance
 
 - the port's plain tiers (``sw_scan.sw_batch_diag(_ends)``,
   ``affine_scan.sw_affine_batch_diag(_ends)``) against JAX's XLA ones;
-- ``general_strip_mirror`` below (strips of 16 rows swept over the
-  tier's whole diagonal range, the start values below diagonal 2, the
-  fills above row 0, rows past n and diagonals past n + m untracked, the
-  endpoint tracked on H) against the plain tier on shapes around the strip
-  (n = 0, 15, 16, 17, 40), m = 0 and 1, pads inside;
-- the dispatch as a pure function (``ops.variants.local_form``): which
-  kernel family the card takes for each scoring, the CPU engines.
+- ``general_strip_mirror`` below, the sweep form's schedule (strips of 16
+  rows swept over the tier's whole diagonal range, the start values below
+  diagonal 2, the fills above row 0, rows past n and diagonals past n + m
+  untracked, the endpoint tracked on H) against the plain tier on shapes
+  around the strip (n = 0, 15, 16, 17, 40), m = 0 and 1, pads inside;
+- ``general_tile_mirror`` below, the tile form's schedule (the skewed
+  register tile over the real cells, ``sw_batch.local_skew_mirror`` with
+  the lane table and the general kernel's key range) against the plain
+  tier under every scoring with no negative gap penalty (gap 0, Gotoh 3/0
+  and 0/2, the +-200 matrix linear 5 and Gotoh 30/5, BLOSUM62 x 12), on n
+  in {0, 15, 16, 17, 40} x m in {0, 1, 3, 4, 5, 17} (the opening and
+  closing steps at m >= 16, the masked groups below, the row scratch past
+  one sweep), pads inside, with each tracker: the score, the packed key,
+  the select tracker;
+- the dispatch as pure functions: which kernel family the card takes for
+  each scoring (``ops.variants.local_form``), which form of the general
+  kernel (``sw_general.general_form``), the CPU engines.
 """
 
 import jax  # noqa: F401  (conftest keeps JAX on the CPU)
@@ -33,7 +43,9 @@ from swtpu_torch.core.protein import BLOSUM62
 from swtpu_torch.core.scoring import scoring_from_numpy
 from swtpu_torch.kernels import affine_scan, sw_general, sw_scan
 from swtpu_torch.kernels.affine_scan import NEG_EF
-from swtpu_torch.kernels.sw_general import ROWS
+from swtpu_torch.kernels.sw_batch import END_KEY, END_SCORE, END_SELECT, local_skew_mirror
+from swtpu_torch.kernels.sw_batch import local_tracker
+from swtpu_torch.kernels.sw_general import ROWS, general_form, max_entry
 from swtpu_torch.kernels.sw_scan import _extended_table
 from swtpu_torch.utils.device import as_codes
 from swtpu_torch.ops import best_ends_engine, best_engine
@@ -97,12 +109,12 @@ def xla(qs, ts, p, ends):
     return fn(qs, ts, p)
 
 
-@pytest.mark.parametrize("name", list(SCORINGS))
+@pytest.mark.parametrize("name", list(SCORINGS) + ["gotoh0_2", "blosum62x12_gotoh"])
 def test_plain_equals_xla(name):
     """Scores and endpoints at 24 x 30 x 45: the phantom cells of gap <= 0
     reach the real ones, in both tiers alike."""
-    p = SCORINGS[name]
-    qs, ts = pairs(np.random.default_rng(10000), 24, 30, 45)
+    p = SCORINGS.get(name) or TILE_SCORINGS[name]
+    qs, ts = tile_pairs(np.random.default_rng(10000), port(p), 24, 30, 45)
     for ends in (False, True):
         equal(plain(qs, ts, port(p), ends), xla(qs, ts, p, ends))
 
@@ -219,6 +231,78 @@ def test_strip_mirror_protein_gap0():
     ts = rng.integers(0, 26, (5, 50)).astype(np.uint8)
     for ends in (False, True):
         equal(general_strip_mirror(qs, ts, p, ends), plain(qs, ts, p, ends))
+
+
+def general_tile_mirror(qs, ts, params, ends, select=False):
+    """The tile form's schedule (``csrc/sw_general.cu``
+    ``sw_general_tile_kernel`` on ``csrc/sw_local_tile.cuh``) replayed on
+    the CPU: the shared tile's mirror with the lane table's lookups (the
+    extended table, codes clamped to the alphabet + 1) and the key range of
+    the matrix's own largest |entry|, as the library picks its tracker.
+    Same outputs as ``sw_general`` / ``sw_general_ends``."""
+    assert general_form(params) == "tile"
+    return local_skew_mirror(qs, ts, params, ends, profile=True, select=select,
+                             entry=max_entry(params))
+
+
+B62 = np.asarray(BLOSUM62)
+TILE_SCORINGS = {
+    "gap0": ScoringParams.linear(dna_matrix(1, -1), 0),
+    "gotoh3_0": ScoringParams(dna_matrix(2, -3), gap_open=3, gap_extend=0),
+    "gotoh0_2": ScoringParams(dna_matrix(2, -3), gap_open=0, gap_extend=2),
+    "wide200_linear": SCORINGS["wide200_linear"],
+    "wide200_gotoh": SCORINGS["wide200_gotoh"],
+    "blosum62x12_gotoh": ScoringParams(B62 * 12, gap_open=132, gap_extend=12),
+}
+
+
+def tile_pairs(rng, p, B, n, m):
+    """B pairs for scoring p: DNA as ``pairs``; protein the query's head
+    with ~30% substitutions as the target; the pad codes (A, A + 1) inside
+    both sides."""
+    if p.alphabet_size == 4:
+        return pairs(rng, B, n, m)
+    A = p.alphabet_size
+    qs = rng.integers(0, A, (B, n)).astype(np.uint8)
+    ts = rng.integers(0, A, (B, m)).astype(np.uint8)
+    k = min(n, m)
+    keep = rng.random((B, k)) >= 0.3
+    ts[:, :k] = np.where(keep, qs[:, :k], ts[:, :k])
+    qs[rng.random(qs.shape) < 0.05] = A
+    ts[rng.random(ts.shape) < 0.05] = A + 1
+    return qs, ts
+
+
+@pytest.mark.parametrize("name", list(TILE_SCORINGS))
+@pytest.mark.parametrize("n", [0, 15, 16, 17, 40])
+def test_tile_mirror_equals_plain(name, n):
+    p = port(TILE_SCORINGS[name])
+    rng = np.random.default_rng(10000 + n)
+    for m in (0, 1, 3, 4, 5, 17):
+        qs, ts = tile_pairs(rng, p, 5, n, m)
+        equal(general_tile_mirror(qs, ts, p, False), plain(qs, ts, p, False))
+        want = plain(qs, ts, p, True)
+        for select in (False, True):
+            equal(general_tile_mirror(qs, ts, p, True, select), want)
+
+
+def test_general_form():
+    """Which form of the general kernel takes each scoring, and which
+    tracker its tile form runs."""
+    for p in TILE_SCORINGS.values():
+        assert general_form(port(p)) == "tile", p
+    for name in ("gap_minus1", "gotoh2_minus1"):
+        assert general_form(port(SCORINGS[name])) == "sweep", name
+    assert general_form(port(ScoringParams(dna_matrix(2, -3), gap_open=-1,
+                                           gap_extend=2))) == "sweep"
+    assert general_form(port(ScoringParams.linear(dna_matrix(200, -150), 5))) == "tile"
+    assert general_form(port(ScoringParams(dna_matrix(200, -150), 30, 5))) == "tile"
+    # the tile's key holds the +-200 matrix at 128 x 128; entries of
+    # 2^20 leave no room for it (the select tracker)
+    assert max_entry(port(SCORINGS["wide200_linear"])) == 200
+    assert local_tracker(True, True, 128, 128, 0, 0, 5, 5, entry=200)[0] == END_KEY
+    assert local_tracker(True, True, 128, 128, 0, 0, 5, 5, entry=2**20)[0] == END_SELECT
+    assert local_tracker(True, False, 128, 128, 0, 0, 5, 5, entry=2**20)[0] == END_SCORE
 
 
 def test_local_form():

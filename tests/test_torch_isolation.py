@@ -655,6 +655,8 @@ def fake_banded_card(monkeypatch):
     monkeypatch.setattr(banded_batch, "xdrop_launch_t", xdrop_launch)
     monkeypatch.setattr(banded_batch, "xdrop_wide_launch_t",
                         lambda *a, **k: ("wide", xdrop_launch(*a, **k))[1])
+    monkeypatch.setattr(banded_batch, "xdrop_wide_warp_launch_t",
+                        lambda *a, **k: ("wide_warp", xdrop_launch(*a, **k))[1])
     for mod, name in ((sw_banded, "sw_banded_plain"),
                       (port_traceback, "sw_banded_plain"),
                       (banded_batch, "banded_xdrop_batch"),
@@ -714,7 +716,8 @@ def test_cuda_banded_forward_runs_the_kernel(fake_banded_card, W, kw, call):
 
 @pytest.mark.parametrize("W", [129, 1024])
 def test_cuda_banded_forward_runs_the_wide_kernel(fake_banded_card, W):
-    """Past 128 the card's forward is the wide kernel, counted apart."""
+    """Past 128 the card's forward is the wide band (its one-warp form up
+    to 256, its CTA past it), counted apart."""
     qs, ts, lq, lt = _banded_pairs()
     kern = banded_batch.banded_batch
     before = (kern.launches, kern.launches_wide)

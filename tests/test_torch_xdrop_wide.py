@@ -3,7 +3,8 @@ against JAX's XLA forward, and a plain mirror of the wide kernel's
 schedule against the plain tier.
 
 The wide kernel (``csrc/sw_xdrop.cu::xdrop_wide_kernel``, a CTA a pair,
-a thread a band cell) runs only on the card, where
+a warp each 128 band cells in registers on the warp kernel's round body)
+runs only on the card, where
 tests/test_torch_cuda.py and chip_smoke.py hold it against the plain
 version. Here, tolerance 0, every field below each pair's n_rounds:
 
@@ -12,14 +13,20 @@ version. Here, tolerance 0, every field below each pair's n_rounds:
   forward JAX's TPU dispatch runs past its Pallas kernel's widths, at W =
   129, 160 and 256 (linear with per-pair lengths, Gotoh with the 8-bit
   history, BLOSUM62 11/1 with per-pair lengths);
-- ``xdrop_wide_mirror`` (the CTA's schedule replayed in numpy: the band in
-  two buffers, the diagonal terms per thread, codes a round ahead, the
-  round max a warp and then over the warps' slots, phantom threads past
-  W) against the plain tier at W from 129 to 1024, and at W <= 128, where
-  the kernel can run too;
+- ``xdrop_wide_mirror`` (the CTA's schedule replayed in numpy: warps of
+  128 cells, 4 a lane, each with its own code windows; the warps' round
+  maxima and uncut edge cells through slot sets by round parity, one
+  barrier a round; the direction from the slots' band ends; the cut
+  applied late, across warp edges too; phantom cells past W capped at 0)
+  against the plain tier at W from 129 to 1024 (one, two, three and eight
+  warps, W a multiple of 128 and not), and at W <= 128, where the kernel
+  can run too;
+- ``xdrop_round_mirror`` (the warp kernel's schedule) at W = 129-256, the
+  wide band's one-warp form (5-8 cells a lane), against the plain tier;
 - the dispatch as a pure function: which kernel the card takes for each
-  W (``banded_form``), and the refusal past 1024, which names its
-  ROADMAP.md item.
+  W (``banded_form``: the warp kernel to 128, the wide band's one-warp
+  form to 256, its CTA to 1024), and the refusal past 1024, which names
+  its ROADMAP.md item.
 """
 
 import jax  # noqa: F401  (conftest keeps JAX on the CPU)
@@ -98,16 +105,30 @@ def test_plain_equals_xla_past_128(mode, W):
     assert_fields_equal(got.numpy(), want)
 
 
+WIDE_WIDTHS = (129, 160, 255, 256, 257, 384, 512, 1000, 1024)
+
+
 @pytest.mark.parametrize("mode, W", [
-    ("linear_lens", 129), ("linear_lens", 200), ("linear_lens", 1024),
-    ("gotoh_8bit", 160), ("gotoh_8bit", 512),
-    ("blosum62_gotoh_lens", 256), ("blosum62_gotoh_lens", 1000),
-    ("harsh_x20", 300), ("harsh_x20", 1024),
+    (mode, W) for mode in ("linear_lens", "gotoh_8bit", "blosum62_gotoh_lens")
+    for W in WIDE_WIDTHS
+] + [
+    ("linear_lens", 200), ("harsh_x20", 300), ("harsh_x20", 1024),
     ("linear_lens", 33), ("gotoh_8bit", 96), ("blosum62_gotoh_lens", 128),
 ])
 def test_wide_mirror_equals_plain(mode, W):
     qs, ts, kw = mode_inputs(mode)
     got = banded_batch.xdrop_wide_mirror(qs, ts, bandwidth=W, **kw)
+    want = banded_batch.banded_batch_plain(qs, ts, bandwidth=W, device="cpu", **kw)
+    assert_fields_equal(got, want)
+
+
+@pytest.mark.parametrize("W", [129, 160, 192, 224, 255, 256])
+@pytest.mark.parametrize("mode", ["linear_lens", "gotoh_8bit", "blosum62_gotoh_lens"])
+def test_wide_warp_mirror_equals_plain(mode, W):
+    """The wide band's one-warp form (W = 129-256, 5-8 cells a lane):
+    ``xdrop_round_mirror``, the warp kernel's schedule at that CPL."""
+    qs, ts, kw = mode_inputs(mode)
+    got = banded_batch.xdrop_round_mirror(qs, ts, bandwidth=W, **kw)
     want = banded_batch.banded_batch_plain(qs, ts, bandwidth=W, device="cpu", **kw)
     assert_fields_equal(got, want)
 
@@ -127,16 +148,17 @@ def test_wide_mirror_scores_only_and_linear_rule():
 
 def test_banded_form_by_width():
     assert [banded_batch.banded_form(W) for W in (1, 32, 96, 128)] == ["round"] * 4
-    assert [banded_batch.banded_form(W) for W in (129, 160, 256, 512, 1024)] == [
+    assert [banded_batch.banded_form(W) for W in (129, 160, 255, 256)] == [
+        "wide_warp"] * 4
+    assert [banded_batch.banded_form(W) for W in (257, 384, 512, 1000, 1024)] == [
         "wide"] * 5
     assert [banded_batch.banded_form(W) for W in (0, -3, 1025, 4096)] == [None] * 4
     assert banded_batch.width_refusal(1024) is None
     for W in (0, 1025):
         assert "ROADMAP.md queue A item 18" in banded_batch.width_refusal(W)
-    # the warp kernel takes only banded_form's "round" widths, and so does
-    # its mirror
+    # a warp holds at most 256 cells: its mirror refuses the CTA's widths
     with pytest.raises(NotImplementedError, match="wide kernel"):
-        banded_batch.xdrop_round_mirror(*mode_inputs("linear_lens")[:2], bandwidth=129)
+        banded_batch.xdrop_round_mirror(*mode_inputs("linear_lens")[:2], bandwidth=257)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         banded_batch.xdrop_wide_mirror(*mode_inputs("linear_lens")[:2], bandwidth=1025)
 
