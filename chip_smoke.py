@@ -371,7 +371,26 @@ wall.
       Gotoh 3/0, scores and endpoints, the tile form (the main path's) and,
       at gap 0 scores, the sweep form beside it, beside the bound of the
       profile thread form's cell (``general_pipe``) over the n x m cells
-      a pair.
+      a pair;
+  45. gap penalties of 0 and below and matrix entries past +-127, where
+      JAX's device serves them and the card refused them before: the
+      wavefront kernel (B14) under a negative gap, one pair a stream on the
+      TPU's schedule, at gap -1 and -3 on n = 7, 100 and 128 (B = 1, 3,
+      200; DNA on both tables, BLOSUM62) against its plain version and
+      mirror; B13 (pipelined and one-block) under linear -1, Gotoh 2/-1
+      and 3/0 on 1 x 1 to 16383 x 33 with random boundaries against the
+      plain tile; both semi-global forms under gap 0, -1, Gotoh 2/-1, 3/0,
+      0/1, BLOSUM62 11/0, 11/-1 and x 12, argmax (both trackers) and
+      pinned, fixed and per-pair lengths, against the plain tier and the
+      CPU mirror; the main path: ``align --random 8x128x128 --engine
+      wavefront --gap -1`` (fault C4: 256 a pair, B14 launched), the
+      wavefront at 128 and 8192 pairs, ``longpair_sw_ends`` on phase 30's
+      16K pair at gap -1 and Gotoh 2/-1 against the host's full forward,
+      the ``longpair``, ``semiglobal`` and ``global`` CLI against
+      ``--device cpu``, the semi-global forms at 32768 and 1M x 128 x 128
+      (gap 0, -1, BLOSUM62 11/0); times beside the bound; their rows
+      (``*_negative``, ``*_gaps``) in the kernels line, by form.
+      ``python3 chip_smoke.py --phase 45`` runs phases 1, 2 and 45 alone.
 
 Depth cut to keep the run near 600 s (PERF.md section 4): phase 16's
 profile form sweep, phase 27's 128-pair 16K set, phase 34's in-smoke reps
@@ -385,8 +404,8 @@ charged at that shape's own time in ``search_lost_ms``; phases 36-38's
 launches, the models' window, go in ``models_launches``, phases 39-40's,
 the mesh's window with both ranks' of phase 40, in ``mesh_launches``,
 phase 41's, the harnesses' window, in ``harness_launches``, and phase
-42's, the suite's, in ``bench_launches``; phases 43 and 44 zero and read
-their own kernel's count around their main path); every
+42's, the suite's, in ``bench_launches``; phases 43, 44 and 45 zero and
+read their own kernels' counts around their main path); every
 kernel of a path must have launched in its window (B10 excepted: the block
 tier's one-launch B9 reads the corridor window itself, so B10 runs only on
 the negative-gap route and its count there must be 0); B13's are also
@@ -397,6 +416,7 @@ in every window. Any failed check raises, and the run exits nonzero.
 Without a card it exits 2 and prints no result.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 45   # phases 1, 2 and 45 alone
 """
 
 from __future__ import annotations
@@ -2233,6 +2253,374 @@ def general_engine_phase(ctx):
     return counts, row
 
 
+
+def gaps_phase(ctx):
+    """Phase 45, the inputs JAX's device serves under gap penalties of 0
+    and below and matrix entries past +-127, which the card refused before:
+    the wavefront kernel (B14) under a negative gap on the TPU's schedule
+    (fault C4), the strip tile (B13) under negative gaps, linear and Gotoh,
+    and the semi-global kernels' uniform and profile forms under gaps <= 0
+    and BLOSUM62 x 12. Each new form against its plain version, the main
+    path's entry points and CLIs on the card (against ``--device cpu``, the
+    host's full forward or the plain version), times beside the bound.
+    Returns the kernels line's rows of the new forms."""
+    from swtpu_torch.batch.lowmem import sw_traceback_lowmem
+    from swtpu_torch.core.encode import mutate
+    from swtpu_torch.core.protein import BLOSUM62, random_protein
+    from swtpu_torch.core.scoring import ScoringParams, dna_matrix
+    from swtpu_torch.kernels import longpair_strip as kls
+    from swtpu_torch.kernels import semiglobal_batch as ksg
+    from swtpu_torch.kernels import semiglobal_profile as ksp
+    from swtpu_torch.kernels import sw_profile as kp
+    from swtpu_torch.kernels import sw_wavefront as kwf
+    from swtpu_torch.ops.variants import variant_engine
+    from swtpu_torch.parallel import longpair as lp
+
+    dev, smi, timed, off_path = ctx["dev"], ctx["smi"], ctx["timed"], ctx["off_path"]
+    cli_main = ctx["cli_main"]
+    NEGB = kls.NEGB
+    phase("45 gaps of 0 and below where JAX's device serves them: the wavefront at gap "
+          "-1 / -3 (C4), B13 under linear -1 and Gotoh 2/-1, 3/0, the semi-global forms "
+          "under gaps <= 0 and BLOSUM62 x 12, vs plain; the CLI vs --device cpu; times")
+    print(smi, flush=True)
+    rng = np.random.default_rng(SEED + 47)
+    i32 = dict(dtype=torch.int32, device=dev)
+    WF, ST, SGB, SGP = ("sw_wavefront_negative", "strip_tile_negative",
+                        "semiglobal_batch_gaps", "semiglobal_profile_gaps")
+    err = dict.fromkeys((WF, ST, SGB, SGP), 0)
+    wf = kwf.sw_wavefront
+    wrappers = {WF: (wf,), ST: (kls.tile_strip_linear, kls.tile_strip_affine),
+                SGB: (ksg.semiglobal_batch,), SGP: (ksp.semiglobal_profile,)}
+
+    def zero():
+        for ws in wrappers.values():
+            for w in ws:
+                for k in [k for k in vars(w) if k.startswith("launches")]:
+                    setattr(w, k, 0)
+
+    def count(name):
+        if name == WF:  # the negative form's launches
+            return wf.launches_negative
+        return sum(w.launches for w in wrappers[name])
+
+    def to_dev(*xs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs)
+
+    lin1 = ScoringParams.linear(dna_matrix(1, -1), -1)
+    g21 = ScoringParams(dna_matrix(2, -3), 2, -1)
+    g30 = ScoringParams(dna_matrix(2, -3), 3, 0)
+    uniform = {"gap 0": dict(match=1, mismatch=1, gap=0),
+               "gap -1": dict(match=1, mismatch=1, gap=-1),
+               "Gotoh 2/-1": dict(match=2, mismatch=1, gap_open=2, gap_extend=-1),
+               "Gotoh 3/0": dict(match=2, mismatch=3, gap_open=3, gap_extend=0),
+               "Gotoh 0/1": dict(match=1, mismatch=1, gap_open=0, gap_extend=1)}
+    profile = {"BLOSUM62 11/0": ScoringParams(BLOSUM62, 11, 0),
+               "BLOSUM62 11/-1": ScoringParams(BLOSUM62, 11, -1),
+               "BLOSUM62 x 12 11/1": ScoringParams(BLOSUM62 * 12, 11, 1)}
+
+    def sg_call(sc, q, t, plain=False, **kw):
+        if isinstance(sc, dict):
+            fn = ksg.semiglobal_batch_plain if plain else ksg.semiglobal_batch
+            return fn(q, t, **sc, **kw, **({"device": dev} if plain else {}))
+        fn = ksp.semiglobal_profile_plain if plain else ksp.semiglobal_profile
+        return fn(q, t, sc, **kw, **({"device": dev} if plain else {}))
+
+    def sg_alone(sc, q, t, select=False):
+        if isinstance(sc, dict):
+            go, ge, affine = ksg.gaps(**{k: v for k, v in sc.items() if k.startswith("gap")})
+            return ksg.semiglobal_launch_t(q, t, sc["match"], -sc["mismatch"], go, ge, affine,
+                                           False, select=select)
+        return ksg.semiglobal_launch_t(
+            q, t, int(np.abs(sc.matrix).max()), 0, sc.gap_open, sc.gap_extend,
+            not sc.is_linear, False, table=kp.profile_table(sc, dev),
+            n_codes=sc.alphabet_size + 1, select=select)
+
+    # every new form against its plain version (and its CPU mirror), off the path
+    mark("plain checks")
+    with off_path():
+        for g in (-1, -3):
+            for A, mat in ((4, dna_matrix(1, -1)), (20, BLOSUM62)):
+                p = ScoringParams.linear(mat, g)
+                for B, n, m in ((1, 7, 128), (3, 100, 150), (200, 128, 128)):
+                    qd, td = to_dev(*local_pairs(rng, B, n, m, A, pads=0.05))
+                    want = kwf.sw_wavefront_plain(qd, td, p)
+                    e = max_abs_err(wf(qd, td, p), want)
+                    if B <= 3:
+                        e = max(e, max_abs_err(kwf.wavefront_stream_mirror(qd, td, p, 1),
+                                               want))
+                    if A == 4:  # DNA on the lane table by columns too
+                        e = max(e, max_abs_err(kwf.wavefront_launch_t(
+                            qd, td, kwf.wavefront_table(p, dev), p, 1, False), want))
+                    err[WF] = max(err[WF], e)
+                    check(e == 0, f"B14 at gap {g} differs from its plain version on "
+                                  f"{B} x {n} x {m} ({A} letters)")
+        for label, p in (("linear -1", lin1), ("Gotoh 2/-1", g21), ("Gotoh 3/0", g30)):
+            # the last tile's boundaries near 2^27: the endpoint's (value,
+            # row) kept apart (the wide form)
+            for R, C, high in ((1, 1, 0), (7, 300, 0), (1499, 700, 0), (16383, 33, 0),
+                               (40, 1024, 0), (300, 200, kls.KEY_MAX - 150)):
+                q = rng.integers(0, 5, R).astype(np.uint8)
+                t = rng.integers(0, 5, C).astype(np.uint8)
+                top = high + rng.integers(0, 60, C)
+                left = high + rng.integers(0, 60, R + 1)
+                topf = high + rng.integers(-2, 40, C)
+                lefte = high + rng.integers(-2, 40, R + 1)
+                lefte[0] = NEGB
+                table = torch.as_tensor(kls._extended_table(p), device=dev)
+                if p.is_linear:
+                    want = kls._tile_colscan(q, t, top, left[1:], left[0], table, 4, p.gap)
+                else:
+                    want = kls._tile_colscan_affine(q, t, top, topf, left[1:], lefte[1:],
+                                                    left[0], table, 4, p.gap_open,
+                                                    p.gap_extend)
+                sargs = (kls.stage_codes(q, p, dev), kls.stage_codes(t, p, dev),
+                         kp.profile_table(p, dev), torch.as_tensor(top, **i32),
+                         None if p.is_linear else torch.as_tensor(topf, **i32),
+                         torch.as_tensor(left, **i32),
+                         None if p.is_linear else torch.as_tensor(lefte, **i32), p)
+                e = max(max_abs_err(kls.strip_launch_t(*sargs), want),
+                        max_abs_err(kls._one_block_launch_t(*sargs), want))
+                err[ST] = max(err[ST], e)
+                check(e == 0, f"B13 ({label}) differs from the plain tile on {R} x {C}"
+                              + (" (the wide key)" if high else ""))
+        for B, n, m, lens in ((4096, 128, 128, False), (1000, 90, 200, True),
+                              (33, 7, 1, True), (64, 40, 13, True)):
+            qn, tn = semiglobal_pairs(rng, B, n, m)
+            pq, pt = random_protein(rng, (B, n)), random_protein(rng, (B, m))
+            kw = (dict(lens_q=rng.integers(-1, n + 2, B), lens_t=rng.integers(-1, m + 2, B))
+                  if lens else {})
+            for scs, (q, t), name in ((uniform, to_dev(qn, tn), SGB),
+                                      (profile, to_dev(pq, pt), SGP)):
+                for label, sc in scs.items():
+                    for pin in (False, True):
+                        want = sg_call(sc, q, t, plain=True, **kw, pin_end=pin)
+                        e = max_abs_err(sg_call(sc, q, t, **kw, pin_end=pin), want)
+                        if not pin and not lens:
+                            e = max(e, max_abs_err(sg_alone(sc, q, t, select=True), want))
+                        err[name] = max(err[name], e)
+                        check(e == 0, f"the semi-global form ({label}, pinned {pin}) "
+                                      f"differs from its plain version on {B} x {n} x {m}")
+            if n == 40:  # the kernel's CPU mirror on 16 pairs with lengths
+                for sc, (q, t) in ((uniform["gap -1"], (qn, tn)),
+                                   (profile["BLOSUM62 11/-1"], (pq, pt))):
+                    k16 = {k: v[:16] for k, v in kw.items()}
+                    qd, td = to_dev(q[:16], t[:16])
+                    got = sg_call(sc, qd, td, **k16)
+                    mirror = (ksg.semiglobal_skew_mirror(q[:16], t[:16], **sc, **k16)
+                              if isinstance(sc, dict) else
+                              ksg.semiglobal_skew_mirror(q[:16], t[:16], **k16, params=sc))
+                    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, mirror)),
+                          "the semi-global kernel vs its CPU mirror under a negative gap")
+    print(f"{WF}: B14 at gap -1 and -3 (DNA by pairs of columns and by columns, BLOSUM62) "
+          f"on 1 x 7 x 128, 3 x 100 x 150 and 200 x 128 x 128 equals its plain version "
+          f"and mirror; {ST}: B13 (pipelined and one-block) under linear -1, Gotoh 2/-1 "
+          f"and 3/0 on 1 x 1 to 16383 x 33 with random boundaries (and near 2^27: "
+          f"the wide key) equals the plain tile; "
+          f"{SGB} / {SGP}: gaps 0, -1, Gotoh 2/-1, 3/0, 0/1, BLOSUM62 11/0, 11/-1 and x 12 "
+          f"(entries to 132), argmax (the key and the select tracker) and pinned, fixed and "
+          f"per-pair lengths (-1 to n + 1), equal their plain versions and the mirror",
+          flush=True)
+
+    # the main path: every count zeroed, then the entry points and the CLI
+    mark("main path")
+    zero()
+    argv = ["align", "--random", "8x128x128", "--engine", "wavefront", "--gap", "-1"]
+    card = run_cli(cli_main, argv)
+    check(wf.launches_negative == 1, "C4: align --engine wavefront --gap -1 did not run B14")
+    with off_path():
+        cpu = run_cli(cli_main, argv + ["--device", "cpu"])
+    c4 = [json.loads(x)["score"] for x in card]
+    check(card == cpu and c4 == [256] * 8, f"C4: {' '.join(argv)} printed {c4}")
+    print(f"C4 repaired: {' '.join(argv)} prints {c4} on the card (B14, one launch), equal "
+          "to --device cpu", flush=True)
+    wfd = {}
+    for B in (128, 8192):
+        qd, td = to_dev(*local_pairs(rng, B, 128, 128, 4, pads=0))
+        got = variant_engine("wavefront", lin1, 128)(qd, td)
+        with off_path():
+            check(torch.equal(got, kwf.sw_wavefront_plain(qd, td, lin1)),
+                  f"B14 at gap -1 on {B} pairs vs its plain version")
+        wfd[B] = (qd, td)
+    lrng = np.random.default_rng(SEED)  # phase 30's 16K pair
+    L = 16384
+    lq = lrng.integers(0, 4, L).astype(np.uint8)
+    lt = mutate(lrng, lq, p_mismatch=0.1, p_insert=0.025, p_delete=0.025, out_len=L)
+    for label, p in (("linear -1", lin1), ("Gotoh 2/-1", g21)):
+        before = count(ST)
+        ends = lp.longpair_sw_ends(lq, lt, p)
+        t0 = time.perf_counter()
+        sc, path = sw_traceback_lowmem(lq, lt, p, ends=None)
+        check(count(ST) - before == 1 and (sc, *path[-1]) == ends,
+              f"longpair_sw_ends on the 16K pair ({label}) vs the host's full forward")
+        print(f"longpair_sw_ends 16384 x 16384 {label}: {ends}, one B13 launch; the host's "
+              f"full forward (C++, {time.perf_counter() - t0:.2f} s) agrees", flush=True)
+    sg_argv = []
+    for argv in (["longpair", "--random", "1x300x300", "--gap", "-1"],
+                 ["semiglobal", "--random", "4x64x256", "--gap", "-1", "--traceback"],
+                 ["global", "--random", "4x64x256", "--gap", "-1", "--traceback"],
+                 ["semiglobal", "--alphabet", "protein", "--random", "4x64x256",
+                  "--gap-open", "11", "--gap-extend", "0", "--cigar"]):
+        card = run_cli(cli_main, argv)
+        with off_path():
+            cpu = run_cli(cli_main, argv + ["--device", "cpu"])
+        check(card == cpu and len(card) >= 1, f"{' '.join(argv)}: the card vs --device cpu")
+        sg_argv.append(" ".join(argv))
+    print(f"{'; '.join(sg_argv)}: equal to --device cpu", flush=True)
+    big = {}
+    for A in (4, 20):
+        gen = random_codes if A == 4 else random_protein
+        big[A] = to_dev(gen(rng, (1 << 20, 128)), gen(rng, (1 << 20, 128)))
+    for label, sc in (("gap 0", uniform["gap 0"]), ("gap -1", uniform["gap -1"]),
+                      ("BLOSUM62 11/0", profile["BLOSUM62 11/0"])):
+        q, t = big[4 if isinstance(sc, dict) else 20]
+        for B in (1 << 15, 1 << 20):
+            out = sg_call(sc, q[:B], t[:B])
+            with off_path():
+                check(max_abs_err(tuple(x[:8192] for x in out),
+                                  sg_call(sc, q[:8192], t[:8192], plain=True)) == 0,
+                      f"the semi-global form ({label}) at {B} pairs: the first 8192")
+    counts = {k: count(k) for k in (WF, ST, SGB, SGP)}
+    print(f"phase 45's main-path launches: {counts} (B14's all under a negative gap: "
+          f"{wf.launches_negative} of {wf.launches})", flush=True)
+    check(all(v > 0 for v in counts.values()) and wf.launches == wf.launches_negative,
+          f"a new form was not launched on its path: {counts}")
+
+    # times, off the path: each form at its main-path shapes beside its bound
+    mark("times")
+    rows = []
+
+    def bound(cells, slots, lookups, nbytes):
+        times = {"int32 ops": cells * slots / ctx["int32_rate"] * 1e3,
+                 "shared-memory lookups": cells * lookups / ctx["lookup_rate"] * 1e3,
+                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        binds = max(times, key=times.get)
+        return times[binds], binds
+
+    forms = {}
+    table1 = kwf.wavefront_table(lin1, dev)
+    cli_q, cli_t = to_dev(*local_pairs(np.random.default_rng(SEED), 8, 128, 128, 4, pads=0))
+    for B, (qd, td) in ((8192, wfd[8192]), (128, wfd[128]), (8, (cli_q, cli_t))):
+        # the TPU schedule's cells: 128 positions x wavefront_steps(n, m)
+        cells = B * 128 * kwf.wavefront_steps(128, 128)
+        ms = timed(wf, (qd, td, lin1), iters=20) * 1e3
+        alone = timed(kwf.wavefront_launch_t, (qd, td, table1, lin1), iters=20) * 1e3
+        plain_ms = timed(kwf.sw_wavefront_plain, (qd, td, lin1), iters=1, warmup=1,
+                         reps=1) * 1e3
+        b, binds = bound(cells, pipe_slots("sw_wavefront"), KERNELS["sw_wavefront"][4],
+                         B * 256 + 4 * B)
+        forms[f"{B} pairs"] = dict(launches=1, ms=ms, kernel_ms=alone, plain_ms=plain_ms,
+                                   bound_ms=b, binds=binds)
+        print(f"{WF} {B} x 128 x 128 gap -1 (one pair a stream, 256 steps): wrapper "
+              f"{ms:.4f} ms, alone {alone:.4f} ms ({b / alone:.1%} of the bound {b:.4f} ms "
+              f"by {binds} over the schedule's {cells} cells), plain {plain_ms:.1f} ms "
+              f"[{smi}]", flush=True)
+    check(sum(f["launches"] for f in forms.values()) == counts[WF],
+          f"{WF}: the window's launches {counts[WF]} are its forms'")
+    rows.append(row_of(WF, WAVEFRONT, "sw_wavefront", forms, "8192 pairs", counts[WF], err))
+
+    forms = {}
+    for label, p, (q, t) in (("16384 x 16384 linear -1", lin1, (lq, lt)),
+                             ("16384 x 16384 Gotoh 2/-1", g21, (lq, lt)),
+                             ("300 x 300 linear -1 (the CLI's)", lin1,
+                              tuple(np.random.default_rng(SEED).integers(0, 4, (2, 300))
+                                    .astype(np.uint8))),
+                             ("4096 x 4096 linear -1", lin1, (lq[:4096], lt[:4096]))):
+        R, C = len(q), len(t)
+        affine = not p.is_linear
+        zc, zr = torch.zeros(C, **i32), torch.zeros(R + 1, **i32)
+        nc, nr = torch.full((C,), NEGB, **i32), torch.full((R + 1,), NEGB, **i32)
+        sargs = (kls.stage_codes(q, p, dev), kls.stage_codes(t, p, dev),
+                 kp.profile_table(p, dev), zc, nc if affine else None, zr,
+                 nr if affine else None, p)
+        wrap = kls.tile_strip_affine if affine else kls.tile_strip_linear
+        wargs = (sargs[0], sargs[1], zc, nc, zr, nr, p) if affine else (
+            sargs[0], sargs[1], zc, zr, p)
+        ms = timed(wrap, wargs, iters=3, warmup=1) * 1e3
+        alone = timed(kls.strip_launch_t, sargs, iters=3, warmup=1) * 1e3
+        plain_ms = None
+        if R == 4096:  # the plain tile once, every return held equal
+            t0 = time.perf_counter()
+            table = torch.as_tensor(kls._extended_table(p), device=dev)
+            want = kls._tile_colscan(q, t, zc, zr[1:], 0, table, 4, p.gap)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            e = max_abs_err(kls.strip_launch_t(*sargs), want)
+            err[ST] = max(err[ST], e)
+            check(e == 0, "B13 at gap -1 differs from the plain tile at 4096 x 4096")
+        b, binds = bound(R * C, strip_ops(affine) * 1.0, 1,
+                         R + C + 4 * (2 * C + R + 1) + 4 * (R + C) * (2 if affine else 1))
+        launches = {"16384 x 16384 linear -1": 1, "16384 x 16384 Gotoh 2/-1": 1,
+                    "300 x 300 linear -1 (the CLI's)": 1}.get(label, 0)
+        forms[label] = dict(launches=launches, ms=ms, kernel_ms=alone, plain_ms=plain_ms,
+                            bound_ms=b, binds=binds)
+        print(f"{ST} {label}: wrapper {ms:.3f} ms, alone {alone:.3f} ms ({b / alone:.2%} of "
+              f"the bound {b:.4f} ms by {binds}); {launches} main-path launches"
+              + ("" if plain_ms is None else f"; plain tile {plain_ms:.1f} ms") + f" [{smi}]",
+              flush=True)
+    check(sum(f["launches"] for f in forms.values()) == counts[ST],
+          f"{ST}: the window's launches {counts[ST]} are its forms'")
+    rows.append(row_of(ST, STRIP, "strip_tile", forms, "4096 x 4096 linear -1", counts[ST],
+                       err))
+
+    for name, kname, scs in ((SGB, "semiglobal_batch", (("gap -1", uniform["gap -1"]),
+                                                        ("gap 0", uniform["gap 0"]))),
+                             (SGP, "semiglobal_profile",
+                              (("BLOSUM62 11/0", profile["BLOSUM62 11/0"]),))):
+        forms = {}
+        cli_rng = np.random.default_rng(SEED)  # the CLI's 4 x 64 x 256 shape
+        A = 4 if name == SGB else 20
+        cli_pair = to_dev(cli_rng.integers(0, A, (4, 64)).astype(np.uint8),
+                          cli_rng.integers(0, A, (4, 256)).astype(np.uint8))
+        for label, sc in scs:
+            q, t = big[4 if isinstance(sc, dict) else 20]
+            for B in (1 << 15, 1 << 20) + ((4,) if label == scs[0][0] else ()):
+                qb, tb = (q[:B], t[:B]) if B > 4 else cli_pair
+                ms = timed(lambda a, c: sg_call(sc, a, c), (qb, tb), iters=10) * 1e3
+                alone = timed(lambda a, c: sg_alone(sc, a, c), (qb, tb), iters=10) * 1e3
+                plain_ms = None
+                if B != 1 << 20:
+                    plain_ms = timed(lambda a, c: sg_call(sc, a, c, plain=True), (qb, tb),
+                                     iters=1, warmup=1, reps=1) * 1e3
+                n_, m_ = qb.shape[1], tb.shape[1]
+                affine = (ksg.gaps(**{k: v for k, v in sc.items() if k.startswith("gap")})[2]
+                          if isinstance(sc, dict) else not sc.is_linear)
+                form = kname + ("_affine" if affine else "")  # the instantiation's cell
+                b, binds = bound(B * n_ * m_, pipe_slots(form), KERNELS[form][4],
+                                 B * (n_ + m_) + 12 * B)
+                # the window's calls: one at 32768 and one at 1M pairs a
+                # scoring; the CLI's (semiglobal and global --gap -1, DNA;
+                # semiglobal 11/0, protein) at its own shape
+                cli_calls = (2 if name == SGB else 1) if label == scs[0][0] else 0
+                forms[f"{label} {B} x {n_} x {m_}"] = dict(
+                    launches=1 if B > 4 else cli_calls, ms=ms, kernel_ms=alone,
+                    plain_ms=plain_ms, bound_ms=b, binds=binds)
+                print(f"{name} {label} {B} x {n_} x {m_} (argmax): wrapper {ms:.4f} ms, alone "
+                      f"{alone:.4f} ms ({b / alone:.1%} of the bound {b:.4f} ms by {binds})"
+                      + ("" if plain_ms is None else f", plain {plain_ms:.1f} ms")
+                      + f" [{smi}]", flush=True)
+        check(sum(f["launches"] for f in forms.values()) == counts[name],
+              f"{name}: the window's launches {counts[name]} are its forms'")
+        main = f"{scs[0][0]} {1 << 15} x 128 x 128"
+        rows.append(row_of(name, SEMIGLOBAL, kname, forms, main, counts[name], err))
+    del big
+    torch.cuda.empty_cache()
+    return rows
+
+
+def row_of(name, source, kernel, forms, main, launches, err):
+    """A kernels-line row of one of phase 45's new forms: the named form's
+    numbers, every timed form in ``by_form`` (lost ms charges each at its
+    own time), the TPU kernel of the row it extends."""
+    f = forms[main]
+    return dict(name=name, route="cuda", source=f"swtpu_torch/csrc/{source}",
+                replaces=KERNELS[kernel][2], launches=launches, max_abs_err=err[name],
+                ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                bound_by="bytes" if f["binds"] == "bytes" else "operations",
+                library_ms=None, kernel_ms=f["kernel_ms"],
+                by_form={k: {x: v for x, v in g.items() if x != "binds"}
+                         for k, g in forms.items()})
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":  # a rank of phase 40
         rank, world, store, out = sys.argv[2:6]
@@ -2359,8 +2747,9 @@ def main():
             return ksg.semiglobal_launch_t(q, t, sc["match"], -sc["mismatch"], go, ge,
                                            affine, pin, select=select)
         return ksg.semiglobal_launch_t(
-            q, t, 0, 0, sc.gap_open, sc.gap_extend, not sc.is_linear, pin,
-            table=kp.profile_table(sc, dev), n_codes=sc.alphabet_size + 1, select=select)
+            q, t, int(np.abs(sc.matrix).max()), 0, sc.gap_open, sc.gap_extend,
+            not sc.is_linear, pin, table=kp.profile_table(sc, dev),
+            n_codes=sc.alphabet_size + 1, select=select)
 
     def sg_letters(sc):
         """The codes a scoring's inputs are drawn from: 20 for protein."""
@@ -2738,6 +3127,12 @@ def main():
     bf16_rate = n_sm * 2 * min(rates["HFMA2"], rates["HADD2"]) * sm_clock_mhz * 1e6
 
     # 3. kernels vs plain versions -----------------------------------------
+    ctx = dict(dev=dev, smi=smi, timed=timed, off_path=off_path, cli_main=cli_main,
+               launches=launches, zero_launches=zero_launches, int32_rate=int32_rate,
+               lookup_rate=lookup_rate)
+    if sys.argv[1:] == ["--phase", "45"]:  # phases 1, 2 and 45 alone
+        return report(gaps_phase(ctx), kind, count)
+
     phase("3 kernels vs plain versions (exact)")
     rng = np.random.default_rng(SEED)
     max_err = {name: 0 for name in KERNELS}
@@ -6145,12 +6540,10 @@ def main():
 
     dist.destroy_process_group()  # phase 39's world of one
     suite_counts = suite_phase(launches, zero_launches, off_path, b9_folded, smi)
-    ctx = dict(dev=dev, smi=smi, timed=timed, off_path=off_path, cli_main=cli_main,
-               launches=launches, zero_launches=zero_launches, int32_rate=int32_rate,
-               lookup_rate=lookup_rate)
     for phase_fn in (wide_band_phase, general_engine_phase):
         counts, row = phase_fn(ctx)
         rows.append(row)
+    rows.extend(gaps_phase(ctx))
 
     for row in rows:
         row["models_launches"] = models_counts.get(row["name"], 0)
@@ -6168,8 +6561,16 @@ def main():
         row["search_ms"], row["search_bound_ms"] = chunk_times.get(row["name"], (None, None))
         row["search_lost_ms"] = (row["search_launches"] * max(
             row["search_ms"] - row["search_bound_ms"], 0.0) if row["search_launches"] else 0.0)
+    return report(rows, kind, count)
+
+
+def report(rows, kind, count):
+    """The run's last lines: each row's lost ms (its launches, by form
+    where it has forms, x (alone - bound), plus its search chunks'), the
+    total, the kernels line and the contract's line."""
+    for row in rows:
         row["lost_ms"] = sum(f["launches"] * max(f["kernel_ms"] - f["bound_ms"], 0.0)
-                             for f in charged_forms(row)) + row["search_lost_ms"]
+                             for f in charged_forms(row)) + row.get("search_lost_ms", 0.0)
     print("lost ms = launches x (launch alone - bound) at each row's timed shape "
           "(and instantiation) [+ search launches x (alone - bound) at the chunk's "
           "131,072 pairs]: "
@@ -6177,7 +6578,7 @@ def main():
                           f"{f['launches']} x ({f['kernel_ms']:.4f} - {f['bound_ms']:.4f})"
                           for f in charged_forms(r))
                       + (f" + {r['search_launches']} x ({r['search_ms']:.4f} - "
-                         f"{r['search_bound_ms']:.4f})" if r["search_launches"] else "")
+                         f"{r['search_bound_ms']:.4f})" if r.get("search_launches") else "")
                       + f" = {r['lost_ms']:.3f}"
                       for r in sorted(rows, key=lambda r: -r["lost_ms"])), flush=True)
     print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)

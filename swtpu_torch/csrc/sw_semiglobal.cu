@@ -30,9 +30,8 @@
 // matrix is computed or masked. Shorter targets run groups of every row,
 // masked where a step has a row outside [0, m_b): there a row keeps its H
 // and its tracker, and E, F, the diagonal and the code take any value
-// (they reach no real cell; E of a row before its first column stays
-// max(E - ge, H[i, 0] - go), which is what its first cell computes from
-// -inf). Row 0 takes the row above the sweep (H - go and F) from the
+// (they reach no real cell; a row's E restarts at -inf at its first
+// column, so its first cell takes H[i, 0] - go whatever the sign of ge). Row 0 takes the row above the sweep (H - go and F) from the
 // scratch, [m, B] int32 or, affine, [m, B, 2] (one 8-byte load a step),
 // loaded a group ahead into a ring of four (the first sweep computes the
 // boundary chain instead), and row ROWS - 1 writes it for the next sweep
@@ -62,22 +61,31 @@
 // numpy estimate). 80 KB for BLOSUM62: two CTAs an SM.
 //
 // Endpoint (argmax). The first maximum in row-major order over the
-// pair's real [0..lq] x [0..lt] region, H[0, 0] = 0 included. With gaps
-// > 0 every boundary cell is negative, so the tracker starts at the
-// origin (0, 0, 0) and follows interior cells only: every row keeps its
-// own best and the step of its first cell at that best, updated on a
-// strictly greater H while its columns ascend, and after each sweep the
-// rows fold in order into the thread's (best, i, j), again on strictly
-// greater; the column is the step minus the row. Skewing changes when a
+// pair's real [0..lq] x [0..lt] region, H[0, 0] = 0 included. The
+// tracker starts at the origin (0, 0, 0) and follows interior cells:
+// every row keeps its own best and the step of its first cell at that
+// best, updated on a strictly greater H while its columns ascend, and
+// after each sweep the rows fold in order into the thread's (best, i, j),
+// again on strictly greater; the column is the step minus the row. Row 0
+// and column 0 are boundary chains, monotone in their index, so each one's
+// first maximum is its first cell (ge >= 0) or its last (ge < 0); after
+// the DP both merge with the interior's in row-major order (gap 0 ties
+// the origin, which comes first). With gaps > 0 every boundary cell is
+// negative and never wins; under a gap <= 0 they are >= 0 and can. The
+// merge stays out of the sweeps: a per-row fold there, with a masked
+// cell's validity test on E, took the affine key forms from 168 registers
+// to 255 (two CTAs an SM, not three: ~15% slower at 1M pairs).
+// Skewing changes when a
 // row sees a column, not the order in which it sees its own columns. A
 // phantom row starts at INT_MAX, so it never updates. END_KEY holds both
 // in one int32 key (H - go) * 2^k + (2^k - 1 - s), k the bits of the
 // steps a sweep: a cell is one IMAD (the step's constant is shared by
 // the rows) and one max, and the larger key is the larger H or, at
 // equal H, the earlier step. The launch takes it when (n + m + ROWS +
-// GROUP) x the largest |score|, go or ge (a profile entry is at most
-// 127), plus go + 1, fits in 31 - k bits, which bounds every |H - go|
-// of the pair, phantom rows included (H >= its left chain). Else
+// GROUP) x the largest |score|, |go| or |ge| (a profile form's largest
+// |entry|, which the wrapper passes as `match`), plus |go| + 1, fits in
+// 31 - k bits, which bounds every |H - go| of the pair, phantom rows
+// included (each step of a path moves H by at most that magnitude). Else
 // END_SELECT keeps (best, step) apart: a compare and two selects a cell,
 // all on the ALU pipe; the key's IMAD issues on the FMA pipe, and the key
 // forms ran 1.20-1.31x faster than the select tracker on the same inputs
@@ -89,10 +97,10 @@
 // is the last H of row lq, whose columns end at lt (no per-cell work); a
 // corner outside the matrix gives (-2^30, 0, 0), as the plain tier does.
 //
-// Guards: exact for every n, m >= 0, every B and any lengths, for gaps
-// > 0 (affine: go, ge > 0); the wrappers refuse the rest. E and F start
-// at -2^29, pads score -2^20 + go, and D, E, F stay within the boundary
-// chains, so nothing overflows int32.
+// Guards: exact for every n, m >= 0, every B and any lengths, for gaps of
+// either sign and any entries, as the plain tier is, while H stays within
+// int32 (the plain tier's type). E and F start at -2^29, pads score -2^20
+// + go, and D, E, F stay within the boundary chains and the matches.
 //
 // Bound, by pipe: a cell needs (uniform / profile) the score 2 / 1 (+ one
 // shared-memory lookup), linear H 3, Gotoh 5 (E, F, the add, the 3-way
@@ -116,7 +124,6 @@ constexpr int ROWS = 16;   // query rows a sweep
 constexpr int GROUP = 4;       // steps a group: one code word, the prefetch distance
 constexpr int THREADS = 128;
 constexpr int MAX_STRIDE = 32;
-constexpr int MAX_ENTRY = 127;  // |profile entry| (sw_profile.profile_refusal)
 constexpr int NEG_EF = -(1 << 29);
 constexpr int MINUS_INF = -(1 << 30);
 // the endpoint a form returns
@@ -139,6 +146,25 @@ struct Scoring {
 template <bool AFFINE>
 __device__ __forceinline__ int chain(int k, int go, int ge) {
   return AFFINE ? -go - (k - 1) * ge : -k * go;
+}
+
+// Merges the first maximum of a boundary chain's cells k = 1..len (row 0
+// when `row`, else column 0) into (best, i, j), the first maximum in
+// row-major order: the chain moves by -ge a cell (linear: ge = go), so its
+// first maximum is its last cell when it rises, else its first; a tie
+// goes to the earlier cell in row-major order.
+template <bool AFFINE>
+__device__ __forceinline__ void merge_chain(int len, int go, int ge, bool row, int& best,
+                                            int& bi, int& bj) {
+  if (len < 1) return;
+  const int k = ge < 0 ? len : 1;
+  const int v = chain<AFFINE>(k, go, ge);
+  const int i = row ? 0 : k, j = row ? k : 0;
+  if (v > best || (v == best && (i < bi || (i == bi && j < bj)))) {
+    best = v;
+    bi = i;
+    bj = j;
+  }
 }
 
 // the registers of a sweep: row r holds query row i0 + r + 1 (an
@@ -199,11 +225,16 @@ __device__ __forceinline__ void cells(Tile& T, const Sweep& w, int s, int tnew, 
     const int tr = r ? T.tc[r - 1] : tnew;
     const int up = r ? T.d[r - 1] : up_in;
     const int sg = PROFILE ? lane_score(T.qc[r] + tr) : (T.qc[r] == tr ? w.hit : w.miss);
+    const bool valid =
+        !MASKED || static_cast<unsigned>(s - r) < static_cast<unsigned>(w.m_b);
     int h;
     if (AFFINE) {
       const int fu = r ? T.f[r - 1] : f_in;
       const int f = __viaddmax_s32(fu, -w.ge, up);
-      const int e = __viaddmax_s32(T.e[r], -w.ge, T.d[r]);
+      // a masked row's E before its first column (step r) is any value: it
+      // restarts at -inf there, whatever the sign of ge
+      const int ein = MASKED && s == r ? NEG_EF : T.e[r];
+      const int e = __viaddmax_s32(ein, -w.ge, T.d[r]);
       h = __vimax3_s32(T.dg[r] + sg, e, f);
       T.f[r] = f;
       T.e[r] = e;
@@ -213,8 +244,6 @@ __device__ __forceinline__ void cells(Tile& T, const Sweep& w, int s, int tnew, 
     const int dn = h - w.go;
     T.tc[r] = tr;
     T.dg[r] = up;
-    const bool valid =
-        !MASKED || static_cast<unsigned>(s - r) < static_cast<unsigned>(w.m_b);
     if (valid) T.d[r] = dn;
     if (END == END_KEY) {
       const int key = dn * w.kmul + ks;
@@ -354,6 +383,7 @@ sw_semiglobal_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ 
         n_b = lq;
     }
   }
+  const int n_col = n_b;  // column 0's cells 1..n_col (argmax, tracked when lt >= 0)
   if (m_b == 0) n_b = 0;
 
   // a tracked row's start: the origin's H = 0, at a key no step beats
@@ -468,6 +498,15 @@ sw_semiglobal_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ 
     }
   }
 
+  if (END != END_PIN) {
+    // the boundary's first maxima, row 0's (j = 1..m_b, tracked when lq >=
+    // 0) and column 0's (i = 1..n_col, tracked when lt >= 0), merged after
+    // the DP: the interior's fold starts at the origin, so the three first
+    // maxima merged in row-major order are the pair's. Kept out of the
+    // sweeps, they hold no register there
+    if (lq >= 0) merge_chain<AFFINE>(m_b, go, ge, true, best, bi, bj);
+    if (lt >= 0) merge_chain<AFFINE>(n_col, go, ge, false, best, bi, bj);
+  }
   score[b] = best;
   end_i[b] = bi;
   end_j[b] = bj;
@@ -500,14 +539,17 @@ extern "C" {
 int swtpu_sw_semiglobal_rows() { return ROWS; }
 
 // The step bits of END_KEY's key for an argmax launch of these sizes and
-// scores, or -1 when the key cannot hold them (END_SELECT runs).
-int swtpu_sw_semiglobal_key_bits(int profile, int n, int m, int match, int mismatch,
-                                 int gap_open, int gap_extend) {
+// scores, or -1 when the key cannot hold them (END_SELECT runs). A profile
+// launch passes its matrix's largest |entry| as `match` (and 0 as
+// `mismatch`).
+int swtpu_sw_semiglobal_key_bits(int n, int m, int match, int mismatch, int gap_open,
+                                 int gap_extend) {
   int kbits = 0;
   while ((1LL << kbits) < static_cast<long long>(m) + ROWS + GROUP) ++kbits;
-  long long mag = profile ? MAX_ENTRY : std::max(llabs(match), llabs(mismatch));
+  long long mag = std::max(llabs(match), llabs(mismatch));
   mag = std::max(mag, std::max(llabs(gap_open), llabs(gap_extend)));
-  const long long span = (static_cast<long long>(n) + m + ROWS + GROUP) * mag + gap_open + 1;
+  const long long span =
+      (static_cast<long long>(n) + m + ROWS + GROUP) * mag + llabs(gap_open) + 1;
   return kbits < 31 && span < (1LL << (31 - kbits)) ? kbits : -1;
 }
 
@@ -526,8 +568,9 @@ int swtpu_sw_semiglobal_key_bits(int profile, int n, int m, int match, int misma
 // int32 (linear: H - go) or [m, B, 2] int32 (affine: H - go, F), unused
 // (null) when n <= ROWS or m == 0, score / end_i / end_j [B] int32. All
 // on one device, all contiguous; the wrapper checks that. `mismatch` is
-// the score of a mismatch (negative for a penalty); linear kernels use
-// gap_open as the gap.
+// the score of a mismatch (negative for a penalty; a profile launch: 0,
+// with `match` its matrix's largest |entry|, the key's bound); linear
+// kernels use gap_open as the gap. Gaps of any sign.
 int swtpu_sw_semiglobal(int affine, int profile, int end, const void* q,
                         const void* t, const void* table, const void* lens_q,
                         const void* lens_t, void* scratch, void* score,
@@ -540,9 +583,9 @@ int swtpu_sw_semiglobal(int affine, int profile, int end, const void* q,
   if (n > ROWS && m > 0 && !scratch)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  const int kbits = end == END_KEY ? swtpu_sw_semiglobal_key_bits(
-                                         profile, n, m, match, mismatch, gap_open, gap_extend)
-                                   : -1;
+  const int kbits =
+      end == END_KEY ? swtpu_sw_semiglobal_key_bits(n, m, match, mismatch, gap_open, gap_extend)
+                     : -1;
   if (end == END_KEY && kbits < 0) end = END_SELECT;
   const int kb = kbits < 0 ? 0 : kbits;
   const Scoring sc{match, mismatch, stride, profile ? codes : 5, gap_open, gap_extend, kb,

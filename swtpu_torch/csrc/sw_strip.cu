@@ -26,14 +26,25 @@
 // max(pre[i], H[i-1] - gap) and the affine F as JAX's decoupled chain F[i]
 // = max(F[i-1] - ge, pre[i-1] - go), where pre is the E-and-diagonal
 // candidate, not H, with the F boundary folded in at the tile's first row
-// as max(top_f, -2^20) - ge: Gotoh's F for gap_open >= gap_extend and the
-// plain tile's for any gaps >= 0. So rank I - 1 hands rank I its last
-// row's H, and for affine also its pre and F. The endpoint: per thread a
-// key (H << log2 BR) | (BR - 1 - r) and its column, updated on a strictly
-// greater key (value, then least row, then that row's earliest column, as
-// the columns arrive in order), then reduced (value, least row). H stays
-// below 2^27 on any real pair (16384 rows at BLOSUM62's largest score is
-// 2^18).
+// as max(top_f, -2^20) - ge: Gotoh's F for gap_open >= gap_extend. The
+// plain tile takes these max-plus prefixes by log-doubling over shifts
+// 1, 2, 4, ... that fill with -2^20; a filled term is at most -2^20 + S x
+// |penalty| under a negative penalty (S the shifts' sum, < 2R), so the
+// sequential chain here equals it for gaps of either sign while S x |gap|
+// (Gotoh: S x max(0, -ge) + go) stays below 2^20, the bound
+// longpair_strip.py::strip_refusal states (|gap| <= 32 at 16384 rows). So
+// rank I - 1 hands rank I its last row's H, and for affine also its pre
+// and F. The endpoint: per thread its best H and that cell's row and
+// column, updated on a greater H or an equal one in a lower row (value,
+// then least row, then that row's earliest column, as the columns arrive
+// in order and a step's rows in order), then reduced (value, least row).
+// The value and the row go in one key (H << log2 BR) | (BR - 1 - r) while
+// every H of the tile stays below 2^27: the wrapper hands the kernel the
+// largest boundary value (on the device, no sync) and how far H can climb
+// across the tile above it (longpair_strip.py::h_reach: under a negative
+// gap by |gap| a gap step), and a tile that could pass 2^27 keeps (value,
+// row) apart (WIDE), a compare and three selects more a cell. The
+// one-block kernel always keeps them apart.
 //
 // The pipelined kernel (strip_pipe_kernel<BR, AFFINE>, the one the tile
 // entries launch). The tile is cut into row bands of 32 * BR rows, a warp
@@ -78,8 +89,44 @@ constexpr int MAX_THREADS = 1024;
 constexpr int MAX_STRIDE = 32;
 constexpr int NEGB = -(1 << 20);
 
+constexpr int KEY_MAX = 1 << 27;  // H below it: H << 4 and 4 row bits fit 31 bits
+
 struct Cand {
   int v, row, col;
+};
+
+// A thread's running best over its cells (value, row in the thread,
+// column), row-major first: a greater H, or an equal H in a lower row of
+// a later column (a column's rows arrive in order). WIDE keeps (value,
+// row) apart; else one key (H << log2 BR) | (BR - 1 - r), for H < 2^27.
+// An idle lane's -1 never wins. `take` forms the key whether or not the
+// cell is real and tests both at once: nvcc compiled a nested test into a
+// slower step of the pipelined kernel.
+template <int BR, bool WIDE>
+struct Best {
+  static constexpr int LB = BR >= 16 ? 4 : BR >= 8 ? 3 : BR >= 4 ? 2 : BR >= 2 ? 1 : 0;
+  int key = -1, row = 0, col = 0;  // WIDE: key is the value
+
+  __device__ __forceinline__ void take(int h, int r, int c, bool real) {
+    if constexpr (WIDE) {
+      if (real && (h > key || (h == key && r < row))) {
+        key = h;
+        row = r;
+        col = c;
+      }
+    } else {
+      const int k = (h << LB) | (BR - 1 - r);
+      if (real && k > key) {
+        key = k;
+        col = c;
+      }
+    }
+  }
+
+  __device__ __forceinline__ Cand cand(int row0) const {
+    if constexpr (WIDE) return Cand{key, row0 + row, col};
+    return Cand{key >> LB, row0 + (BR - 1 - (key & (BR - 1))), col};
+  }
 };
 
 __device__ __forceinline__ bool better(const Cand& a, const Cand& b) {
@@ -101,7 +148,6 @@ strip_tile_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                   int32_t* __restrict__ bottom, int32_t* __restrict__ bottom_f,
                   int32_t* __restrict__ right, int32_t* __restrict__ right_e,
                   int32_t* __restrict__ out3, int R, int C, int go, int ge) {
-  constexpr int LB = BR >= 16 ? 4 : BR >= 8 ? 3 : BR >= 4 ? 2 : BR >= 2 ? 1 : 0;
   constexpr int NP = (BR + 3) / 4;  // query codes, four to a register
   __shared__ int32_t tab[MAX_STRIDE * MAX_STRIDE];
   __shared__ int32_t xh[2][MAX_THREADS];  // each thread's last row at its column: H
@@ -132,7 +178,7 @@ strip_tile_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
     E[r] = NEGB;
   }
   int top_prev = 0;  // H of the row above at the previous column
-  int key = -1, bcol = 0;
+  Best<BR, true> best;
   // prefetched one step ahead: this thread's next target code and, for
   // thread 0, the next top values
   int t_next = t[0];
@@ -203,11 +249,7 @@ strip_tile_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
           diag = left;
           up_h = h;
           H[r] = h;
-          const int k = (h << LB) | (BR - 1 - r);
-          if (k > key) {
-            key = k;
-            bcol = c;
-          }
+          best.take(h, r, c, true);
         }
       }
       xh[buf][I] = up_h;
@@ -232,9 +274,8 @@ strip_tile_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
     __syncthreads();
   }
 
-  // the block's row-major-first best: (value, least row), then its column;
-  // an idle lane's key -1 reads as value -1 and never wins
-  Cand cand{key >> LB, row0 + (BR - 1 - (key & (BR - 1))), bcol};
+  // the block's row-major-first best: (value, least row), then its column
+  Cand cand = best.cand(row0);
 #pragma unroll
   for (int k = 16; k > 0; k >>= 1) {
     const Cand o = shfl_down(cand, k);
@@ -290,7 +331,9 @@ struct PipeArgs {
   unsigned long long* hand;  // [bands - 1][AFFINE ? 3 : 1][C] zeroed: each band's last row, tagged
   int32_t* done;             // [1] zeroed: bands finished
   int32_t* cands;            // [bands][3]: each band's best (value, row, column)
+  const int32_t* bmax;       // [1]: the largest boundary value (top, left, F, E)
   int stride, R, C, go, ge, bands;
+  int reach;                 // how far H climbs above it in the tile, <= KEY_MAX
 };
 
 // A handed-over value and its tag (column + 1) in one 64-bit word: a
@@ -316,10 +359,9 @@ __device__ __forceinline__ bool tagged_at(unsigned long long w, int col) {
 // target codes from the ring: the tile's top row for band 0, else the last
 // row of band - 1, which the lane that owns it writes as tagged words
 // column by column.
-template <int BR, bool AFFINE>
+template <int BR, bool AFFINE, bool WIDE>
 __device__ void warp_band(const PipeArgs& a, const int32_t* tab, int band, int lane,
                           Cand& best) {
-  constexpr int LB = BR >= 16 ? 4 : BR >= 8 ? 3 : BR >= 4 ? 2 : BR >= 2 ? 1 : 0;
   constexpr int NP = (BR + 3) / 4;
   const int C = a.C, go = a.go, ge = a.ge, stride = a.stride;
   const int brow0 = band * 32 * BR;
@@ -398,7 +440,8 @@ __device__ void warp_band(const PipeArgs& a, const int32_t* tab, int band, int l
   issue(SUB);
 
   int out_h = 0, out_p = 0, out_f = NEGB, out_t = 0;  // handed to lane + 1
-  int top_prev = 0, key = -1, bcol = 0;
+  int top_prev = 0;
+  Best<BR, WIDE> mine;
   const int steps = C + 31;
   for (int s = 0; s < steps; ++s) {
     if (s % SUB == 0 && s && s < C) {  // columns [s, s + SUB) become current
@@ -468,12 +511,8 @@ __device__ void warp_band(const PipeArgs& a, const int32_t* tab, int band, int l
         diag = left;
         up_h = h;
         H[r] = h;
-        const int kk = (h << LB) | (BR - 1 - r);
         const bool real = r < nrows;
-        if (real && kk > key) {
-          key = kk;
-          bcol = c;
-        }
+        mine.take(h, r, c, real);
         last_h = real ? h : last_h;
         last_p = real ? up_p : last_p;
         last_f = real ? up_f : last_f;
@@ -504,8 +543,8 @@ __device__ void warp_band(const PipeArgs& a, const int32_t* tab, int band, int l
       }
     }
   }
-  // the band's row-major-first best; an idle lane's key -1 never wins
-  Cand cand{key >> LB, row0 + (BR - 1 - (key & (BR - 1))), bcol};
+  // the band's row-major-first best
+  Cand cand = mine.cand(row0);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const Cand x = shfl_down(cand, o);
@@ -519,10 +558,15 @@ __global__ void __launch_bounds__(32) strip_pipe_kernel(PipeArgs a) {
   __shared__ int32_t tab[MAX_STRIDE * MAX_STRIDE];
   const int lane = threadIdx.x;
   for (int k = lane; k < a.stride * a.stride; k += 32) tab[k] = a.table[k];
+  // the packed key while every H of the tile stays below 2^27
+  const bool wide = max(__ldg(a.bmax), 0) >= KEY_MAX - a.reach;
   __syncwarp();
   for (int band = blockIdx.x; band < a.bands; band += gridDim.x) {
     Cand best{-1, 0, 0};
-    warp_band<BR, AFFINE>(a, tab, band, lane, best);
+    if (wide)
+      warp_band<BR, AFFINE, true>(a, tab, band, lane, best);
+    else
+      warp_band<BR, AFFINE, false>(a, tab, band, lane, best);
     if (lane == 0) {  // the last band to finish merges the bands' bests
       a.cands[3 * band] = best.v;
       a.cands[3 * band + 1] = best.row;
@@ -612,17 +656,21 @@ int swtpu_strip_tile(int affine, int br, const void* q, const void* t,
 // in `bands` row bands of 32 * br rows (bands = ceil(R / (32 * br))), a
 // warp each, as many warps as fit resident at once, each taking bands in
 // turn. hand [(bands - 1) * (affine ? 3 : 1) * C] uint64 and done [1] int32 zeroed, cands
-// [3 * bands] int32: scratch on the device; *grid_out gets the warps
+// [3 * bands] int32: scratch on the device; bmax [1] int32 the largest
+// boundary value (top, lext, and for affine topf, lext_e), reach in 0..2^27
+// how far H can climb above it in the tile (the endpoint's packed key
+// runs where the two stay below 2^27); *grid_out gets the warps
 // launched. Returns cudaGetLastError(), or cudaErrorInvalidValue for rows
 // per thread outside {1, 2, 4, 8, 16}, a band count that does not match,
-// or a table stride outside 1..32.
+// a reach outside 0..2^27 or a table stride outside 1..32.
 int swtpu_strip_pipe(int affine, int br, const void* q, const void* t, const void* table,
                      int stride, const void* top, const void* topf, const void* lext,
                      const void* lext_e, void* bottom, void* bottom_f, void* right,
                      void* right_e, void* out3, void* hand, void* done, void* cands,
-                     int R, int C, int go, int ge, int bands, int* grid_out, void* stream) {
+                     const void* bmax, int R, int C, int go, int ge, int bands, int reach,
+                     int* grid_out, void* stream) {
   if (R < 1 || C < 1 || stride < 1 || stride > MAX_STRIDE || br < 1 ||
-      bands != (R + 32 * br - 1) / (32 * br))
+      bands != (R + 32 * br - 1) / (32 * br) || reach < 0 || reach > KEY_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const PipeArgs a{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
                    static_cast<const int32_t*>(table), static_cast<const int32_t*>(top),
@@ -631,7 +679,8 @@ int swtpu_strip_pipe(int affine, int br, const void* q, const void* t, const voi
                    static_cast<int32_t*>(bottom_f), static_cast<int32_t*>(right),
                    static_cast<int32_t*>(right_e), static_cast<int32_t*>(out3),
                    static_cast<unsigned long long*>(hand), static_cast<int32_t*>(done),
-                   static_cast<int32_t*>(cands), stride, R, C, go, ge, bands};
+                   static_cast<int32_t*>(cands), static_cast<const int32_t*>(bmax), stride,
+                   R, C, go, ge, bands, reach};
   auto s = static_cast<cudaStream_t>(stream);
   switch (br) {
     case 1: return static_cast<int>(launch_pipe<1>(affine != 0, a, s, grid_out));

@@ -1,6 +1,6 @@
 // Batched local-alignment scores on the anti-diagonal (wavefront)
 // schedule for Hopper (sm_90a): queries of up to 128 codes, any
-// substitution matrix of up to 31 letters, linear gap (a penalty >= 0).
+// substitution matrix of up to 31 letters, linear gap of any sign.
 //
 // Replaces swtpu/kernels/pallas/sw_wavefront.py  _kernel (pallas_call
 // :110; entry sw_wavefront_pallas :179). Its plain version is
@@ -30,7 +30,8 @@
 // -gap) and the gap is folded into the scores, so a cell is one
 // __vimax3_s32_relu(D_diag + S', D_left, D_up) (ptxas: VIADDMNMX.RELU and
 // VIMNMX.RELU) and the subtract; the best is half a three-way max a cell
-// (two running maxima a lane).
+// (two running maxima a lane). The relu floors H, not D: the cell is
+// max(0, H_diag + S, H_left - gap, H_up - gap) for a gap of either sign.
 //
 // Scores come from a lane table in shared memory, each entry held for
 // every lane (word 32 x entry + lane), so a warp's lookups hit 32 banks
@@ -38,8 +39,9 @@
 // positions past n). Columns: 0 the separator, 1..A the letters, A + 1
 // the pad (codes >= A); the wrapper builds the entries
 // (sw_wavefront.py::_stream_table): S + gap, pads -2^20 + gap, the
-// separator -2^30. A position keeps its row's byte address (lane
-// included) and adds the column's offset. The wrapper picks the table's
+// separator -2^30 (under a negative gap the pad's -2^20 + gap). A
+// position keeps its row's byte address (lane included) and adds the
+// column's offset. The wrapper picks the table's
 // form (sw_wavefront.py::wavefront_form) and passes it: by columns, or by
 // pairs of columns (PAIRS, alphabets of up to 4 letters, DNA: 6 columns;
 // entry (row, a, b) = (S'(row, a), S'(row, b)), 64 words, 46 KB), where a
@@ -47,10 +49,10 @@
 // every other step, half the lookups and their adds. Every lookup is made
 // a step ahead of its use, so its latency overlaps the step before.
 //
-// Pair boundaries. Every position must see H = 0 to its left and
-// diagonal at a pair's first column. Because T is a multiple of R and s
-// >= R, once a pair each lane reaches a step (the last of an iteration of
-// R steps, the same slot for every lane) at which all its R positions
+// Pair boundaries (gap >= 0). Every position must see H = 0 to its left
+// and diagonal at a pair's first column. Because T is a multiple of R and
+// s >= R, once a pair each lane reaches a step (the last of an iteration
+// of R steps, the same slot for every lane) at which all its R positions
 // stand in the separator block, its first position on the block's last
 // column: there it sets their D to -gap. Every later separator cell then
 // computes exactly H = 0 (its left and up are 0, its diagonal + -2^30 is
@@ -64,6 +66,18 @@
 // l - 1), each lane storing its running maximum into the stream's result
 // slots in shared memory (the last lane's is the pair's score); the
 // stream writes its P scores at the end. No atomics.
+//
+// A negative gap (the TPU schedule's own score). There H grows by |gap| a
+// step along every gap chain, through the phantom rows past n and the
+// padded columns past m, and the score the TPU kernel returns (and its
+// plain version) is the best over all 128 positions and exactly
+// ceil((n + m - 1) / 32) x 32 steps, above the oracle's. A separator cell
+// would then outscore its pair, so the stream holds one pair (P = 1, the
+// wrapper's rule), its separator and every column outside the target
+// score as the TPU's padded columns (the table's column 0 is the pad's),
+// no lane forces, the loop runs that step count, and the stream's 16
+// lanes reduce their maxima by shuffles at the end. The boundary D = -gap
+// and the cell are the same for either sign.
 //
 // Codes. The block stages each stream's query rows ([P, 128] row
 // addresses) in shared memory; target columns flow through a ring of 256
@@ -81,9 +95,12 @@
 // of a stream), the head and tail (NL - 1 iterations a stream), a shuffle
 // and a select a lane a step, the code loads, the refill every 8
 // iterations and the forcing step once a pair a lane (the warp runs it in
-// nearly every iteration: its lanes force in turn). chip_smoke.py phase 2
-// counts the loop as compiled.
+// nearly every iteration: its lanes force in turn). Under a negative gap
+// the stream of one pair runs 128 x ceil((n + m - 1) / 32) x 32 cells,
+// twice a 128 x 128 pair's real cells. chip_smoke.py phase 2 counts the
+// loop as compiled.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -100,7 +117,6 @@ constexpr int RING = 256;      // ring words a stream: >= (2 CHUNK + NL - 1) R, 
 constexpr int MAX_CODES = 32;  // A + 1
 constexpr int MAX_PAIRS = 16;  // pairs a stream (its lanes write their scores, one a lane)
 constexpr int PAIR_MAX_LETTERS = 4;  // alphabets the table by pairs of columns takes (DNA)
-constexpr int NEG_SEP = -(1 << 30);   // the separator's score (sw_wavefront.py::NEG_SEP)
 constexpr int SMEM_MAX = 232448;
 constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
@@ -135,7 +151,7 @@ template <bool PAIRS>
 __global__ void __launch_bounds__(WARPS * 32)
 sw_wavefront_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ ts,
                     const int32_t* __restrict__ table, int A, int32_t* __restrict__ out,
-                    int B, int n, int m, int P, int T, int gap) {
+                    int B, int n, int m, int P, int T, int gap, int iters) {
   constexpr int PER = CHUNK * R / NL;  // codes a lane loads a refill
   static_assert(RING >= (2 * CHUNK + NL - 1) * R, "the ring holds a lane's groups");
   extern __shared__ __align__(16) int32_t smem[];
@@ -155,6 +171,7 @@ sw_wavefront_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ 
   int32_t* staged = ring_all;
   for (int w = threadIdx.x; w < (A + 1) * cols; w += WARPS * 32) staged[w] = __ldg(table + w);
   __syncthreads();
+  const int sep = staged[0];  // column 0's score: the separator's, or the pad's
   if constexpr (PAIRS) {
     // entry (q, a, b): (S'(q, a), S'(q, b)) at words 64 ((q cols + a) cols + b) + 2 lane
     for (int rw = threadIdx.x >> 5; rw < (A + 1) * cols; rw += WARPS) {
@@ -246,7 +263,8 @@ sw_wavefront_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ 
 #pragma unroll
   for (int r = 0; r < R; ++r) h1[r] = h2[r] = -gap;
   int up1 = -gap, up2 = -gap;  // D of the position above this lane's first, d - 1 / d - 2
-  int best0 = 0, best1 = 0, acc = 0, cnt = sl + TG, kf = 0;  // kf: pairs this lane has left
+  // kf: pairs this lane has left; under a negative gap no lane forces
+  int best0 = 0, best1 = 0, acc = 0, cnt = gap < 0 ? INT_MAX : sl + TG, kf = 0;
   int32_t* res = res_all + sb * (P + NL);
   const int32_t* qnext = qrow + (P > 1 ? POS : 0);  // the rows the next pair takes
   const int32_t* qlast = qrow + (P - 1) * POS;
@@ -260,14 +278,13 @@ sw_wavefront_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     prev[r] = pprev[r] = 0;
-    s2[r] = NEG_SEP;  // the separator's score: the head's columns
+    s2[r] = sep;  // the head's columns
   }
   load_words(cur, ring + ((-sl * R) & (RING - 1)));
   load_words(nxt, ring + (((1 - sl) * R) & (RING - 1)));
 #pragma unroll
   for (int r = 0; r < R; r += PAIRS ? 2 : 1)
     nx[r] = look(qo[r] + (r ? 0 : PAIRS ? cur[0] * cols + cur[1] : cur[0]));
-  const int iters = P * TG + NL - 1;
   // two iterations a pass (the rotation of the target values needs no
   // moves); the lane table by columns keeps one (two spill at 80 registers)
 #pragma unroll (PAIRS ? 2 : 1)
@@ -353,6 +370,13 @@ sw_wavefront_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ 
       nx[0] = look(qo[0] + c0);  // the first position enters the next pair
     }
   }
+  if (gap < 0) {  // one pair: the best over the stream's positions and steps
+    int v = max(best0, best1);
+#pragma unroll
+    for (int o = NL / 2; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o, NL));
+    if (sl == 0 && kvalid > 0) out[b0] = v;
+    return;
+  }
   __syncwarp();
   if (sl < kvalid) out[b0 + sl] = res[sl];  // P <= NL
 }
@@ -369,6 +393,10 @@ template <bool PAIRS>
 int launch(const void* qs, const void* ts, const void* table, int A, void* out, int B,
            int n, int m, int P, int gap, size_t smem, cudaStream_t stream) {
   const int T = m + R + (R - m % R) % R;
+  // iterations of R steps: a negative gap runs the TPU's step count,
+  // n + m - 1 diagonals padded to 32 (sw_wavefront.py::wavefront_steps)
+  const int steps = n + m - 1 <= 0 ? 0 : (n + m - 1 + 31) / 32 * 32;
+  const int iters = gap < 0 ? steps / R : P * (T / R) + NL - 1;
   const long long streams = (static_cast<long long>(B) + P - 1) / P;
   const int blocks = static_cast<int>((streams + SPB - 1) / SPB);
   if (smem > 48 * 1024) {  // raise the kernel's limit once a device, to the most asked
@@ -385,7 +413,8 @@ int launch(const void* qs, const void* ts, const void* table, int A, void* out, 
   }
   sw_wavefront_kernel<PAIRS><<<blocks, WARPS * 32, smem, stream>>>(
       static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(ts),
-      static_cast<const int32_t*>(table), A, static_cast<int32_t*>(out), B, n, m, P, T, gap);
+      static_cast<const int32_t*>(table), A, static_cast<int32_t*>(out), B, n, m, P, T, gap,
+      iters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -398,17 +427,19 @@ extern "C" {
 // block's shared memory `smem` bytes as the wrapper counts it
 // (sw_wavefront.py::stream_smem); returns cudaGetLastError().
 // cudaErrorInvalidValue for n outside 0..128, an alphabet of more than 31
-// letters (paired: 4), pairs outside 1..16, a negative gap (a separator
-// cell would then outscore the pair's cells) or an `smem` that is not the
-// layout's. Pointers: qs [B, n] and ts [B, m] uint8 codes, table [A + 1,
-// A + 2] int32 (sw_wavefront.py::_stream_table: the scores + gap, column 0
-// the separator, column A + 1 and row A the pad), out [B] int32. All on
-// one device, contiguous; the wrapper checks that.
+// letters (paired: 4), pairs outside 1..16, more than one pair a stream
+// under a negative gap (a separator cell would then outscore the pair's
+// cells) or an `smem` that is not the layout's. Pointers: qs [B, n] and
+// ts [B, m] uint8 codes, table [A + 1, A + 2] int32
+// (sw_wavefront.py::_stream_table: the scores + gap, column 0 the
+// separator, or under a negative gap the pad, column A + 1 and row A the
+// pad), out [B] int32. All on one device, contiguous; the wrapper checks
+// that.
 int swtpu_sw_wavefront(const void* qs, const void* ts, const void* table, int A, void* out,
                        int B, int n, int m, int pairs, int paired, int gap, long long smem,
                        void* stream) {
   if (n < 0 || n > POS || A < 1 || A + 1 > MAX_CODES || (paired && A > PAIR_MAX_LETTERS) ||
-      B < 0 || m < 0 || pairs < 1 || pairs > MAX_PAIRS || gap < 0 ||
+      B < 0 || m < 0 || pairs < 1 || pairs > MAX_PAIRS || (gap < 0 && pairs != 1) ||
       smem != static_cast<long long>(block_smem(A, pairs, paired)) || smem > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;

@@ -25,8 +25,9 @@ queue C); the port follows its plain tile.
 The per-tile calls run where their tensors lie: on the CPU the plain
 tile, on a CUDA device the kernel, which they never replace with the
 plain tile; a failed build or launch, or a tile the kernel does not take
-(a negative gap, more than 30 letters, more than ``STRIP_ROWS`` rows),
-raises. Each counts its launches in ``<call>.launches``. The TPU
+(more than 30 letters, more than ``STRIP_ROWS`` rows, a negative penalty
+so large that the plain tile's fill reaches its real cells:
+:func:`strip_refusal`), raises. Each counts its launches in ``<call>.launches``. The TPU
 staging (the skewed target, the (8, 128) slot layout, the one-hot
 profile matmul) is layout for the TPU's vregs and is not carried over.
 """
@@ -53,6 +54,8 @@ NEGB = -(2**20)  # "outside the tile" marker
 #: rows); a longer query is swept strip after strip
 STRIP_ROWS = 16384
 _BIG = 1 << 30
+#: H below it fits the endpoint's packed key (H << 4 and 4 row bits in 31)
+KEY_MAX = 1 << 27
 
 
 def _vec(x, device, dtype=torch.int32) -> torch.Tensor:
@@ -180,8 +183,8 @@ def _tile_colscan_affine(q, t, top_row, top_row_f, left_col, left_col_e,
 
     ``top_pre`` [C] (default: ``top_row``) is the E-and-diagonal candidate
     of the row above, which the F chain reads: a tile cut out of a taller
-    one gets its upper neighbour's, so that the cut is exact for any gaps
-    >= 0. ``with_pre`` appends the bottom row's candidate to the returns.
+    one gets its upper neighbour's, so that the cut is exact for gaps of
+    either sign within ``strip_refusal``'s bound. ``with_pre`` appends the bottom row's candidate to the returns.
     """
     R, t, prof, left_ext = _tile_setup(q, t, left_col, corner, table)
     C = t.shape[0]
@@ -454,16 +457,41 @@ def _tile_pipeline(q, t, top_row, top_row_f, left_col, left_col_e, corner, table
     return (bottom, right) + out3
 
 
+def fill_reach(params: ScoringParams, R: int) -> int:
+    """How far above -2^20 the plain tile's log-doubling fill can climb in
+    an R-row tile: the shifts' sum (< 2R) times the negative penalty that
+    its vertical chain adds a row (the linear gap, Gotoh's extension); 0
+    when that penalty is >= 0."""
+    step = params.gap if params.is_linear else params.gap_extend
+    return sum(_prefix_shifts(R)) * max(0, -int(step))
+
+
+def h_reach(params: ScoringParams, R: int, C: int) -> int:
+    """How far H can climb above the largest boundary value (or 0) across
+    an R x C tile: a path to any cell takes at most R + C steps, each gap
+    step adds at most max(0, -gap_open, -gap_extend) and each diagonal one,
+    which covers a row and a column, the matrix's largest entry."""
+    g = max(0, -int(params.gap_open), -int(params.gap_extend))
+    return (R + C) * g + min(R, C) * max(0, int(params.matrix.max()) - 2 * g)
+
+
 def strip_refusal(params: ScoringParams, R: int, C: int):
-    """Why the kernel does not take this tile, or None when it does."""
+    """Why the kernel does not take this tile, or None when it does. It
+    takes gaps of either sign while the plain tile's fill stays below
+    every real value of its chain (:func:`fill_reach`: below 0 linear,
+    below -gap_open Gotoh), where its sequential chain equals the plain
+    tile's log-doubling prefix: |gap| <= 32 at 16384 rows."""
     if params.alphabet_size > MAX_LETTERS:
         return (f"the strip kernel takes at most {MAX_LETTERS} letters (got "
-                f"{params.alphabet_size}); no kernel in ROADMAP.md queue B takes "
-                "more: run it on the CPU")
-    if min(params.gap_open, params.gap_extend) < 0:
-        return ("the strip kernel needs gaps >= 0 (got "
-                f"{params.gap_open}, {params.gap_extend}); no kernel in ROADMAP.md "
-                "queue B takes a negative gap: run it on the CPU")
+                f"{params.alphabet_size}), as the plain tile's extended table does")
+    floor = 0 if params.is_linear else -int(params.gap_open)
+    if NEGB + fill_reach(params, R) >= floor:
+        return (f"the strip kernel's row chain equals the plain tile's log-doubling "
+                f"prefix (JAX's XLA tile, whose shifts fill with -2^20) only while the "
+                f"fill, -2^20 + {sum(_prefix_shifts(R))} x the negative penalty at {R} "
+                f"rows, stays below {floor} (got gaps {params.gap_open}, "
+                f"{params.gap_extend}); cut the query into shorter strips or run it on "
+                "the CPU (ROADMAP.md queue A notes this bound)")
     if not 1 <= R <= STRIP_ROWS or C < 1:
         return (f"the strip kernel takes 1..{STRIP_ROWS} rows and >= 1 column (got "
                 f"{R} x {C}); the long-pair sweep cuts longer queries into strips")
@@ -491,7 +519,7 @@ def _strip_fn(name):
         if name == "swtpu_strip_tile":
             fn.argtypes = [i, i, p, p, p, i] + [p] * 9 + [i] * 4 + [p]
         else:
-            fn.argtypes = [i, i, p, p, p, i] + [p] * 12 + [i] * 5 + [
+            fn.argtypes = [i, i, p, p, p, i] + [p] * 13 + [i] * 6 + [
                 ctypes.POINTER(ctypes.c_int), p]
         fn.restype = ctypes.c_int
     return lib, fn
@@ -540,7 +568,9 @@ def _pipe_launch(q, t, table, top, topf, left_ext, left_ext_e, params: ScoringPa
                  br=None):
     """The pipelined kernel on staged inputs (see ``strip_launch_t``) at
     ``br`` rows a lane (default ``strip_plan``'s): (the tile's outputs, the
-    warps launched, one a CTA)."""
+    warps launched, one a CTA). The kernel packs its endpoint's (value,
+    row) in one key where the boundaries' largest value and
+    :func:`h_reach` keep every H below KEY_MAX, else keeps them apart."""
     R, C, affine = _check_staged(q, t, table, top, topf, left_ext, left_ext_e, params)
     outs, args = _outputs_and_args(q, t, table, top, topf, left_ext, left_ext_e, R, C,
                                    affine)
@@ -552,12 +582,19 @@ def _pipe_launch(q, t, table, top, topf, left_ext, left_ext_e, params: ScoringPa
                        dtype=torch.int64, device=dev)
     done = torch.zeros((1,), dtype=torch.int32, device=dev)
     cands = torch.empty((3 * bands,), dtype=torch.int32, device=dev)
+    # the largest boundary value, on the device (no sync): with h_reach it
+    # tells the kernel whether the endpoint's packed key holds every H
+    bmax = torch.maximum(top.max(), left_ext.max())
+    if affine:
+        bmax = torch.maximum(bmax, torch.maximum(topf.max(), left_ext_e.max()))
+    reach = min(h_reach(params, R, C), KEY_MAX)
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib, fn = _strip_fn("swtpu_strip_pipe")
-        err = fn(int(affine), br, *args, ptr(hand), ptr(done), ptr(cands), R, C,
-                 params.gap_open, params.gap_extend, bands, ctypes.byref(grid), stream)
+        err = fn(int(affine), br, *args, ptr(hand), ptr(done), ptr(cands), ptr(bmax), R, C,
+                 params.gap_open, params.gap_extend, bands, reach, ctypes.byref(grid),
+                 stream)
     _build.check(lib, err, "sw_strip")
     return outs, grid.value
 

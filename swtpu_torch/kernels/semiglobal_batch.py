@@ -16,12 +16,14 @@ codes as the caller holds them, [B, n] / [B, m] uint8: the wrappers
 transpose nothing.
 
 ``semiglobal_batch`` runs where its device says: on the CPU the plain
-version, for every scoring the XLA tier takes; on a CUDA device the
-kernel, for gaps > 0 only (else NotImplementedError), never the plain
-version; a failed build or launch raises. It counts its launches in
-``semiglobal_batch.launches``, and those of the affine, the pinned and
-the affine pinned instantiations also in ``.launches_affine``,
-``.launches_pinned`` and ``.launches_affine_pinned``.
+version, on a CUDA device the kernel, for every scoring the XLA tier
+takes (gaps of either sign), never the plain version; a failed build or
+launch raises. Under a gap <= 0 the kernel follows the XLA tier and the
+oracle, not JAX's Pallas kernel, whose endpoint tracker assumes gaps > 0.
+It counts its launches in ``semiglobal_batch.launches``, and those of
+the affine, the pinned and the affine pinned instantiations also in
+``.launches_affine``, ``.launches_pinned`` and
+``.launches_affine_pinned``.
 
 ``semiglobal_skew_mirror`` replays the kernel's skewed tile step for
 step in plain PyTorch on the CPU (the tests hold it against JAX's XLA
@@ -47,15 +49,6 @@ SOURCE = "sw_semiglobal.cu"
 #: library for its ROWS)
 ROWS = 16
 GROUP = 4
-
-
-def semiglobal_refusal(go: int, ge: int):
-    """Why the semi-global kernel does not take these gaps, or None."""
-    if go <= 0 or ge <= 0:
-        return (f"the semi-global kernels need gaps > 0 (got {go}, {ge}); no "
-                "kernel in ROADMAP.md queue B takes a non-positive gap: run it "
-                "on the CPU")
-    return None
 
 
 def _semiglobal_fn():
@@ -99,7 +92,8 @@ def semiglobal_launch_t(q, t, match: int, mismatch: int, go: int, ge: int,
     t [B, m] contiguous uint8 on one CUDA device: :func:`codes`) and
     lengths from :func:`lens_tensor`. ``mismatch`` is the score of a
     mismatch (negative). With ``table`` (``sw_profile.profile_table``) the
-    profile instantiation runs and match/mismatch are unused; ``n_codes``
+    profile instantiation runs, ``match`` is the matrix's largest |entry|
+    (the packed key's bound, :func:`key_bits`) and ``mismatch`` 0; ``n_codes``
     (default: the table's stride) is the alphabet + 1, the codes whose
     scores the kernel copies to shared memory (a code past them scores as
     the pad it is). ``select`` makes an argmax launch keep (best, step)
@@ -198,9 +192,6 @@ def semiglobal_batch(qs, ts, match=1, mismatch=1, gap=1, gap_open=None,
             pin_end, dev,
         )
     go, ge, affine = gaps(gap, gap_open, gap_extend)
-    reason = semiglobal_refusal(go, ge)
-    if reason:
-        raise NotImplementedError(reason)
     q, t = codes(qs, ts, dev, "semi-global")
     B = q.shape[0]
     out = semiglobal_launch_t(
@@ -217,17 +208,17 @@ semiglobal_batch.launches_pinned = 0
 semiglobal_batch.launches_affine_pinned = 0
 
 
-def key_bits(profile: bool, n: int, m: int, match: int, mismatch: int, go: int,
-             ge: int):
+def key_bits(n: int, m: int, match: int, mismatch: int, go: int, ge: int):
     """The mirror's copy of csrc/sw_semiglobal.cu's
     ``swtpu_sw_semiglobal_key_bits`` (the launch asks the library): the
     step bits k of the argmax forms' packed tracker (key = (H - go) x 2^k
     + 2^k - 1 - step), or None when the key cannot hold these sizes and
-    scores and the kernel keeps (best, step) apart (a profile entry counts
-    as 127, the most the kernel takes)."""
+    scores and the kernel keeps (best, step) apart. Each step of a path
+    moves H by at most the largest |score|, |go| or |ge|: a profile launch
+    passes its matrix's largest |entry| as ``match``."""
     k = max(m + ROWS + GROUP - 1, 0).bit_length()
-    mag = max(127 if profile else max(abs(match), abs(mismatch)), abs(go), abs(ge))
-    span = (n + m + ROWS + GROUP) * mag + go + 1
+    mag = max(abs(match), abs(mismatch), abs(go), abs(ge))
+    span = (n + m + ROWS + GROUP) * mag + abs(go) + 1
     return k if k < 31 and span < 2 ** (31 - k) else None
 
 
@@ -255,13 +246,15 @@ def semiglobal_skew_mirror(qs, ts, match=1, mismatch=1, gap=1, gap_open=None,
     the step before. With m_b >= ROWS only the rows inside [0, m_b)
     compute, and a row that starts next step takes
     its diagonal; else steps run in groups of GROUP, masked when a step
-    has a row outside [0, m_b) (there a row keeps H and tracker, and E, F,
-    the diagonal and the code shift on regardless), unmasked groups commit
-    every row. H kept minus the gap open; row 0 reads the row above from
-    the scratch a group ahead (the first sweep: the boundary chain), row
-    ROWS - 1 writes it (not in the last sweep); per-row (best, step) on a
-    strict '>', held in one key where :func:`key_bits` allows (the
-    launch's choice), folded in row order after each sweep.
+    has a row outside [0, m_b) (there a row keeps H and tracker, and E,
+    F, the diagonal and the code shift on regardless, E restarting at
+    -inf at the row's first column), unmasked groups commit every row. H kept minus the gap open; row 0 reads the row above
+    from the scratch a group ahead (the first sweep: the boundary chain),
+    row ROWS - 1 writes it (not in the last sweep); per-row (best, step)
+    on a strict '>', held in one key where :func:`key_bits` allows (the
+    launch's choice), folded in row order after each sweep from the
+    origin; after the DP row 0's and column 0's first maxima (closed form:
+    their chains are monotone) merge in row-major order.
     ``params`` runs the profile form (the extended table), else uniform
     scoring as :func:`semiglobal_batch`. Same contract. Nothing on the
     card path calls it."""
@@ -277,11 +270,12 @@ def semiglobal_skew_mirror(qs, ts, match=1, mismatch=1, gap=1, gap_open=None,
         stride, pad = tab.shape[0], tab.shape[0] - 1
         go, ge, affine = int(params.gap_open), int(params.gap_extend), not params.is_linear
         tab = tab.reshape(-1) + go
+        kmatch, kmiss = int(abs(params.matrix).max()), 0
     else:
         go, ge, affine = gaps(gap, gap_open, gap_extend)
         pad, hit, miss = 4, int(match) + go, -int(mismatch) + go
-    kbits = None if pin_end else key_bits(params is not None, n, m, int(match),
-                                          -int(mismatch), go, ge)
+        kmatch, kmiss = int(match), -int(mismatch)
+    kbits = None if pin_end else key_bits(n, m, kmatch, kmiss, go, ge)
     kmul = 2 ** (kbits or 0)
     origin = -go * kmul + kmul - 1 if kbits is not None else -go
 
@@ -298,6 +292,7 @@ def semiglobal_skew_mirror(qs, ts, match=1, mismatch=1, gap=1, gap_open=None,
                            torch.where(inside & (lt == 0), chain(lq), MINUS_INF))
         bi, bj = torch.where(inside, lq, 0), torch.where(inside, lt, 0)
         n_b = torch.where(inside & (lq > 0) & (lt > 0), lq, 0)
+    n_col = n_b  # column 0's cells (argmax)
     n_b = torch.where(m_b == 0, 0, n_b)
     R = ROWS
     # the pairs whose rows start and end a step apart (no masked groups)
@@ -360,7 +355,9 @@ def semiglobal_skew_mirror(qs, ts, match=1, mismatch=1, gap=1, gap_open=None,
                       else torch.where(qc == tr, hit, miss))
                 if affine:
                     fn = torch.maximum(shift(f_in, f) - ge, up)
-                    en = torch.maximum(e - ge, d)
+                    # a masked row restarts E at its first column
+                    e_in = torch.where((~exact)[:, None] & (ar == s)[None], _NEG_EF, e)
+                    en = torch.maximum(e_in - ge, d)
                     h = torch.maximum(torch.maximum(dg + sg, en), fn)
                 else:
                     fn, en = f, e
@@ -398,5 +395,15 @@ def semiglobal_skew_mirror(qs, ts, match=1, mismatch=1, gap=1, gap_open=None,
             best = torch.where(upd, rbr + go, best)
             bi = torch.where(upd, i0 + r + 1, bi)
             bj = torch.where(upd, rsr - r + 1, bj)
+    if not pin_end:
+        for length, tracked, row in ((m_b, lq >= 0, True), (n_col, lt >= 0, False)):
+            # a boundary chain's first maximum (its last cell when it rises,
+            # else its first), merged in row-major order
+            k = length if ge < 0 else torch.ones_like(length)
+            v, i, j = chain(k), (0 if row else k), (k if row else 0)
+            upd = tracked & (length >= 1) & (
+                (v > best) | ((v == best) & ((i < bi) | ((i == bi) & (j < bj)))))
+            best, bi, bj = (torch.where(upd, v, best), torch.where(upd, i, bi),
+                            torch.where(upd, j, bj))
     return tuple(x.to(torch.int32) for x in (best, bi, bj))
 

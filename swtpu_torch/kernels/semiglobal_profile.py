@@ -11,10 +11,9 @@ transposes). The plain version is the table tier of
 ``semiglobal_scan.py``.
 
 ``semiglobal_profile`` runs where its device says: on the CPU the plain
-version, for every scoring the XLA tier takes; on a CUDA device the
-kernel, within ``sw_profile.profile_refusal``'s bounds (at most 30
-letters, entries in [-127, 127], gaps > 0; a uniform matrix passes them
-too), else NotImplementedError; never the plain version there. It
+version, on a CUDA device the kernel, for every scoring the plain tier
+takes (at most 30 letters, :func:`semiglobal_profile_refusal`; gaps of
+either sign, entries of any size), never the plain version there. It
 counts its launches as ``semiglobal_batch.semiglobal_batch`` does.
 """
 
@@ -28,8 +27,17 @@ from swtpu_torch.kernels.semiglobal_batch import (
     semiglobal_launch_t,
 )
 from swtpu_torch.kernels.semiglobal_scan import semiglobal_batch_general
-from swtpu_torch.kernels.sw_profile import _guard_profile, profile_table
+from swtpu_torch.kernels.sw_profile import MAX_LETTERS, profile_table
 from swtpu_torch.utils.device import resolve_device
+
+
+def semiglobal_profile_refusal(params: ScoringParams):
+    """Why the profile form does not take ``params``, or None: more letters
+    than its lane table (and the plain tier's extended table) holds."""
+    if params.alphabet_size > MAX_LETTERS:
+        return (f"the semi-global profile kernel takes at most {MAX_LETTERS} letters "
+                f"(got {params.alphabet_size}), as the plain tier's extended table does")
+    return None
 
 
 def semiglobal_profile_plain(qs, ts, params: ScoringParams, lens_q=None,
@@ -56,12 +64,15 @@ def semiglobal_profile(qs, ts, params: ScoringParams, lens_q=None, lens_t=None,
     if dev.type == "cpu":
         return semiglobal_profile_plain(qs, ts, params, lens_q, lens_t, pin_end,
                                         dev)
-    _guard_profile(params)
+    reason = semiglobal_profile_refusal(params)
+    if reason:
+        raise NotImplementedError(reason)
     q, t = codes(qs, ts, dev, "semi-global profile")
     B = q.shape[0]
     affine = not params.is_linear
     out = semiglobal_launch_t(
-        q, t, 0, 0, params.gap_open, params.gap_extend, affine, pin_end,
+        q, t, int(abs(params.matrix).max()), 0, params.gap_open, params.gap_extend,
+        affine, pin_end,
         lens_tensor(lens_q, B, dev), lens_tensor(lens_t, B, dev),
         table=profile_table(params, dev), n_codes=params.alphabet_size + 1,
     )

@@ -71,12 +71,12 @@ def profile_refusal(params: ScoringParams):
         return ("the profile kernel takes matrix entries in [-127, 127] (got "
                 f"[{int(mat.min())}, {int(mat.max())}]); best_engine runs such "
                 "scorings on the general kernel (kernels.sw_general), and ROADMAP.md "
-                "queue A lists what the card still refuses (semi-global: item 16)")
+                "queue A lists what the card still refuses")
     if params.gap_open <= 0 or params.gap_extend <= 0:
         return ("the profile kernel needs gap_open, gap_extend > 0 (got "
                 f"{params.gap_open}, {params.gap_extend}); best_engine runs such "
                 "scorings on the general kernel (kernels.sw_general), and ROADMAP.md "
-                "queue A lists what the card still refuses (semi-global: item 16)")
+                "queue A lists what the card still refuses")
     return None
 
 

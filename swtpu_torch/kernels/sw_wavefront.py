@@ -9,11 +9,11 @@ the other axis; any substitution matrix, linear gap only (affine raises,
 as in JAX). The kernel is ``csrc/sw_wavefront.cu``: pairs stream back to
 back through a warp's anti-diagonal, 8 rows a lane (:func:`wavefront_stream`
 picks the pairs a stream, :func:`wavefront_form` the lane table's form);
-its head note says what it replaces, what bounds it and how. The kernel
-takes a gap penalty >= 0 (:func:`wavefront_refusal`); under a negative
-gap the plain version's score is the TPU schedule's, which counts its
-phantom rows and padded columns (the row-scan and profile kernels refuse
-such a gap too).
+its head note says what it replaces, what bounds it and how. Under a
+negative gap the score is the TPU schedule's, which counts its phantom
+rows and padded columns and so sits above the oracle's: the kernel runs
+that schedule then, one pair a stream over exactly
+:func:`wavefront_steps` steps, and gives what JAX's Pallas kernel gives.
 
 ``sw_wavefront_plain`` repeats the TPU kernel step by step on [B, 128]
 tensors: the same 128 lanes (phantom ones past n score -2^20), the same
@@ -27,8 +27,9 @@ on the card it is held against the kernel).
 
 ``sw_wavefront`` runs where its device says: on the CPU the plain
 version, on a CUDA device the kernel (counted in
-``sw_wavefront.launches``), never the plain version there; a failed
-build or launch, or a scoring the kernel refuses, raises. Queries longer than 128 go pair by pair to the
+``sw_wavefront.launches``, those under a negative gap also in
+``.launches_negative``), never the plain version there; a failed build
+or launch, or a scoring the kernel refuses (Gotoh, as JAX's), raises. Queries longer than 128 go pair by pair to the
 strip tile with zero boundaries (``longpair_strip.strip_tile``: the CUDA
 strip kernel on the card, the plain tile on the CPU), as JAX routes them.
 """
@@ -51,8 +52,8 @@ SOURCE = "sw_wavefront.cu"
 Q_PAD = 4
 T_PAD = 5
 NEG = -(2**20)
-#: the separator columns' score in the kernel's table: below any D a pair
-#: can reach, so a separator cell's diagonal never wins
+#: the separator columns' score in the kernel's table under a gap >= 0:
+#: below any D a pair can reach, so a separator cell's diagonal never wins
 NEG_SEP = -(2**30)
 LANE = 128  # query positions per pair
 STEPS_PB = 32  # the TPU's diagonals per grid step: the step count's multiple
@@ -83,13 +84,16 @@ def _profile_table(params: ScoringParams) -> np.ndarray:
 def _stream_table(params: ScoringParams) -> np.ndarray:
     """[A + 1, A + 2] int32: the kernel's (and the mirror's) table, the
     gap folded in (H is kept minus it). Rows: the A letters, then the pad
-    (codes >= A). Columns: 0 the separator (-2^30), 1..A the letters, A +
-    1 the pad; entries S + gap, pads -2^20 + gap."""
+    (codes >= A). Columns: 0 the separator (-2^30; under a negative gap,
+    where every column outside the target scores as the TPU's padded
+    columns, the pad), 1..A the letters, A + 1 the pad; entries S + gap,
+    pads -2^20 + gap."""
     A = params.alphabet_size
     g = int(params.gap)
     tab = np.full((A + 1, A + 2), NEG + g, dtype=np.int64)
     tab[:A, 1:A + 1] = params.matrix.astype(np.int64) + g
-    tab[:, 0] = NEG_SEP
+    if g >= 0:
+        tab[:, 0] = NEG_SEP
     return tab.astype(np.int32)
 
 
@@ -112,12 +116,11 @@ def wavefront_form(letters: int) -> bool:
 
 
 def wavefront_refusal(params: ScoringParams) -> Optional[str]:
-    """Why the kernel does not take ``params``, or None when it does."""
+    """Why the kernel does not take ``params``, or None when it does: a
+    linear gap of any sign (JAX's Pallas kernel refuses Gotoh too)."""
     if not params.is_linear:
-        return "the wavefront kernel takes a linear gap only"
-    if params.gap < 0:
-        return (f"the wavefront kernel needs a gap >= 0 (got {params.gap}); no kernel in "
-                "ROADMAP.md queue B takes a negative gap: run it on the CPU")
+        return ("the wavefront kernel takes a linear gap only, as JAX's Pallas kernel "
+                "does: run Gotoh on best_engine")
     return None
 
 
@@ -137,15 +140,18 @@ def stream_smem(letters: int, pairs: int, paired: Optional[bool] = None) -> int:
 
 @functools.lru_cache(maxsize=256)
 def wavefront_stream(B: int, n: int, m: int, n_sm: int, letters: int = 4,
-                     paired: Optional[bool] = None) -> int:
+                     paired: Optional[bool] = None, gap: int = 0) -> int:
     """P, the pairs a stream, for a launch of B pairs of n x m (an
     alphabet of ``letters``, the table in the form ``paired``, default
     :func:`wavefront_form`'s) on a card of n_sm SMs: the P of least
     estimated time, the block waves (STREAM_BLOCKS_PER_SM blocks an SM, or
     what shared memory holds) times a stream's iterations (P pairs of T /
     8 and its head and tail), the smaller P on a tie; P = 1 while the
-    batch gives each SM at most a block."""
+    batch gives each SM at most a block, and under a negative ``gap``
+    (a separator cell would outscore its pair)."""
     del n  # the kernel runs 128 positions whatever n
+    if gap < 0:
+        return 1
     tg = wavefront_period(m) // ROWS
     lanes = LANE // ROWS
     streams_a_block = STREAM_WARPS * 32 // lanes
@@ -233,11 +239,14 @@ def wavefront_stream_mirror(qs, ts, params: ScoringParams, pairs: int,
     the next pair's query rows and folds its best into the maximum
     carried down the lanes, which the last lane writes. (The kernel
     shuffles a forcing lane's last D to the next lane before it resets it,
-    the mirror after: the value reaches only separator cells.)"""
+    the mirror after: the value reaches only separator cells.) Under a
+    negative gap a stream holds one pair (``pairs`` must be 1), every
+    column outside the target scores as the pad, no lane forces, the loop
+    runs :func:`wavefront_steps` steps and the stream's lanes reduce their
+    maxima."""
     _guard(params)
-    reason = wavefront_refusal(params)
-    if reason:
-        raise NotImplementedError(reason)
+    if params.gap < 0 and pairs != 1:
+        raise ValueError(f"a negative gap runs one pair a stream (got {pairs})")
     dev = resolve_device(device, like=qs)
     qs, ts = as_codes(qs, dev), as_codes(ts, dev)
     B, n = qs.shape
@@ -272,10 +281,12 @@ def wavefront_stream_mirror(qs, ts, params: ScoringParams, pairs: int,
     d2 = d1.clone()                                                 # D at step d - 2
     zero = torch.zeros((S, nl), dtype=torch.int32, device=dev)
     best, acc = zero, zero
+    negative = g < 0
     cnt = (torch.arange(nl, device=dev) + tg).expand(S, nl)
     kf = torch.zeros((S, nl), dtype=torch.long, device=dev)
     qcur = qrow[:, 0]
-    for it in range(pairs * tg + nl - 1):
+    iters = wavefront_steps(n, m) // rows if negative else pairs * tg + nl - 1
+    for it in range(iters):
         for u in range(rows):
             col = it * rows + u - pos
             inside = (col >= 0) & (col < pairs * T)
@@ -285,6 +296,8 @@ def wavefront_stream_mirror(qs, ts, params: ScoringParams, pairs: int,
                               torch.cat([edge, d1[:, :-1]], 1)).clamp(min=0)
             best = torch.maximum(best, h.view(S, nl, rows).amax(2))
             d1, d2 = h - g, d1
+        if negative:
+            continue
         acc_in = torch.cat([zero[:, :1], acc[:, :-1]], 1)
         cnt = cnt - 1
         force = cnt == 0
@@ -298,6 +311,8 @@ def wavefront_stream_mirror(qs, ts, params: ScoringParams, pairs: int,
         take = (force & (kf < pairs)).repeat_interleave(rows, 1)
         nxt = qrow.gather(1, kf.clamp(max=pairs - 1).repeat_interleave(rows, 1)[:, None])[:, 0]
         qcur = torch.where(take, nxt, qcur)
+    if negative:  # one pair a stream: its lanes' maxima
+        out = best.amax(1)
     return out
 
 
@@ -321,7 +336,8 @@ def wavefront_launch_t(qs, ts, table, params: ScoringParams,
                        paired: Optional[bool] = None) -> torch.Tensor:
     """The launch alone: qs [B, n <= 128] and ts [B, m] contiguous uint8
     codes and the table of :func:`wavefront_table` on one CUDA device;
-    ``pairs`` a stream, default :func:`wavefront_stream`'s; the lane
+    ``pairs`` a stream, default :func:`wavefront_stream`'s (1 under a
+    negative gap, the only count it takes); the lane
     table by pairs of columns when ``paired``, default
     :func:`wavefront_form`'s."""
     B, n = qs.shape
@@ -336,6 +352,8 @@ def wavefront_launch_t(qs, ts, table, params: ScoringParams,
         raise NotImplementedError(reason)
     if paired is None:
         paired = wavefront_form(A)
+    if params.gap < 0 and pairs not in (None, 1):
+        raise ValueError(f"a negative gap runs one pair a stream (got {pairs})")
     elif paired and A > PAIR_MAX_LETTERS:
         raise ValueError(f"the table by pairs of columns takes <= {PAIR_MAX_LETTERS} "
                          f"letters (got {A})")
@@ -346,7 +364,7 @@ def wavefront_launch_t(qs, ts, table, params: ScoringParams,
     if ts.shape[0] != B:
         raise ValueError(f"batch mismatch: {B} queries vs {ts.shape[0]} targets")
     if pairs is None:
-        pairs = wavefront_stream(B, n, m, _sm_count(dev.index), A, paired)
+        pairs = wavefront_stream(B, n, m, _sm_count(dev.index), A, paired, int(params.gap))
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     lib, fn = _wavefront_fn()
     args = (ptr(qs), ptr(ts), ptr(table), A, ptr(out), B, n, m, pairs, int(paired),
@@ -364,14 +382,13 @@ def wavefront_launch_t(qs, ts, table, params: ScoringParams,
 def sw_wavefront(qs, ts, params: ScoringParams, device=None) -> torch.Tensor:
     """Anti-diagonal schedule scores; qs: [B, n], ts: [B, m] codes (pads
     A / A + 1). Any substitution matrix, linear gap. Returns [B] int32 on
-    ``device`` (default: the card), equal to the batch kernels / oracle.
-    n > 128 runs each pair through the strip tile. On the card a scoring
-    :func:`wavefront_refusal` names raises before anything runs."""
+    ``device`` (default: the card), equal to the batch kernels / oracle
+    under a gap >= 0 and to the TPU schedule's score (JAX's Pallas
+    kernel's) under a negative gap. n > 128 runs each pair through the
+    strip tile. A scoring :func:`wavefront_refusal` names raises before
+    anything runs."""
     _guard(params)
     dev = resolve_device(device, like=qs)
-    reason = wavefront_refusal(params) if dev.type != "cpu" else None
-    if reason:
-        raise NotImplementedError(reason)
     qs, ts = as_codes(qs, dev), as_codes(ts, dev)
     B, n = qs.shape
     if n > LANE:
@@ -391,7 +408,9 @@ def sw_wavefront(qs, ts, params: ScoringParams, device=None) -> torch.Tensor:
     out = wavefront_launch_t(qs.contiguous(), ts.contiguous(),
                              wavefront_table(params, dev), params)
     sw_wavefront.launches += 1
+    sw_wavefront.launches_negative += params.gap < 0
     return out
 
 
 sw_wavefront.launches = 0
+sw_wavefront.launches_negative = 0

@@ -212,7 +212,7 @@ def variant_supported(name: str, params: ScoringParams, n: int,
     """Whether variant ``name`` takes this scoring at query length ``n``:
     the guard of its wrapper, as a predicate (KeyError for an unknown
     name); ``on_card``: the guard it runs on a CUDA device (the wavefront
-    kernel refuses a negative gap, which its plain version takes)."""
+    kernel takes a linear gap of any sign, as its plain version does)."""
     get_variant(name)
     if name == "wavefront" and on_card:
         return wavefront_refusal(params) is None

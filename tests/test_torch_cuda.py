@@ -207,7 +207,7 @@ def test_guards_raise_on_card(card):
     wide = ScoringParams.linear(np.where(np.eye(4, dtype=bool), 200, -1) - np.eye(
         4, k=1, dtype=np.int64), 2)
     for kern in (sw_profile.sw_profile, sw_profile.sw_profile_ends):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="general kernel"):
             kern(q, q, wide)
     before = (sw_general.sw_general.launches, sw_general.sw_general_ends.launches)
     got = best_engine(wide, card)(q, q)
@@ -725,7 +725,8 @@ def test_semiglobal_bare_launch_equals_wrapper_on_card(card, scoring):
         args = (s["match"], -s["mismatch"], go, ge, affine)
         table = None
     else:
-        args = (0, 0, s.gap_open, s.gap_extend, not s.is_linear)
+        args = (int(np.abs(s.matrix).max()), 0, s.gap_open, s.gap_extend,
+                not s.is_linear)
         table = sw_profile.profile_table(s, card)
     for pin in (False, True):  # the launch takes the [B, L] codes as they are
         want = sg_call(scoring, False, qs, ts, pin_end=pin, lens_q=lq, lens_t=lt)
@@ -805,30 +806,38 @@ def test_semiglobal_library_agrees_with_the_mirror_on_card(card):
     lib, _ = semiglobal_batch._semiglobal_fn()
     assert lib.swtpu_sw_semiglobal_rows() == semiglobal_batch.ROWS
     fn = lib.swtpu_sw_semiglobal_key_bits
-    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
-    for profile in (0, 1):
-        for n, m in ((0, 0), (1, 1), (128, 128), (300, 2000), (16384, 16384)):
-            for match, mismatch, go, ge in ((1, -1, 1, 1), (10, -30, 40, 15),
-                                            (10**6, -1, 1, 1), (2, -3, 5, 1)):
-                want = semiglobal_batch.key_bits(bool(profile), n, m, match, mismatch,
-                                                 go, ge)
-                got = fn(profile, n, m, match, mismatch, go, ge)
-                assert got == (-1 if want is None else want), (profile, n, m, match)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    for n, m in ((0, 0), (1, 1), (128, 128), (300, 2000), (16384, 16384)):
+        for match, mismatch, go, ge in ((1, -1, 1, 1), (10, -30, 40, 15), (10**6, -1, 1, 1),
+                                        (2, -3, 5, 1), (132, 0, 11, -1), (1, -1, -3, -3)):
+            want = semiglobal_batch.key_bits(n, m, match, mismatch, go, ge)
+            got = fn(n, m, match, mismatch, go, ge)
+            assert got == (-1 if want is None else want), (n, m, match, go)
 
 
 def test_semiglobal_guards_raise_on_card(card):
-    q = torch.zeros((2, 8), dtype=torch.uint8, device=card)
+    """No longer raises: gaps of 0 or below and entries past +-127 run the
+    kernels, equal to the plain tier (the boundary's cells in the
+    argmax)."""
+    rng = np.random.default_rng(10000)
+    q = torch.from_numpy(rng.integers(0, 4, (40, 20)).astype(np.uint8)).to(card)
+    t = torch.from_numpy(rng.integers(0, 4, (40, 30)).astype(np.uint8)).to(card)
     counts = (semiglobal_batch.semiglobal_batch.launches,
               semiglobal_profile.semiglobal_profile.launches)
     for kw in (dict(gap=0), dict(gap_open=3, gap_extend=0), dict(gap=-1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            semiglobal_batch.semiglobal_batch(q, q, **kw)
+        for g, w in zip(semiglobal_batch.semiglobal_batch(q, t, **kw),
+                        semiglobal_batch.semiglobal_batch_plain(q, t, **kw, device=card),
+                        strict=True):
+            assert torch.equal(g, w)
     for p in (ScoringParams.linear(dna_matrix(1, -1), 0),
               ScoringParams.linear(np.where(np.eye(4, dtype=bool), 200, -1), 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            semiglobal_profile.semiglobal_profile(q, q, p)
-    assert counts == (semiglobal_batch.semiglobal_batch.launches,
-                      semiglobal_profile.semiglobal_profile.launches)
+        for g, w in zip(semiglobal_profile.semiglobal_profile(q, t, p),
+                        semiglobal_profile.semiglobal_profile_plain(q, t, p, device=card),
+                        strict=True):
+            assert torch.equal(g, w)
+    assert (counts[0] + 3, counts[1] + 2) == (
+        semiglobal_batch.semiglobal_batch.launches,
+        semiglobal_profile.semiglobal_profile.launches)
 
 
 @pytest.mark.parametrize("scoring", ["tie_rich_211", "affine_2351",
@@ -1692,11 +1701,17 @@ def test_strip_tile_all_negative_and_guards_on_card(card):
     q = np.zeros(50, np.uint8)
     got = longpair_strip.strip_tile(q, q, np.zeros(50), np.zeros(50), 0, p, device=card)
     assert [int(x) for x in got[2:]] == [0, 0, 0]
+    # a negative gap runs (within the plain tile's fill bound, which the
+    # refusal states)
+    neg = ScoringParams.linear(dna_matrix(1, -1), -1)
+    got = longpair_strip.strip_tile(q, q, np.zeros(50), np.zeros(50), 0, neg, device=card)
+    want = longpair_strip.strip_tile(q, q, np.zeros(50), np.zeros(50), 0, neg, device="cpu")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     before = longpair_strip.tile_strip_linear.launches
-    with pytest.raises(NotImplementedError, match="negative gap"):
-        longpair_strip.strip_tile(q, q, np.zeros(50), np.zeros(50), 0,
-                                  ScoringParams.linear(dna_matrix(1, -1), -1),
-                                  device=card)
+    with pytest.raises(NotImplementedError, match="2\\^20"):
+        longpair_strip.strip_tile(np.zeros(16384, np.uint8), q, np.zeros(50),
+                                  np.zeros(16384), 0,
+                                  ScoringParams.linear(dna_matrix(1, -1), -33), device=card)
     with pytest.raises(NotImplementedError, match="rows"):
         longpair_strip.strip_tile(np.zeros(16385, np.uint8), q, np.zeros(50),
                                   np.zeros(16385), 0, DNA_111, device=card)
@@ -1785,22 +1800,25 @@ def test_wavefront_table_forms_agree_on_card(card, B, m, pairs):
 
 
 def test_wavefront_refuses_negative_gap_on_card(card):
+    """No longer refused: a negative gap runs the kernel at one pair a
+    stream (the TPU schedule's score, the plain version's), and ``align
+    --engine wavefront`` takes it."""
     p = ScoringParams.linear(dna_matrix(2, -3), -1)
-    q = np.zeros((4, 16), np.uint8)
-    before = sw_wavefront.sw_wavefront.launches
-    with pytest.raises(NotImplementedError, match="gap >= 0"):
-        sw_wavefront.sw_wavefront(q, q, p, device=card)
+    q = np.random.default_rng(10000).integers(0, 4, (4, 16)).astype(np.uint8)
     qd = torch.from_numpy(q).to(card)
-    with pytest.raises(NotImplementedError, match="gap >= 0"):
-        sw_wavefront.wavefront_launch_t(qd, qd, sw_wavefront.wavefront_table(p, card), p)
-    assert sw_wavefront.sw_wavefront.launches == before
+    before = (sw_wavefront.sw_wavefront.launches,
+              sw_wavefront.sw_wavefront.launches_negative)
+    assert torch.equal(sw_wavefront.sw_wavefront(q, q, p, device=card),
+                       sw_wavefront.sw_wavefront_plain(qd, qd, p))
+    with pytest.raises(ValueError, match="one pair a stream"):
+        sw_wavefront.wavefront_launch_t(qd, qd, sw_wavefront.wavefront_table(p, card), p,
+                                        pairs=4)
     from swtpu_torch.ops.variants import variant_engine
 
-    # align --engine wavefront falls back to best_engine: the general kernel
-    before = sw_general.sw_general.launches
     got = variant_engine("wavefront", p, 16, device=card)(qd, qd)
-    assert sw_general.sw_general.launches == before + 1
-    assert torch.equal(got, sw_general.sw_general_plain(qd, qd, p, card))
+    assert (sw_wavefront.sw_wavefront.launches,
+            sw_wavefront.sw_wavefront.launches_negative) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, sw_wavefront.sw_wavefront_plain(qd, qd, p))
 
 
 def test_wavefront_long_queries_on_card(card):
@@ -2187,3 +2205,177 @@ def test_bench_suite_quick_on_card(card, tmp_path, capsys):
     counts = json.loads(path.read_text())["by_record"]
     assert counts["sw_111_rowscan"]["sw_batch.sw_batch.launches"] > 0
     assert counts["banded_16k_traceback_e2e"]["device_walk.xdrop_walk.launches"] > 0
+
+
+# -- gaps of 0 and below, entries past +-127: the three extended kernels ----
+
+@pytest.mark.parametrize("gap", [-1, -3])
+@pytest.mark.parametrize("B,n,m,protein", [
+    (1, 7, 50, False), (3, 100, 128, False), (200, 128, 128, False),
+    (5, 128, 3, False), (64, 60, 300, True), (9, 0, 4, False),
+])
+def test_wavefront_negative_gap_equals_plain_on_card(card, gap, B, n, m, protein):
+    """One pair a stream over the TPU's step count, both tables."""
+    p = ScoringParams.linear(BLOSUM62 if protein else dna_matrix(2, -3), gap)
+    A = p.alphabet_size
+    rng = np.random.default_rng(10000 + B + n + m)
+    qs = rng.integers(0, A + 1, (B, n)).astype(np.uint8)
+    ts = rng.integers(0, A + 2, (B, m)).astype(np.uint8)
+    want = sw_wavefront.sw_wavefront_plain(qs, ts, p, device=card)
+    assert torch.equal(sw_wavefront.sw_wavefront(qs, ts, p, device=card), want)
+    assert torch.equal(sw_wavefront.wavefront_stream_mirror(qs, ts, p, 1, device=card),
+                       want)
+    if not protein:  # DNA by columns too
+        qd, td = torch.from_numpy(qs).to(card), torch.from_numpy(ts).to(card)
+        assert torch.equal(sw_wavefront.wavefront_launch_t(
+            qd, td, sw_wavefront.wavefront_table(p, card), p, 1, False), want)
+
+
+NEG_STRIP = {
+    "gap_-1": ScoringParams.linear(dna_matrix(1, -1), -1),
+    "gap_-32": ScoringParams.linear(dna_matrix(1, -1), -32),
+    "gotoh_2_-1": ScoringParams(dna_matrix(2, -3), 2, -1),
+    "gotoh_3_0": ScoringParams(dna_matrix(2, -3), 3, 0),
+    "gotoh_-2_1": ScoringParams(dna_matrix(2, -3), -2, 1),
+    "blosum62_11_-1": ScoringParams(BLOSUM62, 11, -1),
+}
+
+
+@pytest.mark.parametrize("name", list(NEG_STRIP))
+@pytest.mark.parametrize("R,C", [(300, 200), (33, 1000), (4096, 129), (16384, 40)])
+def test_strip_tile_negative_gaps_equal_plain_on_card(card, name, R, C):
+    """B13 (both kernels) against the plain tile on random boundaries."""
+    p = NEG_STRIP[name]
+    A = 20 if p.alphabet_size > 4 else 4
+    rng = np.random.default_rng(10000 + R + C)
+    q, t = rng.integers(0, A + 1, R), rng.integers(0, A + 2, C)
+    top, left = rng.integers(0, 60, C), rng.integers(0, 60, R + 1)
+    topf, lefte = rng.integers(-2, 40, C), rng.integers(-2, 40, R + 1)
+    lefte[0] = -(2**20)
+    i32 = dict(dtype=torch.int32, device=card)
+    args = (longpair_strip.stage_codes(q, p, card), longpair_strip.stage_codes(t, p, card),
+            sw_profile.profile_table(p, card), torch.as_tensor(top, **i32),
+            None if p.is_linear else torch.as_tensor(topf, **i32),
+            torch.as_tensor(left, **i32),
+            None if p.is_linear else torch.as_tensor(lefte, **i32), p)
+    if p.is_linear:
+        want = longpair_strip.strip_tile(q, t, top, left[1:], left[0], p, device="cpu")
+    else:
+        want = longpair_strip.strip_tile_affine(q, t, top, topf, left[1:], lefte[1:],
+                                                left[0], p, device="cpu")
+    for got in (longpair_strip.strip_launch_t(*args),
+                longpair_strip._one_block_launch_t(*args)):
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", ["gap_-1", "gotoh_2_-1", "dna_111"])
+def test_strip_tile_wide_key_on_card(card, name):
+    """Boundaries near 2^27: H passes the packed key's range, and B13
+    keeps (value, row) apart, equal to the plain tile."""
+    p = NEG_STRIP.get(name) or DNA_111
+    rng = np.random.default_rng(10000)
+    R, C = 300, 200
+    q, t = rng.integers(0, 4, R), rng.integers(0, 4, C)
+    high = longpair_strip.KEY_MAX - 20
+    top, left = high + rng.integers(0, 60, C), high + rng.integers(0, 60, R + 1)
+    topf, lefte = top - 2, left - 2
+    i32 = dict(dtype=torch.int32, device=card)
+    args = (longpair_strip.stage_codes(q, p, card), longpair_strip.stage_codes(t, p, card),
+            sw_profile.profile_table(p, card), torch.as_tensor(top, **i32),
+            None if p.is_linear else torch.as_tensor(topf, **i32),
+            torch.as_tensor(left, **i32),
+            None if p.is_linear else torch.as_tensor(lefte, **i32), p)
+    if p.is_linear:
+        want = longpair_strip.strip_tile(q, t, top, left[1:], left[0], p, device="cpu")
+    else:
+        want = longpair_strip.strip_tile_affine(q, t, top, topf, left[1:], lefte[1:],
+                                                left[0], p, device="cpu")
+    assert int(want[-3]) >= longpair_strip.KEY_MAX
+    for got in (longpair_strip.strip_launch_t(*args),
+                longpair_strip._one_block_launch_t(*args)):
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", ["gap_-1", "gotoh_2_-1"])
+def test_longpair_negative_gaps_on_card_equal_cpu(card, name):
+    p = NEG_STRIP[name]
+    rng = np.random.default_rng(10000)
+    q = rng.integers(0, 4, 17000).astype(np.uint8)
+    t = np.concatenate([rng.integers(0, 4, 7), q])[:2500].copy()
+    got = longpair.longpair_sw_ends(q, t, p, block=500, device=card)
+    assert got == longpair.longpair_sw_ends(q, t, p, block=500, device="cpu")
+    q2, t2 = q[:1500], t[:1200]
+    assert (longpair.longpair_sw_align(q2, t2, p, device=card)
+            == longpair.longpair_sw_align(q2, t2, p, device="cpu"))
+
+
+NONPOS_SG = {
+    "gap_0": dict(match=1, mismatch=1, gap=0),
+    "gap_-1": dict(match=1, mismatch=1, gap=-1),
+    "gotoh_2_-1": dict(match=2, mismatch=1, gap_open=2, gap_extend=-1),
+    "gotoh_3_0": dict(match=2, mismatch=3, gap_open=3, gap_extend=0),
+    "gotoh_0_1": dict(match=1, mismatch=1, gap_open=0, gap_extend=1),
+    "blosum62_11_0": ScoringParams(BLOSUM62, 11, 0),
+    "blosum62_11_-1": ScoringParams(BLOSUM62, 11, -1),
+    "blosum62x12_11_1": ScoringParams(BLOSUM62 * 12, 11, 1),
+}
+
+
+@pytest.mark.parametrize("name", list(NONPOS_SG))
+@pytest.mark.parametrize("B,n,m", [(300, 64, 96), (200, 20, 13), (50, 40, 300),
+                                   (40, 5, 3)])
+def test_semiglobal_nonpositive_gaps_equal_plain_on_card(card, name, B, n, m):
+    """Both forms, argmax (key and select trackers) and pinned, fixed and
+    per-pair lengths (down to -1 and past the widths), against the plain
+    tier and the CPU mirror."""
+    s = NONPOS_SG[name]
+    uniform = isinstance(s, dict)
+    A = 4 if uniform else 20
+    rng = np.random.default_rng(10000 + n + m)
+    q = torch.from_numpy(rng.integers(0, A + 1, (B, n)).astype(np.uint8)).to(card)
+    t = torch.from_numpy(rng.integers(0, A + 1, (B, m)).astype(np.uint8)).to(card)
+    lens = dict(lens_q=rng.integers(-1, n + 2, B), lens_t=rng.integers(-1, m + 2, B))
+    for pin in (False, True):
+        for kw in ({}, lens):
+            if uniform:
+                got = semiglobal_batch.semiglobal_batch(q, t, **s, **kw, pin_end=pin)
+                want = semiglobal_batch.semiglobal_batch_plain(q, t, **s, **kw,
+                                                               pin_end=pin, device=card)
+                mirror = semiglobal_batch.semiglobal_skew_mirror(q.cpu(), t.cpu(), **s,
+                                                                 **kw, pin_end=pin)
+            else:
+                got = semiglobal_profile.semiglobal_profile(q, t, s, **kw, pin_end=pin)
+                want = semiglobal_profile.semiglobal_profile_plain(q, t, s, **kw,
+                                                                   pin_end=pin,
+                                                                   device=card)
+                mirror = semiglobal_batch.semiglobal_skew_mirror(
+                    q.cpu(), t.cpu(), **kw, pin_end=pin, params=s)
+            for g, w, x in zip(got, want, mirror, strict=True):
+                assert torch.equal(g, w) and torch.equal(g.cpu(), x)
+    if uniform:  # the select tracker where the key would run
+        go, ge, affine = semiglobal_batch.gaps(**{k: v for k, v in s.items()
+                                                   if k.startswith("gap")})
+        got = semiglobal_batch.semiglobal_launch_t(q, t, s["match"], -s["mismatch"], go, ge,
+                                                   affine, False, select=True)
+        want = semiglobal_batch.semiglobal_batch_plain(q, t, **s, device=card)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("argv", [
+    ["semiglobal", "--random", "4x64x256", "--gap", "-1", "--traceback"],
+    ["global", "--random", "4x64x256", "--gap", "-1", "--traceback"],
+    ["semiglobal", "--random", "6x40x50", "--gap", "0", "--cigar"],
+    ["global", "--alphabet", "protein", "--random", "4x60x70", "--gap-open", "11",
+     "--gap-extend", "-1", "--sam"],
+    ["align", "--random", "8x128x128", "--engine", "wavefront", "--gap", "-1"],
+    ["longpair", "--random", "1x300x300", "--gap", "-1", "--traceback"],
+])
+def test_nonpositive_gap_cli_on_card_equals_cpu(card, argv, capsys):
+    from swtpu_torch import cli
+
+    cli.main(argv)
+    on_card = capsys.readouterr().out
+    cli.main(argv + ["--device", "cpu"])
+    assert capsys.readouterr().out == on_card and on_card

@@ -566,20 +566,28 @@ def test_cuda_semiglobal_dispatch_runs_the_kernel(fake_sg_card, entry, kw,
             (lq[b], lt[b]) if varlen else (10, 12) for b in range(len(qs))]
 
 
-@pytest.mark.parametrize("call", [
-    lambda: semiglobal_batch.semiglobal_batch(Q, Q, gap=0),
-    lambda: semiglobal_batch.semiglobal_batch(Q, Q, gap_open=3, gap_extend=0),
-    lambda: port_traceback.nw_align_batch(Q, Q, match=1, mismatch=1, gap=-1),
-    lambda: semiglobal_profile.semiglobal_profile(
+@pytest.mark.parametrize("call,launch", [
+    (lambda: semiglobal_batch.semiglobal_batch(Q, Q, gap=0),
+     ("uniform", False, False, False)),
+    (lambda: semiglobal_batch.semiglobal_batch(Q, Q, gap_open=3, gap_extend=0),
+     ("uniform", True, False, False)),
+    (lambda: port_traceback.nw_align_batch(Q, Q, match=1, mismatch=1, gap=-1),
+     ("uniform", False, True, False)),
+    (lambda: semiglobal_profile.semiglobal_profile(
         Q, Q, ScoringParams.linear(dna_matrix(1, -1), 0)),
-    lambda: port_traceback.semiglobal_align_batch(
+     ("profile", False, False, False)),
+    (lambda: port_traceback.semiglobal_align_batch(
         Q, Q, params=ScoringParams.linear(
             np.where(np.eye(4, dtype=bool), 200, -1), 2)),
+     ("profile", False, False, False)),
 ])
-def test_cuda_semiglobal_raises_without_a_kernel(fake_sg_card, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
-    assert fake_sg_card == []
+def test_cuda_semiglobal_raises_without_a_kernel(fake_sg_card, call, launch):
+    """No longer raises: a gap of 0 or below and matrix entries past
+    +-127, which the card refused before the semi-global kernel tracked
+    the boundary and took the matrix's own range, now launch the kernel
+    once, as every other scoring does."""
+    call()
+    assert fake_sg_card == [launch]
 
 
 @pytest.mark.parametrize("argv,call", [

@@ -146,8 +146,8 @@ def test_mirror_select_tracker_equals_xla(scoring, shape):
     (best, step) apart, as the launch then does."""
     B, n, m = SHAPES[shape]
     go, ge, _ = sb.gaps(**{k: v for k, v in scoring.items() if k.startswith("gap")})
-    assert sb.key_bits(False, n, m, scoring["match"], -scoring["mismatch"], go, ge) is None
-    assert sb.key_bits(False, n, m, 2, -1, 1, 1) is not None
+    assert sb.key_bits(n, m, scoring["match"], -scoring["mismatch"], go, ge) is None
+    assert sb.key_bits(n, m, 2, -1, 1, 1) is not None
     rng = np.random.default_rng(10000)
     qs, ts = pairs(rng, B, n, m, 4, pads=0.05)
     lens = dict(lens_q=rng.integers(0, n + 1, B), lens_t=rng.integers(0, m + 1, B))

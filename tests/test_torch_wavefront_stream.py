@@ -207,35 +207,37 @@ def test_mirror_equals_the_plain_version():
 
 
 def test_negative_gaps_are_refused_on_the_card(monkeypatch):
-    """A negative gap lets a separator cell outscore its pair, so the
-    kernel (and its mirror) refuse it; the plain version keeps the TPU
-    schedule's score, which counts its phantom rows and padded columns.
-    ``align --engine wavefront`` on the card then takes best_engine's
-    kernel for such a gap, the general kernel (JAX falls back to its XLA
-    tier), chosen before anything runs."""
+    """No longer refused: under a negative gap the kernel (and its mirror)
+    run the TPU schedule's score, one pair a stream over
+    ``wavefront_steps`` steps, which counts its phantom rows and padded
+    columns and sits above the oracle's. ``align --engine wavefront`` on
+    the card then takes the wavefront kernel for such a gap, as JAX takes
+    its Pallas kernel for any linear gap (it falls back to its XLA tier
+    for Gotoh only), chosen before anything runs."""
     from swtpu_torch.ops import variants
 
     p = ScoringParams.linear(dna_matrix(2, -3), -1)
     q = np.zeros((2, 8), np.uint8)
-    assert "gap >= 0" in kwf.wavefront_refusal(p)
+    assert kwf.wavefront_refusal(p) is None
     assert kwf.wavefront_refusal(DNA_111) is None
     assert kwf.wavefront_refusal(ScoringParams.linear(dna_matrix(2, -3), 0)) is None
-    with pytest.raises(NotImplementedError, match="gap >= 0"):
-        kwf.wavefront_stream_mirror(q, q, p, 1, device="cpu")
     # the plain version keeps the TPU schedule's score: above the oracle's
     qs, ts = _codes(SEED, 3, 20, 30, p, pads=False)
-    assert (kwf.sw_wavefront_plain(qs, ts, p, "cpu").numpy() > _oracle(qs, ts, p)).all()
+    plain = kwf.sw_wavefront_plain(qs, ts, p, "cpu").numpy()
+    assert (plain > _oracle(qs, ts, p)).all()
+    assert np.array_equal(kwf.wavefront_stream_mirror(qs, ts, p, 1, device="cpu").numpy(),
+                          plain)
     assert variants.variant_supported("wavefront", p, 8)
-    assert not variants.variant_supported("wavefront", p, 8, on_card=True)
+    assert variants.variant_supported("wavefront", p, 8, on_card=True)
     assert variants.variant_supported("wavefront", DNA_111, 8, on_card=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="gap >= 0"):
-        kwf.sw_wavefront(q, q, p, device="cuda")
     calls = []
+    monkeypatch.setattr(variants, "sw_wavefront",
+                        lambda q, t, p, d: calls.append(("sw_wavefront", d.type)) or "wf")
     monkeypatch.setattr(variants, "sw_general",
                         lambda q, t, p, d: calls.append(("sw_general", d.type)) or "general")
-    assert variants.variant_engine("wavefront", p, 8, device="cuda")(q, q) == "general"
-    assert calls == [("sw_general", "cuda")]
+    assert variants.variant_engine("wavefront", p, 8, device="cuda")(q, q) == "wf"
+    assert calls == [("sw_wavefront", "cuda")]
 
 
 def test_mirror_refusals():

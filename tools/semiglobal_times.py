@@ -62,7 +62,10 @@ def launch_and_wrapper(sc, pin, dev, lb):
     kw = dict(table=kp.profile_table(sc, dev))
     if not lb:
         kw["n_codes"] = sc.alphabet_size + 1
-    return ((0, 0, sc.gap_open, sc.gap_extend, not sc.is_linear, pin), kw,
+    # the largest |entry| bounds the packed key (a checkout from before the
+    # kernel took it reads 0 there and ignores it)
+    return ((int(abs(sc.matrix).max()), 0, sc.gap_open, sc.gap_extend, not sc.is_linear,
+             pin), kw,
             lambda a, b: ksp.semiglobal_profile(a, b, sc, pin_end=pin))
 
 
